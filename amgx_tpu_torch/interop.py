@@ -1,0 +1,80 @@
+"""Build the port's objects from plain numpy arrays: a matrix from CSR
+components, and an AMG hierarchy from another implementation's
+per-level arrays (for example the JAX package's, read out as numpy by
+the caller). Holding one V-cycle of the port against another
+implementation on identical operators then needs no shared setup.
+
+Takes numpy arrays only; imports nothing outside this package.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .amg.aggregation import AggregationAMGLevel
+from .amg.hierarchy import AMG
+from .config import Config
+from .device import resolve_device
+from .matrix import CsrMatrix
+from .solvers.base import make_solver
+
+
+def matrix_from_numpy(row_offsets, col_indices, values, num_rows, num_cols,
+                      grid_shape=None, device=None) -> CsrMatrix:
+    """An initialized port CsrMatrix (DIA view when banded) from CSR
+    arrays. `device=None` means the card."""
+    return CsrMatrix.from_scipy_like(
+        np.asarray(row_offsets), np.asarray(col_indices),
+        np.asarray(values), num_rows, num_cols, grid_shape=grid_shape,
+        device=resolve_device(device)).init()
+
+
+def _matrix(d: dict, device) -> CsrMatrix:
+    return matrix_from_numpy(d["row_offsets"], d["col_indices"],
+                             d["values"], d["num_rows"], d["num_cols"],
+                             d.get("grid_shape"), device)
+
+
+def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
+                         scope: str = "default", device=None) -> AMG:
+    """A set-up port AMG (aggregation levels) from per-level arrays.
+
+    Each entry of `levels` holds the level operator's CSR arrays
+    (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
+    optional `grid_shape`), its `aggregates` and `coarse_size`, the GEO
+    pairing (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
+    non-geometric levels) and the smoother's `taus`. `coarse` holds the
+    coarsest operator's CSR arrays and its DENSE_LU factors `qt`, `r`.
+    The smoother and coarse solver named by `cfg` at `scope` are
+    attached with these values instead of being set up again.
+    """
+    device = resolve_device(device)
+    amg = AMG(cfg, scope)
+    for i, d in enumerate(levels):
+        level = AggregationAMGLevel(_matrix(d, device), cfg, scope, i)
+        level.aggregates = torch.tensor(
+            np.asarray(d["aggregates"], np.int32), device=device)
+        level.coarse_size = int(d["coarse_size"])
+        if d.get("geo_axes") is not None:
+            level.geo_axes = tuple(int(a) for a in d["geo_axes"])
+            level.geo_fine_shape = tuple(int(e) for e in d["geo_fine_shape"])
+            level.geo_coarse_shape = tuple(
+                int(e) for e in d["geo_coarse_shape"])
+        name, sm_scope = amg._smoother_spec(i)
+        sm = make_solver(name, cfg, sm_scope, device)
+        sm.A = level.A
+        sm._taus = torch.tensor(np.asarray(d["taus"]), device=device,
+                                dtype=level.A.dtype)
+        level.smoother = sm
+        amg.levels.append(level)
+    amg.coarsest_A = _matrix(coarse, device)
+    cs_name, cs_scope = cfg.get_solver("coarse_solver", scope)
+    cs = make_solver(cs_name, cfg, cs_scope, device)
+    cs.A = amg.coarsest_A
+    cs._qt = torch.tensor(np.asarray(coarse["qt"]), device=device)
+    cs._r = torch.tensor(np.asarray(coarse["r"]), device=device)
+    amg.coarse_solver = cs
+    amg._refuse_coarse_tail()
+    return amg

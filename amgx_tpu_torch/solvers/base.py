@@ -1,0 +1,356 @@
+"""Solver base: the composable solver tree (the port of
+amgx_tpu/solvers/base.py).
+
+The JAX package compiles each solve into one `lax.while_loop`; here the
+driver is a Python loop over the same state keys (`x`, `r`, `iters`,
+`done`, `converged`, `res_norm`, `norm0`, `res_hist`, `status`). The
+tensors live on the solver's device; the per-iteration convergence
+decision is made on the host from the monitored norm, so each monitored
+iteration costs one device->host transfer of that scalar (FGMRES brings
+its Hessenberg column along in the same transfer).
+
+State keys a solver maintains live in a plain dict; host scalars (norms,
+flags, counters) are numpy scalars in the norm's dtype, so the
+convergence arithmetic rounds as the JAX package's does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import registry
+from ..config import Config
+from ..device import resolve_device
+from ..errors import BadParametersError
+from ..matrix import CsrMatrix
+from ..ops import blas
+from ..ops.spmv import residual as _residual
+from ..precision import resolve_precision
+from ..resilience.status import RUNNING as _ST_RUNNING
+from ..resilience.status import SolveStatus, status_string
+
+# ---------------------------------------------------------------------------
+# convergence criteria
+# ---------------------------------------------------------------------------
+
+
+class Convergence:
+    """Predicate deciding convergence from host scalars (res_norm,
+    norm0); the tolerance is rounded to the norms' dtype first, as the
+    JAX package's weakly-typed arithmetic does."""
+
+    def __init__(self, cfg: Config, scope: str):
+        self.tolerance = float(cfg.get("tolerance", scope))
+        self.alt_rel_tolerance = float(cfg.get("alt_rel_tolerance", scope))
+
+    @staticmethod
+    def _t(tol, like):
+        return np.asarray(tol, dtype=np.asarray(like).dtype)
+
+    def check(self, res_norm, norm0) -> bool:
+        raise NotImplementedError
+
+
+@registry.convergence.register("ABSOLUTE")
+class AbsoluteConvergence(Convergence):
+    def check(self, res_norm, norm0):
+        return bool(np.all(res_norm <= self._t(self.tolerance, res_norm)))
+
+
+@registry.convergence.register("RELATIVE_INI")
+@registry.convergence.register("RELATIVE_INI_CORE")
+class RelativeIniConvergence(Convergence):
+    def check(self, res_norm, norm0):
+        return bool(np.all(res_norm <= self._t(self.tolerance, norm0)
+                           * norm0))
+
+
+@registry.convergence.register("RELATIVE_MAX")
+@registry.convergence.register("RELATIVE_MAX_CORE")
+class RelativeMaxConvergence(Convergence):
+    def check(self, res_norm, norm0):
+        return bool(np.all(res_norm <= self._t(self.tolerance, norm0)
+                           * np.max(norm0)))
+
+
+@registry.convergence.register("COMBINED_REL_INI_ABS")
+class CombinedRelIniAbsConvergence(Convergence):
+    def check(self, res_norm, norm0):
+        return bool(np.all(
+            (res_norm <= self._t(self.tolerance, res_norm))
+            | (res_norm <= self._t(self.alt_rel_tolerance, norm0) * norm0)))
+
+
+# ---------------------------------------------------------------------------
+# solve result
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SolveResult:
+    x: torch.Tensor
+    iterations: int
+    converged: bool
+    res_norm: np.ndarray
+    norm0: np.ndarray
+    res_history: Optional[np.ndarray] = None
+    setup_time: float = 0.0
+    solve_time: float = 0.0
+    status_code: int = int(SolveStatus.MAX_ITERS)
+    # solver-specific scalars (REFINEMENT: accumulated inner iterations)
+    extra_stats: Optional[Dict[str, float]] = None
+
+    def __post_init__(self):
+        if self.converged:
+            self.status_code = int(SolveStatus.CONVERGED)
+
+    @property
+    def status(self) -> str:
+        return status_string(self.status_code)
+
+
+def _host(t) -> np.ndarray:
+    """A device scalar as a numpy scalar of its dtype (one transfer)."""
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+# ---------------------------------------------------------------------------
+# solver base
+# ---------------------------------------------------------------------------
+
+
+class Solver:
+    """Base solver. Subclasses implement `solver_setup`, `solve_init`,
+    `solve_iteration`, and may override `apply` (preconditioner
+    action)."""
+
+    uses_preconditioner = False
+    is_smoother = False
+    # solve_data key of the preconditioner's subtree
+    _child_data_key = "precond"
+
+    def __init__(self, cfg: Config, scope: str = "default", name: str = "?",
+                 device="cpu"):
+        self.cfg = cfg
+        self.scope = scope
+        self.name = name
+        self.device = torch.device(device)
+        self.A: Optional[CsrMatrix] = None
+        self.max_iters = int(cfg.get("max_iters", scope))
+        self.monitor_residual = bool(cfg.get("monitor_residual", scope))
+        self.norm_type = str(cfg.get("norm", scope))
+        self.store_res_history = bool(cfg.get("store_res_history", scope))
+        self.rel_div_tolerance = float(cfg.get("rel_div_tolerance", scope))
+        self.health_guards = bool(int(cfg.get("health_guards", scope)))
+        self.stall_window = int(cfg.get("stall_detection_window", scope))
+        self.stall_tolerance = float(cfg.get("stall_tolerance", scope))
+        scaling = str(cfg.get("scaling", scope)).upper()
+        if scaling not in ("NONE", ""):
+            raise NotImplementedError(
+                f"scaling={scaling} is not ported to amgx_tpu_torch yet")
+        # rejects contradictory precision knobs at construction
+        resolve_precision(cfg, scope)
+        self.convergence: Convergence = registry.convergence.create(
+            str(cfg.get("convergence", scope)), cfg, scope)
+        self.preconditioner: Optional[Solver] = None
+        if self.uses_preconditioner:
+            pname, pscope = cfg.get_solver("preconditioner", scope)
+            if pname.upper() != "NOSOLVER":
+                self.preconditioner = make_solver(pname, cfg, pscope,
+                                                  self.device)
+        self.setup_time = 0.0
+
+    def _norm(self, v):
+        return blas.norm(v, self.norm_type)
+
+    # -- setup -----------------------------------------------------------
+    def setup(self, A: CsrMatrix):
+        """Build solver state for A (moved to the solver's device)."""
+        t0 = time.perf_counter()
+        A = A.to(self.device)
+        if not A.initialized:
+            A = A.init()
+        self.A = A
+        if self.preconditioner is not None:
+            self.preconditioner.setup(self.precond_operator(A))
+        self.solver_setup()
+        self.setup_time = time.perf_counter() - t0
+        return self
+
+    def precond_operator(self, A: CsrMatrix) -> CsrMatrix:
+        """The operator the preconditioner tree is set up against."""
+        return A
+
+    def solver_setup(self):
+        pass
+
+    # -- pieces of the solve ---------------------------------------------
+    def solve_data(self) -> Dict[str, Any]:
+        """The tensors the solve reads, with the preconditioner's under
+        'precond' (no copies: the same tensors the solver holds)."""
+        d: Dict[str, Any] = {"A": self.A}
+        if self.preconditioner is not None:
+            d["precond"] = self.preconditioner.solve_data()
+        return d
+
+    def solve_init(self, data, b, x, r) -> Dict[str, Any]:
+        """Extra solver state (beyond x/r) before the first iteration."""
+        return {}
+
+    def _guard_init(self) -> Dict[str, Any]:
+        return {"breakdown": False} if self.health_guards else {}
+
+    def solve_iteration(self, data, b, state) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def computes_residual(self) -> bool:
+        return True
+
+    def breakdown(self, state) -> bool:
+        """Has the recurrence broken down (read with health_guards)?"""
+        return bool(state.get("breakdown", False))
+
+    def internal_res_norm(self, state):
+        """A host residual-norm estimate the solver maintains (FGMRES's
+        |g[i+1]|), or None to let the driver compute one."""
+        return None
+
+    def finalize(self, data, b, state):
+        return state["x"]
+
+    def apply(self, data, rhs):
+        """Preconditioner action M^{-1} rhs: zero initial guess, a fixed
+        number of iterations, no monitoring."""
+        x0 = torch.zeros_like(rhs)
+        st = {"x": x0, "r": rhs}
+        st.update(self.solve_init(data, rhs, x0, rhs))
+        for _ in range(self.max_iters):
+            st = self.solve_iteration(data, rhs, st)
+        return st["x"]
+
+    # -- the driver --------------------------------------------------------
+    def run_loop(self, data, b, x0):
+        """The solve loop on (data, b, x0): returns (x, stats) with stats
+        a dict of host values (iters, converged, status, norm0,
+        res_norm, res_hist, extra)."""
+        S = SolveStatus
+        A = data["A"]
+        monitor = self.monitor_residual
+        conv = self.convergence
+        r0 = _residual(A, x0, b)
+        norm0 = _host(self._norm(r0))
+        state = {"x": x0, "r": r0}
+        state.update(self.solve_init(data, b, x0, r0))
+        zero0 = bool(np.all(norm0 == 0))
+        done = (monitor and conv.check(norm0, norm0)) or zero0
+        status = int(S.CONVERGED) if done else _ST_RUNNING
+        hist = np.zeros((self.max_iters + 1,) + np.shape(norm0), norm0.dtype)
+        hist[0] = norm0
+        res_norm = norm0
+        iters = 0
+        while not done and iters < self.max_iters:
+            state = self.solve_iteration(data, b, state)
+            iters += 1
+            if not monitor:
+                continue
+            rn = self.internal_res_norm(state)
+            if rn is None:
+                r = state["r"] if self.computes_residual() \
+                    else _residual(A, state["x"], b)
+                rn = _host(self._norm(r))
+            rn = np.asarray(rn, norm0.dtype)
+            res_norm = rn
+            hist[iters] = rn
+            status_now = _ST_RUNNING
+            if self.stall_window > 0 and self.health_guards \
+                    and iters >= self.stall_window:
+                past = hist[iters - self.stall_window]
+                if np.all(rn >= np.asarray(1.0 - self.stall_tolerance,
+                                           rn.dtype) * past):
+                    status_now = int(S.STALLED)
+            if self.rel_div_tolerance > 0 and np.any(
+                    rn > np.asarray(self.rel_div_tolerance, rn.dtype)
+                    * norm0):
+                status_now = int(S.DIVERGED)
+            if self.health_guards and not np.all(np.isfinite(rn)):
+                status_now = int(S.NAN_DETECTED)
+            if self.health_guards and self.breakdown(state):
+                status_now = int(S.BREAKDOWN)
+            if conv.check(rn, norm0):
+                status_now = int(S.CONVERGED)
+            if status == _ST_RUNNING:
+                status = status_now
+            done = status != _ST_RUNNING
+        x = self.finalize(data, b, state)
+        if status == _ST_RUNNING:
+            status = int(S.MAX_ITERS)
+        stats = {"iters": iters, "converged": status == int(S.CONVERGED),
+                 "status": status, "norm0": norm0, "res_norm": res_norm,
+                 "res_hist": hist[:iters + 1],
+                 "extra": self._extra_stats(state)}
+        return x, stats
+
+    def _extra_stats(self, final_state) -> Optional[Dict[str, float]]:
+        return None
+
+    def solve(self, b, x0=None, zero_initial_guess: bool = False
+              ) -> SolveResult:
+        """Solve A x = b from x0 (zeros when absent)."""
+        if self.A is None:
+            raise BadParametersError(
+                f"solver {self.name}: solve() before setup()")
+        b = torch.as_tensor(b).to(device=self.device, dtype=self.A.dtype)
+        if x0 is None or zero_initial_guess:
+            x0 = torch.zeros_like(b)
+        else:
+            x0 = torch.as_tensor(x0).to(device=self.device, dtype=b.dtype)
+        t0 = time.perf_counter()
+        x, st = self.run_loop(self.solve_data(), b, x0)
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        solve_time = time.perf_counter() - t0
+        return SolveResult(
+            x=x, iterations=st["iters"], converged=st["converged"],
+            res_norm=np.asarray(st["res_norm"]),
+            norm0=np.asarray(st["norm0"]),
+            res_history=st["res_hist"] if self.store_res_history else None,
+            setup_time=self.setup_time, solve_time=solve_time,
+            status_code=st["status"], extra_stats=st["extra"])
+
+    # -- smoother interface (AMG levels) ---------------------------------
+    def smooth(self, data, b, x, sweeps: int):
+        """Apply `sweeps` relaxation sweeps to x. The state carries no
+        residual (the JAX package's is dead code its compiler drops; here
+        it would cost an SpMV): a smoother that needs one forms it in
+        solve_init."""
+        st = {"x": x}
+        st.update(self.solve_init(data, b, x, None))
+        for _ in range(sweeps):
+            st = self.solve_iteration(data, b, st)
+        return st["x"]
+
+    def smooth_residual(self, data, b, x, sweeps: int):
+        """(x', r) after `sweeps` sweeps plus r = b - A x'."""
+        x = self.smooth(data, b, x, sweeps)
+        return x, _residual(data["A"], x, b)
+
+
+def make_solver(name: str, cfg: Config, scope: str = "default",
+                device="cpu") -> Solver:
+    """SolverFactory::allocate analog."""
+    cls = registry.solvers.get(name)
+    return cls(cfg, scope, name=name.upper(), device=device)
+
+
+def create_solver(cfg: Config, scope: str = "default",
+                  device=None) -> Solver:
+    """Build the root solver tree from a config. `device=None` runs on
+    the card and raises when there is none; pass device="cpu" for the
+    CPU."""
+    device = resolve_device(device)
+    name, child_scope = cfg.get_solver("solver", scope)
+    return make_solver(name, cfg, child_scope, device)

@@ -1,0 +1,108 @@
+"""CHEBYSHEV_POLY smoother (the port of the CHEBYSHEV_POLY part of
+amgx_tpu/solvers/polynomial.py): the "magic damping" tau sequence of
+chebyshev_poly.cu, tau_i = cos^2(beta) / (cos^2(beta(2i+1)) -
+sin^2(beta)) / lambda with beta = pi/(4m+2) and lambda the Gershgorin
+bound (max absolute row sum), applied as x += tau_i (b - A x)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import registry
+from ..ops import smooth as fused
+from ..ops.spmv import spmv
+from .base import Solver
+
+
+def chebyshev_poly_coeffs(m: int):
+    """The tau numerators; divide by the spectral bound for the taus."""
+    beta = np.pi / (4.0 * m + 2.0)
+    return np.asarray([
+        np.cos(beta) ** 2
+        / (np.cos(beta * (2 * i + 1)) ** 2 - np.sin(beta) ** 2)
+        for i in range(m)
+    ])
+
+
+def _abs_row_sums(A):
+    if A.dia_vals is not None:
+        return A.dia_vals.abs().sum(dim=0)
+    rows, _, vals = A.coo()
+    s = torch.zeros(A.num_rows, dtype=A.dtype, device=A.device)
+    return s.index_add_(0, rows, vals.abs())
+
+
+@registry.solvers.register("CHEBYSHEV_POLY")
+class ChebyshevPolySolver(Solver):
+    """One application = `chebyshev_polynomial_order` damped Richardson
+    steps x += tau_i (b - A x)."""
+
+    is_smoother = True
+
+    def __init__(self, cfg, scope="default", name="CHEBYSHEV_POLY",
+                 device="cpu"):
+        super().__init__(cfg, scope, name, device)
+        order = int(cfg.get("chebyshev_polynomial_order", scope))
+        self.order = min(10, max(order, 1))
+        self.fused_smoother = bool(int(cfg.get("fused_smoother", scope)))
+
+    def solver_setup(self):
+        # lambda stays on the device: no host round trip per level
+        lam = torch.max(_abs_row_sums(self.A))
+        self._taus = torch.tensor(chebyshev_poly_coeffs(self.order),
+                                  dtype=self.A.dtype,
+                                  device=self.A.device) / lam
+
+    def solve_data(self):
+        d = super().solve_data()
+        d["taus"] = self._taus
+        return d
+
+    def computes_residual(self):
+        return False
+
+    def solve_iteration(self, data, b, st):
+        A = data["A"]
+        x = st["x"]
+        for i in range(self.order):
+            x = x + data["taus"][i] * (b - spmv(A, x))
+        out = dict(st)
+        out["x"] = x
+        return out
+
+    # -- the smoother kernels (ops/smooth.py) -----------------------------
+    # `sweeps` applications are the tiled tau schedule.
+    @staticmethod
+    def _fused_taus(data, sweeps: int):
+        taus = data["taus"]
+        return taus.repeat(sweeps) if sweeps > 1 else taus
+
+    def smooth(self, data, b, x, sweeps: int):
+        if sweeps > 0 and self.fused_smoother:
+            out = fused.fused_smooth(data, b, x,
+                                     self._fused_taus(data, sweeps),
+                                     with_residual=False)
+            if out is not None:
+                return out
+        return super().smooth(data, b, x, sweeps)
+
+    def smooth_residual(self, data, b, x, sweeps: int):
+        if sweeps > 0 and self.fused_smoother:
+            out = fused.fused_smooth(data, b, x,
+                                     self._fused_taus(data, sweeps),
+                                     with_residual=True)
+            if out is not None:
+                return out
+        return super().smooth_residual(data, b, x, sweeps)
+
+    def smooth_restrict(self, data, b, x, sweeps: int, xfer):
+        if sweeps < 1 or not self.fused_smoother:
+            return None
+        return fused.fused_smooth_restrict(
+            data, b, x, self._fused_taus(data, sweeps), xfer)
+
+    def smooth_corr(self, data, b, x, xc, sweeps: int, xfer):
+        if sweeps < 1 or not self.fused_smoother:
+            return None
+        return fused.fused_corr_smooth(
+            data, b, x, xc, self._fused_taus(data, sweeps), xfer)

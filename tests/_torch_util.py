@@ -1,0 +1,82 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py):
+the same numpy arrays go to the JAX package and to amgx_tpu_torch."""
+import dataclasses
+
+import numpy as np
+import torch
+
+import amgx_tpu as jx
+import amgx_tpu_torch.interop as pti
+
+
+def grid_operator(shape, dtype=np.float32, seed=0):
+    """A 7-point operator on `shape` with random coefficients (diagonal
+    in [5.5, 6.5], neighbours in [-1.2, -0.8]): (JAX matrix, port
+    matrix, csr arrays). Random values make every diagonal distinct, so
+    a wrong shift or edge shows."""
+    P = jx.gallery.poisson("7pt", *shape)
+    ro = np.asarray(P.row_offsets)
+    ci = np.asarray(P.col_indices)
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(P.num_rows), np.diff(ro))
+    vals = np.where(rows == ci, rng.uniform(5.5, 6.5, ci.shape[0]),
+                    rng.uniform(-1.2, -0.8, ci.shape[0])).astype(dtype)
+    n = P.num_rows
+    Aj = dataclasses.replace(
+        jx.CsrMatrix.from_scipy_like(ro, ci, vals, n, n),
+        grid_shape=tuple(shape)).init()
+    Ap = pti.matrix_from_numpy(ro, ci, vals, n, n, grid_shape=shape,
+                               device="cpu")
+    return Aj, Ap
+
+
+def geo_agg(shape):
+    """The GEO selector's 2x2x2 aggregates map and coarse size."""
+    nx, ny, nz = shape
+    i = np.arange(nx * ny * nz)
+    x, t = i % nx, i // nx
+    y, z = t % ny, t // ny
+    cnx, cny, cnz = (nx + 1) // 2, (ny + 1) // 2, (nz + 1) // 2
+    agg = ((z // 2) * cny + (y // 2)) * cnx + (x // 2)
+    return agg.astype(np.int32), cnx * cny * cnz
+
+
+def vectors(n, nc, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n).astype(dtype),
+            rng.standard_normal(n).astype(dtype),
+            (1.0 / rng.uniform(5, 7, n)).astype(dtype),
+            rng.standard_normal(nc).astype(dtype))
+
+
+def csr_arrays(A):
+    return {"row_offsets": np.asarray(A.row_offsets),
+            "col_indices": np.asarray(A.col_indices),
+            "values": np.asarray(A.values), "num_rows": A.num_rows,
+            "num_cols": A.num_cols, "grid_shape": A.grid_shape}
+
+
+def jax_hierarchy_arrays(amg_solver):
+    """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
+    layout amgx_tpu_torch.interop.hierarchy_from_numpy takes."""
+    amg = amg_solver.amg
+    data = amg_solver.solve_data()["amg"]
+    levels = []
+    for i, lv in enumerate(amg.levels):
+        d = csr_arrays(lv.A)
+        d.update(aggregates=np.asarray(lv.aggregates),
+                 coarse_size=lv.coarse_size, geo_axes=lv.geo_axes,
+                 geo_fine_shape=lv.geo_fine_shape,
+                 geo_coarse_shape=lv.geo_coarse_shape,
+                 taus=np.asarray(data["levels"][i]["smoother"]["taus"]))
+        levels.append(d)
+    coarse = csr_arrays(amg.coarsest_A)
+    coarse.update(qt=np.asarray(data["coarse"]["qt"]),
+                  r=np.asarray(data["coarse"]["r"]))
+    return levels, coarse
+
+
+def rel(a, b):
+    a = np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float64)
+    b = np.asarray(b.cpu() if torch.is_tensor(b) else b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
