@@ -8,7 +8,7 @@ CUDA (amgx_tpu_torch/csrc/), built with nvcc at first use.
     import amgx_tpu_torch as amgx
     A = amgx.gallery.poisson("7pt", 64, 64, 64)
     slv = amgx.create_solver(amgx.Config.from_string(
-        amgx.presets.FLAGSHIP_TAIL_OFF))
+        amgx.presets.FLAGSHIP))
     slv.setup(A)
     res = slv.solve(torch.ones(A.num_rows, dtype=torch.float64))
 """
@@ -25,7 +25,8 @@ __all__ = ["Config", "CsrMatrix", "SolveStatus", "create_solver", "gallery",
 
 
 def kernel_launches() -> dict:
-    """Launches of each CUDA kernel wrapper since the last reset."""
+    """Launches of each CUDA kernel since the last reset, by name (B1-B7:
+    ops/cuda_spmv.py, ops/cuda_krylov.py, ops/cuda_tail.py)."""
     return dict(_LAUNCHES)
 
 

@@ -6,7 +6,9 @@ restrict by per-axis pair sums and prolongate by per-axis repeats -- the
 cycle_fusion=0 route -- and get the structured Galerkin product. With
 cycle_fusion=1 the level's transfers ride the smoother kernels instead:
 the restriction in B3's epilogue through the children table `ctab`, the
-prolongation in B4's prologue through the aggregate ids `agg`.
+prolongation in B4's prologue through the aggregate ids `agg` (with
+B4's x'.b epilogue when the Krylov shell asks for the cycle's dot), and
+the coarse tail's levels through both tables inside B5.
 """
 from __future__ import annotations
 
@@ -98,11 +100,13 @@ class AggregationAMGLevel(AMGLevel):
             return None
         return fn(data["smoother"], b, x, sweeps, data.get("xfer"))
 
-    def prolongate_smooth(self, data, b, x, xc, sweeps: int):
+    def prolongate_smooth(self, data, b, x, xc, sweeps: int,
+                          want_dot: bool = False):
         fn = getattr(self.smoother, "smooth_corr", None)
         if fn is None:
             return None
-        return fn(data["smoother"], b, x, xc, sweeps, data.get("xfer"))
+        return fn(data["smoother"], b, x, xc, sweeps, data.get("xfer"),
+                  want_dot=want_dot)
 
     def restrict(self, data, r):
         if self.geo_axes is not None:

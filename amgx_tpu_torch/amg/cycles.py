@@ -1,7 +1,10 @@
 """Multigrid cycles V, W, F (the port of amgx_tpu/amg/cycles.py):
 presmooth -> residual -> restrict -> recurse -> prolongate + correct ->
-postsmooth, recursing in Python over the static hierarchy depth. The
-K-cycles (CG, CGF) are not ported yet."""
+postsmooth, recursing in Python over the static hierarchy depth. With
+cycle_fusion the sub-cycle below the first level of at most
+cycle_fusion_tail_rows rows runs as one coarse-tail launch (B5,
+ops/smooth.py `coarse_tail_cycle`), on the CPU through its plain twin.
+The K-cycles (CG, CGF) are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -34,34 +37,51 @@ def _smooth_restrict(amg, level, data, b, x, sweeps: int):
     return x, level.restrict(data, r)
 
 
-def _prolongate_smooth(amg, level, data, b, x, xc, sweeps: int):
+def _prolongate_smooth(amg, level, data, b, x, xc, sweeps: int,
+                       want_dot: bool = False):
     """Prolongation + correction + postsmooth: with cycle_fusion the
     correction is read inside the postsmoother's first application
-    (B4); otherwise x + P xc, then the smoother."""
+    (B4); otherwise x + P xc, then the smoother. With want_dot the
+    return is (x', x'.b) when the fused kernel carries the dot, else
+    (x', None)."""
     if amg.cycle_fusion and sweeps > 0 and \
             "prolongate" in level.supports_fusion(data):
-        out = level.prolongate_smooth(data, b, x, xc, sweeps)
+        out = level.prolongate_smooth(data, b, x, xc, sweeps,
+                                      want_dot=want_dot)
         if out is not None:
             return out
     x = x + level.prolongate(data, xc)
-    return _smooth(level, data, b, x, sweeps)
+    x = _smooth(level, data, b, x, sweeps)
+    return (x, None) if want_dot else x
 
 
 def apply_coarse_solver(cs, data, bc, xc, coarsest_sweeps: int):
-    """Coarsest-level dispatch: relaxation-type coarse solvers run
-    `coarsest_sweeps` sweeps from xc, direct ones their own apply."""
+    """Coarsest-level dispatch: NOSOLVER/DUMMY means no coarse correction
+    (xc stays zero), relaxation-type coarse solvers run `coarsest_sweeps`
+    sweeps from xc, direct ones their own apply."""
+    if cs.name in ("NOSOLVER", "DUMMY"):
+        return xc
     if cs.is_smoother:
         return cs.smooth(data, bc, xc, coarsest_sweeps)
     return cs.apply(data, bc)
 
 
-def _cycle(amg, shape: str, data, lvl: int, b, x):
+def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
     """FixedCycle::cycle analog: recursion count per level V=1, W=2,
-    F = one F-visit then one V-visit."""
+    F = one F-visit then one V-visit. want_dot asks the entry level's
+    last kernel (its postsmoother, or the whole-cycle tail) for x'.b;
+    levels below never carry it."""
     levels = amg.levels
     if lvl == len(levels):
-        return apply_coarse_solver(amg.coarse_solver, data["coarse"], b, x,
-                                   amg.coarsest_sweeps)
+        out = apply_coarse_solver(amg.coarse_solver, data["coarse"], b, x,
+                                  amg.coarsest_sweeps)
+        return (out, None) if want_dot else out
+    if amg.cycle_fusion:
+        from ..ops.smooth import coarse_tail_cycle
+        out = coarse_tail_cycle(amg, shape, data, lvl, b, x,
+                                want_dot=want_dot)
+        if out is not None:
+            return out
     level = levels[lvl]
     ldata = data["levels"][lvl]
     x, bc = _smooth_restrict(amg, level, ldata, b, x,
@@ -80,7 +100,8 @@ def _cycle(amg, shape: str, data, lvl: int, b, x):
     else:
         raise ValueError(f"unknown fixed cycle {shape!r}")
     return _prolongate_smooth(amg, level, ldata, b, x, xc,
-                              amg._sweeps(lvl, pre=False))
+                              amg._sweeps(lvl, pre=False),
+                              want_dot=want_dot)
 
 
 def run_cycle(amg, name: str, data, b, x):
@@ -88,3 +109,13 @@ def run_cycle(amg, name: str, data, b, x):
     if name in ("V", "W", "F"):
         return _cycle(amg, name, data, 0, b, x)
     raise NotImplementedError(f"cycle {name!r} is not ported yet")
+
+
+def run_cycle_dot(amg, name: str, data, b, x):
+    """One cycle that also asks its last kernel for x'.b (the Krylov
+    shell's cycle-borne r.z). Returns (x', dot), dot None when the cycle
+    cannot carry it -- the caller then reduces explicitly."""
+    name = name.upper()
+    if name in ("V", "W", "F"):
+        return _cycle(amg, name, data, 0, b, x, want_dot=True)
+    return run_cycle(amg, name, data, b, x), None

@@ -3,16 +3,15 @@
 Setup builds the level list on the operator's device: per level the
 selector's aggregates, the Galerkin coarse operator, and the smoother
 (set up as soon as its level exists). The coarsest operator gets the
-coarse solver (DENSE_LU by default). Not ported yet: structure reuse on
-resetup, the matrix-free detector, telemetry, reduced-precision
-hierarchies (`amg_precision` other than double) and the fused coarse
-tail (B5), which a CUDA configuration may not ask for.
+coarse solver (DENSE_LU by default). The cycle's coarse-tail plans
+(ops/smooth.py `coarse_tail_cycle`) are cached per hierarchy and dropped
+at setup. Not ported yet: structure reuse on resetup, the matrix-free
+detector, telemetry and reduced-precision hierarchies (`amg_precision`
+other than double).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
-
-import torch
 
 from .. import registry
 from ..config import Config
@@ -62,7 +61,8 @@ class AMGLevel:
     def restrict_fused(self, data, b, x, sweeps: int):
         return None
 
-    def prolongate_smooth(self, data, b, x, xc, sweeps: int):
+    def prolongate_smooth(self, data, b, x, xc, sweeps: int,
+                          want_dot: bool = False):
         return None
 
 
@@ -100,10 +100,13 @@ class AMG:
         self.levels: List[AMGLevel] = []
         self.coarse_solver = None
         self.coarsest_A: Optional[CsrMatrix] = None
+        # (shape, entry level, dtype, device) -> coarse-tail plan
+        self._tail_plans: Dict[tuple, Any] = {}
 
     # -- setup -----------------------------------------------------------
     def setup(self, A: CsrMatrix):
         self.levels = []
+        self._tail_plans = {}
         self._build_levels(A if A.initialized else A.init(), 0)
         self._finalize_setup()
         return self
@@ -153,28 +156,6 @@ class AMG:
         self.coarse_solver = make_solver(cs_name, self.cfg, cs_scope,
                                          self.coarsest_A.device)
         self.coarse_solver.setup(self.coarsest_A)
-        self._refuse_coarse_tail()
-
-    def _refuse_coarse_tail(self):
-        """The fused coarse-tail kernel (B5: amgx_tpu/ops/pallas_spmv.py
-        `_dia_coarse_tail_call`) is not ported. On the CPU the cycle
-        composes per level, as the JAX package does off the TPU; a CUDA
-        hierarchy whose configuration admits a level into the tail
-        (cycle_fusion=1, a float32 hierarchy -- the tail kernel's dtype --
-        and rows <= cycle_fusion_tail_rows) is refused rather than
-        silently composed."""
-        A = self.coarsest_A
-        if (A.device.type != "cuda" or A.dtype != torch.float32
-                or not self.cycle_fusion or not self.levels):
-            return
-        small = min(lv.A.num_rows for lv in self.levels)
-        if small <= self.cycle_fusion_tail_rows:
-            raise NotImplementedError(
-                f"the fused coarse-tail kernel (B5, _dia_coarse_tail_call) "
-                f"is not ported to CUDA: levels of {small} rows fall under "
-                f"cycle_fusion_tail_rows={self.cycle_fusion_tail_rows}; set "
-                f"amg:cycle_fusion_tail_rows=0 (per-level kernels) or "
-                f"amg:cycle_fusion=0")
 
     # -- solve -------------------------------------------------------------
     def solve_data(self) -> Dict[str, Any]:
@@ -193,6 +174,12 @@ class AMG:
         """One multigrid cycle."""
         from .cycles import run_cycle
         return run_cycle(self, self.cycle_name, data, b, x)
+
+    def cycle_dot(self, data, b, x):
+        """One cycle plus x'.b from its last kernel: (x', dot), dot None
+        when the cycle cannot carry it."""
+        from .cycles import run_cycle_dot
+        return run_cycle_dot(self, self.cycle_name, data, b, x)
 
     def level_rows(self) -> List[int]:
         """Rows per level, finest first, the coarsest operator last."""

@@ -27,13 +27,22 @@ class AlgebraicMultigridSolver(Solver):
     def computes_residual(self):
         return False
 
+    def apply_dot(self, data, rhs):
+        """One cycle with x'.rhs from its last kernel (AMG.cycle_dot).
+        Only a single cycle qualifies: with max_iters > 1 the dot of the
+        last cycle's output would need that cycle's own epilogue, so it
+        declines to (apply, None) and the caller reduces explicitly."""
+        if self.max_iters != 1:
+            return self.apply(data, rhs), None
+        return self.amg.cycle_dot(data["amg"], rhs, torch.zeros_like(rhs))
+
     def solve_iteration(self, data, b, st):
         out = dict(st)
         out["x"] = self.amg.cycle(data["amg"], b, st["x"])
         return out
 
-    def breakdown(self, state) -> bool:
+    def breakdown(self, state):
         # a non-finite cycle output means the hierarchy itself is broken:
         # BREAKDOWN, not a NaN storm at max_iters. Evaluated only by the
         # monitored driver, so a preconditioner application pays nothing
-        return not bool(torch.isfinite(state["x"]).all())
+        return ~torch.isfinite(state["x"]).all()

@@ -288,6 +288,11 @@ def _register_default_parameters():
     R("cycle_fusion_tail_rows", int, "largest level row count admitted "
       "into the fused coarse-tail kernel (levels above it keep "
       "per-level kernels; 0 turns the tail off)", 65536, None, 0)
+    R("krylov_fusion", int, "fuse the Krylov shell around the cycle on "
+      "float32 DIA operators: the direction update, SpMV and p.Ap run as "
+      "one kernel, the x/r updates and the monitor's r.r as a second, and "
+      "PCG's r.z rides the cycle's last kernel; 0 composes the unfused "
+      "SpMV and vector operations", 1, BOOL01)
     # resilience (solve-loop status classification)
     R("health_guards", int, "NaN/breakdown guards in the solve loop "
       "(status classification rides the existing residual check; 0 "

@@ -28,48 +28,12 @@
 // steps and a residual streams the value slab s + 1 times. The
 // restriction epilogue recomputes the residual at each child of a coarse
 // row instead of writing r, and the prolongation prologue reads
-// x + xc[agg] on the fly instead of storing x + P xc.
-#include <cuda_runtime.h>
-#include <cstddef>
+// x + xc[agg] on the fly instead of storing x + P xc. B4's x'.b epilogue
+// (PCG's r.z) rides the last step's launch: block partials added in a
+// fixed order by the last block, no float atomics (common.cuh).
+#include "common.cuh"
 
 namespace {
-
-constexpr int kMaxOffsets = 32;  // CsrMatrix.DIA_MAX_OFFSETS
-constexpr int kThreads = 256;
-
-struct Offsets {
-  int k;
-  int o[kMaxOffsets];
-};
-
-// x as the kernel reads it: plainly, or with the piecewise-constant
-// prolongation of a coarse correction folded in (x + xc[agg]).
-struct PlainX {
-  const float* __restrict__ x;
-  __device__ __forceinline__ float operator()(int j) const { return x[j]; }
-};
-
-struct CorrectedX {
-  const float* __restrict__ x;
-  const float* __restrict__ xc;
-  const int* __restrict__ agg;
-  __device__ __forceinline__ float operator()(int j) const {
-    return x[j] + xc[agg[j]];
-  }
-};
-
-// (A x)[i] for one row; diagonals in ascending offset order.
-template <class XR>
-__device__ __forceinline__ float dia_row(const float* __restrict__ vals,
-                                         const XR& xr, int n, int i,
-                                         const Offsets& of) {
-  float acc = 0.0f;
-  for (int d = 0; d < of.k; ++d) {
-    const int j = i + of.o[d];
-    if (j >= 0 && j < n) acc += vals[static_cast<size_t>(d) * n + i] * xr(j);
-  }
-  return acc;
-}
 
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
@@ -78,18 +42,31 @@ dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
   if (i < n) y[i] = dia_row(vals, PlainX{x}, n, i, of);
 }
 
-// One damped-relaxation step x' = x + (tau_t * (b - A x)) * dinv.
-template <class XR, bool kHasDinv>
+// One damped-relaxation step x' = x + (tau_t * (b - A x)) * dinv. With
+// kDot the launch also returns x'.b (B4's dot epilogue, PCG's r.z):
+// per-block partials, added in block order by the last block to finish.
+struct DotOut {
+  float* partials;        // one float per block
+  unsigned int* counter;  // zero between launches
+  float* out;
+};
+
+template <class XR, bool kHasDinv, bool kDot>
 __global__ void __launch_bounds__(kThreads)
 dia_step_kernel(const float* __restrict__ vals, const float* __restrict__ dinv,
                 const float* __restrict__ taus, int t,
                 const float* __restrict__ b, XR xr, float* __restrict__ out,
-                int n, Offsets of) {
+                int n, Offsets of, DotOut dot) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float upd = taus[t] * (b[i] - dia_row(vals, xr, n, i, of));
-  if (kHasDinv) upd *= dinv[i];
-  out[i] = xr(i) + upd;
+  float part = 0.0f;
+  if (i < n) {
+    float upd = taus[t] * (b[i] - dia_row(vals, xr, n, i, of));
+    if (kHasDinv) upd *= dinv[i];
+    const float v = xr(i) + upd;
+    out[i] = v;
+    if (kDot) part = v * b[i];
+  }
+  if (kDot) finish_dot(part, dot.partials, dot.counter, dot.out);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -118,25 +95,30 @@ dia_restrict_kernel(const float* __restrict__ vals,
   bc[c] = acc;
 }
 
-bool fill_offsets(const int* offs, int k, Offsets* of) {
-  if (k < 1 || k > kMaxOffsets) return false;
-  of->k = k;
-  for (int d = 0; d < k; ++d) of->o[d] = offs[d];
-  return true;
+template <class XR, bool kHasDinv>
+void launch_step_kernel(const float* vals, const float* dinv,
+                        const float* taus, int t, const float* b, XR xr,
+                        float* out, int n, const Offsets& of,
+                        const DotOut& dot, cudaStream_t s) {
+  if (dot.out != nullptr) {
+    dia_step_kernel<XR, kHasDinv, true><<<blocks_for(n), kThreads, 0, s>>>(
+        vals, dinv, taus, t, b, xr, out, n, of, dot);
+  } else {
+    dia_step_kernel<XR, kHasDinv, false><<<blocks_for(n), kThreads, 0, s>>>(
+        vals, dinv, taus, t, b, xr, out, n, of, dot);
+  }
 }
-
-int blocks_for(int rows) { return (rows + kThreads - 1) / kThreads; }
 
 template <class XR>
 void launch_step(const float* vals, const float* dinv, const float* taus,
                  int t, const float* b, XR xr, float* out, int n,
-                 const Offsets& of, cudaStream_t s) {
+                 const Offsets& of, const DotOut& dot, cudaStream_t s) {
   if (dinv != nullptr) {
-    dia_step_kernel<XR, true><<<blocks_for(n), kThreads, 0, s>>>(
-        vals, dinv, taus, t, b, xr, out, n, of);
+    launch_step_kernel<XR, true>(vals, dinv, taus, t, b, xr, out, n, of,
+                                 dot, s);
   } else {
-    dia_step_kernel<XR, false><<<blocks_for(n), kThreads, 0, s>>>(
-        vals, dinv, taus, t, b, xr, out, n, of);
+    launch_step_kernel<XR, false>(vals, dinv, taus, t, b, xr, out, n, of,
+                                  dot, s);
   }
 }
 
@@ -155,19 +137,25 @@ int amgx_dia_spmv(const float* vals, const float* x, float* y, int n,
 
 // One smoothing application (B2-B4): out = x + (taus[t] * (b - A x)) *
 // dinv, with dinv optional (nullptr) and, when xc and agg are given, x
-// read as x + xc[agg] (B4's prolongation prologue).
+// read as x + xc[agg] (B4's prolongation prologue). When dot is given,
+// *dot = out.b (B4's epilogue) through `partials` (one float per block
+// of 256 rows) and `counter` (zero on entry, left zero).
 int amgx_dia_step(const float* vals, const float* dinv, const float* taus,
                   int t, const float* b, const float* x, const float* xc,
                   const int* agg, float* out, int n, const int* offs, int k,
+                  float* partials, unsigned int* counter, float* dot,
                   cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
   if ((xc == nullptr) != (agg == nullptr)) return -1;
+  if (dot != nullptr && (partials == nullptr || counter == nullptr))
+    return -1;
+  const DotOut d{partials, counter, dot};
   if (xc != nullptr) {
     launch_step(vals, dinv, taus, t, b, CorrectedX{x, xc, agg}, out, n, of,
-                stream);
+                d, stream);
   } else {
-    launch_step(vals, dinv, taus, t, b, PlainX{x}, out, n, of, stream);
+    launch_step(vals, dinv, taus, t, b, PlainX{x}, out, n, of, d, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,10 +45,13 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
     optional `grid_shape`), its `aggregates` and `coarse_size`, the GEO
     pairing (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
-    non-geometric levels) and the smoother's `taus`. `coarse` holds the
-    coarsest operator's CSR arrays and its DENSE_LU factors `qt`, `r`.
-    The smoother and coarse solver named by `cfg` at `scope` are
-    attached with these values instead of being set up again.
+    non-geometric levels) and the smoother's payload: CHEBYSHEV_POLY's
+    `taus`, or the Jacobi family's `dinv`. `coarse` holds the coarsest
+    operator's CSR arrays, its DENSE_LU factors `qt`, `r` and, when the
+    other implementation built one, the explicit inverse `inv` (the
+    coarse-tail kernel's coarsest solve). The smoother and coarse solver
+    named by `cfg` at `scope` are attached with these values instead of
+    being set up again.
     """
     device = resolve_device(device)
     amg = AMG(cfg, scope)
@@ -65,8 +68,10 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
         name, sm_scope = amg._smoother_spec(i)
         sm = make_solver(name, cfg, sm_scope, device)
         sm.A = level.A
-        sm._taus = torch.tensor(np.asarray(d["taus"]), device=device,
-                                dtype=level.A.dtype)
+        for key in ("taus", "dinv"):
+            if d.get(key) is not None:
+                setattr(sm, "_" + key, torch.tensor(
+                    np.asarray(d[key]), device=device, dtype=level.A.dtype))
         level.smoother = sm
         amg.levels.append(level)
     amg.coarsest_A = _matrix(coarse, device)
@@ -75,6 +80,8 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     cs.A = amg.coarsest_A
     cs._qt = torch.tensor(np.asarray(coarse["qt"]), device=device)
     cs._r = torch.tensor(np.asarray(coarse["r"]), device=device)
+    if coarse.get("inv") is not None:
+        cs._inv_memo = (cs._qt, cs._r, torch.tensor(
+            np.asarray(coarse["inv"]), device=device))
     amg.coarse_solver = cs
-    amg._refuse_coarse_tail()
     return amg

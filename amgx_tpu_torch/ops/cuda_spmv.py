@@ -15,7 +15,10 @@ the JAX package routes the same way (see `ops/spmv.py`).
 
 Launch counts: `LAUNCHES[name]` grows by one at every kernel launch a
 wrapper makes (a multi-application call launches several times) and
-nowhere else; `amgx_tpu_torch.kernel_launches()` reads them.
+nowhere else; `amgx_tpu_torch.kernel_launches()` reads them. The dict
+counts every kernel of the port: the Krylov-shell kernels
+(`cuda_krylov`) and the coarse tail (`cuda_tail`) launch through
+`_launch` here too.
 
 The four kernels
 ----------------
@@ -44,11 +47,15 @@ B3 `dia_smooth_restrict` replaces `_dia_smooth_restrict_call`
 B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    (pallas_spmv.py:1585): x <- x + xc[agg] folded into the first step's
    reads (x + P xc is never stored), then B2's remaining steps. s
-   launches.
+   launches. `with_dot` also returns x'.b (PCG's r.z, the cycle-borne
+   dot) from the last step's launch: each block writes its partial sum
+   and the last block to finish adds them in block order -- one launch,
+   deterministic, no float atomics. That launch counts as
+   "dia_prolong_smooth_dot".
 
-Not ported here (the wrappers raise): bf16 operand slabs, B2/B4's x.b
-dot epilogue (`with_dot`), and B3/B4's weighted transfer rows (classical
-AMG's cwt / ptab / pwt).
+Not ported here (the wrappers raise): bf16 operand slabs, B2's x.b dot
+epilogue (the JAX package has no caller for it), and B3/B4's weighted
+transfer rows (classical AMG's cwt / ptab / pwt).
 """
 from __future__ import annotations
 
@@ -59,9 +66,12 @@ from typing import Optional, Sequence
 import torch
 
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
-            "dia_prolong_smooth": 0}
+            "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
+            "dia_spmv_dot": 0, "cg_update": 0, "dia_coarse_tail": 0,
+            "dia_coarse_tail_dot": 0}
 
-MAX_OFFSETS = 32      # the kernels' offset table (csrc/dia.cu kMaxOffsets)
+MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
+THREADS = 256         # rows per block (csrc/common.cuh kThreads)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,7 +83,7 @@ def _lib():
     lib = library("dia.cu")
     lib.amgx_dia_spmv.argtypes = [_P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                                  _P, _I, _P]
+                                  _P, _I, _P, _P, _P, _P]
     lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _P,
                                       _I, _P]
@@ -98,6 +108,22 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def dot_counter(device) -> torch.Tensor:
+    """The zeroed int32 arrival counter of the dot epilogues on one
+    device: the last block of a launch resets it, so launches reuse it
+    in stream order (common.cuh `finish_dot`)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def dot_scratch(n: int, device):
+    """(partials, dot) for a launch over n rows: one float per block of
+    THREADS rows and the 0-dim result, in one allocation."""
+    ws = torch.empty(-(-n // THREADS) + 1, dtype=torch.float32,
+                     device=device)
+    return ws[:-1], ws[-1]
+
+
 def _launch(name: str, fn, *args):
     rc = fn(*args)
     if rc != 0:
@@ -107,15 +133,16 @@ def _launch(name: str, fn, *args):
     LAUNCHES[name] += 1
 
 
-def _check(name: str, offsets: Sequence[int], n: int, floats: dict,
-           ints: dict = None):
-    """Validate operands of a CUDA launch: one CUDA device, float32 /
-    int32 dtypes, contiguity, and the shapes in the dicts' (tensor,
-    shape) pairs. Raises on anything the kernels do not take."""
-    if not 1 <= len(offsets) <= MAX_OFFSETS:
+def _check(name: str, offsets: Optional[Sequence[int]], n: int,
+           floats: dict, ints: dict = None):
+    """Validate operands of a CUDA launch: the offset table (unless
+    None), one CUDA device, float32 / int32 dtypes, contiguity, and the
+    shapes in the dicts' (tensor, shape) pairs. Raises on anything the
+    kernels do not take."""
+    if offsets is not None and not 1 <= len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"{name}: {len(offsets)} diagonals; the kernel "
                          f"takes 1..{MAX_OFFSETS}")
-    if list(offsets) != sorted(offsets):
+    if offsets is not None and list(offsets) != sorted(offsets):
         raise ValueError(f"{name}: offsets must ascend, got {offsets}")
     if n < 1:
         raise ValueError(f"{name}: empty operator")
@@ -192,9 +219,10 @@ def dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab, dinv=None):
 
 
 def dia_prolong_smooth_plain(vals, offsets, taus, b, x, xc, agg,
-                             dinv=None):
+                             dinv=None, with_dot=False):
     x = x + xc[agg.long()]
-    return dia_smooth_plain(vals, offsets, taus, b, x, dinv, False)
+    x = dia_smooth_plain(vals, offsets, taus, b, x, dinv, False)
+    return (x, torch.dot(x, b)) if with_dot else x
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +245,12 @@ def dia_spmv(vals, offsets, x):
     return y
 
 
-def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None):
+def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None,
+           dot=None):
     """Launch len(taus) damped steps, the last one writing `out`; the
-    first reads x (+ xc[agg] when given). Returns `out`."""
+    first reads x (+ xc[agg] when given). With dot = (partials, result)
+    the last launch also writes out.b into result and counts under
+    name + "_dot". Returns `out`."""
     lib = _lib()
     n = x.shape[0]
     s = taus.shape[0]
@@ -228,10 +259,14 @@ def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None):
     src = x
     for t in range(s):
         dst = out if (s - 1 - t) % 2 == 0 else tmp
-        _launch(name, lib.amgx_dia_step, _ptr(vals), _ptr(dinv),
-                _ptr(taus), t, _ptr(b), _ptr(src),
+        last_dot = dot is not None and t == s - 1
+        _launch(name + "_dot" if last_dot else name, lib.amgx_dia_step,
+                _ptr(vals), _ptr(dinv), _ptr(taus), t, _ptr(b), _ptr(src),
                 _ptr(xc) if t == 0 else None, _ptr(agg) if t == 0 else None,
-                _ptr(dst), n, offs, len(offsets), _stream())
+                _ptr(dst), n, offs, len(offsets),
+                _ptr(dot[0]) if last_dot else None,
+                _ptr(dot_counter(x.device)) if last_dot else None,
+                _ptr(dot[1]) if last_dot else None, _stream())
         src = dst
     return out
 
@@ -300,16 +335,18 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
 def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg, dinv=None,
                        weights=None, with_dot=False):
     """B4: len(taus) damped steps from x + xc[agg] (the correction read
-    on the fly by the first step). Returns x'."""
-    _not_ported("dia_prolong_smooth", with_dot=with_dot,
-                weighted_transfer=weights is not None)
+    on the fly by the first step). Returns x', or (x', x'.b) with
+    `with_dot` (the dot a 0-dim float32 tensor on x's device)."""
+    _not_ported("dia_prolong_smooth", weighted_transfer=weights is not None)
     if x.device.type == "cpu":
         return dia_prolong_smooth_plain(vals, offsets, taus, b, x, xc, agg,
-                                        dinv)
+                                        dinv, with_dot)
     n = x.shape[0]
     _check_smooth("dia_prolong_smooth", vals, offsets, taus, b, x, dinv,
                   floats={"xc": (xc, (xc.shape[0],))},
                   ints={"agg": (agg, (n,))})
     with torch.cuda.device(x.device):
-        return _steps("dia_prolong_smooth", vals, offsets, taus, b, x,
-                      dinv, torch.empty_like(x), xc=xc, agg=agg)
+        dot = dot_scratch(n, x.device) if with_dot else None
+        out = _steps("dia_prolong_smooth", vals, offsets, taus, b, x, dinv,
+                     torch.empty_like(x), xc=xc, agg=agg, dot=dot)
+    return (out, dot[1]) if with_dot else out

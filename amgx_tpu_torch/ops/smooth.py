@@ -12,10 +12,10 @@ level is not a float32 square DIA operator; the calling smoother then
 composes its unfused sweeps, exactly as the JAX package does off its
 fused path (f64 hierarchies, non-DIA layouts, `fused_smoother=0`).
 
-On CPU tensors the kernels' plain twins run, so the CPU route composes
-the same arithmetic per level. The fused coarse-tail kernel (B5) is not
-ported: the hierarchy refuses a CUDA configuration that asks for it
-(amg/hierarchy.py).
+On CPU tensors the kernels' plain twins run, so the CPU and the card
+take the same route. `coarse_tail_cycle` runs the whole sub-cycle below
+an entry level through B5 (ops/cuda_tail.py) with the JAX package's
+eligibility rules.
 
 Transfer tables (the JAX package's `build_transfer_slabs`, without the
 TPU's quota padding and VMEM window bases): `ctab` (m, nc) int32, the
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_spmv
+from . import cuda_spmv, cuda_tail
 
 
 def kernel_ok(A, x) -> bool:
@@ -74,12 +74,94 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
                                          xfer["ctab"], dinv)
 
 
-def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None):
+def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
+                      want_dot=False):
     """x' after len(taus) damped steps from x + P xc through B4, or
-    None (the caller composes prolongate + smooth)."""
+    None (the caller composes prolongate + smooth). `want_dot` returns
+    (x', x'.b) with the dot from the last step's launch (PCG's r.z: the
+    cycle's rhs is r and its output z)."""
     A = data["A"]
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
     return cuda_spmv.dia_prolong_smooth(A.dia_vals, A.dia_offsets,
                                         taus.to(x.dtype), b, x, xc,
-                                        xfer["agg"], dinv)
+                                        xfer["agg"], dinv,
+                                        with_dot=want_dot)
+
+
+# ---------------------------------------------------------------------------
+# the coarse tail (B5)
+# ---------------------------------------------------------------------------
+
+
+def _tail_plan(amg, shape, data, lvl, x):
+    """(spec, arrs) of the tail entered at level `lvl`, or None when it
+    is not eligible."""
+    levels = amg.levels
+    specs, arrs = [], []
+    for i in range(lvl, len(levels)):
+        ld = data["levels"][i]
+        xfer, smd = ld.get("xfer"), ld.get("smoother")
+        spec_fn = getattr(levels[i].smoother, "fused_tail_spec", None)
+        if xfer is None or smd is None or spec_fn is None \
+                or not kernel_ok(ld["A"], x):
+            return None
+        pre = spec_fn(smd, amg._sweeps(i, pre=True), x.dtype)
+        post = spec_fn(smd, amg._sweeps(i, pre=False), x.dtype)
+        if pre is None or post is None:
+            return None
+        A = ld["A"]
+        m, nc = xfer["ctab"].shape
+        specs.append(cuda_tail.TailLevelSpec(
+            offsets=tuple(A.dia_offsets), n=A.num_rows,
+            n_pre=int(pre[0].shape[0]), n_post=int(post[0].shape[0]),
+            has_dinv=pre[1] is not None, nc=int(nc), m=int(m)))
+        arrs.append({"vals": A.dia_vals, "dinv": pre[1],
+                     "taus_pre": pre[0].contiguous(),
+                     "taus_post": post[0].contiguous(),
+                     "ctab": xfer["ctab"], "agg": xfer["agg"]})
+    cd = data["coarse"]
+    nz = specs[-1].nc
+    if amg.coarse_solver.name in ("NOSOLVER", "DUMMY"):
+        coarse = ("none", nz)
+    elif "inv" in cd and tuple(cd["inv"].shape) == (nz, nz) \
+            and cd["inv"].dtype == torch.float32:
+        arrs.append({"inv": cd["inv"]})
+        coarse = ("inv", nz)
+    else:
+        return None
+    return cuda_tail.TailSpec(shape, tuple(specs), coarse), tuple(arrs)
+
+
+def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
+    """Run the whole sub-cycle at levels >= lvl as ONE B5 launch, or
+    return None when the tail is not eligible (the caller recurses per
+    level). Eligible, as in the JAX package: a fixed cycle shape; a
+    float32 vector; every level from lvl down a float32 DIA level with
+    transfer tables and a smoother that has `fused_tail_spec`; the coarse
+    solver NOSOLVER/DUMMY or holding a float32 `inv`; the entry level at
+    most cycle_fusion_tail_rows rows. The JAX package also declines when
+    the tail outgrows the TPU's VMEM budget; the Hopper kernel keeps its
+    levels in device memory and has no such cap (for the 7-pt operator at
+    the default threshold the cap never binds, so both enter the tail at
+    the same level). `want_dot` returns (x', x'.b).
+
+    The plan (spec and arrays, the tiled damping schedules) is built once
+    per (entry level, shape, dtype) and cached on the hierarchy; B5's card
+    tables and workspace are cached beside it (ops/cuda_tail.py)."""
+    levels = amg.levels
+    if shape not in ("V", "W", "F") or x.dtype != torch.float32 \
+            or lvl >= len(levels) \
+            or levels[lvl].A.num_rows > amg.cycle_fusion_tail_rows:
+        return None
+    key = (shape, lvl, x.dtype, x.device)
+    sources = tuple(ld["A"] for ld in data["levels"][lvl:]) + (
+        data["coarse"].get("inv"),)
+    hit = amg._tail_plans.get(key)
+    if hit is None or any(a is not b_ for a, b_ in zip(hit[0], sources)):
+        hit = amg._tail_plans[key] = (sources, _tail_plan(amg, shape, data,
+                                                          lvl, x))
+    if hit[1] is None:
+        return None
+    spec, arrs = hit[1]
+    return cuda_tail.dia_coarse_tail(spec, arrs, b, x, with_dot=want_dot)

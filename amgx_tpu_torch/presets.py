@@ -5,10 +5,10 @@ entry use: full f64 accuracy via defect correction (REFINEMENT) around
 an f32 FGMRES + GEO-aggregation AMG V-cycle with Chebyshev-polynomial
 smoothing.
 
-FLAGSHIP_TAIL_OFF is FLAGSHIP with the fused coarse-tail kernel (not
-ported yet) switched off through its own knob: every level then runs
-the per-level smoother/transfer kernels and the coarsest level the
-dense solve -- the same arithmetic the tail performs in one launch.
+FLAGSHIP_TAIL_OFF is FLAGSHIP with the fused coarse-tail kernel (B5)
+switched off through its own knob: every level then runs the per-level
+smoother/transfer kernels and the coarsest level the dense solve -- the
+same arithmetic the tail performs in one launch.
 """
 
 FLAGSHIP = (

@@ -1,2 +1,3 @@
 """Solvers of the port; importing this package registers them."""
-from . import base, direct, gmres, polynomial, refinement  # noqa: F401
+from . import (base, direct, gmres, krylov, polynomial,  # noqa: F401
+               refinement, relaxation)

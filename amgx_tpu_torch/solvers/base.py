@@ -6,8 +6,9 @@ driver is a Python loop over the same state keys (`x`, `r`, `iters`,
 `done`, `converged`, `res_norm`, `norm0`, `res_hist`, `status`). The
 tensors live on the solver's device; the per-iteration convergence
 decision is made on the host from the monitored norm, so each monitored
-iteration costs one device->host transfer of that scalar (FGMRES brings
-its Hessenberg column along in the same transfer).
+iteration costs one device->host transfer of that scalar, the breakdown
+flag riding along in the same transfer (FGMRES brings its Hessenberg
+column instead).
 
 State keys a solver maintains live in a plain dict; host scalars (norms,
 flags, counters) are numpy scalars in the norm's dtype, so the
@@ -118,6 +119,16 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
+def _host_norm_flag(norm, flag):
+    """(norm, flag) on the host, each given as a device tensor or a host
+    value, with at most one device->host transfer."""
+    if torch.is_tensor(norm) and torch.is_tensor(flag):
+        both = _host(torch.stack([norm.reshape(()),
+                                  flag.reshape(()).to(norm.dtype)]))
+        return both[0], bool(both[1])
+    return _host(norm), bool(_host(flag) if torch.is_tensor(flag) else flag)
+
+
 # ---------------------------------------------------------------------------
 # solver base
 # ---------------------------------------------------------------------------
@@ -210,9 +221,11 @@ class Solver:
     def computes_residual(self) -> bool:
         return True
 
-    def breakdown(self, state) -> bool:
-        """Has the recurrence broken down (read with health_guards)?"""
-        return bool(state.get("breakdown", False))
+    def breakdown(self, state):
+        """Has the recurrence broken down (read with health_guards)? A
+        host bool or a 0-dim device bool: the solve loop moves it to the host
+        together with the monitored norm."""
+        return state.get("breakdown", False)
 
     def internal_res_norm(self, state):
         """A host residual-norm estimate the solver maintains (FGMRES's
@@ -231,6 +244,12 @@ class Solver:
         for _ in range(self.max_iters):
             st = self.solve_iteration(data, rhs, st)
         return st["x"]
+
+    def apply_dot(self, data, rhs):
+        """(apply(rhs), x.rhs) when the application's last kernel can
+        emit the dot as an epilogue, else (apply(rhs), None) and the
+        caller reduces explicitly. PCG reads it as r.z."""
+        return self.apply(data, rhs), None
 
     # -- the driver --------------------------------------------------------
     def run_loop(self, data, b, x0):
@@ -261,7 +280,9 @@ class Solver:
             if rn is None:
                 r = state["r"] if self.computes_residual() \
                     else _residual(A, state["x"], b)
-                rn = _host(self._norm(r))
+                rn = self._norm(r)
+            rn, broken = _host_norm_flag(
+                rn, self.breakdown(state) if self.health_guards else False)
             rn = np.asarray(rn, norm0.dtype)
             res_norm = rn
             hist[iters] = rn
@@ -278,7 +299,7 @@ class Solver:
                 status_now = int(S.DIVERGED)
             if self.health_guards and not np.all(np.isfinite(rn)):
                 status_now = int(S.NAN_DETECTED)
-            if self.health_guards and self.breakdown(state):
+            if self.health_guards and broken:
                 status_now = int(S.BREAKDOWN)
             if conv.check(rn, norm0):
                 status_now = int(S.CONVERGED)

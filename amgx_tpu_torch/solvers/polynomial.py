@@ -101,8 +101,20 @@ class ChebyshevPolySolver(Solver):
         return fused.fused_smooth_restrict(
             data, b, x, self._fused_taus(data, sweeps), xfer)
 
-    def smooth_corr(self, data, b, x, xc, sweeps: int, xfer):
+    def smooth_corr(self, data, b, x, xc, sweeps: int, xfer,
+                    want_dot: bool = False):
         if sweeps < 1 or not self.fused_smoother:
             return None
         return fused.fused_corr_smooth(
-            data, b, x, xc, self._fused_taus(data, sweeps), xfer)
+            data, b, x, xc, self._fused_taus(data, sweeps), xfer,
+            want_dot=want_dot)
+
+    def fused_tail_spec(self, data, sweeps: int, dtype):
+        """(taus, dinv=None): the tiled damping schedule of `sweeps`
+        applications for the coarse-tail kernel, or None when this
+        smoother does not ride it."""
+        if not self.fused_smoother:
+            return None
+        if sweeps <= 0:
+            return data["taus"].new_zeros(0, dtype=dtype), None
+        return self._fused_taus(data, sweeps).to(dtype), None

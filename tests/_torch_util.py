@@ -56,23 +56,32 @@ def csr_arrays(A):
             "num_cols": A.num_cols, "grid_shape": A.grid_shape}
 
 
+def _np_or_none(v):
+    return None if v is None else np.asarray(v)
+
+
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
-    layout amgx_tpu_torch.interop.hierarchy_from_numpy takes."""
+    layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
+    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), and
+    DENSE_LU's explicit inverse when the JAX package built one."""
     amg = amg_solver.amg
     data = amg_solver.solve_data()["amg"]
     levels = []
     for i, lv in enumerate(amg.levels):
         d = csr_arrays(lv.A)
+        smd = data["levels"][i]["smoother"]
         d.update(aggregates=np.asarray(lv.aggregates),
                  coarse_size=lv.coarse_size, geo_axes=lv.geo_axes,
                  geo_fine_shape=lv.geo_fine_shape,
                  geo_coarse_shape=lv.geo_coarse_shape,
-                 taus=np.asarray(data["levels"][i]["smoother"]["taus"]))
+                 taus=_np_or_none(smd.get("taus")),
+                 dinv=_np_or_none(smd.get("dinv")))
         levels.append(d)
     coarse = csr_arrays(amg.coarsest_A)
-    coarse.update(qt=np.asarray(data["coarse"]["qt"]),
-                  r=np.asarray(data["coarse"]["r"]))
+    cd = data["coarse"]
+    coarse.update(qt=np.asarray(cd["qt"]), r=np.asarray(cd["r"]),
+                  inv=_np_or_none(cd.get("inv")))
     return levels, coarse
 
 

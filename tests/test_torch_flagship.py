@@ -1,8 +1,10 @@
 """The port's main path end to end on the CPU: the flagship solve
-(REFINEMENT f64 around f32 FGMRES + GEO-aggregation AMG, coarse tail
-off) in amgx_tpu_torch against the JAX package, at 16^3 (levels 4096 ->
-512 -> 64) and 32^3 (32768 -> 4096 -> 512 -> 64); the inner FGMRES + AMG
-solve alone; and the shipped configs parsing in the port's Config."""
+(REFINEMENT f64 around f32 FGMRES + GEO-aggregation AMG) with the coarse
+tail off in amgx_tpu_torch against the JAX package, at 16^3 (levels 4096
+-> 512 -> 64) and 32^3 (32768 -> 4096 -> 512 -> 64); the inner FGMRES +
+AMG solve alone; the tail on against off and where the cycle enters it
+(the untouched FLAGSHIP against the JAX package is in test_torch_tail.py);
+and the shipped configs parsing in the port's Config."""
 import glob
 import os
 
@@ -111,16 +113,19 @@ def test_inner_fgmres_iterations(n):
     assert rp.iterations == rj.iterations
 
 
-def test_tail_on_composes_per_level_on_cpu():
-    """FLAGSHIP itself asks for the coarse tail; on the CPU the port
-    composes per level like the JAX package does off the TPU, so the
-    result equals the tail-off run exactly."""
+def test_tail_on_matches_tail_off_on_cpu():
+    """FLAGSHIP runs every inner cycle at 16^3 as one coarse tail (B5's
+    plain twin on the CPU); with the tail off the same cycle composes
+    per level. Same arithmetic, other rounding: same outer iterations and
+    x within 1e-5."""
     out = []
     for cfg in (FLAGSHIP, FLAGSHIP_TAIL_OFF):
         ps = pt.create_solver(Config.from_string(cfg), device="cpu")
-        ps.setup(pt.gallery.poisson("7pt", 8, 8, 8, device="cpu"))
-        out.append(ps.solve(torch.ones(512, dtype=torch.float64)).x)
-    assert torch.equal(out[0], out[1])
+        ps.setup(pt.gallery.poisson("7pt", 16, 16, 16, device="cpu"))
+        out.append(ps.solve(torch.ones(16 ** 3, dtype=torch.float64)))
+    assert out[0].status == out[1].status == "success"
+    assert out[0].iterations == out[1].iterations
+    assert rel(out[0].x, out[1].x) <= X_TOL
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -143,25 +148,32 @@ def test_eigen_config_parses(name):
     assert cfg.values == ref.values
 
 
-@pytest.mark.parametrize("tail_rows,fusion,refused", [
-    (65536, 1, True), (0, 1, False), (65536, 0, False)])
-def test_cuda_hierarchy_refuses_the_coarse_tail(tail_rows, fusion, refused):
-    """A float32 hierarchy on a CUDA device that admits a level into the
-    (unported) coarse-tail kernel is refused, naming B5. The hierarchy is
-    a stand-in: only the devices, dtypes and row counts are read."""
-    from types import SimpleNamespace
-    from amgx_tpu_torch.amg.hierarchy import AMG
-    amg = AMG(Config.from_string(
-        f"cycle_fusion={fusion}, cycle_fusion_tail_rows={tail_rows}"))
-    amg.levels = [SimpleNamespace(A=SimpleNamespace(num_rows=n))
-                  for n in (32768, 4096)]
-    amg.coarsest_A = SimpleNamespace(device=torch.device("cuda"),
-                                     dtype=torch.float32, num_rows=512)
-    if refused:
-        with pytest.raises(NotImplementedError, match="B5"):
-            amg._refuse_coarse_tail()
-    else:
-        amg._refuse_coarse_tail()
+@pytest.mark.parametrize("tail_rows,fusion,entry", [
+    (65536, 1, 0), (600, 1, 1), (0, 1, None), (65536, 0, None)])
+def test_coarse_tail_entry_level(monkeypatch, tail_rows, fusion, entry):
+    """A float32 cycle on the 16^3 hierarchy (4096 -> 512 -> 64 rows)
+    enters the coarse tail at the first level of at most
+    cycle_fusion_tail_rows rows, on the CPU as on the card; with the
+    threshold 0 or cycle_fusion=0 it composes per level."""
+    from amgx_tpu_torch.ops import cuda_tail
+    entered = []
+    real = cuda_tail.dia_coarse_tail
+
+    def spy(spec, arrs, b, x, with_dot=False):
+        entered.append(spec.levels[0].n)
+        return real(spec, arrs, b, x, with_dot)
+
+    monkeypatch.setattr(cuda_tail, "dia_coarse_tail", spy)
+    ps = pt.create_solver(Config.from_string(
+        INNER + f", amg:cycle_fusion_tail_rows={tail_rows},"
+        f" amg:cycle_fusion={fusion}"), device="cpu")
+    ps.setup(pt.gallery.poisson("7pt", 16, 16, 16, dtype=torch.float32,
+                                device="cpu"))
+    amg = ps.preconditioner.amg
+    b = torch.ones(16 ** 3, dtype=torch.float32)
+    amg.cycle(amg.solve_data(), b, torch.zeros_like(b))
+    rows = amg.level_rows()
+    assert entered == ([] if entry is None else [rows[entry]])
 
 
 @pytest.mark.parametrize("option", ["amg_precision=float", "cycle=CG"])

@@ -190,6 +190,11 @@ def test_transfer_tables_match_jax_child_slab():
 
 
 def test_unported_modes_raise():
+    """B2's x.b epilogue, B3's weighted rows and B6's streamed-operand /
+    self-dot variant (BiCGStab's) are not ported: the wrappers raise
+    before any launch, whatever the device (here tensors on the meta
+    device, which no kernel route takes)."""
+    from amgx_tpu_torch.ops import cuda_krylov as KK
     _, Ap, _, nc, b, x, _, xc, xfer = _case((8, 8, 8), np.float32)
     args = (*_port(Ap), _t(TAUS.astype(np.float32)), _t(b), _t(x))
     with pytest.raises(NotImplementedError):
@@ -197,7 +202,13 @@ def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         K.dia_smooth_restrict(*args, xfer["ctab"], weights=_t(b))
     with pytest.raises(NotImplementedError):
-        K.dia_prolong_smooth(*args, _t(xc), xfer["agg"], with_dot=True)
+        K.dia_prolong_smooth(*args, _t(xc), xfer["agg"], weights=_t(b))
+    p = torch.empty(512, device="meta")
+    beta = torch.empty((), device="meta")
+    for mode in ({"d": p}, {"self_dot": True}):
+        with pytest.raises(NotImplementedError):
+            KK.dia_spmv_dot(Ap.dia_vals.to("meta"), Ap.dia_offsets, p, p,
+                            beta, **mode)
 
 
 def test_launch_checks_refuse_what_the_kernel_cannot_take():

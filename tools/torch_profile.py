@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time goes in one flagship solve of the PyTorch/CUDA port.
+"""Where the time goes in one solve of the PyTorch/CUDA port.
 
-    python3 tools/torch_profile.py [--size 128] [--cycle-fusion 1]
+    python3 tools/torch_profile.py [--config flagship|tail-off|pcg]
+                                   [--size 128] [--cycle-fusion 1]
+                                   [--krylov-fusion 1]
 
-Sets up FLAGSHIP with the coarse tail off (amgx_tpu_torch.presets
-FLAGSHIP_TAIL_OFF) on a 7-pt size^3 Poisson system on the CUDA card,
-runs one warm-up solve, then profiles one solve with torch.profiler.
-Prints one JSON line: the solve's wall time, the device's busy time
-(sum of kernel and copy durations, one stream) and idle share, kernel
-launches and device->host copies per inner iteration, and the device
-time by kernel name, largest first. Needs a CUDA card; imports no JAX.
+Configurations: `flagship` is the untouched FLAGSHIP preset (its inner
+V-cycle enters the coarse-tail kernel B5 at the first level of at most
+65536 rows), `tail-off` is FLAGSHIP_TAIL_OFF (every level through the
+per-level kernels B3/B4), `pcg` is PCG + GEO aggregation + JACOBI_L1 in
+float32 (the repo's PCG anchor, bench.py bench_krylov). Sets the solver
+up on a 7-pt size^3 Poisson system on the CUDA card, runs one warm-up
+solve, then profiles one solve with torch.profiler. Prints one JSON
+line: the solve's wall time, the device's busy time (sum of kernel and
+copy durations, one stream) and idle share, device ops and
+device->host copies per inner iteration (FGMRES's for the flagship,
+PCG's own), and the device time by kernel name, largest first. Needs a
+CUDA card; imports no JAX.
 """
 import argparse
 import json
@@ -20,11 +27,21 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+PCG = ("solver=PCG, max_iters=80, monitor_residual=1, tolerance=1e-8,"
+       " convergence=RELATIVE_INI, norm=L2, preconditioner(amg)=AMG,"
+       " amg:algorithm=AGGREGATION, amg:selector=GEO,"
+       " amg:smoother=JACOBI_L1, amg:relaxation_factor=0.75,"
+       " amg:presweeps=1, amg:postsweeps=2, amg:max_iters=1, amg:cycle=V,"
+       " amg:max_levels=10, amg:min_coarse_rows=32")
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "tail-off", "pcg"))
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--cycle-fusion", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     import torch
@@ -33,14 +50,20 @@ def main():
         print("torch_profile: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
     import amgx_tpu_torch as amgx
-    from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
+    from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
 
     n = args.size
     dev = torch.device("cuda", 0)
-    cfg = FLAGSHIP_TAIL_OFF + f", amg:cycle_fusion={args.cycle_fusion}"
+    base = {"flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
+            "pcg": PCG}[args.config]
+    cfg = base + f", amg:cycle_fusion={args.cycle_fusion}"
+    dtype = torch.float64
+    if args.config == "pcg":
+        cfg += f", krylov_fusion={args.krylov_fusion}"
+        dtype = torch.float32
     slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
-    slv.setup(amgx.gallery.poisson("7pt", n, n, n, device=dev))
-    b = torch.ones(n ** 3, dtype=torch.float64, device=dev)
+    slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
+    b = torch.ones(n ** 3, dtype=dtype, device=dev)
     slv.solve(b)                                   # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -65,11 +88,14 @@ def main():
         ent = by_name.setdefault(ev.name, [0.0, 0])
         ent[0] += dur
         ent[1] += 1
-    inner = int(res.extra_stats["inner_iters"])
+    inner = int(res.extra_stats["inner_iters"]) if res.extra_stats \
+        else res.iterations
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     print(json.dumps({
-        "phase": "profile", "rows": n ** 3,
+        "phase": "profile", "config": args.config, "rows": n ** 3,
         "cycle_fusion": args.cycle_fusion,
+        "krylov_fusion": args.krylov_fusion if args.config == "pcg"
+        else None,
         "device": torch.cuda.get_device_name(0),
         "outer_iterations": res.iterations, "inner_iterations": inner,
         "wall_s": wall, "device_busy_s": busy_us * 1e-6,
