@@ -25,8 +25,9 @@ __all__ = ["Config", "CsrMatrix", "SolveStatus", "create_solver", "gallery",
 
 
 def kernel_launches() -> dict:
-    """Launches of each CUDA kernel since the last reset, by name (B1-B7:
-    ops/cuda_spmv.py, ops/cuda_krylov.py, ops/cuda_tail.py)."""
+    """Launches of each CUDA kernel since the last reset, by name (B1-B10:
+    ops/cuda_spmv.py, ops/cuda_krylov.py, ops/cuda_tail.py,
+    ops/cuda_csr.py, ops/cuda_rap.py)."""
     return dict(_LAUNCHES)
 
 

@@ -5,13 +5,21 @@ selector's aggregates, the Galerkin coarse operator, and the smoother
 (set up as soon as its level exists). The coarsest operator gets the
 coarse solver (DENSE_LU by default). The cycle's coarse-tail plans
 (ops/smooth.py `coarse_tail_cycle`) are cached per hierarchy and dropped
-at setup. Not ported yet: structure reuse on resetup, the matrix-free
-detector, telemetry and reduced-precision hierarchies (`amg_precision`
-other than double).
+at setup.
+
+`amg_precision=float` (mixed-precision preconditioning): the hierarchy
+is built in the operator's dtype; `solve_data` casts every floating leaf
+of the level data to float32 and the coarse-solver subtree to the
+policy's coarse dtype, once per setup (memoized by leaf), and `cycle`
+casts b and x in and the result back. Such a cycle declines the
+cycle-borne dot. Not ported yet: bfloat16 hierarchies, structure reuse
+on resetup, the matrix-free detector and telemetry.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from .. import registry
 from ..config import Config
@@ -88,12 +96,11 @@ class AMG:
             cfg.get("cycle_fusion_tail_rows", scope))
         self.intensive_smoothing = bool(cfg.get("intensive_smoothing",
                                                 scope))
-        precision = resolve_precision(cfg, scope).name
-        if precision != "double":
+        self.precision_policy = resolve_precision(cfg, scope)
+        if self.precision_policy.name == "bfloat16":
             raise NotImplementedError(
-                f"amg_precision={precision} is not ported yet (the "
-                f"hierarchy keeps the operator's dtype; REFINEMENT gives "
-                f"the f32 cycle)")
+                "amg_precision=bfloat16 is not ported yet (double and "
+                "float are)")
         if self.cycle_name not in ("V", "W", "F"):
             raise NotImplementedError(
                 f"cycle={self.cycle_name} is not ported yet (V, W, F are)")
@@ -102,11 +109,14 @@ class AMG:
         self.coarsest_A: Optional[CsrMatrix] = None
         # (shape, entry level, dtype, device) -> coarse-tail plan
         self._tail_plans: Dict[tuple, Any] = {}
+        # id(leaf) -> (leaf, cast twin): the reduced-precision solve data
+        self._cast_memo: Dict[int, tuple] = {}
 
     # -- setup -----------------------------------------------------------
     def setup(self, A: CsrMatrix):
         self.levels = []
         self._tail_plans = {}
+        self._cast_memo = {}
         self._build_levels(A if A.initialized else A.init(), 0)
         self._finalize_setup()
         return self
@@ -159,8 +169,33 @@ class AMG:
 
     # -- solve -------------------------------------------------------------
     def solve_data(self) -> Dict[str, Any]:
-        return {"levels": [lv.level_data() for lv in self.levels],
+        data = {"levels": [lv.level_data() for lv in self.levels],
                 "coarse": self.coarse_solver.solve_data()}
+        dt = self.precision_policy.cast_dtype
+        if dt is None:
+            return data
+        return {"levels": self._cast(data["levels"], dt),
+                "coarse": self._cast(data["coarse"],
+                                     self.precision_policy.coarse_dtype)}
+
+    def _cast(self, tree, dtype):
+        """`tree` with every floating tensor (and CsrMatrix) in `dtype`;
+        each leaf is cast once per setup."""
+        if isinstance(tree, dict):
+            return {k: self._cast(v, dtype) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._cast(v, dtype) for v in tree)
+        floating = isinstance(tree, CsrMatrix) or (
+            torch.is_tensor(tree) and tree.is_floating_point())
+        if not floating or tree.dtype == dtype:
+            return tree
+        key = (id(tree), dtype)
+        hit = self._cast_memo.get(key)
+        if hit is None or hit[0] is not tree:
+            hit = self._cast_memo[key] = (tree, tree.astype(dtype)
+                                          if isinstance(tree, CsrMatrix)
+                                          else tree.to(dtype))
+        return hit[1]
 
     def _sweeps(self, level_index: int, pre: bool) -> int:
         s = self.presweeps if pre else self.postsweeps
@@ -171,14 +206,23 @@ class AMG:
         return s
 
     def cycle(self, data, b, x):
-        """One multigrid cycle."""
+        """One multigrid cycle; a reduced-precision hierarchy computes it
+        in its dtype and returns the result in the caller's."""
         from .cycles import run_cycle
-        return run_cycle(self, self.cycle_name, data, b, x)
+        dt = self.precision_policy.cast_dtype
+        if dt is None:
+            return run_cycle(self, self.cycle_name, data, b, x)
+        out = run_cycle(self, self.cycle_name, data, b.to(dt), x.to(dt))
+        return out.to(x.dtype)
 
     def cycle_dot(self, data, b, x):
         """One cycle plus x'.b from its last kernel: (x', dot), dot None
-        when the cycle cannot carry it."""
+        when the cycle cannot carry it. A reduced-precision cycle
+        declines: its epilogue would reduce the rounded product while the
+        caller needs x'.b in its own dtype."""
         from .cycles import run_cycle_dot
+        if self.precision_policy.cast_dtype is not None:
+            return self.cycle(data, b, x), None
         return run_cycle_dot(self, self.cycle_name, data, b, x)
 
     def level_rows(self) -> List[int]:

@@ -293,6 +293,28 @@ def _register_default_parameters():
       "one kernel, the x/r updates and the monitor's r.r as a second, and "
       "PCG's r.z rides the cycle's last kernel; 0 composes the unfused "
       "SpMV and vector operations", 1, BOOL01)
+    # setup placement and the Galerkin plan (the JAX package's values and
+    # defaults; what each one means in the port)
+    R("spgemm_plan", str, "plan-split Galerkin RAP (ops/spgemm.py): the "
+      "structure phase runs once per level on the operator's device, the "
+      "value phase through the RAP value kernel (float32) or the plain "
+      "ordered sums; 0 = the eager (R A) P composition",
+      "auto", ("auto", "0", "1"))
+    R("setup_backend", str, "where the AMG setup runs; the port always "
+      "builds the hierarchy on the operator's device (the JAX package's "
+      "`device`), so every value is accepted and means that",
+      "auto", ("auto", "device", "host"))
+    R("amg_host_setup", str, "the JAX package's host-CPU hierarchy build "
+      "for remote accelerators; accepted, inert in the port (its setup "
+      "runs where the operator lives)", "auto",
+      {"auto", "always", "never"})
+    R("setup_device_min_rows", int, "setup_backend=device: levels below "
+      "this many rows may take host fast paths in the JAX package; "
+      "accepted, inert in the port", 0, None, 0)
+    R("selector_device_sweep", str, "RS/HMIS first-pass implementation "
+      "in the JAX package; accepted, inert in the port (its PMIS split is "
+      "identical on every device, RS/HMIS are not ported)",
+      "auto", ("auto", "0", "1"))
     # resilience (solve-loop status classification)
     R("health_guards", int, "NaN/breakdown guards in the solve loop "
       "(status classification rides the existing residual check; 0 "

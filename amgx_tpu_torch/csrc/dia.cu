@@ -31,6 +31,15 @@
 // x + xc[agg] on the fly instead of storing x + P xc. B4's x'.b epilogue
 // (PCG's r.z) rides the last step's launch: block partials added in a
 // fixed order by the last block, no float atomics (common.cuh).
+//
+// Weighted transfer rows (classical AMG's general-CSR P and R = P^T, the
+// `weighted=` forms of the TPU kernels): the restriction epilogue weighs
+// each child, bc[c] = sum_j cwt[j, c] * r[ctab[j, c]] (R's rows hold up to
+// 32 entries against an aggregate's 8, so a coarse row costs more
+// recomputed residuals), and the prolongation prologue reads
+// x_j + sum_t pwt[t, j] * xc[ptab[t, j]] at every neighbour j (P's rows
+// hold up to interp_max_elements entries). Templates keep the
+// unit-weight kernels unchanged.
 #include "common.cuh"
 
 namespace {
@@ -80,20 +89,46 @@ dia_residual_kernel(const float* __restrict__ vals,
 // bc[c] = sum_j r[ctab[j, c]] with r = b - A x recomputed at each child:
 // one thread per coarse row, a fixed summation order, no atomics, and r
 // never written to memory.
+// With kWeighted, child j of coarse row c carries the weight cwt[j, c].
+template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 dia_restrict_kernel(const float* __restrict__ vals,
                     const float* __restrict__ b, const float* __restrict__ x,
-                    const int* __restrict__ ctab, int m, int nc,
+                    const int* __restrict__ ctab,
+                    const float* __restrict__ cwt, int m, int nc,
                     float* __restrict__ bc, int n, Offsets of) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   float acc = 0.0f;
   for (int j = 0; j < m; ++j) {
-    const int f = ctab[static_cast<size_t>(j) * nc + c];
-    if (f >= 0) acc += b[f] - dia_row(vals, PlainX{x}, n, f, of);
+    const size_t s = static_cast<size_t>(j) * nc + c;
+    const int f = ctab[s];
+    if (f < 0) continue;
+    const float r = b[f] - dia_row(vals, PlainX{x}, n, f, of);
+    acc += kWeighted ? cwt[s] * r : r;
   }
   bc[c] = acc;
 }
+
+// x as B4's weighted prologue reads it: x_j + (P xc)_j through the
+// (mp, n) tables of P's rows, -1 / 0 past a row's end.
+struct WeightedX {
+  const float* __restrict__ x;
+  const float* __restrict__ xc;
+  const int* __restrict__ ptab;
+  const float* __restrict__ pwt;
+  int mp;
+  int n;
+  __device__ __forceinline__ float operator()(int j) const {
+    float corr = 0.0f;
+    for (int t = 0; t < mp; ++t) {
+      const size_t s = static_cast<size_t>(t) * n + j;
+      const int q = ptab[s];
+      if (q >= 0) corr += pwt[s] * xc[q];
+    }
+    return x[j] + corr;
+  }
+};
 
 template <class XR, bool kHasDinv>
 void launch_step_kernel(const float* vals, const float* dinv,
@@ -136,22 +171,30 @@ int amgx_dia_spmv(const float* vals, const float* x, float* y, int n,
 }
 
 // One smoothing application (B2-B4): out = x + (taus[t] * (b - A x)) *
-// dinv, with dinv optional (nullptr) and, when xc and agg are given, x
-// read as x + xc[agg] (B4's prolongation prologue). When dot is given,
-// *dot = out.b (B4's epilogue) through `partials` (one float per block
-// of 256 rows) and `counter` (zero on entry, left zero).
+// dinv, with dinv optional (nullptr) and x read as x + xc[agg] when xc
+// and agg are given, or as x + P xc through the (mp, n) tables ptab /
+// pwt when xc and ptab are (B4's prolongation prologue, unit or
+// weighted). When dot is given, *dot = out.b (B4's epilogue) through
+// `partials` (one float per block of 256 rows) and `counter` (zero on
+// entry, left zero).
 int amgx_dia_step(const float* vals, const float* dinv, const float* taus,
                   int t, const float* b, const float* x, const float* xc,
-                  const int* agg, float* out, int n, const int* offs, int k,
+                  const int* agg, const int* ptab, const float* pwt, int mp,
+                  float* out, int n, const int* offs, int k,
                   float* partials, unsigned int* counter, float* dot,
                   cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
-  if ((xc == nullptr) != (agg == nullptr)) return -1;
+  if ((xc == nullptr) != (agg == nullptr && ptab == nullptr)) return -1;
+  if (agg != nullptr && ptab != nullptr) return -1;
+  if (ptab != nullptr && (pwt == nullptr || mp < 1)) return -1;
   if (dot != nullptr && (partials == nullptr || counter == nullptr))
     return -1;
   const DotOut d{partials, counter, dot};
-  if (xc != nullptr) {
+  if (ptab != nullptr) {
+    launch_step(vals, dinv, taus, t, b, WeightedX{x, xc, ptab, pwt, mp, n},
+                out, n, of, d, stream);
+  } else if (xc != nullptr) {
     launch_step(vals, dinv, taus, t, b, CorrectedX{x, xc, agg}, out, n, of,
                 d, stream);
   } else {
@@ -172,14 +215,21 @@ int amgx_dia_residual(const float* vals, const float* b, const float* x,
 }
 
 // B3's restriction epilogue: bc = R (b - A x) through the child table
-// ctab (m, nc), -1 where a coarse row has fewer than m children.
+// ctab (m, nc), -1 where a coarse row has fewer than m children, each
+// child weighted by cwt (m, nc) when it is given (else unit weights).
 int amgx_dia_restrict(const float* vals, const float* b, const float* x,
-                      const int* ctab, int m, int nc, float* bc, int n,
-                      const int* offs, int k, cudaStream_t stream) {
+                      const int* ctab, const float* cwt, int m, int nc,
+                      float* bc, int n, const int* offs, int k,
+                      cudaStream_t stream) {
   Offsets of;
   if (n < 1 || nc < 1 || m < 1 || !fill_offsets(offs, k, &of)) return -1;
-  dia_restrict_kernel<<<blocks_for(nc), kThreads, 0, stream>>>(
-      vals, b, x, ctab, m, nc, bc, n, of);
+  if (cwt != nullptr) {
+    dia_restrict_kernel<true><<<blocks_for(nc), kThreads, 0, stream>>>(
+        vals, b, x, ctab, cwt, m, nc, bc, n, of);
+  } else {
+    dia_restrict_kernel<false><<<blocks_for(nc), kThreads, 0, stream>>>(
+        vals, b, x, ctab, cwt, m, nc, bc, n, of);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .amg.aggregation import AggregationAMGLevel
+from .amg.classical import ClassicalAMGLevel
 from .amg.hierarchy import AMG
 from .config import Config
 from .device import resolve_device
@@ -37,29 +38,51 @@ def _matrix(d: dict, device) -> CsrMatrix:
                              d.get("grid_shape"), device)
 
 
+def _classical_level(d: dict, cfg, scope, i, device):
+    level = ClassicalAMGLevel(_matrix(d, device), cfg, scope, i)
+    level.cf_map = torch.tensor(np.asarray(d["cf_map"], np.int32),
+                                device=device)
+    level.coarse_size = int(d["coarse_size"])
+    level.P = _matrix(d["P"], device)
+    level.R = _matrix(d["R"], device)
+    xfer = d.get("xfer")
+    if xfer is not None:
+        level._xfer_memo = ({k: torch.tensor(np.asarray(v), device=device)
+                             for k, v in xfer.items()},)
+    return level
+
+
 def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
                          scope: str = "default", device=None) -> AMG:
-    """A set-up port AMG (aggregation levels) from per-level arrays.
+    """A set-up port AMG (aggregation or classical levels) from per-level
+    arrays.
 
     Each entry of `levels` holds the level operator's CSR arrays
     (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
-    optional `grid_shape`), its `aggregates` and `coarse_size`, the GEO
-    pairing (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
-    non-geometric levels) and the smoother's payload: CHEBYSHEV_POLY's
-    `taus`, or the Jacobi family's `dinv`. `coarse` holds the coarsest
-    operator's CSR arrays, its DENSE_LU factors `qt`, `r` and, when the
-    other implementation built one, the explicit inverse `inv` (the
-    coarse-tail kernel's coarsest solve). The smoother and coarse solver
-    named by `cfg` at `scope` are attached with these values instead of
-    being set up again.
+    optional `grid_shape`), its `coarse_size`, and the smoother's
+    payload: CHEBYSHEV_POLY's `taus`, or the Jacobi family's `dinv`. An
+    aggregation level adds its `aggregates` and the GEO pairing
+    (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
+    non-geometric levels). A classical level (one with `cf_map`) adds
+    `P` and `R` as CSR-array dicts and, optionally, its weighted
+    transfer tables `xfer` (`ctab`, `cwt`, `ptab`, `pwt` on the port's
+    layout; built from P and R when absent and cycle_fusion is on).
+    `coarse` holds the coarsest operator's CSR arrays, its DENSE_LU
+    factors `qt`, `r` and, when the other implementation built one, the
+    explicit inverse `inv` (the coarse-tail kernel's coarsest solve).
+    The smoother and coarse solver named by `cfg` at `scope` are
+    attached with these values instead of being set up again.
     """
     device = resolve_device(device)
     amg = AMG(cfg, scope)
     for i, d in enumerate(levels):
-        level = AggregationAMGLevel(_matrix(d, device), cfg, scope, i)
-        level.aggregates = torch.tensor(
-            np.asarray(d["aggregates"], np.int32), device=device)
-        level.coarse_size = int(d["coarse_size"])
+        if d.get("cf_map") is not None:
+            level = _classical_level(d, cfg, scope, i, device)
+        else:
+            level = AggregationAMGLevel(_matrix(d, device), cfg, scope, i)
+            level.aggregates = torch.tensor(
+                np.asarray(d["aggregates"], np.int32), device=device)
+            level.coarse_size = int(d["coarse_size"])
         if d.get("geo_axes") is not None:
             level.geo_axes = tuple(int(a) for a in d["geo_axes"])
             level.geo_fine_shape = tuple(int(e) for e in d["geo_fine_shape"])

@@ -43,6 +43,9 @@ B3 `dia_smooth_restrict` replaces `_dia_smooth_restrict_call`
    after the grid; Hopper blocks run in no order, so the epilogue is one
    thread per coarse row that walks its children and recomputes r at
    each -- deterministic, no atomics, r never stored. s + 1 launches.
+   With `weights` (cwt, (m, nc): classical AMG's R = P^T rows, the TPU
+   kernel's `weighted=` form) bc[c] = sum_j cwt[j, c] r[ctab[j, c]];
+   its launches count as "dia_smooth_restrict_w".
 
 B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    (pallas_spmv.py:1585): x <- x + xc[agg] folded into the first step's
@@ -51,11 +54,13 @@ B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    dot) from the last step's launch: each block writes its partial sum
    and the last block to finish adds them in block order -- one launch,
    deterministic, no float atomics. That launch counts as
-   "dia_prolong_smooth_dot".
+   "dia_prolong_smooth_dot". With `ptab`/`pwt` ((mp, n): classical AMG's
+   P rows, the TPU kernel's `weighted=` form) the first step reads
+   x_j + sum_t pwt[t, j] xc[ptab[t, j]] instead of x_j + xc[agg[j]]; its
+   launches count as "dia_prolong_smooth_w" (+ "_dot").
 
-Not ported here (the wrappers raise): bf16 operand slabs, B2's x.b dot
-epilogue (the JAX package has no caller for it), and B3/B4's weighted
-transfer rows (classical AMG's cwt / ptab / pwt).
+Not ported here (the wrappers raise): bf16 operand slabs and B2's x.b
+dot epilogue (the JAX package has no caller for it).
 """
 from __future__ import annotations
 
@@ -67,8 +72,11 @@ import torch
 
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
+            "dia_smooth_restrict_w": 0, "dia_prolong_smooth_w": 0,
+            "dia_prolong_smooth_w_dot": 0,
             "dia_spmv_dot": 0, "cg_update": 0, "dia_coarse_tail": 0,
-            "dia_coarse_tail_dot": 0}
+            "dia_coarse_tail_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
+            "rap_values": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -82,11 +90,11 @@ def _lib():
     from .cuda_build import library
     lib = library("dia.cu")
     lib.amgx_dia_spmv.argtypes = [_P, _P, _P, _I, _P, _I, _P]
-    lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                                  _P, _I, _P, _P, _P, _P]
+    lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                  _I, _P, _I, _P, _I, _P, _P, _P, _P]
     lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P]
-    lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _P,
-                                      _I, _P]
+    lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _I,
+                                      _P, _I, _P]
     for fn in (lib.amgx_dia_spmv, lib.amgx_dia_step, lib.amgx_dia_residual,
                lib.amgx_dia_restrict):
         fn.restype = _I
@@ -207,20 +215,37 @@ def dia_smooth_plain(vals, offsets, taus, b, x, dinv=None,
     return x
 
 
-def restrict_plain(ctab, r):
-    """bc[c] = sum_j r[ctab[j, c]] over the children present (>= 0)."""
+def restrict_plain(ctab, r, weights=None):
+    """bc[c] = sum_j weights[j, c] r[ctab[j, c]] over the children
+    present (>= 0); unit weights when `weights` is None."""
     g = r[ctab.clamp(min=0).long()]
+    if weights is not None:
+        g = g * weights
     return torch.where(ctab >= 0, g, torch.zeros_like(g)).sum(dim=0)
 
 
-def dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab, dinv=None):
+def prolong_plain(x, xc, agg=None, ptab=None, pwt=None):
+    """x + P xc: xc[agg] (unit weights), or sum_t pwt[t] xc[ptab[t]]
+    over each row's entries (ptab >= 0), added in entry order."""
+    if ptab is None:
+        return x + xc[agg.long()]
+    corr = torch.zeros_like(x)
+    for t in range(ptab.shape[0]):
+        g = pwt[t] * xc[ptab[t].clamp(min=0).long()]
+        corr = corr + torch.where(ptab[t] >= 0, g, torch.zeros_like(g))
+    return x + corr
+
+
+def dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab, dinv=None,
+                              weights=None):
     x, r = dia_smooth_plain(vals, offsets, taus, b, x, dinv, True)
-    return x, restrict_plain(ctab, r)
+    return x, restrict_plain(ctab, r, weights)
 
 
 def dia_prolong_smooth_plain(vals, offsets, taus, b, x, xc, agg,
-                             dinv=None, with_dot=False):
-    x = x + xc[agg.long()]
+                             dinv=None, with_dot=False, ptab=None,
+                             pwt=None):
+    x = prolong_plain(x, xc, agg, ptab, pwt)
     x = dia_smooth_plain(vals, offsets, taus, b, x, dinv, False)
     return (x, torch.dot(x, b)) if with_dot else x
 
@@ -246,24 +271,27 @@ def dia_spmv(vals, offsets, x):
 
 
 def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None,
-           dot=None):
+           dot=None, ptab=None, pwt=None):
     """Launch len(taus) damped steps, the last one writing `out`; the
-    first reads x (+ xc[agg] when given). With dot = (partials, result)
-    the last launch also writes out.b into result and counts under
-    name + "_dot". Returns `out`."""
+    first reads x (+ xc[agg], or + P xc through ptab / pwt, when given).
+    With dot = (partials, result) the last launch also writes out.b into
+    result and counts under name + "_dot". Returns `out`."""
     lib = _lib()
     n = x.shape[0]
     s = taus.shape[0]
     tmp = torch.empty_like(x) if s > 1 else None
     offs = _offsets_arg(tuple(offsets))
+    mp = 0 if ptab is None else ptab.shape[0]
     src = x
     for t in range(s):
         dst = out if (s - 1 - t) % 2 == 0 else tmp
         last_dot = dot is not None and t == s - 1
+        first = t == 0
         _launch(name + "_dot" if last_dot else name, lib.amgx_dia_step,
                 _ptr(vals), _ptr(dinv), _ptr(taus), t, _ptr(b), _ptr(src),
-                _ptr(xc) if t == 0 else None, _ptr(agg) if t == 0 else None,
-                _ptr(dst), n, offs, len(offsets),
+                _ptr(xc) if first else None, _ptr(agg) if first else None,
+                _ptr(ptab) if first else None, _ptr(pwt) if first else None,
+                mp, _ptr(dst), n, offs, len(offsets),
                 _ptr(dot[0]) if last_dot else None,
                 _ptr(dot_counter(x.device)) if last_dot else None,
                 _ptr(dot[1]) if last_dot else None, _stream())
@@ -309,44 +337,52 @@ def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
                         weights=None):
     """B3: B2's steps, then bc = R (b - A x') through the child table
-    ctab (m, nc). Returns (x', bc)."""
-    _not_ported("dia_smooth_restrict", weighted_transfer=weights is not None)
+    ctab (m, nc), weighted by `weights` (m, nc) when given. Returns
+    (x', bc)."""
     if x.device.type == "cpu":
         return dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab,
-                                         dinv)
+                                         dinv, weights)
     if ctab.dim() != 2:
         raise ValueError("dia_smooth_restrict: ctab must be (m, nc)")
     m, nc = ctab.shape
-    n = _check_smooth("dia_smooth_restrict", vals, offsets, taus, b, x, dinv,
+    name = "dia_smooth_restrict" if weights is None \
+        else "dia_smooth_restrict_w"
+    n = _check_smooth(name, vals, offsets, taus, b, x, dinv,
+                      floats={"weights": (weights, (m, nc))},
                       ints={"ctab": (ctab, (m, nc))})
     if m < 1 or nc < 1:
-        raise ValueError("dia_smooth_restrict: empty child table")
+        raise ValueError(f"{name}: empty child table")
     with torch.cuda.device(x.device):
-        out = _steps("dia_smooth_restrict", vals, offsets, taus, b, x,
-                     dinv, torch.empty_like(x))
+        out = _steps(name, vals, offsets, taus, b, x, dinv,
+                     torch.empty_like(x))
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
-        _launch("dia_smooth_restrict", _lib().amgx_dia_restrict,
-                _ptr(vals), _ptr(b), _ptr(out), _ptr(ctab), m, nc,
-                _ptr(bc), n, _offsets_arg(tuple(offsets)), len(offsets),
-                _stream())
+        _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
+                _ptr(out), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc), n,
+                _offsets_arg(tuple(offsets)), len(offsets), _stream())
     return out, bc
 
 
-def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg, dinv=None,
-                       weights=None, with_dot=False):
-    """B4: len(taus) damped steps from x + xc[agg] (the correction read
-    on the fly by the first step). Returns x', or (x', x'.b) with
-    `with_dot` (the dot a 0-dim float32 tensor on x's device)."""
-    _not_ported("dia_prolong_smooth", weighted_transfer=weights is not None)
+def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
+                       with_dot=False, ptab=None, pwt=None):
+    """B4: len(taus) damped steps from x + P xc, the correction read on
+    the fly by the first step: xc[agg] (aggregation), or the weighted
+    rows ptab / pwt (mp, n) of a general P. Returns x', or (x', x'.b)
+    with `with_dot` (the dot a 0-dim float32 tensor on x's device)."""
+    if (agg is None) == (ptab is None) or (ptab is None) != (pwt is None):
+        raise ValueError("dia_prolong_smooth: give agg, or ptab and pwt")
     if x.device.type == "cpu":
         return dia_prolong_smooth_plain(vals, offsets, taus, b, x, xc, agg,
-                                        dinv, with_dot)
+                                        dinv, with_dot, ptab, pwt)
     n = x.shape[0]
-    _check_smooth("dia_prolong_smooth", vals, offsets, taus, b, x, dinv,
-                  floats={"xc": (xc, (xc.shape[0],))},
-                  ints={"agg": (agg, (n,))})
+    name = "dia_prolong_smooth" if ptab is None else "dia_prolong_smooth_w"
+    mp = 0 if ptab is None else ptab.shape[0]
+    _check_smooth(name, vals, offsets, taus, b, x, dinv,
+                  floats={"xc": (xc, (xc.shape[0],)),
+                          "pwt": (pwt, (mp, n))},
+                  ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))})
     with torch.cuda.device(x.device):
         dot = dot_scratch(n, x.device) if with_dot else None
-        out = _steps("dia_prolong_smooth", vals, offsets, taus, b, x, dinv,
-                     torch.empty_like(x), xc=xc, agg=agg, dot=dot)
+        out = _steps(name, vals, offsets, taus, b, x, dinv,
+                     torch.empty_like(x), xc=xc, agg=agg, dot=dot,
+                     ptab=ptab, pwt=pwt)
     return (out, dot[1]) if with_dot else out

@@ -5,16 +5,19 @@ kernel on the card, its plain twin on the CPU. Every other dtype takes
 the plain PyTorch form on any device, because the JAX package routes
 everything but float32 to XLA too (`dia_spmv_supported`,
 amgx_tpu/ops/pallas_spmv.py:143): REFINEMENT's f64 outer residual is
-the case on the flagship path. Matrices without a DIA view run a plain
-CSR gather + scatter-add. `spmv_pdot` (the Krylov shell's direction
-update + SpMV + dot) routes the same way through B6.
+the case on the flagship path. Matrices without a DIA view (classical coarse
+operators, P and R) go through B8 (`cuda_csr.csr_spmv`) in float32, as
+the JAX package sends its SWELL layout through `_swell_spmv_call`, and
+through the plain CSR gather + scatter-add otherwise. `spmv_pdot` (the
+Krylov shell's direction update + SpMV + dot) routes the same way
+through B6.
 """
 from __future__ import annotations
 
 import torch
 
 from ..matrix import CsrMatrix
-from . import cuda_krylov, cuda_spmv
+from . import cuda_csr, cuda_krylov, cuda_spmv
 
 
 def _check(A: CsrMatrix, x: torch.Tensor):
@@ -32,9 +35,11 @@ def spmv_dia(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_csr(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    rows, cols, vals = A.coo()
-    y = torch.zeros(A.num_rows, dtype=x.dtype, device=x.device)
-    return y.index_add_(0, rows, vals * x[cols.long()])
+    if x.dtype == torch.float32 and A.values.dtype == torch.float32:
+        return cuda_csr.csr_spmv(A.row_offsets, A.col_indices, A.values, x,
+                                 lanes=A.csr_lanes or 1)
+    return cuda_csr.csr_spmv_plain(A.row_offsets, A.col_indices,
+                                   A.values.to(x.dtype), x)
 
 
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from .errors import BadConfigurationError
+
+PRECISION_DTYPES = {"double": None, "float": torch.float32,
+                    "bfloat16": torch.bfloat16}
 
 _TPU_DTYPE_ALIASES = {"float64": "double", "float32": "float",
                       "bfloat16": "bfloat16"}
@@ -28,6 +33,19 @@ class PrecisionPolicy:
     name: str               # effective precision: double|float|bfloat16
     source: str             # the knob that decided, or "default"
     solve_precision: str    # the raw solve_precision knob ("" = unset)
+
+    @property
+    def cast_dtype(self):
+        """The dtype the hierarchy LEVELS' solve data is cast to (None:
+        keep the operator's)."""
+        return PRECISION_DTYPES[self.name]
+
+    @property
+    def coarse_dtype(self):
+        """The dtype of the coarse-solver subtree: float32 or wider, the
+        dense solve never runs below float32."""
+        c = self.cast_dtype
+        return torch.float32 if c == torch.bfloat16 else c
 
 
 def _explicit(cfg, name: str, scope: str):

@@ -36,6 +36,9 @@ class Factory:
                 f"{did_you_mean(name.upper(), self._ctors)}; "
                 f"registered: {sorted(self._ctors)}") from None
 
+    def has(self, name: str) -> bool:
+        return name.upper() in self._ctors
+
     def create(self, name: str, *args, **kwargs):
         return self.get(name)(*args, **kwargs)
 
@@ -44,3 +47,6 @@ solvers = Factory("Solver")
 amg_levels = Factory("AMG_Level")
 aggregation_selectors = Factory("AggregationSelector")
 convergence = Factory("Convergence")
+strength = Factory("Strength")
+classical_selectors = Factory("ClassicalSelector")
+interpolators = Factory("Interpolator")

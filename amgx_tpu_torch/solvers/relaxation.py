@@ -15,6 +15,7 @@ import torch
 
 from .. import registry
 from ..ops import smooth as fused
+from ..ops.segment import segment_sum
 from ..ops.spmv import spmv
 from .base import Solver
 
@@ -25,22 +26,16 @@ def safe_recip(d):
                        1.0 / torch.where(d == 0, torch.ones_like(d), d))
 
 
-def _diagonal(A):
-    rows, cols, vals = A.coo()
-    on = rows == cols.long()
-    return torch.zeros(A.num_rows, dtype=A.dtype, device=A.device) \
-        .index_add_(0, rows[on], vals[on])
-
-
 def l1_strengthened_diag(A):
     """The diagonal strengthened by the off-diagonal row L1 norm in the
-    diagonal's sign (jacobi_l1_solver.cu); zero diagonals stay zero."""
+    diagonal's sign (jacobi_l1_solver.cu); zero diagonals stay zero. The
+    row sums are ordered (ops/segment.py), so dinv has the same bits on
+    the CPU and on the card, run after run."""
     rows, cols, vals = A.coo()
     off = torch.where(rows != cols.long(), vals.abs(),
                       torch.zeros_like(vals))
-    l1 = torch.zeros(A.num_rows, dtype=A.dtype, device=A.device) \
-        .index_add_(0, rows, off)
-    d = _diagonal(A)
+    l1 = segment_sum(off, rows, A.num_rows)
+    d = A.diagonal()
     return d + torch.sign(d) * l1
 
 
@@ -128,7 +123,7 @@ class JacobiSolver(_FusedJacobiMixin, Solver):
     """Damped Jacobi: x += omega * D^-1 (b - A x)."""
 
     def solver_setup(self):
-        self._dinv = safe_recip(_diagonal(self.A))
+        self._dinv = safe_recip(self.A.diagonal())
 
 
 @registry.solvers.register("JACOBI_L1")

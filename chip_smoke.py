@@ -17,7 +17,13 @@ Phases, one JSON line each on stdout:
                Max error with its limit, launches per call, kernel /
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
-               bound, and for B5 the dependent-phase count.
+               bound, and for B5 the dependent-phase count. Then the
+               classical kernels on the 128^3 CLASSICAL hierarchy's float32
+               solve data: B8 on level 1's operator, P and R, B9 on that
+               operator with JACOBI_L1's dinv, B3w/B4w (and B4w's dot) on
+               level 0 with its weighted tables, with and without dinv;
+               and B10 on level 0's plan of the 64^3 CLASSICAL_REFINEMENT
+               hierarchy. B8 and B10 are timed against cuSPARSE.
 3. small    -- end-to-end references on small inputs, the card against
                the CPU (plain kernels): the flagship at 16^3 with the
                tail off and untouched, and PCG at 32^3, where the whole
@@ -32,6 +38,21 @@ Phases, one JSON line each on stdout:
                krylov_fusion 1 (B6, B7, B4's dot) and 0 (B1): 54 +- 2
                iterations, the two within one of each other, and the
                host syncs per iteration.
+7. classical -- bench.py's `_classical_cfg` (PCG f64 around an f32
+               PMIS + D2 cycle) at 128^3 and 64^3: true f64 residual
+               <= 1e-8 within 2 of the 20 / 17 iteration anchors, the level
+               rows, whether level 0 took the weighted tables (m, mp), B8/B9
+               on the coarse levels, B3w/B4w once per cycle, no B5, no B10;
+               setup, first and warm solve times, setup's peak memory.
+8. determinism -- the same at 32^3: two card setups bit-identical, CF
+               splits and P patterns equal to the CPU's, the card's and
+               the CPU's solves agree; then the same PCG + classical AMG
+               on the float32 operator (no amg_precision), where B4w's
+               x'.b epilogue carries PCG's r.z.
+9. classical_refinement -- FLAGSHIP's REFINEMENT + FGMRES around the
+               classical AMG block at 64^3, built in float32 on the card:
+               <= 3 outer iterations to 1e-8, one B10 call (two launches)
+               per Galerkin product of its setup.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. Then the card's
@@ -60,10 +81,18 @@ PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 # multiply and add. The CPU tests measure ~4e-6 for the same chains
 # between two float32 implementations. B6/B7 and the dot epilogues add
 # 2M products in another tree than PyTorch's reduction.
+# B8 is one rounded sum per row, in another order than the plain
+# version's index_add_; B9 one sweep on top of it; B3w/B4w one JACOBI_L1
+# step plus the weighted transfer (R's rows of up to 32 residuals); B10
+# rounds every product and sum as its plain version does, in the same
+# order, so it should agree to the bit.
 LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "dia_prolong_smooth": 5e-5, "dia_prolong_smooth_dot": 5e-5,
           "dia_coarse_tail": 5e-5, "dia_coarse_tail_dot": 5e-5,
-          "dia_spmv_dot": 1e-5, "cg_update": 1e-5}
+          "dia_spmv_dot": 1e-5, "cg_update": 1e-5,
+          "dia_smooth_restrict_w": 5e-5, "dia_prolong_smooth_w": 5e-5,
+          "dia_prolong_smooth_w_dot": 5e-5, "csr_spmv": 1e-6,
+          "csr_smooth": 1e-5, "rap_values": 1e-6}
 _PS = "amgx_tpu/ops/pallas_spmv.py:"
 REPLACES = {
     "dia_spmv": _PS + "165", "dia_smooth": _PS + "649",
@@ -71,6 +100,12 @@ REPLACES = {
     "dia_prolong_smooth_dot": _PS + "1585",
     "dia_coarse_tail": _PS + "1892", "dia_coarse_tail_dot": _PS + "1892",
     "dia_spmv_dot": _PS + "2116", "cg_update": _PS + "2261",
+    "dia_smooth_restrict_w": _PS + "1245",
+    "dia_prolong_smooth_w": _PS + "1585",
+    "dia_prolong_smooth_w_dot": _PS + "1585",
+    "csr_spmv": "amgx_tpu/ops/pallas_swell.py:254",
+    "csr_smooth": "amgx_tpu/ops/pallas_swell.py:412",
+    "rap_values": "amgx_tpu/ops/pallas_spgemm.py:261",
 }
 _CSRC = "amgx_tpu_torch/csrc/"
 SOURCES = {
@@ -78,7 +113,9 @@ SOURCES = {
     "dia_smooth_restrict": "dia.cu", "dia_prolong_smooth": "dia.cu",
     "dia_prolong_smooth_dot": "dia.cu", "dia_coarse_tail": "tail.cu",
     "dia_coarse_tail_dot": "tail.cu", "dia_spmv_dot": "krylov.cu",
-    "cg_update": "krylov.cu",
+    "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
+    "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
+    "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
 }
 # the repo's PCG anchor (bench.py bench_krylov): PCG + GEO aggregation +
 # JACOBI_L1, 54 iterations at 128^3 in float32 with either knob
@@ -89,6 +126,38 @@ PCG = ("solver=PCG, max_iters=80, monitor_residual=1, tolerance=1e-8,"
        " amg:presweeps=1, amg:postsweeps=2, amg:max_iters=1, amg:cycle=V,"
        " amg:max_levels=10, amg:min_coarse_rows=32, krylov_fusion=")
 PCG_ANCHOR = 54
+# bench.py `_classical_cfg("JACOBI_L1")`, verbatim: PCG in float64 around
+# a float32 classical PMIS + D2 cycle; its iteration anchors
+# (BENCH_r04.json) by grid edge
+CLASSICAL = (
+    "config_version=2, solver(s)=PCG, s:max_iters=100,"
+    " s:tolerance=1e-8, s:convergence=RELATIVE_INI,"
+    " s:monitor_residual=1, s:preconditioner(amg)=AMG,"
+    " amg:algorithm=CLASSICAL, amg:selector=PMIS,"
+    " amg:interpolator=D2, amg:smoother=JACOBI_L1,"
+    " amg:presweeps=1,"
+    " amg:postsweeps=1, amg:max_iters=1,"
+    " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=32,"
+    " amg:max_levels=20, amg:strength_threshold=0.25,"
+    " amg:interp_max_elements=4, amg:max_row_sum=0.9,"
+    " amg:amg_precision=float")
+CLASSICAL_ANCHORS = {128: 20, 64: 17}
+# the same PCG + classical AMG block on a float32 operator without
+# amg_precision: the hierarchy and the Krylov shell are float32, so the
+# cycle carries PCG's r.z through B4w's x'.b epilogue on level 0
+CLASSICAL_F32 = CLASSICAL.replace(", amg:amg_precision=float", "")
+
+
+def classical_refinement():
+    """FLAGSHIP's REFINEMENT + FGMRES with CLASSICAL's AMG block (without
+    amg_precision: REFINEMENT hands the inner chain the float32 operator)
+    and amg:setup_backend=device: every Galerkin product of its setup is
+    float32 and goes through B10."""
+    from amgx_tpu_torch.presets import FLAGSHIP
+    block = CLASSICAL[CLASSICAL.index("amg:algorithm"):]
+    return (FLAGSHIP[:FLAGSHIP.index("amg:algorithm")]
+            + block.replace(", amg:amg_precision=float", "")
+            + ", amg:setup_backend=device")
 
 
 def emit(obj):
@@ -138,7 +207,7 @@ def amg_of(amgx, cfg_string, A, dev):
     on A: the hierarchy the solve would build."""
     from amgx_tpu_torch.solvers.base import make_solver
     cfg = amgx.Config.from_string(cfg_string)
-    name, scope = cfg.get_solver("preconditioner")
+    name, scope = cfg.get_solver("solver")
     while name.upper() != "AMG":
         name, scope = cfg.get_solver("preconditioner", scope)
     return make_solver("AMG", cfg, scope, dev).setup(A)
@@ -298,6 +367,146 @@ def tail_cases(torch, amgx, T, dev):
     return cases
 
 
+def csr_library(torch, M):
+    """M as a PyTorch sparse CSR tensor (cuSPARSE's operand)."""
+    return torch.sparse_csr_tensor(M.row_offsets, M.col_indices, M.values,
+                                   (M.num_rows, M.num_cols),
+                                   check_invariants=True)
+
+
+def classical_cases(torch, amgx, K, C, dev):
+    """B8, B9 and B3w/B4w at the shapes the 128^3 CLASSICAL path gives
+    them, on its own hierarchy's float32 solve data: B8 on the largest
+    unstructured operator (level 1) and the P and R that serve it, B9 on
+    that operator with JACOBI_L1's dinv, B3w/B4w on level 0 (the 7-pt
+    DIA operator, 2,097,152 rows) with its weighted tables, with and
+    without dinv. label -> {name: case} as kernel_cases gives them, and
+    the level rows."""
+    A = amgx.gallery.poisson("7pt", 128, 128, 128, device=dev)
+    amg = amg_of(amgx, CLASSICAL, A, dev).amg
+    data = amg.solve_data()
+    l0, l1 = data["levels"][0], data["levels"][1]
+    check("xfer" in l0 and "xfer" not in l1
+          and l1["A"].dia_vals is None,
+          "128^3 classical: level 0 fuses, level 1 is unstructured")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cases = {}
+    M1 = l1["A"]
+    n1 = M1.num_rows
+    x1, b1 = (torch.randn(n1, generator=g, device=dev) for _ in range(2))
+    dinv1 = l1["smoother"]["dinv"]
+    tau1 = amg.levels[1].smoother._fused_taus(1, x1)
+    for label, M in (("A1", M1), ("P1", l1["P"]), ("R1", l1["R"])):
+        x = torch.randn(M.num_cols, generator=g, device=dev)
+        lib = csr_library(torch, M)
+        cases[f"classical_128^3 {label} {M.num_rows}x{M.num_cols}"] = {
+            "csr_spmv": (
+                lambda M=M, x=x: C.csr_spmv(M.row_offsets, M.col_indices,
+                                            M.values, x,
+                                            lanes=M.csr_lanes),
+                lambda M=M, x=x: C.csr_spmv_plain(M.row_offsets,
+                                                  M.col_indices, M.values,
+                                                  x),
+                M.nnz * 8 + (M.num_rows + 1) * 4 + M.num_cols * 4
+                + M.num_rows * 4, 2 * M.nnz, 1,
+                lambda lib=lib, x=x: lib @ x)}
+    # B8's lanes per row: the one CsrMatrix.init() chose (CSR_LANE_NNZ)
+    # against every other choice, on the operators of levels 1 and 2
+    for label, M in (("A1", M1), ("R1", l1["R"]),
+                     ("A2", data["levels"][2]["A"])):
+        x = torch.randn(M.num_cols, generator=g, device=dev)
+        emit({"phase": "csr_lanes", "matrix": label, "rows": M.num_rows,
+              "mean_row_nnz": M.nnz / M.num_rows, "chosen": M.csr_lanes,
+              "ms_by_lanes": {lanes: time_ms(torch, lambda lanes=lanes, M=M,
+                                             x=x: C.csr_spmv(
+                  M.row_offsets, M.col_indices, M.values, x, lanes=lanes))
+                  for lanes in (1, 2, 4, 8, 16, 32)}})
+    cases[f"classical_128^3 A1 {n1}x{n1}"]["csr_smooth"] = (
+        lambda: C.csr_smooth(M1.row_offsets, M1.col_indices, M1.values,
+                             tau1, b1, x1, dinv1,
+                             lanes=M1.csr_lanes),
+        lambda: C.csr_smooth_plain(M1.row_offsets, M1.col_indices,
+                                   M1.values, tau1, b1, x1, dinv1),
+        M1.nnz * 8 + (n1 + 1) * 4 + 4 * n1 * 4 + 4, 2 * M1.nnz + 4 * n1, 1,
+        None)
+    A0, xf = l0["A"], l0["xfer"]
+    vals, offs = A0.dia_vals, A0.dia_offsets
+    n, k = A0.num_rows, len(offs)
+    m, nc = xf["ctab"].shape
+    mp = xf["ptab"].shape[0]
+    nnz_r = int((xf["ctab"] >= 0).sum())
+    nnz_p = int((xf["ptab"] >= 0).sum())
+    # R and P as the function needs them: their stored entries (value and
+    # column) and row offsets, not the kernel's padded (m, nc) / (mp, n)
+    # tables
+    r_bytes = nnz_r * 8 + (nc + 1) * 4
+    p_bytes = nnz_p * 8 + (n + 1) * 4
+    b, x = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    xc = torch.randn(nc, generator=g, device=dev)
+    tau = amg.levels[0].smoother._fused_taus(1, x)
+    app = (2 * k + 3) * n
+    for tag, dinv in (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)):
+        dn = 0 if dinv is None else n
+        cases[f"classical_l0_128^3 {tag}"] = {
+            "dia_smooth_restrict_w": (
+                lambda d=dinv: K.dia_smooth_restrict(
+                    vals, offs, tau, b, x, xf["ctab"], d,
+                    weights=xf["cwt"]),
+                lambda d=dinv: K.dia_smooth_restrict_plain(
+                    vals, offs, tau, b, x, xf["ctab"], d,
+                    weights=xf["cwt"]),
+                (k * n + 3 * n + dn + 1 + nc) * 4 + r_bytes,
+                app + dn + nnz_r * (2 * k + 3), 2, None),
+            "dia_prolong_smooth_w": (
+                lambda d=dinv: K.dia_prolong_smooth(
+                    vals, offs, tau, b, x, xc, dinv=d, ptab=xf["ptab"],
+                    pwt=xf["pwt"]),
+                lambda d=dinv: K.dia_prolong_smooth_plain(
+                    vals, offs, tau, b, x, xc, None, d, ptab=xf["ptab"],
+                    pwt=xf["pwt"]),
+                (k * n + 3 * n + dn + 1 + nc) * 4 + p_bytes,
+                app + dn + 2 * nnz_p, 1, None)}
+        if dinv is not None:
+            cases[f"classical_l0_128^3 {tag}"]["dia_prolong_smooth_w_dot"] = (
+                lambda d=dinv: K.dia_prolong_smooth(
+                    vals, offs, tau, b, x, xc, dinv=d, ptab=xf["ptab"],
+                    pwt=xf["pwt"], with_dot=True),
+                lambda d=dinv: K.dia_prolong_smooth_plain(
+                    vals, offs, tau, b, x, xc, None, d, with_dot=True,
+                    ptab=xf["ptab"], pwt=xf["pwt"]),
+                (k * n + 3 * n + dn + 1 + nc + 1) * 4 + p_bytes,
+                app + dn + 2 * nnz_p + 2 * n, 1, None)
+    return cases, amg.level_rows(), {"m": m, "mp": mp}
+
+
+def rap_case(torch, amgx, R_, dev):
+    """B10 on level 0's float32 plan of the 64^3 CLASSICAL_REFINEMENT
+    hierarchy (built as its setup builds it, on the float32 operator):
+    (case, plan sizes). The library call is cuSPARSE's SpGEMM, which
+    also redoes the symbolic phase the plan holds."""
+    A = amgx.gallery.poisson("7pt", 64, 64, 64, dtype=torch.float32,
+                             device=dev)
+    amg = amg_of(amgx, classical_refinement(), A, dev).amg
+    lv = amg.levels[0]
+    plan = lv.rap_plan
+    a, r, p = lv.A.values, lv.R.values, lv.P.values
+    check(a.dtype == torch.float32, "CLASSICAL_REFINEMENT setup is f32")
+    Rs, As, Ps = (csr_library(torch, M) for M in (lv.R, lv.A, lv.P))
+    nidx = plan.sa.numel() + plan.sp.numel() + plan.sr.numel() \
+        + plan.st.numel()
+    nbytes = (nidx + plan.nT + 1 + plan.nU + 1 + a.numel() + p.numel()
+              + r.numel() + plan.nT + plan.nU) * 4
+    flops = 2 * (plan.sa.numel() + plan.sr.numel())
+    case = (lambda: R_.rap_values(plan, a, r, p),
+            lambda: R_.rap_values_plain(plan, a, r, p),
+            nbytes, flops, 2,
+            lambda: torch.sparse.mm(torch.sparse.mm(Rs, As), Ps))
+    return case, {"rows": lv.A.num_rows, "nT": plan.nT, "nU": plan.nU,
+                  "candidates_stage1": plan.sa.numel(),
+                  "candidates_stage2": plan.sr.numel(),
+                  "plan_bytes": plan.nbytes()}
+
+
 def max_err(torch, got, want):
     """(max abs error, max over outputs of abs error / max |plain|)."""
     got = got if isinstance(got, tuple) else (got,)
@@ -322,7 +531,8 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
           f"{name} at {label}: error {rel_err} > {LIMITS[name]}")
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain)
-    lib_ms = time_ms(torch, lib) if lib is not None else None
+    # a library call is only timed, never used; one that fails fails the run
+    lib_ms = None if lib is None else time_ms(torch, lib)
     b_ms, b_by = bound(nbytes, flops)
     row = {"phase": "kernels", "shape": label, "name": name, "rows": rows,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
@@ -339,7 +549,9 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
 
 
 def phase_kernels(torch, amgx, dev):
+    from amgx_tpu_torch.ops import cuda_csr as C
     from amgx_tpu_torch.ops import cuda_krylov as KK
+    from amgx_tpu_torch.ops import cuda_rap as R_
     from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.ops import cuda_tail as T
     summary = {}
@@ -364,6 +576,18 @@ def phase_kernels(torch, amgx, dev):
                  nbytes, flops, 1, None, spec.levels[0].n, summary,
                  {"phases": phases,
                   "levels": [ls.n for ls in spec.levels]})
+    cases, levels, mm = classical_cases(torch, amgx, K, C, dev)
+    emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
+          "levels": levels, **mm})
+    for label, named in cases.items():
+        for name, case in named.items():
+            run_case(torch, K, label, name, *case,
+                     int(label.split()[-1].split("x")[0])
+                     if label.startswith("classical_128^3") else 128 ** 3,
+                     summary)
+    case, sizes = rap_case(torch, amgx, R_, dev)
+    run_case(torch, K, "classical_refinement_l0_64^3", "rap_values", *case,
+             sizes["rows"], summary, sizes)
     return summary
 
 
@@ -585,6 +809,172 @@ def phase_krylov(torch, amgx, dev, per_path):
           / warm["pcg_krylov_fusion=0"]["median"]})
 
 
+def precond_amg(slv):
+    s = slv
+    while not hasattr(s, "amg"):
+        s = s.preconditioner
+    return s.amg
+
+
+def phase_classical(torch, amgx, dev, per_path):
+    """CLASSICAL at 128^3 and 64^3: success at a true relative residual
+    <= 1e-8 within +-2 of the anchors; B8/B9 on the coarse levels, no B5,
+    no B10 (the setup is float64); B3w/B4w once per cycle each where
+    level 0 took the weighted tables."""
+    for n in (128, 64):
+        path = f"classical_{n}^3"
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, slv, setup_s, solve_s, true_rel = run_path(
+            amgx, per_path, path, lambda n=n: solve(
+                torch, amgx, CLASSICAL, n, dev))
+        peak = torch.cuda.max_memory_allocated(dev)
+        _, warm_s = warm_solve(torch, slv, n, torch.float64)
+        amg = precond_amg(slv)
+        xfer = amg.levels[0]._transfer_tables()
+        c = per_path[path]
+        cycles = res.iterations + 1       # PCG: one cycle per iteration + 1
+        emit({"phase": "classical", "config": path, "rows": n ** 3,
+              "levels": amg.level_rows(), "setup_s": setup_s,
+              "solve_s": solve_s, "warm_solve_s": warm_s,
+              "setup_peak_bytes": peak, "iterations": res.iterations,
+              "anchor": CLASSICAL_ANCHORS[n], "status": res.status,
+              "true_rel_res": true_rel, "level0_fused": xfer is not None,
+              "level0_m": None if xfer is None else xfer["ctab"].shape[0],
+              "level0_mp": None if xfer is None else xfer["ptab"].shape[0],
+              "launches": c})
+        check(res.status == "success" and true_rel <= 1e-8,
+              f"{path}: {res.status}, true relative residual {true_rel}")
+        check(abs(res.iterations - CLASSICAL_ANCHORS[n]) <= 2,
+              f"{path}: {res.iterations} iterations, anchor "
+              f"{CLASSICAL_ANCHORS[n]} +- 2")
+        check(c["csr_spmv"] > 0 and c["csr_smooth"] > 0
+              and c["dia_coarse_tail"] == 0 and c["rap_values"] == 0,
+              f"{path}: B8/B9 ran, B5 and B10 did not {c}")
+        if xfer is not None:
+            check(c["dia_smooth_restrict_w"] == 2 * cycles
+                  and c["dia_prolong_smooth_w"] == cycles,
+                  f"{path}: B3w (2 launches) and B4w (1) once per cycle, "
+                  f"{cycles} cycles {c}")
+        else:
+            check(c["dia_smooth_restrict_w"] == 0, f"{path}: level 0 "
+                  f"composes its transfers {c}")
+
+
+def hierarchy_bits(torch, amg):
+    """Every tensor of a set-up classical hierarchy, moved to the CPU."""
+    out = []
+    for lv in amg.levels:
+        out += [lv.cf_map, lv.strong, lv.smoother.solve_data()["dinv"]]
+        for M in (lv.A, lv.P, lv.R):
+            out += [M.row_offsets, M.col_indices, M.values]
+    M = amg.coarsest_A
+    return [t.cpu() for t in out + [M.row_offsets, M.col_indices,
+                                    M.values]]
+
+
+def phase_determinism(torch, amgx, dev, per_path):
+    """CLASSICAL at 32^3: two setups on the card give the same bits; the
+    card's CF splits and P patterns equal the CPU's; the card's and the
+    CPU's solves take the same iterations, x within 1e-5."""
+    cpu = torch.device("cpu")
+    amgs = [amg_of(amgx, CLASSICAL, amgx.gallery.poisson(
+        "7pt", 32, 32, 32, device=d), d).amg for d in (dev, dev, cpu)]
+    bits = [hierarchy_bits(torch, a) for a in amgs[:2]]
+    same = len(bits[0]) == len(bits[1]) and all(
+        torch.equal(a, b) for a, b in zip(*bits))
+    card, host = amgs[0], amgs[2]
+    cf_equal = card.level_rows() == host.level_rows() and all(
+        torch.equal(a.cf_map.cpu(), b.cf_map) for a, b in
+        zip(card.levels, host.levels))
+    p_equal = all(torch.equal(a.P.row_offsets.cpu(), b.P.row_offsets)
+                  and torch.equal(a.P.col_indices.cpu(), b.P.col_indices)
+                  for a, b in zip(card.levels, host.levels))
+    p_diff = max(float((a.P.values.cpu() - b.P.values).abs().max())
+                 for a, b in zip(card.levels, host.levels)) if p_equal \
+        else None
+    rc, _, _, _, tc = run_path(amgx, per_path, "classical_32^3",
+                               lambda: solve(torch, amgx, CLASSICAL, 32,
+                                             dev))
+    rh, _, _, _, _ = solve(torch, amgx, CLASSICAL, 32, cpu)
+    xdiff = float(torch.linalg.norm(rc.x.cpu() - rh.x)
+                  / torch.linalg.norm(rh.x))
+    emit({"phase": "determinism", "config": "classical_32^3",
+          "rows": 32 ** 3, "levels": card.level_rows(),
+          "card_setups_bit_identical": same, "tensors_compared":
+          len(bits[0]), "cf_maps_equal_cpu": cf_equal,
+          "p_patterns_equal_cpu": p_equal, "p_values_max_diff_cpu": p_diff,
+          "iterations_cuda": rc.iterations, "iterations_cpu": rh.iterations,
+          "true_rel_res_cuda": tc, "x_rel_diff": xdiff})
+    check(same, "32^3 classical: two card setups are bit-identical")
+    check(cf_equal and p_equal, "32^3 classical: card CF splits and P "
+          "patterns equal the CPU's")
+    check(rc.iterations == rh.iterations and xdiff <= 1e-5,
+          "32^3 classical: card and CPU solves agree")
+    # float32 throughout: PCG's r.z rides B4w's epilogue once per cycle
+    rc, _, _, _, _ = run_path(amgx, per_path, "classical_f32_32^3",
+                              lambda: solve(torch, amgx, CLASSICAL_F32, 32,
+                                            dev, torch.float32))
+    rh, _, _, _, _ = solve(torch, amgx, CLASSICAL_F32, 32, cpu,
+                           torch.float32)
+    xdiff = float(torch.linalg.norm(rc.x.cpu() - rh.x)
+                  / torch.linalg.norm(rh.x))
+    c = per_path["classical_f32_32^3"]
+    emit({"phase": "determinism", "config": "classical_f32_32^3",
+          "rows": 32 ** 3, "iterations_cuda": rc.iterations,
+          "iterations_cpu": rh.iterations, "x_rel_diff": xdiff,
+          "launches": c})
+    check(rc.status == "success" and rc.iterations == rh.iterations
+          and xdiff <= 1e-4, "32^3 float32 classical PCG: card agrees with "
+          "the CPU")
+    check(c["dia_prolong_smooth_w_dot"] == rc.iterations + 1
+          and c["dia_spmv_dot"] == c["cg_update"] == rc.iterations,
+          f"32^3 float32 classical PCG: r.z from B4w once per cycle, B6/B7 "
+          f"per iteration {c}")
+
+
+def phase_classical_refinement(torch, amgx, dev, per_path):
+    """CLASSICAL_REFINEMENT at 64^3: success in <= 3 outer iterations at
+    a true relative residual <= 1e-8; its float32 setup calls B10 once
+    per Galerkin product (two launches each)."""
+    from amgx_tpu_torch.ops.spmv import residual
+    n = 64
+    path = f"classical_refinement_{n}^3"
+    A = amgx.gallery.poisson("7pt", n, n, n, device=dev)
+    slv = amgx.create_solver(amgx.Config.from_string(classical_refinement()),
+                             device=dev)
+    b = torch.ones(n ** 3, dtype=torch.float64, device=dev)
+    amgx.reset_kernel_launches()
+    t0 = time.perf_counter()
+    slv.setup(A)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    in_setup = amgx.kernel_launches()
+    t0 = time.perf_counter()
+    res = slv.solve(b)
+    solve_s = time.perf_counter() - t0
+    per_path[path] = c = amgx.kernel_launches()
+    amg = precond_amg(slv)
+    true_rel = float(torch.linalg.norm(residual(A.init(), res.x, b))
+                     / torch.linalg.norm(b))
+    products = len(amg.levels)
+    emit({"phase": "classical_refinement", "config": path, "rows": n ** 3,
+          "levels": amg.level_rows(), "setup_s": setup_s,
+          "solve_s": solve_s, "outer_iterations": res.iterations,
+          "inner_iterations": int(res.extra_stats["inner_iters"]),
+          "status": res.status, "true_rel_res": true_rel,
+          "galerkin_products": products,
+          "rap_values_launches_in_setup": in_setup["rap_values"],
+          "launches": c})
+    check(res.status == "success" and true_rel <= 1e-8
+          and res.iterations <= 3,
+          f"{path}: {res.status}, {res.iterations} outer iterations, true "
+          f"relative residual {true_rel}")
+    check(in_setup["rap_values"] == 2 * products
+          and c["rap_values"] == in_setup["rap_values"],
+          f"{path}: one B10 call (2 launches) per Galerkin product, "
+          f"{products} products {in_setup}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -616,6 +1006,9 @@ def main():
     phase_flagship(torch, amgx, dev, per_path)
     phase_unfused(torch, amgx, dev, per_path)
     phase_krylov(torch, amgx, dev, per_path)
+    phase_classical(torch, amgx, dev, per_path)
+    phase_determinism(torch, amgx, dev, per_path)
+    phase_classical_refinement(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():

@@ -53,7 +53,8 @@ def csr_arrays(A):
     return {"row_offsets": np.asarray(A.row_offsets),
             "col_indices": np.asarray(A.col_indices),
             "values": np.asarray(A.values), "num_rows": A.num_rows,
-            "num_cols": A.num_cols, "grid_shape": A.grid_shape}
+            "num_cols": A.num_cols,
+            "grid_shape": getattr(A, "grid_shape", None)}
 
 
 def _np_or_none(v):
@@ -63,20 +64,25 @@ def _np_or_none(v):
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
     layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
-    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), and
-    DENSE_LU's explicit inverse when the JAX package built one."""
+    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), a classical
+    level's cf_map, P and R, and DENSE_LU's explicit inverse when the
+    JAX package built one."""
     amg = amg_solver.amg
     data = amg_solver.solve_data()["amg"]
     levels = []
     for i, lv in enumerate(amg.levels):
         d = csr_arrays(lv.A)
         smd = data["levels"][i]["smoother"]
-        d.update(aggregates=np.asarray(lv.aggregates),
-                 coarse_size=lv.coarse_size, geo_axes=lv.geo_axes,
-                 geo_fine_shape=lv.geo_fine_shape,
-                 geo_coarse_shape=lv.geo_coarse_shape,
+        d.update(coarse_size=lv.coarse_size,
                  taus=_np_or_none(smd.get("taus")),
                  dinv=_np_or_none(smd.get("dinv")))
+        if getattr(lv, "cf_map", None) is not None:
+            d.update(cf_map=np.asarray(lv.cf_map), P=csr_arrays(lv.P),
+                     R=csr_arrays(lv.R))
+        else:
+            d.update(aggregates=np.asarray(lv.aggregates),
+                     geo_axes=lv.geo_axes, geo_fine_shape=lv.geo_fine_shape,
+                     geo_coarse_shape=lv.geo_coarse_shape)
         levels.append(d)
     coarse = csr_arrays(amg.coarsest_A)
     cd = data["coarse"]

@@ -176,7 +176,7 @@ def test_coarse_tail_entry_level(monkeypatch, tail_rows, fusion, entry):
     assert entered == ([] if entry is None else [rows[entry]])
 
 
-@pytest.mark.parametrize("option", ["amg_precision=float", "cycle=CG"])
+@pytest.mark.parametrize("option", ["amg_precision=bfloat16", "cycle=CG"])
 def test_unported_hierarchy_options_raise(option):
     from amgx_tpu_torch.amg.hierarchy import AMG
     with pytest.raises(NotImplementedError):

@@ -190,19 +190,16 @@ def test_transfer_tables_match_jax_child_slab():
 
 
 def test_unported_modes_raise():
-    """B2's x.b epilogue, B3's weighted rows and B6's streamed-operand /
-    self-dot variant (BiCGStab's) are not ported: the wrappers raise
-    before any launch, whatever the device (here tensors on the meta
-    device, which no kernel route takes)."""
+    """B2's x.b epilogue and B6's streamed-operand / self-dot variant
+    (BiCGStab's) are not ported: the wrappers raise before any launch,
+    whatever the device (here tensors on the meta device, which no kernel
+    route takes). B3/B4's weighted rows are ported
+    (tests/test_torch_classical.py)."""
     from amgx_tpu_torch.ops import cuda_krylov as KK
     _, Ap, _, nc, b, x, _, xc, xfer = _case((8, 8, 8), np.float32)
     args = (*_port(Ap), _t(TAUS.astype(np.float32)), _t(b), _t(x))
     with pytest.raises(NotImplementedError):
         K.dia_smooth(*args, with_dot=True)
-    with pytest.raises(NotImplementedError):
-        K.dia_smooth_restrict(*args, xfer["ctab"], weights=_t(b))
-    with pytest.raises(NotImplementedError):
-        K.dia_prolong_smooth(*args, _t(xc), xfer["agg"], weights=_t(b))
     p = torch.empty(512, device="meta")
     beta = torch.empty((), device="meta")
     for mode in ({"d": p}, {"self_dot": True}):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in one solve of the PyTorch/CUDA port.
 
-    python3 tools/torch_profile.py [--config flagship|tail-off|pcg]
+    python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical]
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
 
@@ -9,7 +9,10 @@ Configurations: `flagship` is the untouched FLAGSHIP preset (its inner
 V-cycle enters the coarse-tail kernel B5 at the first level of at most
 65536 rows), `tail-off` is FLAGSHIP_TAIL_OFF (every level through the
 per-level kernels B3/B4), `pcg` is PCG + GEO aggregation + JACOBI_L1 in
-float32 (the repo's PCG anchor, bench.py bench_krylov). Sets the solver
+float32 (the repo's PCG anchor, bench.py bench_krylov), `classical` is
+bench.py's `_classical_cfg` (PCG in float64 around a float32 classical
+PMIS + D2 AMG cycle with JACOBI_L1: B3w/B4w on level 0, B8/B9 on the
+coarse levels). Sets the solver
 up on a 7-pt size^3 Poisson system on the CUDA card, runs one warm-up
 solve, then profiles one solve with torch.profiler. Prints one JSON
 line: the solve's wall time, the device's busy time (sum of kernel and
@@ -27,18 +30,14 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-PCG = ("solver=PCG, max_iters=80, monitor_residual=1, tolerance=1e-8,"
-       " convergence=RELATIVE_INI, norm=L2, preconditioner(amg)=AMG,"
-       " amg:algorithm=AGGREGATION, amg:selector=GEO,"
-       " amg:smoother=JACOBI_L1, amg:relaxation_factor=0.75,"
-       " amg:presweeps=1, amg:postsweeps=2, amg:max_iters=1, amg:cycle=V,"
-       " amg:max_levels=10, amg:min_coarse_rows=32")
+# the benched configuration strings, defined once in chip_smoke.py
+from chip_smoke import CLASSICAL, PCG  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "tail-off", "pcg"))
+                    choices=("flagship", "tail-off", "pcg", "classical"))
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--cycle-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
@@ -55,12 +54,10 @@ def main():
     n = args.size
     dev = torch.device("cuda", 0)
     base = {"flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
-            "pcg": PCG}[args.config]
+            "pcg": PCG + str(args.krylov_fusion),
+            "classical": CLASSICAL}[args.config]
     cfg = base + f", amg:cycle_fusion={args.cycle_fusion}"
-    dtype = torch.float64
-    if args.config == "pcg":
-        cfg += f", krylov_fusion={args.krylov_fusion}"
-        dtype = torch.float32
+    dtype = torch.float32 if args.config == "pcg" else torch.float64
     slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
     slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
     b = torch.ones(n ** 3, dtype=dtype, device=dev)
