@@ -8,7 +8,9 @@ cycle_fusion=1 the level's transfers ride the smoother kernels instead:
 the restriction in B3's epilogue through the children table `ctab`, the
 prolongation in B4's prologue through the aggregate ids `agg` (with
 B4's x'.b epilogue when the Krylov shell asks for the cycle's dot), and
-the coarse tail's levels through both tables inside B5.
+the coarse tail's levels through both tables inside B5. The level data
+carries the stencil the hierarchy installs on a matrix-free level
+(`matrix_free`), and its hooks then run the coefficient-mode kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def _geo_prolongate(xc, fine_shape, coarse_shape, axis):
 @registry.amg_levels.register("AGGREGATION")
 class AggregationAMGLevel(AMGLevel):
     algorithm = "AGGREGATION"
+    matrix_free = True
 
     geo_axes = None          # set when the selector pairs geometrically
     geo_fine_shape = None
@@ -92,7 +95,14 @@ class AggregationAMGLevel(AMGLevel):
         return memo[0]
 
     def supports_fusion(self, data):
-        return self.FUSION_CAPS if self.smoother is not None else ()
+        """The fused transfers; a matrix-free level (its stencil installed
+        by the hierarchy's detector) also advertises "matrix_free": its
+        hooks run the coefficient-mode kernels."""
+        if self.smoother is None:
+            return ()
+        if "stencil" in data:
+            return self.FUSION_CAPS | {"matrix_free"}
+        return self.FUSION_CAPS
 
     def restrict_fused(self, data, b, x, sweeps: int):
         fn = getattr(self.smoother, "smooth_restrict", None)

@@ -4,12 +4,15 @@ postsmooth, recursing in Python over the static hierarchy depth. With
 cycle_fusion the sub-cycle below the first level of at most
 cycle_fusion_tail_rows rows runs as one coarse-tail launch (B5,
 ops/smooth.py `coarse_tail_cycle`), on the CPU through its plain twin.
-The K-cycles (CG, CGF) are not ported yet."""
+The K-cycles (CG, CGF) are not ported yet. A residual the cycle forms
+itself reads the level's operator through ops/stencil.py
+`level_operator`, which rebuilds a matrix-free level's matrix."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.spmv import residual
+from ..ops.stencil import level_operator
 
 
 def _smooth(level, data, b, x, sweeps: int):
@@ -20,7 +23,7 @@ def _smooth(level, data, b, x, sweeps: int):
 
 def _smooth_residual(level, data, b, x, sweeps: int):
     if sweeps <= 0 or level.smoother is None:
-        return x, residual(data["A"], x, b)
+        return x, residual(level_operator(data), x, b)
     return level.smoother.smooth_residual(data["smoother"], b, x, sweeps)
 
 

@@ -12,8 +12,19 @@ is built in the operator's dtype; `solve_data` casts every floating leaf
 of the level data to float32 and the coarse-solver subtree to the
 policy's coarse dtype, once per setup (memoized by leaf), and `cycle`
 casts b and x in and the result back. Such a cycle declines the
-cycle-borne dot. Not ported yet: bfloat16 hierarchies, structure reuse
-on resetup, the matrix-free detector and telemetry.
+cycle-borne dot.
+
+`matrix_free=auto|0|1` (ops/stencil.py): after each smoother's setup
+the detector checks the level's operator for a constant-coefficient
+grid stencil and, when the smoother can run from coefficients alone,
+installs it on the smoother; the level data then carries "stencil" and
+an operator without its value slab, and every smoothing entry runs the
+coefficient-mode kernels. auto turns it on for operators on a CUDA
+device (the counterpart of the JAX package's "on a real TPU"), 1 on
+every device, 0 never. Only levels whose transfers the coefficient
+kernels carry (`AMGLevel.matrix_free`: the unit-weight aggregation
+levels) take it. Not ported yet: bfloat16 hierarchies, structure reuse
+on resetup and telemetry.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 from .. import registry
 from ..config import Config
 from ..matrix import CsrMatrix
+from ..ops.stencil import detect_stencil, mf_slim
 from ..precision import resolve_precision
 
 
@@ -34,6 +46,9 @@ class AMGLevel:
 
     algorithm = "?"
     FUSION_CAPS = frozenset({"restrict", "prolongate"})
+    # may the matrix-free detector install a stencil on this level's
+    # smoother? (its fused transfers must have a coefficient form)
+    matrix_free = False
 
     def __init__(self, A: CsrMatrix, cfg: Config, scope: str,
                  level_index: int):
@@ -54,6 +69,13 @@ class AMGLevel:
         d = {"A": self.A}
         if self.smoother is not None:
             d["smoother"] = self.smoother.solve_data()
+            st = d["smoother"].get("stencil")
+            if st is not None:
+                # matrix-free level: the level's operator view drops its
+                # value slab too; a consumer that needs the matrix
+                # rebuilds it (ops/stencil.py level_operator)
+                d["A"] = mf_slim(self.A)
+                d["stencil"] = st
         return d
 
     def restrict(self, data, r):
@@ -96,6 +118,7 @@ class AMG:
             cfg.get("cycle_fusion_tail_rows", scope))
         self.intensive_smoothing = bool(cfg.get("intensive_smoothing",
                                                 scope))
+        self.matrix_free = str(cfg.get("matrix_free", scope))
         self.precision_policy = resolve_precision(cfg, scope)
         if self.precision_policy.name == "bfloat16":
             raise NotImplementedError(
@@ -159,6 +182,26 @@ class AMG:
         name, scope = self._smoother_spec(level.level_index)
         level.smoother = make_solver(name, self.cfg, scope, level.A.device)
         level.smoother.setup(level.A)
+        self._maybe_install_stencil(level)
+
+    def _maybe_install_stencil(self, level: AMGLevel, stencil=None):
+        """Install the level's StencilOperator on its smoother when the
+        `matrix_free` knob is on for the operator's device, the level
+        and the smoother can run matrix-free and the operator is a
+        constant-coefficient grid stencil (`stencil`, when given, is the
+        one another implementation detected). The smoother's
+        `_mf_stencil` is always reassigned, so no stale stencil survives
+        a setup with new values."""
+        sm = level.smoother
+        on = self.matrix_free == "1" or (self.matrix_free == "auto"
+                                         and level.A.device.type == "cuda")
+        if not on or not level.matrix_free \
+                or not getattr(sm, "supports_matrix_free", False) \
+                or not getattr(sm, "fused_smoother", False):
+            sm._mf_stencil = None
+            return
+        sm._mf_stencil = stencil if stencil is not None else detect_stencil(
+            level.A, dinv_mode=sm.matrix_free_dinv)
 
     def _finalize_setup(self):
         from ..solvers.base import make_solver

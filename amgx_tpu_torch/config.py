@@ -279,6 +279,17 @@ def _register_default_parameters():
     R("fused_smoother", int, "run damped-relaxation smoother steps and "
       "the trailing cycle residual through the DIA smoother kernel "
       "(ops/smooth.py); 0 composes sweep-by-sweep SpMVs", 1, BOOL01)
+    R("matrix_free", str, "matrix-free form for constant-coefficient "
+      "GEO levels (ops/stencil.py): a setup-time detector replaces the "
+      "level's DIA value slab with a StencilOperator (k coefficients + "
+      "static geometry, O(levels) operator memory) and every fused "
+      "smoother/transfer/tail kernel reads the coefficients instead of "
+      "streaming the A value slab; variable-coefficient levels always "
+      "keep the slab path. auto = on when the level's operator is on a "
+      "CUDA device (CPU runs bit-identical to the slab build), 1 = force "
+      "the detector on every device (the plain masked-coefficient forms "
+      "on the CPU), 0 = never detect -- the slab path bit-for-bit",
+      "auto", ("auto", "0", "1"))
     R("cycle_fusion", int, "fold the cycle's grid transfers into the "
       "smoother kernels on aggregation/DIA levels (restriction epilogue "
       "in the presmoother, prolongation+correction prologue in the "

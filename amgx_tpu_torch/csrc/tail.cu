@@ -30,6 +30,13 @@
 // tail. Collapsing ~34 separate launches (and their host-side launch
 // cost) into one is the point of the kernel.
 //
+// Stencil levels (the coefficient mode, `_tail_compute`'s `level_vals`
+// matrix-free branch): a level whose operator is a constant-coefficient
+// grid stencil carries its k coefficients, shifts and grid shape in the
+// per-level tables instead of a value slab, and the kernel synthesizes
+// the values and the diagonal inverse from them (common.cuh), with the
+// same arithmetic as on a slab level.
+//
 // Slots: every level l >= 1 has b and two x buffers (A, B) in a
 // workspace the wrapper allocates once per hierarchy; level 0 reads the
 // caller's b and x (slot IN) and ping-pongs between the output (A) and
@@ -43,10 +50,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// per-level pointer and integer tables (ops/cuda_tail.py builds them)
-enum PtrField { P_VALS, P_DINV, P_TPRE, P_TPOST, P_CTAB, P_AGG, P_B, P_XA,
-                P_XB, kPtrFields };
-enum IntField { I_N, I_K, I_M, I_NC, I_OFF, kIntFields = I_OFF + kMaxOffsets };
+// per-level pointer and integer tables (ops/cuda_tail.py builds them). A
+// stencil level has P_COEF (its k coefficients) and no P_VALS / P_DINV;
+// its grid, diagonal index, dinv mode and shifts are in the int table.
+enum PtrField { P_VALS, P_DINV, P_COEF, P_TPRE, P_TPOST, P_CTAB, P_AGG, P_B,
+                P_XA, P_XB, kPtrFields };
+enum IntField { I_N, I_K, I_M, I_NC, I_NX, I_NY, I_NZ, I_DIAG, I_DINV,
+                I_NX_MUL, I_NX_SHR, I_NY_MUL, I_NY_SHR, I_OFF,
+                I_SX = I_OFF + kMaxOffsets, I_SY = I_SX + kMaxOffsets,
+                I_SZ = I_SY + kMaxOffsets, kIntFields = I_SZ + kMaxOffsets };
 // program rows: op, level, src slot, dst slot, tau index, next-level
 // slot (the coarse correction's source), flags
 enum Opcode { OP_STEP, OP_RESTRICT, OP_COARSE, OP_CORRECT, OP_DOT };
@@ -95,19 +107,62 @@ __device__ __forceinline__ float x_at(const float* x, const float* xc,
   return xc != nullptr ? x[j] + xc[agg[j]] : x[j];
 }
 
-__device__ __forceinline__ float row_ax(const float* vals, const int* I,
+// One tail level's values: its slab and dinv, or its stencil (the
+// coefficient mode; the flag is uniform across the grid within a phase).
+// `I` and `coef` point at the block's shared-memory copy of the level's
+// tables.
+struct TailVals {
+  const float* vals;
+  const float* dinv;  // slab levels: nullptr = none
+  const float* coef;  // stencil levels, else nullptr
+  const int* I;
+  int n;
+  struct Row {
+    int i;
+    GridRow g;
+  };
+  __device__ __forceinline__ Row row(int i) const {
+    if (coef == nullptr) return Row{i, GridRow{0, 0, 0}};
+    return Row{i, grid_row(i, I[I_NX], I[I_NY],
+                           FastDiv{static_cast<unsigned>(I[I_NX_MUL]),
+                                   I[I_NX_SHR]},
+                           FastDiv{static_cast<unsigned>(I[I_NY_MUL]),
+                                   I[I_NY_SHR]})};
+  }
+  __device__ __forceinline__ float val(const Row& r, int d) const {
+    if (coef == nullptr) return vals[static_cast<size_t>(d) * n + r.i];
+    return in_grid(r.g, I[I_SX + d], I[I_SY + d], I[I_SZ + d], I[I_NX],
+                   I[I_NY], I[I_NZ])
+               ? coef[d]
+               : 0.0f;
+  }
+  __device__ __forceinline__ bool has_dinv() const {
+    return coef != nullptr ? I[I_DINV] != kDinvNone : dinv != nullptr;
+  }
+  __device__ __forceinline__ float inv(const Row& r) const {
+    if (coef == nullptr) return dinv[r.i];
+    return stencil_inv([&](int d) { return val(r, d); }, I[I_K], I[I_DIAG],
+                       I[I_DINV]);
+  }
+};
+
+__device__ __forceinline__ float row_ax(const TailVals& vs,
+                                        const TailVals::Row& r,
                                         const float* x, const float* xc,
-                                        const int* agg, int n, int i) {
+                                        const int* agg) {
   float acc = 0.0f;
-  for (int d = 0; d < I[I_K]; ++d) {
-    const int j = i + I[I_OFF + d];
-    if (j >= 0 && j < n)
-      acc += vals[static_cast<size_t>(d) * n + i] * x_at(x, xc, agg, j);
+#pragma unroll
+  for (int d = 0; d < kMaxOffsets; ++d) {
+    if (d >= vs.I[I_K]) break;
+    const int j = r.i + vs.I[I_OFF + d];
+    if (j >= 0 && j < vs.n) acc += vs.val(r, d) * x_at(x, xc, agg, j);
   }
   return acc;
 }
 
 __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
+  __shared__ int s_ints[kIntFields];
+  __shared__ float s_coef[kMaxOffsets];
   cg::grid_group grid = cg::this_grid();
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
@@ -134,9 +189,19 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
       }
     } else {
       const long long* P = level_ptrs(a, l);
-      const int* I = a.ints + static_cast<size_t>(l) * kIntFields;
+      // the level's int table and coefficients, staged once per phase
+      const int* Ig = a.ints + static_cast<size_t>(l) * kIntFields;
+      const float* coef = reinterpret_cast<const float*>(P[P_COEF]);
+      for (int f = threadIdx.x; f < kIntFields; f += kThreads)
+        s_ints[f] = Ig[f];
+      if (coef != nullptr && threadIdx.x < kMaxOffsets)
+        s_coef[threadIdx.x] = threadIdx.x < Ig[I_K] ? coef[threadIdx.x] : 0.0f;
+      __syncthreads();
+      const int* I = s_ints;
       const int n = I[I_N];
-      const float* vals = reinterpret_cast<const float*>(P[P_VALS]);
+      const TailVals vs{reinterpret_cast<const float*>(P[P_VALS]),
+                        reinterpret_cast<const float*>(P[P_DINV]),
+                        coef != nullptr ? s_coef : nullptr, I, n};
       const float* b = b_of(a, l);
       const float* x = x_slot(a, l, src);
       if (code == OP_RESTRICT) {
@@ -149,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
           for (int j = 0; j < m; ++j) {
             const int f = ctab[static_cast<size_t>(j) * nc + c];
             if (f >= 0)
-              acc += b[f] - row_ax(vals, I, x, nullptr, nullptr, n, f);
+              acc += b[f] - row_ax(vs, vs.row(f), x, nullptr, nullptr);
           }
           bn[c] = acc;
           if (xn != nullptr) xn[c] = 0.0f;
@@ -159,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
         const int* agg = reinterpret_cast<const int*>(P[P_AGG]);
         const float* xc =
             (flags & F_CORRECTED) ? x_slot(a, l + 1, next) : nullptr;
-        const float* dinv = reinterpret_cast<const float*>(P[P_DINV]);
+        const bool has_dinv = vs.has_dinv();
         const float t = code == OP_STEP
             ? reinterpret_cast<const float*>(
                   P[(flags & F_POST) ? P_TPOST : P_TPRE])[tau]
@@ -168,8 +233,9 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
         for (int i = tid; i < n; i += stride) {
           float v;
           if (code == OP_STEP) {
-            float upd = t * (b[i] - row_ax(vals, I, x, xc, agg, n, i));
-            if (dinv != nullptr) upd *= dinv[i];
+            const TailVals::Row r = vs.row(i);
+            float upd = t * (b[i] - row_ax(vs, r, x, xc, agg));
+            if (has_dinv) upd *= vs.inv(r);
             v = x_at(x, xc, agg, i) + upd;
           } else {
             v = x[i] + xc[agg[i]];

@@ -52,6 +52,23 @@ def _classical_level(d: dict, cfg, scope, i, device):
     return level
 
 
+def _stencil(d, A):
+    """A StencilOperator from another implementation's stencil payload
+    (`coeffs`, `offsets`, `shifts`, `shape`, `dinv_mode`), or None."""
+    if d is None:
+        return None
+    from .ops.stencil import StencilOperator
+    coeffs = torch.tensor(np.asarray(d["coeffs"]), dtype=A.dtype,
+                          device=A.device)
+    offsets = tuple(int(o) for o in d["offsets"])
+    return StencilOperator(
+        coeffs=coeffs, host=tuple(coeffs.cpu().tolist()), offsets=offsets,
+        shifts=tuple(tuple(int(v) for v in s) for s in d["shifts"]),
+        shape=tuple(int(e) for e in d["shape"]), num_rows=A.num_rows,
+        dinv_mode=d.get("dinv_mode"),
+        diag_rank=offsets.index(0) if 0 in offsets else -1)
+
+
 def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
                          scope: str = "default", device=None) -> AMG:
     """A set-up port AMG (aggregation or classical levels) from per-level
@@ -66,7 +83,11 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     non-geometric levels). A classical level (one with `cf_map`) adds
     `P` and `R` as CSR-array dicts and, optionally, its weighted
     transfer tables `xfer` (`ctab`, `cwt`, `ptab`, `pwt` on the port's
-    layout; built from P and R when absent and cycle_fusion is on).
+    layout; built from P and R when absent and cycle_fusion is on). A
+    level may carry the `stencil` another implementation detected on it
+    (`coeffs`, `offsets`, `shifts`, `shape`, `dinv_mode`): the hierarchy
+    installs it where `cfg`'s `matrix_free` lets it detect one, instead
+    of running the detector.
     `coarse` holds the coarsest operator's CSR arrays, its DENSE_LU
     factors `qt`, `r` and, when the other implementation built one, the
     explicit inverse `inv` (the coarse-tail kernel's coarsest solve).
@@ -96,6 +117,8 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
                 setattr(sm, "_" + key, torch.tensor(
                     np.asarray(d[key]), device=device, dtype=level.A.dtype))
         level.smoother = sm
+        amg._maybe_install_stencil(level, _stencil(d.get("stencil"),
+                                                   level.A))
         amg.levels.append(level)
     amg.coarsest_A = _matrix(coarse, device)
     cs_name, cs_scope = cfg.get_solver("coarse_solver", scope)

@@ -59,6 +59,21 @@ B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    x_j + sum_t pwt[t, j] xc[ptab[t, j]] instead of x_j + xc[agg[j]]; its
    launches count as "dia_prolong_smooth_w" (+ "_dot").
 
+The coefficient ("matrix-free") mode
+-----------------------------------
+B2-mf `dia_smooth_mf`, B3-mf `dia_smooth_restrict_mf` and B4-mf
+`dia_prolong_smooth_mf` replace `_dia_stencil_smooth_call`
+(pallas_spmv.py:781), `_dia_stencil_smooth_restrict_call` (:1379) and
+`_dia_stencil_prolong_smooth_call` (:1725): B2-B4 on a
+constant-coefficient grid level (ops/stencil.py `StencilOperator`). The
+kernels take the k coefficients, grid shifts and grid shape by value and
+synthesize each row's values and its diagonal inverse ("jacobi", "l1" or
+none) from the row's grid coordinates: no value slab, no dinv vector.
+Bound by bytes: a step reads b and x and writes x' (the slab mode also
+reads k value floats and dinv per row). The plain versions are the
+masked forms of ops/stencil.py. Launches count under the names above
+(B4-mf's dot launch as "dia_prolong_smooth_mf_dot").
+
 Not ported here (the wrappers raise): bf16 operand slabs and B2's x.b
 dot epilogue (the JAX package has no caller for it).
 """
@@ -73,9 +88,12 @@ import torch
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
             "dia_smooth_restrict_w": 0, "dia_prolong_smooth_w": 0,
-            "dia_prolong_smooth_w_dot": 0,
-            "dia_spmv_dot": 0, "cg_update": 0, "dia_coarse_tail": 0,
-            "dia_coarse_tail_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
+            "dia_prolong_smooth_w_dot": 0, "dia_smooth_mf": 0,
+            "dia_smooth_restrict_mf": 0, "dia_prolong_smooth_mf": 0,
+            "dia_prolong_smooth_mf_dot": 0, "dia_spmv_dot": 0,
+            "cg_update": 0, "dia_coarse_tail": 0,
+            "dia_coarse_tail_dot": 0, "dia_coarse_tail_mf": 0,
+            "dia_coarse_tail_mf_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
             "rap_values": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
@@ -83,20 +101,68 @@ THREADS = 256         # rows per block (csrc/common.cuh kThreads)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_DINV_MODE = {None: 0, "jacobi": 1, "l1": 2}   # common.cuh DinvMode
+
+
+def fast_div(d: int):
+    """(mul, shr) with n // d == (n * mul >> 32) >> shr for every
+    0 <= n < 2**31 (csrc/common.cuh `FastDiv`); (0, 0) for d == 1."""
+    if d < 1:
+        raise ValueError(f"fast_div: divisor {d} < 1")
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()           # 31 + ceil(log2 d)
+    return ((1 << p) + d - 1) // d, p - 32
+
+
+class StencilArg(ctypes.Structure):
+    """The host stencil the coefficient-mode kernels copy into their
+    parameter block (csrc/common.cuh `Stencil`, field for field)."""
+    _fields_ = [("c", ctypes.c_float * MAX_OFFSETS),
+                ("sx", _I * MAX_OFFSETS), ("sy", _I * MAX_OFFSETS),
+                ("sz", _I * MAX_OFFSETS), ("nx", _I), ("ny", _I),
+                ("nz", _I), ("diag", _I), ("dinv", _I),
+                ("nx_mul", ctypes.c_uint), ("nx_shr", _I),
+                ("ny_mul", ctypes.c_uint), ("ny_shr", _I)]
+
+
+@functools.lru_cache(maxsize=256)
+def _stencil_struct(host, shifts, shape, diag_rank, dinv):
+    k = len(host)
+    sx, sy, sz = (tuple(s[a] for s in shifts) + (0,) * (MAX_OFFSETS - k)
+                  for a in range(3))
+    return StencilArg((ctypes.c_float * MAX_OFFSETS)(*host),
+                      (_I * MAX_OFFSETS)(*sx), (_I * MAX_OFFSETS)(*sy),
+                      (_I * MAX_OFFSETS)(*sz), *shape, diag_rank,
+                      _DINV_MODE[dinv], *fast_div(shape[0]),
+                      *fast_div(shape[1]))
+
+
+def stencil_arg(st) -> StencilArg:
+    """The kernels' parameter block of a StencilOperator (cached)."""
+    return _stencil_struct(st.host, st.shifts, st.shape, st.diag_rank,
+                           st.dinv_mode)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     from .cuda_build import library
     lib = library("dia.cu")
+    _S = ctypes.POINTER(StencilArg)
     lib.amgx_dia_spmv.argtypes = [_P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                   _I, _P, _I, _P, _I, _P, _P, _P, _P]
     lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _I,
                                       _P, _I, _P]
+    lib.amgx_dia_step_mf.argtypes = [_S, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                     _P, _I, _P, _I, _P, _P, _P, _P]
+    lib.amgx_dia_residual_mf.argtypes = [_S, _P, _P, _P, _I, _P, _I, _P]
+    lib.amgx_dia_restrict_mf.argtypes = [_S, _P, _P, _P, _I, _I, _P, _I, _P,
+                                         _I, _P]
     for fn in (lib.amgx_dia_spmv, lib.amgx_dia_step, lib.amgx_dia_residual,
-               lib.amgx_dia_restrict):
+               lib.amgx_dia_restrict, lib.amgx_dia_step_mf,
+               lib.amgx_dia_residual_mf, lib.amgx_dia_restrict_mf):
         fn.restype = _I
     return lib
 
@@ -270,13 +336,14 @@ def dia_spmv(vals, offsets, x):
     return y
 
 
-def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None,
+def _steps(name, step, head, offsets, taus, b, x, out, xc=None, agg=None,
            dot=None, ptab=None, pwt=None):
-    """Launch len(taus) damped steps, the last one writing `out`; the
-    first reads x (+ xc[agg], or + P xc through ptab / pwt, when given).
-    With dot = (partials, result) the last launch also writes out.b into
-    result and counts under name + "_dot". Returns `out`."""
-    lib = _lib()
+    """Launch len(taus) damped steps through the C entry `step` (whose
+    leading arguments are `head`: vals and dinv, or the stencil), the last
+    one writing `out`; the first reads x (+ xc[agg], or + P xc through
+    ptab / pwt, when given). With dot = (partials, result) the last launch
+    also writes out.b into result and counts under name + "_dot". Returns
+    `out`."""
     n = x.shape[0]
     s = taus.shape[0]
     tmp = torch.empty_like(x) if s > 1 else None
@@ -287,8 +354,8 @@ def _steps(name, vals, offsets, taus, b, x, dinv, out, xc=None, agg=None,
         dst = out if (s - 1 - t) % 2 == 0 else tmp
         last_dot = dot is not None and t == s - 1
         first = t == 0
-        _launch(name + "_dot" if last_dot else name, lib.amgx_dia_step,
-                _ptr(vals), _ptr(dinv), _ptr(taus), t, _ptr(b), _ptr(src),
+        _launch(name + "_dot" if last_dot else name, step, *head,
+                _ptr(taus), t, _ptr(b), _ptr(src),
                 _ptr(xc) if first else None, _ptr(agg) if first else None,
                 _ptr(ptab) if first else None, _ptr(pwt) if first else None,
                 mp, _ptr(dst), n, offs, len(offsets),
@@ -323,7 +390,8 @@ def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
                                 with_residual)
     n = _check_smooth("dia_smooth", vals, offsets, taus, b, x, dinv)
     with torch.cuda.device(x.device):
-        out = _steps("dia_smooth", vals, offsets, taus, b, x, dinv,
+        out = _steps("dia_smooth", _lib().amgx_dia_step,
+                     (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
                      torch.empty_like(x))
         if not with_residual:
             return out
@@ -353,8 +421,8 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
     if m < 1 or nc < 1:
         raise ValueError(f"{name}: empty child table")
     with torch.cuda.device(x.device):
-        out = _steps(name, vals, offsets, taus, b, x, dinv,
-                     torch.empty_like(x))
+        out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
+                     offsets, taus, b, x, torch.empty_like(x))
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
         _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
                 _ptr(out), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc), n,
@@ -382,7 +450,93 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                   ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))})
     with torch.cuda.device(x.device):
         dot = dot_scratch(n, x.device) if with_dot else None
-        out = _steps(name, vals, offsets, taus, b, x, dinv,
-                     torch.empty_like(x), xc=xc, agg=agg, dot=dot,
-                     ptab=ptab, pwt=pwt)
+        out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
+                     offsets, taus, b, x, torch.empty_like(x), xc=xc,
+                     agg=agg, dot=dot, ptab=ptab, pwt=pwt)
+    return (out, dot[1]) if with_dot else out
+
+
+# ---------------------------------------------------------------------------
+# the coefficient mode (B2-mf, B3-mf, B4-mf)
+# ---------------------------------------------------------------------------
+
+
+def _check_mf(name, st, taus, b, x, floats=None, ints=None):
+    """Validate a coefficient-mode launch: the stencil against x, then
+    the operands as _check_smooth does (no slab, no dinv)."""
+    n = x.shape[0]
+    if st.num_rows != n or len(st.host) != st.k \
+            or st.shape[0] * st.shape[1] * st.shape[2] != n:
+        raise ValueError(f"{name}: the stencil's grid {st.shape} does not "
+                         f"cover the {n} rows of x")
+    if taus.dim() != 1 or taus.shape[0] < 1:
+        raise ValueError(f"{name}: needs at least one step (taus "
+                         f"{tuple(taus.shape)})")
+    f = {"x": (x, (n,)), "b": (b, (n,)),
+         "taus": (taus, (taus.shape[0],))}
+    f.update(floats or {})
+    _check(name, st.offsets, n, f, ints)
+    return n
+
+
+def dia_smooth_mf(st, taus, b, x, with_residual=True):
+    """B2-mf: len(taus) damped steps (+ the residual) on the stencil
+    `st`. Returns x' or (x', r)."""
+    if x.device.type == "cpu":
+        from .stencil import _xla_smooth
+        return _xla_smooth(st.spec(), st.coeffs, taus, b, x, with_residual)
+    n = _check_mf("dia_smooth_mf", st, taus, b, x)
+    arg = ctypes.byref(stencil_arg(st))
+    with torch.cuda.device(x.device):
+        out = _steps("dia_smooth_mf", _lib().amgx_dia_step_mf, (arg,),
+                     st.offsets, taus, b, x, torch.empty_like(x))
+        if not with_residual:
+            return out
+        r = torch.empty_like(x)
+        _launch("dia_smooth_mf", _lib().amgx_dia_residual_mf, arg, _ptr(b),
+                _ptr(out), _ptr(r), n, _offsets_arg(st.offsets), st.k,
+                _stream())
+    return out, r
+
+
+def dia_smooth_restrict_mf(st, taus, b, x, ctab):
+    """B3-mf: B2-mf's steps, then bc = R (b - A x') through the child
+    table ctab (m, nc). Returns (x', bc)."""
+    if x.device.type == "cpu":
+        from .stencil import _xla_restrict
+        return _xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab)
+    if ctab.dim() != 2 or ctab.shape[0] < 1 or ctab.shape[1] < 1:
+        raise ValueError("dia_smooth_restrict_mf: ctab must be a non-empty "
+                         "(m, nc) table")
+    m, nc = ctab.shape
+    n = _check_mf("dia_smooth_restrict_mf", st, taus, b, x,
+                  ints={"ctab": (ctab, (m, nc))})
+    arg = ctypes.byref(stencil_arg(st))
+    with torch.cuda.device(x.device):
+        out = _steps("dia_smooth_restrict_mf", _lib().amgx_dia_step_mf,
+                     (arg,), st.offsets, taus, b, x, torch.empty_like(x))
+        bc = torch.empty(nc, dtype=x.dtype, device=x.device)
+        _launch("dia_smooth_restrict_mf", _lib().amgx_dia_restrict_mf, arg,
+                _ptr(b), _ptr(out), _ptr(ctab), m, nc, _ptr(bc), n,
+                _offsets_arg(st.offsets), st.k, _stream())
+    return out, bc
+
+
+def dia_prolong_smooth_mf(st, taus, b, x, xc, agg, with_dot=False):
+    """B4-mf: len(taus) damped steps on the stencil `st` from x + xc[agg],
+    the correction read by the first step. Returns x', or (x', x'.b) with
+    `with_dot` (the dot from the last launch, a 0-dim float32 tensor)."""
+    if x.device.type == "cpu":
+        from .stencil import _xla_corr
+        return _xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg,
+                         with_dot=with_dot)
+    n = _check_mf("dia_prolong_smooth_mf", st, taus, b, x,
+                  floats={"xc": (xc, (xc.shape[0],))},
+                  ints={"agg": (agg, (x.shape[0],))})
+    arg = ctypes.byref(stencil_arg(st))
+    with torch.cuda.device(x.device):
+        dot = dot_scratch(n, x.device) if with_dot else None
+        out = _steps("dia_prolong_smooth_mf", _lib().amgx_dia_step_mf,
+                     (arg,), st.offsets, taus, b, x, torch.empty_like(x),
+                     xc=xc, agg=agg, dot=dot)
     return (out, dot[1]) if with_dot else out

@@ -10,11 +10,19 @@ entry level's result (PCG's r.z when the whole cycle is the tail).
 
 Layout (the port's own; the TPU kernel's lane padding and quota slabs
 are not carried over): `spec` is a TailSpec of per-level TailLevelSpecs
-(offsets, n, n_pre, n_post, has_dinv, nc, m) and the coarse kind
+(offsets, n, n_pre, n_post, has_dinv, nc, m, mf) and the coarse kind
 ("inv" or "none", nz); `arrs` holds one dict per level -- "vals" (k, n),
-"dinv" (n,) or None, "taus_pre" (n_pre,), "taus_post" (n_post,), "ctab"
-(m, nc) int32, "agg" (n,) int32 -- and, for kind "inv", a last dict
-{"inv": (nz, nz)}. Level l's coarse size nc is level l + 1's n.
+"dinv" (n,) or None, "coeffs" None, "taus_pre" (n_pre,), "taus_post"
+(n_post,), "ctab" (m, nc) int32, "agg" (n,) int32 -- and, for kind
+"inv", a last dict {"inv": (nz, nz)}. Level l's coarse size nc is level
+l + 1's n.
+
+A matrix-free level (the coefficient mode: `mf` is the level's
+ops/stencil.py StencilSpec, `_tail_compute`'s `level_vals` branch) has
+"vals" and "dinv" None and "coeffs" its (k,) float32 coefficients; the
+kernel and the plain twin synthesize its values and diagonal inverse
+(`mf.dinv`) from them. Such launches count in "dia_coarse_tail_mf"
+(+ "_dot") when any level of the tail is matrix-free.
 
 The CUDA kernel (csrc/tail.cu) is one cooperative launch walking a phase
 program that `tail_program` flattens from the recursion once per
@@ -37,10 +45,12 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from . import cuda_spmv as _k
+from . import stencil as _st
 from .cuda_spmv import _check, _launch, _ptr, _stream
 
 TailLevelSpec = collections.namedtuple(
-    "TailLevelSpec", "offsets n n_pre n_post has_dinv nc m")
+    "TailLevelSpec", "offsets n n_pre n_post has_dinv nc m mf",
+    defaults=(None,))
 TailSpec = collections.namedtuple("TailSpec", "shape levels coarse")
 
 # phase program (csrc/tail.cu): rows of (op, level, src slot, dst slot,
@@ -49,7 +59,8 @@ OP_STEP, OP_RESTRICT, OP_COARSE, OP_CORRECT, OP_DOT = range(5)
 S_A, S_B, S_IN, S_Z = range(4)
 F_POST, F_CORRECTED, F_DOT = 1, 2, 4
 # per-level pointer table: these arrays, then the workspace's b, x_A, x_B
-_PTR_FIELDS = ("vals", "dinv", "taus_pre", "taus_post", "ctab", "agg")
+_PTR_FIELDS = ("vals", "dinv", "coeffs", "taus_pre", "taus_post", "ctab",
+               "agg")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,12 +83,23 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 
+def level_vals(ls, ar):
+    """(vals (k, n), dinv or None) of one tail level: its slab, or the
+    rows and diagonal inverse synthesized from its stencil."""
+    if ls.mf is None:
+        return ar["vals"], ar["dinv"]
+    c = ar["coeffs"]
+    masks = _st._vec_masks(ls.mf, c.device)
+    return (_st.slab_of(ls.mf, c, masks),
+            _st._dinv_vec(ls.mf, c, c.dtype, c.device, masks))
+
+
 def dia_coarse_tail_plain(spec, arrs, b, x, with_dot=False):
     levels = spec.levels
 
     def run(shape, i, bc, s):
         ls, ar = levels[i], arrs[i]
-        vals, dinv = ar["vals"], ar["dinv"]
+        vals, dinv = level_vals(ls, ar)
         s = _k.dia_smooth_plain(vals, ls.offsets, ar["taus_pre"], bc, s,
                                 dinv, with_residual=False)
         r = bc - _k.dia_spmv_plain(vals, ls.offsets, s)
@@ -157,7 +179,7 @@ def tail_program(spec, with_dot=False):
 # the wrapper
 # ---------------------------------------------------------------------------
 
-# per entry-level value slab: {(spec, with_dot): _CardPlan}
+# per entry level's child table: {(spec, with_dot): _CardPlan}
 _PLANS = WeakIdKeyDictionary()
 
 
@@ -192,8 +214,17 @@ class _CardPlan:
                 raise ValueError(f"dia_coarse_tail: level {l} restricts to "
                                  f"{ls.nc} rows, the next level has "
                                  f"{want_nc}")
+            mf = ls.mf
+            if (mf is None) != (ar["coeffs"] is None) or (
+                    mf is None) == (ar["vals"] is None) or (
+                    mf is not None and (ar["dinv"] is not None
+                                        or mf.n != n or mf.shape[0]
+                                        * mf.shape[1] * mf.shape[2] != n)):
+                raise ValueError(f"dia_coarse_tail: level {l} needs a value "
+                                 f"slab or (with its stencil) coefficients")
             _check("dia_coarse_tail", ls.offsets, n,
                    {"vals": (ar["vals"], (k, n)), "dinv": (ar["dinv"], (n,)),
+                    "coeffs": (ar["coeffs"], (k,)),
                     "taus_pre": (ar["taus_pre"], (ls.n_pre,)),
                     "taus_post": (ar["taus_post"], (ls.n_post,))},
                    {"ctab": (ar["ctab"], (ls.m, ls.nc)),
@@ -204,8 +235,14 @@ class _CardPlan:
             self.work += [w for w in ws if w is not None]
             ptrs.append([_ptr(ar[f]) or 0 for f in _PTR_FIELDS]
                         + [_ptr(w) or 0 for w in ws])
-            ints.append([n, k, ls.m, ls.nc, *ls.offsets]
-                        + [0] * (_k.MAX_OFFSETS - k))
+            pad = [0] * (_k.MAX_OFFSETS - k)
+            geo = [0] * 9 if mf is None else [
+                *mf.shape, mf.diag_rank, _k._DINV_MODE[mf.dinv],
+                *_int32_div(mf.shape[0]), *_int32_div(mf.shape[1])]
+            shifts = [[0] * k] * 3 if mf is None else [
+                [sh[a] for sh in mf.shifts] for a in range(3)]
+            ints.append([n, k, ls.m, ls.nc, *geo, *ls.offsets, *pad]
+                        + [v for axis in shifts for v in axis + pad])
         self.inv = arrs[-1]["inv"] if spec.coarse[0] == "inv" else None
         if self.inv is not None:
             _check("dia_coarse_tail", None, nz,
@@ -227,8 +264,14 @@ class _CardPlan:
         self.partials = torch.empty(self.grid, **f32)
 
 
+def _int32_div(d):
+    """fast_div(d) as two int32 table entries (mul's bits, shr)."""
+    mul, shr = _k.fast_div(d)
+    return (mul - (1 << 32) if mul >= 1 << 31 else mul), shr
+
+
 def _card_plan(spec, arrs, with_dot, device):
-    plans = _PLANS.setdefault(arrs[0]["vals"], {})
+    plans = _PLANS.setdefault(arrs[0]["ctab"], {})
     plan = plans.get((spec, with_dot))
     if plan is None or not _same(plan.refs, _held(arrs)):
         plan = plans[(spec, with_dot)] = _CardPlan(spec, arrs, with_dot,
@@ -243,12 +286,15 @@ def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
         return dia_coarse_tail_plain(spec, arrs, b, x, with_dot)
     n = spec.levels[0].n
     _check("dia_coarse_tail", None, n, {"b": (b, (n,)), "x": (x, (n,))})
+    name = "dia_coarse_tail" + (
+        "_mf" if any(ls.mf is not None for ls in spec.levels) else "") + (
+        "_dot" if with_dot else "")
     with torch.cuda.device(x.device):
         plan = _card_plan(spec, arrs, with_dot, x.device)
         out = torch.empty_like(x)
         dot = torch.empty((), dtype=torch.float32, device=x.device) \
             if with_dot else None
-        _launch("dia_coarse_tail_dot" if with_dot else "dia_coarse_tail",
+        _launch(name,
                 _lib().amgx_dia_coarse_tail,
                 _ptr(plan.prog), plan.nops, _ptr(plan.ptrs),
                 _ptr(plan.ints), len(spec.levels), _ptr(b), _ptr(x),

@@ -20,6 +20,11 @@ take the same route. `coarse_tail_cycle` runs the whole sub-cycle below
 an entry level through B5 (ops/cuda_tail.py) with the JAX package's
 eligibility rules.
 
+A matrix-free level (the hierarchy's `matrix_free` detector installed a
+StencilOperator, solve data "stencil"; its A has no value slab) routes
+every entry to ops/stencil.py: the coefficient-mode kernels B2-mf,
+B3-mf, B4-mf, and B5's matrix-free levels.
+
 Transfer tables (the JAX package's `build_transfer_slabs`, without the
 TPU's quota padding and VMEM window bases): `ctab` (m, nc) int32, the
 fine rows of each coarse row in ascending order, -1 where absent; `agg`
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_csr, cuda_spmv, cuda_tail
+from . import stencil as mf
 
 # the JAX package's child caps (amgx_tpu/ops/pallas_spmv.py), kept so the
 # same levels fuse in both packages: R rows of at most
@@ -102,8 +108,12 @@ def build_csr_transfer_tables(A, P, R):
 
 def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
     """x' (and r = b - A x' when `with_residual`) after len(taus) damped
-    steps through B2 on a DIA level, or through B9 sweeps and a B8
-    residual on a float32 CSR level; None when no kernel applies."""
+    steps through B2 on a DIA level (B2-mf on a matrix-free one), or
+    through B9 sweeps and a B8 residual on a float32 CSR level; None when
+    no kernel applies."""
+    st = data.get("stencil")
+    if st is not None:
+        return mf.stencil_fused_smooth(st, taus, b, x, with_residual)
     A = data["A"]
     if taus.shape[0] < 1:
         return None
@@ -125,8 +135,11 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
 
 def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
     """(x', bc) with bc = R (b - A x') after len(taus) damped steps
-    through B3, or None (the caller composes smooth_residual +
-    restrict)."""
+    through B3 (B3-mf on a matrix-free level), or None (the caller
+    composes smooth_residual + restrict)."""
+    st = data.get("stencil")
+    if st is not None:
+        return mf.stencil_smooth_restrict(st, taus, b, x, xfer)
     A = data["A"]
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
@@ -138,10 +151,14 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
 
 def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
                       want_dot=False):
-    """x' after len(taus) damped steps from x + P xc through B4, or
-    None (the caller composes prolongate + smooth). `want_dot` returns
-    (x', x'.b) with the dot from the last step's launch (PCG's r.z: the
-    cycle's rhs is r and its output z)."""
+    """x' after len(taus) damped steps from x + P xc through B4 (B4-mf on
+    a matrix-free level), or None (the caller composes prolongate +
+    smooth). `want_dot` returns (x', x'.b) with the dot from the last
+    step's launch (PCG's r.z: the cycle's rhs is r and its output z)."""
+    st = data.get("stencil")
+    if st is not None:
+        return mf.stencil_corr_smooth(st, taus, b, x, xc, xfer,
+                                      want_dot=want_dot)
     A = data["A"]
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
@@ -160,17 +177,20 @@ def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
 
 def _tail_plan(amg, shape, data, lvl, x):
     """(spec, arrs) of the tail entered at level `lvl`, or None when it
-    is not eligible."""
+    is not eligible. A matrix-free level enters with its coefficients in
+    place of the value slab and no dinv (the kernel synthesizes it)."""
     levels = amg.levels
     specs, arrs = [], []
     for i in range(lvl, len(levels)):
         ld = data["levels"][i]
         xfer, smd = ld.get("xfer"), ld.get("smoother")
         spec_fn = getattr(levels[i].smoother, "fused_tail_spec", None)
+        st = None if smd is None else smd.get("stencil")
         # weighted (classical) tables decline: B5's transfers are
         # unit-weight, as the JAX package's tail
         if xfer is None or "cwt" in xfer or smd is None or spec_fn is None \
-                or not kernel_ok(ld["A"], x):
+                or not (kernel_ok(ld["A"], x) if st is None
+                        else x.dtype == torch.float32):
             return None
         pre = spec_fn(smd, amg._sweeps(i, pre=True), x.dtype)
         post = spec_fn(smd, amg._sweeps(i, pre=False), x.dtype)
@@ -181,8 +201,11 @@ def _tail_plan(amg, shape, data, lvl, x):
         specs.append(cuda_tail.TailLevelSpec(
             offsets=tuple(A.dia_offsets), n=A.num_rows,
             n_pre=int(pre[0].shape[0]), n_post=int(post[0].shape[0]),
-            has_dinv=pre[1] is not None, nc=int(nc), m=int(m)))
+            has_dinv=pre[1] is not None, nc=int(nc), m=int(m),
+            mf=None if st is None else st.spec()))
         arrs.append({"vals": A.dia_vals, "dinv": pre[1],
+                     "coeffs": None if st is None
+                     else st.coeffs.to(torch.float32),
                      "taus_pre": pre[0].contiguous(),
                      "taus_post": post[0].contiguous(),
                      "ctab": xfer["ctab"], "agg": xfer["agg"]})

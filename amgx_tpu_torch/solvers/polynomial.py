@@ -11,6 +11,7 @@ import torch
 from .. import registry
 from ..ops import smooth as fused
 from ..ops.spmv import spmv
+from ..ops.stencil import mf_slim
 from .base import Solver
 
 
@@ -38,6 +39,11 @@ class ChebyshevPolySolver(Solver):
     steps x += tau_i (b - A x)."""
 
     is_smoother = True
+    # matrix-free capable (amg/hierarchy.py `matrix_free`): the damped
+    # Richardson steps need only the stencil coefficients, no dinv
+    supports_matrix_free = True
+    matrix_free_dinv = None
+    _mf_stencil = None
 
     def __init__(self, cfg, scope="default", name="CHEBYSHEV_POLY",
                  device="cpu"):
@@ -56,6 +62,11 @@ class ChebyshevPolySolver(Solver):
     def solve_data(self):
         d = super().solve_data()
         d["taus"] = self._taus
+        if self._mf_stencil is not None:
+            # matrix-free level: the operator view drops its value slab;
+            # every smoothing entry routes through ops/stencil.py
+            d["A"] = mf_slim(d["A"])
+            d["stencil"] = self._mf_stencil
         return d
 
     def computes_residual(self):

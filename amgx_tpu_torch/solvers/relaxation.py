@@ -8,6 +8,13 @@ fused hooks run through B2-B4 (ops/smooth.py) and the coarse tail (B5)
 like CHEBYSHEV_POLY's, with `fused_smoother=0` or a level the kernels do
 not take composing the sweeps here. The port's matrices are scalar: the
 block variants of the JAX package have nothing to act on yet.
+
+Matrix-free levels: when the hierarchy's detector installed a
+StencilOperator on the smoother (`_mf_stencil`, amg/hierarchy.py
+`matrix_free`), solve_data carries the stencil instead of dinv and the
+operator without its value slab; the kernels synthesize dinv from the
+diagonal coefficient ("jacobi": JACOBI, BLOCK_JACOBI) or the
+L1-strengthened diagonal ("l1": JACOBI_L1).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from .. import registry
 from ..ops import smooth as fused
 from ..ops.segment import segment_sum
 from ..ops.spmv import spmv
+from ..ops.stencil import mf_slim
 from .base import Solver
 
 
@@ -44,6 +52,11 @@ class _FusedJacobiMixin:
     damped-Jacobi solvers, through the smoother kernels with dinv."""
 
     is_smoother = True
+    # consulted by AMG._maybe_install_stencil: the sweeps need only the
+    # stencil coefficients, dinv synthesized per `matrix_free_dinv`
+    supports_matrix_free = True
+    matrix_free_dinv = "jacobi"
+    _mf_stencil = None
 
     def __init__(self, cfg, scope="default", name="?", device="cpu"):
         super().__init__(cfg, scope, name, device)
@@ -56,6 +69,10 @@ class _FusedJacobiMixin:
 
     def solve_data(self):
         d = super().solve_data()
+        if self._mf_stencil is not None:
+            d["A"] = mf_slim(d["A"])
+            d["stencil"] = self._mf_stencil
+            return d
         d["dinv"] = self._dinv
         return d
 
@@ -75,12 +92,14 @@ class _FusedJacobiMixin:
         return self._tau_cache[key]
 
     def _fused_ok(self, data, sweeps):
-        return sweeps > 0 and self.fused_smoother and "dinv" in data
+        return sweeps > 0 and self.fused_smoother and (
+            "dinv" in data or "stencil" in data)
 
     def smooth(self, data, b, x, sweeps: int):
         if self._fused_ok(data, sweeps):
             out = fused.fused_smooth(data, b, x, self._fused_taus(sweeps, x),
-                                     dinv=data["dinv"], with_residual=False)
+                                     dinv=data.get("dinv"),
+                                     with_residual=False)
             if out is not None:
                 return out
         return super().smooth(data, b, x, sweeps)
@@ -88,7 +107,8 @@ class _FusedJacobiMixin:
     def smooth_residual(self, data, b, x, sweeps: int):
         if self._fused_ok(data, sweeps):
             out = fused.fused_smooth(data, b, x, self._fused_taus(sweeps, x),
-                                     dinv=data["dinv"], with_residual=True)
+                                     dinv=data.get("dinv"),
+                                     with_residual=True)
             if out is not None:
                 return out
         return super().smooth_residual(data, b, x, sweeps)
@@ -98,7 +118,8 @@ class _FusedJacobiMixin:
         if not self._fused_ok(data, sweeps):
             return None
         return fused.fused_smooth_restrict(
-            data, b, x, self._fused_taus(sweeps, x), xfer, dinv=data["dinv"])
+            data, b, x, self._fused_taus(sweeps, x), xfer,
+            dinv=data.get("dinv"))
 
     def smooth_corr(self, data, b, x, xc, sweeps: int, xfer,
                     want_dot: bool = False):
@@ -106,12 +127,18 @@ class _FusedJacobiMixin:
             return None
         return fused.fused_corr_smooth(
             data, b, x, xc, self._fused_taus(sweeps, x), xfer,
-            dinv=data["dinv"], want_dot=want_dot)
+            dinv=data.get("dinv"), want_dot=want_dot)
 
     def fused_tail_spec(self, data, sweeps: int, dtype):
         """(taus, dinv) for the coarse-tail kernel, or None when this
-        smoother does not ride it."""
-        if not self.fused_smoother or "dinv" not in data:
+        smoother does not ride it. A matrix-free level returns dinv None:
+        the kernel synthesizes it from the stencil."""
+        if not self.fused_smoother:
+            return None
+        if "stencil" in data:
+            return (self._fused_taus(max(sweeps, 0),
+                                     data["stencil"].coeffs).to(dtype), None)
+        if "dinv" not in data:
             return None
         return (self._fused_taus(max(sweeps, 0), data["dinv"]).to(dtype),
                 data["dinv"])
@@ -131,6 +158,8 @@ class JacobiL1Solver(_FusedJacobiMixin, Solver):
     """L1-Jacobi: the diagonal strengthened by the off-diagonal row L1
     norm, so the sweep converges for every SPD matrix
     (jacobi_l1_solver.cu)."""
+
+    matrix_free_dinv = "l1"
 
     def solver_setup(self):
         self._dinv = safe_recip(l1_strengthened_diag(self.A))

@@ -8,16 +8,24 @@ Phases, one JSON line each on stdout:
 1. build    -- compile the CUDA kernels from amgx_tpu_torch/csrc (nvcc,
                one process per source, all at once).
 2. kernels  -- each kernel against its plain PyTorch version on the card:
-               B1-B4 at the flagship's finest-level shapes (7-pt 128^3)
-               and on a ragged 97x61x43 grid; B4's x'.b epilogue, B6 and
-               B7 at the PCG path's 128^3 shapes; B5 on 32^3 hierarchies,
-               whose whole cycle is the flagship 128^3's coarse tail
-               (32768 -> 4096 -> 512 -> 64 rows): CHEBYSHEV_POLY order 5
-               V, JACOBI_L1 V, each with and without the dot, and W and F.
+               B1-B4 and their coefficient ("matrix-free") mode B2-mf,
+               B3-mf, B4-mf, B4-mf's x'.b epilogue at the flagship's
+               finest-level shapes (7-pt 128^3) and on a ragged 97x61x43
+               grid, each coefficient kernel also against the slab kernel
+               on the same level (the same bits), and the dinv B2-mf
+               synthesizes ("jacobi", "l1") against the smoothers'; B4's
+               x'.b epilogue, B6 and B7 at the PCG path's 128^3 shapes; B5
+               on 32^3 hierarchies, whose whole cycle is the flagship
+               128^3's coarse tail (32768 -> 4096 -> 512 -> 64 rows), with
+               slab levels and with matrix-free ones (B5-mf, against B5 on
+               the slab levels): CHEBYSHEV_POLY order 5 V, JACOBI_L1 V,
+               each with and without the dot, and W and F.
                Max error with its limit, launches per call, kernel /
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
-               bound, and for B5 the dependent-phase count. Then the
+               kernel's device time per call under torch.profiler (host
+               launch cost left out), the bound, and for B5 the
+               dependent-phase count. Then the
                classical kernels on the 128^3 CLASSICAL hierarchy's float32
                solve data: B8 on level 1's operator, P and R, B9 on that
                operator with JACOBI_L1's dinv, B3w/B4w (and B4w's dot) on
@@ -27,17 +35,22 @@ Phases, one JSON line each on stdout:
 3. small    -- end-to-end references on small inputs, the card against
                the CPU (plain kernels): the flagship at 16^3 with the
                tail off and untouched, and PCG at 32^3, where the whole
-               cycle is the tail and B5 carries PCG's r.z.
-4. flagship -- the untouched FLAGSHIP on 7-pt 128^3, 2,097,152 rows: true
-               f64 residual <= 1e-8 in <= 3 outer iterations, one B5
-               launch per V-cycle, B3/B4 only on the levels above the
-               tail; then the same with the tail off.
-5. unfused  -- the tail-off flagship at 64^3 with amg:cycle_fusion=0,
-               which runs B2.
+               cycle is the tail and B5 carries PCG's r.z: slab levels
+               (pinned) and matrix-free ones (B5-mf's dot).
+4. flagship -- the untouched FLAGSHIP on 7-pt 128^3, 2,097,152 rows,
+               matrix-free on the card: true f64 residual <= 1e-8 in <= 3
+               outer iterations, one B5-mf launch per V-cycle, B3-mf/B4-mf
+               only on the levels above the tail, no slab B3/B4/B5; the
+               same with the slab route pinned (flagship_slab: the same
+               iterations, B3/B4/B5) and with the tail off; warm solves in
+               alternating pairs, matrix-free vs slab and slab vs tail-off.
+5. unfused  -- the tail-off flagship at 64^3 with amg:cycle_fusion=0: B2
+               on slab levels (pinned), B2-mf on matrix-free ones.
 6. krylov   -- PCG + GEO aggregation + JACOBI_L1 at 128^3 in float32,
-               krylov_fusion 1 (B6, B7, B4's dot) and 0 (B1): 54 +- 2
-               iterations, the two within one of each other, and the
-               host syncs per iteration.
+               krylov_fusion 1 (B6, B7, B4-mf's dot, B5-mf), the same with
+               the slab route pinned (B4's dot, B5), and krylov_fusion 0
+               (B1): 54 +- 2 iterations, all within one of each other, the
+               host syncs per iteration, warm solves in alternating pairs.
 7. classical -- bench.py's `_classical_cfg` (PCG f64 around an f32
                PMIS + D2 cycle) at 128^3 and 64^3: true f64 residual
                <= 1e-8 within 2 of the 20 / 17 iteration anchors, the level
@@ -86,19 +99,30 @@ PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 # step plus the weighted transfer (R's rows of up to 32 residuals); B10
 # rounds every product and sum as its plain version does, in the same
 # order, so it should agree to the bit.
+# The coefficient-mode kernels (_mf) run the slab kernels' arithmetic on
+# synthesized values: the same limits against their plain versions, and
+# the same bits as the slab kernel on the same level (reported as
+# slab_max_abs_diff and checked to be 0).
 LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "dia_prolong_smooth": 5e-5, "dia_prolong_smooth_dot": 5e-5,
           "dia_coarse_tail": 5e-5, "dia_coarse_tail_dot": 5e-5,
           "dia_spmv_dot": 1e-5, "cg_update": 1e-5,
           "dia_smooth_restrict_w": 5e-5, "dia_prolong_smooth_w": 5e-5,
           "dia_prolong_smooth_w_dot": 5e-5, "csr_spmv": 1e-6,
-          "csr_smooth": 1e-5, "rap_values": 1e-6}
+          "csr_smooth": 1e-5, "rap_values": 1e-6,
+          "dia_smooth_mf": 5e-5, "dia_smooth_restrict_mf": 5e-5,
+          "dia_prolong_smooth_mf": 5e-5, "dia_prolong_smooth_mf_dot": 5e-5,
+          "dia_coarse_tail_mf": 5e-5, "dia_coarse_tail_mf_dot": 5e-5}
 _PS = "amgx_tpu/ops/pallas_spmv.py:"
 REPLACES = {
     "dia_spmv": _PS + "165", "dia_smooth": _PS + "649",
     "dia_smooth_restrict": _PS + "1245", "dia_prolong_smooth": _PS + "1585",
     "dia_prolong_smooth_dot": _PS + "1585",
     "dia_coarse_tail": _PS + "1892", "dia_coarse_tail_dot": _PS + "1892",
+    "dia_smooth_mf": _PS + "781", "dia_smooth_restrict_mf": _PS + "1379",
+    "dia_prolong_smooth_mf": _PS + "1725",
+    "dia_prolong_smooth_mf_dot": _PS + "1725",
+    "dia_coarse_tail_mf": _PS + "1892", "dia_coarse_tail_mf_dot": _PS + "1892",
     "dia_spmv_dot": _PS + "2116", "cg_update": _PS + "2261",
     "dia_smooth_restrict_w": _PS + "1245",
     "dia_prolong_smooth_w": _PS + "1585",
@@ -116,7 +140,13 @@ SOURCES = {
     "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
+    "dia_smooth_mf": "dia.cu", "dia_smooth_restrict_mf": "dia.cu",
+    "dia_prolong_smooth_mf": "dia.cu", "dia_prolong_smooth_mf_dot": "dia.cu",
+    "dia_coarse_tail_mf": "tail.cu", "dia_coarse_tail_mf_dot": "tail.cu",
 }
+# pins the slab route on a path that exists to drive the slab kernels
+# (the card's default, matrix_free=auto, is matrix-free)
+SLAB = ", amg:matrix_free=0"
 # the repo's PCG anchor (bench.py bench_krylov): PCG + GEO aggregation +
 # JACOBI_L1, 54 iterations at 128^3 in float32 with either knob
 PCG = ("solver=PCG, max_iters=80, monitor_residual=1, tolerance=1e-8,"
@@ -196,6 +226,25 @@ def time_ms(torch, fn, reps=REPS, batch=BATCH):
     return ts[len(ts) // 2]
 
 
+def device_ms(torch, fn, batch=BATCH):
+    """Milliseconds of device time per call: the kernels' and copies'
+    durations under torch.profiler (CUPTI) over `batch` calls, so the
+    host's launch cost is left out even where it is the slower side
+    (`time_ms` then measures the host); None when the profiler records
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(batch):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us * 1e-3 / batch if us > 0 else None
+
+
 def bound(nbytes, flops):
     """(ms, what bounds it): the least time the card could take."""
     tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
@@ -242,7 +291,13 @@ def grid_case(torch, amgx, shape, dev):
 
 def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     """name -> (kernel call, plain call, bytes, flops, launches per call,
-    library call or None) at one shape."""
+    library call or None) at one shape, and name -> the slab kernel's call
+    on the same level for each coefficient-mode kernel. The coefficient
+    kernels take the level's stencil: CHEBYSHEV_POLY's (no dinv) for
+    B2-B4-mf, JACOBI_L1's ("l1") with PCG's two steps for B4-mf's dot."""
+    from amgx_tpu_torch.ops import stencil as mf
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
     vals, offs = A.dia_vals, A.dia_offsets
     n, k = A.num_rows, len(offs)
     m, nc = xfer["ctab"].shape
@@ -250,7 +305,12 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     app = (2 * k + 3) * n                  # flops of one damped step
     csr = torch.sparse_csr_tensor(A.row_offsets, A.col_indices, A.values,
                                   (n, n), check_invariants=True)
-    return {
+    st = mf.detect_stencil(A)
+    st_l1 = mf.detect_stencil(A, dinv_mode="l1")
+    check(st is not None and st_l1 is not None, "the 7-pt level is a stencil")
+    dinv = safe_recip(l1_strengthened_diag(A))
+    t2 = torch.full((2,), 0.75, device=x.device)
+    cases = {
         "dia_spmv": (
             lambda: K.dia_spmv(vals, offs, x),
             lambda: K.dia_spmv_plain(vals, offs, x),
@@ -272,7 +332,59 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
                                                xfer["agg"]),
             (k * n + 4 * n + s + nc) * 4, s * app + n, s, None),
+        # the coefficient mode moves no slab and no dinv: k coefficients
+        "dia_smooth_mf": (
+            lambda: K.dia_smooth_mf(st, taus, b, x),
+            lambda: mf._xla_smooth(st.spec(), st.coeffs, taus, b, x, True),
+            (k + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None),
+        "dia_smooth_restrict_mf": (
+            lambda: K.dia_smooth_restrict_mf(st, taus, b, x, xfer["ctab"]),
+            lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x,
+                                     xfer["ctab"]),
+            (k + 3 * n + s + m * nc + nc) * 4,
+            s * app + (2 * k + 2) * n, s + 1, None),
+        "dia_prolong_smooth_mf": (
+            lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, xfer["agg"]),
+            lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc,
+                                 xfer["agg"]),
+            (k + 4 * n + s + nc) * 4, s * app + n, s, None),
+        "dia_prolong_smooth_mf_dot": (
+            lambda: K.dia_prolong_smooth_mf(st_l1, t2, b, x, xc, xfer["agg"],
+                                            with_dot=True),
+            lambda: mf._xla_corr(st_l1.spec(), st_l1.coeffs, t2, b, x, xc,
+                                 xfer["agg"], with_dot=True),
+            (k + 4 * n + 2 + nc + 1) * 4, 2 * (2 * k + 4) * n + 3 * n, 2,
+            None),
     }
+    slab = {
+        "dia_smooth_mf": lambda: K.dia_smooth(vals, offs, taus, b, x),
+        "dia_smooth_restrict_mf": lambda: K.dia_smooth_restrict(
+            vals, offs, taus, b, x, xfer["ctab"]),
+        "dia_prolong_smooth_mf": lambda: K.dia_prolong_smooth(
+            vals, offs, taus, b, x, xc, xfer["agg"]),
+        "dia_prolong_smooth_mf_dot": lambda: K.dia_prolong_smooth(
+            vals, offs, t2, b, x, xc, xfer["agg"], dinv, with_dot=True),
+    }
+    return cases, slab
+
+
+def synthesized_dinv(torch, K, A):
+    """The diagonal inverse B2-mf synthesizes on the card ("jacobi" and
+    "l1"), read out as one step from x = 0 with b = 1 and tau = 1, against
+    the smoothers' own dinv (safe_recip of the diagonal and of the ordered
+    l1_strengthened_diag): {mode: max |diff|}, expected 0."""
+    from amgx_tpu_torch.ops.stencil import detect_stencil
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
+    one = torch.ones(A.num_rows, device=A.device)
+    out = {}
+    for mode, want in (("jacobi", safe_recip(A.diagonal())),
+                       ("l1", safe_recip(l1_strengthened_diag(A)))):
+        st = detect_stencil(A, dinv_mode=mode)
+        got = K.dia_smooth_mf(st, torch.ones(1, device=A.device), one,
+                              torch.zeros_like(one), with_residual=False)
+        out[mode] = float((got - want).abs().max())
+    return out
 
 
 def shell_cases(torch, amgx, K, KK, dev):
@@ -338,9 +450,10 @@ def tail_work(T, spec, arrs, with_dot):
     return nbytes, flops, len(prog)
 
 
-def tail_cases(torch, amgx, T, dev):
-    """B5 on the 32^3 hierarchies (the flagship 128^3's tail levels):
-    label -> (spec, arrs, with_dot, b, x)."""
+def tail_cases(torch, amgx, T, dev, mode):
+    """B5 on the 32^3 hierarchies (the flagship 128^3's tail levels),
+    with slab levels (matrix_free=0) or matrix-free ones (mode "mf", the
+    card's default): label -> (spec, arrs, with_dot, b, x)."""
     from amgx_tpu_torch.ops.smooth import _tail_plan
     from amgx_tpu_torch.presets import FLAGSHIP
     A = amgx.gallery.poisson("7pt", 32, 32, 32, dtype=torch.float32,
@@ -348,8 +461,9 @@ def tail_cases(torch, amgx, T, dev):
     g = torch.Generator(device=dev).manual_seed(7)
     b, x = (torch.randn(32 ** 3, generator=g, device=dev)
             for _ in range(2))
-    amgs = {"cheb5": amg_of(amgx, FLAGSHIP, A, dev).amg,
-            "jacobi_l1": amg_of(amgx, PCG + "1", A, dev).amg}
+    pin = SLAB if mode == "slab" else ""
+    amgs = {"cheb5": amg_of(amgx, FLAGSHIP + pin, A, dev).amg,
+            "jacobi_l1": amg_of(amgx, PCG + "1" + pin, A, dev).amg}
     cases = {}
     # each name's first case is its main-path shape: the flagship's tail
     # (CHEBYSHEV_POLY), PCG's whole-cycle tail with the dot (JACOBI_L1)
@@ -360,8 +474,10 @@ def tail_cases(torch, amgx, T, dev):
         amg = amgs[smoother]
         spec, arrs = _tail_plan(amg, shape, amg.solve_data(), 0, x)
         check([ls.n for ls in spec.levels] == [32768, 4096, 512]
-              and spec.coarse == ("inv", 64),
-              f"32^3 tail levels {[ls.n for ls in spec.levels]}")
+              and spec.coarse == ("inv", 64)
+              and all((ls.mf is not None) == (mode == "mf")
+                      for ls in spec.levels),
+              f"32^3 {mode} tail levels {spec.levels}")
         label = f"{smoother} {shape}" + (" dot" if with_dot else "")
         cases[label] = (spec, arrs, with_dot, b, x)
     return cases
@@ -518,7 +634,10 @@ def max_err(torch, got, want):
 
 
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
-             lib, rows, summary, extra=None):
+             lib, rows, summary, extra=None, slab=None):
+    """Check one kernel against its plain version (and, for a
+    coefficient-mode kernel, against the slab kernel on the same level:
+    `slab`), time both, emit the row and fold it into `summary`."""
     before = sum(K.LAUNCHES.values())
     got = kern()
     launched = sum(K.LAUNCHES.values()) - before
@@ -529,7 +648,14 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
           f"{name} launched {launched} kernels, expected {per_call}")
     check(rel_err <= LIMITS[name],
           f"{name} at {label}: error {rel_err} > {LIMITS[name]}")
+    if slab is not None:
+        extra = dict(extra or {}, slab_max_abs_diff=max_err(
+            torch, got, slab())[0])
+        check(extra["slab_max_abs_diff"] == 0.0,
+              f"{name} at {label}: {extra['slab_max_abs_diff']} from the "
+              f"slab kernel on the same level")
     ms = time_ms(torch, kern)
+    dev_ms = device_ms(torch, kern)
     plain_ms = time_ms(torch, plain)
     # a library call is only timed, never used; one that fails fails the run
     lib_ms = None if lib is None else time_ms(torch, lib)
@@ -537,15 +663,17 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     row = {"phase": "kernels", "shape": label, "name": name, "rows": rows,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "limit": LIMITS[name], "launches_per_call": per_call, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_us": b_ms * 1e3,
            "bound_by": b_by, "library_ms": lib_ms, **(extra or {})}
     emit(row)
     prev = summary.get(name)
     if prev is None:
         summary[name] = row       # the first (main-path) shape's numbers
     else:
-        prev["max_abs_err"] = max(prev["max_abs_err"], abs_err)
-        prev["max_rel_err"] = max(prev["max_rel_err"], rel_err)
+        for key in ("max_abs_err", "max_rel_err", "slab_max_abs_diff"):
+            if key in row:
+                prev[key] = max(prev[key], row[key])
 
 
 def phase_kernels(torch, amgx, dev):
@@ -558,24 +686,38 @@ def phase_kernels(torch, amgx, dev):
     for label, shape in (("flagship_l0_128^3", (128, 128, 128)),
                          ("ragged_97x61x43", (97, 61, 43))):
         A, xfer, taus, b, x, xc = grid_case(torch, amgx, shape, dev)
-        for name, case in kernel_cases(torch, K, A, xfer, taus, b, x,
-                                       xc).items():
-            run_case(torch, K, label, name, *case, A.num_rows, summary)
+        cases, slab = kernel_cases(torch, K, A, xfer, taus, b, x, xc)
+        for name, case in cases.items():
+            run_case(torch, K, label, name, *case, A.num_rows, summary,
+                     slab=slab.get(name))
+        diffs = synthesized_dinv(torch, K, A)
+        emit({"phase": "kernels_dinv_synthesized", "shape": label,
+              "max_abs_diff_from_smoother_dinv": diffs})
+        check(all(d == 0.0 for d in diffs.values()),
+              f"{label}: synthesized dinv differs from the smoothers' {diffs}")
     A, cases = shell_cases(torch, amgx, K, KK, dev)
     for name, case in cases.items():
         run_case(torch, K, "pcg_l0_128^3", name, *case, A.num_rows, summary)
-    for label, (spec, arrs, with_dot, b, x) in tail_cases(torch, amgx, T,
-                                                          dev).items():
-        nbytes, flops, phases = tail_work(T, spec, arrs, with_dot)
-        name = "dia_coarse_tail_dot" if with_dot else "dia_coarse_tail"
-        run_case(torch, K, f"tail_32^3 {label}", name,
-                 lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
-                 T.dia_coarse_tail(s, a, b, x, w),
-                 lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
-                 T.dia_coarse_tail_plain(s, a, b, x, w),
-                 nbytes, flops, 1, None, spec.levels[0].n, summary,
-                 {"phases": phases,
-                  "levels": [ls.n for ls in spec.levels]})
+    tails = {mode: tail_cases(torch, amgx, T, dev, mode)
+             for mode in ("slab", "mf")}
+    for mode, named in tails.items():
+        for label, (spec, arrs, with_dot, b, x) in named.items():
+            nbytes, flops, phases = tail_work(T, spec, arrs, with_dot)
+            name = "dia_coarse_tail" + ("_mf" if mode == "mf" else "") + (
+                "_dot" if with_dot else "")
+            slab = None
+            if mode == "mf":
+                s_spec, s_arrs = tails["slab"][label][:2]
+                slab = (lambda s=s_spec, a=s_arrs, w=with_dot, b=b, x=x:
+                        T.dia_coarse_tail(s, a, b, x, w))
+            run_case(torch, K, f"tail_32^3 {label}", name,
+                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+                     T.dia_coarse_tail(s, a, b, x, w),
+                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+                     T.dia_coarse_tail_plain(s, a, b, x, w),
+                     nbytes, flops, 1, None, spec.levels[0].n, summary,
+                     {"phases": phases,
+                      "levels": [ls.n for ls in spec.levels]}, slab=slab)
     cases, levels, mm = classical_cases(torch, amgx, K, C, dev)
     emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
           "levels": levels, **mm})
@@ -672,31 +814,43 @@ def phase_small(torch, amgx, dev, per_path):
               "x_rel_diff": xdiff})
         check(rc.iterations == rh.iterations and xdiff <= 1e-5
               and tc <= 1e-8, f"16^3 {label}: card agrees with the CPU")
-    # whole cycle = one tail: B5 carries PCG's r.z (its dot variant)
-    rc, _, _, _, _ = run_path(amgx, per_path, "pcg_32^3", lambda: solve(
-        torch, amgx, PCG + "1", 32, dev, torch.float32))
-    rh, _, _, _, _ = solve(torch, amgx, PCG + "1", 32, cpu, torch.float32)
-    xdiff = float(torch.linalg.norm(rc.x.cpu() - rh.x)
-                  / torch.linalg.norm(rh.x))
-    c = per_path["pcg_32^3"]
-    emit({"phase": "small", "config": "pcg_krylov_fusion=1",
-          "rows": 32 ** 3, "iterations_cuda": rc.iterations,
-          "iterations_cpu": rh.iterations, "x_rel_diff": xdiff,
-          "launches": c})
-    check(rc.status == "success" and rc.iterations == rh.iterations
-          and xdiff <= 1e-4, "32^3 PCG: card agrees with the CPU")
-    check(c["dia_coarse_tail_dot"] == rc.iterations + 1
-          and c["dia_prolong_smooth_dot"] == 0
-          and c["dia_spmv_dot"] == c["cg_update"] == rc.iterations,
-          f"32^3 PCG: r.z from B5 once per cycle, B6/B7 per iteration {c}")
+    # whole cycle = one tail: B5 carries PCG's r.z (its dot variant), on
+    # slab levels and on matrix-free ones (the card's default)
+    for path, pin, tail in (("pcg_32^3", SLAB, "dia_coarse_tail_dot"),
+                            ("pcg_mf_32^3", "", "dia_coarse_tail_mf_dot")):
+        rc, _, _, _, _ = run_path(amgx, per_path, path, lambda p=pin: solve(
+            torch, amgx, PCG + "1" + p, 32, dev, torch.float32))
+        rh, _, _, _, _ = solve(torch, amgx, PCG + "1", 32, cpu,
+                               torch.float32)
+        xdiff = float(torch.linalg.norm(rc.x.cpu() - rh.x)
+                      / torch.linalg.norm(rh.x))
+        c = per_path[path]
+        emit({"phase": "small", "config": path + " krylov_fusion=1",
+              "rows": 32 ** 3, "iterations_cuda": rc.iterations,
+              "iterations_cpu": rh.iterations, "x_rel_diff": xdiff,
+              "launches": c})
+        check(rc.status == "success" and rc.iterations == rh.iterations
+              and xdiff <= 1e-4, f"32^3 {path}: card agrees with the CPU")
+        check(c[tail] == rc.iterations + 1
+              and c["dia_coarse_tail"] + c["dia_coarse_tail_mf"] == 0
+              and c["dia_prolong_smooth_dot"] == 0
+              and c["dia_spmv_dot"] == c["cg_update"] == rc.iterations,
+              f"32^3 {path}: r.z from {tail} once per cycle, B6/B7 per "
+              f"iteration {c}")
 
 
 def phase_flagship(torch, amgx, dev, per_path):
+    """The untouched FLAGSHIP at 128^3 (matrix-free on the card: B3-mf /
+    B4-mf above the tail, one B5-mf per V-cycle), the same with the slab
+    route pinned (flagship_slab), and the slab tail-off run; warm solves
+    in alternating pairs: matrix-free against slab, slab against
+    tail-off."""
     from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
     n = 128
     runs, slvs = {}, {}
     for label, cfg in (("flagship", FLAGSHIP),
-                       ("flagship_tail_off", FLAGSHIP_TAIL_OFF)):
+                       ("flagship_slab", FLAGSHIP + SLAB),
+                       ("flagship_tail_off", FLAGSHIP_TAIL_OFF + SLAB)):
         res, slv, setup_s, solve_s, true_rel = run_path(
             amgx, per_path, label, lambda c=cfg: solve(
                 torch, amgx, c + ", store_res_history=1", n, dev))
@@ -704,10 +858,12 @@ def phase_flagship(torch, amgx, dev, per_path):
         c = per_path[label]
         inner = int(res.extra_stats["inner_iters"])
         levels = levels_of(slv)
+        _, warm_s = warm_solve(torch, slv, n, torch.float64)
         runs[label] = {"setup_s": setup_s, "solve_s": solve_s,
-                       "inner_iterations": inner}
+                       "warm_solve_s": warm_s, "inner_iterations": inner,
+                       "outer_iterations": res.iterations}
         emit({"phase": "flagship", "config": label, "rows": n ** 3,
-              "setup_s": setup_s, "solve_s": solve_s,
+              "setup_s": setup_s, "solve_s": solve_s, "warm_solve_s": warm_s,
               "levels": levels, "outer_iterations": res.iterations,
               "inner_iterations": inner, "status": res.status,
               "true_rel_res": true_rel,
@@ -716,41 +872,64 @@ def phase_flagship(torch, amgx, dev, per_path):
         check(res.status == "success" and true_rel <= 1e-8,
               f"128^3 {label} true relative residual {true_rel} <= 1e-8")
         check(res.iterations <= 3, f"{res.iterations} outer iterations <= 3")
-        check(c["dia_spmv"] > 0 and c["dia_smooth_restrict"] > 0
-              and c["dia_prolong_smooth"] > 0, f"{label}: B1, B3, B4 ran")
-        if label == "flagship":
+        above = sum(r > 65536 for r in levels[:-1])
+        mf = "_mf" if label == "flagship" else ""
+        other = "" if mf else "_mf"
+        check(c["dia_spmv"] > 0 and c["dia_smooth_restrict" + mf] > 0
+              and c["dia_prolong_smooth" + mf] > 0
+              and c["dia_smooth_restrict" + other] == 0
+              and c["dia_prolong_smooth" + other] == 0
+              and c["dia_coarse_tail" + other] == 0,
+              f"{label}: B1, B3{mf}, B4{mf} ran, none of the other route {c}")
+        if label != "flagship_tail_off":
             # every V-cycle: B3 (6 launches) and B4 (5) on each level
             # above the tail, then ONE B5 launch for the rest
-            above = sum(r > 65536 for r in levels[:-1])
-            check(above == 2 and c["dia_coarse_tail"] == inner,
-                  f"one B5 launch per V-cycle: {c['dia_coarse_tail']} "
-                  f"launches, {inner} cycles")
-            check(c["dia_smooth_restrict"] == inner * above * 6
-                  and c["dia_prolong_smooth"] == inner * above * 5,
-                  f"B3/B4 only on the {above} levels above the tail: {c}")
+            check(above == 2 and c["dia_coarse_tail" + mf] == inner,
+                  f"{label}: one B5{mf} launch per V-cycle: {c}, {inner} "
+                  f"cycles")
+            check(c["dia_smooth_restrict" + mf] == inner * above * 6
+                  and c["dia_prolong_smooth" + mf] == inner * above * 5,
+                  f"{label}: B3{mf}/B4{mf} only on the {above} levels above "
+                  f"the tail: {c}")
         else:
             check(c["dia_coarse_tail"] == 0, "tail off: no B5 launch")
-    warm, wins = paired_warm(torch, slvs, n, torch.float64)
-    emit({"phase": "flagship_vs_tail_off", "rows": n ** 3,
-          "warm_solve_s": warm, "pairs": PAIRS, "flagship_wins": wins,
-          "warm_median_ratio": warm["flagship"]["median"]
-          / warm["flagship_tail_off"]["median"], **{
-              f"{k}_{c}": v for k, r in runs.items() for c, v in r.items()}})
+    check(runs["flagship"]["inner_iterations"]
+          == runs["flagship_slab"]["inner_iterations"]
+          and runs["flagship"]["outer_iterations"]
+          == runs["flagship_slab"]["outer_iterations"],
+          f"matrix-free and slab flagships: same iterations {runs}")
+    for a, b_ in (("flagship", "flagship_slab"),
+                  ("flagship_slab", "flagship_tail_off")):
+        warm, wins = paired_warm(torch, {a: slvs[a], b_: slvs[b_]}, n,
+                                 torch.float64)
+        emit({"phase": f"{a}_vs_{b_}", "rows": n ** 3,
+              "warm_solve_s": warm, "pairs": PAIRS, "first_wins": wins,
+              "warm_median_ratio": warm[a]["median"] / warm[b_]["median"],
+              **{f"{k}_{c}": v for k, r in runs.items() if k in (a, b_)
+                 for c, v in r.items()}})
 
 
 def phase_unfused(torch, amgx, dev, per_path):
+    """The tail-off flagship at 64^3 with cycle_fusion=0: B2 on slab
+    levels (pinned), B2-mf on matrix-free ones (the card's default)."""
     from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
-    unf, _, setup_u, solve_u, rel_u = run_path(
-        amgx, per_path, "unfused", lambda: solve(
-            torch, amgx, FLAGSHIP_TAIL_OFF + ", amg:cycle_fusion=0", 64,
-            dev))
-    emit({"phase": "unfused", "rows": 64 ** 3, "setup_s": setup_u,
-          "solve_s": solve_u, "outer_iterations": unf.iterations,
-          "inner_iterations": int(unf.extra_stats["inner_iters"]),
-          "true_rel_res": rel_u, "launches": per_path["unfused"]})
-    check(unf.status == "success" and rel_u <= 1e-8,
-          f"64^3 unfused true relative residual {rel_u} <= 1e-8")
-    check(per_path["unfused"]["dia_smooth"] > 0, "dia_smooth ran unfused")
+    for path, pin, b2 in (("unfused", SLAB, "dia_smooth"),
+                          ("unfused_mf", "", "dia_smooth_mf")):
+        unf, slv, setup_u, solve_u, rel_u = run_path(
+            amgx, per_path, path, lambda p=pin: solve(
+                torch, amgx, FLAGSHIP_TAIL_OFF + ", amg:cycle_fusion=0" + p,
+                64, dev))
+        _, warm_u = warm_solve(torch, slv, 64, torch.float64)
+        c = per_path[path]
+        emit({"phase": "unfused", "config": path, "rows": 64 ** 3,
+              "setup_s": setup_u, "solve_s": solve_u, "warm_solve_s": warm_u,
+              "outer_iterations": unf.iterations,
+              "inner_iterations": int(unf.extra_stats["inner_iters"]),
+              "true_rel_res": rel_u, "launches": c})
+        check(unf.status == "success" and rel_u <= 1e-8,
+              f"64^3 {path} true relative residual {rel_u} <= 1e-8")
+        check(c[b2] > 0 and c["dia_smooth"] + c["dia_smooth_mf"] == c[b2],
+              f"{b2} ran unfused, the other route did not {c}")
 
 
 def count_syncs(torch, fn):
@@ -768,21 +947,27 @@ def count_syncs(torch, fn):
 
 
 def phase_krylov(torch, amgx, dev, per_path):
+    """PCG + GEO + JACOBI_L1 at 128^3 in float32: krylov_fusion 1 and 0 on
+    the card's default (matrix-free: B4-mf's dot carries r.z, B5-mf once
+    per cycle), and krylov_fusion 1 with the slab route pinned (B4's dot,
+    B5); warm solves in alternating pairs: fused against unfused,
+    matrix-free against slab."""
     n = 128
     iters, slvs = {}, {}
-    for kf in (1, 0):
-        path = f"pcg_krylov_fusion={kf}"
+    for path, cfg in (("pcg_krylov_fusion=1", PCG + "1"),
+                      ("pcg_krylov_fusion=1_slab", PCG + "1" + SLAB),
+                      ("pcg_krylov_fusion=0", PCG + "0")):
         res, slv, setup_s, solve_s, true_rel = run_path(
-            amgx, per_path, path, lambda k=kf: solve(
-                torch, amgx, PCG + str(k), n, dev, torch.float32))
+            amgx, per_path, path, lambda c=cfg: solve(
+                torch, amgx, c, n, dev, torch.float32))
         slvs[path] = slv
-        (warm, _), syncs = count_syncs(
+        (warm, warm_s), syncs = count_syncs(
             torch, lambda: warm_solve(torch, slv, n, torch.float32))
         c = per_path[path]
-        iters[kf] = res.iterations
+        iters[path] = res.iterations
         emit({"phase": "krylov", "config": path, "rows": n ** 3,
               "levels": levels_of(slv), "setup_s": setup_s,
-              "solve_s": solve_s,
+              "solve_s": solve_s, "warm_solve_s": warm_s,
               "iterations": res.iterations, "status": res.status,
               "true_rel_res": true_rel, "host_syncs_warm": syncs,
               "host_syncs_per_iteration": syncs / max(warm.iterations, 1),
@@ -791,22 +976,32 @@ def phase_krylov(torch, amgx, dev, per_path):
         check(abs(res.iterations - PCG_ANCHOR) <= 2,
               f"128^3 PCG {path}: {res.iterations} iterations, anchor "
               f"{PCG_ANCHOR} +- 2")
-        if kf:
+        cycles = res.iterations + 1
+        mf, other = ("", "_mf") if path.endswith("_slab") else ("_mf", "")
+        check(c["dia_coarse_tail" + mf] > 0
+              and c["dia_smooth_restrict" + other] == 0
+              and c["dia_prolong_smooth" + other] == 0
+              and c["dia_coarse_tail" + other] == 0,
+              f"PCG {path}: one B5{mf} per cycle, no {other or 'slab'} "
+              f"route {c}")
+        if path.startswith("pcg_krylov_fusion=1"):
             check(c["dia_spmv_dot"] == c["cg_update"] == res.iterations
-                  and c["dia_prolong_smooth_dot"] == res.iterations + 1
-                  and c["dia_coarse_tail"] == res.iterations + 1,
-                  f"fused PCG: B6, B7 per iteration, B4's dot and one B5 "
-                  f"per cycle {c}")
+                  and c["dia_prolong_smooth" + mf + "_dot"] == cycles
+                  and c["dia_coarse_tail" + mf] == cycles,
+                  f"fused PCG {path}: B6, B7 per iteration, B4{mf}'s dot "
+                  f"once per cycle {c}")
         else:
             check(c["dia_spmv"] > res.iterations and c["dia_spmv_dot"] == 0
                   and c["cg_update"] == 0, f"unfused PCG: B1 {c}")
-    check(abs(iters[1] - iters[0]) <= 1,
-          f"krylov_fusion 1 / 0: {iters[1]} / {iters[0]} iterations")
-    warm, wins = paired_warm(torch, slvs, n, torch.float32)
-    emit({"phase": "krylov_fused_vs_unfused", "rows": n ** 3,
-          "warm_solve_s": warm, "pairs": PAIRS, "fused_wins": wins,
-          "warm_median_ratio": warm["pcg_krylov_fusion=1"]["median"]
-          / warm["pcg_krylov_fusion=0"]["median"]})
+    check(max(iters.values()) - min(iters.values()) <= 1,
+          f"PCG fused / slab / unfused iterations {iters}")
+    for a, b_ in (("pcg_krylov_fusion=1", "pcg_krylov_fusion=0"),
+                  ("pcg_krylov_fusion=1", "pcg_krylov_fusion=1_slab")):
+        warm, wins = paired_warm(torch, {a: slvs[a], b_: slvs[b_]}, n,
+                                 torch.float32)
+        emit({"phase": f"krylov_{a}_vs_{b_}", "rows": n ** 3,
+              "warm_solve_s": warm, "pairs": PAIRS, "first_wins": wins,
+              "warm_median_ratio": warm[a]["median"] / warm[b_]["median"]})
 
 
 def precond_amg(slv):
@@ -997,8 +1192,16 @@ def main():
     regs = {src: [ln.split("Used ")[1].split(",")[0]
                   for ln in log.splitlines() if "Used " in ln]
             for src, log in rep["ptxas"].items()}
+    # local memory (a stack frame, spills) in any kernel, by source
+    local = {src: sorted({ln.strip() for ln in log.splitlines()
+                          if "stack frame" in ln
+                          and not ln.strip().startswith("0 bytes stack "
+                                                        "frame, 0 bytes "
+                                                        "spill stores")})
+             for src, log in rep["ptxas"].items()}
     emit({"phase": "build", "seconds": rep["seconds"],
-          "built": rep["built"], "ptxas_registers": regs})
+          "built": rep["built"], "ptxas_registers": regs,
+          "ptxas_local_memory": local})
 
     summary = phase_kernels(torch, amgx, dev)
     per_path = {}
@@ -1020,10 +1223,12 @@ def main():
             "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"],
             "max_rel_err": row["max_rel_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        if "phases" in row:
-            entry["phases"] = row["phases"]
+        for key in ("phases", "slab_max_abs_diff"):
+            if key in row:
+                entry[key] = row[key]
         kernels.append(entry)
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -64,18 +64,23 @@ def _np_or_none(v):
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
     layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
-    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), a classical
-    level's cf_map, P and R, and DENSE_LU's explicit inverse when the
-    JAX package built one."""
+    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), the
+    stencil of a matrix-free level, a classical level's cf_map, P and R,
+    and DENSE_LU's explicit inverse when the JAX package built one."""
     amg = amg_solver.amg
     data = amg_solver.solve_data()["amg"]
     levels = []
     for i, lv in enumerate(amg.levels):
         d = csr_arrays(lv.A)
         smd = data["levels"][i]["smoother"]
+        st = smd.get("stencil")
         d.update(coarse_size=lv.coarse_size,
                  taus=_np_or_none(smd.get("taus")),
-                 dinv=_np_or_none(smd.get("dinv")))
+                 dinv=_np_or_none(smd.get("dinv")),
+                 stencil=None if st is None else {
+                     "coeffs": np.asarray(st.coeffs), "offsets": st.offsets,
+                     "shifts": st.shifts, "shape": st.shape,
+                     "dinv_mode": st.dinv_mode})
         if getattr(lv, "cf_map", None) is not None:
             d.update(cf_map=np.asarray(lv.cf_map), P=csr_arrays(lv.P),
                      R=csr_arrays(lv.R))

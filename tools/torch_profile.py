@@ -4,6 +4,7 @@
     python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical]
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
+                                   [--matrix-free auto|0|1]
 
 Configurations: `flagship` is the untouched FLAGSHIP preset (its inner
 V-cycle enters the coarse-tail kernel B5 at the first level of at most
@@ -12,7 +13,10 @@ per-level kernels B3/B4), `pcg` is PCG + GEO aggregation + JACOBI_L1 in
 float32 (the repo's PCG anchor, bench.py bench_krylov), `classical` is
 bench.py's `_classical_cfg` (PCG in float64 around a float32 classical
 PMIS + D2 AMG cycle with JACOBI_L1: B3w/B4w on level 0, B8/B9 on the
-coarse levels). Sets the solver
+coarse levels). `--matrix-free` sets `amg:matrix_free`: auto (the
+default) runs the GEO levels matrix-free on the card (B3-mf, B4-mf,
+B5-mf), 0 pins the slab kernels, so the two routes profile side by
+side. Sets the solver
 up on a 7-pt size^3 Poisson system on the CUDA card, runs one warm-up
 solve, then profiles one solve with torch.profiler. Prints one JSON
 line: the solve's wall time, the device's busy time (sum of kernel and
@@ -41,6 +45,8 @@ def main():
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--cycle-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--matrix-free", default="auto",
+                    choices=("auto", "0", "1"))
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     import torch
@@ -56,7 +62,8 @@ def main():
     base = {"flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
             "pcg": PCG + str(args.krylov_fusion),
             "classical": CLASSICAL}[args.config]
-    cfg = base + f", amg:cycle_fusion={args.cycle_fusion}"
+    cfg = base + (f", amg:cycle_fusion={args.cycle_fusion},"
+                  f" amg:matrix_free={args.matrix_free}")
     dtype = torch.float32 if args.config == "pcg" else torch.float64
     slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
     slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
@@ -93,6 +100,7 @@ def main():
         "cycle_fusion": args.cycle_fusion,
         "krylov_fusion": args.krylov_fusion if args.config == "pcg"
         else None,
+        "matrix_free": args.matrix_free,
         "device": torch.cuda.get_device_name(0),
         "outer_iterations": res.iterations, "inner_iterations": inner,
         "wall_s": wall, "device_busy_s": busy_us * 1e-6,
@@ -100,7 +108,7 @@ def main():
         "device_ops": launches, "dtoh_copies": dtoh,
         "device_ops_per_inner_iteration": launches / max(inner, 1),
         "dtoh_per_inner_iteration": dtoh / max(inner, 1),
-        "top": [{"name": k[:90], "ms": v[0] * 1e-3, "count": v[1],
+        "top": [{"name": k[:140], "ms": v[0] * 1e-3, "count": v[1],
                  "share_of_busy": v[0] / max(busy_us, 1e-9)}
                 for k, v in top]}), flush=True)
     return 0
