@@ -23,8 +23,17 @@ coefficient-mode kernels. auto turns it on for operators on a CUDA
 device (the counterpart of the JAX package's "on a real TPU"), 1 on
 every device, 0 never. Only levels whose transfers the coefficient
 kernels carry (`AMGLevel.matrix_free`: the unit-weight aggregation
-levels) take it. Not ported yet: bfloat16 hierarchies, structure reuse
-on resetup and telemetry.
+levels) take it.
+
+`resetup(A)` (AMGX_solver_resetup) honours `structure_reuse_levels`: 0
+sets up anew; -1 (all levels) or k (the first k) rebuild those levels
+from the old levels' structure (`AMGLevel.reuse_structure`: no selector
+runs) on the new coefficients, and set up every level below anew. The
+smoothers set up on the new values and the matrix-free detector runs
+again. This is the JAX package's generic reuse loop; its pipelined GEO
+value-only resetup (`value_resetup.py`) is not ported, and classical
+levels do not reuse their structure yet (`reuse_structure` raises). Not
+ported yet: bfloat16 hierarchies and telemetry.
 """
 from __future__ import annotations
 
@@ -64,6 +73,14 @@ class AMGLevel:
 
     def create_coarse_matrix(self) -> CsrMatrix:
         raise NotImplementedError
+
+    def reuse_structure(self, old: "AMGLevel"):
+        """Take `old`'s coarsening structure for a structure-reuse
+        resetup (create_coarse_matrix then recomputes only the Galerkin
+        values)."""
+        raise NotImplementedError(
+            f"structure reuse of {self.algorithm} levels is not ported yet "
+            f"(structure_reuse_levels=0 sets up anew; ROADMAP.md A5)")
 
     def level_data(self) -> Dict[str, Any]:
         d = {"A": self.A}
@@ -141,6 +158,40 @@ class AMG:
         self._tail_plans = {}
         self._cast_memo = {}
         self._build_levels(A if A.initialized else A.init(), 0)
+        self._finalize_setup()
+        return self
+
+    def resetup(self, A: CsrMatrix):
+        """Set up on new coefficients keeping the coarsening structure of
+        the first `structure_reuse_levels` levels (-1: all); 0, an empty
+        hierarchy or another row count set up anew (the JAX package's
+        generic reuse loop, src/amg.cu's structure-reuse path)."""
+        reuse = int(self.cfg.get("structure_reuse_levels", self.scope))
+        if reuse == 0 or not self.levels \
+                or A.num_rows != self.levels[0].A.num_rows:
+            return self.setup(A)
+        Af = A if A.initialized else A.init()
+        k = len(self.levels) if reuse < 0 else min(reuse, len(self.levels))
+        old_levels, self.levels = self.levels, []
+        self._tail_plans = {}
+        self._cast_memo = {}
+        lvl = 0
+        try:
+            while lvl < k:
+                old = old_levels[lvl]
+                if Af.num_rows != old.A.num_rows:
+                    break
+                level = type(old)(Af, self.cfg, self.scope, lvl)
+                level.reuse_structure(old)
+                Ac = level.create_coarse_matrix()
+                self.levels.append(level)
+                self._attach_level_smoother(level)
+                Af = Ac if Ac.initialized else Ac.init()
+                lvl += 1
+        except NotImplementedError:
+            self.levels = old_levels     # a refused resetup changes nothing
+            raise
+        self._build_levels(Af, lvl)
         self._finalize_setup()
         return self
 

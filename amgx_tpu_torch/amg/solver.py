@@ -19,6 +19,9 @@ class AlgebraicMultigridSolver(Solver):
     def solver_setup(self):
         self.amg.setup(self.A)
 
+    def solver_resetup(self):
+        self.amg.resetup(self.A)
+
     def solve_data(self):
         d = super().solve_data()
         d["amg"] = self.amg.solve_data()

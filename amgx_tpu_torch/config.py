@@ -309,8 +309,10 @@ def _register_default_parameters():
     R("spgemm_plan", str, "plan-split Galerkin RAP (ops/spgemm.py): the "
       "structure phase runs once per level on the operator's device, the "
       "value phase through the RAP value kernel (float32) or the plain "
-      "ordered sums; 0 = the eager (R A) P composition",
-      "auto", ("auto", "0", "1"))
+      "ordered sums; 0 = the eager (R A) P composition on classical "
+      "levels; aggregation levels always take the planned relabel "
+      "product (the JAX package's eager `coarse_a_from_aggregates` is "
+      "not ported)", "auto", ("auto", "0", "1"))
     R("setup_backend", str, "where the AMG setup runs; the port always "
       "builds the hierarchy on the operator's device (the JAX package's "
       "`device`), so every value is accepted and means that",

@@ -25,6 +25,18 @@
 // The products and sums are rounded separately (__fmul_rn / __fadd_rn,
 // never contracted into an FMA), so the kernel gives the bits of its
 // plain PyTorch twin, on the card as on the CPU.
+//
+// The relabel form (the TPU kernel with has1=False, has_r=False): the
+// Galerkin product of unsmoothed aggregation, where P is the 0/1
+// aggregates map, so R A P only relabels A's entries (ops/spgemm.py
+// AggPlan). One stage and no multiply:
+//
+//   c[u] = sum_{f in [s2[u], s2[u+1])} af[st[f]]
+//
+// Its own entry point, so it reads no vector of ones and counts under
+// its own name. Memory-bound the same way (one index read and one
+// gathered value per candidate, 8 B for one add); the same design, one
+// thread per coarse entry adding its run left to right with __fadd_rn.
 #include "common.cuh"
 
 namespace {
@@ -43,6 +55,19 @@ rap_run_kernel(const float* __restrict__ u, const float* __restrict__ v,
   out[k] = acc;
 }
 
+__global__ void __launch_bounds__(kThreads)
+rap_relabel_kernel(const float* __restrict__ af, const int* __restrict__ st,
+                   const int* __restrict__ starts, float* __restrict__ out,
+                   int nout) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= nout) return;
+  const int f1 = starts[u + 1];
+  float acc = 0.0f;
+  for (int f = starts[u]; f < f1; ++f)
+    acc = __fadd_rn(acc, __ldg(af + st[f]));
+  out[u] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -58,6 +83,17 @@ int amgx_rap_stage(const float* u, const float* v, const int* su,
   if (nout == 0) return 0;
   rap_run_kernel<<<blocks_for(nout), kThreads, 0, stream>>>(
       u, v, su, sv, starts, out, nout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The relabel form: out[u] = sum over the run [starts[u], starts[u+1])
+// of af[st[f]], added left to right (nout coarse entries).
+int amgx_rap_relabel(const float* af, const int* st, const int* starts,
+                     float* out, int nout, cudaStream_t stream) {
+  if (nout < 0) return -1;
+  if (nout == 0) return 0;
+  rap_relabel_kernel<<<blocks_for(nout), kThreads, 0, stream>>>(
+      af, st, starts, out, nout);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,10 @@ view the kernels stream. Differences from the JAX package, by design:
   row; on an H100 that was the fastest choice for the classical
   operators, chip_smoke.py). No block or external-diagonal matrices
   yet.
+
+`with_values` swaps the coefficients and keeps the structure tensors
+(AMGX_matrix_replace_coefficients, the input of a structure-reuse
+`resetup`).
 """
 from __future__ import annotations
 
@@ -25,6 +29,14 @@ import numpy as np
 import torch
 
 from .errors import BadParametersError
+
+
+def lexsort_rc(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The stable (rows, cols)-lexicographic order: two stable sorts, by
+    cols and then by rows (the JAX package's `lexsort_rc`)."""
+    order1 = torch.argsort(cols, stable=True)
+    order2 = torch.argsort(rows[order1], stable=True)
+    return order1[order2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +114,35 @@ class CsrMatrix:
         k = int(offs.numel())
         if k > self.DIA_MAX_OFFSETS or k * n > self.DIA_FILL_RATIO * self.nnz:
             return out
-        d_idx = torch.searchsorted(offs, diffs)
-        flat = torch.zeros(k * n, dtype=self.dtype, device=self.device)
-        flat.index_add_(0, d_idx * n + rows, self.values)
         return dataclasses.replace(
             out, dia_offsets=tuple(int(o) for o in offs.tolist()),
-            dia_vals=flat.reshape(k, n))
+            dia_vals=self._dia_fill(offs, self.values))
+
+    def _dia_fill(self, offs: torch.Tensor, values: torch.Tensor):
+        """The (k, n) DIA slab of `values` on this pattern for the
+        ascending offsets `offs`; duplicates sum."""
+        n = self.num_rows
+        rows = self.row_ids()
+        d_idx = torch.searchsorted(offs, self.col_indices.long() - rows)
+        flat = torch.zeros(offs.numel() * n, dtype=values.dtype,
+                           device=values.device)
+        flat.index_add_(0, d_idx * n + rows, values)
+        return flat.reshape(offs.numel(), n)
+
+    def with_values(self, values: torch.Tensor) -> "CsrMatrix":
+        """The same structure with new coefficients (one per stored
+        entry); the DIA view, if any, is refilled from them."""
+        if tuple(values.shape) != tuple(self.values.shape):
+            raise BadParametersError(
+                f"replace_coefficients: value shape {tuple(values.shape)} "
+                f"!= {tuple(self.values.shape)}")
+        values = values.to(self.device)
+        out = dataclasses.replace(self, values=values)
+        if self.dia_offsets is None:
+            return out
+        offs = torch.tensor(self.dia_offsets, dtype=torch.int64,
+                            device=self.device)
+        return dataclasses.replace(out, dia_vals=self._dia_fill(offs, values))
 
     # ------------------------------------------------------------------
     def to(self, device) -> "CsrMatrix":

@@ -19,9 +19,21 @@ Routing as in `cuda_spmv`: the plain version for CPU tensors, the kernel
 or an exception for CUDA tensors; the kernel takes float32 only (the
 JAX package's `rap_kernel_ready` takes float32 only too, and the callers
 route other dtypes to the plain version). Launches count in
-`cuda_spmv.LAUNCHES["rap_values"]`, one per stage. The relabel form of
-the TPU kernel (no stage 1, no R: the aggregation Galerkin) is not
-ported and raises.
+`cuda_spmv.LAUNCHES["rap_values"]`, one per stage.
+
+`rap_values_relabel` is the TPU kernel's relabel form (`has1=False,
+has_r=False`, pallas_spgemm.py:112-118): the Galerkin product of
+unsmoothed aggregation (ops/spgemm.py `AggPlan`), with no stage 1 and
+no multiply,
+
+    c[u] = sum_{f in run u} af[st[f]]
+
+af being A's values (its external diagonal appended when the plan folds
+it). Its own entry point `amgx_rap_relabel` in `rap.cu`: one thread per
+coarse entry walks its run left to right with `__fadd_rn`, the bits of
+the plain twin. Bound by bytes: st and the gathered af once per
+candidate (8 B), starts2 and c once per coarse entry. Launches count in
+`LAUNCHES["rap_values_relabel"]`, one per call.
 """
 from __future__ import annotations
 
@@ -30,7 +42,7 @@ import functools
 
 import torch
 
-from .cuda_spmv import _check, _launch, _not_ported, _ptr, _stream
+from .cuda_spmv import _check, _launch, _ptr, _stream
 from .segment import ordered_segment_sum
 
 _P = ctypes.c_void_p
@@ -43,6 +55,8 @@ def _lib():
     lib = library("rap.cu")
     lib.amgx_rap_stage.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P]
     lib.amgx_rap_stage.restype = _I
+    lib.amgx_rap_relabel.argtypes = [_P, _P, _P, _P, _I, _P]
+    lib.amgx_rap_relabel.restype = _I
     return lib
 
 
@@ -56,10 +70,9 @@ def rap_values_plain(plan, a, r, p):
                                plan.starts2)
 
 
-def rap_values(plan, a, r=None, p=None):
+def rap_values(plan, a, r, p):
     """B10: the coarse values of R A P through `plan` (a, r, p: the
     value vectors of A, R and P). Returns a new (nU,) tensor."""
-    _not_ported("rap_values", relabel_form=r is None or p is None)
     if a.device.type == "cpu":
         return rap_values_plain(plan, a, r, p)
     nT, nU = plan.nT, plan.nU
@@ -82,4 +95,29 @@ def rap_values(plan, a, r=None, p=None):
         _launch("rap_values", lib.amgx_rap_stage, _ptr(r), _ptr(t),
                 _ptr(plan.sr), _ptr(plan.st), _ptr(plan.starts2),
                 _ptr(out), nU, _stream())
+    return out
+
+
+def rap_values_relabel_plain(plan, af):
+    """The relabel value phase in PyTorch: one gather and an ordered
+    segment sum (the JAX package's `_rap_values_slab` with has1=False,
+    has_r=False, its segments added left to right)."""
+    return ordered_segment_sum(af[plan.st.long()], plan.starts2)
+
+
+def rap_values_relabel(plan, af):
+    """B10's relabel form: the coarse values of the aggregation Galerkin
+    through `plan` (an ops/spgemm.py AggPlan) from the folded value
+    vector `af`. Returns a new (nU,) tensor."""
+    if af.device.type == "cpu":
+        return rap_values_relabel_plain(plan, af)
+    nU = plan.nU
+    _check("rap_values_relabel", None, max(nU, 1),
+           {"af": (af, (af.shape[0],))},
+           {"st": (plan.st, (plan.st.shape[0],)),
+            "starts2": (plan.starts2, (nU + 1,))})
+    with torch.cuda.device(af.device):
+        out = torch.empty(nU, dtype=torch.float32, device=af.device)
+        _launch("rap_values_relabel", _lib().amgx_rap_relabel, _ptr(af),
+                _ptr(plan.st), _ptr(plan.starts2), _ptr(out), nU, _stream())
     return out

@@ -94,7 +94,7 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "cg_update": 0, "dia_coarse_tail": 0,
             "dia_coarse_tail_dot": 0, "dia_coarse_tail_mf": 0,
             "dia_coarse_tail_mf_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
-            "rap_values": 0}
+            "rap_values": 0, "rap_values_relabel": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)

@@ -1,8 +1,9 @@
 """Deterministic segment reductions for the setup phase.
 
-Every float sum of the classical setup that feeds a comparison (strength
-row sums, the D2 sums, truncation row sums, the Galerkin values) runs
-through `ordered_segment_sum`: each segment is added strictly left to
+Every float sum of the setup that feeds a comparison (the classical
+strength row sums, D2 sums and truncation row sums, the Galerkin values,
+the pairwise matching's collapsed edge weights) runs through
+`ordered_segment_sum`: each segment is added strictly left to
 right, starting from 0, with one elementwise add per position. That is
 the order of the JAX package's sorted `segment_sum` on the CPU, and the
 same bits on the CPU and on the card -- `index_add_` / `scatter_add_`

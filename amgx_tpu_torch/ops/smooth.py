@@ -54,9 +54,9 @@ def kernel_ok(A, x) -> bool:
             and x.dtype == torch.float32)
 
 
-def build_transfer_tables(agg: torch.Tensor, nc: int) -> dict:
-    """{"ctab": (m, nc) int32 children table, "agg": (n,) int32} from an
-    aggregates map, on agg's device."""
+def children_table(agg: torch.Tensor, nc: int) -> torch.Tensor:
+    """(m, nc) int32 table of each aggregate's fine rows in ascending
+    order, -1 where absent (m: the largest aggregate), on agg's device."""
     agg = agg.to(torch.int64)
     n = agg.shape[0]
     order = torch.argsort(agg, stable=True)
@@ -66,6 +66,43 @@ def build_transfer_tables(agg: torch.Tensor, nc: int) -> dict:
     pos = torch.arange(n, device=agg.device) - starts[agg[order]]
     ctab = torch.full((m, nc), -1, dtype=torch.int32, device=agg.device)
     ctab[pos, agg[order]] = order.to(torch.int32)
+    return ctab
+
+
+def restrict_children(ctab: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """bc[c] = 0 + r[first child] + r[second child] + ...: the
+    piecewise-constant restriction through a children table, each coarse
+    row's children added in ascending fine index (the order of a
+    sequential scatter-add, `index_add_` on the CPU), the same bits on
+    the CPU and on the card, run after run. `ctab` is int64 with the
+    fine size n where a child is absent (`children_index`): one gather
+    of the whole table from r with a 0 appended, then one add per row."""
+    g = torch.cat([r, r.new_zeros(1)])[ctab]
+    out = torch.zeros(ctab.shape[1], dtype=r.dtype, device=r.device)
+    for j in range(ctab.shape[0]):
+        out += g[j]
+    return out
+
+
+def children_index(ctab: torch.Tensor, n: int) -> torch.Tensor:
+    """A children table as `restrict_children` reads it: int64, n where
+    a child is absent."""
+    ctab = ctab.long()
+    return torch.where(ctab < 0, torch.full_like(ctab, n), ctab)
+
+
+def build_transfer_tables(A, agg: torch.Tensor, nc: int):
+    """{"ctab": (m, nc) int32 children table, "agg": (n,) int32} from an
+    aggregates map, on agg's device; None (no fused B3/B4 transfers,
+    the cycle composes them) when A has no DIA view or an aggregate has
+    more than TRANSFER_MAX_CHILD children, as the JAX package's
+    `build_transfer_slabs` declines."""
+    if getattr(A, "dia_offsets", None) is None or nc < 1 \
+            or agg.shape[0] != A.num_rows:
+        return None
+    ctab = children_table(agg, nc)
+    if not 1 <= ctab.shape[0] <= TRANSFER_MAX_CHILD:
+        return None
     return {"ctab": ctab, "agg": agg.to(torch.int32)}
 
 

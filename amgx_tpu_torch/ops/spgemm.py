@@ -19,9 +19,20 @@ indices: float32 through B10 (`ops/cuda_rap.py`; its plain twin on the
 CPU), every other dtype through the plain ordered segment sums. Both
 add each segment left to right, so a plan gives the same bits on the
 CPU and on the card (the eager route associates R A P as (R A) P and
-rounds differently). Each classical level keeps its plan (`rap_plan`);
-the JAX package's digest-keyed cross-setup cache and the relabel
-(aggregation) plan are not ported.
+rounds differently). Each classical level keeps its plan (`rap_plan`).
+
+The relabel plan (`build_agg_plan`, kind "agg" in the JAX package): the
+Galerkin product of unsmoothed aggregation, A_c[I, J] = sum of A[i, j]
+over agg[i] = I, agg[j] = J, needs no multiply. Its structure phase
+relabels A's entries (with an external diagonal folded in, when given)
+by aggregate id and keeps their stable (I, J) sort `st` with the run
+boundaries `starts2` and the coarse CSR pattern; its value phase
+(`agg_values`) is one gather and one ordered segment sum per run: B10's
+relabel form in float32 (`cuda_rap.rap_values_relabel`), the plain sum
+otherwise. The aggregation level memoizes its plan, so a structure-reuse
+resetup reruns only the value phase. `spgemm_plan=0` (the JAX package's
+eager `coarse_a_from_aggregates`) takes the planned product here too.
+The JAX package's digest-keyed cross-setup cache is not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ import torch
 from ..matrix import CsrMatrix
 from . import cuda_rap
 from .segment import coalesce, ordered_segment_sum
+
+_INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def expand(a_ro, a_ci, b_ro, b_ci):
@@ -110,9 +123,15 @@ class RapPlan:
 
 
 def _i32(t):
-    if t.numel() and int(t.max()) > torch.iinfo(torch.int32).max:
+    if t.numel() and int(t.max()) > _INT32_MAX:
         raise ValueError("RAP plan index exceeds int32")
     return t.to(torch.int32)
+
+
+def _csr_offsets(rows_u, num_rows, device):
+    ro = torch.zeros(num_rows + 1, dtype=torch.int32, device=device)
+    torch.cumsum(torch.bincount(rows_u, minlength=num_rows), 0, out=ro[1:])
+    return ro
 
 
 def build_rap_plan(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix) -> RapPlan:
@@ -128,11 +147,10 @@ def build_rap_plan(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix) -> RapPlan:
                                       tc)
     order2, starts2, cr, cc = coalesce(c_rows, c_cols, P.num_cols)
     sr, st = s2r[order2], s2t[order2]
-    ro = torch.zeros(R.num_rows + 1, dtype=torch.int32, device=A.device)
-    torch.cumsum(torch.bincount(cr, minlength=R.num_rows), 0, out=ro[1:])
     return RapPlan(sa=_i32(sa), sp=_i32(sp), starts1=_i32(starts1),
                    sr=_i32(sr), st=_i32(st), starts2=_i32(starts2),
-                   row_offsets=ro, col_indices=cc.to(torch.int32),
+                   row_offsets=_csr_offsets(cr, R.num_rows, A.device),
+                   col_indices=cc.to(torch.int32),
                    num_rows=R.num_rows, num_cols=P.num_cols)
 
 
@@ -153,3 +171,82 @@ def planned_rap(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix):
     return CsrMatrix(row_offsets=plan.row_offsets,
                      col_indices=plan.col_indices, values=vals,
                      num_rows=plan.num_rows, num_cols=plan.num_cols), plan
+
+
+# -- the relabel (aggregation) Galerkin ------------------------------------
+
+
+@dataclasses.dataclass
+class AggPlan:
+    """The structure of one relabel Galerkin product: `st` gathers A's
+    values (the external diagonal appended when `fold_diag`) in the
+    stable (agg[i], agg[j]) order, `starts2` (nU + 1) bounds each coarse
+    entry's run, and the coarse CSR pattern. int32 on A's device."""
+    st: torch.Tensor
+    starts2: torch.Tensor
+    row_offsets: torch.Tensor
+    col_indices: torch.Tensor
+    num_rows: int
+    num_cols: int
+    fold_diag: bool = False
+
+    @property
+    def nU(self) -> int:
+        return self.starts2.numel() - 1
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.st, self.starts2, self.row_offsets, self.col_indices))
+
+
+def build_agg_plan(A: CsrMatrix, agg: torch.Tensor, nc: int,
+                   fold_diag: bool = False) -> AggPlan:
+    """Structure phase of the relabel Galerkin on A's device: A's
+    entries (then, with `fold_diag`, one diagonal entry per row) relabeled
+    by aggregate id and stably sorted by (row, col), as the JAX package's
+    `build_agg_plan` lexsorts them."""
+    aggv = agg.to(device=A.device, dtype=torch.int64)
+    rows = aggv[A.row_ids()]
+    cols = aggv[A.col_indices.long()]
+    if fold_diag:
+        rows = torch.cat([rows, aggv])
+        cols = torch.cat([cols, aggv])
+    if rows.numel() >= _INT32_MAX:
+        raise ValueError("relabel plan: candidates exceed int32")
+    order, starts, rows_u, cols_u = coalesce(rows, cols, int(nc))
+    return AggPlan(st=_i32(order), starts2=_i32(starts),
+                   row_offsets=_csr_offsets(rows_u, int(nc), A.device),
+                   col_indices=cols_u.to(torch.int32), num_rows=int(nc),
+                   num_cols=int(nc), fold_diag=fold_diag)
+
+
+def fold_values(plan: AggPlan, values, diag=None):
+    """The value vector the plan gathers from: A's values, with the
+    external diagonal appended when the plan folds it (the JAX package's
+    `_fold_values`)."""
+    if not plan.fold_diag:
+        return values
+    if diag is None:
+        raise ValueError("relabel plan folds an external diagonal; none "
+                         "was given")
+    return torch.cat([values, diag.to(values.dtype)])
+
+
+def agg_values(plan: AggPlan, values, diag=None) -> torch.Tensor:
+    """The coarse values through the relabel plan: B10's relabel form
+    for float32 (its plain twin on the CPU), the plain ordered segment
+    sum otherwise."""
+    af = fold_values(plan, values, diag)
+    if af.dtype == torch.float32:
+        return cuda_rap.rap_values_relabel(plan, af)
+    return cuda_rap.rap_values_relabel_plain(plan, af)
+
+
+def plan_coarse_matrix(plan: AggPlan, A: CsrMatrix, diag=None) -> CsrMatrix:
+    """The coarse operator of a relabel plan: the value phase on the
+    plan's pattern, a plain CSR (the hierarchy's `init()` picks its
+    layout, as the JAX package's `build_spmv_layout` does)."""
+    return CsrMatrix(row_offsets=plan.row_offsets,
+                     col_indices=plan.col_indices,
+                     values=agg_values(plan, A.values, diag).to(A.dtype),
+                     num_rows=plan.num_rows, num_cols=plan.num_cols)

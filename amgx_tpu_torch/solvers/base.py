@@ -181,14 +181,25 @@ class Solver:
     # -- setup -----------------------------------------------------------
     def setup(self, A: CsrMatrix):
         """Build solver state for A (moved to the solver's device)."""
+        return self._setup_impl(A, reuse=False)
+
+    def resetup(self, A: CsrMatrix):
+        """Set up on A's new coefficients, keeping what structure the
+        tree can (AMGX_solver_resetup: an AMG preconditioner honours
+        structure_reuse_levels); the same as setup for every other
+        solver."""
+        return self._setup_impl(A, reuse=True)
+
+    def _setup_impl(self, A: CsrMatrix, reuse: bool):
         t0 = time.perf_counter()
         A = A.to(self.device)
         if not A.initialized:
             A = A.init()
         self.A = A
         if self.preconditioner is not None:
-            self.preconditioner.setup(self.precond_operator(A))
-        self.solver_setup()
+            pre = self.preconditioner
+            (pre.resetup if reuse else pre.setup)(self.precond_operator(A))
+        (self.solver_resetup if reuse else self.solver_setup)()
         self.setup_time = time.perf_counter() - t0
         return self
 
@@ -198,6 +209,9 @@ class Solver:
 
     def solver_setup(self):
         pass
+
+    def solver_resetup(self):
+        self.solver_setup()
 
     # -- pieces of the solve ---------------------------------------------
     def solve_data(self) -> Dict[str, Any]:

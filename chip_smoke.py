@@ -24,7 +24,8 @@ Phases, one JSON line each on stdout:
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
                kernel's device time per call under torch.profiler (host
-               launch cost left out), the bound, and for B5 the
+               launch cost left out; none when the profile holds fewer
+               kernel records than launches), the bound, and for B5 the
                dependent-phase count. Then the
                classical kernels on the 128^3 CLASSICAL hierarchy's float32
                solve data: B8 on level 1's operator, P and R, B9 on that
@@ -66,6 +67,21 @@ Phases, one JSON line each on stdout:
                classical AMG block at 64^3, built in float32 on the card:
                <= 3 outer iterations to 1e-8, one B10 call (two launches)
                per Galerkin product of its setup.
+10. aggregation -- AmgX's stock configs/PCG_AGGREGATION_JACOBI.json and
+               FGMRES_AGGREGATION_JACOBI.json (SIZE_2 pairwise matching)
+               on the 7-pt 128^3 in float32: 51 / 41 +- 2 iterations
+               over the JAX package's 15 level rows, one B10-relabel
+               launch per Galerkin product, B4-mf (PCG: its dot, B6, B7)
+               on level 0, B8/B9 on the CSR levels, no B5; setup, first
+               and warm solve times, setup's peak memory. The PCG's
+               structure-reuse resetup on D A D (`scaled_values`): the
+               aggregates kept, one B10-relabel launch per level, 63 +- 2
+               iterations. At 32^3 two card setups bit-identical and
+               equal to the CPU's, before and after the resetup. Then
+               B10-relabel on the 128^3 level-0 plan and a middle level's
+               (0 difference; cuSPARSE's P^T (A P) as the yardstick) and
+               B3/B4 (slab and coefficient, with the dot) on the SIZE_2
+               level 0's irregular children table.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. Then the card's
@@ -75,10 +91,15 @@ raises: the script exits non-zero without that line. It exits non-zero
 at once when PyTorch sees no CUDA device.
 """
 import json
+import os
 import subprocess
 import sys
 import time
 import warnings
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 REPS = 25
 BATCH = 10
@@ -109,7 +130,7 @@ LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "dia_spmv_dot": 1e-5, "cg_update": 1e-5,
           "dia_smooth_restrict_w": 5e-5, "dia_prolong_smooth_w": 5e-5,
           "dia_prolong_smooth_w_dot": 5e-5, "csr_spmv": 1e-6,
-          "csr_smooth": 1e-5, "rap_values": 1e-6,
+          "csr_smooth": 1e-5, "rap_values": 1e-6, "rap_values_relabel": 0.0,
           "dia_smooth_mf": 5e-5, "dia_smooth_restrict_mf": 5e-5,
           "dia_prolong_smooth_mf": 5e-5, "dia_prolong_smooth_mf_dot": 5e-5,
           "dia_coarse_tail_mf": 5e-5, "dia_coarse_tail_mf_dot": 5e-5}
@@ -130,6 +151,7 @@ REPLACES = {
     "csr_spmv": "amgx_tpu/ops/pallas_swell.py:254",
     "csr_smooth": "amgx_tpu/ops/pallas_swell.py:412",
     "rap_values": "amgx_tpu/ops/pallas_spgemm.py:261",
+    "rap_values_relabel": "amgx_tpu/ops/pallas_spgemm.py:261",
 }
 _CSRC = "amgx_tpu_torch/csrc/"
 SOURCES = {
@@ -140,6 +162,7 @@ SOURCES = {
     "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
+    "rap_values_relabel": "rap.cu",
     "dia_smooth_mf": "dia.cu", "dia_smooth_restrict_mf": "dia.cu",
     "dia_prolong_smooth_mf": "dia.cu", "dia_prolong_smooth_mf_dot": "dia.cu",
     "dia_coarse_tail_mf": "tail.cu", "dia_coarse_tail_mf_dot": "tail.cu",
@@ -176,6 +199,43 @@ CLASSICAL_ANCHORS = {128: 20, 64: 17}
 # amg_precision: the hierarchy and the Krylov shell are float32, so the
 # cycle carries PCG's r.z through B4w's x'.b epilogue on level 0
 CLASSICAL_F32 = CLASSICAL.replace(", amg:amg_precision=float", "")
+
+
+# AmgX's stock pairwise-aggregation configurations, read verbatim from
+# configs/ (SIZE_2 matching, BLOCK_JACOBI post-smoothing, NOSOLVER at
+# the coarsest level), and their anchors: the JAX package on the CPU on
+# the 7-pt 128^3 Poisson in float32 with b = 1 (iterations; the levels'
+# rows, finest first, the coarsest operator last); the PCG run again
+# after a structure-reuse resetup on `scaled_values` (63 iterations)
+AGG_CONFIGS = {"agg-pcg": "configs/PCG_AGGREGATION_JACOBI.json",
+               "agg-fgmres": "configs/FGMRES_AGGREGATION_JACOBI.json"}
+AGG_ANCHORS = {"agg-pcg": 51, "agg-fgmres": 41}
+AGG_RESETUP_ANCHOR = 63
+AGG_ROWS_128 = [2097152, 962648, 454882, 216790, 103697, 49611, 23775,
+                11411, 5469, 2622, 1257, 602, 288, 136, 65]
+
+
+def agg_config(Config, name, reuse=None):
+    """One stock aggregation configuration as a `Config` (the port's or
+    the JAX package's class), with structure_reuse_levels=`reuse` set on
+    top in the AMG scope when given."""
+    cfg = Config.from_file(os.path.join(ROOT, AGG_CONFIGS[name]))
+    if reuse is not None:
+        cfg.set("structure_reuse_levels", reuse, scope="amg")
+    return cfg
+
+
+def scaled_values(row_offsets, col_indices, values):
+    """The values of A2 = D A D for the resetup checks, numpy float32:
+    the same pattern, symmetrically scaled (SPD when A is), with D = 1 +
+    0.5 U[0, 1) from numpy's default_rng(0)."""
+    ro, ci = np.asarray(row_offsets), np.asarray(col_indices)
+    n = ro.shape[0] - 1
+    rng = np.random.default_rng(0)
+    d = (1 + 0.5 * rng.random(n)).astype(np.float32)
+    rows = np.repeat(np.arange(n), np.diff(ro))
+    return ((d[rows] * np.asarray(values, np.float32)) * d[ci]).astype(
+        np.float32)
 
 
 def classical_refinement():
@@ -226,12 +286,14 @@ def time_ms(torch, fn, reps=REPS, batch=BATCH):
     return ts[len(ts) // 2]
 
 
-def device_ms(torch, fn, batch=BATCH):
-    """Milliseconds of device time per call: the kernels' and copies'
-    durations under torch.profiler (CUPTI) over `batch` calls, so the
-    host's launch cost is left out even where it is the slower side
-    (`time_ms` then measures the host); None when the profiler records
-    no device activity."""
+def device_ms(torch, fn, launches, batch=BATCH):
+    """(milliseconds of device time per call, device records seen): the
+    kernels' and copies' durations under torch.profiler (CUPTI) over
+    `batch` calls, so the host's launch cost is left out even where it
+    is the slower side (`time_ms` then measures the host). The time is
+    None when the profiler records no device activity or fewer kernel
+    records than the `launches` per call the wrappers counted: a
+    profile that lost records would understate the time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -240,9 +302,14 @@ def device_ms(torch, fn, batch=BATCH):
         for _ in range(batch):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us * 1e-3 / batch if us > 0 else None
+    recs = [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(ev.time_range.elapsed_us() for ev in recs)
+    kernels = sum(not ev.name.startswith(("Memcpy", "Memset"))
+                  for ev in recs)
+    if us <= 0 or kernels < launches * batch:
+        return None, len(recs)
+    return us * 1e-3 / batch, len(recs)
 
 
 def bound(nbytes, flops):
@@ -279,7 +346,7 @@ def grid_case(torch, amgx, shape, dev):
     _, scope = cfg.get_solver("preconditioner", scope)     # AMG
     sel = amgx.amg.aggregation.selectors.GeoSelector(cfg, scope)
     agg, nc = sel.set_aggregates(A)
-    xfer = build_transfer_tables(agg, nc)
+    xfer = build_transfer_tables(A, agg, nc)
     name, sm_scope = cfg.get_solver("smoother", scope)
     smoother = make_solver(name, cfg, sm_scope, device=dev)
     taus = smoother.setup(A).solve_data()["taus"]
@@ -655,7 +722,7 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
               f"{name} at {label}: {extra['slab_max_abs_diff']} from the "
               f"slab kernel on the same level")
     ms = time_ms(torch, kern)
-    dev_ms = device_ms(torch, kern)
+    dev_ms, dev_recs = device_ms(torch, kern, per_call)
     plain_ms = time_ms(torch, plain)
     # a library call is only timed, never used; one that fails fails the run
     lib_ms = None if lib is None else time_ms(torch, lib)
@@ -663,7 +730,8 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     row = {"phase": "kernels", "shape": label, "name": name, "rows": rows,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "limit": LIMITS[name], "launches_per_call": per_call, "ms": ms,
-           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "device_ms": dev_ms, "device_records": dev_recs,
+           "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_us": b_ms * 1e3,
            "bound_by": b_by, "library_ms": lib_ms, **(extra or {})}
     emit(row)
@@ -1169,6 +1237,299 @@ def phase_classical_refinement(torch, amgx, dev, per_path):
           f"{path}: one B10 call (2 launches) per Galerkin product, "
           f"{products} products {in_setup}")
 
+def agg_library(torch, A, agg, nc):
+    """cuSPARSE's SpGEMM P^T (A P) with P the 0/1 aggregation matrix (n x
+    nc), its symbolic phase included: the library yardstick of B10's
+    relabel form."""
+    dev = agg.device
+    n = agg.shape[0]
+    agg = agg.long()
+    one = torch.ones(n, dtype=torch.float32, device=dev)
+    P = torch.sparse_csr_tensor(
+        torch.arange(n + 1, dtype=torch.int64, device=dev), agg, one,
+        (n, nc), check_invariants=True)
+    ro = torch.zeros(nc + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(agg, minlength=nc), 0, out=ro[1:])
+    Pt = torch.sparse_csr_tensor(ro, torch.argsort(agg, stable=True), one,
+                                 (nc, n), check_invariants=True)
+    As = csr_library(torch, A)
+    return lambda: torch.sparse.mm(Pt, torch.sparse.mm(As, P))
+
+
+def relabel_case(torch, R_, lv):
+    """B10's relabel form on one aggregation level's float32 plan:
+    (case, sizes). Bound: st and the gathered value once per candidate,
+    starts2 and the coarse value once per coarse entry."""
+    plan = lv._rap_plan_memo[3]
+    af = lv.A.values
+    nnz, nU = plan.st.numel(), plan.nU
+    case = (lambda: R_.rap_values_relabel(plan, af),
+            lambda: R_.rap_values_relabel_plain(plan, af),
+            (2 * nnz + 2 * nU + 1) * 4, nnz, 1,
+            agg_library(torch, lv.A, lv.aggregates, int(lv.coarse_size)))
+    return case, {"candidates": nnz, "nU": nU,
+                  "plan_bytes": plan.nbytes()}
+
+
+def agg_transfer_cases(torch, K, lv, dev):
+    """B3/B3-mf and B4/B4-mf (and their x'.b variants) on a SIZE_2 level 0
+    with its irregular children table, with the path's smoother
+    (BLOCK_JACOBI: the diagonal's inverse, three steps at 0.8): name ->
+    case, and name -> the slab kernel's call on the same level."""
+    from amgx_tpu_torch.ops import stencil as mf
+    from amgx_tpu_torch.solvers.relaxation import safe_recip
+    A = lv.A
+    xfer = lv._transfer_tables()
+    check(xfer is not None, "the SIZE_2 level 0 fuses its transfers")
+    vals, offs = A.dia_vals, A.dia_offsets
+    ctab, agg = xfer["ctab"], xfer["agg"]
+    n, k = A.num_rows, len(offs)
+    m, nc = ctab.shape
+    st = mf.detect_stencil(A, dinv_mode="jacobi")
+    check(st is not None, "the 7-pt level 0 is a stencil")
+    dinv = safe_recip(A.diagonal())
+    taus = torch.full((3,), 0.8, device=dev)
+    s = taus.shape[0]
+    g = torch.Generator(device=dev).manual_seed(2024)
+    b, x = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    xc = torch.randn(nc, generator=g, device=dev)
+    app = (2 * k + 4) * n                 # flops of one step with dinv
+    rb = (m * nc + nc) * 4                # ctab read, bc written
+    cases = {
+        "dia_smooth_restrict": (
+            lambda: K.dia_smooth_restrict(vals, offs, taus, b, x, ctab, dinv),
+            lambda: K.dia_smooth_restrict_plain(vals, offs, taus, b, x, ctab,
+                                                dinv),
+            (k * n + 4 * n + s) * 4 + rb, s * app + (2 * k + 2) * n, s + 1,
+            None),
+        "dia_smooth_restrict_mf": (
+            lambda: K.dia_smooth_restrict_mf(st, taus, b, x, ctab),
+            lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab),
+            (k + 3 * n + s) * 4 + rb, s * app + (2 * k + 2) * n, s + 1,
+            None),
+        "dia_prolong_smooth": (
+            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
+                                         dinv),
+            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
+                                               agg, dinv),
+            (k * n + 5 * n + s + nc) * 4, s * app + n, s, None),
+        "dia_prolong_smooth_mf": (
+            lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg),
+            lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg),
+            (k + 4 * n + s + nc) * 4, s * app + n, s, None),
+        "dia_prolong_smooth_dot": (
+            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
+                                         dinv, with_dot=True),
+            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
+                                               agg, dinv, with_dot=True),
+            (k * n + 5 * n + s + nc + 1) * 4, s * app + 3 * n, s, None),
+        "dia_prolong_smooth_mf_dot": (
+            lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg,
+                                            with_dot=True),
+            lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg,
+                                 with_dot=True),
+            (k + 4 * n + s + nc + 1) * 4, s * app + 3 * n, s, None),
+    }
+    slab = {"dia_smooth_restrict_mf": cases["dia_smooth_restrict"][0],
+            "dia_prolong_smooth_mf": cases["dia_prolong_smooth"][0],
+            "dia_prolong_smooth_mf_dot": cases["dia_prolong_smooth_dot"][0]}
+    return cases, slab, {"m": m, "nc": nc}
+
+
+def agg_bits(torch, amg):
+    """The aggregates and every operator tensor of a set-up aggregation
+    hierarchy, on the CPU."""
+    out = []
+    for lv in amg.levels:
+        out += [lv.aggregates, lv.A.row_offsets, lv.A.col_indices,
+                lv.A.values]
+    M = amg.coarsest_A
+    return [t.cpu() for t in out + [M.row_offsets, M.col_indices,
+                                    M.values]]
+
+
+def true_rel_res(torch, A, x, b):
+    """|b - A x| / |b| in float64."""
+    from amgx_tpu_torch.ops.spmv import residual
+    b64 = b.double()
+    return float(torch.linalg.norm(residual(A.astype(torch.float64),
+                                            x.double(), b64))
+                 / torch.linalg.norm(b64))
+
+
+def phase_aggregation(torch, amgx, dev, per_path, summary):
+    """AmgX's stock PCG_AGGREGATION_JACOBI and FGMRES_AGGREGATION_JACOBI,
+    read from configs/, on the 7-pt 128^3 Poisson in float32 (b = 1):
+    setup (one B10-relabel launch per Galerkin product), a first solve
+    within 2 of the JAX package's iterations, the anchor's level rows,
+    10 warm solves; level 0 matrix-free (B4-mf, B4-mf's dot under PCG),
+    the coarse levels CSR (B9 sweeps, B8 residuals), no B5. Then the
+    PCG's structure-reuse resetup on D A D (aggregates kept, one
+    B10-relabel launch per level, 63 +- 2 iterations); at 32^3 two card
+    setups bit-identical and equal to the CPU's, and the resetup's
+    iterations equal to the CPU's; last, the kernel cases on this
+    hierarchy: B10-relabel on level 0's plan and a middle level's, and
+    B3/B4 (slab and coefficient, with the dot) on the SIZE_2 level 0."""
+    from amgx_tpu_torch.ops import cuda_rap as R_
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    n = 128
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    b = torch.ones(n ** 3, dtype=torch.float32, device=dev)
+    slvs = {}
+    for name in ("agg-pcg", "agg-fgmres"):
+        path = f"{name}_{n}^3"
+        # the PCG's reuse depth matters only to its resetup below
+        slv = amgx.create_solver(agg_config(
+            amgx.Config, name, -1 if name == "agg-pcg" else None),
+            device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        amgx.reset_kernel_launches()
+        t0 = time.perf_counter()
+        slv.setup(A)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        in_setup = amgx.kernel_launches()
+        t0 = time.perf_counter()
+        res = slv.solve(b)
+        first_s = time.perf_counter() - t0
+        per_path[path] = c = amgx.kernel_launches()
+        warm = sorted(warm_solve(torch, slv, n, torch.float32)[1]
+                      for _ in range(PAIRS))
+        slvs[name] = slv
+        amg = precond_amg(slv)
+        levels = len(amg.levels)
+        rows = amg.level_rows()
+        emit({"phase": "aggregation", "config": path,
+              "file": AGG_CONFIGS[name], "rows": n ** 3, "levels": rows,
+              "largest_aggregate": [int(torch.bincount(
+                  lv.aggregates.long()).max()) for lv in amg.levels],
+              "iterations": res.iterations, "anchor": AGG_ANCHORS[name],
+              "status": res.status,
+              "true_rel_res": true_rel_res(torch, A, res.x, b),
+              "setup_s": setup_s, "first_solve_s": first_s,
+              "warm_solve_s": {"min": warm[0], "median": warm[len(warm) // 2],
+                               "max": warm[-1]},
+              "setup_peak_bytes": peak,
+              "rap_values_relabel_in_setup": in_setup["rap_values_relabel"],
+              "launches": c})
+        check(res.status == "success"
+              and abs(res.iterations - AGG_ANCHORS[name]) <= 2,
+              f"{path}: {res.status} in {res.iterations} iterations, "
+              f"anchor {AGG_ANCHORS[name]} +- 2")
+        check(rows == AGG_ROWS_128, f"{path}: level rows {rows}, the JAX "
+              f"package's {AGG_ROWS_128}")
+        check(in_setup["rap_values_relabel"] == levels
+              and c["rap_values_relabel"] == levels,
+              f"{path}: one B10-relabel launch per Galerkin product "
+              f"({levels}) {c}")
+        check(c["csr_spmv"] > 0 and c["csr_smooth"] > 0
+              and c["dia_coarse_tail"] + c["dia_coarse_tail_dot"]
+              + c["dia_coarse_tail_mf"] + c["dia_coarse_tail_mf_dot"] == 0,
+              f"{path}: B8/B9 on the CSR levels, no B5 {c}")
+        if name == "agg-pcg":
+            check(c["dia_prolong_smooth_mf_dot"] == res.iterations + 1
+                  and c["dia_spmv_dot"] == c["cg_update"] == res.iterations,
+                  f"{path}: B4-mf's dot once per cycle, B6/B7 per "
+                  f"iteration {c}")
+        else:
+            check(c["dia_spmv"] > 0 and c["dia_prolong_smooth_mf"] > 0,
+                  f"{path}: B1 and B4-mf ran {c}")
+
+    # structure-reuse resetup of the PCG on A2 = D A D
+    slv = slvs["agg-pcg"]
+    amg = precond_amg(slv)
+    aggs = [lv.aggregates for lv in amg.levels]
+    A2 = A.with_values(torch.from_numpy(scaled_values(
+        A.row_offsets.cpu(), A.col_indices.cpu(), A.values.cpu())).to(dev))
+    amgx.reset_kernel_launches()
+    t0 = time.perf_counter()
+    slv.resetup(A2)
+    torch.cuda.synchronize()
+    resetup_s = time.perf_counter() - t0
+    in_resetup = amgx.kernel_launches()
+    res = slv.solve(b)
+    per_path[f"agg-resetup_{n}^3"] = c = amgx.kernel_launches()
+    kept = len(aggs) == len(amg.levels) and all(
+        a is lv.aggregates for a, lv in zip(aggs, amg.levels))
+    emit({"phase": "aggregation_resetup", "config": f"agg-pcg_{n}^3",
+          "structure_reuse_levels": -1, "resetup_s": resetup_s,
+          "levels": amg.level_rows(), "aggregates_kept": kept,
+          "rap_values_relabel_in_resetup": in_resetup["rap_values_relabel"],
+          "iterations": res.iterations, "anchor": AGG_RESETUP_ANCHOR,
+          "status": res.status,
+          "true_rel_res": true_rel_res(torch, A2, res.x, b), "launches": c})
+    check(kept, "resetup: the aggregates are the setup's tensors (no "
+          "selector ran)")
+    check(in_resetup["rap_values_relabel"] == len(amg.levels),
+          f"resetup: one B10-relabel launch per level {in_resetup}")
+    check(res.status == "success"
+          and abs(res.iterations - AGG_RESETUP_ANCHOR) <= 2,
+          f"resetup: {res.status} in {res.iterations} iterations, anchor "
+          f"{AGG_RESETUP_ANCHOR} +- 2")
+
+    # determinism at 32^3: two card setups, the CPU's; the resetup
+    cpu = torch.device("cpu")
+    m3 = 32
+    runs = []
+    for d in (dev, dev, cpu):
+        Am = amgx.gallery.poisson("7pt", m3, m3, m3, dtype=torch.float32,
+                                  device=d).init()
+        sm = amgx.create_solver(agg_config(amgx.Config, "agg-pcg", -1),
+                                device=d)
+        bm = torch.ones(m3 ** 3, dtype=torch.float32, device=d)
+        if d.type == "cuda" and not runs:
+            rm = run_path(amgx, per_path, f"agg-pcg_{m3}^3", lambda: (
+                sm.setup(Am), sm.solve(bm))[1])
+        else:
+            sm.setup(Am)
+            rm = sm.solve(bm)
+        bits = agg_bits(torch, precond_amg(sm))
+        A2m = Am.with_values(torch.from_numpy(scaled_values(
+            Am.row_offsets.cpu(), Am.col_indices.cpu(),
+            Am.values.cpu())).to(d))
+        sm.resetup(A2m)
+        r2 = sm.solve(bm)
+        runs.append((rm, bits, r2))
+    (c0, bits0, rr0), (c1, bits1, _), (h, bitsh, rrh) = runs
+    same_card = len(bits0) == len(bits1) and all(
+        torch.equal(a, b_) for a, b_ in zip(bits0, bits1)) \
+        and torch.equal(c0.x, c1.x)
+    same_cpu = len(bits0) == len(bitsh) and all(
+        torch.equal(a, b_) for a, b_ in zip(bits0, bitsh))
+    xdiff = float(torch.linalg.norm(c0.x.cpu() - h.x)
+                  / torch.linalg.norm(h.x))
+    emit({"phase": "aggregation_determinism", "config": f"agg-pcg_{m3}^3",
+          "card_setups_bit_identical": same_card,
+          "tensors_compared": len(bits0), "equal_to_cpu_setup": same_cpu,
+          "iterations_cuda": c0.iterations, "iterations_cpu": h.iterations,
+          "x_rel_diff": xdiff, "resetup_iterations_cuda": rr0.iterations,
+          "resetup_iterations_cpu": rrh.iterations})
+    check(same_card, f"{m3}^3 aggregation: two card setups and solves are "
+          "bit-identical")
+    check(same_cpu, f"{m3}^3 aggregation: the card's aggregates and "
+          "operators equal the CPU setup's")
+    check(c0.iterations == h.iterations and xdiff <= 1e-4
+          and rr0.iterations == rrh.iterations,
+          f"{m3}^3 aggregation: card and CPU solves agree, before and "
+          f"after the resetup")
+
+    # kernel cases on the FGMRES hierarchy (the user's A; the PCG's is
+    # now A2's)
+    amg = precond_amg(slvs["agg-fgmres"])
+    mid = len(amg.levels) // 2
+    for lvl in (0, mid):
+        lv = amg.levels[lvl]
+        case, sizes = relabel_case(torch, R_, lv)
+        run_case(torch, K, f"agg_l{lvl}_{n}^3", "rap_values_relabel", *case,
+                 lv.A.num_rows, summary, sizes)
+    cases, slab, mm = agg_transfer_cases(torch, K, amg.levels[0], dev)
+    emit({"phase": "kernels_size2_level0", "rows": n ** 3, **mm})
+    for name, case in cases.items():
+        run_case(torch, K, f"agg_l0_{n}^3", name, *case, n ** 3, summary,
+                 slab=slab.get(name))
+
 
 def main():
     import torch
@@ -1212,6 +1573,7 @@ def main():
     phase_classical(torch, amgx, dev, per_path)
     phase_determinism(torch, amgx, dev, per_path)
     phase_classical_refinement(torch, amgx, dev, per_path)
+    phase_aggregation(torch, amgx, dev, per_path, summary)
 
     kernels = []
     for name, row in summary.items():

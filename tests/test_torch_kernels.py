@@ -43,7 +43,7 @@ def _case(shape, dtype):
     Aj, Ap = grid_operator(shape, dtype)
     agg, nc = geo_agg(shape)
     b, x, dinv, xc = vectors(Aj.num_rows, nc, dtype)
-    xfer = build_transfer_tables(torch.from_numpy(agg), nc)
+    xfer = build_transfer_tables(Ap, torch.from_numpy(agg), nc)
     return Aj, Ap, agg, nc, b, x, dinv, xc, xfer
 
 
@@ -180,11 +180,11 @@ def test_transfer_tables_match_jax_child_slab():
     """ctab lists each coarse row's fine rows in the order of the JAX
     package's child-index slab."""
     shape = (13, 9, 7)
-    Aj, _ = grid_operator(shape)
+    Aj, Ap = grid_operator(shape)
     agg, nc = geo_agg(shape)
     jxfer = fused.build_transfer_slabs(Aj, agg, nc)
     jctab = np.asarray(jxfer.ctab).reshape(jxfer.m, -1)[:, :nc]
-    xfer = build_transfer_tables(torch.from_numpy(agg), nc)
+    xfer = build_transfer_tables(Ap, torch.from_numpy(agg), nc)
     assert np.array_equal(xfer["ctab"].numpy(), jctab)
     assert np.array_equal(xfer["agg"].numpy(), agg)
 

@@ -114,7 +114,7 @@ def test_b4_dot_epilogue_matches_pallas_kernel(shape, with_dinv):
             {"A": Aj, "fused": slabs}, jnp.asarray(b), jnp.asarray(x),
             jnp.asarray(xc), jnp.asarray(taus), jxfer, dinv=jd,
             want_dot=True)
-    xfer = build_transfer_tables(torch.from_numpy(agg), nc)
+    xfer = build_transfer_tables(Ap, torch.from_numpy(agg), nc)
     xp, dp = K.dia_prolong_smooth(Ap.dia_vals, Ap.dia_offsets, _t(taus),
                                   _t(b), _t(x), _t(xc), xfer["agg"],
                                   None if dinv is None else _t(dinv),

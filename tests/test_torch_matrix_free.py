@@ -150,7 +150,7 @@ def test_plain_forms_match_jax_and_the_slab(kind, dinv_mode):
     sj = jst.detect_stencil(Aj, dinv_mode=dinv_mode)
     sp = mf.detect_stencil(Ap, dinv_mode=dinv_mode)
     agg, nc = geo_agg(SHAPE)
-    xfer = build_transfer_tables(torch.from_numpy(agg), nc)
+    xfer = build_transfer_tables(Ap, torch.from_numpy(agg), nc)
     rng = np.random.default_rng(5)
     n = Ap.num_rows
     b, x = (rng.standard_normal(n).astype(np.float32) for _ in range(2))

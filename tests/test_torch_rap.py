@@ -21,7 +21,7 @@ from amgx_tpu.ops.pallas_spmv import force_pallas_interpret
 import amgx_tpu_torch as pt
 from amgx_tpu_torch.amg.hierarchy import AMG
 from amgx_tpu_torch.config import Config
-from amgx_tpu_torch.ops import cuda_rap, cuda_spmv, spgemm
+from amgx_tpu_torch.ops import cuda_spmv, spgemm
 
 from _torch_util import rel
 from test_torch_classical import (CLASSICAL_REFINEMENT, LEVEL_CFG, X_TOL,
@@ -124,17 +124,6 @@ def test_planned_hierarchy_equals_eager_hierarchy():
         assert rel(a.A.values, b.A.values) < TOL64
     assert all(lv.rap_plan is None for lv in eager.levels)
     assert all(lv.rap_plan is not None for lv in planned.levels)
-
-
-def test_relabel_form_raises():
-    """The TPU kernel's relabel form (no R, no stage 1: the aggregation
-    Galerkin) is not ported: the wrapper raises before any launch,
-    whatever the device (here tensors on the meta device)."""
-    a = torch.empty(64, device="meta")
-    with pytest.raises(NotImplementedError):
-        cuda_rap.rap_values(None, a)
-    with pytest.raises(NotImplementedError):
-        cuda_rap.rap_values(None, a, r=a)
 
 
 def test_classical_refinement_matches_jax():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in one solve of the PyTorch/CUDA port.
 
-    python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical]
+    python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical
+                                             |agg-pcg|agg-fgmres]
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
                                    [--matrix-free auto|0|1]
@@ -13,7 +14,11 @@ per-level kernels B3/B4), `pcg` is PCG + GEO aggregation + JACOBI_L1 in
 float32 (the repo's PCG anchor, bench.py bench_krylov), `classical` is
 bench.py's `_classical_cfg` (PCG in float64 around a float32 classical
 PMIS + D2 AMG cycle with JACOBI_L1: B3w/B4w on level 0, B8/B9 on the
-coarse levels). `--matrix-free` sets `amg:matrix_free`: auto (the
+coarse levels), `agg-pcg` / `agg-fgmres` are AmgX's stock
+configs/PCG_AGGREGATION_JACOBI.json / FGMRES_AGGREGATION_JACOBI.json in
+float32 (SIZE_2 pairwise aggregation: B4-mf on level 0, B9 sweeps and B8
+residuals on the CSR coarse levels). `--matrix-free` sets
+`amg:matrix_free`: auto (the
 default) runs the GEO levels matrix-free on the card (B3-mf, B4-mf,
 B5-mf), 0 pins the slab kernels, so the two routes profile side by
 side. Sets the solver
@@ -35,13 +40,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 # the benched configuration strings, defined once in chip_smoke.py
-from chip_smoke import CLASSICAL, PCG  # noqa: E402
+from chip_smoke import CLASSICAL, PCG, agg_config  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "tail-off", "pcg", "classical"))
+                    choices=("flagship", "tail-off", "pcg", "classical",
+                             "agg-pcg", "agg-fgmres"))
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--cycle-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
@@ -59,13 +65,19 @@ def main():
 
     n = args.size
     dev = torch.device("cuda", 0)
-    base = {"flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
+    if args.config.startswith("agg-"):
+        cfg = agg_config(amgx.Config, args.config)
+        cfg.set("krylov_fusion", args.krylov_fusion)
+    else:
+        cfg = amgx.Config.from_string({
+            "flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
             "pcg": PCG + str(args.krylov_fusion),
-            "classical": CLASSICAL}[args.config]
-    cfg = base + (f", amg:cycle_fusion={args.cycle_fusion},"
-                  f" amg:matrix_free={args.matrix_free}")
-    dtype = torch.float32 if args.config == "pcg" else torch.float64
-    slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
+            "classical": CLASSICAL}[args.config])
+    cfg.set("cycle_fusion", args.cycle_fusion, scope="amg")
+    cfg.set("matrix_free", args.matrix_free, scope="amg")
+    dtype = torch.float32 if args.config in ("pcg", "agg-pcg",
+                                             "agg-fgmres") else torch.float64
+    slv = amgx.create_solver(cfg, device=dev)
     slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
     b = torch.ones(n ** 3, dtype=dtype, device=dev)
     slv.solve(b)                                   # warm-up
@@ -98,8 +110,8 @@ def main():
     print(json.dumps({
         "phase": "profile", "config": args.config, "rows": n ** 3,
         "cycle_fusion": args.cycle_fusion,
-        "krylov_fusion": args.krylov_fusion if args.config == "pcg"
-        else None,
+        "krylov_fusion": args.krylov_fusion
+        if args.config in ("pcg", "agg-pcg") else None,
         "matrix_free": args.matrix_free,
         "device": torch.cuda.get_device_name(0),
         "outer_iterations": res.iterations, "inner_iterations": inner,
