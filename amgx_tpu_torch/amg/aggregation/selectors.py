@@ -186,12 +186,13 @@ def _coarse_graph(rows, cols, w, agg, n):
     first[1:] = (cr_s[1:] != cr_s[:-1]) | (cc_s[1:] != cc_s[:-1])
     first &= valid_s
     seg = torch.cumsum(first.long(), 0) - 1
-    # the invalid entries sort last: they add 0 to the last segment (and
-    # are dropped when no entry is valid), as the JAX segment_sum does
-    keep_ids = seg >= 0
-    wsum = ordered_segment_sum(
-        torch.where(valid_s, w_s, torch.zeros_like(w_s))[keep_ids],
-        starts_from_ids(seg[keep_ids], e))
+    # the invalid entries sort last; the JAX segment_sum adds their zeros
+    # to the last segment, which changes no bit of its positive sum, so
+    # they are left out: the longest segment is then a coarse edge's few
+    # entries, not the thousands collapsed inside aggregates (the ordered
+    # sum takes one step per position of the longest segment)
+    wsum = ordered_segment_sum(w_s[valid_s],
+                               starts_from_ids(seg[valid_s], e))
     crows = torch.where(first, cr_s, sentinel)
     ccols = torch.where(first, cc_s, sentinel)
     cw = torch.where(first, wsum[seg.clamp(0, e - 1)], torch.zeros_like(w))

@@ -203,31 +203,47 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// Grid-wide dot without float atomics: each block writes its partial
-// sum; the block that arrives last (an integer counter) adds the
-// partials in index order, writes *out and resets the counter to zero
-// for the next launch. Launches sharing a counter must not overlap in
-// time (they run on one stream).
-__device__ __forceinline__ void finish_dot(float part, float* partials,
-                                           unsigned int* counter,
-                                           float* out) {
+// Grid-wide dots without float atomics: each block writes its partial
+// sum of each of the kN values; the block that arrives last (an integer
+// counter) adds each value's partials in index order, writes out[0..kN)
+// and resets the counter to zero for the next launch. partials holds
+// kN * gridDim.x floats, value s at [s * gridDim.x, (s + 1) * gridDim.x).
+// Launches sharing a counter must not overlap in time (they run on one
+// stream).
+template <int kN>
+__device__ __forceinline__ void finish_dots(float (&part)[kN],
+                                            float* partials,
+                                            unsigned int* counter,
+                                            float* out) {
   __shared__ bool last;
-  part = block_sum(part);
+#pragma unroll
+  for (int s = 0; s < kN; ++s) part[s] = block_sum(part[s]);
   if (threadIdx.x == 0) {
-    partials[blockIdx.x] = part;
+#pragma unroll
+    for (int s = 0; s < kN; ++s)
+      partials[s * gridDim.x + blockIdx.x] = part[s];
     __threadfence();
     last = atomicAdd(counter, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
-  float v = 0.0f;
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads)
-    v += __ldcg(partials + b);
-  v = block_sum(v);
-  if (threadIdx.x == 0) {
-    *out = v;
-    *counter = 0u;
+#pragma unroll
+  for (int s = 0; s < kN; ++s) {
+    float v = 0.0f;
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads)
+      v += __ldcg(partials + s * gridDim.x + b);
+    v = block_sum(v);
+    if (threadIdx.x == 0) out[s] = v;
   }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// One grid-wide dot (finish_dots with a single value).
+__device__ __forceinline__ void finish_dot(float part, float* partials,
+                                           unsigned int* counter,
+                                           float* out) {
+  float p[1] = {part};
+  finish_dots<1>(p, partials, counter, out);
 }
 
 }  // namespace

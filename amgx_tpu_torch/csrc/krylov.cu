@@ -12,12 +12,19 @@
 // deterministic, no float atomics. The scalars alpha / beta arrive by
 // device pointer, so a solver iteration never reads them on the host.
 //
-// B6 (beta prologue): p' = z + beta p, Ap', p'.Ap'. One thread per row.
+// B6 has two forms here. The beta prologue (CG / PCG / PCGF): p' = z +
+// beta p, Ap', p'.Ap'. One thread per row.
 // The TPU kernel recomputes the prologue on its halo rows; here each
 // thread recomputes z_j + beta p_j at every neighbour j from global
 // memory / L2 (the same fused multiply-add everywhere, so p'[j] read by a
 // neighbour equals the p'[j] written), and p' goes to a new buffer
 // because neighbours read the old p. Bytes: (k + 4) n floats.
+// The streamed dot operand (BiCGStab / PBiCGStab, `spmv_ddot`): Ap, d.Ap
+// and, with self_dot, Ap.Ap, one thread per row with B1's row product
+// (so Ap has B1's bits), both sums carried through one finish_dots pass
+// (a template flag picks one or two). p and d are only read, so d may be
+// p itself (BiCGStab's t = A s with t.s); Ap goes to a fresh buffer.
+// Bytes: (k + 3) n floats, (k + 2) n when d is p.
 //
 // B7: x + alpha p, r - alpha Ap, r'.r' in one elementwise pass. Fresh
 // outputs, not in place: PCGF reads the old r after the update. Bytes:
@@ -50,6 +57,23 @@ spmv_pdot_kernel(const float* __restrict__ vals, const float* __restrict__ p,
     part = pi * acc;
   }
   finish_dot(part, partials, counter, dot);
+}
+
+template <bool kSelf>
+__global__ void __launch_bounds__(kThreads)
+spmv_ddot_kernel(const float* __restrict__ vals, const float* p,
+                 const float* d, float* __restrict__ ap, int n, Offsets of,
+                 float* partials, unsigned int* counter, float* dots) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float part[kSelf ? 2 : 1] = {};
+  if (i < n) {
+    const SlabVals vs{vals, nullptr, n};
+    const float acc = dia_row(vs, vs.row(i), PlainX{p}, n, i, of);
+    ap[i] = acc;
+    part[0] = d[i] * acc;
+    if constexpr (kSelf) part[1] = acc * acc;
+  }
+  finish_dots(part, partials, counter, dots);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -87,6 +111,24 @@ int amgx_spmv_pdot(const float* vals, const float* p, const float* z,
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
   spmv_pdot_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
       vals, p, z, beta, pout, ap, n, of, partials, counter, dot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6, streamed dot operand: ap = A p, dots[0] = d.ap and, when self_dot,
+// dots[1] = ap.ap; partials holds (self_dot ? 2 : 1) *
+// amgx_krylov_blocks(n) floats. d may equal p; ap must be neither.
+int amgx_spmv_ddot(const float* vals, const float* p, const float* d,
+                   float* ap, int n, const int* offs, int k, int self_dot,
+                   float* partials, unsigned int* counter, float* dots,
+                   cudaStream_t stream) {
+  Offsets of;
+  if (n < 1 || !fill_offsets(offs, k, &of) || ap == p || ap == d) return -1;
+  if (self_dot)
+    spmv_ddot_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+        vals, p, d, ap, n, of, partials, counter, dots);
+  else
+    spmv_ddot_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
+        vals, p, d, ap, n, of, partials, counter, dots);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -77,7 +77,9 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     Each entry of `levels` holds the level operator's CSR arrays
     (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
     optional `grid_shape`), its `coarse_size`, and the smoother's
-    payload: CHEBYSHEV_POLY's `taus`, or the Jacobi family's `dinv`. An
+    payload: CHEBYSHEV_POLY's `taus`, the Jacobi family's `dinv`, or
+    CHEBYSHEV's spectral bounds `lmax` and `lmin` (floats; its
+    preconditioner, if any, is set up on the level's operator). An
     aggregation level adds its `aggregates` and the GEO pairing
     (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
     non-geometric levels). A classical level (one with `cf_map`) adds
@@ -116,6 +118,10 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
             if d.get(key) is not None:
                 setattr(sm, "_" + key, torch.tensor(
                     np.asarray(d[key]), device=device, dtype=level.A.dtype))
+        if d.get("lmax") is not None:
+            if sm.preconditioner is not None:
+                sm.preconditioner.setup(level.A)
+            sm.set_bounds(float(d["lmax"]), float(d["lmin"]))
         level.smoother = sm
         amg._maybe_install_stencil(level, _stencil(d.get("stencil"),
                                                    level.A))

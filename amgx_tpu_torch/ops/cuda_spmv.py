@@ -91,7 +91,7 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth_w_dot": 0, "dia_smooth_mf": 0,
             "dia_smooth_restrict_mf": 0, "dia_prolong_smooth_mf": 0,
             "dia_prolong_smooth_mf_dot": 0, "dia_spmv_dot": 0,
-            "cg_update": 0, "dia_coarse_tail": 0,
+            "dia_spmv_ddot": 0, "cg_update": 0, "dia_coarse_tail": 0,
             "dia_coarse_tail_dot": 0, "dia_coarse_tail_mf": 0,
             "dia_coarse_tail_mf_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
             "rap_values": 0, "rap_values_relabel": 0}
@@ -190,12 +190,14 @@ def dot_counter(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def dot_scratch(n: int, device):
-    """(partials, dot) for a launch over n rows: one float per block of
-    THREADS rows and the 0-dim result, in one allocation."""
-    ws = torch.empty(-(-n // THREADS) + 1, dtype=torch.float32,
-                     device=device)
-    return ws[:-1], ws[-1]
+def dot_scratch(n: int, device, dots: int = 1):
+    """(partials, dot) for a launch over n rows: `dots` floats per block
+    of THREADS rows and the result (0-dim, or (dots,) when dots > 1), in
+    one allocation."""
+    nb = -(-n // THREADS)
+    ws = torch.empty(dots * (nb + 1), dtype=torch.float32, device=device)
+    part, out = ws[:dots * nb], ws[dots * nb:]
+    return part, (out[0] if dots == 1 else out)
 
 
 def _launch(name: str, fn, *args):

@@ -9,8 +9,9 @@ the case on the flagship path. Matrices without a DIA view (classical coarse
 operators, P and R) go through B8 (`cuda_csr.csr_spmv`) in float32, as
 the JAX package sends its SWELL layout through `_swell_spmv_call`, and
 through the plain CSR gather + scatter-add otherwise. `spmv_pdot` (the
-Krylov shell's direction update + SpMV + dot) routes the same way
-through B6.
+Krylov shell's direction update + SpMV + dot) and `spmv_ddot` (SpMV
+with dots against a streamed operand, BiCGStab's) route the same way
+through B6's two forms.
 """
 from __future__ import annotations
 
@@ -55,15 +56,34 @@ def residual(A: CsrMatrix, x: torch.Tensor, b: torch.Tensor):
     return b - spmv(A, x)
 
 
+def _shell_kernel_ok(A: CsrMatrix, p) -> bool:
+    """B6 takes a float32 DIA operator and float32 vectors; the JAX
+    package's `_shell_kernel_ok` declines everything else to XLA."""
+    return A.dia_offsets is not None and p.dtype == torch.float32 \
+        and A.dia_vals.dtype == torch.float32
+
+
 def spmv_pdot(A: CsrMatrix, p, z, beta):
     """p' = z + beta p, A p', and p'.A p' (beta a 0-dim tensor): one B6
     launch on a float32 DIA operator, the unfused compose otherwise
     (float64, CSR), as the JAX package routes it to XLA."""
     _check(A, p)
-    if A.dia_offsets is not None and p.dtype == torch.float32 \
-            and A.dia_vals.dtype == torch.float32:
+    if _shell_kernel_ok(A, p):
         return cuda_krylov.dia_spmv_dot(A.dia_vals, A.dia_offsets, p, z,
                                         beta)
     p = (z + beta * p).to(p.dtype)
     ap = spmv(A, p)
     return p, ap, torch.dot(p, ap)
+
+
+def spmv_ddot(A: CsrMatrix, p, d, self_dot: bool = False):
+    """A p with d.A p and, when `self_dot`, (A p).(A p): one B6 launch
+    (its streamed-dot form) on a float32 DIA operator, the unfused
+    compose `_spmv_ddot_xla` otherwise. d may be p."""
+    _check(A, p)
+    if _shell_kernel_ok(A, p):
+        return cuda_krylov.dia_spmv_dot(A.dia_vals, A.dia_offsets, p, d=d,
+                                        self_dot=self_dot)
+    ap = spmv(A, p)
+    out = (ap, torch.dot(d, ap))
+    return out + (torch.dot(ap, ap),) if self_dot else out

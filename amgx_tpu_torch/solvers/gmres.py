@@ -1,9 +1,11 @@
-"""FGMRES with restart (the port of amgx_tpu/solvers/gmres.py, flexible
-variant).
+"""GMRES and FGMRES with restart (the port of amgx_tpu/solvers/gmres.py:
+one base class, `flexible` picking the variant, as there).
 
 One `solve_iteration` is one Arnoldi step, as in the JAX package and the
-reference: the preconditioned direction z = M v_i is stored in Z (M may
-change between steps), w = A z is orthogonalized against the basis by
+reference: the preconditioned direction z = M v_i (FGMRES stores it in Z,
+since M may change between steps; GMRES applies its fixed M once more
+when it reconstructs x = x0 + M (V^T y)), w = A z is orthogonalized
+against the basis by
 classical Gram-Schmidt with one reorthogonalization pass (CGS2, two
 (m+1, n) matrix-vector pairs), and the Hessenberg column is reduced by
 Givens rotations. The basis V and the directions Z are device tensors,
@@ -33,11 +35,11 @@ def _solve_upper(R, g):
     return y
 
 
-@registry.solvers.register("FGMRES")
-class FGMRESSolver(Solver):
+class _GmresBase(Solver):
     uses_preconditioner = True
+    flexible = False
 
-    def __init__(self, cfg, scope="default", name="FGMRES", device="cpu"):
+    def __init__(self, cfg, scope="default", name="GMRES", device="cpu"):
         super().__init__(cfg, scope, name, device)
         self.m = int(cfg.get("gmres_n_restart", scope))
         # gmres_krylov_dim caps the stored basis (0 = match the restart)
@@ -59,17 +61,20 @@ class FGMRESSolver(Solver):
     # -- state -----------------------------------------------------------
     def _cycle_state(self, r, x0, V=None, Z=None):
         """Fresh Krylov state around the residual r of the guess x0
-        (reusing the V/Z storage of a finished cycle when given)."""
+        (reusing the V/Z storage of a finished cycle when given; Z is
+        None unless flexible)."""
         m, n = self.m, r.shape[0]
         beta_t = blas.nrm2(r)
         beta = _host(beta_t)
         npdt = beta.dtype
         if V is None:
             V = torch.zeros((m + 1, n), dtype=r.dtype, device=r.device)
-            Z = torch.zeros((m, n), dtype=r.dtype, device=r.device)
+            if self.flexible:
+                Z = torch.zeros((m, n), dtype=r.dtype, device=r.device)
         else:
             V.zero_()
-            Z.zero_()
+            if Z is not None:
+                Z.zero_()
         V[0] = r if beta == 0 else r / beta_t
         g = np.zeros(m + 1, npdt)
         g[0] = beta
@@ -82,11 +87,14 @@ class FGMRESSolver(Solver):
         st.update(self._guard_init())
         return st
 
-    def _reconstruct(self, st):
-        """x = x0 + Z^T y with R y = g[:m]."""
+    def _reconstruct(self, data, st):
+        """x = x0 + Z^T y (flexible) or x0 + M (V[:m]^T y), R y = g[:m]."""
         y = _solve_upper(st["R"], st["g"][:self.m])
-        Z = st["Z"]
-        return st["x0"] + Z.T @ torch.from_numpy(y).to(Z.device)
+        V = st["V"]
+        y = torch.from_numpy(y).to(V.device)
+        if self.flexible:
+            return st["x0"] + st["Z"].T @ y
+        return st["x0"] + self._precond(data, V[:self.m].T @ y)
 
     # -- one Arnoldi step -------------------------------------------------
     def solve_iteration(self, data, b, st):
@@ -95,7 +103,8 @@ class FGMRESSolver(Solver):
         i = st["i"]
         V = st["V"]
         z = self._precond(data, V[i])
-        st["Z"][i] = z
+        if self.flexible:
+            st["Z"][i] = z
         w = spmv(A, z)
         # CGS2 against all rows (rows past i are zero: no-ops)
         h = blas.mdot(V, w)
@@ -139,7 +148,7 @@ class FGMRESSolver(Solver):
             new["breakdown"] = bool(denom == 0 and np.abs(gi) > 0)
         if i + 1 >= m:
             # cycle boundary: reconstruct x and restart around it
-            x_new = self._reconstruct(new)
+            x_new = self._reconstruct(data, new)
             new.update(self._cycle_state(residual(A, x_new, b), x_new,
                                          V, new["Z"]))
             new["x"] = x_new
@@ -150,5 +159,15 @@ class FGMRESSolver(Solver):
     def finalize(self, data, b, state):
         # mid-cycle exit: reconstruct; at a restart boundary x0 is x
         if state["i"] > 0:
-            return self._reconstruct(state)
+            return self._reconstruct(data, state)
         return state["x0"]
+
+
+@registry.solvers.register("GMRES")
+class GMRESSolver(_GmresBase):
+    flexible = False
+
+
+@registry.solvers.register("FGMRES")
+class FGMRESSolver(_GmresBase):
+    flexible = True

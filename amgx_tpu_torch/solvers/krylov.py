@@ -1,5 +1,6 @@
-"""Conjugate-gradient solvers CG, PCG and PCGF (the port of those parts of
-amgx_tpu/solvers/krylov.py; cg_solver.cu, pcg_solver.cu, pcgf_solver.cu).
+"""Krylov solvers CG, PCG, PCGF, BiCGStab, PBiCGStab and Chebyshev (the
+port of amgx_tpu/solvers/krylov.py; cg_solver.cu, pcg_solver.cu,
+pcgf_solver.cu, bicgstab_solver.cu, pbicgstab_solver.cu, cheb_solver.cu).
 
 Each iteration is a function over a dict state, as in the JAX package.
 With krylov_fusion (the default) an iteration is two single-pass kernels
@@ -7,19 +8,24 @@ plus the preconditioner: B6 (p' = z + beta p, A p', p'.Ap'), B7 (x and r
 updates with r'.r'), and PCG's r.z riding the AMG cycle's last kernel
 (B4's or B5's x'.b epilogue). krylov_fusion=0 composes the unfused SpMV
 and vector operations. float64 composes plain PyTorch on either route.
+A fused BiCGStab iteration carries its dots in B6's streamed-dot form:
+r~.v with v = A p^, and the t.s / t.t pair with t = A s^ (`spmv_ddot`).
 
-The scalars alpha, beta, r.z and r.r stay 0-dim device tensors, and the
-kernels read alpha and beta through a pointer: an iteration meets the
-host once, when the solve loop reads the monitored norm (with the breakdown
-flag in the same transfer, solvers/base.py).
+The scalars alpha, beta, omega, rho, r.z and r.r stay 0-dim device
+tensors, and the kernels read alpha and beta through a pointer: an
+iteration meets the host once, when the solve loop reads the monitored
+norm (with the breakdown flag in the same transfer, solvers/base.py).
+Chebyshev's spectral bounds are host floats set at setup, as in the JAX
+package.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import registry
 from ..ops import blas
-from ..ops.spmv import spmv, spmv_pdot
+from ..ops.spmv import spmv, spmv_ddot, spmv_pdot
 from .base import Solver
 
 
@@ -231,3 +237,173 @@ class PCGFSolver(_KrylovBase):
 
     def internal_res_norm(self, state):
         return self._monitored(state, "rr")
+
+
+@registry.solvers.register("BICGSTAB")
+class BiCGStabSolver(_KrylovBase):
+    """BiCGStab. Without a preconditioner p^ = p and s^ = s, so the one
+    iteration below is the JAX package's BiCGStabSolver and, with one,
+    its PBiCGStabSolver, expression for expression."""
+
+    def solve_init(self, data, b, x, r):
+        if self.krylov_fusion:
+            (rho,) = blas.psum_bundle((_ldot(r, r),))
+        else:
+            rho = torch.dot(r, r)
+        return {"r_tld": r, "p": r, "rho": rho, **self._guard_init()}
+
+    def solve_iteration(self, data, b, st):
+        if self.krylov_fusion:
+            return self._fused_iteration(data, st)
+        A = data["A"]
+        x, r = st["x"], st["r"]
+        r_tld, p, rho = st["r_tld"], st["p"], st["rho"]
+        p_hat = self._precond(data, p)
+        v = spmv(A, p_hat)
+        alpha = _safe_div(rho, torch.dot(r_tld, v))
+        s = r - alpha * v
+        s_hat = self._precond(data, s)
+        t = spmv(A, s_hat)
+        omega = _safe_div(torch.dot(t, s), torch.dot(t, t))
+        x = x + alpha * p_hat + omega * s_hat
+        r = s - omega * t
+        rho_new = torch.dot(r_tld, r)
+        beta = _safe_div(rho_new * alpha, rho * omega)
+        p = r + beta * (p - omega * v)
+        return self._next(st, x, r, p, v, rho_new, alpha, omega)
+
+    def _fused_iteration(self, data, st):
+        """Both SpMVs carry their dots in B6's epilogue: r~.v, and the
+        t.s / t.t pair (self_dot); the dot operands r~ and s stream
+        through the kernel beside the preconditioned vectors."""
+        A = data["A"]
+        x, r = st["x"], st["r"]
+        r_tld, p, rho = st["r_tld"], st["p"], st["rho"]
+        p_hat = self._precond(data, p)
+        v, rtv = spmv_ddot(A, p_hat, r_tld)
+        (rtv,) = blas.psum_bundle((rtv,))
+        alpha = _safe_div(rho, rtv)
+        a = alpha.to(r.dtype)
+        s = r - a * v
+        s_hat = self._precond(data, s)
+        t, ts, tt = spmv_ddot(A, s_hat, s, self_dot=True)
+        ts, tt = blas.psum_bundle((ts, tt))
+        omega = _safe_div(ts, tt)
+        w = omega.to(r.dtype)
+        x = x + a * p_hat + w * s_hat
+        r = s - w * t
+        (rho_new,) = blas.psum_bundle((_ldot(r_tld, r),))
+        beta = _safe_div(rho_new * alpha, rho * omega)
+        p = r + beta.to(r.dtype) * (p - w * v)
+        return self._next(st, x, r, p, v, rho_new, alpha, omega)
+
+    def _next(self, st, x, r, p, v, rho, alpha, omega):
+        out = {**st, "x": x, "r": r, "p": p, "v": v, "rho": rho,
+               "alpha": alpha, "omega": omega}
+        if self.health_guards:
+            # rho underflow (r~ orthogonal to r) or omega collapse: the
+            # recurrence is dead
+            out["breakdown"] = (rho == 0) | (omega == 0)
+        return out
+
+
+@registry.solvers.register("PBICGSTAB")
+class PBiCGStabSolver(BiCGStabSolver):
+    """Preconditioned BiCGStab."""
+
+    uses_preconditioner = True
+
+
+@registry.solvers.register("CHEBYSHEV")
+class ChebyshevSolver(_KrylovBase):
+    """Chebyshev iteration (cheb_solver.cu) with the JAX package's
+    eigenvalue-estimate modes: 0/1 power iteration on the
+    (preconditioned) operator at setup, lmax x 1.05 and lmin = lmax / 8;
+    2 the Gershgorin bound, or 0.9 under a preconditioner, lmin = lmax /
+    8; 3 the user's cheby_max_lambda / cheby_min_lambda under a
+    preconditioner, Gershgorin otherwise. A solver and an AMG smoother
+    (the base class's generic `smooth`). chebyshev_polynomial_order is
+    not read, as in the JAX package."""
+
+    uses_preconditioner = True
+    is_smoother = True
+
+    def __init__(self, cfg, scope="default", name="CHEBYSHEV",
+                 device="cpu"):
+        super().__init__(cfg, scope, name, device)
+        self.estimate_mode = int(cfg.get("chebyshev_lambda_estimate_mode",
+                                         scope))
+        self.lmax = float(cfg.get("cheby_max_lambda", scope))
+        self.lmin = float(cfg.get("cheby_min_lambda", scope))
+
+    def solver_setup(self):
+        mode = self.estimate_mode
+        pre = self.preconditioner
+        if mode in (0, 1):
+            apply = None
+            if pre is not None:
+                pdata = pre.solve_data()
+                apply = lambda v: pre.apply(pdata, v)  # noqa: E731
+            self.lmax = float(power_lambda_max(self.A, apply)) * 1.05
+            self.lmin = self.lmax / 8.0
+        elif mode == 2:
+            # under a preconditioner the reference assumes a spectrum
+            # compressed to ~1 (cheb_solver.cu:193-196)
+            self.lmax = 0.9 if pre is not None else float(
+                gershgorin_lambda_max(self.A))
+            self.lmin = self.lmax * 0.125
+        elif mode == 3 and pre is None:
+            self.lmax = float(gershgorin_lambda_max(self.A))
+            self.lmin = self.lmax * 0.125
+        self.set_bounds(self.lmax, self.lmin)
+
+    def set_bounds(self, lmax: float, lmin: float):
+        """Take [lmin, lmax] as the spectral interval (setup's estimate,
+        or another implementation's: interop.hierarchy_from_numpy)."""
+        self.lmax, self.lmin = lmax, lmin
+        self._d = (lmax + lmin) / 2.0
+        self._c = (lmax - lmin) / 2.0
+
+    def computes_residual(self):
+        return False
+
+    def solve_init(self, data, b, x, r):
+        return {"k": 0}
+
+    def solve_iteration(self, data, b, st):
+        d, c = self._d, self._c
+        sigma = d / c
+        x, k = st["x"], st["k"]
+        z = self._precond(data, b - spmv(data["A"], x))
+        if k == 0:
+            rho = torch.full((), 1.0 / sigma, dtype=x.dtype, device=x.device)
+            p = z * (1.0 / d)
+        else:
+            rho = 1.0 / (2.0 * sigma - st["rho"])
+            p = rho * st["rho"] * st["p"] + (2.0 * rho * (1.0 / c)) * z
+        return {**st, "x": x + p, "p": p, "rho": rho, "k": k + 1}
+
+
+def gershgorin_lambda_max(A):
+    """max_i sum_j |a_ij| / |a_ii| (cheb_solver.cu:46-74), the row sums
+    as an SpMV of |A| with ones, as the JAX package forms them."""
+    row_abs = spmv(A.with_values(A.values.abs()),
+                   torch.ones(A.num_rows, dtype=A.dtype, device=A.device))
+    return torch.max(row_abs / A.diagonal().abs())
+
+
+def power_lambda_max(A, precond_apply=None, iters: int = 20, seed: int = 0):
+    """Power-iteration estimate of lambda_max of M^-1 A from numpy's
+    default_rng(seed) start vector, as the JAX package's
+    `_power_lambda_max`: a 0-dim tensor."""
+    v = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        A.num_rows)).to(dtype=A.dtype, device=A.device)
+    v = v / blas.nrm2(v)
+    lam = torch.zeros((), dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        w = spmv(A, v)
+        if precond_apply is not None:
+            w = precond_apply(w)
+        lam = blas.nrm2(w)
+        v = w / torch.where(lam == 0, torch.ones_like(lam), lam)
+    return lam

@@ -14,7 +14,9 @@ Phases, one JSON line each on stdout:
                grid, each coefficient kernel also against the slab kernel
                on the same level (the same bits), and the dinv B2-mf
                synthesizes ("jacobi", "l1") against the smoothers'; B4's
-               x'.b epilogue, B6 and B7 at the PCG path's 128^3 shapes; B5
+               x'.b epilogue, B6 and B7 at the PCG path's 128^3 shapes,
+               and B6's streamed-dot form (BiCGStab's: Ap with d.Ap and,
+               with self_dot, Ap.Ap; d apart from p and d = p) there; B5
                on 32^3 hierarchies, whose whole cycle is the flagship
                128^3's coarse tail (32768 -> 4096 -> 512 -> 64 rows), with
                slab levels and with matrix-free ones (B5-mf, against B5 on
@@ -82,6 +84,20 @@ Phases, one JSON line each on stdout:
                (0 difference; cuSPARSE's P^T (A P) as the yardstick) and
                B3/B4 (slab and coefficient, with the dot) on the SIZE_2
                level 0's irregular children table.
+11. bicgstab -- AmgX's stock PBICGSTAB_CLASSICAL_JACOBI and
+               PBICGSTAB_NOPREC on the 7-pt 128^3 in float32 with
+               krylov_fusion 1 (B6's streamed-dot form exactly twice per
+               iteration) and 0 (no B6, B1 for the SpMVs), the routes
+               within one iteration of each other;
+               PBICGSTAB_AGGREGATION_W_JACOBI (SIZE_2, W cycle) at 64^3;
+               GMRES_AMG_D2 (128^3 and 64^3) and agg_cheb4 (SIZE_8,
+               CHEBYSHEV smoothers, 128^3); the classical files also at
+               64^3, where the JAX package's anchors are. Each anchored
+               run within 2 iterations of the JAX package's CPU anchor
+               and with its status (a run ending at max_iters: the final
+               residual within 1 % of the anchor's); setup, first and
+               warm solve times, peak memory, host syncs of a warm
+               solve.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. Then the card's
@@ -114,7 +130,9 @@ PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 # kernels' fused multiply-adds round differently from PyTorch's separate
 # multiply and add. The CPU tests measure ~4e-6 for the same chains
 # between two float32 implementations. B6/B7 and the dot epilogues add
-# 2M products in another tree than PyTorch's reduction.
+# 2M products in another tree than PyTorch's reduction; B6's d.Ap with a
+# random d cancels, so its error is measured against sum |d_i Ap_i|, the
+# scale of a dot's rounding, not against its value.
 # B8 is one rounded sum per row, in another order than the plain
 # version's index_add_; B9 one sweep on top of it; B3w/B4w one JACOBI_L1
 # step plus the weighted transfer (R's rows of up to 32 residuals); B10
@@ -127,7 +145,7 @@ PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
 LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "dia_prolong_smooth": 5e-5, "dia_prolong_smooth_dot": 5e-5,
           "dia_coarse_tail": 5e-5, "dia_coarse_tail_dot": 5e-5,
-          "dia_spmv_dot": 1e-5, "cg_update": 1e-5,
+          "dia_spmv_dot": 1e-5, "dia_spmv_ddot": 1e-5, "cg_update": 1e-5,
           "dia_smooth_restrict_w": 5e-5, "dia_prolong_smooth_w": 5e-5,
           "dia_prolong_smooth_w_dot": 5e-5, "csr_spmv": 1e-6,
           "csr_smooth": 1e-5, "rap_values": 1e-6, "rap_values_relabel": 0.0,
@@ -144,7 +162,8 @@ REPLACES = {
     "dia_prolong_smooth_mf": _PS + "1725",
     "dia_prolong_smooth_mf_dot": _PS + "1725",
     "dia_coarse_tail_mf": _PS + "1892", "dia_coarse_tail_mf_dot": _PS + "1892",
-    "dia_spmv_dot": _PS + "2116", "cg_update": _PS + "2261",
+    "dia_spmv_dot": _PS + "2116", "dia_spmv_ddot": _PS + "2116",
+    "cg_update": _PS + "2261",
     "dia_smooth_restrict_w": _PS + "1245",
     "dia_prolong_smooth_w": _PS + "1585",
     "dia_prolong_smooth_w_dot": _PS + "1585",
@@ -159,6 +178,7 @@ SOURCES = {
     "dia_smooth_restrict": "dia.cu", "dia_prolong_smooth": "dia.cu",
     "dia_prolong_smooth_dot": "dia.cu", "dia_coarse_tail": "tail.cu",
     "dia_coarse_tail_dot": "tail.cu", "dia_spmv_dot": "krylov.cu",
+    "dia_spmv_ddot": "krylov.cu",
     "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
@@ -213,6 +233,46 @@ AGG_ANCHORS = {"agg-pcg": 51, "agg-fgmres": 41}
 AGG_RESETUP_ANCHOR = 63
 AGG_ROWS_128 = [2097152, 962648, 454882, 216790, 103697, 49611, 23775,
                 11411, 5469, 2622, 1257, 602, 288, 136, 65]
+
+
+# AmgX's stock BiCGStab / GMRES / Chebyshev files, read verbatim from
+# configs/, and their anchors: the JAX package on the CPU
+# (tools/jax_anchors.py) on the 7-pt n^3 Poisson with b = 1 in float32,
+# (file, n) -> iterations, status, the final monitored residual relative
+# to the initial one, the level rows (finest first, the coarsest operator
+# last); its krylov_fusion 1 and 0 give the same bits there. A run that
+# ends at max_iters holds its final residual to the anchor's to 1 %,
+# unless the anchor records `final_f64`, the reference's own float64 run,
+# beyond 1 % of it: then the value is not the algorithm's
+# (unpreconditioned BiCGStab on 2M rows: rounding differences grow by
+# orders of magnitude over 100 iterations, in float64 too) and the run
+# holds its monitored residual to its own true one instead. The classical
+# files anchor at 64^3: the JAX package's 128^3 classical setup outgrows
+# the host. GMRES_AMG_D2's levels are not held: its float32 classical
+# setup rounds D2's weights and the Galerkin sums differently from the JAX
+# package's (XLA contracts multiply-adds), and at a strength-threshold tie
+# an ulp flips a connection, so from level 2 its 64^3 hierarchy differs
+# (10435 against 10443 rows) while the iterations agree. The W cycle runs
+# at 64^3 only: at 128^3 SIZE_2 builds 14 levels and one W cycle visits
+# the coarsest 2^13 times, ~19 host launches a CSR level visit.
+KRYLOV_ANCHORS = {
+    ("PBICGSTAB_CLASSICAL_JACOBI", 64): dict(
+        iterations=6, status="success", final=1.450827653570741e-07,
+        levels=[262144, 81948, 9371, 758, 83]),
+    ("PBICGSTAB_NOPREC", 128): dict(
+        iterations=100, status="max_iters", final=0.0672610872133793,
+        levels=None, final_f64=0.0032465820828293237),
+    ("PBICGSTAB_AGGREGATION_W_JACOBI", 64): dict(
+        iterations=7, status="success", final=6.986053904256551e-07,
+        levels=[262144, 120263, 56799, 27033, 12901, 6171, 2947, 1418,
+                678, 324, 157, 75]),
+    ("GMRES_AMG_D2", 64): dict(
+        iterations=12, status="success", final=4.38199577956766e-07,
+        levels=None),
+    ("agg_cheb4", 128): dict(
+        iterations=100, status="max_iters", final=0.27869380676495703,
+        levels=[2097152, 213833, 23363, 2561, 286, 31]),
+}
 
 
 def agg_config(Config, name, reuse=None):
@@ -492,6 +552,41 @@ def shell_cases(torch, amgx, K, KK, dev):
     }
 
 
+def ddot_cases(torch, KK, A, dev):
+    """B6's streamed-dot form at the same 128^3 shapes: [(label, case,
+    scales)] for d apart from p, the same with self_dot, and d = p with
+    self_dot (BiCGStab's t.s / t.t, t = A s). Bytes: vals, p, d (unless
+    it is p) and Ap once, and the dots. The error scales: max |Ap|, sum
+    |d_i Ap_i| and sum Ap_i^2 of the plain version, in float64. The
+    `torch.sparse` CSR SpMV of the same operator is timed beside it as a
+    yardstick for the SpMV alone (no PyTorch call gives Ap with its
+    dots)."""
+    vals, offs = A.dia_vals, A.dia_offsets
+    n, k = A.num_rows, len(offs)
+    g = torch.Generator(device=dev).manual_seed(7)
+    p, d = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    M = csr_library(torch, A)
+    out = []
+    for label, dd, self_dot in (("d", d, False), ("d_self_dot", d, True),
+                                ("d_is_p_self_dot", p, True)):
+        want = KK.dia_spmv_ddot_plain(vals, offs, p, dd, self_dot)
+        ap = want[0].double()
+        scales = [float(ap.abs().max()),
+                  float((dd.double() * ap).abs().sum())]
+        if self_dot:
+            scales.append(float((ap * ap).sum()))
+        dots = 2 if self_dot else 1
+        streams = k + (2 if dd is p else 3)
+        out.append((f"pcg_l0_128^3 {label}", (
+            lambda dd=dd, sd=self_dot: KK.dia_spmv_dot(
+                vals, offs, p, d=dd, self_dot=sd),
+            lambda dd=dd, sd=self_dot: KK.dia_spmv_ddot_plain(
+                vals, offs, p, dd, sd),
+            streams * n * 4 + dots * 4, (2 * k + 2 * dots) * n, 1, None),
+            scales, lambda: M @ p))
+    return out
+
+
 def tail_work(T, spec, arrs, with_dot):
     """(bytes, flops, phases) of one B5 call: every array read once, b
     and x read and x' written once; the operations the phase program
@@ -690,27 +785,29 @@ def rap_case(torch, amgx, R_, dev):
                   "plan_bytes": plan.nbytes()}
 
 
-def max_err(torch, got, want):
-    """(max abs error, max over outputs of abs error / max |plain|)."""
+def max_err(torch, got, want, scales=None):
+    """(max abs error, max over outputs of abs error / its scale): max
+    |plain| unless `scales` gives one per output."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     abs_errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-    rel = max(e / max(float(b.abs().max()), 1e-30)
-              for e, b in zip(abs_errs, want))
+    scales = scales or [float(b.abs().max()) for b in want]
+    rel = max(e / max(sc, 1e-30) for e, sc in zip(abs_errs, scales))
     return max(abs_errs), rel
 
 
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
-             lib, rows, summary, extra=None, slab=None):
+             lib, rows, summary, extra=None, slab=None, scales=None):
     """Check one kernel against its plain version (and, for a
     coefficient-mode kernel, against the slab kernel on the same level:
-    `slab`), time both, emit the row and fold it into `summary`."""
+    `slab`), time both, emit the row and fold it into `summary`.
+    `scales`: the error scale of each output (max_err)."""
     before = sum(K.LAUNCHES.values())
     got = kern()
     launched = sum(K.LAUNCHES.values()) - before
     want = plain()
     torch.cuda.synchronize()
-    abs_err, rel_err = max_err(torch, got, want)
+    abs_err, rel_err = max_err(torch, got, want, scales)
     check(launched == per_call,
           f"{name} launched {launched} kernels, expected {per_call}")
     check(rel_err <= LIMITS[name],
@@ -766,6 +863,10 @@ def phase_kernels(torch, amgx, dev):
     A, cases = shell_cases(torch, amgx, K, KK, dev)
     for name, case in cases.items():
         run_case(torch, K, "pcg_l0_128^3", name, *case, A.num_rows, summary)
+    for label, case, scales, spmv_lib in ddot_cases(torch, KK, A, dev):
+        run_case(torch, K, label, "dia_spmv_ddot", *case, A.num_rows,
+                 summary, {"sparse_csr_spmv_ms": time_ms(torch, spmv_lib)},
+                 scales=scales)
     tails = {mode: tail_cases(torch, amgx, T, dev, mode)
              for mode in ("slab", "mf")}
     for mode, named in tails.items():
@@ -1357,6 +1458,133 @@ def true_rel_res(torch, A, x, b):
                  / torch.linalg.norm(b64))
 
 
+def krylov_file_run(torch, amgx, dev, per_path, name, n, fusion=None):
+    """Set up and solve configs/<name>.json on the 7-pt n^3 in float32
+    (krylov_fusion set to `fusion` on top of the file when given), then a
+    warm solve under the sync counter; where KRYLOV_ANCHORS has the
+    anchor, hold the run to it. Returns (the emitted record, launch
+    counts in the solve, result)."""
+    path = f"{name}_{n}^3" + ("" if fusion is None
+                              else f"_krylov_fusion={fusion}")
+    anchor = KRYLOV_ANCHORS.get((name, n))
+    cfg = amgx.Config.from_file(os.path.join(ROOT, "configs",
+                                             name + ".json"))
+    if fusion is not None:
+        cfg.set("krylov_fusion", fusion)
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    b = torch.ones(n ** 3, dtype=torch.float32, device=dev)
+    slv = amgx.create_solver(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    amgx.reset_kernel_launches()
+    t0 = time.perf_counter()
+    slv.setup(A)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    in_setup = amgx.kernel_launches()
+    t0 = time.perf_counter()
+    res = slv.solve(b)
+    first_s = time.perf_counter() - t0
+    per_path[path] = c = amgx.kernel_launches()
+    in_solve = {k: v - in_setup[k] for k, v in c.items()}
+    (warm, warm_s), syncs = count_syncs(
+        torch, lambda: warm_solve(torch, slv, n, torch.float32))
+    final_rel = float(res.res_norm / res.norm0)
+    amg = None
+    s = slv
+    while s is not None and amg is None:
+        amg = getattr(s, "amg", None)
+        s = s.preconditioner
+    rec = {"phase": "bicgstab", "config": path,
+           "file": f"configs/{name}.json", "rows": n ** 3,
+           "levels": None if amg is None else amg.level_rows(),
+           "iterations": res.iterations, "status": res.status,
+           "final_rel_res": final_rel, "anchor": anchor,
+           "true_rel_res": true_rel_res(torch, A, res.x, b),
+           "setup_s": setup_s, "first_solve_s": first_s,
+           "warm_solve_s": warm_s, "warm_iterations": warm.iterations,
+           "setup_peak_bytes": peak, "host_syncs_warm": syncs,
+           "host_syncs_per_iteration": syncs / max(warm.iterations, 1),
+           "launches_in_solve": {k: v for k, v in in_solve.items() if v},
+           "launches": c}
+    emit(rec)
+    check(warm.iterations == res.iterations,
+          f"{path}: warm solve {warm.iterations} iterations, first "
+          f"{res.iterations}")
+    if anchor is None:
+        check(res.status == "success", f"{path}: {res.status}")
+        return rec, in_solve, res
+    it0, st0, rr0 = (anchor[k] for k in ("iterations", "status", "final"))
+    check(res.status == st0 and abs(res.iterations - it0) <= 2,
+          f"{path}: {res.status} in {res.iterations} iterations, anchor "
+          f"{st0} in {it0} +- 2")
+    check(anchor["levels"] is None or rec["levels"] == anchor["levels"],
+          f"{path}: level rows {rec['levels']}, the JAX package's "
+          f"{anchor['levels']}")
+    if res.status != "max_iters":
+        return rec, in_solve, res
+    rr64 = anchor.get("final_f64")
+    if rr64 is None or abs(rr0 - rr64) <= 0.01 * rr0:
+        check(abs(final_rel - rr0) <= 0.01 * rr0,
+              f"{path}: final relative residual {final_rel}, anchor {rr0} "
+              f"+- 1 %")
+    else:
+        check(abs(rec["true_rel_res"] - final_rel) <= 0.01 * final_rel,
+              f"{path}: monitored relative residual {final_rel}, true "
+              f"{rec['true_rel_res']}: not within 1 %")
+    return rec, in_solve, res
+
+
+def phase_bicgstab(torch, amgx, dev, per_path):
+    """AmgX's stock PBICGSTAB_CLASSICAL_JACOBI (128^3, and 64^3 against
+    its anchor) and PBICGSTAB_NOPREC (128^3) in float32 with
+    krylov_fusion 1 (the files' default: B6's streamed-dot form twice
+    per iteration) and 0 (none; B1 carries the SpMVs), the two routes
+    within one iteration of each other; PBICGSTAB_AGGREGATION_W_JACOBI
+    at 64^3; GMRES_AMG_D2 at 128^3 and 64^3 and agg_cheb4 at 128^3. An
+    anchored run holds the JAX package's status and iterations +- 2 (at
+    max_iters its final residual to 1 %); every run reports the host
+    syncs of a warm solve."""
+    for name, n in (("PBICGSTAB_CLASSICAL_JACOBI", 128),
+                    ("PBICGSTAB_CLASSICAL_JACOBI", 64),
+                    ("PBICGSTAB_NOPREC", 128)):
+        iters = {}
+        for fusion in (1, 0):
+            rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name,
+                                          n, fusion)
+            iters[fusion] = res.iterations
+            if fusion:
+                check(c["dia_spmv_ddot"] == 2 * res.iterations,
+                      f"{rec['config']}: B6-ddot twice per iteration {c}")
+            else:
+                check(c["dia_spmv_ddot"] == 0
+                      and c["dia_spmv"] >= 2 * res.iterations,
+                      f"{rec['config']}: no B6-ddot, B1 for the SpMVs {c}")
+            if name == "PBICGSTAB_NOPREC":
+                check(rec["host_syncs_warm"] <= rec["warm_iterations"] + 3,
+                      f"{rec['config']}: {rec['host_syncs_warm']} host "
+                      f"syncs in {rec['warm_iterations']} iterations")
+            else:
+                check(c["csr_smooth"] > 0 and c["csr_spmv"] > 0,
+                      f"{rec['config']}: B8/B9 on the classical levels {c}")
+        check(abs(iters[1] - iters[0]) <= 1,
+              f"{name} {n}^3: krylov_fusion 1 / 0 iterations {iters}")
+    rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
+                                  "PBICGSTAB_AGGREGATION_W_JACOBI", 64)
+    check(c["dia_spmv_ddot"] == 2 * res.iterations and c["csr_smooth"] > 0,
+          f"{rec['config']}: B6-ddot twice per iteration, B9 {c}")
+    for n in (128, 64):
+        rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
+                                      "GMRES_AMG_D2", n)
+        check(c["dia_spmv"] >= res.iterations and c["csr_smooth"] > 0,
+              f"{rec['config']}: B1 per Arnoldi step, B9 {c}")
+    rec, c, res = krylov_file_run(torch, amgx, dev, per_path, "agg_cheb4",
+                                  128)
+    check(c["dia_spmv"] > 0 and c["csr_spmv"] > 0,
+          f"{rec['config']}: B1 and B8 under the Chebyshev smoother {c}")
+
+
 def phase_aggregation(torch, amgx, dev, per_path, summary):
     """AmgX's stock PCG_AGGREGATION_JACOBI and FGMRES_AGGREGATION_JACOBI,
     read from configs/, on the 7-pt 128^3 Poisson in float32 (b = 1):
@@ -1574,6 +1802,7 @@ def main():
     phase_determinism(torch, amgx, dev, per_path)
     phase_classical_refinement(torch, amgx, dev, per_path)
     phase_aggregation(torch, amgx, dev, per_path, summary)
+    phase_bicgstab(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():
@@ -1588,7 +1817,7 @@ def main():
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for key in ("phases", "slab_max_abs_diff"):
+        for key in ("phases", "slab_max_abs_diff", "sparse_csr_spmv_ms"):
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)

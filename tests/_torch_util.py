@@ -1,12 +1,16 @@
 """Shared inputs for the port's parity tests (tests/test_torch_*.py):
 the same numpy arrays go to the JAX package and to amgx_tpu_torch."""
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 import amgx_tpu as jx
+import amgx_tpu_torch as pt
 import amgx_tpu_torch.interop as pti
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def grid_operator(shape, dtype=np.float32, seed=0):
@@ -64,7 +68,8 @@ def _np_or_none(v):
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
     layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
-    smoother's taus (CHEBYSHEV_POLY) or dinv (Jacobi family), the
+    smoother's taus (CHEBYSHEV_POLY), dinv (Jacobi family) or spectral
+    bounds lmax / lmin (CHEBYSHEV), the
     stencil of a matrix-free level, a classical level's cf_map, P and R,
     and DENSE_LU's explicit inverse when the JAX package built one."""
     amg = amg_solver.amg
@@ -74,7 +79,10 @@ def jax_hierarchy_arrays(amg_solver):
         d = csr_arrays(lv.A)
         smd = data["levels"][i]["smoother"]
         st = smd.get("stencil")
+        cheb = hasattr(lv.smoother, "estimate_mode")
         d.update(coarse_size=lv.coarse_size,
+                 lmax=lv.smoother.lmax if cheb else None,
+                 lmin=lv.smoother.lmin if cheb else None,
                  taus=_np_or_none(smd.get("taus")),
                  dinv=_np_or_none(smd.get("dinv")),
                  stencil=None if st is None else {
@@ -100,3 +108,38 @@ def rel(a, b):
     a = np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float64)
     b = np.asarray(b.cpu() if torch.is_tensor(b) else b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def stock_pair(name, n, dtype):
+    """AmgX's stock configs/<name>.json read verbatim by both packages
+    (residual histories stored, the JAX package's printing off), set up
+    on the 7-pt n^3 Poisson and solved with b = 1: (JAX result, port
+    result, port solver)."""
+    path = os.path.join(ROOT, "configs", name + ".json")
+    jc = jx.Config.from_file(path)
+    for key in ("print_solve_stats", "print_grid_stats"):
+        jc.set(key, 0)
+    jc.set("store_res_history", 1)
+    pc = pt.Config.from_file(path)
+    pc.set("store_res_history", 1)
+    js = jx.create_solver(jc)
+    js.setup(jx.gallery.poisson("7pt", n, n, n, dtype=dtype).init())
+    ps = pt.create_solver(pc, device="cpu")
+    ps.setup(pt.gallery.poisson("7pt", n, n, n, device="cpu",
+                                dtype=getattr(torch, np.dtype(dtype).name)))
+    b = np.ones(n ** 3, dtype)
+    return js.solve(b), ps.solve(torch.from_numpy(b)), ps
+
+
+def assert_same_solve(rj, rp, x_tol, hist_tol, iterations=True):
+    """The same status (and iterations), x to `x_tol` in norm, and the
+    residual histories to `hist_tol` of the initial residual over their
+    common length."""
+    assert rp.status == rj.status
+    if iterations:
+        assert rp.iterations == int(rj.iterations)
+    assert rel(rp.x, np.asarray(rj.x)) < x_tol
+    hj = np.asarray(rj.res_history, np.float64).ravel()
+    hp = np.asarray(rp.res_history, np.float64).ravel()
+    m = min(hj.shape[0], hp.shape[0])
+    assert np.abs(hp[:m] - hj[:m]).max() <= hist_tol * hj[0]

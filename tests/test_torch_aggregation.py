@@ -115,6 +115,32 @@ def test_selector_matches_jax(odd, sel, formula, merge):
     assert np.array_equal(ap.numpy(), np.asarray(aj))
 
 
+@pytest.mark.parametrize("sel", ["SIZE_4", "SIZE_8"])
+def test_collapsed_graph_sums_coarse_edges_only(monkeypatch, sel):
+    """A later matching pass sums each coarse edge's weights over that
+    edge's entries only. The entries collapsed inside an aggregate (most
+    of them after a pass) are left out of the ordered sum, whose steps
+    follow the longest segment: with them in one segment, SIZE_8's
+    128^3 setup took minutes on the card. The aggregates are the JAX
+    package's (test_selector_matches_jax)."""
+    longest = []
+    real = psel.ordered_segment_sum
+
+    def spy(values, starts):
+        lengths = starts[1:] - starts[:-1]
+        longest.append(int(lengths.max()) if lengths.numel() else 0)
+        return real(values, starts)
+
+    monkeypatch.setattr(psel, "ordered_segment_sum", spy)
+    Ap = pt.gallery.poisson("7pt", 16, 16, 16, device="cpu")
+    registry.aggregation_selectors.create(
+        sel, Config.from_string(f"selector={sel}"),
+        "default").set_aggregates(Ap)
+    assert len(longest) == (1 if sel == "SIZE_4" else 2)
+    # a coarse edge joins at most a few fine edges (8 at 16^3)
+    assert max(longest) <= 16
+
+
 def test_dummy_selector_matches_jax(odd):
     Aj, Ap = odd
     cs = "selector=DUMMY, aggregate_size=3"

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Anchors of the JAX package (the reference) for AmgX's stock config
+files: each file read verbatim, set up and solved on the 7-pt n^3
+Poisson with b = 1 in float32 (or --dtype float64) on the CPU. One JSON
+line per file: the iterations, the status, the final monitored residual
+relative to the initial one, the true relative residual of x in
+float64, the level rows of an AMG preconditioner, and the process's
+peak resident memory.
+
+    python3 tools/jax_anchors.py --size 64 PBICGSTAB_AGGREGATION_W_JACOBI
+
+`chip_smoke.py` holds the PyTorch port's runs on the card to these
+numbers. The JAX package's 128^3 classical setup needs more than 26 GB
+of host memory; 64^3 about 5 GB.
+"""
+import argparse
+import json
+import os
+import resource
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--krylov-fusion", type=int, default=None)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    ap.add_argument("files", nargs="+", help="names under configs/")
+    args = ap.parse_args()
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+    import scipy.sparse as sp
+    import amgx_tpu as jx
+    n = args.size
+    dt = np.dtype(args.dtype)
+    A = jx.gallery.poisson("7pt", n, n, n, dtype=dt).init()
+    A64 = sp.csr_matrix((np.asarray(A.values, np.float64),
+                         np.asarray(A.col_indices),
+                         np.asarray(A.row_offsets)))
+    b = np.ones(n ** 3, dt)
+    for name in args.files:
+        cfg = jx.Config.from_file(os.path.join(ROOT, "configs",
+                                               name + ".json"))
+        cfg.set("print_solve_stats", 0)
+        cfg.set("print_grid_stats", 0)
+        cfg.set("store_res_history", 1)
+        if args.krylov_fusion is not None:
+            cfg.set("krylov_fusion", args.krylov_fusion)
+        slv = jx.create_solver(cfg)
+        t0 = time.perf_counter()
+        slv.setup(A)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = slv.solve(b)
+        solve_s = time.perf_counter() - t0
+        x = np.asarray(res.x, np.float64)
+        hist = np.asarray(res.res_history, np.float64).ravel()
+        s, levels = slv, None
+        while s is not None and levels is None:
+            amg = getattr(s, "amg", None)
+            if amg is not None:
+                levels = [lv.A.num_rows for lv in amg.levels] + [
+                    amg.coarsest_A.num_rows]
+            s = getattr(s, "preconditioner", None)
+        print(json.dumps({
+            "file": name, "rows": n ** 3, "dtype": args.dtype,
+            "krylov_fusion": args.krylov_fusion,
+            "iterations": int(res.iterations), "status": str(res.status),
+            "final_rel_res": float(hist[-1] / hist[0]),
+            "true_rel_res": float(np.linalg.norm(1.0 - A64 @ x)
+                                  / np.sqrt(n ** 3)),
+            "levels": levels, "setup_s": setup_s, "solve_s": solve_s,
+            "peak_rss_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

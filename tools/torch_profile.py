@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical
                                              |agg-pcg|agg-fgmres]
+                                   [--file NAME]
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
                                    [--matrix-free auto|0|1]
@@ -17,7 +18,9 @@ PMIS + D2 AMG cycle with JACOBI_L1: B3w/B4w on level 0, B8/B9 on the
 coarse levels), `agg-pcg` / `agg-fgmres` are AmgX's stock
 configs/PCG_AGGREGATION_JACOBI.json / FGMRES_AGGREGATION_JACOBI.json in
 float32 (SIZE_2 pairwise aggregation: B4-mf on level 0, B9 sweeps and B8
-residuals on the CSR coarse levels). `--matrix-free` sets
+residuals on the CSR coarse levels). `--file NAME` takes AmgX's stock
+configs/NAME.json instead, in float32 (e.g. PBICGSTAB_CLASSICAL_JACOBI,
+GMRES_AMG_D2, agg_cheb4), with --krylov-fusion on top. `--matrix-free` sets
 `amg:matrix_free`: auto (the
 default) runs the GEO levels matrix-free on the card (B3-mf, B4-mf,
 B5-mf), 0 pins the slab kernels, so the two routes profile side by
@@ -48,6 +51,8 @@ def main():
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "tail-off", "pcg", "classical",
                              "agg-pcg", "agg-fgmres"))
+    ap.add_argument("--file", default=None,
+                    help="a stock configs/ file name (overrides --config)")
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--cycle-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
@@ -65,7 +70,13 @@ def main():
 
     n = args.size
     dev = torch.device("cuda", 0)
-    if args.config.startswith("agg-"):
+    if args.file:
+        args.config = args.file
+        cfg = amgx.Config.from_file(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "configs", args.file + ".json"))
+        cfg.set("krylov_fusion", args.krylov_fusion)
+    elif args.config.startswith("agg-"):
         cfg = agg_config(amgx.Config, args.config)
         cfg.set("krylov_fusion", args.krylov_fusion)
     else:
@@ -73,10 +84,13 @@ def main():
             "flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
             "pcg": PCG + str(args.krylov_fusion),
             "classical": CLASSICAL}[args.config])
-    cfg.set("cycle_fusion", args.cycle_fusion, scope="amg")
-    cfg.set("matrix_free", args.matrix_free, scope="amg")
-    dtype = torch.float32 if args.config in ("pcg", "agg-pcg",
-                                             "agg-fgmres") else torch.float64
+    # a stock file names its own AMG scope: set these where every scope
+    # falls back
+    scope = "default" if args.file else "amg"
+    cfg.set("cycle_fusion", args.cycle_fusion, scope=scope)
+    cfg.set("matrix_free", args.matrix_free, scope=scope)
+    dtype = torch.float32 if args.file or args.config in (
+        "pcg", "agg-pcg", "agg-fgmres") else torch.float64
     slv = amgx.create_solver(cfg, device=dev)
     slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
     b = torch.ones(n ** 3, dtype=dtype, device=dev)
@@ -111,7 +125,7 @@ def main():
         "phase": "profile", "config": args.config, "rows": n ** 3,
         "cycle_fusion": args.cycle_fusion,
         "krylov_fusion": args.krylov_fusion
-        if args.config in ("pcg", "agg-pcg") else None,
+        if args.file or args.config in ("pcg", "agg-pcg") else None,
         "matrix_free": args.matrix_free,
         "device": torch.cuda.get_device_name(0),
         "outer_iterations": res.iterations, "inner_iterations": inner,
