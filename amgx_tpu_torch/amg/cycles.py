@@ -6,7 +6,9 @@ cycle_fusion_tail_rows rows runs as one coarse-tail launch (B5,
 ops/smooth.py `coarse_tail_cycle`), on the CPU through its plain twin.
 The K-cycles (CG, CGF) are not ported yet. A residual the cycle forms
 itself reads the level's operator through ops/stencil.py
-`level_operator`, which rebuilds a matrix-free level's matrix."""
+`level_operator`, which rebuilds a matrix-free level's matrix. A
+bfloat16 cycle solves its coarsest level in float32 (the precision
+policy keeps the coarse-solver payload at float32 or wider)."""
 from __future__ import annotations
 
 import torch
@@ -69,6 +71,19 @@ def apply_coarse_solver(cs, data, bc, xc, coarsest_sweeps: int):
     return cs.apply(data, bc)
 
 
+def _coarse_solve(amg, data, bc, xc):
+    """The coarsest level's solve; a bfloat16 cycle widens bc and xc to
+    float32 around it and rounds the correction back
+    (amgx_tpu/amg/cycles.py `_coarse_solve`)."""
+    if bc.dtype == torch.bfloat16:
+        out = apply_coarse_solver(amg.coarse_solver, data["coarse"],
+                                  bc.to(torch.float32),
+                                  xc.to(torch.float32), amg.coarsest_sweeps)
+        return out.to(bc.dtype)
+    return apply_coarse_solver(amg.coarse_solver, data["coarse"], bc, xc,
+                               amg.coarsest_sweeps)
+
+
 def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
     """FixedCycle::cycle analog: recursion count per level V=1, W=2,
     F = one F-visit then one V-visit. want_dot asks the entry level's
@@ -76,8 +91,7 @@ def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
     levels below never carry it."""
     levels = amg.levels
     if lvl == len(levels):
-        out = apply_coarse_solver(amg.coarse_solver, data["coarse"], b, x,
-                                  amg.coarsest_sweeps)
+        out = _coarse_solve(amg, data, b, x)
         return (out, None) if want_dot else out
     if amg.cycle_fusion:
         from ..ops.smooth import coarse_tail_cycle

@@ -7,12 +7,17 @@ coarse solver (DENSE_LU by default). The cycle's coarse-tail plans
 (ops/smooth.py `coarse_tail_cycle`) are cached per hierarchy and dropped
 at setup.
 
-`amg_precision=float` (mixed-precision preconditioning): the hierarchy
-is built in the operator's dtype; `solve_data` casts every floating leaf
-of the level data to float32 and the coarse-solver subtree to the
-policy's coarse dtype, once per setup (memoized by leaf), and `cycle`
-casts b and x in and the result back. Such a cycle declines the
-cycle-borne dot.
+`amg_precision=float|bfloat16` (mixed-precision preconditioning; also
+set by `solve_precision`): the hierarchy is built in the operator's
+dtype; `solve_data` casts every floating leaf of the level data (value
+slabs, dinv, damping factors, transfer weights, a matrix-free level's
+stencil coefficients) to float32 or bfloat16 and the coarse-solver
+subtree to the policy's coarse dtype (float32 under bfloat16), once per
+setup (memoized by leaf), as the JAX package's `_cast_leaf` does; and
+`cycle` casts b and x in and the result back. Such a cycle declines the
+cycle-borne dot. A bf16 cycle runs the smoother kernels' bf16 forms
+(ops/cuda_spmv.py) and solves its coarsest level in float32
+(amg/cycles.py).
 
 `matrix_free=auto|0|1` (ops/stencil.py): after each smoother's setup
 the detector checks the level's operator for a constant-coefficient
@@ -33,10 +38,11 @@ smoothers set up on the new values and the matrix-free detector runs
 again. This is the JAX package's generic reuse loop; its pipelined GEO
 value-only resetup (`value_resetup.py`) is not ported, and classical
 levels do not reuse their structure yet (`reuse_structure` raises). Not
-ported yet: bfloat16 hierarchies and telemetry.
+ported yet: telemetry.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -44,8 +50,21 @@ import torch
 from .. import registry
 from ..config import Config
 from ..matrix import CsrMatrix
-from ..ops.stencil import detect_stencil, mf_slim
+from ..ops.stencil import StencilOperator, detect_stencil, mf_slim
 from ..precision import resolve_precision
+
+
+def _cast_leaf(leaf, dtype):
+    """One solve-data leaf in `dtype`: a tensor, a CsrMatrix (values and
+    DIA view), or a StencilOperator (its coefficients, and the host
+    floats the kernels take by value rounded the same way)."""
+    if isinstance(leaf, CsrMatrix):
+        return leaf.astype(dtype)
+    if isinstance(leaf, StencilOperator):
+        host = torch.tensor(leaf.host, dtype=leaf.coeffs.dtype).to(dtype)
+        return dataclasses.replace(leaf, coeffs=leaf.coeffs.to(dtype),
+                                   host=tuple(host.double().tolist()))
+    return leaf.to(dtype)
 
 
 class AMGLevel:
@@ -137,10 +156,6 @@ class AMG:
                                                 scope))
         self.matrix_free = str(cfg.get("matrix_free", scope))
         self.precision_policy = resolve_precision(cfg, scope)
-        if self.precision_policy.name == "bfloat16":
-            raise NotImplementedError(
-                "amg_precision=bfloat16 is not ported yet (double and "
-                "float are)")
         if self.cycle_name not in ("V", "W", "F"):
             raise NotImplementedError(
                 f"cycle={self.cycle_name} is not ported yet (V, W, F are)")
@@ -273,22 +288,26 @@ class AMG:
                                      self.precision_policy.coarse_dtype)}
 
     def _cast(self, tree, dtype):
-        """`tree` with every floating tensor (and CsrMatrix) in `dtype`;
-        each leaf is cast once per setup."""
+        """`tree` with every floating tensor, CsrMatrix and stencil's
+        coefficients in `dtype`; each leaf is cast once per setup."""
         if isinstance(tree, dict):
             return {k: self._cast(v, dtype) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(self._cast(v, dtype) for v in tree)
-        floating = isinstance(tree, CsrMatrix) or (
-            torch.is_tensor(tree) and tree.is_floating_point())
-        if not floating or tree.dtype == dtype:
+        if isinstance(tree, CsrMatrix):
+            dt = tree.dtype
+        elif isinstance(tree, StencilOperator):
+            dt = tree.coeffs.dtype
+        elif torch.is_tensor(tree) and tree.is_floating_point():
+            dt = tree.dtype
+        else:
+            return tree
+        if dt == dtype:
             return tree
         key = (id(tree), dtype)
         hit = self._cast_memo.get(key)
         if hit is None or hit[0] is not tree:
-            hit = self._cast_memo[key] = (tree, tree.astype(dtype)
-                                          if isinstance(tree, CsrMatrix)
-                                          else tree.to(dtype))
+            hit = self._cast_memo[key] = (tree, _cast_leaf(tree, dtype))
         return hit[1]
 
     def _sweeps(self, level_index: int, pre: bool) -> int:

@@ -1,14 +1,29 @@
 // Pieces shared by the port's CUDA sources (dia.cu, krylov.cu, tail.cu):
-// the DIA offset table, the value sources (a stored slab, or a
-// constant-coefficient stencil), the row product, and a deterministic dot
-// reduction. Each .cu compiles into its own library, so everything here
-// has internal linkage.
+// the DIA offset table, the operand storage types, the value sources (a
+// stored slab, or a constant-coefficient stencil), the row product, and a
+// deterministic dot reduction. Each .cu compiles into its own library, so
+// everything here has internal linkage.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 
 namespace {
+
+// Operand storage: float32, or bfloat16 (the reduced-precision cycle's
+// streams). A bf16 element is widened on load and rounded to nearest even
+// at the store; all arithmetic is float32 (the TPU kernels' `cdt`).
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const bf16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(bf16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
 
 constexpr int kMaxOffsets = 32;  // CsrMatrix.DIA_MAX_OFFSETS
 constexpr int kThreads = 256;
@@ -20,41 +35,49 @@ struct Offsets {
 
 // x as a kernel reads it: plainly, or with the piecewise-constant
 // prolongation of a coarse correction folded in (x + xc[agg]).
-struct PlainX {
-  const float* __restrict__ x;
-  __device__ __forceinline__ float operator()(int j) const { return x[j]; }
+// T is the storage type of x and xc; the sum is float32.
+template <class T>
+struct PlainXT {
+  const T* __restrict__ x;
+  __device__ __forceinline__ float operator()(int j) const { return ld(x, j); }
 };
+using PlainX = PlainXT<float>;
 
-struct CorrectedX {
-  const float* __restrict__ x;
-  const float* __restrict__ xc;
+template <class T>
+struct CorrectedXT {
+  const T* __restrict__ x;
+  const T* __restrict__ xc;
   const int* __restrict__ agg;
   __device__ __forceinline__ float operator()(int j) const {
-    return x[j] + xc[agg[j]];
+    return ld(x, j) + ld(xc, agg[j]);
   }
 };
+using CorrectedX = CorrectedXT<float>;
 
 // The values of a DIA operator as the kernels read them. A value source
 // gives row i's context (`row(i)`), diagonal d's value in that row
 // (`val(row, d)`) and the row's diagonal inverse (`inv(row, i, k)`, read
 // only when the kernel was told there is one).
 //
-// SlabVals: the stored (k, n) slab, vals[d * n + i], and a stored dinv.
-struct SlabVals {
-  const float* __restrict__ vals;
-  const float* __restrict__ dinv;  // nullptr: none
+// SlabVals: the stored (k, n) slab, vals[d * n + i], and a stored dinv,
+// both of storage type T.
+template <class T>
+struct SlabValsT {
+  const T* __restrict__ vals;
+  const T* __restrict__ dinv;  // nullptr: none
   int n;
   struct Row {
     int i;
   };
   __device__ __forceinline__ Row row(int i) const { return Row{i}; }
   __device__ __forceinline__ float val(const Row& r, int d) const {
-    return vals[static_cast<size_t>(d) * n + r.i];
+    return ld(vals, static_cast<size_t>(d) * n + r.i);
   }
   __device__ __forceinline__ float inv(const Row&, int i, int) const {
-    return dinv[i];
+    return ld(dinv, i);
   }
 };
+using SlabVals = SlabValsT<float>;
 
 // A constant-coefficient grid stencil (the coefficient or "matrix-free"
 // mode of the TPU kernels, amgx_tpu/ops/pallas_spmv.py `_mf_vals_dinv`):

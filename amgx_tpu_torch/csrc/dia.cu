@@ -53,7 +53,25 @@
 // code, so both fetch the same values in the same order. Bound by bytes:
 // a step streams b and x and writes x' (12 bytes a row against the
 // slab's 40 with dinv at k = 7).
+//
+// The bfloat16 forms (the reduced-precision cycle, `solve_precision=
+// bfloat16`; the TPU kernels' bf16 operand dtype): the value slab, dinv,
+// b, xc, the first step's x, the last step's x' and the outputs r / bc
+// are stored in bf16 and widened on load; every sum is float32, in the
+// order of the float32 kernels. The TPU kernel keeps the state in f32
+// across all steps of a call (VMEM) and rounds only its final stores;
+// here the state crosses device memory between launches, so steps
+// 1..s-1 read and write a float32 scratch and only the first load and
+// the last store are bf16 (a bf16 store per step would round the state s
+// times, the XLA route's rounding, which triples the flagship's inner
+// iterations). The last step also keeps its float32 state (`keep`) for
+// the residual / restriction launch, which recomputes r from it, as the
+// TPU kernel does from its f32 `s`. Bound by bytes: the streams that are
+// bf16 move half the bytes, the f32 scratch (8 bytes a row per middle
+// step) does not shrink. The float32 instantiations are unchanged.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -66,53 +84,58 @@ dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
 }
 
 // One damped-relaxation step x' = x + (tau_t * (b - A x)) * dinv, the
-// values (and dinv) from the source VS. With kDot the launch also returns
-// x'.b (B4's dot epilogue, PCG's r.z): per-block partials, added in block
-// order by the last block to finish.
+// values (and dinv) from the source VS, b of storage type BT, x' stored
+// as OT (and, when `keep` is given, also as float32 there). With kDot the
+// launch also returns x'.b (B4's dot epilogue, PCG's r.z): per-block
+// partials, added in block order by the last block to finish.
 struct DotOut {
   float* partials;        // one float per block
   unsigned int* counter;  // zero between launches
   float* out;
 };
 
-template <class VS, class XR, bool kHasDinv, bool kDot>
+template <class VS, class XR, class BT, class OT, bool kHasDinv, bool kDot>
 __global__ void __launch_bounds__(kThreads)
 dia_step_kernel(VS vs, const float* __restrict__ taus, int t,
-                const float* __restrict__ b, XR xr, float* __restrict__ out,
-                int n, Offsets of, DotOut dot) {
+                const BT* __restrict__ b, XR xr, OT* __restrict__ out,
+                float* __restrict__ keep, int n, Offsets of, DotOut dot) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float part = 0.0f;
   if (i < n) {
     const typename VS::Row r = vs.row(i);
-    float upd = taus[t] * (b[i] - dia_row(vs, r, xr, n, i, of));
+    float upd = taus[t] * (ld(b, i) - dia_row(vs, r, xr, n, i, of));
     if (kHasDinv) upd *= vs.inv(r, i, of.k);
     const float v = xr(i) + upd;
-    out[i] = v;
-    if (kDot) part = v * b[i];
+    st(out, i, v);
+    if (keep != nullptr) keep[i] = v;
+    if (kDot) part = v * ld(b, i);
   }
   if (kDot) finish_dot(part, dot.partials, dot.counter, dot.out);
 }
 
-template <class VS>
+// r = b - A x, x the float32 state, b and r of storage type BT.
+template <class VS, class BT>
 __global__ void __launch_bounds__(kThreads)
-dia_residual_kernel(VS vs, const float* __restrict__ b,
-                    const float* __restrict__ x, float* __restrict__ r,
-                    int n, Offsets of) {
+dia_residual_kernel(VS vs, const BT* __restrict__ b,
+                    const float* __restrict__ x, BT* __restrict__ r, int n,
+                    Offsets of) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) r[i] = b[i] - dia_row(vs, vs.row(i), PlainX{x}, n, i, of);
+  if (i < n)
+    st(r, i, ld(b, i) - dia_row(vs, vs.row(i), PlainX{x}, n, i, of));
 }
 
 // bc[c] = sum_j r[ctab[j, c]] with r = b - A x recomputed at each child:
 // one thread per coarse row, a fixed summation order, no atomics, and r
-// never written to memory.
+// never written to memory; x is the float32 state, the sum float32, bc
+// stored once as BT.
 // With kWeighted, child j of coarse row c carries the weight cwt[j, c].
-template <class VS, bool kWeighted>
+template <class VS, class BT, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-dia_restrict_kernel(VS vs, const float* __restrict__ b,
+dia_restrict_kernel(VS vs, const BT* __restrict__ b,
                     const float* __restrict__ x,
                     const int* __restrict__ ctab,
                     const float* __restrict__ cwt, int m, int nc,
-                    float* __restrict__ bc, int n, Offsets of) {
+                    BT* __restrict__ bc, int n, Offsets of) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   float acc = 0.0f;
@@ -120,10 +143,10 @@ dia_restrict_kernel(VS vs, const float* __restrict__ b,
     const size_t s = static_cast<size_t>(j) * nc + c;
     const int f = ctab[s];
     if (f < 0) continue;
-    const float r = b[f] - dia_row(vs, vs.row(f), PlainX{x}, n, f, of);
+    const float r = ld(b, f) - dia_row(vs, vs.row(f), PlainX{x}, n, f, of);
     acc += kWeighted ? cwt[s] * r : r;
   }
-  bc[c] = acc;
+  st(bc, c, acc);
 }
 
 // x as B4's weighted prologue reads it: x_j + (P xc)_j through the
@@ -146,72 +169,156 @@ struct WeightedX {
   }
 };
 
-template <class VS, class XR, bool kHasDinv>
-void launch_step_kernel(const VS& vs, const float* taus, int t,
-                        const float* b, XR xr, float* out, int n,
-                        const Offsets& of, const DotOut& dot,
-                        cudaStream_t s) {
-  if (dot.out != nullptr) {
-    dia_step_kernel<VS, XR, kHasDinv, true>
-        <<<blocks_for(n), kThreads, 0, s>>>(vs, taus, t, b, xr, out, n, of,
-                                            dot);
-  } else {
-    dia_step_kernel<VS, XR, kHasDinv, false>
-        <<<blocks_for(n), kThreads, 0, s>>>(vs, taus, t, b, xr, out, n, of,
-                                            dot);
+template <class VS, class XR, class BT, class OT, bool kHasDinv>
+void launch_step_kernel(const VS& vs, const float* taus, int t, const BT* b,
+                        XR xr, OT* out, float* keep, int n, const Offsets& of,
+                        const DotOut& dot, cudaStream_t s) {
+  // the dot epilogue exists for float32 operands only (a reduced-
+  // precision cycle declines it)
+  if constexpr (std::is_same<BT, float>::value &&
+                std::is_same<OT, float>::value) {
+    if (dot.out != nullptr) {
+      dia_step_kernel<VS, XR, BT, OT, kHasDinv, true>
+          <<<blocks_for(n), kThreads, 0, s>>>(vs, taus, t, b, xr, out, keep,
+                                              n, of, dot);
+      return;
+    }
   }
+  dia_step_kernel<VS, XR, BT, OT, kHasDinv, false>
+      <<<blocks_for(n), kThreads, 0, s>>>(vs, taus, t, b, xr, out, keep, n,
+                                          of, dot);
+}
+
+template <class VS, class XR, class BT, class OT>
+void launch_step(const VS& vs, bool has_dinv, const float* taus, int t,
+                 const BT* b, XR xr, OT* out, float* keep, int n,
+                 const Offsets& of, const DotOut& dot, cudaStream_t s) {
+  if (has_dinv) {
+    launch_step_kernel<VS, XR, BT, OT, true>(vs, taus, t, b, xr, out, keep,
+                                             n, of, dot, s);
+  } else {
+    launch_step_kernel<VS, XR, BT, OT, false>(vs, taus, t, b, xr, out, keep,
+                                              n, of, dot, s);
+  }
+}
+
+// mode bits of a step launch: kBf16 the streams (vals, dinv, b, xc) are
+// bfloat16; then kXf32 x is the float32 state (else bfloat16) and kOutF32
+// x' is stored as float32 (else bfloat16). 0: everything float32.
+enum StepMode { kBf16 = 1, kXf32 = 2, kOutF32 = 4 };
+
+// float32 streams: the first step's x plain, + xc[agg], or + P xc
+// through ptab / pwt.
+template <class VS>
+int launch_step_f32(const VS& vs, bool has_dinv, const float* taus, int t,
+                    const float* b, const float* x, const float* xc,
+                    const int* agg, const int* ptab, const float* pwt, int mp,
+                    float* out, float* keep, int n, const Offsets& of,
+                    const DotOut& d, cudaStream_t stream) {
+  if (ptab != nullptr) {
+    launch_step(vs, has_dinv, taus, t, b, WeightedX{x, xc, ptab, pwt, mp, n},
+                out, keep, n, of, d, stream);
+  } else if (xc != nullptr) {
+    launch_step(vs, has_dinv, taus, t, b, CorrectedX{x, xc, agg}, out, keep,
+                n, of, d, stream);
+  } else {
+    launch_step(vs, has_dinv, taus, t, b, PlainX{x}, out, keep, n, of, d,
+                stream);
+  }
+  return 0;
 }
 
 template <class VS, class XR>
-void launch_step(const VS& vs, bool has_dinv, const float* taus, int t,
-                 const float* b, XR xr, float* out, int n, const Offsets& of,
-                 const DotOut& dot, cudaStream_t s) {
-  if (has_dinv) {
-    launch_step_kernel<VS, XR, true>(vs, taus, t, b, xr, out, n, of, dot, s);
-  } else {
-    launch_step_kernel<VS, XR, false>(vs, taus, t, b, xr, out, n, of, dot, s);
-  }
-}
-
-// The first step's x: plain, + xc[agg], or + P xc through ptab / pwt.
-template <class VS>
-void launch_step_x(const VS& vs, bool has_dinv, const float* taus, int t,
-                   const float* b, const float* x, const float* xc,
-                   const int* agg, const int* ptab, const float* pwt, int mp,
-                   float* out, int n, const Offsets& of, const DotOut& d,
-                   cudaStream_t stream) {
-  if (ptab != nullptr) {
-    launch_step(vs, has_dinv, taus, t, b, WeightedX{x, xc, ptab, pwt, mp, n},
-                out, n, of, d, stream);
-  } else if (xc != nullptr) {
-    launch_step(vs, has_dinv, taus, t, b, CorrectedX{x, xc, agg}, out, n, of,
-                d, stream);
-  } else {
-    launch_step(vs, has_dinv, taus, t, b, PlainX{x}, out, n, of, d, stream);
-  }
-}
-
-template <class VS>
-void launch_restrict(const VS& vs, const float* b, const float* x,
-                     const int* ctab, const float* cwt, int m, int nc,
-                     float* bc, int n, const Offsets& of,
+void launch_step_out(const VS& vs, bool has_dinv, int mode,
+                     const float* taus, int t, const bf16* b, XR xr,
+                     void* out, float* keep, int n, const Offsets& of,
                      cudaStream_t stream) {
-  if (cwt != nullptr) {
-    dia_restrict_kernel<VS, true><<<blocks_for(nc), kThreads, 0, stream>>>(
-        vs, b, x, ctab, cwt, m, nc, bc, n, of);
+  const DotOut none{nullptr, nullptr, nullptr};
+  if (mode & kOutF32) {
+    launch_step(vs, has_dinv, taus, t, b, xr, static_cast<float*>(out), keep,
+                n, of, none, stream);
   } else {
-    dia_restrict_kernel<VS, false><<<blocks_for(nc), kThreads, 0, stream>>>(
-        vs, b, x, ctab, cwt, m, nc, bc, n, of);
+    launch_step(vs, has_dinv, taus, t, b, xr, static_cast<bf16*>(out), keep,
+                n, of, none, stream);
   }
 }
 
-bool step_args_ok(const float* xc, const int* agg, const int* ptab,
+// bfloat16 streams: unit-weight transfers only, no dot; the correction
+// x + xc[agg] rides the first step, which reads the caller's bf16 x.
+template <class VS>
+int launch_step_bf16(const VS& vs, bool has_dinv, int mode, const float* taus,
+                     int t, const bf16* b, const void* x, const bf16* xc,
+                     const int* agg, void* out, float* keep, int n,
+                     const Offsets& of, cudaStream_t stream) {
+  if (mode & kXf32) {
+    if (xc != nullptr) return -1;
+    launch_step_out(vs, has_dinv, mode, taus, t, b,
+                    PlainXT<float>{static_cast<const float*>(x)}, out, keep,
+                    n, of, stream);
+  } else if (xc != nullptr) {
+    launch_step_out(vs, has_dinv, mode, taus, t, b,
+                    CorrectedXT<bf16>{static_cast<const bf16*>(x), xc, agg},
+                    out, keep, n, of, stream);
+  } else {
+    launch_step_out(vs, has_dinv, mode, taus, t, b,
+                    PlainXT<bf16>{static_cast<const bf16*>(x)}, out, keep, n,
+                    of, stream);
+  }
+  return 0;
+}
+
+template <class VS, class BT>
+void launch_residual(const VS& vs, const BT* b, const float* x, BT* r, int n,
+                     const Offsets& of, cudaStream_t stream) {
+  dia_residual_kernel<<<blocks_for(n), kThreads, 0, stream>>>(vs, b, x, r, n,
+                                                               of);
+}
+
+template <class VS, class BT>
+void launch_restrict(const VS& vs, const BT* b, const float* x,
+                     const int* ctab, const float* cwt, int m, int nc,
+                     BT* bc, int n, const Offsets& of, cudaStream_t stream) {
+  if (cwt != nullptr) {
+    dia_restrict_kernel<VS, BT, true>
+        <<<blocks_for(nc), kThreads, 0, stream>>>(vs, b, x, ctab, cwt, m, nc,
+                                                  bc, n, of);
+  } else {
+    dia_restrict_kernel<VS, BT, false>
+        <<<blocks_for(nc), kThreads, 0, stream>>>(vs, b, x, ctab, cwt, m, nc,
+                                                  bc, n, of);
+  }
+}
+
+bool step_args_ok(const void* xc, const int* agg, const int* ptab,
                   const float* pwt, int mp, const float* partials,
-                  const unsigned int* counter, const float* dot) {
+                  const unsigned int* counter, const float* dot, int mode) {
   if ((xc == nullptr) != (agg == nullptr && ptab == nullptr)) return false;
   if (agg != nullptr && ptab != nullptr) return false;
   if (ptab != nullptr && (pwt == nullptr || mp < 1)) return false;
+  if (mode < 0 || mode > (kBf16 | kXf32 | kOutF32)) return false;
+  if (!(mode & kBf16) && mode != 0) return false;
+  if ((mode & kBf16) && (ptab != nullptr || dot != nullptr)) return false;
   return dot == nullptr || (partials != nullptr && counter != nullptr);
+}
+
+// One step, float32 or bfloat16 streams per `mode`: `vf` is the value
+// source of the float32 streams, `vb` that of the bfloat16 ones (the
+// stencil serves both).
+template <class VF, class VB>
+int step_any(const VF& vf, const VB& vb, bool has_dinv, int mode,
+             const float* taus, int t, const void* b, const void* x,
+             const void* xc, const int* agg, const int* ptab,
+             const float* pwt, int mp, void* out, float* keep, int n,
+             const Offsets& of, const DotOut& d, cudaStream_t stream) {
+  if (mode & kBf16)
+    return launch_step_bf16(vb, has_dinv, mode, taus, t,
+                            static_cast<const bf16*>(b), x,
+                            static_cast<const bf16*>(xc), agg, out, keep, n,
+                            of, stream);
+  return launch_step_f32(vf, has_dinv, taus, t, static_cast<const float*>(b),
+                         static_cast<const float*>(x),
+                         static_cast<const float*>(xc), agg, ptab, pwt, mp,
+                         static_cast<float*>(out), keep, n, of, d, stream);
 }
 
 }  // namespace
@@ -233,44 +340,72 @@ int amgx_dia_spmv(const float* vals, const float* x, float* y, int n,
 // pwt when xc and ptab are (B4's prolongation prologue, unit or
 // weighted). When dot is given, *dot = out.b (B4's epilogue) through
 // `partials` (one float per block of 256 rows) and `counter` (zero on
-// entry, left zero).
-int amgx_dia_step(const float* vals, const float* dinv, const float* taus,
-                  int t, const float* b, const float* x, const float* xc,
+// entry, left zero). `mode` (StepMode) says which operands are
+// bfloat16; with kBf16 the weighted rows and the dot are refused.
+// `keep`, when given, also receives out as float32.
+int amgx_dia_step(const void* vals, const void* dinv, const float* taus,
+                  int t, const void* b, const void* x, const void* xc,
                   const int* agg, const int* ptab, const float* pwt, int mp,
-                  float* out, int n, const int* offs, int k,
+                  void* out, float* keep, int n, const int* offs, int k,
                   float* partials, unsigned int* counter, float* dot,
-                  cudaStream_t stream) {
+                  int mode, cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
-  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot)) return -1;
-  launch_step_x(SlabVals{vals, dinv, n}, dinv != nullptr, taus, t, b, x, xc,
-                agg, ptab, pwt, mp, out, n, of, DotOut{partials, counter, dot},
-                stream);
+  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot, mode))
+    return -1;
+  const int rc = step_any(
+      SlabVals{static_cast<const float*>(vals),
+               static_cast<const float*>(dinv), n},
+      SlabValsT<bf16>{static_cast<const bf16*>(vals),
+                      static_cast<const bf16*>(dinv), n},
+      dinv != nullptr, mode, taus, t, b, x, xc, agg, ptab, pwt, mp, out, keep,
+      n, of, DotOut{partials, counter, dot}, stream);
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2's trailing residual: r = b - A x.
-int amgx_dia_residual(const float* vals, const float* b, const float* x,
-                      float* r, int n, const int* offs, int k,
+// B2's trailing residual: r = b - A x, x the float32 state; with `bf16`
+// set, vals, b and r are bfloat16.
+int amgx_dia_residual(const void* vals, const void* b, const float* x,
+                      void* r, int n, const int* offs, int k, int bf16_io,
                       cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
-  dia_residual_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      SlabVals{vals, nullptr, n}, b, x, r, n, of);
+  if (bf16_io) {
+    launch_residual(SlabValsT<bf16>{static_cast<const bf16*>(vals), nullptr,
+                                    n},
+                    static_cast<const bf16*>(b), x, static_cast<bf16*>(r), n,
+                    of, stream);
+  } else {
+    launch_residual(SlabVals{static_cast<const float*>(vals), nullptr, n},
+                    static_cast<const float*>(b), x, static_cast<float*>(r),
+                    n, of, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // B3's restriction epilogue: bc = R (b - A x) through the child table
 // ctab (m, nc), -1 where a coarse row has fewer than m children, each
-// child weighted by cwt (m, nc) when it is given (else unit weights).
-int amgx_dia_restrict(const float* vals, const float* b, const float* x,
+// child weighted by cwt (m, nc) when it is given (else unit weights); x
+// is the float32 state. With `bf16_io` set, vals, b and bc are bfloat16
+// (unit weights only).
+int amgx_dia_restrict(const void* vals, const void* b, const float* x,
                       const int* ctab, const float* cwt, int m, int nc,
-                      float* bc, int n, const int* offs, int k,
+                      void* bc, int n, const int* offs, int k, int bf16_io,
                       cudaStream_t stream) {
   Offsets of;
   if (n < 1 || nc < 1 || m < 1 || !fill_offsets(offs, k, &of)) return -1;
-  launch_restrict(SlabVals{vals, nullptr, n}, b, x, ctab, cwt, m, nc, bc, n,
-                  of, stream);
+  if (bf16_io) {
+    if (cwt != nullptr) return -1;
+    launch_restrict(SlabValsT<bf16>{static_cast<const bf16*>(vals), nullptr,
+                                    n},
+                    static_cast<const bf16*>(b), x, ctab, nullptr, m, nc,
+                    static_cast<bf16*>(bc), n, of, stream);
+  } else {
+    launch_restrict(SlabVals{static_cast<const float*>(vals), nullptr, n},
+                    static_cast<const float*>(b), x, ctab, cwt, m, nc,
+                    static_cast<float*>(bc), n, of, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -279,46 +414,62 @@ int amgx_dia_restrict(const float* vals, const float* b, const float* x,
 // from the host stencil `st` (copied into the launch's parameter block);
 // no value slab, no dinv vector. The arguments are those of the slab
 // entries with `stencil` (a common.cuh Stencil, passed as void* so the C
-// symbols keep external linkage) in place of vals and dinv.
+// symbols keep external linkage) in place of vals and dinv. In the
+// bfloat16 mode the coefficients are the bf16 level's values, held as
+// float32 (exact), and the synthesized dinv is float32.
 int amgx_dia_step_mf(const void* stencil, const float* taus, int t,
-                     const float* b, const float* x, const float* xc,
+                     const void* b, const void* x, const void* xc,
                      const int* agg, const int* ptab, const float* pwt,
-                     int mp, float* out, int n, const int* offs, int k,
-                     float* partials, unsigned int* counter, float* dot,
-                     cudaStream_t stream) {
+                     int mp, void* out, float* keep, int n, const int* offs,
+                     int k, float* partials, unsigned int* counter,
+                     float* dot, int mode, cudaStream_t stream) {
   const Stencil* st = static_cast<const Stencil*>(stencil);
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of) || !stencil_ok(st, n, k))
     return -1;
-  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot)) return -1;
-  launch_step_x(StencilVals{*st}, st->dinv != kDinvNone, taus, t, b, x, xc,
-                agg, ptab, pwt, mp, out, n, of,
-                DotOut{partials, counter, dot}, stream);
+  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot, mode))
+    return -1;
+  const int rc = step_any(StencilVals{*st}, StencilVals{*st},
+                          st->dinv != kDinvNone, mode, taus, t, b, x, xc, agg,
+                          ptab, pwt, mp, out, keep, n, of,
+                          DotOut{partials, counter, dot}, stream);
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
-int amgx_dia_residual_mf(const void* stencil, const float* b, const float* x,
-                         float* r, int n, const int* offs, int k,
+int amgx_dia_residual_mf(const void* stencil, const void* b, const float* x,
+                         void* r, int n, const int* offs, int k, int bf16_io,
                          cudaStream_t stream) {
   const Stencil* st = static_cast<const Stencil*>(stencil);
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of) || !stencil_ok(st, n, k))
     return -1;
-  dia_residual_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      StencilVals{*st}, b, x, r, n, of);
+  if (bf16_io) {
+    launch_residual(StencilVals{*st}, static_cast<const bf16*>(b), x,
+                    static_cast<bf16*>(r), n, of, stream);
+  } else {
+    launch_residual(StencilVals{*st}, static_cast<const float*>(b), x,
+                    static_cast<float*>(r), n, of, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-int amgx_dia_restrict_mf(const void* stencil, const float* b, const float* x,
-                         const int* ctab, int m, int nc, float* bc, int n,
-                         const int* offs, int k, cudaStream_t stream) {
+int amgx_dia_restrict_mf(const void* stencil, const void* b, const float* x,
+                         const int* ctab, int m, int nc, void* bc, int n,
+                         const int* offs, int k, int bf16_io,
+                         cudaStream_t stream) {
   const Stencil* st = static_cast<const Stencil*>(stencil);
   Offsets of;
   if (n < 1 || nc < 1 || m < 1 || !fill_offsets(offs, k, &of) ||
       !stencil_ok(st, n, k))
     return -1;
-  launch_restrict(StencilVals{*st}, b, x, ctab, nullptr, m, nc, bc, n, of,
-                  stream);
+  if (bf16_io) {
+    launch_restrict(StencilVals{*st}, static_cast<const bf16*>(b), x, ctab,
+                    nullptr, m, nc, static_cast<bf16*>(bc), n, of, stream);
+  } else {
+    launch_restrict(StencilVals{*st}, static_cast<const float*>(b), x, ctab,
+                    nullptr, m, nc, static_cast<float*>(bc), n, of, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

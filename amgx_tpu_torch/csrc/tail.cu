@@ -42,6 +42,15 @@
 // caller's b and x (slot IN) and ping-pongs between the output (A) and
 // one workspace buffer (B), the program arranging that the last write
 // lands in the output.
+//
+// bfloat16 (the reduced-precision cycle): the slab levels' values and
+// dinv and the entry level's b, x and output are bf16; the TPU kernel
+// upcasts them at entry / use and runs the whole sub-cycle in f32, the
+// coarse inverse f32. Here every workspace buffer stays float32, level
+// 0's slot A is a float32 workspace too, and the program's last level-0
+// write (flag OUT) also stores its value rounded to bf16 in the output:
+// the only bf16 store of the launch. Stencil coefficients arrive as
+// float32 (the bf16 level's values, exact).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -63,7 +72,7 @@ enum IntField { I_N, I_K, I_M, I_NC, I_NX, I_NY, I_NZ, I_DIAG, I_DINV,
 // slot (the coarse correction's source), flags
 enum Opcode { OP_STEP, OP_RESTRICT, OP_COARSE, OP_CORRECT, OP_DOT };
 enum Slot { S_A, S_B, S_IN, S_Z };
-enum Flag { F_POST = 1, F_CORRECTED = 2, F_DOT = 4 };
+enum Flag { F_POST = 1, F_CORRECTED = 2, F_DOT = 4, F_OUT = 8 };
 constexpr int kOpCols = 7;
 
 struct TailArgs {
@@ -72,9 +81,11 @@ struct TailArgs {
   const long long* ptrs;  // (nlev, kPtrFields) device addresses
   const int* ints;        // (nlev, kIntFields)
   int nlev;
-  const float* b0;        // entry level's b, x in, x out
-  const float* xin;
-  float* out;
+  const void* b0;         // entry level's b, x in (storage per `half`)
+  const void* xin;
+  float* out;             // level 0's slot A: the output, or (half) f32
+  bf16* out16;            // half: the bf16 output (flag OUT), else unused
+  int half;               // b0, xin, out16, vals and dinv are bfloat16
   float* bz;              // coarsest level's b and x
   float* xz;
   const float* inv;       // (nz, nz) row-major, or nullptr: no correction
@@ -88,21 +99,41 @@ __device__ __forceinline__ const long long* level_ptrs(const TailArgs& a,
   return a.ptrs + static_cast<size_t>(l) * kPtrFields;
 }
 
+// A vector the kernel reads: float32, or bfloat16 widened on load (the
+// caller's b and x at the entry level of a bf16 cycle).
+struct Vec {
+  const void* p;
+  int half;
+  __device__ __forceinline__ float operator[](size_t j) const {
+    return half ? ld(static_cast<const bf16*>(p), j)
+                : ld(static_cast<const float*>(p), j);
+  }
+};
+
+// the float32 buffer of slot s at level l (a write target; never IN)
 __device__ __forceinline__ float* x_slot(const TailArgs& a, int l, int s) {
-  if (s == S_IN) return const_cast<float*>(a.xin);
   if (s == S_Z) return a.xz;
   if (l == 0 && s == S_A) return a.out;
   return reinterpret_cast<float*>(level_ptrs(a, l)[s == S_A ? P_XA : P_XB]);
 }
 
-__device__ __forceinline__ float* b_of(const TailArgs& a, int l) {
+__device__ __forceinline__ Vec x_src(const TailArgs& a, int l, int s) {
+  if (s == S_IN) return Vec{a.xin, a.half};
+  return Vec{x_slot(a, l, s), 0};
+}
+
+__device__ __forceinline__ float* b_ws(const TailArgs& a, int l) {
   if (l == a.nlev) return a.bz;
-  if (l == 0) return const_cast<float*>(a.b0);
   return reinterpret_cast<float*>(level_ptrs(a, l)[P_B]);
 }
 
+__device__ __forceinline__ Vec b_of(const TailArgs& a, int l) {
+  if (l == 0) return Vec{a.b0, a.half};
+  return Vec{b_ws(a, l), 0};
+}
+
 // x_j, or x_j + xc[agg_j] when a coarse correction is folded in
-__device__ __forceinline__ float x_at(const float* x, const float* xc,
+__device__ __forceinline__ float x_at(const Vec& x, const float* xc,
                                       const int* agg, int j) {
   return xc != nullptr ? x[j] + xc[agg[j]] : x[j];
 }
@@ -112,11 +143,12 @@ __device__ __forceinline__ float x_at(const float* x, const float* xc,
 // `I` and `coef` point at the block's shared-memory copy of the level's
 // tables.
 struct TailVals {
-  const float* vals;
-  const float* dinv;  // slab levels: nullptr = none
+  const void* vals;   // float32, or bfloat16 when `half`
+  const void* dinv;   // slab levels: nullptr = none
   const float* coef;  // stencil levels, else nullptr
   const int* I;
   int n;
+  int half;
   struct Row {
     int i;
     GridRow g;
@@ -130,7 +162,8 @@ struct TailVals {
                                    I[I_NY_SHR]})};
   }
   __device__ __forceinline__ float val(const Row& r, int d) const {
-    if (coef == nullptr) return vals[static_cast<size_t>(d) * n + r.i];
+    if (coef == nullptr)
+      return Vec{vals, half}[static_cast<size_t>(d) * n + r.i];
     return in_grid(r.g, I[I_SX + d], I[I_SY + d], I[I_SZ + d], I[I_NX],
                    I[I_NY], I[I_NZ])
                ? coef[d]
@@ -140,16 +173,15 @@ struct TailVals {
     return coef != nullptr ? I[I_DINV] != kDinvNone : dinv != nullptr;
   }
   __device__ __forceinline__ float inv(const Row& r) const {
-    if (coef == nullptr) return dinv[r.i];
+    if (coef == nullptr) return Vec{dinv, half}[r.i];
     return stencil_inv([&](int d) { return val(r, d); }, I[I_K], I[I_DIAG],
                        I[I_DINV]);
   }
 };
 
 __device__ __forceinline__ float row_ax(const TailVals& vs,
-                                        const TailVals::Row& r,
-                                        const float* x, const float* xc,
-                                        const int* agg) {
+                                        const TailVals::Row& r, const Vec& x,
+                                        const float* xc, const int* agg) {
   float acc = 0.0f;
 #pragma unroll
   for (int d = 0; d < kMaxOffsets; ++d) {
@@ -199,15 +231,15 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
       __syncthreads();
       const int* I = s_ints;
       const int n = I[I_N];
-      const TailVals vs{reinterpret_cast<const float*>(P[P_VALS]),
-                        reinterpret_cast<const float*>(P[P_DINV]),
-                        coef != nullptr ? s_coef : nullptr, I, n};
-      const float* b = b_of(a, l);
-      const float* x = x_slot(a, l, src);
+      const TailVals vs{reinterpret_cast<const void*>(P[P_VALS]),
+                        reinterpret_cast<const void*>(P[P_DINV]),
+                        coef != nullptr ? s_coef : nullptr, I, n, a.half};
+      const Vec b = b_of(a, l);
+      const Vec x = x_src(a, l, src);
       if (code == OP_RESTRICT) {
         const int m = I[I_M], nc = I[I_NC];
         const int* ctab = reinterpret_cast<const int*>(P[P_CTAB]);
-        float* bn = b_of(a, l + 1);
+        float* bn = b_ws(a, l + 1);
         float* xn = l + 1 < a.nlev ? x_slot(a, l + 1, S_A) : nullptr;
         for (int c = tid; c < nc; c += stride) {
           float acc = 0.0f;
@@ -241,6 +273,7 @@ __global__ void __launch_bounds__(kThreads) coarse_tail_kernel(TailArgs a) {
             v = x[i] + xc[agg[i]];
           }
           y[i] = v;
+          if (flags & F_OUT) st(a.out16, i, v);
           if (flags & F_DOT) part += v * b[i];
         }
         if (flags & F_DOT) {
@@ -281,17 +314,22 @@ int amgx_tail_grid(int rows, int* grid) {
 }
 
 // B5: one cooperative launch of `grid` blocks walking `prog` (nops rows
-// of kOpCols ints). partials holds `grid` floats. A grid larger than
+// of kOpCols ints). partials holds `grid` floats. With `half` b0, xin,
+// the levels' vals and dinv are bfloat16, `out` is level 0's float32
+// slot A and out16 receives the result in bf16 (no dot). A grid larger than
 // co-residency is refused by the runtime
 // (cudaErrorCooperativeLaunchTooLarge), never shrunk here.
 int amgx_dia_coarse_tail(const int* prog, int nops, const long long* ptrs,
-                         const int* ints, int nlev, const float* b0,
-                         const float* xin, float* out, float* bz, float* xz,
-                         const float* inv, int nz, float* partials,
-                         float* dot, int grid, cudaStream_t stream) {
+                         const int* ints, int nlev, const void* b0,
+                         const void* xin, float* out, void* out16, int half,
+                         float* bz, float* xz, const float* inv, int nz,
+                         float* partials, float* dot, int grid,
+                         cudaStream_t stream) {
   if (nops < 1 || nlev < 1 || nz < 1 || grid < 1) return -1;
-  TailArgs a{prog, nops, ptrs, ints, nlev, b0, xin, out, bz, xz, inv, nz,
-             partials, dot};
+  if (half && (out16 == nullptr || dot != nullptr)) return -1;
+  TailArgs a{prog,  nops, ptrs, ints, nlev, b0, xin, out,
+             static_cast<bf16*>(out16), half, bz, xz, inv, nz, partials,
+             dot};
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(coarse_tail_kernel), dim3(grid),

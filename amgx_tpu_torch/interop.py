@@ -4,7 +4,10 @@ per-level arrays (for example the JAX package's, read out as numpy by
 the caller). Holding one V-cycle of the port against another
 implementation on identical operators then needs no shared setup.
 
-Takes numpy arrays only; imports nothing outside this package.
+Takes numpy arrays only; imports nothing outside this package. numpy has
+no bfloat16 of its own: an array of the `bfloat16` extension type (what
+JAX's `np.asarray` gives for a bf16 array) comes across through float32,
+which holds every bf16 value exactly (`tensor_from_numpy`).
 """
 from __future__ import annotations
 
@@ -22,14 +25,26 @@ from .matrix import CsrMatrix
 from .solvers.base import make_solver
 
 
+def tensor_from_numpy(a, device=None, dtype=None) -> torch.Tensor:
+    """A tensor with a numpy array's values (bit for bit, bfloat16
+    included), on `device` (None: the card), in `dtype` when given."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(a)
+    return t.to(device=resolve_device(device),
+                dtype=t.dtype if dtype is None else dtype)
+
+
 def matrix_from_numpy(row_offsets, col_indices, values, num_rows, num_cols,
                       grid_shape=None, device=None) -> CsrMatrix:
     """An initialized port CsrMatrix (DIA view when banded) from CSR
     arrays. `device=None` means the card."""
     return CsrMatrix.from_scipy_like(
         np.asarray(row_offsets), np.asarray(col_indices),
-        np.asarray(values), num_rows, num_cols, grid_shape=grid_shape,
-        device=resolve_device(device)).init()
+        tensor_from_numpy(values, "cpu"), num_rows, num_cols,
+        grid_shape=grid_shape, device=resolve_device(device)).init()
 
 
 def _matrix(d: dict, device) -> CsrMatrix:
@@ -47,7 +62,7 @@ def _classical_level(d: dict, cfg, scope, i, device):
     level.R = _matrix(d["R"], device)
     xfer = d.get("xfer")
     if xfer is not None:
-        level._xfer_memo = ({k: torch.tensor(np.asarray(v), device=device)
+        level._xfer_memo = ({k: tensor_from_numpy(v, device)
                              for k, v in xfer.items()},)
     return level
 
@@ -58,8 +73,7 @@ def _stencil(d, A):
     if d is None:
         return None
     from .ops.stencil import StencilOperator
-    coeffs = torch.tensor(np.asarray(d["coeffs"]), dtype=A.dtype,
-                          device=A.device)
+    coeffs = tensor_from_numpy(d["coeffs"], A.device, A.dtype)
     offsets = tuple(int(o) for o in d["offsets"])
     return StencilOperator(
         coeffs=coeffs, host=tuple(coeffs.cpu().tolist()), offsets=offsets,
@@ -116,8 +130,8 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
         sm.A = level.A
         for key in ("taus", "dinv"):
             if d.get(key) is not None:
-                setattr(sm, "_" + key, torch.tensor(
-                    np.asarray(d[key]), device=device, dtype=level.A.dtype))
+                setattr(sm, "_" + key, tensor_from_numpy(
+                    d[key], device, level.A.dtype))
         if d.get("lmax") is not None:
             if sm.preconditioner is not None:
                 sm.preconditioner.setup(level.A)
@@ -130,10 +144,10 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     cs_name, cs_scope = cfg.get_solver("coarse_solver", scope)
     cs = make_solver(cs_name, cfg, cs_scope, device)
     cs.A = amg.coarsest_A
-    cs._qt = torch.tensor(np.asarray(coarse["qt"]), device=device)
-    cs._r = torch.tensor(np.asarray(coarse["r"]), device=device)
+    cs._qt = tensor_from_numpy(coarse["qt"], device)
+    cs._r = tensor_from_numpy(coarse["r"], device)
     if coarse.get("inv") is not None:
-        cs._inv_memo = (cs._qt, cs._r, torch.tensor(
-            np.asarray(coarse["inv"]), device=device))
+        cs._inv_memo = (cs._qt, cs._r,
+                        tensor_from_numpy(coarse["inv"], device))
     amg.coarse_solver = cs
     return amg

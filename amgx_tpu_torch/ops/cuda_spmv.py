@@ -32,7 +32,8 @@ B2 `dia_smooth` replaces `_dia_smooth_call` (pallas_spmv.py:649): s
    pass by temporal blocking over a VMEM window that at 128^3 spans ~100k
    rows per block; a Hopper block's 227 KB of shared memory cannot hold
    it. Design: one grid-wide launch per application, x ping-ponging
-   between the output and one scratch buffer, so a call launches
+   through two float32 scratch buffers until the last step writes the
+   output, so a call launches
    s + (1 if with_residual) kernels and streams the value slab as often.
    Bound by bytes: the function must read vals, b, x (and dinv) once and
    write x' (and r) once.
@@ -74,8 +75,25 @@ reads k value floats and dinv per row). The plain versions are the
 masked forms of ops/stencil.py. Launches count under the names above
 (B4-mf's dot launch as "dia_prolong_smooth_mf_dot").
 
-Not ported here (the wrappers raise): bf16 operand slabs and B2's x.b
-dot epilogue (the JAX package has no caller for it).
+The bfloat16 forms
+------------------
+B2-B4 and B2-mf..B4-mf also take bfloat16 operands (the reduced-
+precision cycle, `solve_precision=bfloat16`; the TPU kernels' bf16
+operand dtype, `SMOOTH_DTYPES`): the value slab, dinv, b, x, xc and the
+outputs in bf16, taus float32, every sum in float32 (`compute_dtype`).
+The TPU kernel keeps its state in f32 across the steps of a call and
+rounds only the final stores; here the steps are separate launches
+whose state `_steps` passes through float32 scratch: only the first
+step reads bf16 x (+ xc[agg], summed in f32, never rounded) and only the
+last stores bf16 x'. The residual / restriction launch recomputes r from
+the last step's float32 state (`keep`), and bc is rounded once at its
+store. Launches count under the float32 names + "_bf16". Not in bf16:
+the weighted transfer rows (B3w / B4w, classical AMG) and the x.b dot
+epilogues (a reduced-precision cycle declines the dot): those wrappers
+raise NotImplementedError on a CUDA tensor (ROADMAP.md Queue B 2).
+
+Not ported here (the wrappers raise): B2's x.b dot epilogue (the JAX
+package has no caller for it).
 """
 from __future__ import annotations
 
@@ -84,6 +102,8 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+
+from ..precision import SMOOTH_DTYPES, compute_dtype
 
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
@@ -94,7 +114,12 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_spmv_ddot": 0, "cg_update": 0, "dia_coarse_tail": 0,
             "dia_coarse_tail_dot": 0, "dia_coarse_tail_mf": 0,
             "dia_coarse_tail_mf_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
-            "rap_values": 0, "rap_values_relabel": 0}
+            "rap_values": 0, "rap_values_relabel": 0,
+            "dia_smooth_bf16": 0, "dia_smooth_restrict_bf16": 0,
+            "dia_prolong_smooth_bf16": 0, "dia_smooth_mf_bf16": 0,
+            "dia_smooth_restrict_mf_bf16": 0,
+            "dia_prolong_smooth_mf_bf16": 0, "dia_coarse_tail_bf16": 0,
+            "dia_coarse_tail_mf_bf16": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -102,6 +127,9 @@ THREADS = 256         # rows per block (csrc/common.cuh kThreads)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DINV_MODE = {None: 0, "jacobi": 1, "l1": 2}   # common.cuh DinvMode
+# a step launch's operand storage (dia.cu StepMode): bf16 streams, then
+# whether x is the float32 state and whether x' is stored as float32
+_BF16, _X_F32, _OUT_F32 = 1, 2, 4
 
 
 def fast_div(d: int):
@@ -151,15 +179,15 @@ def _lib():
     _S = ctypes.POINTER(StencilArg)
     lib.amgx_dia_spmv.argtypes = [_P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                  _I, _P, _I, _P, _I, _P, _P, _P, _P]
-    lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P]
+                                  _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
+    lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _P]
     lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _I,
-                                      _P, _I, _P]
+                                      _P, _I, _I, _P]
     lib.amgx_dia_step_mf.argtypes = [_S, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                                     _P, _I, _P, _I, _P, _P, _P, _P]
-    lib.amgx_dia_residual_mf.argtypes = [_S, _P, _P, _P, _I, _P, _I, _P]
+                                     _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
+    lib.amgx_dia_residual_mf.argtypes = [_S, _P, _P, _P, _I, _P, _I, _I, _P]
     lib.amgx_dia_restrict_mf.argtypes = [_S, _P, _P, _P, _I, _I, _P, _I, _P,
-                                         _I, _P]
+                                         _I, _I, _P]
     for fn in (lib.amgx_dia_spmv, lib.amgx_dia_step, lib.amgx_dia_residual,
                lib.amgx_dia_restrict, lib.amgx_dia_step_mf,
                lib.amgx_dia_residual_mf, lib.amgx_dia_restrict_mf):
@@ -210,11 +238,15 @@ def _launch(name: str, fn, *args):
 
 
 def _check(name: str, offsets: Optional[Sequence[int]], n: int,
-           floats: dict, ints: dict = None):
+           floats: dict, ints: dict = None, f32: dict = None,
+           bf16_ok: bool = False):
     """Validate operands of a CUDA launch: the offset table (unless
-    None), one CUDA device, float32 / int32 dtypes, contiguity, and the
-    shapes in the dicts' (tensor, shape) pairs. Raises on anything the
-    kernels do not take."""
+    None), one CUDA device, dtypes, contiguity, and the shapes in the
+    dicts' (tensor, shape) pairs. `floats` are the operand streams:
+    float32, or with `bf16_ok` one dtype of SMOOTH_DTYPES shared by all
+    of them; `f32` are float32 always (damping factors, weights, the coarse
+    inverse); `ints` int32. Raises on anything the kernels do not
+    take."""
     if offsets is not None and not 1 <= len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"{name}: {len(offsets)} diagonals; the kernel "
                          f"takes 1..{MAX_OFFSETS}")
@@ -223,7 +255,19 @@ def _check(name: str, offsets: Optional[Sequence[int]], n: int,
     if n < 1:
         raise ValueError(f"{name}: empty operator")
     dev = None
-    for group, dtype in ((floats, torch.float32), (ints or {}, torch.int32)):
+    stream = torch.float32
+    if bf16_ok:
+        given = {t.dtype for t, _ in floats.values() if t is not None}
+        if len(given) > 1:
+            raise TypeError(f"{name}: operand streams in "
+                            f"{sorted(given, key=str)}; the kernel takes "
+                            f"one dtype for all of them")
+        stream = given.pop() if given else torch.float32
+        if stream not in SMOOTH_DTYPES:
+            raise TypeError(f"{name}: operands are {stream}; the kernel "
+                            f"takes {SMOOTH_DTYPES}")
+    for group, dtype in ((floats, stream), (f32 or {}, torch.float32),
+                         (ints or {}, torch.int32)):
         for arg, (t, shape) in group.items():
             if t is None:
                 continue
@@ -253,6 +297,14 @@ def _not_ported(name: str, **modes):
                 f"to CUDA yet")
 
 
+def bf16_not_ported(name: str, what: str):
+    """The bfloat16 forms this port does not have yet: on the card they
+    raise rather than run plain PyTorch ops."""
+    raise NotImplementedError(
+        f"{name}: {what} in bfloat16 is not ported to CUDA yet (ROADMAP.md "
+        f"Queue B 2)")
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU route and the kernels' on-card reference)
 # ---------------------------------------------------------------------------
@@ -271,16 +323,37 @@ def dia_spmv_plain(vals, offsets, x):
     return y
 
 
-def dia_smooth_plain(vals, offsets, taus, b, x, dinv=None,
-                     with_residual=True):
+def _up(*ts):
+    """The tensors in the compute dtype of the first one's (identity for
+    float32 and float64; None stays None)."""
+    cdt = compute_dtype(ts[0].dtype)
+    return tuple(None if t is None else t.to(cdt) for t in ts)
+
+
+def _smooth_state(vals, offsets, taus, b, x, dinv):
+    """The damped steps in the compute dtype: (state, b, vals) widened,
+    nothing rounded."""
+    x, b, vals, dinv, taus = _up(x, b, vals, dinv, taus)
     for t in range(taus.shape[0]):
         upd = taus[t] * (b - dia_spmv_plain(vals, offsets, x))
         if dinv is not None:
             upd = upd * dinv
         x = x + upd
+    return x, b, vals
+
+
+def dia_smooth_plain(vals, offsets, taus, b, x, dinv=None,
+                     with_residual=True, x32=None):
+    """B2's steps; bf16 operands widen to float32 and only x' and r
+    round back (the state stays float32 from step to step). `x32`, when
+    given, is the first step's x in the compute dtype (B4's corrected x,
+    which the first step reads unrounded)."""
+    dt = x.dtype
+    s, b, vals = _smooth_state(vals, offsets, taus, b,
+                               x if x32 is None else x32, dinv)
     if with_residual:
-        return x, b - dia_spmv_plain(vals, offsets, x)
-    return x
+        return s.to(dt), (b - dia_spmv_plain(vals, offsets, s)).to(dt)
+    return s.to(dt)
 
 
 def restrict_plain(ctab, r, weights=None):
@@ -306,15 +379,23 @@ def prolong_plain(x, xc, agg=None, ptab=None, pwt=None):
 
 def dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab, dinv=None,
                               weights=None):
-    x, r = dia_smooth_plain(vals, offsets, taus, b, x, dinv, True)
-    return x, restrict_plain(ctab, r, weights)
+    """B3's steps and bc = R r, r from the unrounded final state and bc
+    summed in the compute dtype, rounded once."""
+    dt = x.dtype
+    s, b32, vals = _smooth_state(vals, offsets, taus, b, x, dinv)
+    r = b32 - dia_spmv_plain(vals, offsets, s)
+    w = None if weights is None else weights.to(r.dtype)
+    return s.to(dt), restrict_plain(ctab, r, w).to(dt)
 
 
 def dia_prolong_smooth_plain(vals, offsets, taus, b, x, xc, agg,
                              dinv=None, with_dot=False, ptab=None,
                              pwt=None):
-    x = prolong_plain(x, xc, agg, ptab, pwt)
-    x = dia_smooth_plain(vals, offsets, taus, b, x, dinv, False)
+    """B4: the steps from x + P xc, summed in the compute dtype and read
+    unrounded by the first step."""
+    x32, xc32, pw = _up(x, xc, pwt)
+    xp = prolong_plain(x32, xc32, agg, ptab, pw)
+    x = dia_smooth_plain(vals, offsets, taus, b, x, dinv, False, x32=xp)
     return (x, torch.dot(x, b)) if with_dot else x
 
 
@@ -339,76 +420,93 @@ def dia_spmv(vals, offsets, x):
 
 
 def _steps(name, step, head, offsets, taus, b, x, out, xc=None, agg=None,
-           dot=None, ptab=None, pwt=None):
+           dot=None, ptab=None, pwt=None, keep=False):
     """Launch len(taus) damped steps through the C entry `step` (whose
     leading arguments are `head`: vals and dinv, or the stencil), the last
     one writing `out`; the first reads x (+ xc[agg], or + P xc through
-    ptab / pwt, when given). With dot = (partials, result) the last launch
-    also writes out.b into result and counts under name + "_dot". Returns
-    `out`."""
+    ptab / pwt, when given). The steps before the last pass their state
+    through float32 scratch (two buffers, ping-pong). With dot =
+    (partials, result) the last launch also writes out.b into result and
+    counts under name + "_dot". Returns `out`, or with `keep` (out, the
+    final state in float32): `out` itself for float32 operands, a scratch
+    buffer that the last launch also writes for bfloat16 ones."""
     n = x.shape[0]
     s = taus.shape[0]
-    tmp = torch.empty_like(x) if s > 1 else None
+    half = x.dtype == torch.bfloat16
+    scratch = torch.empty((2, n), dtype=torch.float32, device=x.device) \
+        if s > 1 or (keep and half) else None
     offs = _offsets_arg(tuple(offsets))
     mp = 0 if ptab is None else ptab.shape[0]
-    src = x
+    src, state = x, out
     for t in range(s):
-        dst = out if (s - 1 - t) % 2 == 0 else tmp
-        last_dot = dot is not None and t == s - 1
-        first = t == 0
+        first, last = t == 0, t == s - 1
+        dst = out if last else scratch[t % 2]
+        kept = None
+        if last and keep and half:
+            kept = state = scratch[t % 2]
+        mode = _BF16 | (0 if first else _X_F32) | (0 if last else _OUT_F32) \
+            if half else 0
+        last_dot = dot is not None and last
         _launch(name + "_dot" if last_dot else name, step, *head,
                 _ptr(taus), t, _ptr(b), _ptr(src),
                 _ptr(xc) if first else None, _ptr(agg) if first else None,
                 _ptr(ptab) if first else None, _ptr(pwt) if first else None,
-                mp, _ptr(dst), n, offs, len(offsets),
+                mp, _ptr(dst), _ptr(kept), n, offs, len(offsets),
                 _ptr(dot[0]) if last_dot else None,
                 _ptr(dot_counter(x.device)) if last_dot else None,
-                _ptr(dot[1]) if last_dot else None, _stream())
+                _ptr(dot[1]) if last_dot else None, mode, _stream())
         src = dst
-    return out
+    return (out, state) if keep else out
+
+
+def _name(base, x):
+    """A wrapper's launch-counter name: + "_bf16" for bfloat16 operands."""
+    return base + "_bf16" if x.dtype == torch.bfloat16 else base
 
 
 def _check_smooth(name, vals, offsets, taus, b, x, dinv, floats=None,
-                  ints=None):
+                  ints=None, f32=None):
     n = x.shape[0]
     if taus.dim() != 1 or taus.shape[0] < 1:
         raise ValueError(f"{name}: needs at least one step (taus "
                          f"{tuple(taus.shape)})")
     f = {"vals": (vals, (len(offsets), n)), "x": (x, (n,)),
-         "b": (b, (n,)), "taus": (taus, (taus.shape[0],)),
-         "dinv": (dinv, (n,))}
+         "b": (b, (n,)), "dinv": (dinv, (n,))}
     f.update(floats or {})
-    _check(name, offsets, n, f, ints)
+    w = {"taus": (taus, (taus.shape[0],))}
+    w.update(f32 or {})
+    _check(name, offsets, n, f, ints, w, bf16_ok=True)
     return n
 
 
 def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
                with_dot=False):
     """B2: len(taus) damped steps (+ the residual r = b - A x'). Returns
-    x' or (x', r)."""
+    x' or (x', r). Operands float32 or bfloat16, taus float32."""
     _not_ported("dia_smooth", with_dot=with_dot)
     if x.device.type == "cpu":
         return dia_smooth_plain(vals, offsets, taus, b, x, dinv,
                                 with_residual)
-    n = _check_smooth("dia_smooth", vals, offsets, taus, b, x, dinv)
+    name = _name("dia_smooth", x)
+    n = _check_smooth(name, vals, offsets, taus, b, x, dinv)
     with torch.cuda.device(x.device):
-        out = _steps("dia_smooth", _lib().amgx_dia_step,
-                     (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
-                     torch.empty_like(x))
+        out, state = _steps(name, _lib().amgx_dia_step,
+                            (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
+                            torch.empty_like(x), keep=True)
         if not with_residual:
             return out
         r = torch.empty_like(x)
-        _launch("dia_smooth", _lib().amgx_dia_residual, _ptr(vals),
-                _ptr(b), _ptr(out), _ptr(r), n,
-                _offsets_arg(tuple(offsets)), len(offsets), _stream())
+        _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
+                _ptr(state), _ptr(r), n, _offsets_arg(tuple(offsets)),
+                len(offsets), int(x.dtype == torch.bfloat16), _stream())
     return out, r
 
 
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
                         weights=None):
     """B3: B2's steps, then bc = R (b - A x') through the child table
-    ctab (m, nc), weighted by `weights` (m, nc) when given. Returns
-    (x', bc)."""
+    ctab (m, nc), weighted by `weights` (m, nc, float32) when given.
+    Returns (x', bc)."""
     if x.device.type == "cpu":
         return dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab,
                                          dinv, weights)
@@ -417,18 +515,23 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
     m, nc = ctab.shape
     name = "dia_smooth_restrict" if weights is None \
         else "dia_smooth_restrict_w"
+    if weights is not None and x.dtype == torch.bfloat16:
+        bf16_not_ported(name, "the weighted restriction (B3w)")
+    name = _name(name, x)
     n = _check_smooth(name, vals, offsets, taus, b, x, dinv,
-                      floats={"weights": (weights, (m, nc))},
-                      ints={"ctab": (ctab, (m, nc))})
+                      ints={"ctab": (ctab, (m, nc))},
+                      f32={"weights": (weights, (m, nc))})
     if m < 1 or nc < 1:
         raise ValueError(f"{name}: empty child table")
     with torch.cuda.device(x.device):
-        out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
-                     offsets, taus, b, x, torch.empty_like(x))
+        out, state = _steps(name, _lib().amgx_dia_step,
+                            (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
+                            torch.empty_like(x), keep=True)
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
         _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
-                _ptr(out), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc), n,
-                _offsets_arg(tuple(offsets)), len(offsets), _stream())
+                _ptr(state), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc), n,
+                _offsets_arg(tuple(offsets)), len(offsets),
+                int(x.dtype == torch.bfloat16), _stream())
     return out, bc
 
 
@@ -436,8 +539,9 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                        with_dot=False, ptab=None, pwt=None):
     """B4: len(taus) damped steps from x + P xc, the correction read on
     the fly by the first step: xc[agg] (aggregation), or the weighted
-    rows ptab / pwt (mp, n) of a general P. Returns x', or (x', x'.b)
-    with `with_dot` (the dot a 0-dim float32 tensor on x's device)."""
+    rows ptab / pwt (mp, n; pwt float32) of a general P. Returns x', or
+    (x', x'.b) with `with_dot` (the dot a 0-dim float32 tensor on x's
+    device)."""
     if (agg is None) == (ptab is None) or (ptab is None) != (pwt is None):
         raise ValueError("dia_prolong_smooth: give agg, or ptab and pwt")
     if x.device.type == "cpu":
@@ -445,11 +549,15 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                                         dinv, with_dot, ptab, pwt)
     n = x.shape[0]
     name = "dia_prolong_smooth" if ptab is None else "dia_prolong_smooth_w"
+    if x.dtype == torch.bfloat16 and (ptab is not None or with_dot):
+        bf16_not_ported(name, "the weighted prolongation (B4w)"
+                        if ptab is not None else "the x.b dot epilogue")
+    name = _name(name, x)
     mp = 0 if ptab is None else ptab.shape[0]
     _check_smooth(name, vals, offsets, taus, b, x, dinv,
-                  floats={"xc": (xc, (xc.shape[0],)),
-                          "pwt": (pwt, (mp, n))},
-                  ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))})
+                  floats={"xc": (xc, (xc.shape[0],))},
+                  ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))},
+                  f32={"pwt": (pwt, (mp, n))})
     with torch.cuda.device(x.device):
         dot = dot_scratch(n, x.device) if with_dot else None
         out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
@@ -474,10 +582,10 @@ def _check_mf(name, st, taus, b, x, floats=None, ints=None):
     if taus.dim() != 1 or taus.shape[0] < 1:
         raise ValueError(f"{name}: needs at least one step (taus "
                          f"{tuple(taus.shape)})")
-    f = {"x": (x, (n,)), "b": (b, (n,)),
-         "taus": (taus, (taus.shape[0],))}
+    f = {"x": (x, (n,)), "b": (b, (n,))}
     f.update(floats or {})
-    _check(name, st.offsets, n, f, ints)
+    _check(name, st.offsets, n, f, ints,
+           {"taus": (taus, (taus.shape[0],))}, bf16_ok=True)
     return n
 
 
@@ -487,17 +595,19 @@ def dia_smooth_mf(st, taus, b, x, with_residual=True):
     if x.device.type == "cpu":
         from .stencil import _xla_smooth
         return _xla_smooth(st.spec(), st.coeffs, taus, b, x, with_residual)
-    n = _check_mf("dia_smooth_mf", st, taus, b, x)
+    name = _name("dia_smooth_mf", x)
+    n = _check_mf(name, st, taus, b, x)
     arg = ctypes.byref(stencil_arg(st))
     with torch.cuda.device(x.device):
-        out = _steps("dia_smooth_mf", _lib().amgx_dia_step_mf, (arg,),
-                     st.offsets, taus, b, x, torch.empty_like(x))
+        out, state = _steps(name, _lib().amgx_dia_step_mf, (arg,),
+                            st.offsets, taus, b, x, torch.empty_like(x),
+                            keep=True)
         if not with_residual:
             return out
         r = torch.empty_like(x)
-        _launch("dia_smooth_mf", _lib().amgx_dia_residual_mf, arg, _ptr(b),
-                _ptr(out), _ptr(r), n, _offsets_arg(st.offsets), st.k,
-                _stream())
+        _launch(name, _lib().amgx_dia_residual_mf, arg, _ptr(b),
+                _ptr(state), _ptr(r), n, _offsets_arg(st.offsets), st.k,
+                int(x.dtype == torch.bfloat16), _stream())
     return out, r
 
 
@@ -511,16 +621,18 @@ def dia_smooth_restrict_mf(st, taus, b, x, ctab):
         raise ValueError("dia_smooth_restrict_mf: ctab must be a non-empty "
                          "(m, nc) table")
     m, nc = ctab.shape
-    n = _check_mf("dia_smooth_restrict_mf", st, taus, b, x,
-                  ints={"ctab": (ctab, (m, nc))})
+    name = _name("dia_smooth_restrict_mf", x)
+    n = _check_mf(name, st, taus, b, x, ints={"ctab": (ctab, (m, nc))})
     arg = ctypes.byref(stencil_arg(st))
     with torch.cuda.device(x.device):
-        out = _steps("dia_smooth_restrict_mf", _lib().amgx_dia_step_mf,
-                     (arg,), st.offsets, taus, b, x, torch.empty_like(x))
+        out, state = _steps(name, _lib().amgx_dia_step_mf, (arg,),
+                            st.offsets, taus, b, x, torch.empty_like(x),
+                            keep=True)
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
-        _launch("dia_smooth_restrict_mf", _lib().amgx_dia_restrict_mf, arg,
-                _ptr(b), _ptr(out), _ptr(ctab), m, nc, _ptr(bc), n,
-                _offsets_arg(st.offsets), st.k, _stream())
+        _launch(name, _lib().amgx_dia_restrict_mf, arg, _ptr(b),
+                _ptr(state), _ptr(ctab), m, nc, _ptr(bc), n,
+                _offsets_arg(st.offsets), st.k,
+                int(x.dtype == torch.bfloat16), _stream())
     return out, bc
 
 
@@ -532,13 +644,16 @@ def dia_prolong_smooth_mf(st, taus, b, x, xc, agg, with_dot=False):
         from .stencil import _xla_corr
         return _xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg,
                          with_dot=with_dot)
-    n = _check_mf("dia_prolong_smooth_mf", st, taus, b, x,
+    if with_dot and x.dtype == torch.bfloat16:
+        bf16_not_ported("dia_prolong_smooth_mf", "the x.b dot epilogue")
+    name = _name("dia_prolong_smooth_mf", x)
+    n = _check_mf(name, st, taus, b, x,
                   floats={"xc": (xc, (xc.shape[0],))},
                   ints={"agg": (agg, (x.shape[0],))})
     arg = ctypes.byref(stencil_arg(st))
     with torch.cuda.device(x.device):
         dot = dot_scratch(n, x.device) if with_dot else None
-        out = _steps("dia_prolong_smooth_mf", _lib().amgx_dia_step_mf,
-                     (arg,), st.offsets, taus, b, x, torch.empty_like(x),
-                     xc=xc, agg=agg, dot=dot)
+        out = _steps(name, _lib().amgx_dia_step_mf, (arg,), st.offsets,
+                     taus, b, x, torch.empty_like(x), xc=xc, agg=agg,
+                     dot=dot)
     return (out, dot[1]) if with_dot else out

@@ -24,6 +24,13 @@ kernel and the plain twin synthesize its values and diagonal inverse
 (`mf.dinv`) from them. Such launches count in "dia_coarse_tail_mf"
 (+ "_dot") when any level of the tail is matrix-free.
 
+bfloat16 (the reduced-precision cycle): "vals", "dinv", b and x are
+bf16, "coeffs", the damping factors and "inv" float32. As
+`_tail_compute` does, the whole sub-cycle runs in float32 (b and x
+widened at entry, the slabs at use) and only the result is rounded back
+to bf16; such launches count in "dia_coarse_tail_bf16" (or
+"dia_coarse_tail_mf_bf16"). The x'.b form is float32 only.
+
 The CUDA kernel (csrc/tail.cu) is one cooperative launch walking a phase
 program that `tail_program` flattens from the recursion once per
 (hierarchy, shape, dot); the program, the per-level pointer tables and
@@ -57,7 +64,7 @@ TailSpec = collections.namedtuple("TailSpec", "shape levels coarse")
 # tau index, next level's slot, flags)
 OP_STEP, OP_RESTRICT, OP_COARSE, OP_CORRECT, OP_DOT = range(5)
 S_A, S_B, S_IN, S_Z = range(4)
-F_POST, F_CORRECTED, F_DOT = 1, 2, 4
+F_POST, F_CORRECTED, F_DOT, F_OUT = 1, 2, 4, 8
 # per-level pointer table: these arrays, then the workspace's b, x_A, x_B
 _PTR_FIELDS = ("vals", "dinv", "coeffs", "taus_pre", "taus_post", "ctab",
                "agg")
@@ -72,7 +79,7 @@ def _lib():
     lib = library("tail.cu")
     lib.amgx_tail_grid.argtypes = [_I, ctypes.POINTER(_I)]
     lib.amgx_dia_coarse_tail.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P,
-                                         _P, _P, _I, _P, _P, _I, _P]
+                                         _I, _P, _P, _P, _I, _P, _P, _I, _P]
     for fn in (lib.amgx_tail_grid, lib.amgx_dia_coarse_tail):
         fn.restype = _I
     return lib
@@ -84,10 +91,11 @@ def _lib():
 
 
 def level_vals(ls, ar):
-    """(vals (k, n), dinv or None) of one tail level: its slab, or the
-    rows and diagonal inverse synthesized from its stencil."""
+    """(vals (k, n), dinv or None) of one tail level in float32 or wider:
+    its slab (a bf16 one widened), or the rows and diagonal inverse
+    synthesized from its stencil."""
     if ls.mf is None:
-        return ar["vals"], ar["dinv"]
+        return _k._up(ar["vals"], ar["dinv"])
     c = ar["coeffs"]
     masks = _st._vec_masks(ls.mf, c.device)
     return (_st.slab_of(ls.mf, c, masks),
@@ -96,6 +104,8 @@ def level_vals(ls, ar):
 
 def dia_coarse_tail_plain(spec, arrs, b, x, with_dot=False):
     levels = spec.levels
+    dt = x.dtype
+    b, x = _k._up(b, x)
 
     def run(shape, i, bc, s):
         ls, ar = levels[i], arrs[i]
@@ -118,7 +128,7 @@ def dia_coarse_tail_plain(spec, arrs, b, x, with_dot=False):
         return _k.dia_smooth_plain(vals, ls.offsets, ar["taus_post"], bc, s,
                                    dinv, with_residual=False)
 
-    out = run(spec.shape, 0, b, x)
+    out = run(spec.shape, 0, b, x).to(dt)
     return (out, torch.dot(out, b)) if with_dot else out
 
 
@@ -127,10 +137,11 @@ def dia_coarse_tail_plain(spec, arrs, b, x, with_dot=False):
 # ---------------------------------------------------------------------------
 
 
-def tail_program(spec, with_dot=False):
+def tail_program(spec, with_dot=False, half=False):
     """The recursion of `dia_coarse_tail_plain` flattened into phases
     (lists of 7 ints), in the order the kernel runs them; a grid barrier
-    separates each phase from the next."""
+    separates each phase from the next. With `half` (bf16 operands) the
+    entry level's last write also stores the bf16 result (F_OUT)."""
     levels = spec.levels
     cur = [S_IN] + [S_A] * (len(levels) - 1)     # slot holding each x
     prog = []
@@ -172,6 +183,8 @@ def tail_program(spec, with_dot=False):
     if with_dot:
         prog[-1][6] |= F_DOT
         prog.append([OP_DOT, 0, 0, 0, 0, 0, 0])
+    if half:
+        prog[-1][6] |= F_OUT
     return prog
 
 
@@ -199,7 +212,7 @@ class _CardPlan:
     It refers to the arrays its tables point into weakly (the caller
     holds them while it launches), so a dropped hierarchy frees both."""
 
-    def __init__(self, spec, arrs, with_dot, device):
+    def __init__(self, spec, arrs, with_dot, half, device):
         L = len(spec.levels)
         nz = spec.coarse[1]
         f32 = dict(dtype=torch.float32, device=device)
@@ -223,16 +236,28 @@ class _CardPlan:
                 raise ValueError(f"dia_coarse_tail: level {l} needs a value "
                                  f"slab or (with its stencil) coefficients")
             _check("dia_coarse_tail", ls.offsets, n,
-                   {"vals": (ar["vals"], (k, n)), "dinv": (ar["dinv"], (n,)),
-                    "coeffs": (ar["coeffs"], (k,)),
+                   {"vals": (ar["vals"], (k, n)), "dinv": (ar["dinv"], (n,))},
+                   {"ctab": (ar["ctab"], (ls.m, ls.nc)),
+                    "agg": (ar["agg"], (n,))},
+                   {"coeffs": (ar["coeffs"], (k,)),
                     "taus_pre": (ar["taus_pre"], (ls.n_pre,)),
                     "taus_post": (ar["taus_post"], (ls.n_post,))},
-                   {"ctab": (ar["ctab"], (ls.m, ls.nc)),
-                    "agg": (ar["agg"], (n,))})
+                   bf16_ok=True)
+            for f in ("vals", "dinv"):
+                if ar[f] is not None and (ar[f].dtype == torch.bfloat16) \
+                        != half:
+                    raise TypeError(f"dia_coarse_tail: level {l}'s {f} is "
+                                    f"{ar[f].dtype}, the vectors are "
+                                    f"{'bf16' if half else 'float32'}")
             ws = [torch.empty(n, **f32) if l > 0 else None,      # b
-                  torch.empty(n, **f32) if l > 0 else None,      # x_A
+                  torch.empty(n, **f32) if l > 0 or half         # x_A
+                  else None,
                   torch.empty(n, **f32)]                         # x_B
             self.work += [w for w in ws if w is not None]
+            if l == 0:
+                # half: level 0's slot A, the float32 state the program's
+                # last write also rounds into the bf16 output
+                self.xa0 = ws[1]
             ptrs.append([_ptr(ar[f]) or 0 for f in _PTR_FIELDS]
                         + [_ptr(w) or 0 for w in ws])
             pad = [0] * (_k.MAX_OFFSETS - k)
@@ -248,7 +273,7 @@ class _CardPlan:
             _check("dia_coarse_tail", None, nz,
                    {"inv": (self.inv, (nz, nz))})
         self.bz, self.xz = torch.empty(nz, **f32), torch.empty(nz, **f32)
-        prog = tail_program(spec, with_dot)
+        prog = tail_program(spec, with_dot, half)
         self.nops = len(prog)
         self.prog = torch.tensor(prog, dtype=torch.int32, device=device)
         self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
@@ -270,27 +295,32 @@ def _int32_div(d):
     return (mul - (1 << 32) if mul >= 1 << 31 else mul), shr
 
 
-def _card_plan(spec, arrs, with_dot, device):
+def _card_plan(spec, arrs, with_dot, half, device):
     plans = _PLANS.setdefault(arrs[0]["ctab"], {})
-    plan = plans.get((spec, with_dot))
+    key = (spec, with_dot, half)
+    plan = plans.get(key)
     if plan is None or not _same(plan.refs, _held(arrs)):
-        plan = plans[(spec, with_dot)] = _CardPlan(spec, arrs, with_dot,
-                                                   device)
+        plan = plans[key] = _CardPlan(spec, arrs, with_dot, half, device)
     return plan
 
 
 def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
-    """B5: the tail sub-cycle from the entry level's (b, x). Returns x',
-    or (x', x'.b) with `with_dot` (a 0-dim float32 tensor)."""
+    """B5: the tail sub-cycle from the entry level's (b, x), float32 or
+    bfloat16. Returns x', or (x', x'.b) with `with_dot` (a 0-dim float32
+    tensor; float32 only)."""
     if x.device.type == "cpu":
         return dia_coarse_tail_plain(spec, arrs, b, x, with_dot)
     n = spec.levels[0].n
-    _check("dia_coarse_tail", None, n, {"b": (b, (n,)), "x": (x, (n,))})
+    half = x.dtype == torch.bfloat16
+    if half and with_dot:
+        _k.bf16_not_ported("dia_coarse_tail", "the x.b dot epilogue")
+    _check("dia_coarse_tail", None, n, {"b": (b, (n,)), "x": (x, (n,))},
+           bf16_ok=True)
     name = "dia_coarse_tail" + (
         "_mf" if any(ls.mf is not None for ls in spec.levels) else "") + (
-        "_dot" if with_dot else "")
+        "_dot" if with_dot else "") + ("_bf16" if half else "")
     with torch.cuda.device(x.device):
-        plan = _card_plan(spec, arrs, with_dot, x.device)
+        plan = _card_plan(spec, arrs, with_dot, half, x.device)
         out = torch.empty_like(x)
         dot = torch.empty((), dtype=torch.float32, device=x.device) \
             if with_dot else None
@@ -298,7 +328,8 @@ def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
                 _lib().amgx_dia_coarse_tail,
                 _ptr(plan.prog), plan.nops, _ptr(plan.ptrs),
                 _ptr(plan.ints), len(spec.levels), _ptr(b), _ptr(x),
-                _ptr(out), _ptr(plan.bz), _ptr(plan.xz), _ptr(plan.inv),
+                _ptr(plan.xa0 if half else out), _ptr(out) if half else None,
+                int(half), _ptr(plan.bz), _ptr(plan.xz), _ptr(plan.inv),
                 spec.coarse[1], _ptr(plan.partials), _ptr(dot), plan.grid,
                 _stream())
     return (out, dot) if with_dot else out

@@ -5,9 +5,11 @@ The damped-relaxation smoother family
 
     x_{s+1} = x_s + (tau_s * (b - A x_s)) * dinv        (dinv optional)
 
-runs through the DIA kernels of `cuda_spmv` on float32 DIA levels:
-B2 (steps + trailing residual), B3 (steps + restriction epilogue) and
-B4 (prolongation prologue + steps). `fused_smooth` takes DIA first, then
+runs through the DIA kernels of `cuda_spmv` on float32 and bfloat16 DIA
+levels: B2 (steps + trailing residual), B3 (steps + restriction
+epilogue) and B4 (prolongation prologue + steps). The damping factors
+go to the kernels in the compute dtype (`precision.compute_dtype`:
+float32 for bf16 operands). `fused_smooth` takes DIA first, then
 the unstructured route of a float32 CSR level (classical coarse
 operators): one B9 launch per sweep (`cuda_csr.csr_smooth`) and the
 trailing residual through B8, as the JAX package's `swell_fused_smooth`
@@ -16,9 +18,11 @@ calling smoother then composes its unfused sweeps, exactly as the JAX
 package does off its fused path (f64 hierarchies, `fused_smoother=0`).
 
 On CPU tensors the kernels' plain twins run, so the CPU and the card
-take the same route. `coarse_tail_cycle` runs the whole sub-cycle below
-an entry level through B5 (ops/cuda_tail.py) with the JAX package's
-eligibility rules.
+take the same route. A bfloat16 level the port has no kernel for (a CSR
+level, weighted transfer rows) raises NotImplementedError on the card
+(ROADMAP.md Queue B 2) and composes plain PyTorch on the CPU.
+`coarse_tail_cycle` runs the whole sub-cycle below an entry level through
+B5 (ops/cuda_tail.py) with the JAX package's eligibility rules.
 
 A matrix-free level (the hierarchy's `matrix_free` detector installed a
 StencilOperator, solve data "stencil"; its A has no value slab) routes
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..precision import SMOOTH_DTYPES, compute_dtype
 from . import cuda_csr, cuda_spmv, cuda_tail
 from . import stencil as mf
 
@@ -47,11 +52,13 @@ TRANSFER_MAX_CHILD = 16
 
 
 def kernel_ok(A, x) -> bool:
-    """Would the smoother kernels take this level and vector?"""
+    """Would the smoother kernels take this level and vector? A DIA slab
+    of the vector's dtype, float32 or bfloat16 (the JAX package's
+    `smooth_dtype_ok`)."""
     return (getattr(A, "dia_vals", None) is not None
             and A.num_rows == A.num_cols
-            and A.dia_vals.dtype == torch.float32
-            and x.dtype == torch.float32)
+            and A.dia_vals.dtype == x.dtype
+            and x.dtype in SMOOTH_DTYPES)
 
 
 def children_table(agg: torch.Tensor, nc: int) -> torch.Tensor:
@@ -156,8 +163,12 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
         return None
     if kernel_ok(A, x):
         return cuda_spmv.dia_smooth(A.dia_vals, A.dia_offsets,
-                                    taus.to(x.dtype), b, x, dinv,
-                                    with_residual)
+                                    taus.to(compute_dtype(x.dtype)), b, x,
+                                    dinv, with_residual)
+    if getattr(A, "dia_vals", None) is None and x.dtype == torch.bfloat16 \
+            and x.device.type != "cpu":
+        cuda_spmv.bf16_not_ported("fused_smooth",
+                                  "a CSR level's sweeps (B9)")
     if getattr(A, "dia_vals", None) is not None or A.num_rows != A.num_cols \
             or A.values.dtype != torch.float32 or x.dtype != torch.float32:
         return None
@@ -181,7 +192,8 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
     return cuda_spmv.dia_smooth_restrict(A.dia_vals, A.dia_offsets,
-                                         taus.to(x.dtype), b, x,
+                                         taus.to(compute_dtype(x.dtype)), b,
+                                         x,
                                          xfer["ctab"], dinv,
                                          weights=xfer.get("cwt"))
 
@@ -200,7 +212,8 @@ def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
     return cuda_spmv.dia_prolong_smooth(A.dia_vals, A.dia_offsets,
-                                        taus.to(x.dtype), b, x, xc,
+                                        taus.to(compute_dtype(x.dtype)), b,
+                                        x, xc,
                                         xfer.get("agg"), dinv,
                                         with_dot=want_dot,
                                         ptab=xfer.get("ptab"),
@@ -215,7 +228,9 @@ def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
 def _tail_plan(amg, shape, data, lvl, x):
     """(spec, arrs) of the tail entered at level `lvl`, or None when it
     is not eligible. A matrix-free level enters with its coefficients in
-    place of the value slab and no dinv (the kernel synthesizes it)."""
+    place of the value slab and no dinv (the kernel synthesizes it).
+    Coefficients and damping factors are float32 (a bf16 level's values
+    widened); slabs and dinv keep the level's dtype."""
     levels = amg.levels
     specs, arrs = [], []
     for i in range(lvl, len(levels)):
@@ -227,10 +242,10 @@ def _tail_plan(amg, shape, data, lvl, x):
         # unit-weight, as the JAX package's tail
         if xfer is None or "cwt" in xfer or smd is None or spec_fn is None \
                 or not (kernel_ok(ld["A"], x) if st is None
-                        else x.dtype == torch.float32):
+                        else x.dtype in SMOOTH_DTYPES):
             return None
-        pre = spec_fn(smd, amg._sweeps(i, pre=True), x.dtype)
-        post = spec_fn(smd, amg._sweeps(i, pre=False), x.dtype)
+        pre = spec_fn(smd, amg._sweeps(i, pre=True), torch.float32)
+        post = spec_fn(smd, amg._sweeps(i, pre=False), torch.float32)
         if pre is None or post is None:
             return None
         A = ld["A"]
@@ -263,10 +278,12 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
     """Run the whole sub-cycle at levels >= lvl as ONE B5 launch, or
     return None when the tail is not eligible (the caller recurses per
     level). Eligible, as in the JAX package: a fixed cycle shape; a
-    float32 vector; every level from lvl down a float32 DIA level with
-    transfer tables and a smoother that has `fused_tail_spec`; the coarse
-    solver NOSOLVER/DUMMY or holding a float32 `inv`; the entry level at
-    most cycle_fusion_tail_rows rows. The JAX package also declines when
+    float32 or bfloat16 vector; every level from lvl down a DIA level of
+    the vector's dtype with transfer tables and a smoother that has
+    `fused_tail_spec`; the coarse solver NOSOLVER/DUMMY or holding a
+    float32 `inv` (under bf16 too); the entry level at most
+    cycle_fusion_tail_rows rows. A bf16 tail runs in float32 inside and
+    rounds its result once. The JAX package also declines when
     the tail outgrows the TPU's VMEM budget; the Hopper kernel keeps its
     levels in device memory and has no such cap (for the 7-pt operator at
     the default threshold the cap never binds, so both enter the tail at
@@ -276,7 +293,7 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
     per (entry level, shape, dtype) and cached on the hierarchy; B5's card
     tables and workspace are cached beside it (ops/cuda_tail.py)."""
     levels = amg.levels
-    if shape not in ("V", "W", "F") or x.dtype != torch.float32 \
+    if shape not in ("V", "W", "F") or x.dtype not in SMOOTH_DTYPES \
             or lvl >= len(levels) \
             or levels[lvl].A.num_rows > amg.cycle_fusion_tail_rows:
         return None

@@ -21,11 +21,19 @@ every step; from k coefficients they stream only the vectors.
   `ops/cuda_spmv.py` do, with the masked coefficient in place of the
   stored row, so the two agree bit for bit on the same level.
 - The dispatch (`stencil_fused_smooth`, `stencil_smooth_restrict`,
-  `stencil_corr_smooth`): float32 through the coefficient-mode kernels of
-  `ops/cuda_spmv.py` (B2-mf, B3-mf, B4-mf; their plain versions on the
-  CPU), every other dtype through the plain forms on any device, as the
-  JAX package sends everything but its kernel dtypes to XLA. The Hopper
-  kernels run any number of steps, so the TPU's plan chunking is gone.
+  `stencil_corr_smooth`): float32 and bfloat16 (`SMOOTH_DTYPES`) through
+  the coefficient-mode kernels of `ops/cuda_spmv.py` (B2-mf, B3-mf,
+  B4-mf; their plain versions on the CPU), every other dtype through the
+  plain forms on any device, as the JAX package sends everything but its
+  kernel dtypes to XLA. The Hopper kernels run any number of steps, so
+  the TPU's plan chunking is gone. Damping factors travel in the compute
+  dtype (float32 for bf16 operands).
+- bfloat16 (a reduced-precision cycle): the coefficients are the level's
+  bf16 values; the plain forms widen them, b and x to float32, keep the
+  state float32 from step to step and round only x', r and bc, as the
+  TPU's Pallas kernels do (B4-mf's x + xc[agg] is summed in float32 and
+  not rounded before the first step; the JAX package's XLA twin rounds
+  it).
 - `stencil_dia_vals` / `stencil_matrix` / `level_operator`: the
   equivalent (k, n) slab, rebuilt per use for the consumers that need a
   matrix (the cycle's residual on a level without pre-sweeps).
@@ -41,6 +49,7 @@ from typing import Optional
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..precision import SMOOTH_DTYPES, compute_dtype
 from . import cuda_spmv
 
 # Hashable static twin of a StencilOperator (everything but the
@@ -243,33 +252,49 @@ def stencil_spmv(st: StencilOperator, x):
     return _apply_vec(st.spec(), st.coeffs, x)
 
 
-def _xla_smooth(spec, coeffs, taus, b, x, with_residual):
-    """len(taus) damped steps x += (tau_t (b - A x)) dinv, then
-    optionally r = b - A x: ops/cuda_spmv.py `dia_smooth_plain` on the
-    synthesized rows."""
-    masks = _vec_masks(spec, x.device)
+def _state(spec, coeffs, taus, b, x, masks):
+    """The damped steps in the compute dtype of x: (state, b, coeffs)
+    widened, nothing rounded."""
+    x, b, coeffs, taus = (t.to(compute_dtype(x.dtype))
+                          for t in (x, b, coeffs, taus))
     dinv = _dinv_vec(spec, coeffs, x.dtype, x.device, masks)
     for t in range(taus.shape[0]):
         upd = taus[t] * (b - _apply_vec(spec, coeffs, x, masks))
         if dinv is not None:
             upd = upd * dinv
         x = x + upd
+    return x, b, coeffs
+
+
+def _xla_smooth(spec, coeffs, taus, b, x, with_residual, x0=None):
+    """len(taus) damped steps x += (tau_t (b - A x)) dinv, then
+    optionally r = b - A x: ops/cuda_spmv.py `dia_smooth_plain` on the
+    synthesized rows. `x0`, when given, is the first step's x in the
+    compute dtype (B4-mf's unrounded x + xc[agg])."""
+    masks = _vec_masks(spec, x.device)
+    dt = x.dtype
+    s, b, coeffs = _state(spec, coeffs, taus, b, x if x0 is None else x0,
+                          masks)
     if with_residual:
-        return x, b - _apply_vec(spec, coeffs, x, masks)
-    return x
+        return s.to(dt), (b - _apply_vec(spec, coeffs, s, masks)).to(dt)
+    return s.to(dt)
 
 
 def _xla_restrict(spec, coeffs, taus, b, x, ctab):
-    """Smooth + unit-weight child-gather restriction: (x', bc)."""
-    x, r = _xla_smooth(spec, coeffs, taus, b, x, True)
-    return x, cuda_spmv.restrict_plain(ctab, r)
+    """Smooth + unit-weight child-gather restriction: (x', bc), r from the
+    unrounded state and bc rounded once."""
+    masks = _vec_masks(spec, x.device)
+    s, b32, c = _state(spec, coeffs, taus, b, x, masks)
+    r = b32 - _apply_vec(spec, c, s, masks)
+    return s.to(x.dtype), cuda_spmv.restrict_plain(ctab, r).to(x.dtype)
 
 
 def _xla_corr(spec, coeffs, taus, b, x, xc, agg, with_dot=False):
-    """Correction prologue (x + xc[agg]) + smooth, and x'.b with
-    `with_dot`."""
-    x = _xla_smooth(spec, coeffs, taus, b, cuda_spmv.prolong_plain(
-        x, xc, agg), False)
+    """Correction prologue (x + xc[agg], in the compute dtype) + smooth,
+    and x'.b with `with_dot`."""
+    cdt = compute_dtype(x.dtype)
+    x0 = cuda_spmv.prolong_plain(x.to(cdt), xc.to(cdt), agg)
+    x = _xla_smooth(spec, coeffs, taus, b, x, False, x0=x0)
     return (x, torch.dot(x, b)) if with_dot else x
 
 
@@ -279,18 +304,19 @@ def _xla_corr(spec, coeffs, taus, b, x, xc, agg, with_dot=False):
 
 
 def _kernel_dtype(x) -> bool:
-    return x.dtype == torch.float32
+    return x.dtype in SMOOTH_DTYPES
 
 
 def stencil_fused_smooth(st: StencilOperator, taus, b, x,
                          with_residual=True):
     """x' (and r) after len(taus) damped steps from the coefficients:
-    B2-mf for float32, the plain form otherwise. Always produces a
-    result: there is no slab to fall back to."""
-    taus = taus.to(x.dtype)
+    B2-mf for float32 and bfloat16, the plain form otherwise. Always
+    produces a result: there is no slab to fall back to."""
+    taus = taus.to(compute_dtype(x.dtype))
     if taus.shape[0] < 1:
         if with_residual:
-            return x, b - stencil_spmv(st, x)
+            return x, _xla_smooth(st.spec(), st.coeffs, taus, b, x,
+                                  True)[1]
         return x
     if _kernel_dtype(x):
         return cuda_spmv.dia_smooth_mf(st, taus, b, x, with_residual)
@@ -304,7 +330,7 @@ def stencil_smooth_restrict(st: StencilOperator, taus, b, x, xfer):
     restriction)."""
     if xfer is None or "cwt" in xfer or taus.shape[0] < 1:
         return None
-    taus = taus.to(x.dtype)
+    taus = taus.to(compute_dtype(x.dtype))
     if _kernel_dtype(x):
         return cuda_spmv.dia_smooth_restrict_mf(st, taus, b, x, xfer["ctab"])
     return _xla_restrict(st.spec(), st.coeffs, taus, b, x, xfer["ctab"])
@@ -318,7 +344,7 @@ def stencil_corr_smooth(st: StencilOperator, taus, b, x, xc, xfer,
     unit-weight transfer tables."""
     if xfer is None or "ptab" in xfer or taus.shape[0] < 1:
         return None
-    taus = taus.to(x.dtype)
+    taus = taus.to(compute_dtype(x.dtype))
     if _kernel_dtype(x):
         return cuda_spmv.dia_prolong_smooth_mf(st, taus, b, x, xc,
                                                xfer["agg"],

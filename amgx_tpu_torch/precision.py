@@ -22,6 +22,18 @@ from .errors import BadConfigurationError
 PRECISION_DTYPES = {"double": None, "float": torch.float32,
                     "bfloat16": torch.bfloat16}
 
+# Operand dtypes of the smoother kernels (B2-B5; a copy of
+# amgx_tpu/ops/pallas_spmv.py SMOOTH_DTYPES): bf16 streams half the bytes
+# of f32 and is widened on load; the arithmetic runs in `compute_dtype`.
+SMOOTH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def compute_dtype(dtype):
+    """The accumulation dtype of an operand stream: float32 for sub-f32
+    operands (bf16), the dtype itself for float32 / float64
+    (amgx_tpu/ops/pallas_spmv.py `compute_dtype`)."""
+    return torch.float32 if dtype.itemsize < 4 else dtype
+
 _TPU_DTYPE_ALIASES = {"float64": "double", "float32": "float",
                       "bfloat16": "bfloat16"}
 

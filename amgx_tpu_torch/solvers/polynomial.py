@@ -12,6 +12,7 @@ from .. import registry
 from ..ops import smooth as fused
 from ..ops.spmv import spmv
 from ..ops.stencil import mf_slim
+from ..precision import compute_dtype
 from .base import Solver
 
 
@@ -51,6 +52,7 @@ class ChebyshevPolySolver(Solver):
         order = int(cfg.get("chebyshev_polynomial_order", scope))
         self.order = min(10, max(order, 1))
         self.fused_smoother = bool(int(cfg.get("fused_smoother", scope)))
+        self._tau_cache = {}
 
     def solver_setup(self):
         # lambda stays on the device: no host round trip per level
@@ -58,6 +60,7 @@ class ChebyshevPolySolver(Solver):
         self._taus = torch.tensor(chebyshev_poly_coeffs(self.order),
                                   dtype=self.A.dtype,
                                   device=self.A.device) / lam
+        self._tau_cache = {}
 
     def solve_data(self):
         d = super().solve_data()
@@ -83,10 +86,18 @@ class ChebyshevPolySolver(Solver):
 
     # -- the smoother kernels (ops/smooth.py) -----------------------------
     # `sweeps` applications are the tiled tau schedule.
-    @staticmethod
-    def _fused_taus(data, sweeps: int):
+    def _fused_taus(self, data, sweeps: int):
+        """The level's taus tiled `sweeps` times in their compute dtype
+        (a bf16 cycle's bf16 leaf widened to float32), made once per
+        (taus leaf, sweeps)."""
         taus = data["taus"]
-        return taus.repeat(sweeps) if sweeps > 1 else taus
+        key = (id(taus), sweeps)
+        hit = self._tau_cache.get(key)
+        if hit is None or hit[0] is not taus:
+            tiled = taus.repeat(sweeps) if sweeps > 1 else taus
+            hit = self._tau_cache[key] = (
+                taus, tiled.to(compute_dtype(taus.dtype)))
+        return hit[1]
 
     def smooth(self, data, b, x, sweeps: int):
         if sweeps > 0 and self.fused_smoother:
@@ -122,8 +133,9 @@ class ChebyshevPolySolver(Solver):
 
     def fused_tail_spec(self, data, sweeps: int, dtype):
         """(taus, dinv=None): the tiled damping schedule of `sweeps`
-        applications for the coarse-tail kernel, or None when this
-        smoother does not ride it."""
+        applications for the coarse-tail kernel in `dtype` (float32 under
+        a bf16 cycle too: the bf16 level's taus widened, as in the JAX
+        package), or None when this smoother does not ride it."""
         if not self.fused_smoother:
             return None
         if sweeps <= 0:

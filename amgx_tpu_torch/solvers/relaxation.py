@@ -25,6 +25,7 @@ from ..ops import smooth as fused
 from ..ops.segment import segment_sum
 from ..ops.spmv import spmv
 from ..ops.stencil import mf_slim
+from ..precision import compute_dtype
 from .base import Solver
 
 
@@ -82,13 +83,19 @@ class _FusedJacobiMixin:
         out["x"] = st["x"] + self.relaxation_factor * (data["dinv"] * r)
         return out
 
-    def _fused_taus(self, sweeps: int, like):
-        """`sweeps` copies of omega, made once per (sweeps, dtype)."""
-        key = (sweeps, like.dtype)
+    def _fused_taus(self, sweeps: int, like, dtype=None):
+        """`sweeps` copies of omega rounded to `dtype` (default: like's),
+        held in its compute dtype on like's device, made once per
+        (sweeps, dtype). The per-level kernels get omega in the vector's
+        dtype (under a bf16 cycle omega rounded to bf16, as the JAX
+        package's `_fused_taus(sweeps, x.dtype)`, then widened to
+        float32 here, once); the coarse tail asks for float32."""
+        dtype = like.dtype if dtype is None else dtype
+        key = (sweeps, dtype)
         if key not in self._tau_cache:
             self._tau_cache[key] = torch.full(
-                (max(sweeps, 0),), self.relaxation_factor, dtype=like.dtype,
-                device=like.device)
+                (max(sweeps, 0),), self.relaxation_factor, dtype=dtype,
+                device=like.device).to(compute_dtype(dtype))
         return self._tau_cache[key]
 
     def _fused_ok(self, data, sweeps):
@@ -136,11 +143,11 @@ class _FusedJacobiMixin:
         if not self.fused_smoother:
             return None
         if "stencil" in data:
-            return (self._fused_taus(max(sweeps, 0),
-                                     data["stencil"].coeffs).to(dtype), None)
+            return (self._fused_taus(max(sweeps, 0), data["stencil"].coeffs,
+                                     dtype), None)
         if "dinv" not in data:
             return None
-        return (self._fused_taus(max(sweeps, 0), data["dinv"]).to(dtype),
+        return (self._fused_taus(max(sweeps, 0), data["dinv"], dtype),
                 data["dinv"])
 
 

@@ -21,7 +21,13 @@ Phases, one JSON line each on stdout:
                128^3's coarse tail (32768 -> 4096 -> 512 -> 64 rows), with
                slab levels and with matrix-free ones (B5-mf, against B5 on
                the slab levels): CHEBYSHEV_POLY order 5 V, JACOBI_L1 V,
-               each with and without the dot, and W and F.
+               each with and without the dot, and W and F. The bf16
+               forms (the reduced-precision cycle): B2-B4 and B2-mf..B4-mf
+               at the 128^3 level-0 shapes with the flagship's
+               CHEBYSHEV_POLY and a JACOBI_L1 (dinv) schedule, B5 and
+               B5-mf on the bf16 32^3 hierarchies; each within 1 bf16 ulp
+               of its plain version (`bf16_err`, with the share of entries
+               bit-equal), every launch under its own "_bf16" counter.
                Max error with its limit, launches per call, kernel /
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
@@ -37,9 +43,12 @@ Phases, one JSON line each on stdout:
                hierarchy. B8 and B10 are timed against cuSPARSE.
 3. small    -- end-to-end references on small inputs, the card against
                the CPU (plain kernels): the flagship at 16^3 with the
-               tail off and untouched, and PCG at 32^3, where the whole
-               cycle is the tail and B5 carries PCG's r.z: slab levels
-               (pinned) and matrix-free ones (B5-mf's dot).
+               tail off, untouched and in bfloat16, the bfloat16 one at
+               64^3 (its inner iterations within one of the CPU's and of
+               the JAX package's Pallas route's 24), and PCG at 32^3,
+               where the whole cycle is the tail and B5 carries PCG's
+               r.z: slab levels (pinned) and matrix-free ones (B5-mf's
+               dot).
 4. flagship -- the untouched FLAGSHIP on 7-pt 128^3, 2,097,152 rows,
                matrix-free on the card: true f64 residual <= 1e-8 in <= 3
                outer iterations, one B5-mf launch per V-cycle, B3-mf/B4-mf
@@ -47,8 +56,19 @@ Phases, one JSON line each on stdout:
                same with the slab route pinned (flagship_slab: the same
                iterations, B3/B4/B5) and with the tail off; warm solves in
                alternating pairs, matrix-free vs slab and slab vs tail-off.
+   flagship_bf16 -- the same three with solve_precision=bfloat16 (f64
+               REFINEMENT, f32 FGMRES, the AMG cycle in bf16): <= 1e-8 in
+               <= 3 outer and <= BF16_INNER_RATIO (1.47) x the f32 run's
+               inner iterations, the tail runs' within one of the same
+               bf16 solve on the CPU (plain kernels), 6
+               bf16 B3 and 5 bf16 B4 launches per level above the tail
+               per V-cycle, one bf16 B5 per V-cycle, no float32 smoother
+               launch; the tail-off run's coarse solve in float32. Warm
+               solves of the f32 and bf16 flagships in alternating pairs:
+               mixed_precision_speedup (recorded, not checked).
 5. unfused  -- the tail-off flagship at 64^3 with amg:cycle_fusion=0: B2
-               on slab levels (pinned), B2-mf on matrix-free ones.
+               on slab levels (pinned), B2-mf on matrix-free ones; the
+               same in bf16 (the bf16 B2 and B2-mf).
 6. krylov   -- PCG + GEO aggregation + JACOBI_L1 at 128^3 in float32,
                krylov_fusion 1 (B6, B7, B4-mf's dot, B5-mf), the same with
                the slab route pinned (B4's dot, B5), and krylov_fusion 0
@@ -152,6 +172,21 @@ LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "dia_smooth_mf": 5e-5, "dia_smooth_restrict_mf": 5e-5,
           "dia_prolong_smooth_mf": 5e-5, "dia_prolong_smooth_mf_dot": 5e-5,
           "dia_coarse_tail_mf": 5e-5, "dia_coarse_tail_mf_dot": 5e-5}
+# The bfloat16 forms (the reduced-precision cycle) against their plain
+# versions: max error in bf16 ulps (`bf16_err`: each entry's ulp, its
+# scale floored at 2^-8 of the output's largest entry, where a sum that
+# cancels leaves only the float32 rounding of its terms). Kernel and plain
+# version sum in float32 and round once; the kernel's fused multiply-adds
+# can move a sum across a rounding boundary, by one bf16 ulp.
+BF16_FORMS = {"dia_smooth_bf16": "dia_smooth",
+              "dia_smooth_restrict_bf16": "dia_smooth_restrict",
+              "dia_prolong_smooth_bf16": "dia_prolong_smooth",
+              "dia_smooth_mf_bf16": "dia_smooth_mf",
+              "dia_smooth_restrict_mf_bf16": "dia_smooth_restrict_mf",
+              "dia_prolong_smooth_mf_bf16": "dia_prolong_smooth_mf",
+              "dia_coarse_tail_bf16": "dia_coarse_tail",
+              "dia_coarse_tail_mf_bf16": "dia_coarse_tail_mf"}
+LIMITS.update({name: 1.0 for name in BF16_FORMS})
 _PS = "amgx_tpu/ops/pallas_spmv.py:"
 REPLACES = {
     "dia_spmv": _PS + "165", "dia_smooth": _PS + "649",
@@ -187,9 +222,32 @@ SOURCES = {
     "dia_prolong_smooth_mf": "dia.cu", "dia_prolong_smooth_mf_dot": "dia.cu",
     "dia_coarse_tail_mf": "tail.cu", "dia_coarse_tail_mf_dot": "tail.cu",
 }
+for _bf, _f32 in BF16_FORMS.items():
+    REPLACES[_bf], SOURCES[_bf] = REPLACES[_f32], SOURCES[_f32]
 # pins the slab route on a path that exists to drive the slab kernels
 # (the card's default, matrix_free=auto, is matrix-free)
 SLAB = ", amg:matrix_free=0"
+# the reduced-precision flagship: the inner AMG cycle in bfloat16 (the
+# JAX package's bench_precision pairs it with the float flagship)
+BF16 = ", solve_precision=bfloat16"
+# Its inner FGMRES iterations, n -> (float32, bf16), on the 7-pt n^3
+# Poisson with b = 1 (tools/flagship_anchors.py, both packages on the
+# CPU): the JAX package's Pallas route (its kernels under the
+# interpreter), which the port's CPU route equals at every size but 64^3
+# float32 (23), and its XLA route, which rounds the state to bf16 at
+# every step.
+BF16_PALLAS_ANCHORS = {16: (10, 10), 32: (14, 15), 64: (21, 24),
+                       96: (27, 30), 112: (30, 34)}
+BF16_XLA_ANCHORS = {16: (10, 19), 32: (14, 42), 64: (21, 97)}
+# The card's bf16 run is held to the Pallas route's count at 64^3 and to
+# the port's CPU route on the same input at 128^3, which the anchors do
+# not reach (+-1 each: fused multiply-adds). Its bf16 / float32 inner
+# ratio is bounded between the two rounding semantics, at the geometric
+# mean of the Pallas route's largest ratio and the per-step route's
+# smallest.
+BF16_INNER_RATIO = float(np.sqrt(
+    max(b / f for f, b in BF16_PALLAS_ANCHORS.values())
+    * min(b / f for f, b in BF16_XLA_ANCHORS.values())))
 # the repo's PCG anchor (bench.py bench_krylov): PCG + GEO aggregation +
 # JACOBI_L1, 54 iterations at 128^3 in float32 with either knob
 PCG = ("solver=PCG, max_iters=80, monitor_residual=1, tolerance=1e-8,"
@@ -248,11 +306,12 @@ AGG_ROWS_128 = [2097152, 962648, 454882, 216790, 103697, 49611, 23775,
 # orders of magnitude over 100 iterations, in float64 too) and the run
 # holds its monitored residual to its own true one instead. The classical
 # files anchor at 64^3: the JAX package's 128^3 classical setup outgrows
-# the host. GMRES_AMG_D2's levels are not held: its float32 classical
-# setup rounds D2's weights and the Galerkin sums differently from the JAX
-# package's (XLA contracts multiply-adds), and at a strength-threshold tie
-# an ulp flips a connection, so from level 2 its 64^3 hierarchy differs
-# (10435 against 10443 rows) while the iterations agree. The W cycle runs
+# the host. GMRES_AMG_D2's levels are not held: the anchors come from the
+# JAX package's host route, whose D2 truncation sums in float64 (the port
+# has the bits of its device route, the one a TPU runs, 1-2 ulps apart),
+# and at a strength-threshold tie an ulp flips a connection, so from level
+# 2 its 64^3 hierarchy differs (10435 against 10443 rows) while the
+# iterations agree. The W cycle runs
 # at 64^3 only: at 128^3 SIZE_2 builds 14 levels and one W cycle visits
 # the coarsest 2^13 times, ~19 host launches a CSR level visit.
 KRYLOV_ANCHORS = {
@@ -514,6 +573,106 @@ def synthesized_dinv(torch, K, A):
     return out
 
 
+def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
+    """The bf16 forms of B2-B4 and B2-mf..B4-mf at one shape, as the bf16
+    flagship calls them: the level's slab, dinv, stencil coefficients and
+    vectors rounded to bf16, taus float32. Two schedules: CHEBYSHEV_POLY's
+    (the flagship's: its taus rounded to bf16 as the hierarchy's cast
+    does, no dinv) and JACOBI_L1's (two steps at 0.75, with dinv).
+    schedule -> name -> (kernel call, plain call, bytes, flops, launches
+    per call, library call, {"bound_launches_ms": ...}).
+
+    bytes: each input read once and each output written once, bf16
+    streams at 2 bytes (the one-pass bound the TPU's temporal blocking
+    attains). bound_launches_ms: the bytes the port's launch sequence
+    moves at least -- each launch reads the slab, dinv and b, the middle
+    steps read and write the float32 scratch, the last step writes x' and
+    (B2 / B3) keeps its float32 state for the residual or restriction
+    launch."""
+    from amgx_tpu_torch.amg.hierarchy import _cast_leaf
+    from amgx_tpu_torch.ops import stencil as mf
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
+    bf = torch.bfloat16
+    vals, offs = A.dia_vals.to(bf), A.dia_offsets
+    n, k = A.num_rows, len(offs)
+    m, nc = xfer["ctab"].shape
+    b16, x16, xc16 = b.to(bf), x.to(bf), xc.to(bf)
+    out = {}
+    for sched, t, dinv, mode in (
+            ("chebyshev", taus.to(bf).float(), None, None),
+            ("jacobi_l1", torch.full((2,), 0.75, device=x.device),
+             safe_recip(l1_strengthened_diag(A)).to(bf), "l1")):
+        s = t.shape[0]
+        st = _cast_leaf(mf.detect_stencil(A, dinv_mode=mode), bf)
+        dn = 0 if dinv is None else n              # dinv entries
+        app = (2 * k + 3 + (dinv is not None)) * n
+
+        def launches(kind, slab):
+            """bytes the port's s (+1) launches move at least"""
+            per = (k * n * 2 if slab else 0) + (dn * 2 if slab else 0) \
+                + 2 * n                               # vals, dinv, b
+            steps = s * per + 2 * n + (s - 1) * 8 * n + 2 * n
+            if kind == "B4":
+                steps += nc * 2 + n * 4               # xc, agg
+            if kind == "B2":
+                steps += 4 * n + per + 4 * n + 2 * n  # keep, residual
+            if kind == "B3":
+                steps += 4 * n + (k * n * 2 if slab else 0) + 2 * n \
+                    + 4 * n + m * nc * 4 + nc * 2
+            return steps
+        ctab, agg = xfer["ctab"], xfer["agg"]
+        cases = {
+            "dia_smooth_bf16": (
+                lambda t=t, d=dinv: K.dia_smooth(vals, offs, t, b16, x16,
+                                                 d),
+                lambda t=t, d=dinv: K.dia_smooth_plain(vals, offs, t, b16,
+                                                       x16, d),
+                (k * n + 4 * n + dn) * 2 + s * 4, s * app + 2 * k * n,
+                s + 1, None, launches("B2", True)),
+            "dia_smooth_restrict_bf16": (
+                lambda t=t, d=dinv: K.dia_smooth_restrict(
+                    vals, offs, t, b16, x16, ctab, d),
+                lambda t=t, d=dinv: K.dia_smooth_restrict_plain(
+                    vals, offs, t, b16, x16, ctab, d),
+                (k * n + 3 * n + dn + nc) * 2 + s * 4 + m * nc * 4,
+                s * app + (2 * k + 2) * n, s + 1, None,
+                launches("B3", True)),
+            "dia_prolong_smooth_bf16": (
+                lambda t=t, d=dinv: K.dia_prolong_smooth(
+                    vals, offs, t, b16, x16, xc16, agg, d),
+                lambda t=t, d=dinv: K.dia_prolong_smooth_plain(
+                    vals, offs, t, b16, x16, xc16, agg, d),
+                (k * n + 3 * n + dn + nc) * 2 + s * 4 + n * 4,
+                s * app + n, s, None, launches("B4", True)),
+            "dia_smooth_mf_bf16": (
+                lambda t=t, st=st: K.dia_smooth_mf(st, t, b16, x16),
+                lambda t=t, st=st: mf._xla_smooth(st.spec(), st.coeffs, t,
+                                                  b16, x16, True),
+                4 * n * 2 + (s + k) * 4, s * app + 2 * k * n, s + 1, None,
+                launches("B2", False)),
+            "dia_smooth_restrict_mf_bf16": (
+                lambda t=t, st=st: K.dia_smooth_restrict_mf(st, t, b16, x16,
+                                                            ctab),
+                lambda t=t, st=st: mf._xla_restrict(st.spec(), st.coeffs, t,
+                                                    b16, x16, ctab),
+                (3 * n + nc) * 2 + (s + k) * 4 + m * nc * 4,
+                s * app + (2 * k + 2) * n, s + 1, None,
+                launches("B3", False)),
+            "dia_prolong_smooth_mf_bf16": (
+                lambda t=t, st=st: K.dia_prolong_smooth_mf(st, t, b16, x16,
+                                                           xc16, agg),
+                lambda t=t, st=st: mf._xla_corr(st.spec(), st.coeffs, t,
+                                                b16, x16, xc16, agg),
+                (3 * n + nc) * 2 + (s + k) * 4 + n * 4, s * app + n, s,
+                None, launches("B4", False)),
+        }
+        out[sched] = {name: c[:6] + ({"bound_launches_ms":
+                                      bound(c[6], c[3])[0]},)
+                      for name, c in cases.items()}
+    return out
+
+
 def shell_cases(torch, amgx, K, KK, dev):
     """B4's x'.b epilogue, B6 and B7 at the PCG path's finest level
     (7-pt 128^3 float32): JACOBI_L1's dinv and two post-sweeps at 0.75,
@@ -587,15 +746,17 @@ def ddot_cases(torch, KK, A, dev):
     return out
 
 
-def tail_work(T, spec, arrs, with_dot):
+def tail_work(T, spec, arrs, with_dot, half=False):
     """(bytes, flops, phases) of one B5 call: every array read once, b
-    and x read and x' written once; the operations the phase program
-    runs on these levels (a W or F cycle visits levels more often)."""
+    and x read and x' written once (bf16 with `half`); the operations the
+    phase program runs on these levels (a W or F cycle visits levels more
+    often)."""
     nbytes = sum(t.numel() * t.element_size() for ar in arrs
                  for t in ar.values() if t is not None)
     n0 = spec.levels[0].n
-    nbytes += 3 * n0 * 4 + (4 if with_dot else 0)
-    prog = T.tail_program(spec, with_dot)
+    width = 2 if half else 4                  # b, x in, x' out
+    nbytes += 3 * n0 * width + (4 if with_dot else 0)
+    prog = T.tail_program(spec, with_dot, half)
     flops = 0
     for op, l, _, _, _, _, flags in prog:
         if op == T.OP_COARSE:
@@ -612,10 +773,14 @@ def tail_work(T, spec, arrs, with_dot):
     return nbytes, flops, len(prog)
 
 
-def tail_cases(torch, amgx, T, dev, mode):
+def tail_cases(torch, amgx, T, dev, mode, bf16=False):
     """B5 on the 32^3 hierarchies (the flagship 128^3's tail levels),
     with slab levels (matrix_free=0) or matrix-free ones (mode "mf", the
-    card's default): label -> (spec, arrs, with_dot, b, x)."""
+    card's default): label -> (spec, arrs, with_dot, b, x). With `bf16`
+    the hierarchies' solve data and the vectors are bfloat16
+    (solve_precision=bfloat16: the float32 coarse inverse, damping
+    factors and coefficients) and only the no-dot cases, the flagship's
+    and JACOBI_L1's V, are built."""
     from amgx_tpu_torch.ops.smooth import _tail_plan
     from amgx_tpu_torch.presets import FLAGSHIP
     A = amgx.gallery.poisson("7pt", 32, 32, 32, dtype=torch.float32,
@@ -623,16 +788,19 @@ def tail_cases(torch, amgx, T, dev, mode):
     g = torch.Generator(device=dev).manual_seed(7)
     b, x = (torch.randn(32 ** 3, generator=g, device=dev)
             for _ in range(2))
-    pin = SLAB if mode == "slab" else ""
+    pin = (SLAB if mode == "slab" else "") + (BF16 if bf16 else "")
+    if bf16:
+        b, x = b.to(torch.bfloat16), x.to(torch.bfloat16)
     amgs = {"cheb5": amg_of(amgx, FLAGSHIP + pin, A, dev).amg,
             "jacobi_l1": amg_of(amgx, PCG + "1" + pin, A, dev).amg}
     cases = {}
     # each name's first case is its main-path shape: the flagship's tail
     # (CHEBYSHEV_POLY), PCG's whole-cycle tail with the dot (JACOBI_L1)
     for smoother, shape, with_dot in (
+            (("cheb5", "V", False), ("jacobi_l1", "V", False)) if bf16 else (
             ("cheb5", "V", False), ("jacobi_l1", "V", True),
             ("cheb5", "V", True), ("jacobi_l1", "V", False),
-            ("cheb5", "W", False), ("cheb5", "F", False)):
+            ("cheb5", "W", False), ("cheb5", "F", False))):
         amg = amgs[smoother]
         spec, arrs = _tail_plan(amg, shape, amg.solve_data(), 0, x)
         check([ls.n for ls in spec.levels] == [32768, 4096, 512]
@@ -796,20 +964,52 @@ def max_err(torch, got, want, scales=None):
     return max(abs_errs), rel
 
 
+def bf16_err(torch, got, want):
+    """(max abs error, max error in bf16 ulps, share of entries
+    bit-equal) over the outputs of a bf16 form: an entry's ulp is that of
+    max(|got|, |want|) floored at 2^-8 of the output's largest entry."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    abs_err, ulps, equal, total = 0.0, 0.0, 0, 0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        d = (a - b).abs()
+        floor = 2.0 ** -8 * float(b.abs().max())
+        scale = torch.maximum(torch.maximum(a.abs(), b.abs()),
+                              torch.full_like(a, floor))
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.where(scale > 0, scale, torch.ones_like(scale)))) - 7)
+        abs_err = max(abs_err, float(d.max()))
+        ulps = max(ulps, float((d / ulp).max()))
+        equal += int((a == b).sum())
+        total += a.numel()
+    return abs_err, ulps, equal / total
+
+
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
              lib, rows, summary, extra=None, slab=None, scales=None):
     """Check one kernel against its plain version (and, for a
     coefficient-mode kernel, against the slab kernel on the same level:
     `slab`), time both, emit the row and fold it into `summary`.
     `scales`: the error scale of each output (max_err)."""
-    before = sum(K.LAUNCHES.values())
+    before = dict(K.LAUNCHES)
     got = kern()
-    launched = sum(K.LAUNCHES.values()) - before
+    moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
+             if v != before[k]}
+    launched = sum(moved.values())
     want = plain()
     torch.cuda.synchronize()
-    abs_err, rel_err = max_err(torch, got, want, scales)
     check(launched == per_call,
           f"{name} launched {launched} kernels, expected {per_call}")
+    if name in BF16_FORMS:
+        # every launch under the bf16 form's own counter, none under its
+        # float32 twin's; the error in bf16 ulps
+        check(moved == {name: per_call}, f"{name} launches {moved}")
+        abs_err, rel_err, equal = bf16_err(torch, got, want)
+        extra = dict(extra or {}, max_err_bf16_ulps=rel_err,
+                     bit_equal_share=equal)
+    else:
+        abs_err, rel_err = max_err(torch, got, want, scales)
     check(rel_err <= LIMITS[name],
           f"{name} at {label}: error {rel_err} > {LIMITS[name]}")
     if slab is not None:
@@ -836,9 +1036,13 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     if prev is None:
         summary[name] = row       # the first (main-path) shape's numbers
     else:
-        for key in ("max_abs_err", "max_rel_err", "slab_max_abs_diff"):
+        for key in ("max_abs_err", "max_rel_err", "slab_max_abs_diff",
+                    "max_err_bf16_ulps"):
             if key in row:
                 prev[key] = max(prev[key], row[key])
+        if "bit_equal_share" in row:
+            prev["bit_equal_share"] = min(prev["bit_equal_share"],
+                                          row["bit_equal_share"])
 
 
 def phase_kernels(torch, amgx, dev):
@@ -855,6 +1059,15 @@ def phase_kernels(torch, amgx, dev):
         for name, case in cases.items():
             run_case(torch, K, label, name, *case, A.num_rows, summary,
                      slab=slab.get(name))
+        if label.startswith("flagship"):
+            # the bf16 forms at the bf16 flagship's level-0 shapes; the
+            # first schedule (CHEBYSHEV_POLY, the flagship's) is the
+            # summary's row
+            for sched, named in bf16_kernel_cases(
+                    torch, K, A, xfer, taus, b, x, xc).items():
+                for name, case in named.items():
+                    run_case(torch, K, f"{label} {sched}", name, *case[:6],
+                             A.num_rows, summary, case[6])
         diffs = synthesized_dinv(torch, K, A)
         emit({"phase": "kernels_dinv_synthesized", "shape": label,
               "max_abs_diff_from_smoother_dinv": diffs})
@@ -867,16 +1080,19 @@ def phase_kernels(torch, amgx, dev):
         run_case(torch, K, label, "dia_spmv_ddot", *case, A.num_rows,
                  summary, {"sparse_csr_spmv_ms": time_ms(torch, spmv_lib)},
                  scales=scales)
-    tails = {mode: tail_cases(torch, amgx, T, dev, mode)
-             for mode in ("slab", "mf")}
-    for mode, named in tails.items():
+    tails = {(mode, half): tail_cases(torch, amgx, T, dev, mode, half)
+             for half in (False, True) for mode in ("slab", "mf")}
+    for (mode, half), named in tails.items():
         for label, (spec, arrs, with_dot, b, x) in named.items():
-            nbytes, flops, phases = tail_work(T, spec, arrs, with_dot)
+            nbytes, flops, phases = tail_work(T, spec, arrs, with_dot, half)
             name = "dia_coarse_tail" + ("_mf" if mode == "mf" else "") + (
-                "_dot" if with_dot else "")
+                "_dot" if with_dot else "") + ("_bf16" if half else "")
             slab = None
-            if mode == "mf":
-                s_spec, s_arrs = tails["slab"][label][:2]
+            # (bf16 JACOBI_L1: the slab level's dinv is the bf16-rounded
+            # vector, the coefficient mode's float32, as in the JAX
+            # package: no bit-equality to hold there)
+            if mode == "mf" and not (half and label.startswith("jacobi")):
+                s_spec, s_arrs = tails["slab", half][label][:2]
                 slab = (lambda s=s_spec, a=s_arrs, w=with_dot, b=b, x=x:
                         T.dia_coarse_tail(s, a, b, x, w))
             run_case(torch, K, f"tail_32^3 {label}", name,
@@ -971,18 +1187,28 @@ def run_path(amgx, per_path, name, fn):
 def phase_small(torch, amgx, dev, per_path):
     from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
     cpu = torch.device("cpu")
-    for label, cfg in (("flagship_tail_off", FLAGSHIP_TAIL_OFF),
-                       ("flagship", FLAGSHIP)):
-        rc, _, _, _, tc = solve(torch, amgx, cfg, 16, dev)
-        rh, _, _, _, th = solve(torch, amgx, cfg, 16, cpu)
+    for label, cfg, n in (("flagship_tail_off", FLAGSHIP_TAIL_OFF, 16),
+                          ("flagship", FLAGSHIP, 16),
+                          ("flagship_bf16", FLAGSHIP + BF16, 16),
+                          ("flagship_bf16", FLAGSHIP + BF16, 64)):
+        rc, _, _, _, tc = solve(torch, amgx, cfg, n, dev)
+        rh, _, _, _, th = solve(torch, amgx, cfg, n, cpu)
         xdiff = float(torch.linalg.norm(rc.x.cpu() - rh.x)
                       / torch.linalg.norm(rh.x))
-        emit({"phase": "small", "config": label, "rows": 16 ** 3,
+        inner = [int(r.extra_stats["inner_iters"]) for r in (rc, rh)]
+        emit({"phase": "small", "config": label, "rows": n ** 3,
               "outer_cuda": rc.iterations, "outer_cpu": rh.iterations,
+              "inner_cuda": inner[0], "inner_cpu": inner[1],
               "true_rel_res_cuda": tc, "true_rel_res_cpu": th,
               "x_rel_diff": xdiff})
         check(rc.iterations == rh.iterations and xdiff <= 1e-5
-              and tc <= 1e-8, f"16^3 {label}: card agrees with the CPU")
+              and tc <= 1e-8, f"{n}^3 {label}: card agrees with the CPU")
+        if n == 64:
+            anchor = BF16_PALLAS_ANCHORS[n][1]
+            check(abs(inner[0] - inner[1]) <= 1
+                  and abs(inner[0] - anchor) <= 1,
+                  f"64^3 {label}: inner iterations {inner} against the "
+                  f"JAX package's Pallas route's {anchor}")
     # whole cycle = one tail: B5 carries PCG's r.z (its dot variant), on
     # slab levels and on matrix-free ones (the card's default)
     for path, pin, tail in (("pcg_32^3", SLAB, "dia_coarse_tail_dot"),
@@ -1076,6 +1302,122 @@ def phase_flagship(torch, amgx, dev, per_path):
               "warm_median_ratio": warm[a]["median"] / warm[b_]["median"],
               **{f"{k}_{c}": v for k, r in runs.items() if k in (a, b_)
                  for c, v in r.items()}})
+    return runs, slvs
+
+
+# the float32 smoother forms a bf16 cycle must not launch on its levels
+F32_SMOOTHERS = ("dia_smooth", "dia_smooth_restrict", "dia_prolong_smooth",
+                 "dia_smooth_mf", "dia_smooth_restrict_mf",
+                 "dia_prolong_smooth_mf", "dia_coarse_tail",
+                 "dia_coarse_tail_mf", "dia_smooth_restrict_w",
+                 "dia_prolong_smooth_w", "csr_smooth")
+
+
+def phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs):
+    """FLAGSHIP + solve_precision=bfloat16 at 128^3: matrix-free (the
+    card's default), slab pinned, and the slab tail-off run (the coarse
+    solve in float32 around the bf16 cycle). Each within 1e-8 in <= 3
+    outer iterations and <= BF16_INNER_RATIO x the inner iterations of
+    the float32 flagship of the same route (one bf16 store per call:
+    rounding the state at every step costs 2-5x); the two tail runs in
+    the outer and within one of the inner iterations of the same solve
+    on the CPU (the kernels' plain forms); its bf16 kernels on every
+    level above the coarsest, no float32 smoother launch. Then
+    warm solves of the float32 and the bf16 flagship in alternating pairs:
+    mixed_precision_speedup (bench.py's name) = warm f32 / warm bf16,
+    recorded, not checked."""
+    from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
+    n = 128
+    slvs = {}
+    ref, _, _, ref_s, ref_rel = solve(torch, amgx, FLAGSHIP + BF16, n,
+                                      torch.device("cpu"))
+    ref_inner = int(ref.extra_stats["inner_iters"])
+    emit({"phase": "flagship_bf16", "config": "flagship_bf16 cpu",
+          "rows": n ** 3, "solve_s": ref_s,
+          "outer_iterations": ref.iterations, "inner_iterations": ref_inner,
+          "status": ref.status, "true_rel_res": ref_rel})
+    check(ref.status == "success" and ref_rel <= 1e-8,
+          f"128^3 bf16 flagship on the CPU: {ref_rel} <= 1e-8")
+    for label, cfg, twin in (
+            ("flagship_bf16", FLAGSHIP + BF16, "flagship"),
+            ("flagship_bf16_slab", FLAGSHIP + SLAB + BF16, "flagship_slab"),
+            ("flagship_bf16_tail_off", FLAGSHIP_TAIL_OFF + SLAB + BF16,
+             "flagship_tail_off")):
+        res, slv, setup_s, solve_s, true_rel = run_path(
+            amgx, per_path, label, lambda c=cfg: solve(
+                torch, amgx, c + ", store_res_history=1", n, dev))
+        slvs[label] = slv
+        c = per_path[label]
+        inner = int(res.extra_stats["inner_iters"])
+        f32_inner = f32_runs[twin]["inner_iterations"]
+        levels = levels_of(slv)
+        _, warm_s = warm_solve(torch, slv, n, torch.float64)
+        emit({"phase": "flagship_bf16", "config": label, "rows": n ** 3,
+              "setup_s": setup_s, "solve_s": solve_s, "warm_solve_s": warm_s,
+              "levels": levels, "outer_iterations": res.iterations,
+              "inner_iterations": inner, "f32_inner_iterations": f32_inner,
+              "status": res.status, "true_rel_res": true_rel,
+              "res_history": [float(h) for h in res.res_history],
+              "launches": c})
+        check(res.status == "success" and true_rel <= 1e-8,
+              f"128^3 {label} true relative residual {true_rel} <= 1e-8")
+        check(res.iterations <= 3, f"{res.iterations} outer iterations <= 3")
+        check(inner <= BF16_INNER_RATIO * f32_inner,
+              f"{label}: {inner} inner iterations > "
+              f"{BF16_INNER_RATIO:.3f} x the float32 flagship's {f32_inner}")
+        if label != "flagship_bf16_tail_off":
+            check(res.iterations == ref.iterations
+                  and abs(inner - ref_inner) <= 1,
+                  f"{label}: {res.iterations} outer / {inner} inner "
+                  f"iterations against the CPU's {ref.iterations} / "
+                  f"{ref_inner}")
+        mf = "_mf" if label == "flagship_bf16" else ""
+        check(all(c[k] == 0 for k in F32_SMOOTHERS) and c["dia_spmv"] > 0,
+              f"{label}: no float32 smoother launch, B1 in FGMRES {c}")
+        if label == "flagship_bf16_tail_off":
+            lv = len(levels) - 1
+            check(c["dia_coarse_tail_bf16"] + c["dia_coarse_tail_mf_bf16"]
+                  == 0 and c["dia_smooth_restrict_bf16"] == inner * lv * 6
+                  and c["dia_prolong_smooth_bf16"] == inner * lv * 5,
+                  f"{label}: bf16 B3/B4 on all {lv} levels, no B5 {c}")
+            continue
+        above = sum(r > 65536 for r in levels[:-1])
+        # every V-cycle: B3 (6 launches) and B4 (5) on each level above
+        # the tail, then ONE B5 launch for the rest
+        check(above == 2 and c[f"dia_coarse_tail{mf}_bf16"] == inner
+              and c[f"dia_smooth_restrict{mf}_bf16"] == inner * above * 6
+              and c[f"dia_prolong_smooth{mf}_bf16"] == inner * above * 5,
+              f"{label}: bf16 B3{mf}/B4{mf} on the {above} levels above the "
+              f"tail, one bf16 B5{mf} per V-cycle: {c}, {inner} cycles")
+    warm, wins = paired_warm(torch, {"flagship": f32_slvs["flagship"],
+                                     "flagship_bf16": slvs["flagship_bf16"]},
+                             n, torch.float64)
+    emit({"phase": "flagship_vs_flagship_bf16", "rows": n ** 3,
+          "warm_solve_s": warm, "pairs": PAIRS, "first_wins": wins,
+          "mixed_precision_speedup": warm["flagship"]["median"]
+          / warm["flagship_bf16"]["median"]})
+
+
+def phase_unfused_bf16(torch, amgx, dev, per_path):
+    """The tail-off bf16 flagship at 64^3 with amg:cycle_fusion=0: bf16 B2
+    on slab levels (pinned), bf16 B2-mf on matrix-free ones."""
+    from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
+    for path, pin, b2 in (("unfused_bf16", SLAB, "dia_smooth_bf16"),
+                          ("unfused_mf_bf16", "", "dia_smooth_mf_bf16")):
+        unf, _, _, _, rel_u = run_path(
+            amgx, per_path, path, lambda p=pin: solve(
+                torch, amgx, FLAGSHIP_TAIL_OFF + ", amg:cycle_fusion=0" + p
+                + BF16, 64, dev))
+        c = per_path[path]
+        emit({"phase": "unfused_bf16", "config": path, "rows": 64 ** 3,
+              "outer_iterations": unf.iterations,
+              "inner_iterations": int(unf.extra_stats["inner_iters"]),
+              "true_rel_res": rel_u, "launches": c})
+        check(unf.status == "success" and rel_u <= 1e-8,
+              f"64^3 {path} true relative residual {rel_u} <= 1e-8")
+        check(c[b2] > 0 and c["dia_smooth_bf16"] + c["dia_smooth_mf_bf16"]
+              == c[b2] and all(c[k] == 0 for k in F32_SMOOTHERS),
+              f"{b2} ran unfused, nothing else smoothed {c}")
 
 
 def phase_unfused(torch, amgx, dev, per_path):
@@ -1795,8 +2137,11 @@ def main():
     summary = phase_kernels(torch, amgx, dev)
     per_path = {}
     phase_small(torch, amgx, dev, per_path)
-    phase_flagship(torch, amgx, dev, per_path)
+    f32_runs, f32_slvs = phase_flagship(torch, amgx, dev, per_path)
+    phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs)
+    del f32_slvs
     phase_unfused(torch, amgx, dev, per_path)
+    phase_unfused_bf16(torch, amgx, dev, per_path)
     phase_krylov(torch, amgx, dev, per_path)
     phase_classical(torch, amgx, dev, per_path)
     phase_determinism(torch, amgx, dev, per_path)
@@ -1817,7 +2162,9 @@ def main():
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for key in ("phases", "slab_max_abs_diff", "sparse_csr_spmv_ms"):
+        for key in ("phases", "slab_max_abs_diff", "sparse_csr_spmv_ms",
+                    "max_err_bf16_ulps", "bit_equal_share",
+                    "bound_launches_ms"):
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)

@@ -412,3 +412,47 @@ def test_hierarchy_from_numpy_builds_classical_levels(h16):
     xfer = amg.levels[0]._transfer_tables()
     assert xfer is not None and torch.equal(xfer["ptab"],
                                             lv._transfer_tables()["ptab"])
+
+
+def _f32_ulps(a, b):
+    """Elementwise distance of two float32 arrays in units in the last
+    place (the same sign throughout: P's weights here are positive)."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - np.asarray(b, np.float32).view(np.int32))
+
+
+def test_d2_truncation_f32_is_the_device_route():
+    """Float32 D2 with GMRES_AMG_D2's truncation (interp_max_elements 4)
+    on 7-pt 8^3: the port's level-0 P has the bits of the JAX package's
+    device route (`_generate_jnp`, `_truncate`: float32 row sums, what a
+    TPU runs). The JAX package's host route (`_truncate_host`, the one a
+    CPU setup takes) sums in float64 through np.bincount and rounds once;
+    the device route rounds each sum, the quotient and the product, so
+    the two routes differ by up to 2 ulp here -- a difference inside the
+    reference, which the port does not share."""
+    cfg = ("algorithm=CLASSICAL, selector=PMIS, interpolator=D2, "
+           "interp_max_elements=4, smoother=JACOBI_L1, max_levels=2, "
+           "min_coarse_rows=2, coarse_solver=NOSOLVER")
+    lp = AMG(Config.from_string(cfg)).setup(pt.gallery.poisson(
+        "7pt", 8, 8, 8, dtype=torch.float32, device="cpu")).levels[0]
+    from amgx_tpu.amg.classical import interpolators as jinterp
+    from amgx_tpu.matrix import forced_device_setup
+    Aj = jx.gallery.poisson("7pt", 8, 8, 8, dtype=jnp.float32).init()
+    d2 = jinterp.Distance2Interpolator(
+        JaxConfig.from_string(cfg.replace("interp_max_elements=4",
+                                          "interp_max_elements=-1")),
+        "default")
+    with forced_device_setup():
+        full = d2._generate_jnp(Aj, jnp.asarray(lp.cf_map.numpy()),
+                                jnp.asarray(lp.strong.numpy()))
+        dev = jinterp._truncate(full, 1.1, 4)
+    host = jinterp._truncate_host(dataclasses.replace(
+        full, row_offsets=np.asarray(full.row_offsets),
+        col_indices=np.asarray(full.col_indices),
+        values=np.asarray(full.values)), 1.1, 4)
+    for P in (dev, host):
+        assert _csr_equal(P, lp.P)
+    vp = lp.P.values.numpy()
+    assert np.array_equal(np.asarray(dev.values), vp)
+    ulps = _f32_ulps(host.values, vp)
+    assert ulps.max() <= 2 and (ulps > 0).any()

@@ -7,6 +7,7 @@
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
                                    [--matrix-free auto|0|1]
+                                   [--precision float|bfloat16]
 
 Configurations: `flagship` is the untouched FLAGSHIP preset (its inner
 V-cycle enters the coarse-tail kernel B5 at the first level of at most
@@ -24,7 +25,8 @@ GMRES_AMG_D2, agg_cheb4), with --krylov-fusion on top. `--matrix-free` sets
 `amg:matrix_free`: auto (the
 default) runs the GEO levels matrix-free on the card (B3-mf, B4-mf,
 B5-mf), 0 pins the slab kernels, so the two routes profile side by
-side. Sets the solver
+side. `--precision` sets `solve_precision` (the flagship's inner cycle in
+float32 or in bfloat16, with the kernels' bf16 forms). Sets the solver
 up on a 7-pt size^3 Poisson system on the CUDA card, runs one warm-up
 solve, then profiles one solve with torch.profiler. Prints one JSON
 line: the solve's wall time, the device's busy time (sum of kernel and
@@ -58,6 +60,9 @@ def main():
     ap.add_argument("--krylov-fusion", type=int, default=1, choices=(0, 1))
     ap.add_argument("--matrix-free", default="auto",
                     choices=("auto", "0", "1"))
+    ap.add_argument("--precision", default=None,
+                    choices=("float", "bfloat16"),
+                    help="solve_precision (unset: the configuration's)")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
     import torch
@@ -89,6 +94,8 @@ def main():
     scope = "default" if args.file else "amg"
     cfg.set("cycle_fusion", args.cycle_fusion, scope=scope)
     cfg.set("matrix_free", args.matrix_free, scope=scope)
+    if args.precision:
+        cfg.set("solve_precision", args.precision)
     dtype = torch.float32 if args.file or args.config in (
         "pcg", "agg-pcg", "agg-fgmres") else torch.float64
     slv = amgx.create_solver(cfg, device=dev)
@@ -126,7 +133,7 @@ def main():
         "cycle_fusion": args.cycle_fusion,
         "krylov_fusion": args.krylov_fusion
         if args.file or args.config in ("pcg", "agg-pcg") else None,
-        "matrix_free": args.matrix_free,
+        "matrix_free": args.matrix_free, "precision": args.precision,
         "device": torch.cuda.get_device_name(0),
         "outer_iterations": res.iterations, "inner_iterations": inner,
         "wall_s": wall, "device_busy_s": busy_us * 1e-6,
