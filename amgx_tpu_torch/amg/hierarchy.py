@@ -16,7 +16,8 @@ subtree to the policy's coarse dtype (float32 under bfloat16), once per
 setup (memoized by leaf), as the JAX package's `_cast_leaf` does; and
 `cycle` casts b and x in and the result back. Such a cycle declines the
 cycle-borne dot. A bf16 cycle runs the smoother kernels' bf16 forms
-(ops/cuda_spmv.py) and solves its coarsest level in float32
+(ops/cuda_spmv.py on DIA levels and weighted transfer rows,
+ops/cuda_csr.py on CSR levels) and solves its coarsest level in float32
 (amg/cycles.py).
 
 `matrix_free=auto|0|1` (ops/stencil.py): after each smoother's setup

@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
 dia_restrict_kernel(VS vs, const BT* __restrict__ b,
                     const float* __restrict__ x,
                     const int* __restrict__ ctab,
-                    const float* __restrict__ cwt, int m, int nc,
+                    const BT* __restrict__ cwt, int m, int nc,
                     BT* __restrict__ bc, int n, Offsets of) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
@@ -144,18 +144,20 @@ dia_restrict_kernel(VS vs, const BT* __restrict__ b,
     const int f = ctab[s];
     if (f < 0) continue;
     const float r = ld(b, f) - dia_row(vs, vs.row(f), PlainX{x}, n, f, of);
-    acc += kWeighted ? cwt[s] * r : r;
+    acc += kWeighted ? ld(cwt, s) * r : r;
   }
   st(bc, c, acc);
 }
 
 // x as B4's weighted prologue reads it: x_j + (P xc)_j through the
-// (mp, n) tables of P's rows, -1 / 0 past a row's end.
-struct WeightedX {
-  const float* __restrict__ x;
-  const float* __restrict__ xc;
+// (mp, n) tables of P's rows, -1 / 0 past a row's end; x, xc and the
+// weights of storage type T, the sum float32 and not rounded.
+template <class T>
+struct WeightedXT {
+  const T* __restrict__ x;
+  const T* __restrict__ xc;
   const int* __restrict__ ptab;
-  const float* __restrict__ pwt;
+  const T* __restrict__ pwt;
   int mp;
   int n;
   __device__ __forceinline__ float operator()(int j) const {
@@ -163,11 +165,12 @@ struct WeightedX {
     for (int t = 0; t < mp; ++t) {
       const size_t s = static_cast<size_t>(t) * n + j;
       const int q = ptab[s];
-      if (q >= 0) corr += pwt[s] * xc[q];
+      if (q >= 0) corr += ld(pwt, s) * ld(xc, q);
     }
-    return x[j] + corr;
+    return ld(x, j) + corr;
   }
 };
+using WeightedX = WeightedXT<float>;
 
 template <class VS, class XR, class BT, class OT, bool kHasDinv>
 void launch_step_kernel(const VS& vs, const float* taus, int t, const BT* b,
@@ -243,18 +246,25 @@ void launch_step_out(const VS& vs, bool has_dinv, int mode,
   }
 }
 
-// bfloat16 streams: unit-weight transfers only, no dot; the correction
-// x + xc[agg] rides the first step, which reads the caller's bf16 x.
+// bfloat16 streams, no dot; the correction x + xc[agg], or x + P xc
+// through the bf16 weighted rows ptab / pwt, rides the first step, which
+// reads the caller's bf16 x.
 template <class VS>
 int launch_step_bf16(const VS& vs, bool has_dinv, int mode, const float* taus,
                      int t, const bf16* b, const void* x, const bf16* xc,
-                     const int* agg, void* out, float* keep, int n,
-                     const Offsets& of, cudaStream_t stream) {
+                     const int* agg, const int* ptab, const bf16* pwt, int mp,
+                     void* out, float* keep, int n, const Offsets& of,
+                     cudaStream_t stream) {
   if (mode & kXf32) {
     if (xc != nullptr) return -1;
     launch_step_out(vs, has_dinv, mode, taus, t, b,
                     PlainXT<float>{static_cast<const float*>(x)}, out, keep,
                     n, of, stream);
+  } else if (ptab != nullptr) {
+    launch_step_out(vs, has_dinv, mode, taus, t, b,
+                    WeightedXT<bf16>{static_cast<const bf16*>(x), xc, ptab,
+                                     pwt, mp, n},
+                    out, keep, n, of, stream);
   } else if (xc != nullptr) {
     launch_step_out(vs, has_dinv, mode, taus, t, b,
                     CorrectedXT<bf16>{static_cast<const bf16*>(x), xc, agg},
@@ -276,7 +286,7 @@ void launch_residual(const VS& vs, const BT* b, const float* x, BT* r, int n,
 
 template <class VS, class BT>
 void launch_restrict(const VS& vs, const BT* b, const float* x,
-                     const int* ctab, const float* cwt, int m, int nc,
+                     const int* ctab, const BT* cwt, int m, int nc,
                      BT* bc, int n, const Offsets& of, cudaStream_t stream) {
   if (cwt != nullptr) {
     dia_restrict_kernel<VS, BT, true>
@@ -290,14 +300,14 @@ void launch_restrict(const VS& vs, const BT* b, const float* x,
 }
 
 bool step_args_ok(const void* xc, const int* agg, const int* ptab,
-                  const float* pwt, int mp, const float* partials,
+                  const void* pwt, int mp, const float* partials,
                   const unsigned int* counter, const float* dot, int mode) {
   if ((xc == nullptr) != (agg == nullptr && ptab == nullptr)) return false;
   if (agg != nullptr && ptab != nullptr) return false;
   if (ptab != nullptr && (pwt == nullptr || mp < 1)) return false;
   if (mode < 0 || mode > (kBf16 | kXf32 | kOutF32)) return false;
   if (!(mode & kBf16) && mode != 0) return false;
-  if ((mode & kBf16) && (ptab != nullptr || dot != nullptr)) return false;
+  if ((mode & kBf16) && dot != nullptr) return false;
   return dot == nullptr || (partials != nullptr && counter != nullptr);
 }
 
@@ -308,16 +318,18 @@ template <class VF, class VB>
 int step_any(const VF& vf, const VB& vb, bool has_dinv, int mode,
              const float* taus, int t, const void* b, const void* x,
              const void* xc, const int* agg, const int* ptab,
-             const float* pwt, int mp, void* out, float* keep, int n,
+             const void* pwt, int mp, void* out, float* keep, int n,
              const Offsets& of, const DotOut& d, cudaStream_t stream) {
   if (mode & kBf16)
     return launch_step_bf16(vb, has_dinv, mode, taus, t,
                             static_cast<const bf16*>(b), x,
-                            static_cast<const bf16*>(xc), agg, out, keep, n,
+                            static_cast<const bf16*>(xc), agg, ptab,
+                            static_cast<const bf16*>(pwt), mp, out, keep, n,
                             of, stream);
   return launch_step_f32(vf, has_dinv, taus, t, static_cast<const float*>(b),
                          static_cast<const float*>(x),
-                         static_cast<const float*>(xc), agg, ptab, pwt, mp,
+                         static_cast<const float*>(xc), agg, ptab,
+                         static_cast<const float*>(pwt), mp,
                          static_cast<float*>(out), keep, n, of, d, stream);
 }
 
@@ -341,11 +353,11 @@ int amgx_dia_spmv(const float* vals, const float* x, float* y, int n,
 // weighted). When dot is given, *dot = out.b (B4's epilogue) through
 // `partials` (one float per block of 256 rows) and `counter` (zero on
 // entry, left zero). `mode` (StepMode) says which operands are
-// bfloat16; with kBf16 the weighted rows and the dot are refused.
-// `keep`, when given, also receives out as float32.
+// bfloat16 (pwt with them); with kBf16 the dot is refused. `keep`, when
+// given, also receives out as float32.
 int amgx_dia_step(const void* vals, const void* dinv, const float* taus,
                   int t, const void* b, const void* x, const void* xc,
-                  const int* agg, const int* ptab, const float* pwt, int mp,
+                  const int* agg, const int* ptab, const void* pwt, int mp,
                   void* out, float* keep, int n, const int* offs, int k,
                   float* partials, unsigned int* counter, float* dot,
                   int mode, cudaStream_t stream) {
@@ -387,23 +399,24 @@ int amgx_dia_residual(const void* vals, const void* b, const float* x,
 // B3's restriction epilogue: bc = R (b - A x) through the child table
 // ctab (m, nc), -1 where a coarse row has fewer than m children, each
 // child weighted by cwt (m, nc) when it is given (else unit weights); x
-// is the float32 state. With `bf16_io` set, vals, b and bc are bfloat16
-// (unit weights only).
+// is the float32 state. With `bf16_io` set, vals, b, cwt and bc are
+// bfloat16 (the sum float32, bc rounded once).
 int amgx_dia_restrict(const void* vals, const void* b, const float* x,
-                      const int* ctab, const float* cwt, int m, int nc,
+                      const int* ctab, const void* cwt, int m, int nc,
                       void* bc, int n, const int* offs, int k, int bf16_io,
                       cudaStream_t stream) {
   Offsets of;
   if (n < 1 || nc < 1 || m < 1 || !fill_offsets(offs, k, &of)) return -1;
   if (bf16_io) {
-    if (cwt != nullptr) return -1;
     launch_restrict(SlabValsT<bf16>{static_cast<const bf16*>(vals), nullptr,
                                     n},
-                    static_cast<const bf16*>(b), x, ctab, nullptr, m, nc,
+                    static_cast<const bf16*>(b), x, ctab,
+                    static_cast<const bf16*>(cwt), m, nc,
                     static_cast<bf16*>(bc), n, of, stream);
   } else {
     launch_restrict(SlabVals{static_cast<const float*>(vals), nullptr, n},
-                    static_cast<const float*>(b), x, ctab, cwt, m, nc,
+                    static_cast<const float*>(b), x, ctab,
+                    static_cast<const float*>(cwt), m, nc,
                     static_cast<float*>(bc), n, of, stream);
   }
   return static_cast<int>(cudaGetLastError());
@@ -419,7 +432,7 @@ int amgx_dia_restrict(const void* vals, const void* b, const float* x,
 // float32 (exact), and the synthesized dinv is float32.
 int amgx_dia_step_mf(const void* stencil, const float* taus, int t,
                      const void* b, const void* x, const void* xc,
-                     const int* agg, const int* ptab, const float* pwt,
+                     const int* agg, const int* ptab, const void* pwt,
                      int mp, void* out, float* keep, int n, const int* offs,
                      int k, float* partials, unsigned int* counter,
                      float* dot, int mode, cudaStream_t stream) {
@@ -465,10 +478,12 @@ int amgx_dia_restrict_mf(const void* stencil, const void* b, const float* x,
     return -1;
   if (bf16_io) {
     launch_restrict(StencilVals{*st}, static_cast<const bf16*>(b), x, ctab,
-                    nullptr, m, nc, static_cast<bf16*>(bc), n, of, stream);
+                    static_cast<const bf16*>(nullptr), m, nc,
+                    static_cast<bf16*>(bc), n, of, stream);
   } else {
     launch_restrict(StencilVals{*st}, static_cast<const float*>(b), x, ctab,
-                    nullptr, m, nc, static_cast<float*>(bc), n, of, stream);
+                    static_cast<const float*>(nullptr), m, nc,
+                    static_cast<float*>(bc), n, of, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

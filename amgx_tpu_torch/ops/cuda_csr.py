@@ -15,11 +15,22 @@ nnz values and columns, the row offsets, x, and write y; B9 adds b, x
 and dinv read once per sweep. Deterministic: every row sums in a fixed
 order.
 
+The bfloat16 forms (a bf16 hierarchy's CSR levels): values, x, b, dinv
+and the outputs bf16, every sum float32, each output rounded once. B9's
+is the TPU kernel's bf16 form (`swell_smooth_supported` takes bf16 value
+slabs; `swell_smooth_step` rounds x' to bf16 after every sweep, so the
+sweeps hand each other bf16 x). B8's computes the XLA op the JAX
+package compiles in its place (its kernel is float32 only):
+`swell_spmv_xla` on bf16 operands, whose fused gather-multiply-reduce
+sums a row's exact products in float32 and rounds the sum once -- the
+trailing residual b - A x of a bf16 CSR level (y rounded, then the
+difference), classical R r and P xc. Launches count as
+"csr_smooth_bf16" and "csr_spmv_bf16".
+
 Routing as in `cuda_spmv`: the plain version for CPU tensors, the kernel
-or an exception for CUDA tensors; float32 only (the JAX package's
-`swell_spmv_supported` / `swell_smooth_supported` take float32, and
-`ops/spmv.py` routes float64 to the plain product). Launches count in
-`cuda_spmv.LAUNCHES` under "csr_spmv" and "csr_smooth".
+or an exception for CUDA tensors; float32 and bfloat16 (`ops/spmv.py`
+routes float64 to the plain product, as the JAX package's gates take
+float32 and bf16 only). Launches count in `cuda_spmv.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -28,7 +39,8 @@ import functools
 
 import torch
 
-from .cuda_spmv import _check, _launch, _ptr, _stream
+from ..precision import compute_dtype
+from .cuda_spmv import _check, _launch, _name, _ptr, _stream, damped_update
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,9 +50,9 @@ _I = ctypes.c_int
 def _lib():
     from .cuda_build import library
     lib = library("csr.cu")
-    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P]
+    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.amgx_csr_step.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                                  _I, _P]
+                                  _I, _I, _P]
     for fn in (lib.amgx_csr_spmv, lib.amgx_csr_step):
         fn.restype = _I
     return lib
@@ -52,23 +64,30 @@ def _lib():
 
 
 def csr_spmv_plain(row_offsets, col_indices, values, x):
-    """y = A x: the products of each entry added into its row."""
+    """y = A x: the products of each entry added into its row, in the
+    compute dtype (a bf16 operand widened, the sum rounded once)."""
     n = row_offsets.shape[0] - 1
+    cdt = compute_dtype(x.dtype)
     rows = torch.repeat_interleave(
         torch.arange(n, device=x.device), torch.diff(row_offsets.long()),
         output_size=values.shape[0])
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
-    return y.index_add_(0, rows, values * x[col_indices.long()])
+    y = torch.zeros(n, dtype=cdt, device=x.device)
+    y.index_add_(0, rows, values.to(cdt) * x.to(cdt)[col_indices.long()])
+    return y.to(x.dtype)
 
 
 def csr_smooth_plain(row_offsets, col_indices, values, taus, b, x,
                      dinv=None):
+    """len(taus) sweeps, each in the compute dtype from the vector dtype's
+    x and rounded back to it (a bf16 level's x' is bf16 after every
+    sweep, as the TPU kernel's wrapper rounds it)."""
+    cdt = compute_dtype(x.dtype)
+    values, b = values.to(cdt), b.to(cdt)
+    dinv = None if dinv is None else dinv.to(cdt)
     for t in range(taus.shape[0]):
-        upd = taus[t] * (b - csr_spmv_plain(row_offsets, col_indices,
-                                            values, x))
-        if dinv is not None:
-            upd = upd * dinv
-        x = x + upd
+        x32 = x.to(cdt)
+        ax = csr_spmv_plain(row_offsets, col_indices, values, x32)
+        x = damped_update(x32, taus[t].to(cdt), b - ax, dinv).to(x.dtype)
     return x
 
 
@@ -77,34 +96,38 @@ def csr_smooth_plain(row_offsets, col_indices, values, taus, b, x,
 # ---------------------------------------------------------------------------
 
 
-def _check_csr(name, row_offsets, col_indices, values, x, floats=None):
+def _check_csr(name, row_offsets, col_indices, values, x, floats=None,
+               f32=None):
     n = row_offsets.shape[0] - 1
     f = {"values": (values, (values.shape[0],)), "x": (x, (x.shape[0],))}
     f.update(floats or {})
     _check(name, None, n, f,
            {"row_offsets": (row_offsets, (n + 1,)),
-            "col_indices": (col_indices, (values.shape[0],))})
+            "col_indices": (col_indices, (values.shape[0],))}, f32,
+           bf16_ok=True)
     return n
 
 
 def csr_spmv(row_offsets, col_indices, values, x, lanes: int = 1):
-    """B8: y = A x (A: n x len(x) float32 CSR), each row walked by
-    `lanes` lanes (1, 2, 4, ..., 32)."""
+    """B8: y = A x (A: n x len(x) CSR; values and x float32 or both
+    bfloat16), each row walked by `lanes` lanes (1, 2, 4, ..., 32)."""
     if x.device.type == "cpu":
         return csr_spmv_plain(row_offsets, col_indices, values, x)
-    n = _check_csr("csr_spmv", row_offsets, col_indices, values, x)
+    name = _name("csr_spmv", x)
+    n = _check_csr(name, row_offsets, col_indices, values, x)
     with torch.cuda.device(x.device):
         y = torch.empty(n, dtype=x.dtype, device=x.device)
-        _launch("csr_spmv", _lib().amgx_csr_spmv, _ptr(row_offsets),
+        _launch(name, _lib().amgx_csr_spmv, _ptr(row_offsets),
                 _ptr(col_indices), _ptr(values), _ptr(x), _ptr(y), n,
-                int(lanes), _stream())
+                int(lanes), int(x.dtype == torch.bfloat16), _stream())
     return y
 
 
 def csr_smooth(row_offsets, col_indices, values, taus, b, x, dinv=None,
                lanes: int = 1):
-    """B9: len(taus) damped-Jacobi sweeps on a square float32 CSR
-    matrix, one launch each. Returns x'."""
+    """B9: len(taus) damped-Jacobi sweeps on a square CSR matrix, one
+    launch each; values, b, x, dinv float32 or all bfloat16, taus float32.
+    Returns x'."""
     if x.device.type == "cpu":
         return csr_smooth_plain(row_offsets, col_indices, values, taus, b,
                                 x, dinv)
@@ -112,19 +135,21 @@ def csr_smooth(row_offsets, col_indices, values, taus, b, x, dinv=None,
     if taus.dim() != 1 or taus.shape[0] < 1:
         raise ValueError(f"csr_smooth: needs at least one sweep (taus "
                          f"{tuple(taus.shape)})")
-    _check_csr("csr_smooth", row_offsets, col_indices, values, x,
-               {"b": (b, (n,)), "dinv": (dinv, (n,)),
-                "taus": (taus, (taus.shape[0],))})
+    name = _name("csr_smooth", x)
+    _check_csr(name, row_offsets, col_indices, values, x,
+               {"b": (b, (n,)), "dinv": (dinv, (n,))},
+               {"taus": (taus, (taus.shape[0],))})
     if row_offsets.shape[0] - 1 != n:
         raise ValueError("csr_smooth: the matrix must be square")
     lib = _lib()
+    half = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         src = x
         for t in range(taus.shape[0]):
             dst = torch.empty_like(x)
-            _launch("csr_smooth", lib.amgx_csr_step, _ptr(row_offsets),
+            _launch(name, lib.amgx_csr_step, _ptr(row_offsets),
                     _ptr(col_indices), _ptr(values), _ptr(src), _ptr(b),
                     _ptr(dinv), _ptr(taus), t, _ptr(dst), n, int(lanes),
-                    _stream())
+                    half, _stream())
             src = dst
     return src

@@ -87,10 +87,13 @@ whose state `_steps` passes through float32 scratch: only the first
 step reads bf16 x (+ xc[agg], summed in f32, never rounded) and only the
 last stores bf16 x'. The residual / restriction launch recomputes r from
 the last step's float32 state (`keep`), and bc is rounded once at its
-store. Launches count under the float32 names + "_bf16". Not in bf16:
-the weighted transfer rows (B3w / B4w, classical AMG) and the x.b dot
-epilogues (a reduced-precision cycle declines the dot): those wrappers
-raise NotImplementedError on a CUDA tensor (ROADMAP.md Queue B 2).
+store. The weighted transfer rows (B3w / B4w, a bf16 classical
+hierarchy) take bf16 weights: bc = sum_j cwt[j, c] r[ctab[j, c]] with r
+from the float32 state and the sum float32, rounded once; the first
+step reads x_j + sum_t pwt[t, j] xc[ptab[t, j]] summed in float32 and
+never rounded. Launches count under the float32 names + "_bf16". Not in
+bf16: the x.b dot epilogues (a reduced-precision cycle declines the
+dot): those wrappers raise NotImplementedError on a CUDA tensor.
 
 Not ported here (the wrappers raise): B2's x.b dot epilogue (the JAX
 package has no caller for it).
@@ -119,7 +122,9 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth_bf16": 0, "dia_smooth_mf_bf16": 0,
             "dia_smooth_restrict_mf_bf16": 0,
             "dia_prolong_smooth_mf_bf16": 0, "dia_coarse_tail_bf16": 0,
-            "dia_coarse_tail_mf_bf16": 0}
+            "dia_coarse_tail_mf_bf16": 0, "dia_smooth_restrict_w_bf16": 0,
+            "dia_prolong_smooth_w_bf16": 0, "csr_spmv_bf16": 0,
+            "csr_smooth_bf16": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -302,7 +307,7 @@ def bf16_not_ported(name: str, what: str):
     raise rather than run plain PyTorch ops."""
     raise NotImplementedError(
         f"{name}: {what} in bfloat16 is not ported to CUDA yet (ROADMAP.md "
-        f"Queue B 2)")
+        f"Queue B)")
 
 
 # ---------------------------------------------------------------------------
@@ -313,14 +318,24 @@ def bf16_not_ported(name: str, what: str):
 def dia_spmv_plain(vals, offsets, x):
     """y = A x: one shifted multiply-add per stored diagonal over a
     zero-padded copy of x (the slab form `spmv_dia_multi` of
-    amgx_tpu/ops/batched.py)."""
+    amgx_tpu/ops/batched.py), each fused into one rounding as the kernel
+    (nvcc) and the JAX package's compiled XLA make it."""
     n = x.shape[0]
     left = max(0, -min(offsets))
     xp = torch.nn.functional.pad(x, (left, max(0, max(offsets))))
     y = torch.zeros_like(x)
     for d, o in enumerate(offsets):
-        y = y + vals[d] * xp[left + o:left + o + n]
+        y = torch.addcmul(y, vals[d], xp[left + o:left + o + n])
     return y
+
+
+def damped_update(x, tau, r, dinv=None):
+    """x + (tau r) dinv with the kernels' rounding: the last multiply and
+    the add fused (what nvcc contracts), tau r rounded first when dinv
+    scales it."""
+    if dinv is None:
+        return torch.addcmul(x, tau, r)
+    return torch.addcmul(x, tau * r, dinv)
 
 
 def _up(*ts):
@@ -335,10 +350,8 @@ def _smooth_state(vals, offsets, taus, b, x, dinv):
     nothing rounded."""
     x, b, vals, dinv, taus = _up(x, b, vals, dinv, taus)
     for t in range(taus.shape[0]):
-        upd = taus[t] * (b - dia_spmv_plain(vals, offsets, x))
-        if dinv is not None:
-            upd = upd * dinv
-        x = x + upd
+        x = damped_update(x, taus[t], b - dia_spmv_plain(vals, offsets, x),
+                          dinv)
     return x, b, vals
 
 
@@ -505,22 +518,19 @@ def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
                         weights=None):
     """B3: B2's steps, then bc = R (b - A x') through the child table
-    ctab (m, nc), weighted by `weights` (m, nc, float32) when given.
-    Returns (x', bc)."""
+    ctab (m, nc), weighted by `weights` (m, nc, the operands' dtype) when
+    given. Returns (x', bc)."""
     if x.device.type == "cpu":
         return dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab,
                                          dinv, weights)
     if ctab.dim() != 2:
         raise ValueError("dia_smooth_restrict: ctab must be (m, nc)")
     m, nc = ctab.shape
-    name = "dia_smooth_restrict" if weights is None \
-        else "dia_smooth_restrict_w"
-    if weights is not None and x.dtype == torch.bfloat16:
-        bf16_not_ported(name, "the weighted restriction (B3w)")
-    name = _name(name, x)
+    name = _name("dia_smooth_restrict" if weights is None
+                 else "dia_smooth_restrict_w", x)
     n = _check_smooth(name, vals, offsets, taus, b, x, dinv,
-                      ints={"ctab": (ctab, (m, nc))},
-                      f32={"weights": (weights, (m, nc))})
+                      floats={"weights": (weights, (m, nc))},
+                      ints={"ctab": (ctab, (m, nc))})
     if m < 1 or nc < 1:
         raise ValueError(f"{name}: empty child table")
     with torch.cuda.device(x.device):
@@ -539,7 +549,8 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                        with_dot=False, ptab=None, pwt=None):
     """B4: len(taus) damped steps from x + P xc, the correction read on
     the fly by the first step: xc[agg] (aggregation), or the weighted
-    rows ptab / pwt (mp, n; pwt float32) of a general P. Returns x', or
+    rows ptab / pwt (mp, n; pwt in the operands' dtype) of a general P.
+    Returns x', or
     (x', x'.b) with `with_dot` (the dot a 0-dim float32 tensor on x's
     device)."""
     if (agg is None) == (ptab is None) or (ptab is None) != (pwt is None):
@@ -549,15 +560,14 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                                         dinv, with_dot, ptab, pwt)
     n = x.shape[0]
     name = "dia_prolong_smooth" if ptab is None else "dia_prolong_smooth_w"
-    if x.dtype == torch.bfloat16 and (ptab is not None or with_dot):
-        bf16_not_ported(name, "the weighted prolongation (B4w)"
-                        if ptab is not None else "the x.b dot epilogue")
+    if x.dtype == torch.bfloat16 and with_dot:
+        bf16_not_ported(name, "the x.b dot epilogue")
     name = _name(name, x)
     mp = 0 if ptab is None else ptab.shape[0]
     _check_smooth(name, vals, offsets, taus, b, x, dinv,
-                  floats={"xc": (xc, (xc.shape[0],))},
-                  ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))},
-                  f32={"pwt": (pwt, (mp, n))})
+                  floats={"xc": (xc, (xc.shape[0],)),
+                          "pwt": (pwt, (mp, n))},
+                  ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))})
     with torch.cuda.device(x.device):
         dot = dot_scratch(n, x.device) if with_dot else None
         out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),

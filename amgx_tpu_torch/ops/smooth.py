@@ -7,20 +7,25 @@ The damped-relaxation smoother family
 
 runs through the DIA kernels of `cuda_spmv` on float32 and bfloat16 DIA
 levels: B2 (steps + trailing residual), B3 (steps + restriction
-epilogue) and B4 (prolongation prologue + steps). The damping factors
-go to the kernels in the compute dtype (`precision.compute_dtype`:
-float32 for bf16 operands). `fused_smooth` takes DIA first, then
-the unstructured route of a float32 CSR level (classical coarse
-operators): one B9 launch per sweep (`cuda_csr.csr_smooth`) and the
-trailing residual through B8, as the JAX package's `swell_fused_smooth`
-does. Every entry returns None when no kernel takes the level; the
-calling smoother then composes its unfused sweeps, exactly as the JAX
-package does off its fused path (f64 hierarchies, `fused_smoother=0`).
+epilogue) and B4 (prolongation prologue + steps), with a classical
+level's weighted transfer rows (B3w / B4w) in either dtype. The damping
+factors go to the kernels in the compute dtype
+(`precision.compute_dtype`: float32 for bf16 operands). `fused_smooth`
+takes DIA first, then the unstructured route of a float32 or bfloat16
+CSR level (aggregation and classical coarse operators): one B9 launch
+per sweep (`cuda_csr.csr_smooth`; in bf16 each sweep's x' rounded to
+bf16, as the JAX package's `swell_smooth_step`) and the trailing
+residual through B8 (in bf16 A x rounded once, then b - y), as
+the JAX package's `swell_fused_smooth` does. Every entry returns None
+when no kernel takes the level; the calling smoother then composes its
+unfused sweeps, exactly as the JAX package does off its fused path (f64
+hierarchies, `fused_smoother=0`).
 
 On CPU tensors the kernels' plain twins run, so the CPU and the card
-take the same route. A bfloat16 level the port has no kernel for (a CSR
-level, weighted transfer rows) raises NotImplementedError on the card
-(ROADMAP.md Queue B 2) and composes plain PyTorch on the CPU.
+take the same route. The JAX package sends a bf16 CSR level to its
+sweep kernel only where the level's SWELL layout fits its VMEM budget
+and composes per-operation bf16 sweeps elsewhere; the port takes the
+kernel's rounding on every such level.
 `coarse_tail_cycle` runs the whole sub-cycle below an entry level through
 B5 (ops/cuda_tail.py) with the JAX package's eligibility rules.
 
@@ -153,8 +158,8 @@ def build_csr_transfer_tables(A, P, R):
 def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
     """x' (and r = b - A x' when `with_residual`) after len(taus) damped
     steps through B2 on a DIA level (B2-mf on a matrix-free one), or
-    through B9 sweeps and a B8 residual on a float32 CSR level; None when
-    no kernel applies."""
+    through B9 sweeps and a B8 residual on a float32 or bfloat16 CSR
+    level; None when no kernel applies."""
     st = data.get("stencil")
     if st is not None:
         return mf.stencil_fused_smooth(st, taus, b, x, with_residual)
@@ -165,15 +170,11 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
         return cuda_spmv.dia_smooth(A.dia_vals, A.dia_offsets,
                                     taus.to(compute_dtype(x.dtype)), b, x,
                                     dinv, with_residual)
-    if getattr(A, "dia_vals", None) is None and x.dtype == torch.bfloat16 \
-            and x.device.type != "cpu":
-        cuda_spmv.bf16_not_ported("fused_smooth",
-                                  "a CSR level's sweeps (B9)")
     if getattr(A, "dia_vals", None) is not None or A.num_rows != A.num_cols \
-            or A.values.dtype != torch.float32 or x.dtype != torch.float32:
+            or A.values.dtype != x.dtype or x.dtype not in SMOOTH_DTYPES:
         return None
     x = cuda_csr.csr_smooth(A.row_offsets, A.col_indices, A.values,
-                            taus.to(x.dtype), b, x, dinv,
+                            taus.to(compute_dtype(x.dtype)), b, x, dinv,
                             lanes=A.csr_lanes or 1)
     if not with_residual:
         return x

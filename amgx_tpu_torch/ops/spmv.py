@@ -8,7 +8,9 @@ amgx_tpu/ops/pallas_spmv.py:143): REFINEMENT's f64 outer residual is
 the case on the flagship path. Matrices without a DIA view (classical coarse
 operators, P and R) go through B8 (`cuda_csr.csr_spmv`) in float32, as
 the JAX package sends its SWELL layout through `_swell_spmv_call`, and
-through the plain CSR gather + scatter-add otherwise. `spmv_pdot` (the
+in bfloat16 through B8's bf16 form (float32 row sums, one rounding:
+the JAX package's compiled `swell_spmv_xla` on bf16 operands); through
+the plain CSR gather + scatter-add otherwise (float64). `spmv_pdot` (the
 Krylov shell's direction update + SpMV + dot) and `spmv_ddot` (SpMV
 with dots against a streamed operand, BiCGStab's) route the same way
 through B6's two forms.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..matrix import CsrMatrix
+from ..precision import SMOOTH_DTYPES
 from . import cuda_csr, cuda_krylov, cuda_spmv
 
 
@@ -36,7 +39,7 @@ def spmv_dia(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_csr(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.float32 and A.values.dtype == torch.float32:
+    if x.dtype in SMOOTH_DTYPES and A.values.dtype == x.dtype:
         return cuda_csr.csr_spmv(A.row_offsets, A.col_indices, A.values, x,
                                  lanes=A.csr_lanes or 1)
     return cuda_csr.csr_spmv_plain(A.row_offsets, A.col_indices,

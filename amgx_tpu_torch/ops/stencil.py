@@ -222,7 +222,8 @@ def _apply_vec(spec, coeffs, x, masks=None):
     xp = torch.nn.functional.pad(x, (left, max(0, max(offs))))
     y = torch.zeros_like(x)
     for t, o in enumerate(offs):
-        y = y + _rows(spec, coeffs, masks, t) * xp[left + o:left + o + n]
+        y = torch.addcmul(y, _rows(spec, coeffs, masks, t),
+                          xp[left + o:left + o + n])
     return y
 
 
@@ -259,10 +260,8 @@ def _state(spec, coeffs, taus, b, x, masks):
                           for t in (x, b, coeffs, taus))
     dinv = _dinv_vec(spec, coeffs, x.dtype, x.device, masks)
     for t in range(taus.shape[0]):
-        upd = taus[t] * (b - _apply_vec(spec, coeffs, x, masks))
-        if dinv is not None:
-            upd = upd * dinv
-        x = x + upd
+        x = cuda_spmv.damped_update(
+            x, taus[t], b - _apply_vec(spec, coeffs, x, masks), dinv)
     return x, b, coeffs
 
 

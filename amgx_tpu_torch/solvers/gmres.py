@@ -27,6 +27,19 @@ from ..ops.spmv import residual, spmv
 from .base import Solver, _host
 
 
+def _combine(M, y):
+    """M^T y as the pairwise tree of the rounded row products: the order
+    the JAX package's compiled FGMRES adds them in. REFINEMENT's next
+    defect is the rounding of this x, and its size decides the next
+    inner solve's count."""
+    P = M * y[:, None]
+    while P.shape[0] > 1:
+        half = P.shape[0] // 2
+        pairs = P[0:2 * half:2] + P[1:2 * half:2]
+        P = torch.cat([pairs, P[2 * half:]]) if P.shape[0] % 2 else pairs
+    return P[0]
+
+
 def _solve_upper(R, g):
     """y with R y = g for an upper-triangular R (host back substitution)."""
     y = np.zeros_like(g)
@@ -93,8 +106,8 @@ class _GmresBase(Solver):
         V = st["V"]
         y = torch.from_numpy(y).to(V.device)
         if self.flexible:
-            return st["x0"] + st["Z"].T @ y
-        return st["x0"] + self._precond(data, V[:self.m].T @ y)
+            return st["x0"] + _combine(st["Z"], y)
+        return st["x0"] + self._precond(data, _combine(V[:self.m], y))
 
     # -- one Arnoldi step -------------------------------------------------
     def solve_iteration(self, data, b, st):

@@ -28,6 +28,10 @@ Phases, one JSON line each on stdout:
                B5-mf on the bf16 32^3 hierarchies; each within 1 bf16 ulp
                of its plain version (`bf16_err`, with the share of entries
                bit-equal), every launch under its own "_bf16" counter.
+               The bf16 hierarchies' forms: B9 and B8 on the 128^3
+               CLASSICAL hierarchy's level 1 (and B8 on its P and R),
+               B3w / B4w on its level 0, each beside the float32 form's
+               times on the same level (`f32_ms`).
                Max error with its limit, launches per call, kernel /
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
@@ -103,8 +107,24 @@ Phases, one JSON line each on stdout:
                B10-relabel on the 128^3 level-0 plan and a middle level's
                (0 difference; cuSPARSE's P^T (A P) as the yardstick) and
                B3/B4 (slab and coefficient, with the dot) on the SIZE_2
-               level 0's irregular children table.
-11. bicgstab -- AmgX's stock PBICGSTAB_CLASSICAL_JACOBI and
+               level 0's irregular children table, and B9's and B8's
+               bf16 forms on its level 1.
+11. bf16_hierarchies -- the same stock aggregation files with
+               amg:amg_precision=bfloat16 and CLASSICAL with it at
+               128^3, CLASSICAL_REFINEMENT with solve_precision=bfloat16
+               at 64^3 (the AMG cycle in bf16: bf16 B9 / B8 on the CSR
+               levels, bf16 B3w / B4w on the classical level 0, bf16
+               B4-mf on the aggregation level 0, the coarsest level in
+               float32): success (the classical paths to a true f64
+               residual <= 1e-8), their bf16 kernels launched and no
+               float32 smoother kernel; the float32 twin solved in the
+               same run, warm solves of the two in alternating pairs
+               (recorded), and for each CSR level whether the JAX
+               package would run its bf16 sweep kernel there
+               (`swell_fit`); each also at BF16_WITNESS^3 on the card and
+               on the CPU route: the same status and level rows,
+               iterations within one.
+12. bicgstab -- AmgX's stock PBICGSTAB_CLASSICAL_JACOBI and
                PBICGSTAB_NOPREC on the 7-pt 128^3 in float32 with
                krylov_fusion 1 (B6's streamed-dot form exactly twice per
                iteration) and 0 (no B6, B1 for the SpMVs), the routes
@@ -177,7 +197,9 @@ LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
 # scale floored at 2^-8 of the output's largest entry, where a sum that
 # cancels leaves only the float32 rounding of its terms). Kernel and plain
 # version sum in float32 and round once; the kernel's fused multiply-adds
-# can move a sum across a rounding boundary, by one bf16 ulp.
+# and its lanes' summation order can move a sum across a rounding
+# boundary, by one bf16 ulp. B9's bf16 form rounds x' to bf16 after each
+# sweep (the reference's per-sweep rounding), so a case runs one sweep.
 BF16_FORMS = {"dia_smooth_bf16": "dia_smooth",
               "dia_smooth_restrict_bf16": "dia_smooth_restrict",
               "dia_prolong_smooth_bf16": "dia_prolong_smooth",
@@ -185,7 +207,11 @@ BF16_FORMS = {"dia_smooth_bf16": "dia_smooth",
               "dia_smooth_restrict_mf_bf16": "dia_smooth_restrict_mf",
               "dia_prolong_smooth_mf_bf16": "dia_prolong_smooth_mf",
               "dia_coarse_tail_bf16": "dia_coarse_tail",
-              "dia_coarse_tail_mf_bf16": "dia_coarse_tail_mf"}
+              "dia_coarse_tail_mf_bf16": "dia_coarse_tail_mf",
+              "dia_smooth_restrict_w_bf16": "dia_smooth_restrict_w",
+              "dia_prolong_smooth_w_bf16": "dia_prolong_smooth_w",
+              "csr_smooth_bf16": "csr_smooth",
+              "csr_spmv_bf16": "csr_spmv"}
 LIMITS.update({name: 1.0 for name in BF16_FORMS})
 _PS = "amgx_tpu/ops/pallas_spmv.py:"
 REPLACES = {
@@ -224,6 +250,9 @@ SOURCES = {
 }
 for _bf, _f32 in BF16_FORMS.items():
     REPLACES[_bf], SOURCES[_bf] = REPLACES[_f32], SOURCES[_f32]
+# B8 is float32 only in the reference: on bf16 operands it runs the XLA
+# form of the same product, which B8's bf16 form computes
+REPLACES["csr_spmv_bf16"] = "amgx_tpu/ops/pallas_swell.py:493"
 # pins the slab route on a path that exists to drive the slab kernels
 # (the card's default, matrix_free=auto, is matrix-free)
 SLAB = ", amg:matrix_free=0"
@@ -233,9 +262,10 @@ BF16 = ", solve_precision=bfloat16"
 # Its inner FGMRES iterations, n -> (float32, bf16), on the 7-pt n^3
 # Poisson with b = 1 (tools/flagship_anchors.py, both packages on the
 # CPU): the JAX package's Pallas route (its kernels under the
-# interpreter), which the port's CPU route equals at every size but 64^3
-# float32 (23), and its XLA route, which rounds the state to bf16 at
-# every step.
+# interpreter), whose float32 counts the port's CPU route equals at
+# every size (and its bf16 ones at 16^3; 14 and 23 at 32^3 and 64^3, one
+# fewer: the bf16 pass-2 count turns on a defect at float32 rounding),
+# and its XLA route, which rounds the state to bf16 at every step.
 BF16_PALLAS_ANCHORS = {16: (10, 10), 32: (14, 15), 64: (21, 24),
                        96: (27, 30), 112: (30, 34)}
 BF16_XLA_ANCHORS = {16: (10, 19), 32: (14, 42), 64: (21, 97)}
@@ -273,6 +303,11 @@ CLASSICAL = (
     " amg:interp_max_elements=4, amg:max_row_sum=0.9,"
     " amg:amg_precision=float")
 CLASSICAL_ANCHORS = {128: 20, 64: 17}
+# the same with the AMG cycle in bfloat16 (the hierarchy set up in
+# float64, its solve data cast: bf16 B3w / B4w on level 0, bf16 B9 and
+# B8 on the CSR levels, the coarsest level float32)
+CLASSICAL_BF16 = CLASSICAL.replace(", amg:amg_precision=float",
+                                   ", amg:amg_precision=bfloat16")
 # the same PCG + classical AMG block on a float32 operator without
 # amg_precision: the hierarchy and the Krylov shell are float32, so the
 # cycle carries PCG's r.z through B4w's x'.b epilogue on level 0
@@ -341,6 +376,14 @@ def agg_config(Config, name, reuse=None):
     cfg = Config.from_file(os.path.join(ROOT, AGG_CONFIGS[name]))
     if reuse is not None:
         cfg.set("structure_reuse_levels", reuse, scope="amg")
+    return cfg
+
+
+def agg_bf16_config(Config, name):
+    """A stock aggregation file with amg_precision=bfloat16 set in its
+    AMG scope (the Krylov shell stays float32)."""
+    cfg = agg_config(Config, name)
+    cfg.set("amg_precision", "bfloat16", scope="amg")
     return cfg
 
 
@@ -922,7 +965,159 @@ def classical_cases(torch, amgx, K, C, dev):
                     ptab=xf["ptab"], pwt=xf["pwt"]),
                 (k * n + 3 * n + dn + 1 + nc + 1) * 4 + p_bytes,
                 app + dn + 2 * nnz_p + 2 * n, 1, None)
-    return cases, amg.level_rows(), {"m": m, "mp": mp}
+    # the bf16 forms on the same levels, as the hierarchy's bf16 cast
+    # hands them over: B9 / B8 on level 1, B3w / B4w on level 0 (R's and
+    # P's entries 6 bytes each: a bf16 weight and an int32 index)
+    bf = torch.bfloat16
+    bf16 = {"classical_128^3 " + k: v for k, v in csr_bf16_cases(
+        torch, C, {"A1": M1, "P1": l1["P"], "R1": l1["R"]}, dinv1,
+        tau1.to(bf), g).items()}
+    v16, b16, x16, xc16 = vals.to(bf), b.to(bf), x.to(bf), xc.to(bf)
+    cwt, pwt = xf["cwt"].to(bf), xf["pwt"].to(bf)
+    t16 = tau.to(bf).float()
+    r16 = nnz_r * 6 + (nc + 1) * 4
+    p16 = nnz_p * 6 + (n + 1) * 4
+    for tag, dinv in (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)):
+        dn = 0 if dinv is None else n
+        d16 = None if dinv is None else dinv.to(bf)
+        bf16[f"classical_l0_128^3 {tag} bf16"] = {
+            "dia_smooth_restrict_w_bf16": (
+                lambda d=d16: K.dia_smooth_restrict(
+                    v16, offs, t16, b16, x16, xf["ctab"], d, weights=cwt),
+                lambda d=d16: K.dia_smooth_restrict_plain(
+                    v16, offs, t16, b16, x16, xf["ctab"], d, weights=cwt),
+                (k * n + 3 * n + dn + nc) * 2 + 4 + r16,
+                app + dn + nnz_r * (2 * k + 3), 2, None, f32_twin_ms(
+                    torch, lambda d=dinv: K.dia_smooth_restrict(
+                        vals, offs, t16, b, x, xf["ctab"], d,
+                        weights=xf["cwt"]), 2)),
+            "dia_prolong_smooth_w_bf16": (
+                lambda d=d16: K.dia_prolong_smooth(
+                    v16, offs, t16, b16, x16, xc16, dinv=d, ptab=xf["ptab"],
+                    pwt=pwt),
+                lambda d=d16: K.dia_prolong_smooth_plain(
+                    v16, offs, t16, b16, x16, xc16, None, d,
+                    ptab=xf["ptab"], pwt=pwt),
+                (k * n + 3 * n + dn + nc) * 2 + 4 + p16,
+                app + dn + 2 * nnz_p, 1, None, f32_twin_ms(
+                    torch, lambda d=dinv: K.dia_prolong_smooth(
+                        vals, offs, t16, b, x, xc, dinv=d, ptab=xf["ptab"],
+                        pwt=xf["pwt"]), 1))}
+    return cases, bf16, amg.level_rows(), {"m": m, "mp": mp}
+
+
+def f32_twin_ms(torch, fn, launches):
+    """The float32 form's times on the same level, in the same call: the
+    bf16 row's yardstick ({"f32_ms", "f32_device_ms"})."""
+    return {"f32_ms": time_ms(torch, fn),
+            "f32_device_ms": device_ms(torch, fn, launches)[0]}
+
+
+def csr_bf16_cases(torch, C, mats, dinv, tau, g):
+    """B9's and B8's bf16 forms on a bf16 hierarchy's CSR level: one sweep
+    (JACOBI_L1's or BLOCK_JACOBI's tau and dinv, rounded to bf16 as the
+    hierarchy's cast does) on the level's operator, and the products with
+    each matrix in `mats` (label -> float32 CsrMatrix; the operator first,
+    then P and R where the level has them), each beside its float32 form
+    on the same matrix. label -> {name: (kernel, plain, bytes, flops,
+    launches per call, library, extra)}; bf16 streams at 2 bytes, int32
+    columns and row offsets at 4."""
+    from amgx_tpu_torch.amg.hierarchy import _cast_leaf
+    bf = torch.bfloat16
+    cases = {}
+    for i, (label, M32) in enumerate(mats.items()):
+        M = _cast_leaf(M32, bf)
+        v32 = torch.randn(M.num_cols, generator=g, device=M.values.device)
+        v = v32.to(bf)
+        named = {"csr_spmv_bf16": (
+            lambda M=M, v=v: C.csr_spmv(M.row_offsets, M.col_indices,
+                                        M.values, v, lanes=M.csr_lanes),
+            lambda M=M, v=v: C.csr_spmv_plain(M.row_offsets, M.col_indices,
+                                              M.values, v),
+            M.nnz * 6 + (M.num_rows + 1) * 4 + (M.num_cols + M.num_rows) * 2,
+            2 * M.nnz, 1, None, f32_twin_ms(
+                torch, lambda M=M32, v=v32: C.csr_spmv(
+                    M.row_offsets, M.col_indices, M.values, v,
+                    lanes=M.csr_lanes), 1))}
+        if i == 0:
+            n = M.num_rows
+            b32 = torch.randn(n, generator=g, device=v.device)
+            b, d16, d32, t = b32.to(bf), dinv.to(bf), dinv.float(), \
+                tau.float()
+            named["csr_smooth_bf16"] = (
+                lambda M=M, v=v: C.csr_smooth(
+                    M.row_offsets, M.col_indices, M.values, t, b, v, d16,
+                    lanes=M.csr_lanes),
+                lambda M=M, v=v: C.csr_smooth_plain(
+                    M.row_offsets, M.col_indices, M.values, t, b, v, d16),
+                M.nnz * 6 + (n + 1) * 4 + 4 * n * 2 + 4,
+                2 * M.nnz + 4 * n, 1, None, f32_twin_ms(
+                    torch, lambda M=M32, v=v32: C.csr_smooth(
+                        M.row_offsets, M.col_indices, M.values, t, b32, v,
+                        d32, lanes=M.csr_lanes), 1))
+        cases[f"{label} {M.num_rows}x{M.num_cols} bf16"] = named
+    return cases
+
+
+# The reference sends a bf16 CSR level to its sweep kernel (B9) only where
+# the level's windowed-ELL (SWELL) layout exists and fits the kernel's
+# VMEM budget, and composes per-operation bf16 XLA sweeps elsewhere; its
+# bf16 products take the SWELL or ELL gather form (float32 sums, one
+# rounding) or, where neither layout exists, a bf16 scatter-add (a
+# rounding at every add). A copy of its layout rules
+# (amgx_tpu/ops/pallas_swell.py `swell_budget`, `build_swell_host`,
+# `_swell_budget_ok`; amgx_tpu/matrix.py's ELL choice), so the card can
+# say which of a 128^3 hierarchy's levels the reference would round
+# another way than the port.
+SWELL_LANES, SWELL_BLOCK_ROWS = 128, 1024
+SWELL_MAX_K, SWELL_MAX_W = 256, 512 * 1024
+SWELL_VMEM = 10 * 1024 * 1024
+ELL_MAX_RATIO = 3.0
+
+
+def swell_fit(torch, M, val_itemsize=2):
+    """{"kmax", "w128", "kpad", "layout", "sweep", "ell"}: whether the
+    reference builds M's SWELL layout, whether its bf16 sweep kernel
+    takes it (`val_itemsize`-byte values, four pipeline blocks), and
+    whether its ELL layout would (the product's fallback)."""
+    ro = M.row_offsets.long()
+    counts = torch.diff(ro)
+    n = M.num_rows
+    kmax = int(counts.max())
+    mean = max(M.nnz / max(n, 1), 1e-30)
+    out = {"kmax": kmax, "w128": None, "kpad": None, "layout": False,
+           "sweep": False, "ell": kmax / mean <= ELL_MAX_RATIO}
+    if kmax == 0 or kmax > SWELL_MAX_K:
+        return out
+    rows = torch.repeat_interleave(torch.arange(n, device=ro.device),
+                                   counts, output_size=M.nnz)
+    ci = M.col_indices.long()
+    nb = -(-n // SWELL_BLOCK_ROWS)
+    blk = rows // SWELL_BLOCK_ROWS
+    big = torch.iinfo(torch.int64).max
+    bmin = torch.full((nb,), big, device=ro.device).scatter_reduce(
+        0, blk, ci, "amin")
+    bmax = torch.full((nb,), -1, device=ro.device).scatter_reduce(
+        0, blk, ci, "amax")
+    empty = bmax < 0
+    bmin = torch.where(empty, torch.zeros_like(bmin), bmin)
+    bmax = torch.where(empty, torch.zeros_like(bmax), bmax)
+    c0 = (bmin // SWELL_LANES) * SWELL_LANES
+    span = int((bmax - c0 + 1).max())
+    w128 = -(-(-(-span // SWELL_LANES)) // 8) * 8
+    kpad = kmax if kmax <= 24 else -(-kmax // 8) * 8
+    slots = nb * 8 * kpad * SWELL_LANES
+    out.update(w128=w128, kpad=kpad)
+    if w128 * SWELL_LANES > SWELL_MAX_W or (
+            slots > 6 * max(M.nnz, 1) and slots > (1 << 20)):
+        return out
+    out["layout"] = True
+    win = 2 * w128 * SWELL_LANES * 4
+    ent = 2 * 8 * kpad * SWELL_LANES * (4 + val_itemsize)
+    blocks = 2 * 4 * 8 * SWELL_LANES * 4
+    out["sweep"] = M.num_rows == M.num_cols and \
+        win + ent + blocks <= SWELL_VMEM
+    return out
 
 
 def rap_case(torch, amgx, R_, dev):
@@ -1103,7 +1298,7 @@ def phase_kernels(torch, amgx, dev):
                      nbytes, flops, 1, None, spec.levels[0].n, summary,
                      {"phases": phases,
                       "levels": [ls.n for ls in spec.levels]}, slab=slab)
-    cases, levels, mm = classical_cases(torch, amgx, K, C, dev)
+    cases, bf16, levels, mm = classical_cases(torch, amgx, K, C, dev)
     emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
           "levels": levels, **mm})
     for label, named in cases.items():
@@ -1112,6 +1307,12 @@ def phase_kernels(torch, amgx, dev):
                      int(label.split()[-1].split("x")[0])
                      if label.startswith("classical_128^3") else 128 ** 3,
                      summary)
+    for label, named in bf16.items():
+        for name, case in named.items():
+            run_case(torch, K, label, name, *case[:6],
+                     int(label.split()[-2].split("x")[0])
+                     if label.startswith("classical_128^3") else 128 ** 3,
+                     summary, case[6])
     case, sizes = rap_case(torch, amgx, R_, dev)
     run_case(torch, K, "classical_refinement_l0_64^3", "rap_values", *case,
              sizes["rows"], summary, sizes)
@@ -2099,6 +2300,171 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
     for name, case in cases.items():
         run_case(torch, K, f"agg_l0_{n}^3", name, *case, n ** 3, summary,
                  slab=slab.get(name))
+    # B9's and B8's bf16 forms on level 1 (the largest CSR level) as
+    # amg_precision=bfloat16 hands it over: BLOCK_JACOBI's dinv and omega
+    from amgx_tpu_torch.ops import cuda_csr as C
+    lv = amg.levels[1]
+    sd = lv.smoother.solve_data()
+    x1 = torch.zeros(lv.A.num_rows, device=dev)
+    tau = lv.smoother._fused_taus(1, x1, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(2468)
+    for label, named in csr_bf16_cases(torch, C, {"agg_A1": lv.A},
+                                       sd["dinv"], tau, g).items():
+        for name, case in named.items():
+            run_case(torch, K, f"agg_l1_{n}^3 {label}", name, *case[:6],
+                     lv.A.num_rows, summary, case[6])
+
+
+# The bf16 hierarchies' paths: (the bf16 configuration, its float32
+# twin, size, operator dtype, the bf16 kernels it must launch). The card
+# runs each at its size and at BF16_WITNESS, where the CPU route (the
+# kernels' plain forms) runs it too: the same status, iterations within
+# one, the same level rows.
+BF16_WITNESS = 64
+BF16_AGG_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
+                    "dia_prolong_smooth_mf_bf16")
+BF16_CLS_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
+                    "dia_smooth_restrict_w_bf16", "dia_prolong_smooth_w_bf16")
+
+
+def bf16_paths(amgx, torch):
+    def cfg(text):
+        return lambda: amgx.Config.from_string(text)
+    return {
+        "agg-fgmres_bf16": (
+            lambda: agg_bf16_config(amgx.Config, "agg-fgmres"),
+            lambda: agg_config(amgx.Config, "agg-fgmres"), 128,
+            torch.float32, BF16_AGG_KERNELS),
+        "agg-pcg_bf16": (
+            lambda: agg_bf16_config(amgx.Config, "agg-pcg"),
+            lambda: agg_config(amgx.Config, "agg-pcg"), 128,
+            torch.float32, BF16_AGG_KERNELS),
+        "classical_bf16": (cfg(CLASSICAL_BF16), cfg(CLASSICAL), 128,
+                           torch.float64, BF16_CLS_KERNELS),
+        "classical_refinement_bf16": (
+            cfg(classical_refinement() + ", solve_precision=bfloat16"),
+            cfg(classical_refinement()), 64, torch.float64,
+            BF16_CLS_KERNELS)}
+
+
+def run_solve(torch, amgx, make_cfg, n, d, dtype):
+    """Set up and solve the 7-pt n^3 system with b = 1 in `dtype` on d:
+    (result, solver, setup s, solve s, true relative residual in f64)."""
+    from amgx_tpu_torch.ops.spmv import residual
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=d)
+    slv = amgx.create_solver(make_cfg(), device=d)
+    t0 = time.perf_counter()
+    slv.setup(A)
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(n ** 3, dtype=dtype, device=d)
+    t0 = time.perf_counter()
+    res = slv.solve(b)
+    if d.type == "cuda":
+        torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    A64 = amgx.gallery.poisson("7pt", n, n, n, device=d).init()
+    b64 = torch.ones(n ** 3, dtype=torch.float64, device=d)
+    true_rel = float(torch.linalg.norm(residual(A64, res.x.double(), b64))
+                     / torch.linalg.norm(b64))
+    check(tuple(res.x.shape) == (n ** 3,) and bool(
+        torch.isfinite(res.x).all()), "solution finite, right shape")
+    return res, slv, setup_s, solve_s, true_rel
+
+
+def inner_of(res):
+    return None if res.extra_stats is None \
+        else int(res.extra_stats["inner_iters"])
+
+
+def phase_bf16_hierarchies(torch, amgx, dev, per_path):
+    """The aggregation and classical hierarchies with their AMG cycle in
+    bfloat16: the stock FGMRES_ / PCG_AGGREGATION_JACOBI with
+    amg:amg_precision=bfloat16 and CLASSICAL with it at 128^3,
+    CLASSICAL_REFINEMENT with solve_precision=bfloat16 at 64^3. Each:
+    success (the classical paths at a true f64 residual <= 1e-8), its
+    bf16 kernels launched (B9 and B8 on the CSR levels, B3w / B4w on the
+    classical level 0, B4-mf on the aggregation level 0), no float32
+    smoother kernel and no coarse tail; its float32 twin solved in the
+    same call and warm solves of the two in alternating pairs (the
+    ratio recorded); the reference's SWELL rules on each CSR level
+    (`swell_fit`); then the card against the CPU route at
+    BF16_WITNESS^3."""
+    cpu = torch.device("cpu")
+    for path, (make, make32, n, dtype, kernels) in bf16_paths(
+            amgx, torch).items():
+        label = f"{path}_{n}^3"
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, slv, setup_s, solve_s, true_rel = run_path(
+            amgx, per_path, label, lambda m=make, n=n, t=dtype: run_solve(
+                torch, amgx, m, n, dev, t))
+        peak = torch.cuda.max_memory_allocated(dev)
+        c = per_path[label]
+        r32, slv32, _, _, rel32 = run_solve(torch, amgx, make32, n, dev,
+                                            dtype)
+        warm, wins = paired_warm(torch, {"float32": slv32, "bf16": slv}, n,
+                                 dtype)
+        amg = precond_amg(slv)
+        fits = []
+        for i, lv in enumerate(amg.levels):
+            if lv.A.dia_vals is not None:
+                continue
+            fit = {"level": i, "rows": lv.A.num_rows,
+                   "A": swell_fit(torch, lv.A)}
+            for key in ("P", "R"):
+                if getattr(lv, key, None) is not None:
+                    fit[key] = swell_fit(torch, getattr(lv, key))
+            fits.append(fit)
+        emit({"phase": "bf16_hierarchies", "config": label, "rows": n ** 3,
+              "levels": amg.level_rows(), "status": res.status,
+              "iterations": res.iterations, "inner_iterations": inner_of(res),
+              "f32_iterations": r32.iterations,
+              "f32_inner_iterations": inner_of(r32),
+              "iteration_ratio": (inner_of(res) or res.iterations)
+              / max(inner_of(r32) or r32.iterations, 1),
+              "true_rel_res": true_rel, "f32_true_rel_res": rel32,
+              "setup_s": setup_s, "solve_s": solve_s,
+              "setup_peak_bytes": peak, "warm_solve_s": warm,
+              "pairs": PAIRS, "f32_first_wins": wins,
+              "warm_f32_over_bf16": warm["float32"]["median"]
+              / warm["bf16"]["median"],
+              "swell_fit": fits, "launches": c})
+        check(res.status == "success" == r32.status,
+              f"{label}: {res.status} (float32 twin {r32.status})")
+        if dtype == torch.float64:
+            check(true_rel <= 1e-8, f"{label}: true relative residual "
+                  f"{true_rel} <= 1e-8")
+        check(all(c[k] > 0 for k in kernels),
+              f"{label}: launched its bf16 kernels {kernels}: {c}")
+        check(all(c[k] == 0 for k in F32_SMOOTHERS)
+              and c["dia_coarse_tail_bf16"] + c["dia_coarse_tail_mf_bf16"]
+              == 0, f"{label}: no float32 smoother, no coarse tail {c}")
+        del res, slv, r32, slv32, amg
+        torch.cuda.empty_cache()
+        # the card against the CPU route on the same input
+        w = BF16_WITNESS
+        runs = {}
+        for d in (dev, cpu):
+            def witness(d=d):
+                return run_solve(torch, amgx, make, w, d, dtype)
+            wr, wslv, _, wsolve, wrel = run_path(
+                amgx, per_path, f"{path}_{w}^3", witness) \
+                if d.type == "cuda" else witness()
+            runs[d.type] = {"status": wr.status, "iterations": wr.iterations,
+                            "inner_iterations": inner_of(wr),
+                            "levels": levels_of(wslv), "solve_s": wsolve,
+                            "true_rel_res": wrel}
+        emit({"phase": "bf16_witness", "config": f"{path}_{w}^3",
+              "cuda": runs["cuda"], "cpu": runs["cpu"],
+              "launches": per_path[f"{path}_{w}^3"]})
+        a, h = runs["cuda"], runs["cpu"]
+        check(a["status"] == h["status"] == "success"
+              and abs(a["iterations"] - h["iterations"]) <= 1
+              and abs((a["inner_iterations"] or 0)
+                      - (h["inner_iterations"] or 0)) <= 1
+              and a["levels"] == h["levels"],
+              f"{path} at {w}^3: the card {a} against the CPU {h}")
 
 
 def main():
@@ -2106,6 +2472,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.ops import cuda_build
     # float32 stays float32: no TF32 in matrix products (FGMRES's CGS2)
@@ -2147,6 +2514,7 @@ def main():
     phase_determinism(torch, amgx, dev, per_path)
     phase_classical_refinement(torch, amgx, dev, per_path)
     phase_aggregation(torch, amgx, dev, per_path, summary)
+    phase_bf16_hierarchies(torch, amgx, dev, per_path)
     phase_bicgstab(torch, amgx, dev, per_path)
 
     kernels = []
@@ -2168,6 +2536,7 @@ def main():
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -223,46 +223,56 @@ def test_bf16_state_stays_float32_between_steps(problem):
 
 
 def test_bf16_kernels_refuse_what_is_not_ported():
-    """No bf16 weighted transfer rows (B3w / B4w), dot epilogue or CSR
-    sweeps: on a tensor off the CPU (here the meta device) the wrappers
-    raise before any launch, naming ROADMAP.md Queue B 2."""
+    """No bf16 dot epilogue: on a tensor off the CPU (here the meta
+    device) the wrapper raises before any launch, naming ROADMAP.md
+    Queue B. The bf16 weighted transfer rows (B3w / B4w) and a bf16 CSR
+    level's sweeps (B9) are ported: they pass that gate and stop only at
+    the device check, where a CUDA tensor would launch."""
     n, nc = 64, 8
     m = {k: torch.empty(s, dtype=BF, device="meta")
          for k, s in (("v", (7, n)), ("x", (n,)), ("xc", (nc,)))}
     taus = torch.empty(2, device="meta")
     offs = (-16, -4, -1, 0, 1, 4, 16)
     ctab = torch.empty((8, nc), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
-        K.dia_smooth_restrict(m["v"], offs, taus, m["x"], m["x"], ctab,
-                              weights=torch.empty((8, nc), device="meta"))
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
-        K.dia_prolong_smooth(m["v"], offs, taus, m["x"], m["x"], m["xc"],
-                             ptab=torch.empty((2, n), dtype=torch.int32,
-                                              device="meta"),
-                             pwt=torch.empty((2, n), device="meta"))
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
+    with pytest.raises(NotImplementedError, match="Queue B"):
         K.dia_prolong_smooth(m["v"], offs, taus, m["x"], m["x"], m["xc"],
                              agg=torch.empty(n, dtype=torch.int32,
                                              device="meta"), with_dot=True)
-    # a CSR level (aggregation's coarse levels, classical ones): no bf16
-    # B9 yet, and no plain-PyTorch sweeps off the CPU either
-    from types import SimpleNamespace
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.dia_smooth_restrict(m["v"], offs, taus, m["x"], m["x"], ctab,
+                              weights=torch.empty((8, nc), dtype=BF,
+                                                  device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.dia_prolong_smooth(m["v"], offs, taus, m["x"], m["x"], m["xc"],
+                             ptab=torch.empty((2, n), dtype=torch.int32,
+                                              device="meta"),
+                             pwt=torch.empty((2, n), dtype=BF,
+                                             device="meta"))
+    # a CSR level (aggregation's coarse levels, classical ones): B9's
+    # bf16 form, never plain-PyTorch sweeps off the CPU
+    from amgx_tpu_torch.matrix import CsrMatrix
     from amgx_tpu_torch.ops.smooth import fused_smooth
-    csr = SimpleNamespace(dia_vals=None, num_rows=n, num_cols=n)
-    with pytest.raises(NotImplementedError, match="Queue B 2"):
+    csr = CsrMatrix(row_offsets=torch.empty(n + 1, dtype=torch.int32,
+                                            device="meta"),
+                    col_indices=torch.empty(3 * n, dtype=torch.int32,
+                                            device="meta"),
+                    values=torch.empty(3 * n, dtype=BF, device="meta"),
+                    num_rows=n, num_cols=n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         fused_smooth({"A": csr}, m["x"], m["x"], taus)
 
 
 def test_float32_plain_forms_keep_their_bits(problem):
     """The float32 forms are untouched by the bf16 route: B2's plain form
-    gives the bits of the step loop written in float32 throughout."""
+    gives the bits of the step loop written in float32 throughout, each
+    step's multiply-add fused as the kernel's (x + tau r)."""
     A = problem["Ap"].astype(torch.float32)
     v = {k: t.float() for k, t in problem["vec"].items()}
     taus = torch.from_numpy(problem["schedules"]["chebyshev"])
     x = v["x"]
     for t in range(taus.shape[0]):
-        x = x + taus[t] * (v["b"] - K.dia_spmv_plain(A.dia_vals,
-                                                     A.dia_offsets, x))
+        x = torch.addcmul(x, taus[t], v["b"] - K.dia_spmv_plain(
+            A.dia_vals, A.dia_offsets, x))
     r = v["b"] - K.dia_spmv_plain(A.dia_vals, A.dia_offsets, x)
     got = K.dia_smooth(A.dia_vals, A.dia_offsets, taus, v["b"], v["x"])
     assert torch.equal(got[0], x) and torch.equal(got[1], r)

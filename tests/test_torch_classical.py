@@ -3,14 +3,17 @@ the CPU: strength, PMIS, D2 with truncation and the transpose on the
 level-0 operators of a 7-pt 16^3 and a 9-pt 20^2 grid; the whole
 16^3 hierarchy; the unstructured SpMV / sweep (B8, B9) and the weighted
 transfer rows of B3/B4 through their plain twins; `amg_precision=float`;
-and bench.py's `_classical_cfg` (PCG f64 around an f32 classical cycle).
-CLASSICAL_REFINEMENT, the slice's second solve, is in test_torch_rap.py.
+and bench.py's `_classical_cfg` (PCG f64 around an f32 classical cycle),
+also with its cycle in bfloat16. CLASSICAL_REFINEMENT, the slice's
+second solve, is in test_torch_classical_refinement.py; the bf16 forms
+of B9, B8, B3w and B4w in test_torch_bf16_hierarchies.py.
 
 The JAX side runs as its own tests run it: its default host setup, its
 Pallas kernels under the interpreter where a kernel is compared.
 """
 import ast
 import dataclasses
+import functools
 import os
 
 import jax.numpy as jnp
@@ -67,15 +70,23 @@ def _csr_equal(mj, mp):
                                mp.col_indices.numpy()))
 
 
-@pytest.fixture(scope="module", params=sorted(GRIDS))
-def hierarchies(request):
-    """The JAX package's and the port's hierarchies of one grid, f64."""
-    pts, shape = GRIDS[request.param]
+@functools.lru_cache(maxsize=None)
+def _hierarchy_pair(grid):
+    """The JAX package's and the port's hierarchies of one grid, f64,
+    built once per test process (the level tests and the kernel tests
+    share the 7-pt 16^3 pair)."""
+    pts, shape = GRIDS[grid]
     ja = JaxAMG(JaxConfig.from_string(LEVEL_CFG)).setup(
         jx.gallery.poisson(pts, *shape).init())
     pa = AMG(Config.from_string(LEVEL_CFG)).setup(
         pt.gallery.poisson(pts, *shape, device="cpu"))
-    return request.param, ja, pa
+    return ja, pa
+
+
+@pytest.fixture(scope="module", params=sorted(GRIDS))
+def hierarchies(request):
+    """The JAX package's and the port's hierarchies of one grid, f64."""
+    return (request.param,) + _hierarchy_pair(request.param)
 
 
 def test_level0_strength_split_interpolation(hierarchies):
@@ -163,12 +174,9 @@ def test_unported_classical_options_raise(option):
 
 @pytest.fixture(scope="module")
 def h16():
-    """The 7-pt 16^3 hierarchy of both packages (f64), for the kernels."""
-    ja = JaxAMG(JaxConfig.from_string(LEVEL_CFG)).setup(
-        jx.gallery.poisson("7pt", 16, 16, 16).init())
-    pa = AMG(Config.from_string(LEVEL_CFG)).setup(
-        pt.gallery.poisson("7pt", 16, 16, 16, device="cpu"))
-    return ja, pa
+    """The 7-pt 16^3 hierarchy of both packages (f64), for the kernels:
+    the level tests' pair."""
+    return _hierarchy_pair("7pt_16^3")
 
 
 def _jax_f32(M):
@@ -383,6 +391,39 @@ def test_classical_solve_matches_jax(classical16):
     assert _precond_amg(ps_).amg.level_rows() == [
         lv.A.num_rows for lv in _precond_amg(classical16[0]).amg.levels] + [
         _precond_amg(classical16[0]).amg.coarsest_A.num_rows]
+
+
+def test_classical_bf16_solve_matches_jax(classical16):
+    """CLASSICAL with amg:amg_precision=bfloat16 at 16^3 (PCG in float64
+    around a bf16 cycle: bf16 B3w / B4w on level 0, bf16 B9 / B8 on the
+    CSR levels, a float32 coarse solve), the JAX package under its
+    Pallas route (set up there too: it builds its fused payloads only
+    where its kernels run; the setup shares `classical16`'s compiled
+    programs): the same status, iterations and level rows, every CSR
+    level of the reference in its SWELL layout, and the float64 answer.
+    The residual histories are not compared: the reference's interpreted
+    kernels are compiled into one program with the XLA ops around them,
+    and XLA drops bf16 roundings between fused operations there (its
+    excess-precision default), which moves the history by 4-5 % at 16^3
+    (0.7 % with `--xla_allow_excess_precision=false`; ROADMAP.md Queue
+    C)."""
+    cfg = CLASSICAL.replace("amg_precision=float", "amg_precision=bfloat16")
+    with ps.force_pallas_interpret():
+        js = jx.create_solver(JaxConfig.from_string(cfg))
+        js.setup(jx.gallery.poisson("7pt", 16, 16, 16).init())
+        rj = js.solve(np.ones(16 ** 3))
+    ps_ = pt.create_solver(Config.from_string(cfg), device="cpu")
+    ps_.setup(pt.gallery.poisson("7pt", 16, 16, 16, device="cpu"))
+    rp = ps_.solve(torch.ones(16 ** 3, dtype=torch.float64))
+    assert rp.status == rj.status == "success"
+    assert rp.iterations == rj.iterations
+    ja, pa = _precond_amg(js).amg, _precond_amg(ps_).amg
+    assert pa.level_rows() == [lv.A.num_rows for lv in ja.levels] + [
+        ja.coarsest_A.num_rows]
+    assert [ja._layout_of(lv.A) for lv in ja.levels] == \
+        ["dia"] + ["swell"] * (len(ja.levels) - 1)
+    assert _true_rel_res(16, rp.x) <= 1e-8
+    assert rel(rp.x, np.asarray(rj.x)) <= X_TOL
 
 
 def test_classical_setup_is_deterministic():

@@ -28,6 +28,13 @@ SIZES = [16, 32]
 # x, so the two packages' histories agree to rounding of the INITIAL
 # residual, not of each (tiny) entry: |h_j - h'_j| <= 1e-5 * h_0.
 HIST_TOL = 1e-5
+# The defect after pass 1 is that rounding, so its size follows the
+# f32 arithmetic of the inner FGMRES (the SpMV's fused multiply-adds,
+# the order of x = x0 + Z y) and decides pass 2's inner count. Where the
+# two packages round alike they agree on it as closely as the JAX
+# package's own Pallas and XLA routes do (0.6 % apart at 32^3, 1.0 % at
+# 16^3, where fewer rows average the rounding less).
+PASS1_REL = {16: 2.5e-2, 32: 1e-2}
 # x: both runs stop at a 1e-8 residual; the condition number of the
 # 7-pt operator times that bounds their distance well inside 1e-5.
 X_TOL = 1e-5
@@ -52,8 +59,11 @@ def _true_rel_res(n, x):
 
 @pytest.fixture(scope="module", params=SIZES, ids=lambda n: f"{n}^3")
 def flagship(request):
+    """FLAGSHIP with the tail off through the JAX package's XLA route and
+    the port's CPU route; solve_precision=float (the cycle's precision
+    already) makes the JAX package report its inner iterations."""
     n = request.param
-    cfg = FLAGSHIP_TAIL_OFF + ", store_res_history=1"
+    cfg = FLAGSHIP_TAIL_OFF + ", store_res_history=1, solve_precision=float"
     js = jx.create_solver(JaxConfig.from_string(cfg))
     js.setup(jx.gallery.poisson("7pt", n, n, n).init())
     rj = js.solve(np.ones(n ** 3))
@@ -77,11 +87,23 @@ def test_status_and_outer_iterations(flagship):
 
 
 def test_residual_history(flagship):
-    _, rj, rp, _ = flagship
+    n, rj, rp, _ = flagship
     hj, hp = np.asarray(rj.res_history), np.asarray(rp.res_history)
     assert hp.shape == hj.shape
     assert hp[0] == pytest.approx(hj[0], rel=1e-12)
     assert np.abs(hp - hj).max() <= HIST_TOL * hj[0]
+    assert hp[1] == pytest.approx(hj[1], rel=PASS1_REL[n])
+
+
+def test_inner_iterations_match_jax(flagship):
+    """The REFINEMENT shell's accumulated inner FGMRES count: 10 / 14 at
+    16^3 / 32^3, as the JAX package. Pass 2's count hangs on the size of
+    the defect pass 1 leaves, which is f32 rounding of x; the port gave
+    15 at 32^3 while its SpMV's plain form rounded each product before
+    adding it (its kernels, and XLA, fuse the multiply-add) and it
+    summed x0 + Z y in another order than the reference's program."""
+    _, rj, rp, _ = flagship
+    assert rp.extra_stats["inner_iters"] == rj.extra_stats["inner_iters"]
 
 
 def test_solution_and_true_residual(flagship):

@@ -3,9 +3,10 @@ B10's plain twin (ops/cuda_rap.py) against the JAX package, on the CPU:
 the RAP plan's arrays against the JAX package's `build_rap_plan` on the
 same operators (exact), the value phase three ways (f64 plain against
 `_rap_values_numpy`, f32 B10 twin against the Pallas kernel under the
-interpreter, the eager product against the planned one), and the
-slice's second solve, CLASSICAL_REFINEMENT, whose setup runs in float32
-and so takes B10 for every Galerkin product.
+interpreter, the eager product against the planned one). The slice's
+second solve, CLASSICAL_REFINEMENT, whose setup runs in float32 and so
+takes B10 for every Galerkin product, is in
+test_torch_classical_refinement.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,6 @@ import pytest
 import torch
 
 import amgx_tpu as jx
-from amgx_tpu.config import Config as JaxConfig
 from amgx_tpu.ops import pallas_spgemm as pk
 from amgx_tpu.ops import spgemm as jsp
 from amgx_tpu.ops.pallas_spmv import force_pallas_interpret
@@ -24,8 +24,7 @@ from amgx_tpu_torch.config import Config
 from amgx_tpu_torch.ops import cuda_spmv, spgemm
 
 from _torch_util import rel
-from test_torch_classical import (CLASSICAL_REFINEMENT, LEVEL_CFG, X_TOL,
-                                  _precond_amg, _true_rel_res)
+from test_torch_classical import LEVEL_CFG
 
 # f64: the same products, segments added left to right (the port) or by
 # numpy's reduceat (pairwise for long runs): ulps
@@ -124,34 +123,3 @@ def test_planned_hierarchy_equals_eager_hierarchy():
         assert rel(a.A.values, b.A.values) < TOL64
     assert all(lv.rap_plan is None for lv in eager.levels)
     assert all(lv.rap_plan is not None for lv in planned.levels)
-
-
-def test_classical_refinement_matches_jax():
-    """CLASSICAL_REFINEMENT at 16^3; the JAX side without
-    `amg:setup_backend=device` (its own tests hold that build equal to the
-    host one; the port's setup is the same either way)."""
-    js = jx.create_solver(JaxConfig.from_string(
-        CLASSICAL_REFINEMENT.replace(", amg:setup_backend=device", "")))
-    js.setup(jx.gallery.poisson("7pt", 16, 16, 16).init())
-    rj = js.solve(np.ones(16 ** 3))
-    ps_ = pt.create_solver(Config.from_string(CLASSICAL_REFINEMENT),
-                           device="cpu")
-    ps_.setup(pt.gallery.poisson("7pt", 16, 16, 16, device="cpu"))
-    rp = ps_.solve(torch.ones(16 ** 3, dtype=torch.float64))
-    assert rp.status == rj.status == "success"
-    assert rp.iterations == rj.iterations
-    assert _true_rel_res(16, rp.x) <= 1e-8
-    assert rel(rp.x, np.asarray(rj.x)) <= X_TOL
-    # level 0 in float32: the same CF split and P pattern, P's values to
-    # float32 rounding. The coarse operators are float32 Galerkin sums in
-    # another order than the JAX host build's (ulps), and from level 1 on
-    # one ulp can flip a strength or truncation tie, so deeper levels
-    # are not compared entry by entry.
-    lj, lp = _precond_amg(js).amg.levels[0], _precond_amg(ps_).amg.levels[0]
-    assert lp.A.dtype == lp.P.values.dtype == torch.float32
-    assert np.array_equal(np.asarray(lj.cf_map), lp.cf_map.numpy())
-    assert np.array_equal(np.asarray(lj.P.row_offsets),
-                          lp.P.row_offsets.numpy())
-    assert np.array_equal(np.asarray(lj.P.col_indices),
-                          lp.P.col_indices.numpy())
-    assert rel(lp.P.values, np.asarray(lj.P.values)) < TOL32

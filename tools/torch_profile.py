@@ -26,7 +26,8 @@ GMRES_AMG_D2, agg_cheb4), with --krylov-fusion on top. `--matrix-free` sets
 default) runs the GEO levels matrix-free on the card (B3-mf, B4-mf,
 B5-mf), 0 pins the slab kernels, so the two routes profile side by
 side. `--precision` sets `solve_precision` (the flagship's inner cycle in
-float32 or in bfloat16, with the kernels' bf16 forms). Sets the solver
+float32 or in bfloat16, with the kernels' bf16 forms; on `classical`
+and the aggregation files the AMG cycle's). Sets the solver
 up on a 7-pt size^3 Poisson system on the CUDA card, runs one warm-up
 solve, then profiles one solve with torch.profiler. Prints one JSON
 line: the solve's wall time, the device's busy time (sum of kernel and
@@ -85,10 +86,15 @@ def main():
         cfg = agg_config(amgx.Config, args.config)
         cfg.set("krylov_fusion", args.krylov_fusion)
     else:
+        # CLASSICAL names its cycle's precision (float): --precision
+        # replaces it there
         cfg = amgx.Config.from_string({
             "flagship": FLAGSHIP, "tail-off": FLAGSHIP_TAIL_OFF,
             "pcg": PCG + str(args.krylov_fusion),
-            "classical": CLASSICAL}[args.config])
+            "classical": CLASSICAL.replace(
+                "amg_precision=float",
+                "amg_precision=" + (args.precision or "float"))}[
+                    args.config])
     # a stock file names its own AMG scope: set these where every scope
     # falls back
     scope = "default" if args.file else "amg"
