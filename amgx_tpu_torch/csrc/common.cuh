@@ -207,11 +207,11 @@ bool stencil_ok(const Stencil* st, int n, int k) {
 
 int blocks_for(int rows) { return (rows + kThreads - 1) / kThreads; }
 
-// Sum of v over the block (blockDim.x == kThreads), valid in thread 0.
-// A fixed tree: the same inputs give the same bits on every run. Every
-// thread of the block must call it.
+// Sum of v over the block (whole warps, at most 1024 threads), valid in
+// thread 0. A fixed tree: the same inputs give the same bits on every
+// run. Every thread of the block must call it.
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_part[kThreads / 32];
+  __shared__ float warp_part[32];
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -219,7 +219,7 @@ __device__ __forceinline__ float block_sum(float v) {
   __syncthreads();
   v = 0.0f;
   if (w == 0) {
-    v = lane < kThreads / 32 ? warp_part[lane] : 0.0f;
+    v = lane < static_cast<int>(blockDim.x >> 5) ? warp_part[lane] : 0.0f;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   __syncthreads();  // warp_part may be reused by the next call
@@ -253,13 +253,21 @@ __device__ __forceinline__ void finish_dots(float (&part)[kN],
 #pragma unroll
   for (int s = 0; s < kN; ++s) {
     float v = 0.0f;
-    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads)
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+         b += blockDim.x)
       v += __ldcg(partials + s * gridDim.x + b);
     v = block_sum(v);
     if (threadIdx.x == 0) out[s] = v;
   }
   if (threadIdx.x == 0) *counter = 0u;
 }
+
+// Where a launch's dot epilogue writes (finish_dot's arguments).
+struct DotOut {
+  float* partials;        // one float per block
+  unsigned int* counter;  // zero between launches
+  float* out;
+};
 
 // One grid-wide dot (finish_dots with a single value).
 __device__ __forceinline__ void finish_dot(float part, float* partials,

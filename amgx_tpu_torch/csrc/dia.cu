@@ -52,7 +52,10 @@
 // StencilVals): everything below the value fetch is the slab kernels'
 // code, so both fetch the same values in the same order. Bound by bytes:
 // a step streams b and x and writes x' (12 bytes a row against the
-// slab's 40 with dinv at k = 7).
+// slab's 40 with dinv at k = 7). B3-mf and B4-mf no longer launch these
+// per step: csrc/stencil_tb.cu runs all of a call's steps in one launch;
+// B2-mf still does, and B3-mf's restriction on children tables that
+// cross its tiles is amgx_dia_restrict_mf below.
 //
 // The bfloat16 forms (the reduced-precision cycle, `solve_precision=
 // bfloat16`; the TPU kernels' bf16 operand dtype): the value slab, dinv,
@@ -87,12 +90,7 @@ dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
 // values (and dinv) from the source VS, b of storage type BT, x' stored
 // as OT (and, when `keep` is given, also as float32 there). With kDot the
 // launch also returns x'.b (B4's dot epilogue, PCG's r.z): per-block
-// partials, added in block order by the last block to finish.
-struct DotOut {
-  float* partials;        // one float per block
-  unsigned int* counter;  // zero between launches
-  float* out;
-};
+// partials, added in block order by the last block to finish (DotOut).
 
 template <class VS, class XR, class BT, class OT, bool kHasDinv, bool kDot>
 __global__ void __launch_bounds__(kThreads)

@@ -25,7 +25,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("dia.cu", "krylov.cu", "tail.cu", "csr.cu", "rap.cu")
+SOURCES = ("dia.cu", "stencil_tb.cu", "krylov.cu", "tail.cu", "csr.cu",
+           "rap.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +95,22 @@ def build_all() -> dict:
             raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     report["seconds"] = time.perf_counter() - t0
     return report
+
+
+def resource_lines(log: str) -> list:
+    """nvcc's `-Xptxas -v` report of one source, one line per kernel:
+    "<entry function>: Used N registers, ...; <stack frame and spills>"."""
+    lines, name, frame = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used " in ln and name is not None:
+            lines.append(f"{name}: {ln.split('Used ', 1)[1].strip()}; "
+                         f"{frame}")
+            name, frame = None, ""
+    return lines
 
 
 @functools.lru_cache(maxsize=None)

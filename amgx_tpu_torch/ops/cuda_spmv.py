@@ -75,6 +75,20 @@ reads k value floats and dinv per row). The plain versions are the
 masked forms of ops/stencil.py. Launches count under the names above
 (B4-mf's dot launch as "dia_prolong_smooth_mf_dot").
 
+B2-mf launches once a step through dia.cu. B3-mf and B4-mf launch ONCE a
+call through csrc/stencil_tb.cu: 2.5-D spatial and temporal blocking,
+each block an x-y tile plus halo marching along a z chunk with every
+step's state in shared memory (ops/tiling.py plans the tiles). B3-mf's
+residual and restriction run in the tile when every coarse row lies in
+one (GEO); on other children tables the launch writes x' and dia.cu's
+restriction kernel follows ("dia_smooth_restrict_mf_epilogue"). The
+state stays float32 on chip, so the bf16 forms need no scratch. The
+tiled kernel takes the 7-point star and at most six applications
+(`tiling.star_fits`); any other stencil or a longer schedule runs B2-mf's
+per-step launches, counted as "dia_smooth_restrict_mf_step" and
+"dia_prolong_smooth_mf_step" (a dispatch on structure: both routes are
+the kernels of this package).
+
 The bfloat16 forms
 ------------------
 B2-B4 and B2-mf..B4-mf also take bfloat16 operands (the reduced-
@@ -82,8 +96,9 @@ precision cycle, `solve_precision=bfloat16`; the TPU kernels' bf16
 operand dtype, `SMOOTH_DTYPES`): the value slab, dinv, b, x, xc and the
 outputs in bf16, taus float32, every sum in float32 (`compute_dtype`).
 The TPU kernel keeps its state in f32 across the steps of a call and
-rounds only the final stores; here the steps are separate launches
-whose state `_steps` passes through float32 scratch: only the first
+rounds only the final stores; here the slab kernels' steps (and
+B2-mf's) are separate launches whose state `_steps` passes through
+float32 scratch (B3-mf and B4-mf keep it on chip): only the first
 step reads bf16 x (+ xc[agg], summed in f32, never rounded) and only the
 last stores bf16 x'. The residual / restriction launch recomputes r from
 the last step's float32 state (`keep`), and bc is rounded once at its
@@ -107,13 +122,17 @@ from typing import Optional, Sequence
 import torch
 
 from ..precision import SMOOTH_DTYPES, compute_dtype
+from . import tiling
 
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
             "dia_smooth_restrict_w": 0, "dia_prolong_smooth_w": 0,
             "dia_prolong_smooth_w_dot": 0, "dia_smooth_mf": 0,
             "dia_smooth_restrict_mf": 0, "dia_prolong_smooth_mf": 0,
-            "dia_prolong_smooth_mf_dot": 0, "dia_spmv_dot": 0,
+            "dia_prolong_smooth_mf_dot": 0,
+            "dia_smooth_restrict_mf_epilogue": 0,
+            "dia_smooth_restrict_mf_step": 0, "dia_prolong_smooth_mf_step": 0,
+            "dia_prolong_smooth_mf_step_dot": 0, "dia_spmv_dot": 0,
             "dia_spmv_ddot": 0, "cg_update": 0, "dia_coarse_tail": 0,
             "dia_coarse_tail_dot": 0, "dia_coarse_tail_mf": 0,
             "dia_coarse_tail_mf_dot": 0, "csr_spmv": 0, "csr_smooth": 0,
@@ -121,6 +140,9 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_smooth_bf16": 0, "dia_smooth_restrict_bf16": 0,
             "dia_prolong_smooth_bf16": 0, "dia_smooth_mf_bf16": 0,
             "dia_smooth_restrict_mf_bf16": 0,
+            "dia_smooth_restrict_mf_epilogue_bf16": 0,
+            "dia_smooth_restrict_mf_step_bf16": 0,
+            "dia_prolong_smooth_mf_step_bf16": 0,
             "dia_prolong_smooth_mf_bf16": 0, "dia_coarse_tail_bf16": 0,
             "dia_coarse_tail_mf_bf16": 0, "dia_smooth_restrict_w_bf16": 0,
             "dia_prolong_smooth_w_bf16": 0, "csr_spmv_bf16": 0,
@@ -177,6 +199,39 @@ def stencil_arg(st) -> StencilArg:
                            st.dinv_mode)
 
 
+class TbGeomArg(ctypes.Structure):
+    """The tiling a temporally blocked launch takes by value
+    (csrc/stencil_tb.cu `TbGeom`, field for field)."""
+    _fields_ = [("tx", _I), ("ty", _I), ("tz", _I), ("apps", _I),
+                ("steps", _I), ("tiles_x", _I), ("tiles_y", _I)]
+
+
+@functools.lru_cache(maxsize=256)
+def geom_arg(plan: "tiling.TilePlan") -> TbGeomArg:
+    """The kernel's parameter block of a tile plan (cached)."""
+    return TbGeomArg(*plan.tile, plan.chunk, plan.apps, plan.steps,
+                     *plan.grid[:2])
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the planner's fill
+    target)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _tb_lib():
+    from .cuda_build import library
+    lib = library("stencil_tb.cu")
+    lib.amgx_tb_smooth_mf.argtypes = [
+        ctypes.POINTER(StencilArg), ctypes.POINTER(TbGeomArg), _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _P]
+    lib.amgx_tb_smooth_mf.restype = _I
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from .cuda_build import library
@@ -223,11 +278,11 @@ def dot_counter(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def dot_scratch(n: int, device, dots: int = 1):
+def dot_scratch(n: int, device, dots: int = 1, blocks: int = None):
     """(partials, dot) for a launch over n rows: `dots` floats per block
-    of THREADS rows and the result (0-dim, or (dots,) when dots > 1), in
-    one allocation."""
-    nb = -(-n // THREADS)
+    (of THREADS rows, or `blocks` of them) and the result (0-dim, or
+    (dots,) when dots > 1), in one allocation."""
+    nb = -(-n // THREADS) if blocks is None else blocks
     ws = torch.empty(dots * (nb + 1), dtype=torch.float32, device=device)
     part, out = ws[:dots * nb], ws[dots * nb:]
     return part, (out[0] if dots == 1 else out)
@@ -371,11 +426,19 @@ def dia_smooth_plain(vals, offsets, taus, b, x, dinv=None,
 
 def restrict_plain(ctab, r, weights=None):
     """bc[c] = sum_j weights[j, c] r[ctab[j, c]] over the children
-    present (>= 0); unit weights when `weights` is None."""
+    present (>= 0); unit weights when `weights` is None, added one child
+    at a time in ctab order from 0 (the kernels' order, and the JAX
+    package's `_xla_restrict`)."""
     g = r[ctab.clamp(min=0).long()]
     if weights is not None:
         g = g * weights
-    return torch.where(ctab >= 0, g, torch.zeros_like(g)).sum(dim=0)
+    g = torch.where(ctab >= 0, g, torch.zeros_like(g))
+    if weights is not None:
+        return g.sum(dim=0)
+    bc = torch.zeros(ctab.shape[1], dtype=r.dtype, device=r.device)
+    for j in range(ctab.shape[0]):
+        bc = bc + g[j]
+    return bc
 
 
 def prolong_plain(x, xc, agg=None, ptab=None, pwt=None):
@@ -621,35 +684,108 @@ def dia_smooth_mf(st, taus, b, x, with_residual=True):
     return out, r
 
 
+def _tb_plan(st, x, apps, residual):
+    """The tile plan of a temporally blocked launch on x's card, or None
+    where the tiled kernel does not take the stencil or the schedule
+    (`tiling.star_fits`)."""
+    if not tiling.star_fits(st.shifts, st.shape, apps):
+        return None
+    return tiling.plan_tiles(st.shape, apps, residual, _sms(x.device))
+
+
+def _mf_steps(name, st, taus, b, x, xc=None, agg=None, dot=None,
+              keep=False):
+    """len(taus) launches of dia.cu's per-step kernel on the stencil `st`
+    (B2-mf's route), counted under `name`: B3-mf's and B4-mf's route on
+    the levels and schedules the tiled kernel does not take."""
+    return _steps(name, _lib().amgx_dia_step_mf,
+                  (ctypes.byref(stencil_arg(st)),), st.offsets, taus, b, x,
+                  torch.empty_like(x), xc=xc, agg=agg, dot=dot, keep=keep)
+
+
+def _tb_launch(name, st, plan, taus, b, x, out, xc=None, agg=None,
+               keep=None, ctab=None, lists=None, bc=None, dot=None):
+    """One launch of csrc/stencil_tb.cu on the stencil `st` with `plan`
+    (the wrappers below set the device and checked the operands)."""
+    m, nc = (0, 0) if ctab is None else ctab.shape
+    rows, roff = (None, None) if lists is None else lists
+    _launch(name, _tb_lib().amgx_tb_smooth_mf, ctypes.byref(stencil_arg(st)),
+            ctypes.byref(geom_arg(plan)), st.k, _ptr(taus), _ptr(b),
+            _ptr(x), _ptr(xc), _ptr(agg), _ptr(out), _ptr(keep), _ptr(ctab),
+            m, nc, _ptr(rows), _ptr(roff), _ptr(bc),
+            _ptr(None if dot is None else dot[0]),
+            _ptr(dot_counter(x.device)) if dot is not None else None,
+            _ptr(None if dot is None else dot[1]), x.shape[0], plan.blocks,
+            plan.smem_bytes, int(x.dtype == torch.bfloat16), _stream())
+
+
+def _mf_restrict(st, b, state, ctab, bc):
+    """bc = R (b - A x') through ctab from x' in float32 (`state`): one
+    dia.cu launch, counted as "dia_smooth_restrict_mf_epilogue" (+
+    "_bf16")."""
+    m, nc = ctab.shape
+    _launch(_name("dia_smooth_restrict_mf_epilogue", b),
+            _lib().amgx_dia_restrict_mf, ctypes.byref(stencil_arg(st)),
+            _ptr(b), _ptr(state), _ptr(ctab), m, nc, _ptr(bc), b.shape[0],
+            _offsets_arg(st.offsets), st.k, int(b.dtype == torch.bfloat16),
+            _stream())
+
+
 def dia_smooth_restrict_mf(st, taus, b, x, ctab):
     """B3-mf: B2-mf's steps, then bc = R (b - A x') through the child
-    table ctab (m, nc). Returns (x', bc)."""
+    table ctab (m, nc). Returns (x', bc).
+
+    On the card, by structure: one temporally blocked launch
+    (csrc/stencil_tb.cu) runs the steps, the residual and the restriction
+    when the tiled kernel takes the stencil and the schedule and every
+    coarse row of ctab lies in one tile of its plan (GEO's aggregates).
+    Otherwise the steps run in one tiled launch where the kernel takes
+    them, else one dia.cu launch a step ("dia_smooth_restrict_mf_step"),
+    and dia.cu's restriction kernel follows from their float32 state
+    ("dia_smooth_restrict_mf_epilogue"); each name + "_bf16" for bf16
+    operands."""
     if x.device.type == "cpu":
         from .stencil import _xla_restrict
         return _xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab)
-    if ctab.dim() != 2 or ctab.shape[0] < 1 or ctab.shape[1] < 1:
-        raise ValueError("dia_smooth_restrict_mf: ctab must be a non-empty "
-                         "(m, nc) table")
+    if ctab.dim() != 2:
+        raise ValueError(f"dia_smooth_restrict_mf: ctab must be (m, nc), "
+                         f"got {tuple(ctab.shape)}")
     m, nc = ctab.shape
     name = _name("dia_smooth_restrict_mf", x)
     n = _check_mf(name, st, taus, b, x, ints={"ctab": (ctab, (m, nc))})
-    arg = ctypes.byref(stencil_arg(st))
+    s = taus.shape[0]
     with torch.cuda.device(x.device):
-        out, state = _steps(name, _lib().amgx_dia_step_mf, (arg,),
-                            st.offsets, taus, b, x, torch.empty_like(x),
-                            keep=True)
+        plan = _tb_plan(st, x, s + 1, True)
+        lists = None if plan is None else tiling.restrict_lists(plan, ctab)
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
-        _launch(name, _lib().amgx_dia_restrict_mf, arg, _ptr(b),
-                _ptr(state), _ptr(ctab), m, nc, _ptr(bc), n,
-                _offsets_arg(st.offsets), st.k,
-                int(x.dtype == torch.bfloat16), _stream())
+        if lists is not None:
+            out = torch.empty_like(x)
+            _tb_launch(name, st, plan, taus, b, x, out, ctab=ctab,
+                       lists=lists, bc=bc)
+            return out, bc
+        plan = _tb_plan(st, x, s, False)
+        if plan is None:
+            out, keep = _mf_steps(_name("dia_smooth_restrict_mf_step", x),
+                                  st, taus, b, x, keep=True)
+        else:
+            out = torch.empty_like(x)
+            keep = out if x.dtype == torch.float32 else torch.empty(
+                n, dtype=torch.float32, device=x.device)
+            _tb_launch(name, st, plan, taus, b, x, out,
+                       keep=None if keep is out else keep)
+        _mf_restrict(st, b, keep, ctab, bc)
     return out, bc
 
 
 def dia_prolong_smooth_mf(st, taus, b, x, xc, agg, with_dot=False):
     """B4-mf: len(taus) damped steps on the stencil `st` from x + xc[agg],
-    the correction read by the first step. Returns x', or (x', x'.b) with
-    `with_dot` (the dot from the last launch, a 0-dim float32 tensor)."""
+    the correction summed as the tiles load x. Returns x', or (x', x'.b)
+    with `with_dot` (a 0-dim float32 tensor). One temporally blocked
+    launch on the card (csrc/stencil_tb.cu), the dot's launch counted as
+    "dia_prolong_smooth_mf_dot"; on the levels and schedules the tiled
+    kernel does not take, one dia.cu launch a step, counted as
+    "dia_prolong_smooth_mf_step" (the last as "..._step_dot" with the
+    dot)."""
     if x.device.type == "cpu":
         from .stencil import _xla_corr
         return _xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg,
@@ -660,10 +796,16 @@ def dia_prolong_smooth_mf(st, taus, b, x, xc, agg, with_dot=False):
     n = _check_mf(name, st, taus, b, x,
                   floats={"xc": (xc, (xc.shape[0],))},
                   ints={"agg": (agg, (x.shape[0],))})
-    arg = ctypes.byref(stencil_arg(st))
     with torch.cuda.device(x.device):
-        dot = dot_scratch(n, x.device) if with_dot else None
-        out = _steps(name, _lib().amgx_dia_step_mf, (arg,), st.offsets,
-                     taus, b, x, torch.empty_like(x), xc=xc, agg=agg,
-                     dot=dot)
+        plan = _tb_plan(st, x, taus.shape[0], False)
+        if plan is None:
+            dot = dot_scratch(n, x.device) if with_dot else None
+            out = _mf_steps(_name("dia_prolong_smooth_mf_step", x), st,
+                            taus, b, x, xc=xc, agg=agg, dot=dot)
+        else:
+            dot = dot_scratch(n, x.device, blocks=plan.blocks) \
+                if with_dot else None
+            out = torch.empty_like(x)
+            _tb_launch(name + "_dot" if with_dot else name, st, plan, taus,
+                       b, x, out, xc=xc, agg=agg, dot=dot)
     return (out, dot[1]) if with_dot else out

@@ -12,11 +12,23 @@ Phases, one JSON line each on stdout:
                B3-mf, B4-mf, B4-mf's x'.b epilogue at the flagship's
                finest-level shapes (7-pt 128^3) and on a ragged 97x61x43
                grid, each coefficient kernel also against the slab kernel
-               on the same level (the same bits), and the dinv B2-mf
-               synthesizes ("jacobi", "l1") against the smoothers'; B4's
-               x'.b epilogue, B6 and B7 at the PCG path's 128^3 shapes,
-               and B6's streamed-dot form (BiCGStab's: Ap with d.Ap and,
-               with self_dot, Ap.Ap; d apart from p and d = p) there; B5
+               on the same level (the same bits; of a dot epilogue x'
+               only), and the dinv B2-mf synthesizes ("jacobi", "l1")
+               against the smoothers'. B3-mf and B4-mf (and B4-mf's dot,
+               and their bf16 forms) are the temporally blocked kernels
+               of csrc/stencil_tb.cu, one launch a call: each is also
+               held to the per-step route on the same inputs (one launch a
+               step, `step_route`; the same x' and bc) and timed against
+               it in turns, old, new, new, old (step_route_ms,
+               step_route_device_ms), at 128^3 and on the flagship's
+               level 1 (the Galerkin 7-pt stencil at 64^3, F's second
+               level, another tile plan); the per-step route that B3-mf
+               and B4-mf take where the tiled kernel does not (a 27-point
+               48^3 level; 20 steps on level 1), with its launches under
+               the "_step" counters; B4's x'.b epilogue, B6 and B7 at the
+               PCG path's 128^3 shapes, and B6's streamed-dot form
+               (BiCGStab's: Ap with d.Ap and, with self_dot, Ap.Ap; d
+               apart from p and d = p) there; B5
                on 32^3 hierarchies, whose whole cycle is the flagship
                128^3's coarse tail (32768 -> 4096 -> 512 -> 64 rows), with
                slab levels and with matrix-free ones (B5-mf, against B5 on
@@ -56,7 +68,8 @@ Phases, one JSON line each on stdout:
 4. flagship -- the untouched FLAGSHIP on 7-pt 128^3, 2,097,152 rows,
                matrix-free on the card: true f64 residual <= 1e-8 in <= 3
                outer iterations, one B5-mf launch per V-cycle, B3-mf/B4-mf
-               only on the levels above the tail, no slab B3/B4/B5; the
+               only on the levels above the tail, one launch each a call
+               (B3-mf restricting in the tile), no slab B3/B4/B5; the
                same with the slab route pinned (flagship_slab: the same
                iterations, B3/B4/B5) and with the tail off; warm solves in
                alternating pairs, matrix-free vs slab and slab vs tail-off.
@@ -66,7 +79,8 @@ Phases, one JSON line each on stdout:
                inner iterations, the tail runs' within one of the same
                bf16 solve on the CPU (plain kernels), 6
                bf16 B3 and 5 bf16 B4 launches per level above the tail
-               per V-cycle, one bf16 B5 per V-cycle, no float32 smoother
+               per V-cycle (one each of bf16 B3-mf and B4-mf), one bf16
+               B5 per V-cycle, no float32 smoother
                launch; the tail-off run's coarse solve in float32. Warm
                solves of the f32 and bf16 flagships in alternating pairs:
                mixed_precision_speedup (recorded, not checked).
@@ -107,7 +121,9 @@ Phases, one JSON line each on stdout:
                B10-relabel on the 128^3 level-0 plan and a middle level's
                (0 difference; cuSPARSE's P^T (A P) as the yardstick) and
                B3/B4 (slab and coefficient, with the dot) on the SIZE_2
-               level 0's irregular children table, and B9's and B8's
+               level 0's irregular children table (B3-mf there in two
+               launches: the tiled steps, then the untiled restriction),
+               and B9's and B8's
                bf16 forms on its level 1.
 11. bf16_hierarchies -- the same stock aggregation files with
                amg:amg_precision=bfloat16 and CLASSICAL with it at
@@ -244,8 +260,9 @@ SOURCES = {
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
     "rap_values_relabel": "rap.cu",
-    "dia_smooth_mf": "dia.cu", "dia_smooth_restrict_mf": "dia.cu",
-    "dia_prolong_smooth_mf": "dia.cu", "dia_prolong_smooth_mf_dot": "dia.cu",
+    "dia_smooth_mf": "dia.cu", "dia_smooth_restrict_mf": "stencil_tb.cu",
+    "dia_prolong_smooth_mf": "stencil_tb.cu",
+    "dia_prolong_smooth_mf_dot": "stencil_tb.cu",
     "dia_coarse_tail_mf": "tail.cu", "dia_coarse_tail_mf_dot": "tail.cu",
 }
 for _bf, _f32 in BF16_FORMS.items():
@@ -492,16 +509,21 @@ def amg_of(amgx, cfg_string, A, dev):
 
 
 def grid_case(torch, amgx, shape, dev):
-    """The flagship finest-level operands on an nx x ny x nz grid: the
-    7-pt operator in float32, its GEO transfer tables, the taus of the
-    smoother FLAGSHIP builds for it (its scoping gives CHEBYSHEV_POLY the
-    default order 5: `amg:chebyshev_polynomial_order=2` is not in the
-    smoother's scope), and seeded random vectors."""
+    """The flagship finest-level operands on an nx x ny x nz grid
+    (level_case on the 7-pt operator in float32)."""
+    return level_case(torch, amgx, amgx.gallery.poisson(
+        "7pt", *shape, dtype=torch.float32, device=dev).init(), dev, 1234)
+
+
+def level_case(torch, amgx, A, dev, seed):
+    """(A, xfer, taus, b, x, xc) on a grid operator A: its GEO transfer
+    tables, the taus of the smoother FLAGSHIP builds for it (its scoping
+    gives CHEBYSHEV_POLY the default order 5:
+    `amg:chebyshev_polynomial_order=2` is not in the smoother's scope),
+    and seeded random vectors."""
     from amgx_tpu_torch.ops.smooth import build_transfer_tables
     from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
     from amgx_tpu_torch.solvers.base import make_solver
-    A = amgx.gallery.poisson("7pt", *shape, dtype=torch.float32,
-                             device=dev).init()
     n = A.num_rows
     cfg = amgx.Config.from_string(FLAGSHIP_TAIL_OFF)
     _, scope = cfg.get_solver("preconditioner")            # FGMRES
@@ -512,18 +534,30 @@ def grid_case(torch, amgx, shape, dev):
     name, sm_scope = cfg.get_solver("smoother", scope)
     smoother = make_solver(name, cfg, sm_scope, device=dev)
     taus = smoother.setup(A).solve_data()["taus"]
-    g = torch.Generator(device=dev).manual_seed(1234)
+    g = torch.Generator(device=dev).manual_seed(seed)
     b, x = (torch.randn(n, generator=g, device=dev) for _ in range(2))
     xc = torch.randn(nc, generator=g, device=dev)
     return A, xfer, taus, b, x, xc
 
 
+def coarse_level(torch, amgx, n, dev):
+    """The flagship's GEO level 1 at n^3: the Galerkin 7-pt operator of
+    (n/2)^3 from the card's setup (the slab route, so that the level
+    keeps its value slab for the slab rows)."""
+    from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
+    A0 = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                              device=dev).init()
+    return amg_of(amgx, FLAGSHIP_TAIL_OFF + SLAB, A0, dev).amg.levels[1].A
+
+
 def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     """name -> (kernel call, plain call, bytes, flops, launches per call,
-    library call or None) at one shape, and name -> the slab kernel's call
-    on the same level for each coefficient-mode kernel. The coefficient
-    kernels take the level's stencil: CHEBYSHEV_POLY's (no dinv) for
-    B2-B4-mf, JACOBI_L1's ("l1") with PCG's two steps for B4-mf's dot."""
+    library call or None) at one shape, name -> the slab kernel's call
+    on the same level for each coefficient-mode kernel, and name -> (the
+    per-step route's call, its launches per call) for the temporally blocked
+    B3-mf / B4-mf (`step_route`). The coefficient kernels take the level's
+    stencil: CHEBYSHEV_POLY's (no dinv) for B2-B4-mf, JACOBI_L1's ("l1")
+    with PCG's two steps for B4-mf's dot."""
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                    safe_recip)
@@ -571,18 +605,18 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x,
                                      xfer["ctab"]),
             (k + 3 * n + s + m * nc + nc) * 4,
-            s * app + (2 * k + 2) * n, s + 1, None),
+            s * app + (2 * k + 2) * n, 1, None),
         "dia_prolong_smooth_mf": (
             lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, xfer["agg"]),
             lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc,
                                  xfer["agg"]),
-            (k + 4 * n + s + nc) * 4, s * app + n, s, None),
+            (k + 4 * n + s + nc) * 4, s * app + n, 1, None),
         "dia_prolong_smooth_mf_dot": (
             lambda: K.dia_prolong_smooth_mf(st_l1, t2, b, x, xc, xfer["agg"],
                                             with_dot=True),
             lambda: mf._xla_corr(st_l1.spec(), st_l1.coeffs, t2, b, x, xc,
                                  xfer["agg"], with_dot=True),
-            (k + 4 * n + 2 + nc + 1) * 4, 2 * (2 * k + 4) * n + 3 * n, 2,
+            (k + 4 * n + 2 + nc + 1) * 4, 2 * (2 * k + 4) * n + 3 * n, 1,
             None),
     }
     slab = {
@@ -594,7 +628,77 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
         "dia_prolong_smooth_mf_dot": lambda: K.dia_prolong_smooth(
             vals, offs, t2, b, x, xc, xfer["agg"], dinv, with_dot=True),
     }
-    return cases, slab
+    step = {
+        "dia_smooth_restrict_mf": (
+            lambda: step_route(torch, K, st, taus, b, x, ctab=xfer["ctab"]),
+            s + 1),
+        "dia_prolong_smooth_mf": (
+            lambda: step_route(torch, K, st, taus, b, x, xc=xc,
+                              agg=xfer["agg"]), s),
+        "dia_prolong_smooth_mf_dot": (
+            lambda: step_route(torch, K, st_l1, t2, b, x, xc=xc,
+                              agg=xfer["agg"], with_dot=True), 2),
+    }
+    return cases, slab, step
+
+
+def step_route(torch, K, st, taus, b, x, ctab=None, xc=None, agg=None,
+               with_dot=False):
+    """B3-mf (with `ctab`) or B4-mf (with `xc`, `agg`) through the
+    per-step route, to time beside the tiled kernel in one run: one
+    dia.cu `amgx_dia_step_mf` launch a damped step, the state passed
+    through float32 scratch, then `amgx_dia_restrict_mf` from the last
+    step's float32 state. Every call took this route before the tiled
+    kernel; the package keeps it for the levels and schedules the tiled
+    kernel does not take (its "_step" counters). Returns what the
+    wrapper returns."""
+    name = "dia_smooth_restrict_mf_step" if ctab is not None \
+        else "dia_prolong_smooth_mf_step"
+    dot = K.dot_scratch(x.shape[0], x.device) if with_dot else None
+    got = K._mf_steps(K._name(name, x), st, taus, b, x, xc=xc, agg=agg,
+                      dot=dot, keep=ctab is not None)
+    if ctab is None:
+        return (got, dot[1]) if with_dot else got
+    out, state = got
+    bc = torch.empty(ctab.shape[1], dtype=x.dtype, device=x.device)
+    K._mf_restrict(st, b, state, ctab, bc)
+    return out, bc
+
+
+def step_route_cases(torch, K, A, xfer, taus, b, x, xc):
+    """B3-mf, B4-mf and B4-mf's dot on a level or schedule the tiled
+    kernel does not take, where the wrappers launch the per-step route:
+    name -> (kernel call, plain call, bytes, flops, launches per call,
+    None, the launches per counter a call makes)."""
+    from amgx_tpu_torch.ops import stencil as mf
+    st = mf.detect_stencil(A)
+    st_l1 = mf.detect_stencil(A, dinv_mode="l1")
+    check(st is not None and st_l1 is not None, "the level is a stencil")
+    ctab, agg = xfer["ctab"], xfer["agg"]
+    n, k, s = A.num_rows, st.k, taus.shape[0]
+    m, nc = ctab.shape
+    app = (2 * k + 3) * n
+    return {
+        "dia_smooth_restrict_mf": (
+            lambda: K.dia_smooth_restrict_mf(st, taus, b, x, ctab),
+            lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab),
+            (k + 3 * n + s + m * nc + nc) * 4, s * app + (2 * k + 2) * n,
+            s + 1, None, {"dia_smooth_restrict_mf_step": s,
+                          "dia_smooth_restrict_mf_epilogue": 1}),
+        "dia_prolong_smooth_mf": (
+            lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg),
+            lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg),
+            (k + 4 * n + s + nc) * 4, s * app + n, s, None,
+            {"dia_prolong_smooth_mf_step": s}),
+        "dia_prolong_smooth_mf_dot": (
+            lambda: K.dia_prolong_smooth_mf(st_l1, taus, b, x, xc, agg,
+                                            with_dot=True),
+            lambda: mf._xla_corr(st_l1.spec(), st_l1.coeffs, taus, b, x, xc,
+                                 agg, with_dot=True),
+            (k + 4 * n + s + nc + 1) * 4, s * (app + n) + 3 * n, s, None,
+            {"dia_prolong_smooth_mf_step": s - 1,
+             "dia_prolong_smooth_mf_step_dot": 1}),
+    }
 
 
 def synthesized_dinv(torch, K, A):
@@ -628,10 +732,13 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     bytes: each input read once and each output written once, bf16
     streams at 2 bytes (the one-pass bound the TPU's temporal blocking
     attains). bound_launches_ms: the bytes the port's launch sequence
-    moves at least -- each launch reads the slab, dinv and b, the middle
-    steps read and write the float32 scratch, the last step writes x' and
-    (B2 / B3) keeps its float32 state for the residual or restriction
-    launch."""
+    moves at least -- each slab (and B2-mf) launch reads the slab, dinv
+    and b, the middle steps read and write the float32 scratch, the last
+    step writes x' and (B2 / B3) keeps its float32 state for the residual
+    or restriction launch; the one launch of B3-mf / B4-mf reads b, x
+    (xc and agg; ctab and its row lists) and writes x' (bc). The
+    temporally blocked B3-mf / B4-mf rows carry, as an eighth entry, the
+    per-step route's call and launches (`step_route`)."""
     from amgx_tpu_torch.amg.hierarchy import _cast_leaf
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
@@ -653,6 +760,10 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
 
         def launches(kind, slab):
             """bytes the port's s (+1) launches move at least"""
+            if not slab and kind == "B3":             # one tiled launch
+                return 3 * n * 2 + m * nc * 4 + nc * 4 + nc * 2
+            if not slab and kind == "B4":
+                return 3 * n * 2 + nc * 2 + n * 4
             per = (k * n * 2 if slab else 0) + (dn * 2 if slab else 0) \
                 + 2 * n                               # vals, dinv, b
             steps = s * per + 2 * n + (s - 1) * 8 * n + 2 * n
@@ -700,18 +811,22 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
                 lambda t=t, st=st: mf._xla_restrict(st.spec(), st.coeffs, t,
                                                     b16, x16, ctab),
                 (3 * n + nc) * 2 + (s + k) * 4 + m * nc * 4,
-                s * app + (2 * k + 2) * n, s + 1, None,
-                launches("B3", False)),
+                s * app + (2 * k + 2) * n, 1, None,
+                launches("B3", False),
+                (lambda t=t, st=st: step_route(torch, K, st, t, b16, x16,
+                                              ctab=ctab), s + 1)),
             "dia_prolong_smooth_mf_bf16": (
                 lambda t=t, st=st: K.dia_prolong_smooth_mf(st, t, b16, x16,
                                                            xc16, agg),
                 lambda t=t, st=st: mf._xla_corr(st.spec(), st.coeffs, t,
                                                 b16, x16, xc16, agg),
-                (3 * n + nc) * 2 + (s + k) * 4 + n * 4, s * app + n, s,
-                None, launches("B4", False)),
+                (3 * n + nc) * 2 + (s + k) * 4 + n * 4, s * app + n, 1,
+                None, launches("B4", False),
+                (lambda t=t, st=st: step_route(torch, K, st, t, b16, x16,
+                                              xc=xc16, agg=agg), s)),
         }
         out[sched] = {name: c[:6] + ({"bound_launches_ms":
-                                      bound(c[6], c[3])[0]},)
+                                      bound(c[6], c[3])[0]},) + c[7:]
                       for name, c in cases.items()}
     return out
 
@@ -1182,11 +1297,17 @@ def bf16_err(torch, got, want):
 
 
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
-             lib, rows, summary, extra=None, slab=None, scales=None):
+             lib, rows, summary, extra=None, slab=None, scales=None,
+             old=None, moved_expect=None):
     """Check one kernel against its plain version (and, for a
     coefficient-mode kernel, against the slab kernel on the same level:
     `slab`), time both, emit the row and fold it into `summary`.
-    `scales`: the error scale of each output (max_err)."""
+    `scales`: the error scale of each output (max_err). `old`: (call,
+    launches per call) of the route the kernel replaced in this PR (the
+    per-step route of B3-mf / B4-mf): its outputs must equal the kernel's
+    (x' and bc; a dot sums in another order), and the two are timed in
+    turns, old, new, new, old. `moved_expect`: the launches per counter
+    one call must make (default: all under `name` for a bf16 form)."""
     before = dict(K.LAUNCHES)
     got = kern()
     moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
@@ -1196,10 +1317,14 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     torch.cuda.synchronize()
     check(launched == per_call,
           f"{name} launched {launched} kernels, expected {per_call}")
+    if moved_expect is not None:
+        check(moved == moved_expect, f"{name} launches {moved}, expected "
+              f"{moved_expect}")
     if name in BF16_FORMS:
         # every launch under the bf16 form's own counter, none under its
         # float32 twin's; the error in bf16 ulps
-        check(moved == {name: per_call}, f"{name} launches {moved}")
+        check(moved_expect is not None or moved == {name: per_call},
+              f"{name} launches {moved}")
         abs_err, rel_err, equal = bf16_err(torch, got, want)
         extra = dict(extra or {}, max_err_bf16_ulps=rel_err,
                      bit_equal_share=equal)
@@ -1207,13 +1332,41 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
         abs_err, rel_err = max_err(torch, got, want, scales)
     check(rel_err <= LIMITS[name],
           f"{name} at {label}: error {rel_err} > {LIMITS[name]}")
+    # outputs held to the bit against another route: x' (and bc); a dot
+    # is summed in another order by the temporally blocked kernel
+    exact = 1 if name.endswith("_dot") else None
     if slab is not None:
+        want_s = slab()
         extra = dict(extra or {}, slab_max_abs_diff=max_err(
-            torch, got, slab())[0])
+            torch, got[:exact], want_s[:exact])[0]
+            if exact else max_err(torch, got, want_s)[0])
+        if exact:
+            extra["slab_dot_abs_diff"] = float((got[1] - want_s[1]).abs())
         check(extra["slab_max_abs_diff"] == 0.0,
               f"{name} at {label}: {extra['slab_max_abs_diff']} from the "
               f"slab kernel on the same level")
-    ms = time_ms(torch, kern)
+    if old is not None:
+        old_fn, old_launches = old
+        want_o = old_fn()
+        g_o = got if isinstance(got, tuple) else (got,)
+        w_o = want_o if isinstance(want_o, tuple) else (want_o,)
+        extra = dict(extra or {}, step_route_max_abs_diff=max_err(
+            torch, g_o[:exact], w_o[:exact])[0])
+        check(extra["step_route_max_abs_diff"] == 0.0,
+              f"{name} at {label}: {extra['step_route_max_abs_diff']} from "
+              f"the per-step route on the same inputs")
+        # in turns: old, new, new, old
+        turns = [time_ms(torch, old_fn), time_ms(torch, kern),
+                 time_ms(torch, kern), time_ms(torch, old_fn)]
+        ms = (turns[1] + turns[2]) / 2
+        step_dev, step_recs = device_ms(torch, old_fn, old_launches)
+        extra.update(step_route_ms=(turns[0] + turns[3]) / 2,
+                     step_route_device_ms=step_dev,
+                     step_route_device_records=step_recs,
+                     step_route_launches_per_call=old_launches,
+                     ms_turns_old_new_new_old=turns)
+    else:
+        ms = time_ms(torch, kern)
     dev_ms, dev_recs = device_ms(torch, kern, per_call)
     plain_ms = time_ms(torch, plain)
     # a library call is only timed, never used; one that fails fails the run
@@ -1232,12 +1385,59 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
         summary[name] = row       # the first (main-path) shape's numbers
     else:
         for key in ("max_abs_err", "max_rel_err", "slab_max_abs_diff",
-                    "max_err_bf16_ulps"):
+                    "max_err_bf16_ulps", "step_route_max_abs_diff"):
             if key in row:
                 prev[key] = max(prev[key], row[key])
         if "bit_equal_share" in row:
             prev["bit_equal_share"] = min(prev["bit_equal_share"],
                                           row["bit_equal_share"])
+
+
+def tiled_level_cases(torch, amgx, K, dev, summary):
+    """B3-mf and B4-mf beyond the level-0 grids: the tiled kernels on the
+    flagship's level 1 and the per-step route where the wrappers take it."""
+    # the flagship's level 1 (F's second level: the Galerkin 7-pt stencil
+    # at 64^3, another tile plan): the tiled B3-mf / B4-mf in float32 and
+    # bf16 against their plain forms, the slab kernels and the per-step
+    # route
+    label = "flagship_l1_64^3"
+    A1, xfer1, taus1, b1, x1, xc1 = level_case(
+        torch, amgx, coarse_level(torch, amgx, 128, dev), dev, 7)
+    check(A1.num_rows == 64 ** 3, f"level 1 has {A1.num_rows} rows")
+    cases, slab, steps = kernel_cases(torch, K, A1, xfer1, taus1, b1, x1,
+                                      xc1)
+    for name in TILED:
+        run_case(torch, K, label, name, *cases[name], A1.num_rows, summary,
+                 slab=slab.get(name), old=steps.get(name))
+    for sched, named in bf16_kernel_cases(torch, K, A1, xfer1, taus1, b1, x1,
+                                          xc1).items():
+        for name in TILED_BF16:
+            run_case(torch, K, f"{label} {sched}", name, *named[name][:6],
+                     A1.num_rows, summary, named[name][6],
+                     old=named[name][7])
+    # the per-step route of B3-mf / B4-mf: a 27-point level (CHEBYSHEV_
+    # POLY's five steps) and a schedule of 20 steps on level 1 (its five
+    # taus four times)
+    A27 = amgx.gallery.poisson("27pt", 48, 48, 48, dtype=torch.float32,
+                               device=dev).init()
+    for label, case in (
+            ("27pt_48^3", level_case(torch, amgx, A27, dev, 11)),
+            ("flagship_l1_64^3 20 steps",
+             (A1, xfer1, taus1.repeat(4), b1, x1, xc1))):
+        for name, c in step_route_cases(torch, K, *case).items():
+            run_case(torch, K, label, name, *c[:6], case[0].num_rows,
+                     summary, moved_expect=c[6])
+
+
+# the temporally blocked kernels (csrc/stencil_tb.cu) and their bf16 forms
+TILED = ("dia_smooth_restrict_mf", "dia_prolong_smooth_mf",
+         "dia_prolong_smooth_mf_dot")
+TILED_BF16 = ("dia_smooth_restrict_mf_bf16", "dia_prolong_smooth_mf_bf16")
+# B3-mf's / B4-mf's per-step route, never taken on the driven paths
+MF_STEP_ROUTE = ("dia_smooth_restrict_mf_step", "dia_prolong_smooth_mf_step",
+                 "dia_prolong_smooth_mf_step_dot",
+                 "dia_smooth_restrict_mf_step_bf16",
+                 "dia_prolong_smooth_mf_step_bf16")
 
 
 def phase_kernels(torch, amgx, dev):
@@ -1250,10 +1450,10 @@ def phase_kernels(torch, amgx, dev):
     for label, shape in (("flagship_l0_128^3", (128, 128, 128)),
                          ("ragged_97x61x43", (97, 61, 43))):
         A, xfer, taus, b, x, xc = grid_case(torch, amgx, shape, dev)
-        cases, slab = kernel_cases(torch, K, A, xfer, taus, b, x, xc)
+        cases, slab, steps = kernel_cases(torch, K, A, xfer, taus, b, x, xc)
         for name, case in cases.items():
             run_case(torch, K, label, name, *case, A.num_rows, summary,
-                     slab=slab.get(name))
+                     slab=slab.get(name), old=steps.get(name))
         if label.startswith("flagship"):
             # the bf16 forms at the bf16 flagship's level-0 shapes; the
             # first schedule (CHEBYSHEV_POLY, the flagship's) is the
@@ -1262,12 +1462,14 @@ def phase_kernels(torch, amgx, dev):
                     torch, K, A, xfer, taus, b, x, xc).items():
                 for name, case in named.items():
                     run_case(torch, K, f"{label} {sched}", name, *case[:6],
-                             A.num_rows, summary, case[6])
+                             A.num_rows, summary, case[6],
+                             old=case[7] if len(case) > 7 else None)
         diffs = synthesized_dinv(torch, K, A)
         emit({"phase": "kernels_dinv_synthesized", "shape": label,
               "max_abs_diff_from_smoother_dinv": diffs})
         check(all(d == 0.0 for d in diffs.values()),
               f"{label}: synthesized dinv differs from the smoothers' {diffs}")
+    tiled_level_cases(torch, amgx, K, dev, summary)
     A, cases = shell_cases(torch, amgx, K, KK, dev)
     for name, case in cases.items():
         run_case(torch, K, "pcg_l0_128^3", name, *case, A.num_rows, summary)
@@ -1478,15 +1680,20 @@ def phase_flagship(torch, amgx, dev, per_path):
               and c["dia_coarse_tail" + other] == 0,
               f"{label}: B1, B3{mf}, B4{mf} ran, none of the other route {c}")
         if label != "flagship_tail_off":
-            # every V-cycle: B3 (6 launches) and B4 (5) on each level
-            # above the tail, then ONE B5 launch for the rest
+            # every V-cycle: B3 (6 launches: 5 steps and the restriction)
+            # and B4 (5) on each level above the tail -- B3-mf and B4-mf
+            # one launch each, the GEO tables restricting in the tile --
+            # then ONE B5 launch for the rest
+            per3, per4 = (1, 1) if mf else (6, 5)
             check(above == 2 and c["dia_coarse_tail" + mf] == inner,
                   f"{label}: one B5{mf} launch per V-cycle: {c}, {inner} "
                   f"cycles")
-            check(c["dia_smooth_restrict" + mf] == inner * above * 6
-                  and c["dia_prolong_smooth" + mf] == inner * above * 5,
+            check(c["dia_smooth_restrict" + mf] == inner * above * per3
+                  and c["dia_prolong_smooth" + mf] == inner * above * per4
+                  and c["dia_smooth_restrict_mf_epilogue"] == 0
+                  and sum(c[k] for k in MF_STEP_ROUTE) == 0,
                   f"{label}: B3{mf}/B4{mf} only on the {above} levels above "
-                  f"the tail: {c}")
+                  f"the tail, {per3} / {per4} launches a call: {c}")
         else:
             check(c["dia_coarse_tail"] == 0, "tail off: no B5 launch")
     check(runs["flagship"]["inner_iterations"]
@@ -1584,10 +1791,14 @@ def phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs):
             continue
         above = sum(r > 65536 for r in levels[:-1])
         # every V-cycle: B3 (6 launches) and B4 (5) on each level above
-        # the tail, then ONE B5 launch for the rest
+        # the tail (B3-mf and B4-mf: one each), then ONE B5 launch for the
+        # rest
+        per3, per4 = (1, 1) if mf else (6, 5)
         check(above == 2 and c[f"dia_coarse_tail{mf}_bf16"] == inner
-              and c[f"dia_smooth_restrict{mf}_bf16"] == inner * above * 6
-              and c[f"dia_prolong_smooth{mf}_bf16"] == inner * above * 5,
+              and c[f"dia_smooth_restrict{mf}_bf16"] == inner * above * per3
+              and c[f"dia_prolong_smooth{mf}_bf16"] == inner * above * per4
+              and c["dia_smooth_restrict_mf_epilogue_bf16"] == 0
+              and sum(c[k] for k in MF_STEP_ROUTE) == 0,
               f"{label}: bf16 B3{mf}/B4{mf} on the {above} levels above the "
               f"tail, one bf16 B5{mf} per V-cycle: {c}, {inner} cycles")
     warm, wins = paired_warm(torch, {"flagship": f32_slvs["flagship"],
@@ -1919,7 +2130,10 @@ def agg_transfer_cases(torch, K, lv, dev):
     """B3/B3-mf and B4/B4-mf (and their x'.b variants) on a SIZE_2 level 0
     with its irregular children table, with the path's smoother
     (BLOCK_JACOBI: the diagonal's inverse, three steps at 0.8): name ->
-    case, and name -> the slab kernel's call on the same level."""
+    case, and name -> the slab kernel's call on the same level. A SIZE_2
+    pair may cross a tile edge, so B3-mf takes two launches there: the
+    temporally blocked steps, then dia.cu's restriction
+    ("dia_smooth_restrict_mf_epilogue")."""
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import safe_recip
     A = lv.A
@@ -1949,7 +2163,7 @@ def agg_transfer_cases(torch, K, lv, dev):
         "dia_smooth_restrict_mf": (
             lambda: K.dia_smooth_restrict_mf(st, taus, b, x, ctab),
             lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab),
-            (k + 3 * n + s) * 4 + rb, s * app + (2 * k + 2) * n, s + 1,
+            (k + 3 * n + s) * 4 + rb, s * app + (2 * k + 2) * n, 2,
             None),
         "dia_prolong_smooth": (
             lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
@@ -1960,7 +2174,7 @@ def agg_transfer_cases(torch, K, lv, dev):
         "dia_prolong_smooth_mf": (
             lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg),
             lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg),
-            (k + 4 * n + s + nc) * 4, s * app + n, s, None),
+            (k + 4 * n + s + nc) * 4, s * app + n, 1, None),
         "dia_prolong_smooth_dot": (
             lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
                                          dinv, with_dot=True),
@@ -1972,7 +2186,7 @@ def agg_transfer_cases(torch, K, lv, dev):
                                             with_dot=True),
             lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg,
                                  with_dot=True),
-            (k + 4 * n + s + nc + 1) * 4, s * app + 3 * n, s, None),
+            (k + 4 * n + s + nc + 1) * 4, s * app + 3 * n, 1, None),
     }
     slab = {"dia_smooth_restrict_mf": cases["dia_smooth_restrict"][0],
             "dia_prolong_smooth_mf": cases["dia_prolong_smooth"][0],
@@ -2297,9 +2511,11 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
                  lv.A.num_rows, summary, sizes)
     cases, slab, mm = agg_transfer_cases(torch, K, amg.levels[0], dev)
     emit({"phase": "kernels_size2_level0", "rows": n ** 3, **mm})
+    split = {"dia_smooth_restrict_mf": {
+        "dia_smooth_restrict_mf": 1, "dia_smooth_restrict_mf_epilogue": 1}}
     for name, case in cases.items():
         run_case(torch, K, f"agg_l0_{n}^3", name, *case, n ** 3, summary,
-                 slab=slab.get(name))
+                 slab=slab.get(name), moved_expect=split.get(name))
     # B9's and B8's bf16 forms on level 1 (the largest CSR level) as
     # amg_precision=bfloat16 hands it over: BLOCK_JACOBI's dinv and omega
     from amgx_tpu_torch.ops import cuda_csr as C
@@ -2499,7 +2715,9 @@ def main():
              for src, log in rep["ptxas"].items()}
     emit({"phase": "build", "seconds": rep["seconds"],
           "built": rep["built"], "ptxas_registers": regs,
-          "ptxas_local_memory": local})
+          "ptxas_local_memory": local,
+          "ptxas_stencil_tb": cuda_build.resource_lines(
+              rep["ptxas"].get("stencil_tb.cu", ""))})
 
     summary = phase_kernels(torch, amgx, dev)
     per_path = {}
@@ -2532,7 +2750,9 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for key in ("phases", "slab_max_abs_diff", "sparse_csr_spmv_ms",
                     "max_err_bf16_ulps", "bit_equal_share",
-                    "bound_launches_ms"):
+                    "bound_launches_ms", "launches_per_call", "step_route_ms",
+                    "step_route_device_ms", "step_route_launches_per_call",
+                    "step_route_max_abs_diff"):
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)
