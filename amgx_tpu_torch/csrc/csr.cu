@@ -11,18 +11,30 @@
 // windows; Hopper gathers natively, so none of that is carried over.
 //
 // What bounds them on an H100: memory. A stored entry costs 8 bytes
-// (value + column) and a gathered x read for one multiply-add. A row is
-// walked by `lanes` consecutive lanes of a warp (1, 2, 4, ..., 32),
-// chosen per matrix at CsrMatrix.init() from the mean row length: one
-// thread per row for short rows (interpolation P holds at most
-// interp_max_elements entries per row), a few lanes for the coarse
-// classical operators and R (tens of entries per row), so a warp keeps
-// several rows' loads in flight instead of idling lanes or waiting on
-// one row's chain of dependent loads. The lanes combine by a fixed
-// shuffle tree and x is read through the read-only path (__ldg). Each
-// row's sum has a fixed order, so the result is deterministic.
+// (value + column) and a gathered x read for one multiply-add; x itself
+// (a coarse level's, a few MB) stays in L2.
 //
-// B9 is B8's traversal with the damped-Jacobi epilogue
+// B8, row blocks staged through shared memory (the CSR-stream idea of
+// Greathouse & Daga's CSR-Adaptive): a table built once per matrix
+// structure (ops/cuda_csr.py `csr_row_blocks`) cuts the rows into blocks
+// of consecutive rows whose entries fit kChunk. One CUDA block per row
+// block streams the block's values and columns with coalesced loads (each
+// thread kChunk / kThreads independent entries, so their x gathers are in
+// flight together), writes each product v * x[col], rounded to float32,
+// into shared memory, and then each thread adds one row's products in the
+// row's stored order. A row of more than kLongRow entries has a row block
+// of its own: the block's threads each add a strided share of its
+// products, and a fixed tree (block_sum) adds the shares. Every row sums
+// in one fixed order: the result is deterministic, without atomics.
+//
+// B9 walks a row with `lanes` consecutive lanes of a warp (1, 2, 4, ...,
+// 32), chosen per matrix at CsrMatrix.init() from the mean row length
+// (`csr_lanes`): one thread per row for short rows, a few lanes for the
+// coarse classical operators, so a warp keeps several rows' loads in
+// flight; the lanes combine by a fixed shuffle tree and x is read through
+// the read-only path (__ldg).
+//
+// B9's epilogue is the damped-Jacobi step
 // x'_i = x_i + (tau * (b_i - (A x)_i)) * dinv_i, written to a fresh
 // buffer because neighbouring rows read the old x; tau is read from a
 // device array (the smoother's damping schedule) at index t.
@@ -39,12 +51,17 @@
 // float32 only): it computes the XLA op the JAX package compiles in its
 // place, `swell_spmv_xla` on bf16 operands, whose fused gather-multiply-
 // reduce sums the exact products in f32 and rounds the sum once (a bf16
-// CSR level's trailing residual, classical R r and P xc). Bound by
-// bytes: a stored entry streams 6 bytes (bf16 value + int32 column)
-// against float32's 8; x, b, dinv and x' 2 bytes each.
+// CSR level's trailing residual, classical R r and P xc): a product of
+// two bf16 values is exact in float32, so B8's stored products lose
+// nothing. Bound by bytes: a stored entry streams 6 bytes (bf16 value +
+// int32 column) against float32's 8; x, b, dinv and x' 2 bytes each.
 #include "common.cuh"
 
 namespace {
+
+// csr_row_blocks' constants (ops/cuda_csr.py CSR_CHUNK, CSR_LONG_ROW)
+constexpr int kChunk = 2048;   // entries a row block holds at most
+constexpr int kLongRow = 128;  // longer rows get a row block of their own
 
 template <class T>
 struct Csr {
@@ -53,7 +70,7 @@ struct Csr {
   const T* __restrict__ v;
 };
 
-// The damped step's operands; taus == nullptr means a plain product.
+// B9's operands
 template <class T>
 struct Step {
   const T* __restrict__ x;
@@ -68,23 +85,61 @@ __device__ __forceinline__ float ldg(const bf16* p) {
   return __bfloat162float(__ldg(p));
 }
 
-template <class T, bool kSmooth>
-__device__ __forceinline__ float epilogue(const Step<T>& s, int i,
-                                          float ax) {
-  if (!kSmooth) return ax;
-  float upd = s.taus[s.t] * (ld(s.b, i) - ax);
-  if (s.dinv != nullptr) upd *= ld(s.dinv, i);
-  return ld(s.x, i) + upd;
+// entry e's product, rounded to float32 (no fused multiply-add: the
+// row sums add stored products)
+template <class T>
+__device__ __forceinline__ float product(const Csr<T>& a, const T* x,
+                                         int e) {
+  return __fmul_rn(ld(a.v, e), ldg(x + a.ci[e]));
 }
 
-// kLanes consecutive lanes of a warp share a row (1: one thread per row,
-// 32: one warp per row); each lane strides the row by kLanes and the
-// lanes combine by a fixed shuffle tree, so every row sums in one order.
-// T is the storage type of the values and vectors; the sums are float32.
-template <class T, int kLanes, bool kSmooth>
+// B8: one block per row block [rb[blk], rb[blk + 1]). T is the storage
+// type of the values and vectors; the sums are float32.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-csr_kernel(Csr<T> a, const T* __restrict__ x, T* __restrict__ y, int n,
-           Step<T> s) {
+csr_block_kernel(Csr<T> a, const int* __restrict__ rb,
+                 const T* __restrict__ x, T* __restrict__ y) {
+  __shared__ float prod[kChunk];
+  const int r0 = rb[blockIdx.x], r1 = rb[blockIdx.x + 1];
+  const int e0 = a.ro[r0], e1 = a.ro[r1];
+  if (r1 - r0 == 1 && e1 - e0 > kLongRow) {
+    // a long row: strided shares, then a fixed tree
+    float acc = 0.0f;
+    for (int e = e0 + threadIdx.x; e < e1; e += kThreads)
+      acc = __fadd_rn(acc, product(a, x, e));
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) st(y, r0, acc);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kChunk / kThreads; ++k) {
+    const int e = e0 + k * kThreads + threadIdx.x;
+    if (e < e1) prod[e - e0] = product(a, x, e);
+  }
+  __syncthreads();
+  for (int r = r0 + threadIdx.x; r < r1; r += kThreads) {
+    const int end = a.ro[r + 1] - e0;
+    float acc = 0.0f;
+    for (int j = a.ro[r] - e0; j < end; ++j) acc = __fadd_rn(acc, prod[j]);
+    st(y, r, acc);
+  }
+}
+
+template <class T>
+int spmv_as(const int* ro, const int* ci, const void* vals, const int* rb,
+            int nblocks, const void* x, void* y, cudaStream_t stream) {
+  csr_block_kernel<T><<<nblocks, kThreads, 0, stream>>>(
+      Csr<T>{ro, ci, static_cast<const T*>(vals)}, rb,
+      static_cast<const T*>(x), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9: kLanes consecutive lanes of a warp share a row (1: one thread per
+// row, 32: one warp per row); each lane strides the row by kLanes and the
+// lanes combine by a fixed shuffle tree, so every row sums in one order.
+template <class T, int kLanes>
+__global__ void __launch_bounds__(kThreads)
+csr_step_kernel(Csr<T> a, T* __restrict__ y, int n, Step<T> s) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int i = static_cast<int>(t / kLanes);
@@ -95,80 +150,66 @@ csr_kernel(Csr<T> a, const T* __restrict__ x, T* __restrict__ y, int n,
   float acc = 0.0f;
   const int e1 = a.ro[i + 1];
   for (int e = a.ro[i] + lane; e < e1; e += kLanes)
-    acc += ld(a.v, e) * ldg(x + a.ci[e]);
+    acc += ld(a.v, e) * ldg(s.x + a.ci[e]);
   const unsigned mask =
       kLanes == 32 ? 0xffffffffu
                    : ((1u << kLanes) - 1u) << ((threadIdx.x & 31) &
                                                 ~(kLanes - 1));
   for (int o = kLanes / 2; o > 0; o >>= 1)
     acc += __shfl_down_sync(mask, acc, o, kLanes);
-  if (lane == 0) st(y, i, epilogue<T, kSmooth>(s, i, acc));
+  if (lane != 0) return;
+  float upd = s.taus[s.t] * (ld(s.b, i) - acc);
+  if (s.dinv != nullptr) upd *= ld(s.dinv, i);
+  st(y, i, ld(s.x, i) + upd);
 }
 
-template <class T, int kLanes, bool kSmooth>
-void launch_lanes(const Csr<T>& a, const T* x, T* y, int n, const Step<T>& s,
+template <class T, int kLanes>
+void launch_lanes(const Csr<T>& a, T* y, int n, const Step<T>& s,
                   cudaStream_t stream) {
   const long long threads = static_cast<long long>(kLanes) * n;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  csr_kernel<T, kLanes, kSmooth><<<blocks, kThreads, 0, stream>>>(a, x, y, n,
-                                                                  s);
-}
-
-template <class T, bool kSmooth>
-int launch(const Csr<T>& a, const T* x, T* y, int n, int lanes,
-           const Step<T>& s, cudaStream_t stream) {
-  switch (lanes) {
-    case 1: launch_lanes<T, 1, kSmooth>(a, x, y, n, s, stream); break;
-    case 2: launch_lanes<T, 2, kSmooth>(a, x, y, n, s, stream); break;
-    case 4: launch_lanes<T, 4, kSmooth>(a, x, y, n, s, stream); break;
-    case 8: launch_lanes<T, 8, kSmooth>(a, x, y, n, s, stream); break;
-    case 16: launch_lanes<T, 16, kSmooth>(a, x, y, n, s, stream); break;
-    case 32: launch_lanes<T, 32, kSmooth>(a, x, y, n, s, stream); break;
-    default: return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class T>
-int spmv_as(const int* ro, const int* ci, const void* vals, const void* x,
-            void* y, int n, int lanes, cudaStream_t stream) {
-  return launch<T, false>(Csr<T>{ro, ci, static_cast<const T*>(vals)},
-                          static_cast<const T*>(x), static_cast<T*>(y), n,
-                          lanes, Step<T>{nullptr, nullptr, nullptr, nullptr, 0},
-                          stream);
+  csr_step_kernel<T, kLanes><<<blocks, kThreads, 0, stream>>>(a, y, n, s);
 }
 
 template <class T>
 int step_as(const int* ro, const int* ci, const void* vals, const void* x,
             const void* b, const void* dinv, const float* taus, int t,
             void* out, int n, int lanes, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  return launch<T, true>(Csr<T>{ro, ci, static_cast<const T*>(vals)}, xt,
-                         static_cast<T*>(out), n, lanes,
-                         Step<T>{xt, static_cast<const T*>(b),
-                                 static_cast<const T*>(dinv), taus, t},
-                         stream);
+  const Csr<T> a{ro, ci, static_cast<const T*>(vals)};
+  T* y = static_cast<T*>(out);
+  const Step<T> s{static_cast<const T*>(x), static_cast<const T*>(b),
+                  static_cast<const T*>(dinv), taus, t};
+  switch (lanes) {
+    case 1: launch_lanes<T, 1>(a, y, n, s, stream); break;
+    case 2: launch_lanes<T, 2>(a, y, n, s, stream); break;
+    case 4: launch_lanes<T, 4>(a, y, n, s, stream); break;
+    case 8: launch_lanes<T, 8>(a, y, n, s, stream); break;
+    case 16: launch_lanes<T, 16>(a, y, n, s, stream); break;
+    case 32: launch_lanes<T, 32>(a, y, n, s, stream); break;
+    default: return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// B8: y = A x over n rows, `lanes` (1, 2, 4, ..., 32) lanes per row; with
-// `bf16_io` set the values, x and y are bfloat16 (the products and the
-// sum float32, y rounded once).
+// B8: y = A x over the row blocks rb[0..nblocks] (csr_row_blocks: row
+// starts, then the row count); with `bf16_io` set the values, x and y
+// are bfloat16 (the products and the sum float32, y rounded once).
 int amgx_csr_spmv(const int* ro, const int* ci, const void* vals,
-                  const void* x, void* y, int n, int lanes, int bf16_io,
-                  cudaStream_t stream) {
-  if (n < 1) return -1;
-  return bf16_io ? spmv_as<bf16>(ro, ci, vals, x, y, n, lanes, stream)
-                 : spmv_as<float>(ro, ci, vals, x, y, n, lanes, stream);
+                  const int* rb, int nblocks, const void* x, void* y,
+                  int bf16_io, cudaStream_t stream) {
+  if (nblocks < 1 || rb == nullptr) return -1;
+  return bf16_io ? spmv_as<bf16>(ro, ci, vals, rb, nblocks, x, y, stream)
+                 : spmv_as<float>(ro, ci, vals, rb, nblocks, x, y, stream);
 }
 
-// B9: out = x + (taus[t] * (b - A x)) * dinv (dinv optional), one sweep;
-// out must not alias x. With `bf16_io` set the values, x, b, dinv and
-// out are bfloat16 (taus float32, the products and sums float32), out
-// rounded once.
+// B9: out = x + (taus[t] * (b - A x)) * dinv (dinv optional), one sweep,
+// `lanes` (1, 2, 4, ..., 32) lanes per row; out must not alias x. With
+// `bf16_io` set the values, x, b, dinv and out are bfloat16 (taus
+// float32, the products and sums float32), out rounded once.
 int amgx_csr_step(const int* ro, const int* ci, const void* vals,
                   const void* x, const void* b, const void* dinv,
                   const float* taus, int t, void* out, int n, int lanes,

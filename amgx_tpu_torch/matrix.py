@@ -8,12 +8,13 @@ view the kernels stream. Differences from the JAX package, by design:
   package's (k, rows_pad, 128) tiling exists for the TPU's lanes;
 - a matrix that is not banded keeps CSR: no ELL or SWELL. SWELL's
   128-lane windows exist for the TPU's gathers; Hopper gathers natively,
-  so the float32 CSR kernels (B8/B9, `ops/cuda_csr.py`) read the CSR
-  arrays as they are. `init()` records how many lanes of a warp walk
-  each row in those kernels (`csr_lanes`: the fewest, a power of two up
-  to 32, that leave each lane at most CSR_LANE_NNZ entries of a mean
-  row; on an H100 that was the fastest choice for the classical
-  operators, chip_smoke.py). No block or external-diagonal matrices
+  so the CSR kernels (B8/B9, `ops/cuda_csr.py`) read the CSR arrays as
+  they are. `init()` records how many lanes of a warp walk each row in
+  the sweep kernel B9 (`csr_lanes`: the fewest, a power of two up to 32,
+  that leave each lane at most CSR_LANE_NNZ entries of a mean row; on an
+  H100 that was the fastest choice for the classical operators,
+  chip_smoke.py); B8 walks row blocks of its own
+  (`cuda_csr.csr_row_blocks`). No block or external-diagonal matrices
   yet.
 
 `with_values` swaps the coefficients and keeps the structure tensors
@@ -51,7 +52,7 @@ class CsrMatrix:
     grid_shape: Optional[tuple] = None
     dia_offsets: Optional[tuple] = None   # ascending diagonal offsets
     dia_vals: Optional[torch.Tensor] = None   # (k, n), contiguous
-    csr_lanes: Optional[int] = None    # lanes per row in B8/B9, by init()
+    csr_lanes: Optional[int] = None    # lanes per row in B9, by init()
     initialized: bool = False
 
     DIA_MAX_OFFSETS = 32
@@ -97,7 +98,7 @@ class CsrMatrix:
         """Build the DIA view when the sparsity is banded with few
         distinct offsets (at most DIA_MAX_OFFSETS, and k * n at most
         DIA_FILL_RATIO * nnz); duplicates sum. Other matrices stay CSR,
-        with `csr_lanes` naming B8's row traversal (from the mean row
+        with `csr_lanes` naming B9's row traversal (from the mean row
         length, nnz / rows)."""
         if self.initialized:
             return self

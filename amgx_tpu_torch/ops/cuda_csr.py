@@ -8,12 +8,18 @@ B9 `csr_smooth` replaces `_swell_smooth_call` (pallas_swell.py:412):
    each sweep into a fresh buffer (neighbouring rows read the old x).
 
 CUDA source `amgx_tpu_torch/csrc/csr.cu`. The port keeps CSR (no SWELL:
-its 128-lane windows exist for the TPU's gathers). Each kernel walks a
-row with `lanes` lanes of a warp (1 for short rows, up to 32), as
-`CsrMatrix.init()` recorded in `csr_lanes`. Bound by bytes: B8 must read
-nnz values and columns, the row offsets, x, and write y; B9 adds b, x
-and dinv read once per sweep. Deterministic: every row sums in a fixed
-order.
+its 128-lane windows exist for the TPU's gathers). B8 walks row blocks:
+`csr_row_blocks` cuts the rows once per matrix structure into runs of
+consecutive rows whose entries fit CSR_CHUNK (a row of more than
+CSR_LONG_ROW entries alone), cached on the row offsets tensor so that
+calls and value resetups (`CsrMatrix.with_values` keeps the structure
+tensors) reuse it; one CUDA block per row block stages the products in
+shared memory and each thread sums one row in its stored order (a long
+row: strided shares and a fixed tree). B9 walks a row with `lanes` lanes
+of a warp (1 for short rows, up to 32), as `CsrMatrix.init()` recorded
+in `csr_lanes`. Bound by bytes: B8 must read nnz values and columns, the
+row offsets, x, and write y; B9 adds b, x and dinv read once per sweep.
+Deterministic: every row sums in a fixed order.
 
 The bfloat16 forms (a bf16 hierarchy's CSR levels): values, x, b, dinv
 and the outputs bf16, every sum float32, each output rounded once. B9's
@@ -38,6 +44,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..precision import compute_dtype
 from .cuda_spmv import _check, _launch, _name, _ptr, _stream, damped_update
@@ -50,7 +57,7 @@ _I = ctypes.c_int
 def _lib():
     from .cuda_build import library
     lib = library("csr.cu")
-    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P]
     lib.amgx_csr_step.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                   _I, _I, _P]
     for fn in (lib.amgx_csr_spmv, lib.amgx_csr_step):
@@ -108,18 +115,57 @@ def _check_csr(name, row_offsets, col_indices, values, x, floats=None,
     return n
 
 
-def csr_spmv(row_offsets, col_indices, values, x, lanes: int = 1):
+# csrc/csr.cu kChunk, kLongRow; BLOCK_ROWS caps a row block's rows (four
+# a thread of its 256)
+CSR_CHUNK = 2048
+CSR_LONG_ROW = 128
+CSR_BLOCK_ROWS = 1024
+
+# row offsets tensor -> its row-block table
+_ROW_BLOCKS = WeakIdKeyDictionary()
+
+
+def csr_row_blocks(row_offsets):
+    """B8's row blocks of a CSR structure: int32 (blocks + 1,), the first
+    row of each block, then the row count. A row of more than CSR_LONG_ROW
+    entries is a block of its own; otherwise a block's rows all start in
+    one window of CSR_CHUNK - CSR_LONG_ROW entries (so the block holds at
+    most CSR_CHUNK) and number at most CSR_BLOCK_ROWS. Built on the
+    offsets' device with one host read (the block count)."""
+    ro = row_offsets.long()
+    n = ro.shape[0] - 1
+    start, lens = ro[:-1], torch.diff(ro)
+    cut = torch.arange(n, device=ro.device) % CSR_BLOCK_ROWS == 0
+    window = start // (CSR_CHUNK - CSR_LONG_ROW)
+    cut[1:] |= window[1:] != window[:-1]
+    long = lens > CSR_LONG_ROW
+    cut |= long
+    cut[1:] |= long[:-1]
+    starts = torch.nonzero(cut).flatten()
+    return torch.cat([starts, starts.new_tensor([n])]).to(torch.int32)
+
+
+def _row_blocks(row_offsets):
+    """csr_row_blocks of a structure, built at its first product."""
+    rb = _ROW_BLOCKS.get(row_offsets)
+    if rb is None:
+        rb = _ROW_BLOCKS[row_offsets] = csr_row_blocks(row_offsets)
+    return rb
+
+
+def csr_spmv(row_offsets, col_indices, values, x):
     """B8: y = A x (A: n x len(x) CSR; values and x float32 or both
-    bfloat16), each row walked by `lanes` lanes (1, 2, 4, ..., 32)."""
+    bfloat16), one CUDA block per row block (`csr_row_blocks`)."""
     if x.device.type == "cpu":
         return csr_spmv_plain(row_offsets, col_indices, values, x)
     name = _name("csr_spmv", x)
     n = _check_csr(name, row_offsets, col_indices, values, x)
     with torch.cuda.device(x.device):
+        rb = _row_blocks(row_offsets)
         y = torch.empty(n, dtype=x.dtype, device=x.device)
         _launch(name, _lib().amgx_csr_spmv, _ptr(row_offsets),
-                _ptr(col_indices), _ptr(values), _ptr(x), _ptr(y), n,
-                int(lanes), int(x.dtype == torch.bfloat16), _stream())
+                _ptr(col_indices), _ptr(values), _ptr(rb), rb.shape[0] - 1,
+                _ptr(x), _ptr(y), int(x.dtype == torch.bfloat16), _stream())
     return y
 
 

@@ -288,12 +288,12 @@ def dot_scratch(n: int, device, dots: int = 1, blocks: int = None):
     return part, (out[0] if dots == 1 else out)
 
 
-def _launch(name: str, fn, *args):
+def _launch(name: str, fn, *args, detail: str = ""):
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(
-            f"{name}: kernel launch failed (code {rc}; -1 = arguments the "
-            f"kernel does not take, else a cudaError_t)")
+            f"{name}: kernel launch{detail} failed (code {rc}; -1 = "
+            f"arguments the kernel does not take, else a cudaError_t)")
     LAUNCHES[name] += 1
 
 

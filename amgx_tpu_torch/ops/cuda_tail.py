@@ -31,13 +31,20 @@ widened at entry, the slabs at use) and only the result is rounded back
 to bf16; such launches count in "dia_coarse_tail_bf16" (or
 "dia_coarse_tail_mf_bf16"). The x'.b form is float32 only.
 
-The CUDA kernel (csrc/tail.cu) is one cooperative launch walking a phase
-program that `tail_program` flattens from the recursion once per
-(hierarchy, shape, dot); the program, the per-level pointer tables and
-a workspace holding every tail level's b and x are built at the first
-launch and cached with the arrays they point into. What bounds it is
-the chain of dependent phases (one grid barrier each), not bytes:
-`len(tail_program(spec))` is the count. Launches count in
+The CUDA kernel (csrc/tail.cu) is one launch of a thread-block cluster
+(up to MAX_CLUSTER blocks of 1024 threads, sized from what the card can
+hold) walking a phase program that `tail_program` flattens from the
+recursion once per (hierarchy, shape, dot), with the tail's vectors in
+the cluster's distributed shared memory (`tail_layout`): a level wider
+than BLOCK_ROWS is spread over the blocks, a narrower one held by block
+0. The program and the per-level tables are built at the first launch
+and cached with the arrays they point into. What bounds it is the chain
+of dependent phases, not bytes: a phase on a wider level runs across the
+cluster and ends at a cluster barrier, a phase on a narrower level runs
+in block 0 alone and ends at a block barrier (`barrier_counts` gives the
+two counts of a program). A tail whose vectors outgrow the cluster's
+shared memory (`tail_fits`) is declined, as the JAX package declines a
+tail that outgrows VMEM. Launches count in
 `cuda_spmv.LAUNCHES["dia_coarse_tail"]`, those that return the dot in
 "dia_coarse_tail_dot".
 """
@@ -61,13 +68,22 @@ TailLevelSpec = collections.namedtuple(
 TailSpec = collections.namedtuple("TailSpec", "shape levels coarse")
 
 # phase program (csrc/tail.cu): rows of (op, level, src slot, dst slot,
-# tau index, next level's slot, flags)
+# tau index, next level's slot, flags, the barrier after the phase)
 OP_STEP, OP_RESTRICT, OP_COARSE, OP_CORRECT, OP_DOT = range(5)
 S_A, S_B, S_IN, S_Z = range(4)
-F_POST, F_CORRECTED, F_DOT, F_OUT = 1, 2, 4, 8
-# per-level pointer table: these arrays, then the workspace's b, x_A, x_B
+F_POST, F_CORRECTED, F_DOT, F_OUT, F_LOCAL = 1, 2, 4, 8, 16
+BAR_NONE, BAR_BLOCK, BAR_CLUSTER = range(3)
+# rows of a level that one 1024-thread block takes (one a thread): its
+# phases run in block 0 alone
+BLOCK_ROWS = 1024
+TAIL_THREADS = 1024     # csrc/tail.cu kTailThreads
+MAX_CLUSTER = 16        # csrc/tail.cu kMaxCluster
+# per-level pointer table (csrc/tail.cu PtrField)
 _PTR_FIELDS = ("vals", "dinv", "coeffs", "taus_pre", "taus_post", "ctab",
                "agg")
+# the shared memory a block gives the tail's vectors (of its 227 KB, the
+# rest for the level tables and the program)
+VECTOR_BYTES = 192 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,10 +93,16 @@ _I = ctypes.c_int
 def _lib():
     from .cuda_build import library
     lib = library("tail.cu")
-    lib.amgx_tail_grid.argtypes = [_I, ctypes.POINTER(_I)]
-    lib.amgx_dia_coarse_tail.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P,
-                                         _I, _P, _P, _P, _I, _P, _P, _I, _P]
-    for fn in (lib.amgx_tail_grid, lib.amgx_dia_coarse_tail):
+    _L = ctypes.c_longlong
+    lib.amgx_tail_smem.argtypes = [_I, _I, _I]
+    lib.amgx_tail_smem.restype = _L
+    lib.amgx_tail_clusters.argtypes = [_I, _L, _I, ctypes.POINTER(_I)]
+    lib.amgx_dia_coarse_tail.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _I,
+                                         _P, _I, _I, _I, _I, _I, _P, _I, _L,
+                                         _P, _P]
+    lib.amgx_tail_barrier_probe.argtypes = [_I, _I, _I, _P]
+    for fn in (lib.amgx_tail_clusters, lib.amgx_dia_coarse_tail,
+               lib.amgx_tail_barrier_probe):
         fn.restype = _I
     return lib
 
@@ -137,11 +159,17 @@ def dia_coarse_tail_plain(spec, arrs, b, x, with_dot=False):
 # ---------------------------------------------------------------------------
 
 
-def tail_program(spec, with_dot=False, half=False):
+def tail_program(spec, with_dot=False, block_rows=BLOCK_ROWS):
     """The recursion of `dia_coarse_tail_plain` flattened into phases
-    (lists of 7 ints), in the order the kernel runs them; a grid barrier
-    separates each phase from the next. With `half` (bf16 operands) the
-    entry level's last write also stores the bf16 result (F_OUT)."""
+    (lists of 8 ints), in the order the kernel runs them. A phase whose
+    rows (its level's, the coarse size for COARSE) number at most
+    `block_rows` is block-local (F_LOCAL: block 0 runs it alone), any
+    other runs across the cluster; DOT is block-local. The entry level's
+    last write also stores the result (F_OUT). The last column is the
+    barrier after the phase: a block barrier between two block-local
+    phases, a cluster barrier after every other phase but the last, and
+    after the last one too when it runs across the cluster (no block may
+    leave while another reads its shared memory)."""
     levels = spec.levels
     cur = [S_IN] + [S_A] * (len(levels) - 1)     # slot holding each x
     prog = []
@@ -174,18 +202,78 @@ def tail_program(spec, with_dot=False, half=False):
                   F_POST | (F_CORRECTED if t == 0 else 0))
 
     run(spec.shape, 0)
-    if prog[-1][3] == S_B:
-        # the entry level's last write must land in slot A (the output)
-        swap = {S_A: S_B, S_B: S_A, S_IN: S_IN}
-        for row in prog:
-            if row[1] == 0 and row[0] != OP_COARSE:
-                row[2], row[3] = swap[row[2]], swap[row[3]]
+    prog[-1][6] |= F_OUT
     if with_dot:
         prog[-1][6] |= F_DOT
         prog.append([OP_DOT, 0, 0, 0, 0, 0, 0])
-    if half:
-        prog[-1][6] |= F_OUT
+    for row in prog:
+        if row[0] == OP_DOT or _rows(spec, row) <= block_rows:
+            row[6] |= F_LOCAL
+    for row, after in zip(prog, prog[1:] + [None]):
+        row.append(BAR_BLOCK if after is not None and row[6] & after[6]
+                   & F_LOCAL
+                   else BAR_NONE if after is None and row[6] & F_LOCAL
+                   else BAR_CLUSTER)
     return prog
+
+
+def _rows(spec, row):
+    """The rows a phase covers: its level's, the coarse size for COARSE."""
+    return spec.coarse[1] if row[0] == OP_COARSE else spec.levels[row[1]].n
+
+
+def barrier_counts(prog):
+    """(cluster barriers, block barriers) a launch of `prog` passes."""
+    return (sum(row[7] == BAR_CLUSTER for row in prog),
+            sum(row[7] == BAR_BLOCK for row in prog))
+
+
+TailLayout = collections.namedtuple(
+    "TailLayout", "levels coarse part floats")
+
+
+def _span(n, local, cluster):
+    """log2 of the rows a block holds of an n-row level: all of them
+    (block-local), else a power-of-two share."""
+    per = n if local else -(-n // cluster)
+    return max(0, (per - 1).bit_length())
+
+
+def tail_layout(spec, cluster, block_rows=BLOCK_ROWS):
+    """Where a block keeps the tail's vectors in shared memory (offsets
+    in floats, csrc/tail.cu): per level (rows a block holds as a shift,
+    b, x_A, x_B; level 0 has no b there, -1), the coarse level's (shift,
+    b_z, x_z), the dot's partials (one a block), and the floats in all."""
+    off = 0
+
+    def take(count):
+        nonlocal off
+        off += count
+        return off - count
+
+    levels = []
+    for l, ls in enumerate(spec.levels):
+        sh = _span(ls.n, ls.n <= block_rows, cluster)
+        levels.append((sh, -1 if l == 0 else take(1 << sh), take(1 << sh),
+                       take(1 << sh)))
+    nz = spec.coarse[1]
+    sh = _span(nz, nz <= block_rows, cluster)
+    coarse = (sh, take(1 << sh), take(1 << sh))
+    part = take(cluster)
+    return TailLayout(tuple(levels), coarse, part, off)
+
+
+def tail_fits(spec, cluster=MAX_CLUSTER):
+    """Do the tail's vectors fit a cluster of `cluster` blocks' shared
+    memory (VECTOR_BYTES a block)?"""
+    return 4 * tail_layout(spec, cluster).floats <= VECTOR_BYTES
+
+
+def cluster_rows(spec, prog):
+    """The most rows any cluster-wide phase of `prog` covers (0: every
+    phase is block-local)."""
+    return max([_rows(spec, row) for row in prog if not row[6] & F_LOCAL],
+               default=0)
 
 
 # ---------------------------------------------------------------------------
@@ -208,17 +296,20 @@ def _same(refs, held):
 
 
 class _CardPlan:
-    """The program, pointer tables and workspace of one tail on the card.
-    It refers to the arrays its tables point into weakly (the caller
-    holds them while it launches), so a dropped hierarchy frees both."""
+    """The program and pointer and integer tables of one tail on the
+    card, and its cluster. It refers to the arrays its tables point into
+    weakly (the caller holds them while it launches), so a dropped
+    hierarchy frees both."""
 
     def __init__(self, spec, arrs, with_dot, half, device):
         L = len(spec.levels)
         nz = spec.coarse[1]
-        f32 = dict(dtype=torch.float32, device=device)
         self.refs = tuple(None if t is None else weakref.ref(t)
                           for t in _held(arrs))
-        self.work = []
+        prog = tail_program(spec, with_dot)
+        self.nops = len(prog)
+        self.barriers = barrier_counts(prog)
+        self.cluster, self.smem, lay = _cluster(spec, prog, half, device)
         ptrs, ints = [], []
         for l, (ls, ar) in enumerate(zip(spec.levels, arrs)):
             n, k = ls.n, len(ls.offsets)
@@ -249,44 +340,51 @@ class _CardPlan:
                     raise TypeError(f"dia_coarse_tail: level {l}'s {f} is "
                                     f"{ar[f].dtype}, the vectors are "
                                     f"{'bf16' if half else 'float32'}")
-            ws = [torch.empty(n, **f32) if l > 0 else None,      # b
-                  torch.empty(n, **f32) if l > 0 or half         # x_A
-                  else None,
-                  torch.empty(n, **f32)]                         # x_B
-            self.work += [w for w in ws if w is not None]
-            if l == 0:
-                # half: level 0's slot A, the float32 state the program's
-                # last write also rounds into the bf16 output
-                self.xa0 = ws[1]
-            ptrs.append([_ptr(ar[f]) or 0 for f in _PTR_FIELDS]
-                        + [_ptr(w) or 0 for w in ws])
+            ptrs.append([_ptr(ar[f]) or 0 for f in _PTR_FIELDS])
             pad = [0] * (_k.MAX_OFFSETS - k)
             geo = [0] * 9 if mf is None else [
                 *mf.shape, mf.diag_rank, _k._DINV_MODE[mf.dinv],
                 *_int32_div(mf.shape[0]), *_int32_div(mf.shape[1])]
             shifts = [[0] * k] * 3 if mf is None else [
                 [sh[a] for sh in mf.shifts] for a in range(3)]
-            ints.append([n, k, ls.m, ls.nc, *geo, *ls.offsets, *pad]
+            ints.append([n, k, ls.m, ls.nc, *geo, *lay.levels[l],
+                         *ls.offsets, *pad]
                         + [v for axis in shifts for v in axis + pad])
         self.inv = arrs[-1]["inv"] if spec.coarse[0] == "inv" else None
         if self.inv is not None:
             _check("dia_coarse_tail", None, nz,
                    {"inv": (self.inv, (nz, nz))})
-        self.bz, self.xz = torch.empty(nz, **f32), torch.empty(nz, **f32)
-        prog = tail_program(spec, with_dot, half)
-        self.nops = len(prog)
+        self.coarse, self.part = lay.coarse, lay.part
         self.prog = torch.tensor(prog, dtype=torch.int32, device=device)
         self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
         self.ints = torch.tensor(ints, dtype=torch.int32, device=device)
-        grid = ctypes.c_int(0)
-        rc = _lib().amgx_tail_grid(spec.levels[0].n, ctypes.byref(grid))
+
+
+def _cluster(spec, prog, half, device):
+    """(cluster blocks, dynamic shared memory bytes, layout) of a launch:
+    the largest power of two of blocks, up to MAX_CLUSTER and no more
+    than the cluster-wide phases have rows for (one a thread), whose
+    layout fits VECTOR_BYTES a block and of which the card holds a whole
+    cluster."""
+    want = min(max(-(-cluster_rows(spec, prog) // TAIL_THREADS), 1),
+               MAX_CLUSTER)
+    c = 1 << (want.bit_length() - 1)
+    lib = _lib()
+    while c >= 1:
+        lay = tail_layout(spec, c)
+        smem = lib.amgx_tail_smem(len(spec.levels), len(prog), lay.floats)
+        active = ctypes.c_int(0)
+        rc = lib.amgx_tail_clusters(c, smem, int(half), ctypes.byref(active))
         if rc != 0:
-            raise RuntimeError(
-                f"dia_coarse_tail: no cooperative grid on {device} (code "
-                f"{rc}; -2 = no cooperative launch, -3 = the kernel fits "
-                f"no block on an SM, else a cudaError_t)")
-        self.grid = grid.value
-        self.partials = torch.empty(self.grid, **f32)
+            raise RuntimeError(f"dia_coarse_tail: cluster query failed "
+                               f"(code {rc}; -1 = arguments the kernel does "
+                               f"not take, else a cudaError_t)")
+        if 4 * lay.floats <= VECTOR_BYTES and active.value >= 1:
+            return c, smem, lay
+        c //= 2
+    raise RuntimeError(f"dia_coarse_tail: {device} holds no cluster of up "
+                       f"to {want} blocks of {TAIL_THREADS} threads with "
+                       f"the tail's vectors in shared memory")
 
 
 def _int32_div(d):
@@ -304,10 +402,21 @@ def _card_plan(spec, arrs, with_dot, half, device):
     return plan
 
 
-def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
+def launch_shape(spec, arrs, x, with_dot=False):
+    """(cluster blocks, cluster barriers, block barriers) of the launch
+    that `dia_coarse_tail` makes for these operands on x's CUDA device."""
+    with torch.cuda.device(x.device):
+        plan = _card_plan(spec, arrs, with_dot, x.dtype == torch.bfloat16,
+                          x.device)
+    return (plan.cluster, *plan.barriers)
+
+
+def dia_coarse_tail(spec, arrs, b, x, with_dot=False, clock=None):
     """B5: the tail sub-cycle from the entry level's (b, x), float32 or
     bfloat16. Returns x', or (x', x'.b) with `with_dot` (a 0-dim float32
-    tensor; float32 only)."""
+    tensor; float32 only). `clock` (a measuring aid, CUDA only): an int64
+    tensor of len(program) + 1 that receives block 0's SM clock before the
+    first phase and after each phase's barrier."""
     if x.device.type == "cpu":
         return dia_coarse_tail_plain(spec, arrs, b, x, with_dot)
     n = spec.levels[0].n
@@ -321,6 +430,11 @@ def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
         "_dot" if with_dot else "") + ("_bf16" if half else "")
     with torch.cuda.device(x.device):
         plan = _card_plan(spec, arrs, with_dot, half, x.device)
+        if clock is not None and (clock.dtype != torch.int64
+                                  or clock.device != x.device
+                                  or tuple(clock.shape) != (plan.nops + 1,)):
+            raise ValueError(f"dia_coarse_tail: clock must be int64 "
+                             f"({plan.nops + 1},) on {x.device}")
         out = torch.empty_like(x)
         dot = torch.empty((), dtype=torch.float32, device=x.device) \
             if with_dot else None
@@ -328,8 +442,22 @@ def dia_coarse_tail(spec, arrs, b, x, with_dot=False):
                 _lib().amgx_dia_coarse_tail,
                 _ptr(plan.prog), plan.nops, _ptr(plan.ptrs),
                 _ptr(plan.ints), len(spec.levels), _ptr(b), _ptr(x),
-                _ptr(plan.xa0 if half else out), _ptr(out) if half else None,
-                int(half), _ptr(plan.bz), _ptr(plan.xz), _ptr(plan.inv),
-                spec.coarse[1], _ptr(plan.partials), _ptr(dot), plan.grid,
-                _stream())
+                _ptr(out), int(half), _ptr(plan.inv), spec.coarse[1],
+                *plan.coarse, plan.part, _ptr(dot), plan.cluster, plan.smem,
+                _ptr(clock), _stream(),
+                detail=f" of a {plan.cluster}-block cluster")
     return (out, dot) if with_dot else out
+
+
+def barrier_probe(cluster, iters, cluster_barriers, device=None):
+    """Launch `iters` barriers in one `cluster`-block cluster of the
+    kernel's 1024-thread blocks: cluster barriers, or block barriers
+    (csrc/tail.cu `barrier_probe_kernel`). A measuring aid for the
+    tail's phase-chain floor (the cost of one barrier of each kind), not
+    a kernel of the solve: it is not counted in LAUNCHES."""
+    with torch.cuda.device(device):
+        rc = _lib().amgx_tail_barrier_probe(cluster, iters,
+                                            int(cluster_barriers), _stream())
+    if rc != 0:
+        raise RuntimeError(f"barrier_probe: launch of a {cluster}-block "
+                           f"cluster failed (code {rc})")

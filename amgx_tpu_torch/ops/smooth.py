@@ -272,7 +272,11 @@ def _tail_plan(amg, shape, data, lvl, x):
         coarse = ("inv", nz)
     else:
         return None
-    return cuda_tail.TailSpec(shape, tuple(specs), coarse), tuple(arrs)
+    spec = cuda_tail.TailSpec(shape, tuple(specs), coarse)
+    # the kernel keeps the tail's vectors in one cluster's shared memory
+    if not cuda_tail.tail_fits(spec):
+        return None
+    return spec, tuple(arrs)
 
 
 def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
@@ -285,14 +289,15 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
     float32 `inv` (under bf16 too); the entry level at most
     cycle_fusion_tail_rows rows. A bf16 tail runs in float32 inside and
     rounds its result once. The JAX package also declines when
-    the tail outgrows the TPU's VMEM budget; the Hopper kernel keeps its
-    levels in device memory and has no such cap (for the 7-pt operator at
-    the default threshold the cap never binds, so both enter the tail at
-    the same level). `want_dot` returns (x', x'.b).
+    the tail outgrows the TPU's VMEM budget; the port declines when the
+    tail's vectors outgrow one thread-block cluster's shared memory
+    (`cuda_tail.tail_fits`; for the 7-pt operator at the default
+    threshold neither cap binds, so both enter the tail at the same
+    level). `want_dot` returns (x', x'.b).
 
     The plan (spec and arrays, the tiled damping schedules) is built once
     per (entry level, shape, dtype) and cached on the hierarchy; B5's card
-    tables and workspace are cached beside it (ops/cuda_tail.py)."""
+    tables are cached beside it (ops/cuda_tail.py)."""
     levels = amg.levels
     if shape not in ("V", "W", "F") or x.dtype not in SMOOTH_DTYPES \
             or lvl >= len(levels) \

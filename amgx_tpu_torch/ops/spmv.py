@@ -40,8 +40,7 @@ def spmv_dia(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def spmv_csr(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.dtype in SMOOTH_DTYPES and A.values.dtype == x.dtype:
-        return cuda_csr.csr_spmv(A.row_offsets, A.col_indices, A.values, x,
-                                 lanes=A.csr_lanes or 1)
+        return cuda_csr.csr_spmv(A.row_offsets, A.col_indices, A.values, x)
     return cuda_csr.csr_spmv_plain(A.row_offsets, A.col_indices,
                                    A.values.to(x.dtype), x)
 

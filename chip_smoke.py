@@ -7,7 +7,21 @@ Phases, one JSON line each on stdout:
 
 1. build    -- compile the CUDA kernels from amgx_tpu_torch/csrc (nvcc,
                one process per source, all at once).
-2. kernels  -- each kernel against its plain PyTorch version on the card:
+2. kernels  -- each kernel against its plain PyTorch version on the card,
+               B5 and B8 first (their device times from the run's first
+               profiles): B5 on 32^3 hierarchies, whose whole cycle is the
+               flagship 128^3's coarse tail (32768 -> 4096 -> 512 -> 64
+               rows), with slab levels and with matrix-free ones (B5-mf,
+               against B5 on the slab levels): CHEBYSHEV_POLY order 5 V,
+               JACOBI_L1 V, each with and without the dot, and W and F,
+               and B5 / B5-mf in bf16; each launch's cluster size and its
+               cluster and block barriers, the card's cost of one of each
+               (`barrier_costs`) and so the phase chain's floor; repeat
+               calls bit-equal. Then B8 (row blocks) on the 128^3
+               CLASSICAL hierarchy's level 1, P and R, f32 and bf16,
+               repeat calls bit-equal, beside cuSPARSE in both (the bf16
+               row says "none: <torch's error>" where torch.sparse refuses
+               bf16), and B9's time by lanes per row (csr_lanes).
                B1-B4 and their coefficient ("matrix-free") mode B2-mf,
                B3-mf, B4-mf, B4-mf's x'.b epilogue at the flagship's
                finest-level shapes (7-pt 128^3) and on a ragged 97x61x43
@@ -28,12 +42,7 @@ Phases, one JSON line each on stdout:
                the "_step" counters; B4's x'.b epilogue, B6 and B7 at the
                PCG path's 128^3 shapes, and B6's streamed-dot form
                (BiCGStab's: Ap with d.Ap and, with self_dot, Ap.Ap; d
-               apart from p and d = p) there; B5
-               on 32^3 hierarchies, whose whole cycle is the flagship
-               128^3's coarse tail (32768 -> 4096 -> 512 -> 64 rows), with
-               slab levels and with matrix-free ones (B5-mf, against B5 on
-               the slab levels): CHEBYSHEV_POLY order 5 V, JACOBI_L1 V,
-               each with and without the dot, and W and F. The bf16
+               apart from p and d = p) there. The bf16
                forms (the reduced-precision cycle): B2-B4 and B2-mf..B4-mf
                at the 128^3 level-0 shapes with the flagship's
                CHEBYSHEV_POLY and a JACOBI_L1 (dinv) schedule, B5 and
@@ -48,15 +57,16 @@ Phases, one JSON line each on stdout:
                plain / library times per call (CUDA events around BATCH
                back-to-back calls, median of REPS, after a warm-up), the
                kernel's device time per call under torch.profiler (host
-               launch cost left out; none when the profile holds fewer
-               kernel records than launches), the bound, and for B5 the
-               dependent-phase count. Then the
-               classical kernels on the 128^3 CLASSICAL hierarchy's float32
-               solve data: B8 on level 1's operator, P and R, B9 on that
-               operator with JACOBI_L1's dinv, B3w/B4w (and B4w's dot) on
-               level 0 with its weighted tables, with and without dinv;
-               and B10 on level 0's plan of the 64^3 CLASSICAL_REFINEMENT
-               hierarchy. B8 and B10 are timed against cuSPARSE.
+               launch cost left out; a profile holding fewer kernel
+               records than launches is taken again, up to three times,
+               then none), the bound, and for B5 the dependent-phase
+               count. The classical kernels on the 128^3
+               CLASSICAL hierarchy's float32 solve data besides B8: B9 on
+               level 1's operator with JACOBI_L1's dinv, B3w/B4w (and
+               B4w's dot) on level 0 with its weighted tables, with and
+               without dinv; and B10 on level 0's plan of the 64^3
+               CLASSICAL_REFINEMENT hierarchy. B8 and B10 are timed
+               against cuSPARSE.
 3. small    -- end-to-end references on small inputs, the card against
                the CPU (plain kernels): the flagship at 16^3 with the
                tail off, untouched and in bfloat16, the bfloat16 one at
@@ -123,8 +133,8 @@ Phases, one JSON line each on stdout:
                B3/B4 (slab and coefficient, with the dot) on the SIZE_2
                level 0's irregular children table (B3-mf there in two
                launches: the tiled steps, then the untiled restriction),
-               and B9's and B8's
-               bf16 forms on its level 1.
+               B8 on its level 1 (962648 rows) against cuSPARSE, and B9's
+               and B8's bf16 forms there.
 11. bf16_hierarchies -- the same stock aggregation files with
                amg:amg_precision=bfloat16 and CLASSICAL with it at
                128^3, CLASSICAL_REFINEMENT with solve_precision=bfloat16
@@ -914,9 +924,10 @@ def tail_work(T, spec, arrs, with_dot, half=False):
     n0 = spec.levels[0].n
     width = 2 if half else 4                  # b, x in, x' out
     nbytes += 3 * n0 * width + (4 if with_dot else 0)
-    prog = T.tail_program(spec, with_dot, half)
+    prog = T.tail_program(spec, with_dot)
     flops = 0
-    for op, l, _, _, _, _, flags in prog:
+    for row in prog:
+        op, l, flags = row[0], row[1], row[6]
         if op == T.OP_COARSE:
             flops += 2 * spec.coarse[1] ** 2
             continue
@@ -929,6 +940,19 @@ def tail_work(T, spec, arrs, with_dot, half=False):
         flops += n if flags & T.F_CORRECTED and op == T.OP_STEP else 0
         flops += 2 * n if flags & T.F_DOT else 0
     return nbytes, flops, len(prog)
+
+
+def barrier_costs(torch, T, cluster, iters=1000):
+    """(ms of one cluster barrier, ms of one block barrier) in a cluster
+    of `cluster` 1024-thread blocks, the tail kernel's launch shape: a
+    launch of `iters` barriers against a launch of none (CUDA events).
+    With a program's barrier counts, the tail's phase-chain floor."""
+    out = []
+    for kind in (True, False):
+        full, empty = (time_ms(torch, lambda k=kind, i=i: T.barrier_probe(
+            cluster, i, k)) for i in (iters, 0))
+        out.append((full - empty) / iters)
+    return tuple(out)
 
 
 def tail_cases(torch, amgx, T, dev, mode, bf16=False):
@@ -978,6 +1002,18 @@ def csr_library(torch, M):
                                    check_invariants=True)
 
 
+def csr_spmv_case(torch, C, M, x):
+    """B8 on one float32 CSR matrix, with cuSPARSE's product as the
+    yardstick (run_case's case tuple). Bound: each stored entry (value and
+    column) and row offset read once, x read and y written once."""
+    lib = csr_library(torch, M)
+    return (lambda: C.csr_spmv(M.row_offsets, M.col_indices, M.values, x),
+            lambda: C.csr_spmv_plain(M.row_offsets, M.col_indices, M.values,
+                                     x),
+            M.nnz * 8 + (M.num_rows + 1) * 4 + M.num_cols * 4
+            + M.num_rows * 4, 2 * M.nnz, 1, lambda: lib @ x)
+
+
 def classical_cases(torch, amgx, K, C, dev):
     """B8, B9 and B3w/B4w at the shapes the 128^3 CLASSICAL path gives
     them, on its own hierarchy's float32 solve data: B8 on the largest
@@ -1002,29 +1038,21 @@ def classical_cases(torch, amgx, K, C, dev):
     tau1 = amg.levels[1].smoother._fused_taus(1, x1)
     for label, M in (("A1", M1), ("P1", l1["P"]), ("R1", l1["R"])):
         x = torch.randn(M.num_cols, generator=g, device=dev)
-        lib = csr_library(torch, M)
         cases[f"classical_128^3 {label} {M.num_rows}x{M.num_cols}"] = {
-            "csr_spmv": (
-                lambda M=M, x=x: C.csr_spmv(M.row_offsets, M.col_indices,
-                                            M.values, x,
-                                            lanes=M.csr_lanes),
-                lambda M=M, x=x: C.csr_spmv_plain(M.row_offsets,
-                                                  M.col_indices, M.values,
-                                                  x),
-                M.nnz * 8 + (M.num_rows + 1) * 4 + M.num_cols * 4
-                + M.num_rows * 4, 2 * M.nnz, 1,
-                lambda lib=lib, x=x: lib @ x)}
-    # B8's lanes per row: the one CsrMatrix.init() chose (CSR_LANE_NNZ)
-    # against every other choice, on the operators of levels 1 and 2
-    for label, M in (("A1", M1), ("R1", l1["R"]),
-                     ("A2", data["levels"][2]["A"])):
-        x = torch.randn(M.num_cols, generator=g, device=dev)
-        emit({"phase": "csr_lanes", "matrix": label, "rows": M.num_rows,
-              "mean_row_nnz": M.nnz / M.num_rows, "chosen": M.csr_lanes,
+            "csr_spmv": csr_spmv_case(torch, C, M, x)}
+    # B9's lanes per row: the one CsrMatrix.init() chose (CSR_LANE_NNZ)
+    # against every other choice, one sweep on the operators of levels 1
+    # and 2 (B8 walks row blocks and takes no lanes)
+    for label, M in (("A1", M1), ("A2", data["levels"][2]["A"])):
+        x, b = (torch.randn(M.num_rows, generator=g, device=dev)
+                for _ in range(2))
+        emit({"phase": "csr_lanes", "kernel": "csr_smooth", "matrix": label,
+              "rows": M.num_rows, "mean_row_nnz": M.nnz / M.num_rows,
+              "chosen": M.csr_lanes,
               "ms_by_lanes": {lanes: time_ms(torch, lambda lanes=lanes, M=M,
-                                             x=x: C.csr_spmv(
-                  M.row_offsets, M.col_indices, M.values, x, lanes=lanes))
-                  for lanes in (1, 2, 4, 8, 16, 32)}})
+                                             x=x, b=b: C.csr_smooth(
+                  M.row_offsets, M.col_indices, M.values, tau1, b, x,
+                  lanes=lanes)) for lanes in (1, 2, 4, 8, 16, 32)}})
     cases[f"classical_128^3 A1 {n1}x{n1}"]["csr_smooth"] = (
         lambda: C.csr_smooth(M1.row_offsets, M1.col_indices, M1.values,
                              tau1, b1, x1, dinv1,
@@ -1128,6 +1156,19 @@ def f32_twin_ms(torch, fn, launches):
             "f32_device_ms": device_ms(torch, fn, launches)[0]}
 
 
+def bf16_library(torch, M, v):
+    """(cuSPARSE's bf16 product as a call, None) where torch.sparse takes
+    a bf16 CSR matrix times a bf16 vector, else (None, torch's error): the
+    bf16 B8's yardstick, timed only."""
+    lib = csr_library(torch, M)
+    try:
+        lib @ v
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return (lambda: lib @ v), None
+
+
 def csr_bf16_cases(torch, C, mats, dinv, tau, g):
     """B9's and B8's bf16 forms on a bf16 hierarchy's CSR level: one sweep
     (JACOBI_L1's or BLOCK_JACOBI's tau and dinv, rounded to bf16 as the
@@ -1144,16 +1185,17 @@ def csr_bf16_cases(torch, C, mats, dinv, tau, g):
         M = _cast_leaf(M32, bf)
         v32 = torch.randn(M.num_cols, generator=g, device=M.values.device)
         v = v32.to(bf)
+        lib, why = bf16_library(torch, M, v)
         named = {"csr_spmv_bf16": (
             lambda M=M, v=v: C.csr_spmv(M.row_offsets, M.col_indices,
-                                        M.values, v, lanes=M.csr_lanes),
+                                        M.values, v),
             lambda M=M, v=v: C.csr_spmv_plain(M.row_offsets, M.col_indices,
                                               M.values, v),
             M.nnz * 6 + (M.num_rows + 1) * 4 + (M.num_cols + M.num_rows) * 2,
-            2 * M.nnz, 1, None, f32_twin_ms(
+            2 * M.nnz, 1, lib, dict(f32_twin_ms(
                 torch, lambda M=M32, v=v32: C.csr_spmv(
-                    M.row_offsets, M.col_indices, M.values, v,
-                    lanes=M.csr_lanes), 1))}
+                    M.row_offsets, M.col_indices, M.values, v), 1),
+                **({} if why is None else {"library": f"none: {why}"})))}
         if i == 0:
             n = M.num_rows
             b32 = torch.randn(n, generator=g, device=v.device)
@@ -1298,7 +1340,7 @@ def bf16_err(torch, got, want):
 
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
              lib, rows, summary, extra=None, slab=None, scales=None,
-             old=None, moved_expect=None):
+             old=None, moved_expect=None, repeat=False):
     """Check one kernel against its plain version (and, for a
     coefficient-mode kernel, against the slab kernel on the same level:
     `slab`), time both, emit the row and fold it into `summary`.
@@ -1307,7 +1349,8 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     per-step route of B3-mf / B4-mf): its outputs must equal the kernel's
     (x' and bc; a dot sums in another order), and the two are timed in
     turns, old, new, new, old. `moved_expect`: the launches per counter
-    one call must make (default: all under `name` for a bf16 form)."""
+    one call must make (default: all under `name` for a bf16 form).
+    `repeat`: a second call must give the first's bits (a dot too)."""
     before = dict(K.LAUNCHES)
     got = kern()
     moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
@@ -1332,6 +1375,13 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
         abs_err, rel_err = max_err(torch, got, want, scales)
     check(rel_err <= LIMITS[name],
           f"{name} at {label}: error {rel_err} > {LIMITS[name]}")
+    if repeat:
+        again = kern()
+        same = all(torch.equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            again if isinstance(again, tuple) else (again,)))
+        check(same, f"{name} at {label}: a repeat call gave other bits")
+        extra = dict(extra or {}, repeat_bit_equal=same)
     # outputs held to the bit against another route: x' (and bc); a dot
     # is summed in another order by the temporally blocked kernel
     exact = 1 if name.endswith("_dot") else None
@@ -1367,7 +1417,11 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
                      ms_turns_old_new_new_old=turns)
     else:
         ms = time_ms(torch, kern)
-    dev_ms, dev_recs = device_ms(torch, kern, per_call)
+    # a profile that lost kernel records is taken again, up to 3 times
+    for _ in range(3):
+        dev_ms, dev_recs = device_ms(torch, kern, per_call)
+        if dev_ms is not None:
+            break
     plain_ms = time_ms(torch, plain)
     # a library call is only timed, never used; one that fails fails the run
     lib_ms = None if lib is None else time_ms(torch, lib)
@@ -1447,6 +1501,60 @@ def phase_kernels(torch, amgx, dev):
     from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.ops import cuda_tail as T
     summary = {}
+    # the 32^3 tail hierarchies and the classical 128^3 setup first, then
+    # B8's and B5's profiles: a profile taken before a large setup loses
+    # the kernel records of later ones (the CSR rows' device times were
+    # lost that way)
+    tails = {(mode, half): tail_cases(torch, amgx, T, dev, mode, half)
+             for half in (False, True) for mode in ("slab", "mf")}
+    cases, bf16, levels, mm = classical_cases(torch, amgx, K, C, dev)
+    emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
+          "levels": levels, **mm})
+    for label, named in cases.items():
+        for name, case in named.items():
+            run_case(torch, K, label, name, *case,
+                     int(label.split()[-1].split("x")[0])
+                     if label.startswith("classical_128^3") else 128 ** 3,
+                     summary, repeat=name == "csr_spmv")
+    for label, named in bf16.items():
+        for name, case in named.items():
+            run_case(torch, K, label, name, *case[:6],
+                     int(label.split()[-2].split("x")[0])
+                     if label.startswith("classical_128^3") else 128 ** 3,
+                     summary, case[6], repeat=name == "csr_spmv_bf16")
+    costs = None
+    for (mode, half), named in tails.items():
+        for label, (spec, arrs, with_dot, b, x) in named.items():
+            nbytes, flops, phases = tail_work(T, spec, arrs, with_dot, half)
+            name = "dia_coarse_tail" + ("_mf" if mode == "mf" else "") + (
+                "_dot" if with_dot else "") + ("_bf16" if half else "")
+            cluster, cbars, bbars = T.launch_shape(spec, arrs, x, with_dot)
+            if costs is None:
+                costs = barrier_costs(torch, T, cluster)
+                emit({"phase": "tail_barriers", "cluster": cluster,
+                      "cluster_barrier_ms": costs[0],
+                      "block_barrier_ms": costs[1]})
+            slab = None
+            # (bf16 JACOBI_L1: the slab level's dinv is the bf16-rounded
+            # vector, the coefficient mode's float32, as in the JAX
+            # package: no bit-equality to hold there)
+            if mode == "mf" and not (half and label.startswith("jacobi")):
+                s_spec, s_arrs = tails["slab", half][label][:2]
+                slab = (lambda s=s_spec, a=s_arrs, w=with_dot, b=b, x=x:
+                        T.dia_coarse_tail(s, a, b, x, w))
+            run_case(torch, K, f"tail_32^3 {label}", name,
+                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+                     T.dia_coarse_tail(s, a, b, x, w),
+                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+                     T.dia_coarse_tail_plain(s, a, b, x, w),
+                     nbytes, flops, 1, None, spec.levels[0].n, summary,
+                     {"phases": phases,
+                      "levels": [ls.n for ls in spec.levels],
+                      "cluster": cluster, "cluster_barriers": cbars,
+                      "block_barriers": bbars,
+                      "phase_chain_floor_ms": cbars * costs[0]
+                      + bbars * costs[1]},
+                     slab=slab, repeat=True)
     for label, shape in (("flagship_l0_128^3", (128, 128, 128)),
                          ("ragged_97x61x43", (97, 61, 43))):
         A, xfer, taus, b, x, xc = grid_case(torch, amgx, shape, dev)
@@ -1477,44 +1585,6 @@ def phase_kernels(torch, amgx, dev):
         run_case(torch, K, label, "dia_spmv_ddot", *case, A.num_rows,
                  summary, {"sparse_csr_spmv_ms": time_ms(torch, spmv_lib)},
                  scales=scales)
-    tails = {(mode, half): tail_cases(torch, amgx, T, dev, mode, half)
-             for half in (False, True) for mode in ("slab", "mf")}
-    for (mode, half), named in tails.items():
-        for label, (spec, arrs, with_dot, b, x) in named.items():
-            nbytes, flops, phases = tail_work(T, spec, arrs, with_dot, half)
-            name = "dia_coarse_tail" + ("_mf" if mode == "mf" else "") + (
-                "_dot" if with_dot else "") + ("_bf16" if half else "")
-            slab = None
-            # (bf16 JACOBI_L1: the slab level's dinv is the bf16-rounded
-            # vector, the coefficient mode's float32, as in the JAX
-            # package: no bit-equality to hold there)
-            if mode == "mf" and not (half and label.startswith("jacobi")):
-                s_spec, s_arrs = tails["slab", half][label][:2]
-                slab = (lambda s=s_spec, a=s_arrs, w=with_dot, b=b, x=x:
-                        T.dia_coarse_tail(s, a, b, x, w))
-            run_case(torch, K, f"tail_32^3 {label}", name,
-                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
-                     T.dia_coarse_tail(s, a, b, x, w),
-                     lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
-                     T.dia_coarse_tail_plain(s, a, b, x, w),
-                     nbytes, flops, 1, None, spec.levels[0].n, summary,
-                     {"phases": phases,
-                      "levels": [ls.n for ls in spec.levels]}, slab=slab)
-    cases, bf16, levels, mm = classical_cases(torch, amgx, K, C, dev)
-    emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
-          "levels": levels, **mm})
-    for label, named in cases.items():
-        for name, case in named.items():
-            run_case(torch, K, label, name, *case,
-                     int(label.split()[-1].split("x")[0])
-                     if label.startswith("classical_128^3") else 128 ** 3,
-                     summary)
-    for label, named in bf16.items():
-        for name, case in named.items():
-            run_case(torch, K, label, name, *case[:6],
-                     int(label.split()[-2].split("x")[0])
-                     if label.startswith("classical_128^3") else 128 ** 3,
-                     summary, case[6])
     case, sizes = rap_case(torch, amgx, R_, dev)
     run_case(torch, K, "classical_refinement_l0_64^3", "rap_values", *case,
              sizes["rows"], summary, sizes)
@@ -2524,11 +2594,15 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
     x1 = torch.zeros(lv.A.num_rows, device=dev)
     tau = lv.smoother._fused_taus(1, x1, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(2468)
+    run_case(torch, K, f"agg_l1_{n}^3", "csr_spmv", *csr_spmv_case(
+        torch, C, lv.A, torch.randn(lv.A.num_cols, generator=g, device=dev)),
+        lv.A.num_rows, summary, repeat=True)
     for label, named in csr_bf16_cases(torch, C, {"agg_A1": lv.A},
                                        sd["dinv"], tau, g).items():
         for name, case in named.items():
             run_case(torch, K, f"agg_l1_{n}^3 {label}", name, *case[:6],
-                     lv.A.num_rows, summary, case[6])
+                     lv.A.num_rows, summary, case[6],
+                     repeat=name == "csr_spmv_bf16")
 
 
 # The bf16 hierarchies' paths: (the bf16 configuration, its float32
@@ -2748,7 +2822,10 @@ def main():
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for key in ("phases", "slab_max_abs_diff", "sparse_csr_spmv_ms",
+        for key in ("phases", "cluster", "cluster_barriers",
+                    "block_barriers", "phase_chain_floor_ms", "library",
+                    "repeat_bit_equal", "slab_max_abs_diff",
+                    "sparse_csr_spmv_ms",
                     "max_err_bf16_ulps", "bit_equal_share",
                     "bound_launches_ms", "launches_per_call", "step_route_ms",
                     "step_route_device_ms", "step_route_launches_per_call",

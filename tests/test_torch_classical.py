@@ -202,8 +202,7 @@ def test_b8_csr_spmv_f32(h16, which):
     Aj = _jax_f32(mj)
     assert Aj.swell_vals is not None
     yj = psw.swell_spmv(Aj, jnp.asarray(x), interpret=True)
-    yp = cuda_csr.csr_spmv(mp.row_offsets, mp.col_indices, mp.values, _t(x),
-                           lanes=mp.csr_lanes)
+    yp = cuda_csr.csr_spmv(mp.row_offsets, mp.col_indices, mp.values, _t(x))
     assert rel(yp, yj) < TOL32
 
 

@@ -113,48 +113,120 @@ def test_tail_cycle_matches_jax(monkeypatch, smoother, cycle, n, extra,
 # ---------------------------------------------------------------------------
 
 
-def _run_program(spec, arrs, b, x, with_dot):
-    """Execute tail_program's phases as csrc/tail.cu does, one phase
-    after another, on CPU tensors."""
+class _Buffer:
+    """One buffer of the kernel with, per row, which block last wrote it
+    and the barrier counts at that write: a row reads as NaN to a block
+    that no barrier has yet shown the write to."""
+
+    def __init__(self, n, value=None):
+        self.v = torch.full((n,), float("nan")) if value is None else value
+        self.writer = torch.full((n,), -1, dtype=torch.int64)  # -1: input
+        self.cep = torch.zeros(n, dtype=torch.int64)
+        self.bep = torch.zeros(n, dtype=torch.int64)
+
+    def view(self, reader, cep, bep):
+        seen = (self.writer < 0) | (self.cep < cep) | (
+            (self.writer == reader) & (self.bep < bep))
+        return torch.where(seen, self.v, torch.full_like(self.v,
+                                                         float("nan")))
+
+    def write(self, rows, value, writer, cep, bep):
+        self.v[rows] = value[rows]
+        self.writer[rows], self.cep[rows], self.bep[rows] = writer, cep, bep
+
+
+def _run_program(spec, arrs, b, x, with_dot, block_rows=T.BLOCK_ROWS,
+                 cluster=T.MAX_CLUSTER):
+    """Execute tail_program's phases as csrc/tail.cu does on a cluster of
+    `cluster` blocks: a cluster-wide STEP or CORRECT on the rows each
+    block holds (tail_layout's power-of-two slices), a RESTRICT or COARSE
+    on warp-aligned chunks of its work items (a coarse row's lanes),
+    a block-local phase on block 0; each block seeing another's writes
+    only after a cluster barrier and its own after a block barrier
+    (unwritten or unseen rows read as NaN). Returns what the OUT phase
+    stores (and the dot)."""
     L = len(spec.levels)
     nz = spec.coarse[1]
-    out = torch.full_like(x, float("nan"))
-    bufs = [{T.S_IN: x, T.S_A: out,
-             T.S_B: torch.full_like(x, float("nan"))}]
-    bs = [b]
+    n0 = spec.levels[0].n
+    lay = T.tail_layout(spec, cluster, block_rows)
+    xs = [{T.S_A: _Buffer(n0), T.S_B: _Buffer(n0),
+           T.S_IN: _Buffer(n0, x.clone())}]
+    bs = [_Buffer(n0, b.clone())]
     for ls in spec.levels[1:]:
-        bufs.append({T.S_A: torch.full((ls.n,), float("nan")),
-                     T.S_B: torch.full((ls.n,), float("nan"))})
-        bs.append(torch.full((ls.n,), float("nan")))
-    bz, xz = torch.full((nz,), float("nan")), torch.full((nz,), float("nan"))
-    dot = None
-    for op, l, src, dst, tau, nxt, flags in T.tail_program(spec, with_dot):
-        if op == T.OP_COARSE:
-            xz.copy_(arrs[-1]["inv"] @ bz if spec.coarse[0] == "inv"
-                     else torch.zeros(nz))
-            continue
+        xs.append({T.S_A: _Buffer(ls.n), T.S_B: _Buffer(ls.n)})
+        bs.append(_Buffer(ls.n))
+    bz, xz = _Buffer(nz), _Buffer(nz)
+    partials = _Buffer(cluster)
+    out = None
+    cep = bep = 0
+    parts, dot = 1, None
+    for op, l, src, dst, tau, nxt, flags, bar in T.tail_program(
+            spec, with_dot, block_rows=block_rows):
+        local = bool(flags & T.F_LOCAL)
+
+        def items(total, lanes=1):
+            """the block of each row whose `lanes` items start it"""
+            u = torch.arange(total // lanes) * lanes
+            if local:
+                return torch.zeros_like(u)
+            per = (-(-total // cluster) + 31) // 32 * 32
+            return u // per
+
         if op == T.OP_DOT:
-            dot = torch.dot(out, b)
-            continue
-        ls, ar = spec.levels[l], arrs[l]
-        x_l = bufs[l][src]
-        if op == T.OP_RESTRICT:
-            r = bs[l] - K.dia_spmv_plain(ar["vals"], ls.offsets, x_l)
-            bn = bz if l + 1 == L else bs[l + 1]
-            bn.copy_(K.restrict_plain(ar["ctab"], r))
-            if l + 1 < L:
-                bufs[l + 1][T.S_A].zero_()
-            continue
-        assert src != dst and dst != T.S_IN
-        if flags & T.F_CORRECTED:
-            xc = xz if nxt == T.S_Z else bufs[l + 1][nxt]
-            x_l = x_l + xc[ar["agg"].long()]
-        if op == T.OP_STEP:
-            taus = ar["taus_post"] if flags & T.F_POST else ar["taus_pre"]
-            x_l = K.dia_smooth_plain(ar["vals"], ls.offsets,
-                                     taus[tau:tau + 1], bs[l], x_l,
-                                     ar["dinv"], with_residual=False)
-        bufs[l][dst].copy_(x_l)
+            dot = partials.view(0, cep, bep)[:parts].sum()
+        elif op == T.OP_COARSE:
+            own = items(nz * 16, 16)
+            for r in own.unique().tolist():
+                bv = bz.view(r, cep, bep)
+                val = (arrs[-1]["inv"] @ bv if spec.coarse[0] == "inv"
+                       else torch.zeros(nz))
+                xz.write(own == r, val, r, cep, bep)
+        else:
+            ls, ar = spec.levels[l], arrs[l]
+            vals, dinv = T.level_vals(ls, ar)
+            if op == T.OP_RESTRICT:
+                g = 1 << max(0, (ls.m - 1).bit_length())
+                own = items(ls.nc * g, g) if ls.m <= 32 else items(ls.nc)
+            else:
+                own = torch.zeros(ls.n, dtype=torch.int64) if local \
+                    else torch.arange(ls.n) >> lay.levels[l][0]
+            for r in own.unique().tolist():
+                x_l = xs[l][src].view(r, cep, bep)
+                b_l = bs[l].view(r, cep, bep)
+                mine = own == r
+                if op == T.OP_RESTRICT:
+                    res = b_l - K.dia_spmv_plain(vals, ls.offsets, x_l)
+                    bn = bz if l + 1 == L else bs[l + 1]
+                    bn.write(mine, K.restrict_plain(ar["ctab"], res), r, cep,
+                             bep)
+                    if l + 1 < L:
+                        xs[l + 1][T.S_A].write(mine, torch.zeros(ls.nc), r,
+                                               cep, bep)
+                    continue
+                assert src != dst and dst != T.S_IN
+                if flags & T.F_CORRECTED:
+                    xc = xz if nxt == T.S_Z else xs[l + 1][nxt]
+                    x_l = x_l + xc.view(r, cep, bep)[ar["agg"].long()]
+                if op == T.OP_STEP:
+                    taus = ar["taus_post"] if flags & T.F_POST \
+                        else ar["taus_pre"]
+                    x_l = K.dia_smooth_plain(vals, ls.offsets,
+                                             taus[tau:tau + 1], b_l, x_l,
+                                             dinv, with_residual=False)
+                xs[l][dst].write(mine, x_l, r, cep, bep)
+                if flags & T.F_DOT:
+                    part = torch.zeros(cluster)
+                    part[r] = torch.dot(x_l[mine], b_l[mine])
+                    partials.write(torch.arange(cluster) == r, part, r, cep,
+                                   bep)
+            if flags & T.F_OUT:
+                assert l == 0 and out is None
+                out = xs[0][dst].v.clone()
+        parts = 1 if local else cluster
+        if bar == T.BAR_CLUSTER:
+            cep, bep = cep + 1, bep + 1
+        elif bar == T.BAR_BLOCK:
+            bep += 1
     return (out, dot) if with_dot else out
 
 
@@ -163,8 +235,10 @@ def _run_program(spec, arrs, b, x, with_dot):
                                   "V-nosolver"])
 def test_phase_program_matches_plain_recursion(case, with_dot):
     """Every slot the program reads holds what the recursion computes
-    there (unwritten slots hold NaN), and the entry level's last write
-    lands in the output."""
+    there (unwritten slots, and rows no barrier has shown the reading
+    block, hold NaN), and the entry level's last write lands in the
+    output: the 12^3 entry level (1728 rows) across a cluster of four
+    blocks, the coarser levels in block 0."""
     cycle = case[0]
     pre, post = {"V-no-post": (2, 0), "V-no-pre": (0, 2)}.get(case, (1, 2))
     js, amg = _jax_amg("JACOBI_L1", cycle, 12,
@@ -180,7 +254,8 @@ def test_phase_program_matches_plain_recursion(case, with_dot):
     spec, arrs = _tail_plan(amg, cycle, amg.solve_data(), 0, x)
     assert spec.coarse[0] == ("none" if case == "V-nosolver" else "inv")
     want = T.dia_coarse_tail_plain(spec, arrs, b, x, with_dot)
-    got = _run_program(spec, arrs, b, x, with_dot)
+    got = _run_program(spec, arrs, b, x, with_dot, block_rows=256,
+                       cluster=4)
     if with_dot:
         assert torch.equal(got[0], want[0])
         assert abs(float(got[1] - want[1])) <= 1e-6 * abs(float(want[1]))
@@ -188,16 +263,150 @@ def test_phase_program_matches_plain_recursion(case, with_dot):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("smoother,cycle,with_dot", [
+    ("CHEBYSHEV_POLY", "V", False), ("JACOBI_L1", "V", True),
+    ("CHEBYSHEV_POLY", "F", False)])
+def test_cluster_program_at_the_flagship_tail(smoother, cycle, with_dot):
+    """The flagship 128^3's tail levels (a 32^3 hierarchy: 32768, 4096,
+    512 rows, coarse 64) through the kernel's own launch shape: 16 blocks,
+    the 32768- and 4096-row levels across the cluster, the others in
+    block 0. The same bits as the plain recursion."""
+    from amgx_tpu_torch.ops.smooth import _tail_plan
+    cfg = AMG_CFG.format(smoother=smoother, cycle=cycle, extra="")
+    slv = pt.create_solver(pt.Config.from_string(cfg), device="cpu")
+    slv.setup(pt.gallery.poisson("7pt", 32, 32, 32, dtype=torch.float32,
+                                 device="cpu"))
+    rng = np.random.default_rng(5)
+    b = torch.from_numpy(rng.standard_normal(32 ** 3).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(32 ** 3).astype(np.float32))
+    spec, arrs = _tail_plan(slv.amg, cycle, slv.amg.solve_data(), 0, x)
+    assert [ls.n for ls in spec.levels] == [32768, 4096, 512]
+    prog = T.tail_program(spec, with_dot)
+    assert [bool(r[6] & T.F_LOCAL) for r in prog if r[1] == 0
+            and r[0] != T.OP_DOT] == [False] * sum(
+        r[1] == 0 and r[0] != T.OP_DOT for r in prog)
+    want = T.dia_coarse_tail_plain(spec, arrs, b, x, with_dot)
+    got = _run_program(spec, arrs, b, x, with_dot)
+    if with_dot:
+        assert torch.equal(got[0], want[0])
+        assert abs(float(got[1] - want[1])) <= 1e-5 * abs(float(want[1]))
+    else:
+        assert torch.equal(got, want)
+
+
+def _flagship_spec(shape="V", pre=5, post=5, sizes=(32, 16, 8)):
+    lv = [T.TailLevelSpec((-n * n, -n, -1, 0, 1, n, n * n), n ** 3, pre,
+                          post, False, (n // 2) ** 3, 8) for n in sizes]
+    return T.TailSpec(shape, tuple(lv), ("inv", (sizes[-1] // 2) ** 3))
+
+
+def _phase_buffers(spec, row):
+    """(read, written) buffers of one program row: ("x", l, slot),
+    ("b", l) (level L is the coarsest's), "xz", "partials", "dot"."""
+    op, l, src, dst, _, nxt, flags = row[:7]
+    L = len(spec.levels)
+    if op == T.OP_COARSE:
+        return {("b", L)}, {"xz"}
+    if op == T.OP_DOT:
+        return {"partials"}, {"dot"}
+    reads = {("x", l, src), ("b", l)}
+    if op == T.OP_RESTRICT:
+        return reads, {("b", l + 1)} | ({("x", l + 1, T.S_A)}
+                                        if l + 1 < L else set())
+    if flags & T.F_CORRECTED:
+        reads.add("xz" if nxt == T.S_Z else ("x", l + 1, nxt))
+    return reads, {("x", l, dst)} | ({"partials"} if flags & T.F_DOT
+                                     else set())
+
+
+def _check_barriers(spec, prog, block_rows):
+    """Scope marks and barriers of a program: a block-local phase covers
+    at most `block_rows` rows, a cluster-wide one more; between two
+    phases that touch one buffer (read after write, write after read or
+    write), a block or cluster barrier when both are block-local (block
+    0 ran both), else a cluster barrier."""
+    for row in prog:
+        rows = 0 if row[0] == T.OP_DOT else T._rows(spec, row)
+        assert bool(row[6] & T.F_LOCAL) == (rows <= block_rows), row
+    # no block leaves while a cluster-wide last phase reads its rows
+    assert prog[-1][7] == (T.BAR_NONE if prog[-1][6] & T.F_LOCAL
+                           else T.BAR_CLUSTER)
+    assert sum(row[6] & T.F_OUT != 0 for row in prog) == 1
+    access = [_phase_buffers(spec, row) for row in prog]
+    for q, (rq, wq) in enumerate(access):
+        for p in range(q):
+            rp, wp = access[p]
+            if not (wp & (rq | wq) or rp & wq):
+                continue
+            bars = [prog[i][7] for i in range(p, q)]
+            both_local = prog[p][6] & prog[q][6] & T.F_LOCAL
+            assert T.BAR_CLUSTER in bars or (
+                both_local and T.BAR_BLOCK in bars), (p, q, prog[p], prog[q])
+
+
+@pytest.mark.parametrize("with_dot", [False, True])
+@pytest.mark.parametrize("shape,pre,post", [
+    ("V", 5, 5), ("W", 1, 2), ("F", 1, 2), ("V", 2, 0), ("V", 0, 2)])
+@pytest.mark.parametrize("block_rows", [T.BLOCK_ROWS, 512, 0])
+def test_program_barriers_order_every_dependence(shape, pre, post,
+                                                 with_dot, block_rows):
+    """V, W, F, no post-sweeps, no pre-sweeps, with and without the dot;
+    the flagship's scope split (levels of 32768 rows across the cluster,
+    4096 and 512 in block 0), another (512 rows in block 0 alone) and an
+    all-cluster program."""
+    spec = _flagship_spec(shape, pre, post)
+    prog = T.tail_program(spec, with_dot, block_rows=block_rows)
+    _check_barriers(spec, prog, block_rows)
+
+
 def test_phase_count_of_the_flagship_tail():
     """The flagship's 128^3 tail (levels of 32768, 4096 and 512 rows, 5
     damping steps a sweep, one sweep each side): 11 phases per level and
-    the coarse product -- the dependent chain the kernel's grid barriers
-    follow."""
-    lv = [T.TailLevelSpec((-n * n, -n, -1, 0, 1, n, n * n), n ** 3, 5, 5,
-                          False, (n // 2) ** 3, 8) for n in (32, 16, 8)]
-    spec = T.TailSpec("V", tuple(lv), ("inv", 64))
-    assert len(T.tail_program(spec)) == 34
-    assert len(T.tail_program(spec, with_dot=True)) == 35
+    the coarse product -- the dependent chain. The 22 phases of the
+    32768- and 4096-row levels run across the cluster (21 cluster
+    barriers, the hand-over back from block 0 and the closing one), the
+    512-row level's and the coarse product's 12 in block 0 (11 block
+    barriers); with the dot, the last step's cluster barrier precedes the
+    block-local DOT, which ends the launch. chip_smoke.py prints these
+    counts for each launch."""
+    spec = _flagship_spec()
+    prog = T.tail_program(spec)
+    assert len(prog) == 34
+    assert T.barrier_counts(prog) == (23, 11)
+    assert T.cluster_rows(spec, prog) == 32768
+    dot = T.tail_program(spec, with_dot=True)
+    assert len(dot) == 35
+    assert T.barrier_counts(dot) == (23, 11)
+
+
+@pytest.mark.parametrize("cluster", [16, 4, 1])
+def test_tail_layout_gives_each_vector_its_own_floats(cluster):
+    """tail_layout: every level's slices (b, x_A, x_B; level 0 without
+    b), the coarse b_z and x_z and the partials disjoint, within the
+    floats it counts; a cluster-wide level's slices cover its rows, a
+    block-local one's (and the coarse level's) all of them. A tail whose
+    vectors outgrow VECTOR_BYTES a block is declined."""
+    spec = _flagship_spec()
+    lay = T.tail_layout(spec, cluster)
+    spans = []
+    for l, (ls, (sh, ob, oxa, oxb)) in enumerate(zip(spec.levels,
+                                                     lay.levels)):
+        rows = ls.n if ls.n <= T.BLOCK_ROWS else -(-ls.n // cluster)
+        assert (1 << sh) >= rows and (sh == 0 or (1 << (sh - 1)) < rows)
+        assert (ob == -1) == (l == 0)
+        spans += [(o, o + (1 << sh)) for o in (ob, oxa, oxb) if o >= 0]
+    sh, obz, oxz = lay.coarse
+    assert (1 << sh) >= spec.coarse[1]
+    spans += [(obz, obz + (1 << sh)), (oxz, oxz + (1 << sh)),
+              (lay.part, lay.part + cluster)]
+    spans.sort()
+    assert spans[0][0] == 0 and spans[-1][1] == lay.floats
+    assert all(a[1] <= b_[0] for a, b_ in zip(spans, spans[1:]))
+    assert T.tail_fits(spec)
+    wide = T.TailSpec("V", (T.TailLevelSpec((-1, 0, 1), 1 << 21, 1, 1,
+                                            False, 1 << 18, 8),),
+                      ("inv", 1 << 18))
+    assert not T.tail_fits(wide)
 
 
 # ---------------------------------------------------------------------------

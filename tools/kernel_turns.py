@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Time the coarse-tail kernel B5 (six forms) and the CSR SpMV B8 (f32,
+bf16) of one tree of the PyTorch/CUDA port, for comparisons in turns.
+
+    python3 tools/kernel_turns.py [--tree DIR] [--label NAME] [--out FILE]
+
+`--tree` is the root of a checkout whose `amgx_tpu_torch` is timed (by
+default this one), e.g. an unpacked `git archive` of a parent commit:
+run it, this checkout, this checkout and it again, each in its own
+process, in one run on one card, and compare the rows. The cases
+are chip_smoke.py's, from this checkout's chip_smoke.py, at the main
+path's shapes: B5 and B5-mf (and bf16) on the 32^3 hierarchies whose
+cycle is the flagship 128^3's coarse tail, with and without the dot; B8
+on the 128^3 CLASSICAL hierarchy's level-1 operator, P and R and on the
+SIZE_2 aggregation hierarchy's level-1 operator (configs/
+FGMRES_AGGREGATION_JACOBI.json), f32 and bf16, beside cuSPARSE's product
+(`torch.sparse` CSR @ x). Each case is first held against its plain
+PyTorch form (chip_smoke.py's limits), then timed: ms (CUDA events,
+chip_smoke.py `time_ms`) and device ms (torch.profiler, `device_ms`;
+None where the profile lost records). Where the tree's B5 has the phase
+clock (`dia_coarse_tail(..., clock=)`), each B5 row also carries its
+cluster, barrier counts and block 0's SM cycles by level, scope and
+phase kind (`phase_clock`). One JSON line a case on stdout (and appended
+to --out). Needs a CUDA card; imports no JAX.
+"""
+import argparse
+import importlib.util
+import inspect
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py, whatever tree is on sys.path."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_turns", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_clock(torch, T, spec, arrs, b, x, with_dot):
+    """Block 0's SM clock cycles of one launch (`dia_coarse_tail`'s
+    clock): in all, and per phase, summed by (level, cluster-wide or
+    block-local, op), with each group's phase count; the median of five
+    launches' totals picks the launch."""
+    prog = T.tail_program(spec, with_dot)
+    runs = []
+    for _ in range(5):
+        clk = torch.zeros(len(prog) + 1, dtype=torch.int64, device=x.device)
+        T.dia_coarse_tail(spec, arrs, b, x, with_dot, clock=clk)
+        torch.cuda.synchronize()
+        c = clk.cpu().tolist()
+        runs.append((c[-1] - c[0], [c[i + 1] - c[i] for i in range(len(prog))]))
+    total, per = sorted(runs)[len(runs) // 2]
+    ops = ("step", "restrict", "coarse", "correct", "dot")
+    groups = {}
+    for row, cyc in zip(prog, per):
+        key = (f"l{row[1]} {'local' if row[6] & T.F_LOCAL else 'cluster'} "
+               f"{ops[row[0]]}")
+        n, s = groups.get(key, (0, 0))
+        groups[key] = (n + 1, s + cyc)
+    return {"cycles": total, "by_group": {k: {"phases": n, "cycles": s}
+                                          for k, (n, s) in groups.items()}}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_turns: PyTorch sees no CUDA device", file=sys.stderr)
+        return 2
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.ops import cuda_build
+    from amgx_tpu_torch.ops import cuda_csr as C
+    from amgx_tpu_torch.ops import cuda_tail as T
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    label = args.label or tree
+    card = cs.nvidia_smi()
+    build = cuda_build.build_all()
+
+    def emit(row):
+        row = {"tree": label, "card": card, **row}
+        line = json.dumps(row)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+
+    emit({"phase": "build", "seconds": build["seconds"],
+          "package": os.path.dirname(amgx.__file__),
+          "ptxas": {src: cuda_build.resource_lines(build["ptxas"][src])
+                    for src in ("tail.cu", "csr.cu")
+                    if src in build["ptxas"]}})
+
+    def case(name, shape, kern, plain, launches, lib=None, half=False,
+             extra=None):
+        got, want = kern(), plain()
+        again = kern()
+        torch.cuda.synchronize()
+        outs = (lambda v: v if isinstance(v, tuple) else (v,))
+        same = all(torch.equal(a, b) for a, b in zip(outs(got),
+                                                       outs(again)))
+        if half:
+            err = cs.bf16_err(torch, got, want)[1]
+            limit = 1.0
+        else:
+            err = cs.max_err(torch, got, want)[1]
+            limit = cs.LIMITS[name]
+        cs.check(err <= limit, f"{name} at {shape}: {err} > {limit}")
+        cs.check(same, f"{name} at {shape}: a repeat call gave other bits")
+        emit({"kernel": name, "shape": shape, **(extra or {}),
+              "max_rel_err": err,
+              "repeat_bit_equal": same, "ms": cs.time_ms(torch, kern),
+              "device_ms": cs.device_ms(torch, kern, launches)[0],
+              "library_ms": None if lib is None else cs.time_ms(torch, lib)})
+
+    # every setup before the first profile: a profile taken before a large
+    # setup loses the kernel records of later ones
+    A = amgx.gallery.poisson("7pt", 128, 128, 128, device=dev)
+    l1 = cs.amg_of(amgx, cs.CLASSICAL, A, dev).amg.solve_data()["levels"][1]
+    slv = amgx.create_solver(cs.agg_config(amgx.Config, "agg-fgmres"),
+                             device=dev)
+    slv.setup(amgx.gallery.poisson("7pt", 128, 128, 128,
+                                   dtype=torch.float32, device=dev).init())
+    mats = {"classical A1": l1["A"], "classical P1": l1["P"],
+            "classical R1": l1["R"],
+            "size2 A1": cs.precond_amg(slv).levels[1].A}
+    lanes = "lanes" in inspect.signature(C.csr_spmv).parameters
+
+    # B5: each form's main-path case, and W / F on the matrix-free levels
+    forms = {("slab", False, "cheb5 V"): "dia_coarse_tail",
+             ("slab", False, "jacobi_l1 V dot"): "dia_coarse_tail_dot",
+             ("slab", True, "cheb5 V"): "dia_coarse_tail_bf16",
+             ("mf", False, "cheb5 V"): "dia_coarse_tail_mf",
+             ("mf", True, "cheb5 V"): "dia_coarse_tail_mf_bf16",
+             ("mf", False, "jacobi_l1 V dot"): "dia_coarse_tail_mf_dot",
+             ("mf", False, "cheb5 W"): "dia_coarse_tail_mf",
+             ("mf", False, "cheb5 F"): "dia_coarse_tail_mf"}
+    tails = {(mode, half): cs.tail_cases(torch, amgx, T, dev, mode, half)
+             for mode, half in {(m, h) for m, h, _ in forms}}
+    costs = None
+    for (mode, half, tag), name in forms.items():
+        spec, arrs, with_dot, b, x = tails[mode, half][tag]
+        # the cluster launch's shape, where the tree has one
+        shape = dict(zip(("cluster", "cluster_barriers", "block_barriers"),
+                         T.launch_shape(spec, arrs, x, with_dot))) \
+            if hasattr(T, "launch_shape") else {}
+        if shape and costs is None:
+            costs = cs.barrier_costs(torch, T, shape["cluster"])
+            emit({"phase": "tail_barriers", "cluster": shape["cluster"],
+                  "cluster_barrier_ms": costs[0],
+                  "block_barrier_ms": costs[1]})
+        if shape:
+            shape["phase_clock"] = phase_clock(torch, T, spec, arrs, b, x,
+                                               with_dot)
+        case(name, f"tail_32^3 {tag}",
+             lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+             T.dia_coarse_tail(s, a, b, x, w),
+             lambda s=spec, a=arrs, w=with_dot, b=b, x=x:
+             T.dia_coarse_tail_plain(s, a, b, x, w), 1, half=half,
+             extra=shape)
+
+    # B8 on the classical and SIZE_2 level-1 matrices
+    g = torch.Generator(device=dev).manual_seed(99)
+    for tag, M in mats.items():
+        for half in (False, True):
+            Mh = M.astype(torch.bfloat16 if half else torch.float32)
+            x = torch.randn(M.num_cols, generator=g, device=dev).to(
+                Mh.values.dtype)
+            kw = {"lanes": Mh.csr_lanes} if lanes else {}
+            lib = cs.csr_library(torch, Mh)
+            if half:
+                lib_call, _ = cs.bf16_library(torch, Mh, x)
+            else:
+                lib_call = (lambda lib=lib, x=x: lib @ x)
+            case("csr_spmv_bf16" if half else "csr_spmv",
+                 f"{tag} {M.num_rows}x{M.num_cols} nnz {M.nnz}",
+                 lambda M=Mh, x=x, kw=kw: C.csr_spmv(
+                     M.row_offsets, M.col_indices, M.values, x, **kw),
+                 lambda M=Mh, x=x: C.csr_spmv_plain(
+                     M.row_offsets, M.col_indices, M.values, x),
+                 1, lib_call, half=half)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
