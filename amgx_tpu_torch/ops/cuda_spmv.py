@@ -40,25 +40,35 @@ B2 `dia_smooth` replaces `_dia_smooth_call` (pallas_spmv.py:649): s
 
 B3 `dia_smooth_restrict` replaces `_dia_smooth_restrict_call`
    (pallas_spmv.py:1245): B2's s steps, then bc[c] = sum_j r[ctab[j, c]]
-   with r = b - A x. The TPU kernel adds per-block partial coarse sums
-   after the grid; Hopper blocks run in no order, so the epilogue is one
-   thread per coarse row that walks its children and recomputes r at
-   each -- deterministic, no atomics, r never stored. s + 1 launches.
-   With `weights` (cwt, (m, nc): classical AMG's R = P^T rows, the TPU
-   kernel's `weighted=` form) bc[c] = sum_j cwt[j, c] r[ctab[j, c]];
-   its launches count as "dia_smooth_restrict_w".
+   with r = b - A x. On a 7-point star grid level (`grid`, checked once
+   per slab by `slab_grid`) the steps, the residual and the restriction
+   run temporally blocked in csrc/stencil_tb_slab.cu, streaming the slab
+   once a launch: the few launches of `tiling.plan_calls`'s split (one
+   for up to three applications), the restriction in the tile where
+   every coarse row lies in one (GEO), else after the tiled steps in one
+   untiled launch ("dia_smooth_restrict_epilogue"). Anywhere else one
+   launch a step
+   ("dia_smooth_restrict_step") and the untiled restriction: one thread
+   per coarse row that walks its children and recomputes r at each --
+   deterministic, no atomics, r never stored. With `weights` (cwt, (m,
+   nc): classical AMG's R = P^T rows, the TPU kernel's `weighted=` form)
+   bc[c] = sum_j cwt[j, c] r[ctab[j, c]] on the per-step route; its
+   launches count as "dia_smooth_restrict_w".
 
 B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
-   (pallas_spmv.py:1585): x <- x + xc[agg] folded into the first step's
-   reads (x + P xc is never stored), then B2's remaining steps. s
-   launches. `with_dot` also returns x'.b (PCG's r.z, the cycle-borne
-   dot) from the last step's launch: each block writes its partial sum
-   and the last block to finish adds them in block order -- one launch,
+   (pallas_spmv.py:1585): x <- x + xc[agg] folded into the first
+   application's reads (x + P xc is never stored), then the steps: on a
+   7-point star grid level temporally blocked as B3 (counted as
+   "dia_prolong_smooth"), elsewhere one launch a step
+   ("dia_prolong_smooth_step"). `with_dot` also returns x'.b (PCG's r.z,
+   the cycle-borne dot) from the last launch: each block writes its
+   partial sum and the last block to finish adds them in block order --
    deterministic, no float atomics. That launch counts as
-   "dia_prolong_smooth_dot". With `ptab`/`pwt` ((mp, n): classical AMG's
-   P rows, the TPU kernel's `weighted=` form) the first step reads
-   x_j + sum_t pwt[t, j] xc[ptab[t, j]] instead of x_j + xc[agg[j]]; its
-   launches count as "dia_prolong_smooth_w" (+ "_dot").
+   "dia_prolong_smooth_dot" ("dia_prolong_smooth_step_dot"). With
+   `ptab`/`pwt` ((mp, n): classical AMG's P rows, the TPU kernel's
+   `weighted=` form) the first step reads x_j + sum_t pwt[t, j]
+   xc[ptab[t, j]] instead of x_j + xc[agg[j]], on the per-step route;
+   its launches count as "dia_prolong_smooth_w" (+ "_dot").
 
 The coefficient ("matrix-free") mode
 -----------------------------------
@@ -89,6 +99,12 @@ per-step launches, counted as "dia_smooth_restrict_mf_step" and
 "dia_prolong_smooth_mf_step" (a dispatch on structure: both routes are
 the kernels of this package).
 
+The tiled slab route takes the 7-point star in its offset order, at most
+six applications a call, and a slab that stores 0 at every off-grid
+entry (a periodic coupling would be skipped): `slab_grid` checks it at
+the first call on a slab (the level's, or its bf16 cast's) and caches
+the answer. Its x' and bc are the per-step route's bits.
+
 The bfloat16 forms
 ------------------
 B2-B4 and B2-mf..B4-mf also take bfloat16 operands (the reduced-
@@ -96,9 +112,10 @@ precision cycle, `solve_precision=bfloat16`; the TPU kernels' bf16
 operand dtype, `SMOOTH_DTYPES`): the value slab, dinv, b, x, xc and the
 outputs in bf16, taus float32, every sum in float32 (`compute_dtype`).
 The TPU kernel keeps its state in f32 across the steps of a call and
-rounds only the final stores; here the slab kernels' steps (and
-B2-mf's) are separate launches whose state `_steps` passes through
-float32 scratch (B3-mf and B4-mf keep it on chip): only the first
+rounds only the final stores; on the per-step routes the steps are
+separate launches whose state `_steps` passes through float32 scratch
+(the tiled B3, B4, B3-mf and B4-mf keep it on chip, and a split call
+passes it from launch to launch in float32): only the first
 step reads bf16 x (+ xc[agg], summed in f32, never rounded) and only the
 last stores bf16 x'. The residual / restriction launch recomputes r from
 the last step's float32 state (`keep`), and bc is rounded once at its
@@ -120,6 +137,8 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..precision import SMOOTH_DTYPES, compute_dtype
 from . import tiling
@@ -146,7 +165,12 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth_mf_bf16": 0, "dia_coarse_tail_bf16": 0,
             "dia_coarse_tail_mf_bf16": 0, "dia_smooth_restrict_w_bf16": 0,
             "dia_prolong_smooth_w_bf16": 0, "csr_spmv_bf16": 0,
-            "csr_smooth_bf16": 0}
+            "csr_smooth_bf16": 0, "dia_smooth_restrict_step": 0,
+            "dia_smooth_restrict_epilogue": 0, "dia_prolong_smooth_step": 0,
+            "dia_prolong_smooth_step_dot": 0,
+            "dia_smooth_restrict_step_bf16": 0,
+            "dia_smooth_restrict_epilogue_bf16": 0,
+            "dia_prolong_smooth_step_bf16": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -201,7 +225,7 @@ def stencil_arg(st) -> StencilArg:
 
 class TbGeomArg(ctypes.Structure):
     """The tiling a temporally blocked launch takes by value
-    (csrc/stencil_tb.cu `TbGeom`, field for field)."""
+    (csrc/stencil_tb.cuh `TbGeom`, field for field)."""
     _fields_ = [("tx", _I), ("ty", _I), ("tz", _I), ("apps", _I),
                 ("steps", _I), ("tiles_x", _I), ("tiles_y", _I)]
 
@@ -216,20 +240,27 @@ def geom_arg(plan: "tiling.TilePlan") -> TbGeomArg:
 @functools.lru_cache(maxsize=None)
 def _sms(device) -> int:
     """Streaming multiprocessors of a CUDA device (the planner's fill
-    target)."""
+    target; an H100's for another device, where only the dispatch is
+    asked)."""
+    if device.type != "cuda":
+        return tiling.SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
-def _tb_lib():
+def _tb_smooth(slab=False):
+    """The temporally blocked kernels' C entry: csrc/stencil_tb.cu's
+    `amgx_tb_smooth` (the coefficient mode), or with `slab`
+    csrc/stencil_tb_slab.cu's `amgx_tb_smooth_slab`."""
     from .cuda_build import library
-    lib = library("stencil_tb.cu")
-    lib.amgx_tb_smooth_mf.argtypes = [
+    fn = getattr(library("stencil_tb_slab.cu" if slab else "stencil_tb.cu"),
+                 "amgx_tb_smooth_slab" if slab else "amgx_tb_smooth")
+    fn.argtypes = [
         ctypes.POINTER(StencilArg), ctypes.POINTER(TbGeomArg), _I, _P, _P,
-        _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        _I, _P]
-    lib.amgx_tb_smooth_mf.restype = _I
-    return lib
+        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -578,11 +609,140 @@ def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
     return out, r
 
 
+_SLAB_GRID = WeakIdKeyDictionary()
+
+
+def slab_grid(vals, offsets, grid):
+    """The grid (nx, ny, nz) on which the tiled kernel may run a slab
+    call, or None: `vals` (k, n) holds the 7-point star in its offset
+    order on the grid `grid`, of at least two planes, and stores 0 at
+    every entry whose shift leaves the grid (`stencil.off_grid_zero`:
+    the kernel skips off-grid neighbours from their coordinates). One
+    compare and one host read per slab, at its first call; the verdict
+    is cached on the slab (weakly, by identity: a level's values never
+    change in place)."""
+    if grid is None:
+        return None
+    shape = tuple(int(e) for e in grid)
+    key = (tuple(int(o) for o in offsets), shape)
+    per = _SLAB_GRID.get(vals)
+    if per is None:
+        per = _SLAB_GRID[vals] = {}
+    if key not in per:
+        from .stencil import off_grid_zero, stencil_shifts
+        shifts = None if len(shape) != 3 or shape[0] * shape[1] * shape[2] \
+            != vals.shape[1] else stencil_shifts(key[0], shape)
+        per[key] = shape if shifts is not None and tiling.star_fits(
+            shifts, shape, 1) and bool(off_grid_zero(vals, shifts, shape)) \
+            else None
+    return per[key]
+
+
+def _grid_arg(shape):
+    """The kernels' parameter block of a slab level's grid: a Stencil
+    with the 7-point star's shifts and no coefficients."""
+    return _stencil_struct((0.0,) * 7, tiling.STAR, shape, 3, None)
+
+
+def _slab_plans(vals, offsets, grid, dinv, x, apps, residual):
+    """The launches (`tiling.plan_calls`) of a tiled slab call of `apps`
+    applications on x's card, or None where the tiled kernel does not
+    take the level or the schedule."""
+    shape = slab_grid(vals, offsets, grid)
+    if shape is None or not tiling.star_fits(tiling.STAR, shape, apps):
+        return None
+    return tiling.plan_calls(shape, apps, residual, _sms(x.device),
+                             dinv=dinv is not None)
+
+
+def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
+               weighted=False):
+    """How the card runs a slab B3 call (with its children table `ctab`)
+    or B4 call (without) of `steps` damped steps: ("tiled", plans,
+    lists): every application, and B3's residual and restriction in the
+    tile (`lists`, `tiling.restrict_lists`), in the launches `plans`;
+    ("tiled+epilogue", plans, None): B3's steps in those launches, then
+    the untiled restriction (a children table that crosses the tiles:
+    SIZE_2 pairs); ("step", None, None): one launch a step (weighted
+    transfer rows, a level the tiled kernel does not take, a longer
+    schedule)."""
+    if weighted:
+        return "step", None, None
+    if ctab is not None:
+        plans = _slab_plans(vals, offsets, grid, dinv, x, steps + 1, True)
+        lists = None if plans is None \
+            else tiling.restrict_lists(plans[-1], ctab)
+        if lists is not None:
+            return "tiled", plans, lists
+    plans = _slab_plans(vals, offsets, grid, dinv, x, steps, False)
+    if plans is None:
+        return "step", None, None
+    return "tiled" if ctab is None else "tiled+epilogue", plans, None
+
+
+def _tb_calls(name, plans, vals, dinv, taus, b, x, xc=None, agg=None,
+              ctab=None, lists=None, bc=None, dot=None, keep=False):
+    """The launches of a tiled slab call, counted under `name` (the last
+    one + "_dot" with the dot): the first reads x (+ xc[agg]), each later
+    one the float32 state the one before wrote (two scratch buffers in
+    turn), the last writes x' (and bc, or the dot). Returns x', or with
+    `keep` (x', its float32 state)."""
+    n, k = x.shape[0], len(plans)
+    half = x.dtype == torch.bfloat16
+    out = torch.empty_like(x)
+    mid, kept = min(k - 1, 2), keep and half
+    ws = torch.empty((mid + kept, n), dtype=torch.float32,
+                     device=x.device) if mid + kept else None
+    grid = _grid_arg(plans[0].shape)
+    at, src = 0, x
+    for i, plan in enumerate(plans):
+        last = i == k - 1
+        dst, st = (out, ws[mid] if kept else None) if last \
+            else (None, ws[i % 2])
+        _tb_launch(name + "_dot" if last and dot is not None else name,
+                   grid, 7, plan, taus[at:at + plan.steps], b, src, dst,
+                   xc=xc if i == 0 else None, agg=agg if i == 0 else None,
+                   keep=st, ctab=ctab if last else None,
+                   lists=lists if last else None,
+                   bc=bc if last else None,
+                   dot=dot if last else None, vals=vals, dinv=dinv,
+                   x_f32=i > 0)
+        at += plan.steps
+        src = st
+    if not keep:
+        return out
+    return out, (ws[mid] if kept else out)
+
+
+def _restrict(name, vals, b, state, ctab, weights, bc, offsets):
+    """bc = R (b - A x') through ctab (weighted by `weights` when given)
+    from x' in float32 (`state`): one dia.cu launch, counted under
+    `name`."""
+    m, nc = ctab.shape
+    _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
+            _ptr(state), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc),
+            b.shape[0], _offsets_arg(tuple(offsets)), len(offsets),
+            int(b.dtype == torch.bfloat16), _stream())
+
+
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
-                        weights=None):
+                        weights=None, grid=None):
     """B3: B2's steps, then bc = R (b - A x') through the child table
     ctab (m, nc), weighted by `weights` (m, nc, the operands' dtype) when
-    given. Returns (x', bc)."""
+    given. `grid`: the operator's grid shape (A.grid_shape), which lets
+    a unit-weight call on a 7-point star level run temporally blocked.
+    Returns (x', bc).
+
+    On the card, by structure: the tiled launches (`_tb_calls`) run the
+    steps, the residual and the restriction when the tiled kernel takes
+    the level (`slab_grid`) and the schedule and every coarse row of ctab
+    lies in one tile of the last launch's plan (GEO's aggregates);
+    otherwise the steps run tiled where the kernel takes them, else one
+    launch a step ("dia_smooth_restrict_step"), and the untiled
+    restriction follows from their float32 state
+    ("dia_smooth_restrict_epilogue"); each name + "_bf16" for bf16
+    operands. Weighted tables take the per-step route and count every
+    launch as "dia_smooth_restrict_w" (+ "_bf16")."""
     if x.device.type == "cpu":
         return dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab,
                                          dinv, weights)
@@ -591,31 +751,46 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
     m, nc = ctab.shape
     name = _name("dia_smooth_restrict" if weights is None
                  else "dia_smooth_restrict_w", x)
-    n = _check_smooth(name, vals, offsets, taus, b, x, dinv,
-                      floats={"weights": (weights, (m, nc))},
-                      ints={"ctab": (ctab, (m, nc))})
+    _check_smooth(name, vals, offsets, taus, b, x, dinv,
+                  floats={"weights": (weights, (m, nc))},
+                  ints={"ctab": (ctab, (m, nc))})
     if m < 1 or nc < 1:
         raise ValueError(f"{name}: empty child table")
     with torch.cuda.device(x.device):
-        out, state = _steps(name, _lib().amgx_dia_step,
-                            (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
-                            torch.empty_like(x), keep=True)
+        route, plans, lists = slab_route(vals, offsets, grid, dinv, x,
+                                         taus.shape[0], ctab,
+                                         weights is not None)
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
-        _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
-                _ptr(state), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc), n,
-                _offsets_arg(tuple(offsets)), len(offsets),
-                int(x.dtype == torch.bfloat16), _stream())
+        if route == "tiled":
+            out = _tb_calls(name, plans, vals, dinv, taus, b, x, ctab=ctab,
+                            lists=lists, bc=bc)
+            return out, bc
+        if route == "tiled+epilogue":
+            out, state = _tb_calls(name, plans, vals, dinv, taus, b, x,
+                                   keep=True)
+        else:
+            out, state = _steps(
+                name if weights is not None
+                else _name("dia_smooth_restrict_step", x),
+                _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)), offsets,
+                taus, b, x, torch.empty_like(x), keep=True)
+        _restrict(name if weights is not None
+                  else _name("dia_smooth_restrict_epilogue", x), vals, b,
+                  state, ctab, weights, bc, offsets)
     return out, bc
 
 
 def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
-                       with_dot=False, ptab=None, pwt=None):
+                       with_dot=False, ptab=None, pwt=None, grid=None):
     """B4: len(taus) damped steps from x + P xc, the correction read on
-    the fly by the first step: xc[agg] (aggregation), or the weighted
-    rows ptab / pwt (mp, n; pwt in the operands' dtype) of a general P.
-    Returns x', or
-    (x', x'.b) with `with_dot` (the dot a 0-dim float32 tensor on x's
-    device)."""
+    the fly by the first application: xc[agg] (aggregation), or the
+    weighted rows ptab / pwt (mp, n; pwt in the operands' dtype) of a
+    general P. Returns x', or (x', x'.b) with `with_dot` (the dot a 0-dim
+    float32 tensor on x's device). `grid` as for dia_smooth_restrict:
+    with agg, on a level the tiled kernel takes, the tiled launches
+    ("dia_prolong_smooth", the last "..._dot" with the dot); otherwise
+    one launch a step ("dia_prolong_smooth_step", "..._step_dot"; with
+    ptab "dia_prolong_smooth_w", "..._w_dot")."""
     if (agg is None) == (ptab is None) or (ptab is None) != (pwt is None):
         raise ValueError("dia_prolong_smooth: give agg, or ptab and pwt")
     if x.device.type == "cpu":
@@ -632,10 +807,20 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                           "pwt": (pwt, (mp, n))},
                   ints={"agg": (agg, (n,)), "ptab": (ptab, (mp, n))})
     with torch.cuda.device(x.device):
-        dot = dot_scratch(n, x.device) if with_dot else None
-        out = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
-                     offsets, taus, b, x, torch.empty_like(x), xc=xc,
-                     agg=agg, dot=dot, ptab=ptab, pwt=pwt)
+        _, plans, _ = slab_route(vals, offsets, grid, dinv, x,
+                                 taus.shape[0], weighted=ptab is not None)
+        if plans is not None:
+            dot = dot_scratch(n, x.device, blocks=plans[-1].blocks) \
+                if with_dot else None
+            out = _tb_calls(name, plans, vals, dinv, taus, b, x, xc=xc,
+                            agg=agg, dot=dot)
+        else:
+            dot = dot_scratch(n, x.device) if with_dot else None
+            out = _steps(name if ptab is not None
+                         else _name("dia_prolong_smooth_step", x),
+                         _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
+                         offsets, taus, b, x, torch.empty_like(x), xc=xc,
+                         agg=agg, dot=dot, ptab=ptab, pwt=pwt)
     return (out, dot[1]) if with_dot else out
 
 
@@ -703,20 +888,25 @@ def _mf_steps(name, st, taus, b, x, xc=None, agg=None, dot=None,
                   torch.empty_like(x), xc=xc, agg=agg, dot=dot, keep=keep)
 
 
-def _tb_launch(name, st, plan, taus, b, x, out, xc=None, agg=None,
-               keep=None, ctab=None, lists=None, bc=None, dot=None):
-    """One launch of csrc/stencil_tb.cu on the stencil `st` with `plan`
-    (the wrappers below set the device and checked the operands)."""
+def _tb_launch(name, sarg, k, plan, taus, b, x, out, xc=None, agg=None,
+               keep=None, ctab=None, lists=None, bc=None, dot=None,
+               vals=None, dinv=None, x_f32=False):
+    """One launch of the temporally blocked kernel (csrc/stencil_tb.cuh)
+    with `plan` on the grid of the kernels' Stencil `sarg` (k diagonals):
+    from its coefficients (stencil_tb.cu), or with `vals` from the slab
+    and `dinv` (stencil_tb_slab.cu); x read as float32 when `x_f32`
+    (the callers set the device and checked the operands)."""
     m, nc = (0, 0) if ctab is None else ctab.shape
     rows, roff = (None, None) if lists is None else lists
-    _launch(name, _tb_lib().amgx_tb_smooth_mf, ctypes.byref(stencil_arg(st)),
-            ctypes.byref(geom_arg(plan)), st.k, _ptr(taus), _ptr(b),
-            _ptr(x), _ptr(xc), _ptr(agg), _ptr(out), _ptr(keep), _ptr(ctab),
-            m, nc, _ptr(rows), _ptr(roff), _ptr(bc),
+    _launch(name, _tb_smooth(vals is not None),
+            ctypes.byref(sarg), ctypes.byref(geom_arg(plan)), k, _ptr(vals),
+            _ptr(dinv), _ptr(taus), _ptr(b), _ptr(x),
+            int(x_f32), _ptr(xc), _ptr(agg), _ptr(out), _ptr(keep),
+            _ptr(ctab), m, nc, _ptr(rows), _ptr(roff), _ptr(bc),
             _ptr(None if dot is None else dot[0]),
-            _ptr(dot_counter(x.device)) if dot is not None else None,
-            _ptr(None if dot is None else dot[1]), x.shape[0], plan.blocks,
-            plan.smem_bytes, int(x.dtype == torch.bfloat16), _stream())
+            _ptr(dot_counter(b.device)) if dot is not None else None,
+            _ptr(None if dot is None else dot[1]), b.shape[0], plan.blocks,
+            plan.smem_bytes, int(b.dtype == torch.bfloat16), _stream())
 
 
 def _mf_restrict(st, b, state, ctab, bc):
@@ -760,8 +950,8 @@ def dia_smooth_restrict_mf(st, taus, b, x, ctab):
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
         if lists is not None:
             out = torch.empty_like(x)
-            _tb_launch(name, st, plan, taus, b, x, out, ctab=ctab,
-                       lists=lists, bc=bc)
+            _tb_launch(name, stencil_arg(st), st.k, plan, taus, b, x, out,
+                       ctab=ctab, lists=lists, bc=bc)
             return out, bc
         plan = _tb_plan(st, x, s, False)
         if plan is None:
@@ -771,7 +961,7 @@ def dia_smooth_restrict_mf(st, taus, b, x, ctab):
             out = torch.empty_like(x)
             keep = out if x.dtype == torch.float32 else torch.empty(
                 n, dtype=torch.float32, device=x.device)
-            _tb_launch(name, st, plan, taus, b, x, out,
+            _tb_launch(name, stencil_arg(st), st.k, plan, taus, b, x, out,
                        keep=None if keep is out else keep)
         _mf_restrict(st, b, keep, ctab, bc)
     return out, bc
@@ -806,6 +996,7 @@ def dia_prolong_smooth_mf(st, taus, b, x, xc, agg, with_dot=False):
             dot = dot_scratch(n, x.device, blocks=plan.blocks) \
                 if with_dot else None
             out = torch.empty_like(x)
-            _tb_launch(name + "_dot" if with_dot else name, st, plan, taus,
-                       b, x, out, xc=xc, agg=agg, dot=dot)
+            _tb_launch(name + "_dot" if with_dot else name,
+                       stencil_arg(st), st.k, plan, taus, b, x, out, xc=xc,
+                       agg=agg, dot=dot)
     return (out, dot[1]) if with_dot else out

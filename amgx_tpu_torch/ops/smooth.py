@@ -8,7 +8,9 @@ The damped-relaxation smoother family
 runs through the DIA kernels of `cuda_spmv` on float32 and bfloat16 DIA
 levels: B2 (steps + trailing residual), B3 (steps + restriction
 epilogue) and B4 (prolongation prologue + steps), with a classical
-level's weighted transfer rows (B3w / B4w) in either dtype. The damping
+level's weighted transfer rows (B3w / B4w) in either dtype. B3 and B4
+hand the kernels the level's grid shape: on a 7-point star level they
+run temporally blocked (ops/cuda_spmv.py `slab_grid`). The damping
 factors go to the kernels in the compute dtype
 (`precision.compute_dtype`: float32 for bf16 operands). `fused_smooth`
 takes DIA first, then the unstructured route of a float32 or bfloat16
@@ -196,7 +198,8 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
                                          taus.to(compute_dtype(x.dtype)), b,
                                          x,
                                          xfer["ctab"], dinv,
-                                         weights=xfer.get("cwt"))
+                                         weights=xfer.get("cwt"),
+                                         grid=A.grid_shape)
 
 
 def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
@@ -218,7 +221,8 @@ def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
                                         xfer.get("agg"), dinv,
                                         with_dot=want_dot,
                                         ptab=xfer.get("ptab"),
-                                        pwt=xfer.get("pwt"))
+                                        pwt=xfer.get("pwt"),
+                                        grid=A.grid_shape)
 
 
 # ---------------------------------------------------------------------------

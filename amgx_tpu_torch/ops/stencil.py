@@ -98,24 +98,40 @@ def _grid_coords(n, shape, device):
     return ix % nx, (ix // nx) % ny, ix // (nx * ny)
 
 
+def _in_grid(shifts, shape, n, device):
+    """Per-shift (n,) masks: where row i's grid shift stays in-grid."""
+    nx, ny, nz = shape
+    gx, gy, gz = _grid_coords(n, shape, device)
+    return [((gx + dx >= 0) & (gx + dx < nx) & (gy + dy >= 0)
+             & (gy + dy < ny) & (gz + dz >= 0) & (gz + dz < nz))
+            for dx, dy, dz in shifts]
+
+
 def stencil_candidate(vals2d, shifts, shape):
     """(is_const, coeffs) for a (k, n) DIA value table, both on its
     device: coeffs[t] is diagonal t's anchor-row value; is_const holds
     iff every in-grid entry equals it and every off-grid entry is zero
     (which subsumes the GEO wrap check)."""
-    nx, ny, nz = shape
     n = vals2d.shape[1]
-    gx, gy, gz = _grid_coords(n, shape, vals2d.device)
     coeffs, flags = [], []
-    for t, (dx, dy, dz) in enumerate(shifts):
-        ok = ((gx + dx >= 0) & (gx + dx < nx) & (gy + dy >= 0)
-              & (gy + dy < ny) & (gz + dz >= 0) & (gz + dz < nz))
+    for t, ok in enumerate(_in_grid(shifts, shape, n, vals2d.device)):
         # a shift that is in-grid nowhere reads the last row (0 there),
         # as the JAX package's clamped index does
-        c = vals2d[t, min(_anchor_index((dx, dy, dz), shape), n - 1)]
+        c = vals2d[t, min(_anchor_index(shifts[t], shape), n - 1)]
         coeffs.append(c)
         flags.append(torch.where(ok, vals2d[t] == c, vals2d[t] == 0).all())
     return torch.stack(flags).all(), torch.stack(coeffs)
+
+
+def off_grid_zero(vals2d, shifts, shape):
+    """Whether a (k, n) DIA value table stores 0 at every entry whose
+    grid shift leaves the grid (the off-grid half of
+    `stencil_candidate`): a 0-dim bool tensor on its device. A periodic
+    coupling across the grid's edge fails it."""
+    n = vals2d.shape[1]
+    return torch.stack([(ok | (vals2d[t] == 0)).all() for t, ok in
+                        enumerate(_in_grid(shifts, shape, n,
+                                           vals2d.device))]).all()
 
 
 def stencil_shifts(offsets, shape):

@@ -1,7 +1,8 @@
-"""Tile plans of the temporally blocked coefficient-mode kernels (B3-mf,
-B4-mf: csrc/stencil_tb.cu), and a plain tile-by-tile emulation of them.
+"""Tile plans of the temporally blocked smoother kernels (B3-mf, B4-mf
+and the slab B3, B4: csrc/stencil_tb.cuh), and a plain tile-by-tile
+emulation of them.
 
-One launch runs every damped step of a call (and B3-mf's residual and
+One launch runs every damped step of a call (and B3's residual and
 restriction) on a 7-point star grid level: each block owns an x-y tile
 of the grid and a chunk of its z planes, loads its tile plus a halo,
 and marches along z through its chunk, one plane a step, keeping for
@@ -17,12 +18,21 @@ whether it takes a level and a schedule. Any other stencil or a longer
 schedule launches dia.cu's per-step kernels (ops/cuda_spmv.py).
 
 - `plan_tiles`: the tile's x-y extent, the z chunk, the shared-memory
-  bytes, the threads and the block count for a grid shape and a number
-  of applications. It picks the tiling the cost model below finds
-  fastest on the card (every step's barrier and every time level's
-  point updates over every block, by waves of resident blocks) within
-  the 227 KB and 1024 threads a Hopper block may use, and raises where
-  the kernel does not take the schedule, naming the shape.
+  bytes, the threads and the block count for a grid shape, a number
+  of applications and the value source (the coefficients, or a stored
+  slab staged in a shared ring: `ring` floats a row). It picks the
+  tiling the cost model below finds fastest on the card (every step's
+  barrier and every time level's point updates over every block, by
+  waves of resident blocks) within the 227 KB and 1024 threads a Hopper
+  block may use, and raises where the kernel does not take the
+  schedule, naming the shape.
+- `plan_calls`: a slab call's launches. Each launch streams the value
+  slab once, and its halo and value ring grow with its applications, so
+  a call splits its applications over the fewest launches of at most
+  SLAB_MAX_APPS each, as evenly as may be (3 + 3 for six, 3 + 2 for
+  five): the splits the card measured fastest (PERF.md).
+  `split_plans` plans any other split (tests and tools/kernel_turns.py
+  compare them).
 - `restrict_lists`: for B3-mf, whether every coarse row of a children
   table `ctab` lies in one block (all children in one tile and one z
   chunk, over at most two adjacent planes) and, when it does, the
@@ -32,9 +42,12 @@ schedule launches dia.cu's per-step kernels (ops/cuda_spmv.py).
   and its float32 state and the untiled restriction launch follows.
 - `emulate`: the kernel's computation in plain PyTorch, block by block
   (halo loads, shrinking time levels, the in-tile restriction in ctab
-  order, the dot's block partials); the tests hold it to the untiled
-  plain forms (ops/stencil.py `_xla_restrict`, `_xla_corr`) bit for
-  bit. Nothing in the package calls it.
+  order, the dot's block partials), from the coefficients or from a
+  value slab; `emulate_calls` chains a split call's launches through
+  their float32 state. The tests hold them to the untiled plain forms
+  (ops/stencil.py `_xla_restrict`, `_xla_corr`; ops/cuda_spmv.py
+  `dia_smooth_restrict_plain`, `dia_prolong_smooth_plain`) bit for bit.
+  Nothing in the package calls them.
 
 Plans are cached per (shape, applications, residual); restriction lists
 per children table (weakly, by identity: the level's transfer tables
@@ -52,11 +65,12 @@ from torch.utils.weak import WeakIdKeyDictionary
 SMEM_BLOCK_MAX = 232448   # bytes of shared memory one Hopper block may use
 SMEM_SM = 233472          # per SM; each resident block also reserves 1 KB
 SMEM_STATIC = 256         # the kernel's static shared memory (the dot's)
-MAX_THREADS = 1024        # columns of a block (stencil_tb.cu kTbMaxThreads)
+MAX_THREADS = 1024        # columns of a block (stencil_tb.cuh kTbMaxThreads)
 SM_THREADS = 2048         # resident threads per SM
 SM_REGS = 65536           # registers per SM; the kernel takes at most 64
 STAR_MAX_APPS = 6         # applications per launch (kTbStarApps)
 MAX_KIDS = 8              # children of an in-tile coarse row (kTbStarKids)
+SLAB_MAX_APPS = 3         # applications a slab launch takes (kTbSlabApps)
 # the 7-point star's grid shifts in ascending offset order
 STAR = ((0, 0, -1), (0, -1, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0), (0, 1, 0),
         (0, 0, 1))
@@ -76,6 +90,8 @@ class TilePlan:
     residual: bool
     tile: tuple           # interior x-y extent (tx, ty)
     chunk: int            # z planes per block (tz)
+    ring: int = 0         # slab floats a row staged in the shared ring
+                          # (7 values + dinv); 0: the coefficient mode
 
     @property
     def steps(self) -> int:
@@ -104,7 +120,7 @@ class TilePlan:
 
     @property
     def smem_bytes(self) -> int:
-        return smem_bytes(self.tile, self.apps, self.residual)
+        return smem_bytes(self.tile, self.apps, self.residual, self.ring)
 
     def origin(self, block: int) -> tuple:
         """(x0, y0, z0) of a block's interior."""
@@ -120,24 +136,28 @@ class TilePlan:
         return max(0, z0 - g), min(nz, min(nz, z0 + self.chunk) + g)
 
 
-def smem_bytes(tile, apps, residual) -> int:
+def smem_bytes(tile, apps, residual, ring=0) -> int:
     """Dynamic shared memory of one block: for each time level that feeds
     another application (0 .. apps - 1) a ring of 3 float32 planes of
-    every column, 9 float32 planes of b for every column, and B3-mf's
-    three residual planes of the interior."""
+    every column, 9 float32 planes of b for every column, B3's three
+    residual planes of the interior, and for a slab launch apps + 1
+    planes of `ring` floats (the row's values and dinv) of every
+    column."""
     tx, ty = tile
     cols = (tx + 2 * apps) * (ty + 2 * apps)
     nbytes = apps * 3 * cols * 4 + 9 * cols * 4 \
-        + (3 * tx * ty * 4 if residual else 0)
+        + (3 * tx * ty * 4 if residual else 0) \
+        + (apps + 1) * ring * cols * 4
     return -(-nbytes // 16) * 16
 
 
-def _cost(shape, apps, tile, chunk, smem, sms):
+def _cost(shape, apps, tile, chunk, smem, sms, slab=False):
     """Modelled time of one launch, in thread instructions of the busiest
     SM over its issue rate: every thread pays a step's load, barrier and
     level tests and the shift of its register windows (~20 + 10 apps
-    instructions) on each of the block's chunk + 3 apps steps, and each
-    point update of level t (~25) on the tile grown by apps - t points
+    instructions, + 16 for a slab's ring loads and stores) on each of the
+    block's chunk + 3 apps steps, and each point update of level t (~25,
+    + 8 for a slab's value reads) on the tile grown by apps - t points
     over its planes; ceil(blocks / SMs) blocks run on the busiest SM, at
     a rate that grows with its resident threads up to half an SM's
     (latency hiding across the per-step barriers)."""
@@ -149,11 +169,12 @@ def _cost(shape, apps, tile, chunk, smem, sms):
     if per_sm < 1:
         return math.inf
     steps = min(nz, chunk) + 3 * apps
-    work = steps * threads * (20 + 10 * apps)
+    work = steps * threads * (20 + 10 * apps + (16 if slab else 0))
     for t in range(1, apps + 1):
         g = apps - t
-        work += 25 * (min(nx, tx + 2 * g) * min(ny, ty + 2 * g)
-                      * min(nz, chunk + 2 * g))
+        work += (33 if slab else 25) * (
+            min(nx, tx + 2 * g) * min(ny, ty + 2 * g)
+            * min(nz, chunk + 2 * g))
     on_sm = -(-blocks // sms)
     rate = min(1.0, min(per_sm, on_sm) * threads / (SM_THREADS / 2))
     return on_sm * work / rate
@@ -175,11 +196,12 @@ def star_fits(shifts, shape, apps) -> bool:
 
 @functools.lru_cache(maxsize=512)
 def plan_tiles(shape, apps, residual=False, sms=SMS, tile=None,
-               chunk=None) -> TilePlan:
+               chunk=None, ring=0) -> TilePlan:
     """The fastest tiling by the cost model that fits a block's shared
     memory and threads (`tile` / `chunk` pin the x-y tile or the z
-    chunk). Raises ValueError, naming the shape, where the kernel does
-    not take the schedule or no tile fits."""
+    chunk); with `ring`, a slab launch staging that many floats a row.
+    Raises ValueError, naming the shape, where the kernel does not take
+    the schedule or no tile fits."""
     shape = tuple(int(e) for e in shape)
     if len(shape) != 3 or min(shape) < 1:
         raise ValueError(f"plan_tiles: grid {shape} is not an nx x ny x nz "
@@ -191,6 +213,9 @@ def plan_tiles(shape, apps, residual=False, sms=SMS, tile=None,
     if residual and apps < 2:
         raise ValueError("plan_tiles: the residual follows at least one "
                          "step")
+    if ring and apps > SLAB_MAX_APPS:
+        raise ValueError(f"plan_tiles: a slab launch takes at most "
+                         f"{SLAB_MAX_APPS} applications, not {apps}")
     nx, ny, nz = shape
     tiles = [tile] if tile is not None else [
         (a, b) for a in _axis_tiles(nx, _TILES)
@@ -199,12 +224,12 @@ def plan_tiles(shape, apps, residual=False, sms=SMS, tile=None,
         {nz} | set(range(2, nz, 2)))
     best = None
     for t in tiles:
-        smem = smem_bytes(t, apps, residual)
+        smem = smem_bytes(t, apps, residual, ring)
         cols = (t[0] + 2 * apps) * (t[1] + 2 * apps)
         if smem > SMEM_BLOCK_MAX - SMEM_STATIC or cols > MAX_THREADS:
             continue
         for z in chunks:
-            cost = _cost(shape, apps, t, z, smem, sms)
+            cost = _cost(shape, apps, t, z, smem, sms, ring > 0)
             key = (cost, -t[0] * t[1], -z)
             if best is None or key < best[0]:
                 best = (key, t, z)
@@ -213,7 +238,35 @@ def plan_tiles(shape, apps, residual=False, sms=SMS, tile=None,
             f"plan_tiles: no tile of the grid {shape} fits a block's "
             f"{SMEM_BLOCK_MAX - SMEM_STATIC} bytes of shared memory and "
             f"{MAX_THREADS} columns with {apps} applications")
-    return TilePlan(shape, apps, bool(residual), best[1], best[2])
+    return TilePlan(shape, apps, bool(residual), best[1], best[2], ring)
+
+
+def _parts(apps, k):
+    """`apps` applications in k launches, as even as may be, the larger
+    ones first."""
+    q, r = divmod(apps, k)
+    return tuple(q + (i < r) for i in range(k))
+
+
+def split_plans(shape, parts, residual=False, sms=SMS, ring=7) -> tuple:
+    """One tile plan a launch of a slab call split as `parts` (each
+    launch's applications; the residual, when `residual`, in the last),
+    each staging `ring` floats a row. Raises ValueError, naming the
+    shape, where the kernel does not take a launch."""
+    shape = tuple(int(e) for e in shape)
+    return tuple(plan_tiles(shape, a, residual and i == len(parts) - 1,
+                            sms, ring=ring) for i, a in enumerate(parts))
+
+
+@functools.lru_cache(maxsize=512)
+def plan_calls(shape, apps, residual=False, sms=SMS, dinv=False) -> tuple:
+    """The launches of a slab call of `apps` applications (the last one
+    B3's residual when `residual`): the fewest launches of at most
+    SLAB_MAX_APPS applications, as even as may be, the larger first
+    (`split_plans`); `dinv` sizes the ring. Raises ValueError, naming
+    the shape, where no tile fits."""
+    return split_plans(shape, _parts(apps, -(-apps // SLAB_MAX_APPS)),
+                       residual, sms, 7 + int(dinv))
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +335,7 @@ def _grid3(v, shape):
 
 
 def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
-            ctab=None, with_dot=False):
+            ctab=None, with_dot=False, vals=None, dinv=None, state=False):
     """What the tiled kernel computes, block by block, in plain PyTorch.
 
     Each block loads x (+ xc[agg], summed in the compute dtype) on its
@@ -295,7 +348,14 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     summed per block over its interior and the blocks' partials added in
     block order (the kernel adds within a block in another order).
 
-    Returns x', (x', bc) with the residual, or (x', dot)."""
+    The rows' values are the coefficients of `spec` (its dinv mode
+    synthesizes the diagonal inverse), or with `vals` the (7, n) slab
+    and the `dinv` vector (or none) of a slab level, read at the row
+    being updated; either way an off-grid neighbour is skipped.
+
+    Returns x', (x', bc) with the residual, or (x', dot); x' in x's dtype,
+    or with `state` its float32 state unrounded (what a split call's
+    next launch reads)."""
     from . import cuda_spmv
     from .stencil import _dinv_vec, _vec_masks
     from ..precision import compute_dtype
@@ -303,7 +363,6 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     if tuple(tuple(d) for d in spec.shifts) != STAR:
         raise ValueError("emulate: the tiled kernel takes the 7-point star")
     cdt = compute_dtype(x.dtype)
-    c = coeffs.to(cdt)
     taus = taus.to(cdt)
     x0 = x.to(cdt)
     if xc is not None:
@@ -311,7 +370,13 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     X0 = _grid3(x0, plan.shape)
     B = _grid3(b.to(cdt), plan.shape)
     masks = _vec_masks(spec, x.device)
-    dinv = _dinv_vec(spec, c, cdt, x.device, masks)
+    if vals is None:
+        c = coeffs.to(cdt)
+        V = [c[d].expand(nz, ny, nx) for d in range(len(spec.shifts))]
+        dinv = _dinv_vec(spec, c, cdt, x.device, masks)
+    else:
+        V = [_grid3(v.to(cdt), plan.shape) for v in vals]
+        dinv = None if dinv is None else dinv.to(cdt)
     D = None if dinv is None else _grid3(dinv, plan.shape)
     M = [None if mk is None else _grid3(mk, plan.shape) for mk in masks]
     nan = float("nan")
@@ -343,7 +408,7 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
                 nb = P[bz.start + dz + 1:bz.stop + dz + 1,
                        by.start + dy + 1:by.stop + dy + 1,
                        bx.start + dx + 1:bx.stop + dx + 1]
-                cd = c[d].expand(nb.shape)
+                cd = V[d][bz, by, bx]
                 if M[d] is not None:
                     cd = torch.where(M[d][bz, by, bx], cd,
                                      torch.zeros_like(cd))
@@ -373,7 +438,7 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
                 acc = acc + torch.where(f >= 0, r[f.clamp(min=0)],
                                         torch.zeros_like(acc))
             bc[mine] = acc
-    xout = out.reshape(-1).to(x.dtype)
+    xout = out.reshape(-1) if state else out.reshape(-1).to(x.dtype)
     if plan.residual:
         return xout, bc.to(x.dtype)
     if with_dot:
@@ -382,3 +447,26 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
             dot = dot + p
         return xout, dot
     return xout
+
+
+def emulate_calls(plans, spec, coeffs, taus, b, x, xc=None, agg=None,
+                  ctab=None, with_dot=False, vals=None, dinv=None):
+    """A call split over the launches `plans` (`plan_calls`): each launch
+    runs its share of the steps from the state the one before left
+    (float32, unrounded), the first adds the correction xc[agg], the
+    last writes x' in x's dtype (and the residual's bc, or the dot)."""
+    at, state = 0, x
+    for i, plan in enumerate(plans):
+        last = i == len(plans) - 1
+        got = emulate(plan, spec, coeffs, taus[at:at + plan.steps], b,
+                      state, xc if i == 0 else None,
+                      agg if i == 0 else None, ctab if last else None,
+                      with_dot and last, vals, dinv, state=not last)
+        at += plan.steps
+        if last:
+            if state.dtype == x.dtype:
+                return got
+            # x' and bc round once, at the end (bf16 has no dot)
+            return tuple(g.to(x.dtype) for g in got) \
+                if isinstance(got, tuple) else got.to(x.dtype)
+        state = got

@@ -22,7 +22,18 @@ Phases, one JSON line each on stdout:
                repeat calls bit-equal, beside cuSPARSE in both (the bf16
                row says "none: <torch's error>" where torch.sparse refuses
                bf16), and B9's time by lanes per row (csr_lanes).
-               B1-B4 and their coefficient ("matrix-free") mode B2-mf,
+               The slab B3 and B4 (csrc/stencil_tb_slab.cu, the level's
+               value slab: temporally blocked launches of at most three
+               applications, the planner's split, `slab_cases`), f32 and
+               bf16 and B4's
+               x'.b, on random-valued slabs (D A D, `dad_operator`) at
+               the flagship's 128^3 level 0, the D A D hierarchy's 64^3
+               level 1 and the ragged 97x61x43 grid, with CHEBYSHEV_POLY's
+               and PCG's JACOBI_L1 schedules: each against its plain form
+               and the per-step route (`slab_step_route`, the same x' and
+               bc), timed against it in turns; their per-step route on
+               a 27-point level under its own counters.
+               B1, B2 and the coefficient ("matrix-free") mode B2-mf,
                B3-mf, B4-mf, B4-mf's x'.b epilogue at the flagship's
                finest-level shapes (7-pt 128^3) and on a ragged 97x61x43
                grid, each coefficient kernel also against the slab kernel
@@ -39,8 +50,8 @@ Phases, one JSON line each on stdout:
                level, another tile plan); the per-step route that B3-mf
                and B4-mf take where the tiled kernel does not (a 27-point
                48^3 level; 20 steps on level 1), with its launches under
-               the "_step" counters; B4's x'.b epilogue, B6 and B7 at the
-               PCG path's 128^3 shapes, and B6's streamed-dot form
+               the "_step" counters; B6 and B7 at the PCG path's 128^3
+               shapes, and B6's streamed-dot form
                (BiCGStab's: Ap with d.Ap and, with self_dot, Ap.Ap; d
                apart from p and d = p) there. The bf16
                forms (the reduced-precision cycle): B2-B4 and B2-mf..B4-mf
@@ -81,25 +92,34 @@ Phases, one JSON line each on stdout:
                only on the levels above the tail, one launch each a call
                (B3-mf restricting in the tile), no slab B3/B4/B5; the
                same with the slab route pinned (flagship_slab: the same
-               iterations, B3/B4/B5) and with the tail off; warm solves in
+               iterations, B3/B4/B5, the slab B3 / B4 in the planned
+               tiled launches a V-cycle, `slab_cycle_launches`) and with
+               the tail off (the same on every level); warm solves in
                alternating pairs, matrix-free vs slab and slab vs tail-off.
    flagship_bf16 -- the same three with solve_precision=bfloat16 (f64
                REFINEMENT, f32 FGMRES, the AMG cycle in bf16): <= 1e-8 in
                <= 3 outer and <= BF16_INNER_RATIO (1.47) x the f32 run's
                inner iterations, the tail runs' within one of the same
-               bf16 solve on the CPU (plain kernels), 6
-               bf16 B3 and 5 bf16 B4 launches per level above the tail
-               per V-cycle (one each of bf16 B3-mf and B4-mf), one bf16
+               bf16 solve on the CPU (plain kernels), the planned tiled
+               bf16 B3 and B4 launches per V-cycle on the levels above
+               the tail (one each of bf16 B3-mf and B4-mf), one bf16
                B5 per V-cycle, no float32 smoother
                launch; the tail-off run's coarse solve in float32. Warm
                solves of the f32 and bf16 flagships in alternating pairs:
                mixed_precision_speedup (recorded, not checked).
+   flagship_dad -- the untouched FLAGSHIP (matrix_free=auto) on A2 =
+               D A D at 128^3: no level is a constant stencil, so every
+               level runs the slab kernels (tiled B3 / B4 above the tail,
+               one slab B5 a V-cycle, nothing matrix-free); the true
+               relative residual of A2 <= 1e-8 in <= 3 outer iterations;
+               at 32^3 the card's iterations equal the CPU route's.
 5. unfused  -- the tail-off flagship at 64^3 with amg:cycle_fusion=0: B2
                on slab levels (pinned), B2-mf on matrix-free ones; the
                same in bf16 (the bf16 B2 and B2-mf).
 6. krylov   -- PCG + GEO aggregation + JACOBI_L1 at 128^3 in float32,
                krylov_fusion 1 (B6, B7, B4-mf's dot, B5-mf), the same with
-               the slab route pinned (B4's dot, B5), and krylov_fusion 0
+               the slab route pinned (the tiled B3, B4's dot, B5), and
+               krylov_fusion 0
                (B1): 54 +- 2 iterations, all within one of each other, the
                host syncs per iteration, warm solves in alternating pairs.
 7. classical -- bench.py's `_classical_cfg` (PCG f64 around an f32
@@ -131,8 +151,8 @@ Phases, one JSON line each on stdout:
                B10-relabel on the 128^3 level-0 plan and a middle level's
                (0 difference; cuSPARSE's P^T (A P) as the yardstick) and
                B3/B4 (slab and coefficient, with the dot) on the SIZE_2
-               level 0's irregular children table (B3-mf there in two
-               launches: the tiled steps, then the untiled restriction),
+               level 0's irregular children table (B3 and B3-mf there:
+               the tiled steps, then the untiled restriction),
                B8 on its level 1 (962648 rows) against cuSPARSE, and B9's
                and B8's bf16 forms there.
 11. bf16_hierarchies -- the same stock aggregation files with
@@ -166,7 +186,10 @@ Phases, one JSON line each on stdout:
                solve.
 
 Each path's launch counts are zeroed just before its run and read just
-after; every kernel must have launched on some path. Then the card's
+after; every kernel must have launched on some path. The kernels line
+lists, beside each tiled kernel, its other routes' counters by path
+(`ROUTE_COUNTERS`), and the build line nvcc's registers and spills of
+each form of the tiled kernel (`tb_forms`). Then the card's
 name and power limit (nvidia-smi), the {"kernels": [...]} summary, and
 as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero without that line. It exits non-zero
@@ -262,8 +285,10 @@ REPLACES = {
 _CSRC = "amgx_tpu_torch/csrc/"
 SOURCES = {
     "dia_spmv": "dia.cu", "dia_smooth": "dia.cu",
-    "dia_smooth_restrict": "dia.cu", "dia_prolong_smooth": "dia.cu",
-    "dia_prolong_smooth_dot": "dia.cu", "dia_coarse_tail": "tail.cu",
+    "dia_smooth_restrict": "stencil_tb_slab.cu",
+    "dia_prolong_smooth": "stencil_tb_slab.cu",
+    "dia_prolong_smooth_dot": "stencil_tb_slab.cu",
+    "dia_coarse_tail": "tail.cu",
     "dia_coarse_tail_dot": "tail.cu", "dia_spmv_dot": "krylov.cu",
     "dia_spmv_ddot": "krylov.cu",
     "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
@@ -280,6 +305,22 @@ for _bf, _f32 in BF16_FORMS.items():
 # B8 is float32 only in the reference: on bf16 operands it runs the XLA
 # form of the same product, which B8's bf16 form computes
 REPLACES["csr_spmv_bf16"] = "amgx_tpu/ops/pallas_swell.py:493"
+# the counters of each tiled kernel's other routes (the per-step route
+# where the tiled kernel does not take a level, the untiled restriction
+# after tiled steps): the kernels line lists their launches by path
+ROUTE_COUNTERS = {
+    "dia_smooth_restrict": ("dia_smooth_restrict_step",
+                            "dia_smooth_restrict_epilogue"),
+    "dia_prolong_smooth": ("dia_prolong_smooth_step",),
+    "dia_prolong_smooth_dot": ("dia_prolong_smooth_step_dot",),
+    "dia_smooth_restrict_bf16": ("dia_smooth_restrict_step_bf16",
+                                 "dia_smooth_restrict_epilogue_bf16"),
+    "dia_prolong_smooth_bf16": ("dia_prolong_smooth_step_bf16",),
+    "dia_smooth_restrict_mf": ("dia_smooth_restrict_mf_step",
+                               "dia_smooth_restrict_mf_epilogue"),
+    "dia_prolong_smooth_mf": ("dia_prolong_smooth_mf_step",),
+    "dia_prolong_smooth_mf_dot": ("dia_prolong_smooth_mf_step_dot",),
+}
 # pins the slab route on a path that exists to drive the slab kernels
 # (the card's default, matrix_free=auto, is matrix-free)
 SLAB = ", amg:matrix_free=0"
@@ -439,7 +480,45 @@ def classical_refinement():
             + ", amg:setup_backend=device")
 
 
+def tb_forms(lines):
+    """nvcc's resource lines of csrc/stencil_tb.cu and stencil_tb_slab.cu
+    (the kernels of csrc/stencil_tb.cuh) by kernel form: the
+    demangled template arguments of tb_star_kernel (storage type, x's
+    type, dinv, applications, in-tile residual, value source: 0
+    coefficients, 1 the slab's ring) -> "N registers, spills". The
+    mangled name where c++filt is missing."""
+    names = [ln.split(":", 1)[0] for ln in lines]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    forms = {}
+    for name, ln in zip(out, lines):
+        key, at = name, name.find("tb_star_kernel<")
+        if at >= 0:            # the first template argument list
+            depth, i = 0, at + len("tb_star_kernel")
+            for i in range(i, len(name)):
+                depth += {"<": 1, ">": -1}.get(name[i], 0)
+                if depth == 0:
+                    break
+            key = name[at + len("tb_star_kernel<"):i]
+        regs = ln.split(":", 1)[1].split(",")[0].strip()
+        spill = [p.strip() for p in ln.split(",") if "spill stores" in p]
+        forms[key.replace("__nv_bfloat16", "bf16")] = \
+            regs + (", " + spill[0] if spill else "")
+    return forms
+
+
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line on stdout; a phase's row also gets the seconds since
+    the script started (`t_s`: where a run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -550,22 +629,179 @@ def level_case(torch, amgx, A, dev, seed):
     return A, xfer, taus, b, x, xc
 
 
-def coarse_level(torch, amgx, n, dev):
+def coarse_level(torch, amgx, n, dev, dad=False):
     """The flagship's GEO level 1 at n^3: the Galerkin 7-pt operator of
     (n/2)^3 from the card's setup (the slab route, so that the level
-    keeps its value slab for the slab rows)."""
+    keeps its value slab for the slab rows); of D A D with `dad`."""
     from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
     A0 = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
                               device=dev).init()
+    if dad:
+        A0 = dad_operator(torch, A0)
     return amg_of(amgx, FLAGSHIP_TAIL_OFF + SLAB, A0, dev).amg.levels[1].A
+
+
+def dad_operator(torch, A):
+    """A2 = D A D (`scaled_values`) in A's dtype and on its device: the
+    same grid and pattern, a distinct value in every stored entry (and 0
+    off the grid), so no level of its hierarchy is a constant stencil."""
+    return A.with_values(torch.from_numpy(scaled_values(
+        A.row_offsets.cpu(), A.col_indices.cpu(), A.values.cpu())).to(
+            device=A.device, dtype=A.values.dtype))
+
+
+def slab_step_route(K, vals, offs, taus, b, x, dinv=None, ctab=None,
+                    xc=None, agg=None, with_dot=False):
+    """Slab B3 (with `ctab`) or B4 through the per-step route, to hold and
+    time beside the tiled launches in one run: the wrappers without the
+    level's grid (one dia.cu launch a step, "dia_smooth_restrict_step" /
+    "dia_prolong_smooth_step(_dot)", and B3's untiled restriction,
+    "dia_smooth_restrict_epilogue"). Every slab call took this route
+    before the tiled kernel."""
+    if ctab is not None:
+        return K.dia_smooth_restrict(vals, offs, taus, b, x, ctab, dinv)
+    return K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg, dinv,
+                                with_dot=with_dot)
+
+
+def slab_cases(torch, K, A, xfer, taus, b, x, xc, full=True):
+    """The temporally blocked slab B3 and B4 on the level A (a
+    random-valued slab: D A D or its Galerkin level), as the flagship
+    (CHEBYSHEV_POLY's five steps) and PCG (JACOBI_L1's dinv: one
+    presweep, two postsweeps at 0.75, B4 with its x'.b) call them, in
+    float32 and bf16 (the level's slab, dinv and vectors rounded, taus
+    float32): (label suffix, name) -> (kernel call, plain call, bytes,
+    flops, launches per call, None, launches by counter, (the per-step
+    route's call, its launches), extra). bytes: each input read once and
+    each output written once (bf16 streams at 2 bytes); extra's
+    bound_launches_ms: what the planned launches move at least (each
+    streams the slab, dinv and b, the first reads x (xc, agg), each later
+    one the float32 state the one before wrote, the last writes x' and
+    bc). PCG's JACOBI_L1 schedule (with dinv) in bf16 on every level,
+    in float32 for B4's dot on every level and for B3 / B4 with `full`
+    only."""
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
+    bf = torch.bfloat16
+    offs, grid = A.dia_offsets, A.grid_shape
+    n, k = A.num_rows, len(offs)
+    ctab, agg = xfer["ctab"], xfer["agg"]
+    m, nc = ctab.shape
+    dinv32 = safe_recip(l1_strengthened_diag(A))
+    out = {}
+    for dt in (torch.float32, bf):
+        es = 2 if dt == bf else 4
+        vals, b_, x_, xc_ = (v.to(dt) for v in (A.dia_vals, b, x, xc))
+        tag = "_bf16" if dt == bf else ""
+        for sched, t, dinv in (
+                ("chebyshev", taus.to(dt).float(), None),
+                ("jacobi_l1", torch.full((2,), 0.75, device=x.device),
+                 dinv32.to(dt))):
+            dn = 0 if dinv is None else n
+            app = (2 * k + 3 + (dinv is not None)) * n
+            forms = (("dia_smooth_restrict", t[:1] if dinv is not None
+                      else t, ctab, False),
+                     ("dia_prolong_smooth", t, None, False))
+            if dinv is not None and dt == torch.float32 and not full:
+                forms = ()          # PCG's float32 B3 / B4: with `full`
+            if dt == torch.float32 and dinv is not None:
+                forms += (("dia_prolong_smooth_dot", t, None, True),)
+            for name, tt, ct, dot in forms:
+                s = tt.shape[0]
+                route, plans, _ = K.slab_route(vals, offs, grid, dinv, x_,
+                                               s, ct)
+                check(route == "tiled", f"{name}{tag}: the tiled route "
+                      f"takes the level {grid}, not {route}")
+                last = name + tag
+                moved = {name + tag: len(plans)}
+                if dot:
+                    moved = {"dia_prolong_smooth": len(plans) - 1,
+                             "dia_prolong_smooth_dot": 1}
+                    moved = {kk: v for kk, v in moved.items() if v}
+                streams = (k * n + dn) * es + n * es     # vals, dinv, b
+                moves = len(plans) * streams + n * es + 4 * n * 2 * (
+                    len(plans) - 1) + n * es
+                if ct is not None:
+                    kern = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_:
+                            K.dia_smooth_restrict(v, offs, tt, b_, x_,
+                                                  ctab, d, grid=grid))
+                    plain = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_:
+                             K.dia_smooth_restrict_plain(v, offs, tt, b_,
+                                                         x_, ctab, d))
+                    old = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_:
+                           slab_step_route(K, v, offs, tt, b_, x_, d,
+                                           ctab=ctab))
+                    nbytes = (k * n + dn + 3 * n + nc) * es + s * 4 \
+                        + m * nc * 4
+                    flops = s * app + (2 * k + 2) * n
+                    moves += m * nc * 4 + nc * es
+                else:
+                    kern = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_,
+                            xc_=xc_, dot=dot:
+                            K.dia_prolong_smooth(v, offs, tt, b_, x_, xc_,
+                                                 agg, d, with_dot=dot,
+                                                 grid=grid))
+                    plain = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_,
+                             xc_=xc_, dot=dot:
+                             K.dia_prolong_smooth_plain(v, offs, tt, b_,
+                                                        x_, xc_, agg, d,
+                                                        with_dot=dot))
+                    old = (lambda v=vals, tt=tt, d=dinv, b_=b_, x_=x_,
+                           xc_=xc_, dot=dot:
+                           slab_step_route(K, v, offs, tt, b_, x_, d,
+                                           xc=xc_, agg=agg, with_dot=dot))
+                    nbytes = (k * n + dn + 3 * n + nc) * es + s * 4 \
+                        + n * 4 + (4 if dot else 0)
+                    flops = s * app + n + (2 * n if dot else 0)
+                    moves += nc * es + n * 4
+                out[sched, last] = (
+                    kern, plain, nbytes, flops, len(plans), None, moved,
+                    (old, s + (ct is not None)),
+                    {"bound_launches_ms": bound(moves, flops)[0],
+                     "split": [p.apps for p in plans],
+                     "tiles": [[*p.tile, p.chunk, p.blocks, p.threads,
+                                p.smem_bytes] for p in plans],
+                     "ring_floats": plans[0].ring})
+    return out
+
+
+def slab_cycle_launches(torch, K, slv, levels):
+    """(B3 launches, B4 launches) of one V-cycle on the slab levels
+    `levels` of a solver's hierarchy, each asked of `K.slab_route` on the
+    cycle's own level data (its dtype, its smoother's schedule): checks
+    that each is the tiled route and counts the planned launches."""
+    amg = precond_amg(slv)
+    data = amg.solve_data()["levels"]
+    n3 = n4 = 0
+    for i in levels:
+        ld = data[i]
+        A, smd = ld["A"], ld["smoother"]
+        # CHEBYSHEV_POLY: its taus a sweep; the Jacobi family: one step
+        # a sweep with its dinv
+        per_sweep = smd["taus"].shape[0] if "taus" in smd else 1
+        x = torch.zeros(A.num_rows, dtype=A.dia_vals.dtype, device=A.device)
+        for pre in (True, False):
+            s = per_sweep * amg._sweeps(i, pre=pre)
+            route, plans, _ = K.slab_route(
+                A.dia_vals, A.dia_offsets, A.grid_shape, smd.get("dinv"), x,
+                s, ld["xfer"]["ctab"] if pre else None)
+            check(route == "tiled", f"level {i} ({A.grid_shape}): the slab "
+                  f"{'B3' if pre else 'B4'} takes the {route} route")
+            if pre:
+                n3 += len(plans)
+            else:
+                n4 += len(plans)
+    return n3, n4
 
 
 def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     """name -> (kernel call, plain call, bytes, flops, launches per call,
-    library call or None) at one shape, name -> the slab kernel's call
-    on the same level for each coefficient-mode kernel, and name -> (the
-    per-step route's call, its launches per call) for the temporally blocked
-    B3-mf / B4-mf (`step_route`). The coefficient kernels take the level's
+    library call or None) at one shape (B1, B2 and the coefficient mode;
+    the slab B3 / B4 are `slab_cases`), name -> the slab kernel's call
+    on the same level for each coefficient-mode kernel (B3 / B4 tiled:
+    the level's grid), and name -> (the per-step route's call, its
+    launches per call) for the temporally blocked B3-mf / B4-mf
+    (`step_route`). The coefficient kernels take the level's
     stencil: CHEBYSHEV_POLY's (no dinv) for B2-B4-mf, JACOBI_L1's ("l1")
     with PCG's two steps for B4-mf's dot."""
     from amgx_tpu_torch.ops import stencil as mf
@@ -592,19 +828,6 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             lambda: K.dia_smooth(vals, offs, taus, b, x),
             lambda: K.dia_smooth_plain(vals, offs, taus, b, x),
             (k * n + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None),
-        "dia_smooth_restrict": (
-            lambda: K.dia_smooth_restrict(vals, offs, taus, b, x,
-                                          xfer["ctab"]),
-            lambda: K.dia_smooth_restrict_plain(vals, offs, taus, b, x,
-                                                xfer["ctab"]),
-            (k * n + 3 * n + s + m * nc + nc) * 4,
-            s * app + (2 * k + 2) * n, s + 1, None),
-        "dia_prolong_smooth": (
-            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc,
-                                         xfer["agg"]),
-            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
-                                               xfer["agg"]),
-            (k * n + 4 * n + s + nc) * 4, s * app + n, s, None),
         # the coefficient mode moves no slab and no dinv: k coefficients
         "dia_smooth_mf": (
             lambda: K.dia_smooth_mf(st, taus, b, x),
@@ -629,14 +852,16 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             (k + 4 * n + 2 + nc + 1) * 4, 2 * (2 * k + 4) * n + 3 * n, 1,
             None),
     }
+    grid = A.grid_shape
     slab = {
         "dia_smooth_mf": lambda: K.dia_smooth(vals, offs, taus, b, x),
         "dia_smooth_restrict_mf": lambda: K.dia_smooth_restrict(
-            vals, offs, taus, b, x, xfer["ctab"]),
+            vals, offs, taus, b, x, xfer["ctab"], grid=grid),
         "dia_prolong_smooth_mf": lambda: K.dia_prolong_smooth(
-            vals, offs, taus, b, x, xc, xfer["agg"]),
+            vals, offs, taus, b, x, xc, xfer["agg"], grid=grid),
         "dia_prolong_smooth_mf_dot": lambda: K.dia_prolong_smooth(
-            vals, offs, t2, b, x, xc, xfer["agg"], dinv, with_dot=True),
+            vals, offs, t2, b, x, xc, xfer["agg"], dinv, with_dot=True,
+            grid=grid),
     }
     step = {
         "dia_smooth_restrict_mf": (
@@ -711,6 +936,50 @@ def step_route_cases(torch, K, A, xfer, taus, b, x, xc):
     }
 
 
+def slab_step_cases(torch, K, A, xfer, taus, b, x, xc):
+    """The slab B3, B4 and B4's dot on a level the tiled kernel does not
+    take (here a 27-point one), where the wrappers launch the per-step
+    route under its own counters: name -> (kernel call, plain call,
+    bytes, flops, launches per call, None, the launches per counter a
+    call makes)."""
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
+    vals, offs, grid = A.dia_vals, A.dia_offsets, A.grid_shape
+    ctab, agg = xfer["ctab"], xfer["agg"]
+    n, k, s = A.num_rows, len(offs), taus.shape[0]
+    m, nc = ctab.shape
+    app = (2 * k + 3) * n
+    dinv = safe_recip(l1_strengthened_diag(A))
+    check(K.slab_route(vals, offs, grid, None, x, s, ctab)[0] == "step",
+          "the 27-point level takes the per-step route")
+    return {
+        "dia_smooth_restrict": (
+            lambda: K.dia_smooth_restrict(vals, offs, taus, b, x, ctab,
+                                          grid=grid),
+            lambda: K.dia_smooth_restrict_plain(vals, offs, taus, b, x,
+                                                ctab),
+            (k * n + 3 * n + s + m * nc + nc) * 4,
+            s * app + (2 * k + 2) * n, s + 1, None,
+            {"dia_smooth_restrict_step": s,
+             "dia_smooth_restrict_epilogue": 1}),
+        "dia_prolong_smooth": (
+            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
+                                         grid=grid),
+            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
+                                               agg),
+            (k * n + 4 * n + s + nc) * 4, s * app + n, s, None,
+            {"dia_prolong_smooth_step": s}),
+        "dia_prolong_smooth_dot": (
+            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
+                                         dinv, with_dot=True, grid=grid),
+            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
+                                               agg, dinv, with_dot=True),
+            (k * n + 5 * n + s + nc + 1) * 4, s * (app + n) + 3 * n, s,
+            None, {"dia_prolong_smooth_step": s - 1,
+                   "dia_prolong_smooth_step_dot": 1}),
+    }
+
+
 def synthesized_dinv(torch, K, A):
     """The diagonal inverse B2-mf synthesizes on the card ("jacobi" and
     "l1"), read out as one step from x = 0 with b = 1 and tau = 1, against
@@ -731,8 +1000,8 @@ def synthesized_dinv(torch, K, A):
 
 
 def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
-    """The bf16 forms of B2-B4 and B2-mf..B4-mf at one shape, as the bf16
-    flagship calls them: the level's slab, dinv, stencil coefficients and
+    """The bf16 forms of B2 and B2-mf..B4-mf at one shape (the slab B3 /
+    B4 are `slab_cases`), as the bf16 flagship calls them: the level's slab, dinv, stencil coefficients and
     vectors rounded to bf16, taus float32. Two schedules: CHEBYSHEV_POLY's
     (the flagship's: its taus rounded to bf16 as the hierarchy's cast
     does, no dinv) and JACOBI_L1's (two steps at 0.75, with dinv).
@@ -742,11 +1011,11 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     bytes: each input read once and each output written once, bf16
     streams at 2 bytes (the one-pass bound the TPU's temporal blocking
     attains). bound_launches_ms: the bytes the port's launch sequence
-    moves at least -- each slab (and B2-mf) launch reads the slab, dinv
+    moves at least -- each B2 (and B2-mf) launch reads the slab, dinv
     and b, the middle steps read and write the float32 scratch, the last
-    step writes x' and (B2 / B3) keeps its float32 state for the residual
-    or restriction launch; the one launch of B3-mf / B4-mf reads b, x
-    (xc and agg; ctab and its row lists) and writes x' (bc). The
+    step writes x' and keeps its float32 state for the residual launch;
+    the one launch of B3-mf / B4-mf reads b, x (xc and agg; ctab and its
+    row lists) and writes x' (bc). The
     temporally blocked B3-mf / B4-mf rows carry, as an eighth entry, the
     per-step route's call and launches (`step_route`)."""
     from amgx_tpu_torch.amg.hierarchy import _cast_leaf
@@ -777,14 +1046,7 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             per = (k * n * 2 if slab else 0) + (dn * 2 if slab else 0) \
                 + 2 * n                               # vals, dinv, b
             steps = s * per + 2 * n + (s - 1) * 8 * n + 2 * n
-            if kind == "B4":
-                steps += nc * 2 + n * 4               # xc, agg
-            if kind == "B2":
-                steps += 4 * n + per + 4 * n + 2 * n  # keep, residual
-            if kind == "B3":
-                steps += 4 * n + (k * n * 2 if slab else 0) + 2 * n \
-                    + 4 * n + m * nc * 4 + nc * 2
-            return steps
+            return steps + 4 * n + per + 4 * n + 2 * n  # keep, residual
         ctab, agg = xfer["ctab"], xfer["agg"]
         cases = {
             "dia_smooth_bf16": (
@@ -794,21 +1056,6 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
                                                        x16, d),
                 (k * n + 4 * n + dn) * 2 + s * 4, s * app + 2 * k * n,
                 s + 1, None, launches("B2", True)),
-            "dia_smooth_restrict_bf16": (
-                lambda t=t, d=dinv: K.dia_smooth_restrict(
-                    vals, offs, t, b16, x16, ctab, d),
-                lambda t=t, d=dinv: K.dia_smooth_restrict_plain(
-                    vals, offs, t, b16, x16, ctab, d),
-                (k * n + 3 * n + dn + nc) * 2 + s * 4 + m * nc * 4,
-                s * app + (2 * k + 2) * n, s + 1, None,
-                launches("B3", True)),
-            "dia_prolong_smooth_bf16": (
-                lambda t=t, d=dinv: K.dia_prolong_smooth(
-                    vals, offs, t, b16, x16, xc16, agg, d),
-                lambda t=t, d=dinv: K.dia_prolong_smooth_plain(
-                    vals, offs, t, b16, x16, xc16, agg, d),
-                (k * n + 3 * n + dn + nc) * 2 + s * 4 + n * 4,
-                s * app + n, s, None, launches("B4", True)),
             "dia_smooth_mf_bf16": (
                 lambda t=t, st=st: K.dia_smooth_mf(st, t, b16, x16),
                 lambda t=t, st=st: mf._xla_smooth(st.spec(), st.coeffs, t,
@@ -842,32 +1089,18 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
 
 
 def shell_cases(torch, amgx, K, KK, dev):
-    """B4's x'.b epilogue, B6 and B7 at the PCG path's finest level
-    (7-pt 128^3 float32): JACOBI_L1's dinv and two post-sweeps at 0.75,
-    seeded random vectors and scalars."""
-    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
-                                                   safe_recip)
-    A, xfer, _, b, x, xc = grid_case(torch, amgx, (128, 128, 128), dev)
+    """B6 and B7 at the PCG path's finest level (7-pt 128^3 float32),
+    seeded random vectors and scalars (B4's x'.b epilogue at PCG's
+    shapes is `slab_cases`)."""
+    A, _, _, _, x, _ = grid_case(torch, amgx, (128, 128, 128), dev)
     vals, offs = A.dia_vals, A.dia_offsets
     n, k = A.num_rows, len(offs)
-    nc = xc.shape[0]
-    dinv = safe_recip(l1_strengthened_diag(A))
-    taus = torch.full((2,), 0.75, device=dev)
     g = torch.Generator(device=dev).manual_seed(99)
     p, z, r, ap = (torch.randn(n, generator=g, device=dev)
                    for _ in range(4))
     beta = torch.tensor(0.37, device=dev)
     alpha = torch.tensor(0.21, device=dev)
-    s = taus.shape[0]
     return A, {
-        "dia_prolong_smooth_dot": (
-            lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc,
-                                         xfer["agg"], dinv, with_dot=True),
-            lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
-                                               xfer["agg"], dinv,
-                                               with_dot=True),
-            (k * n + 5 * n + s + nc + 1) * 4, s * (2 * k + 4) * n + 3 * n,
-            s, None),
         "dia_spmv_dot": (
             lambda: KK.dia_spmv_dot(vals, offs, p, z, beta),
             lambda: KK.dia_spmv_dot_plain(vals, offs, p, z, beta),
@@ -1447,16 +1680,40 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
                                           row["bit_equal_share"])
 
 
-def tiled_level_cases(torch, amgx, K, dev, summary):
+def run_slab_cases(torch, K, label, A, xfer, taus, b, x, xc, summary,
+                   full=True):
+    """`slab_cases` on the level A, each through `run_case`: against its
+    plain form, its launches by counter, the per-step route's bits and
+    times in turns."""
+    for (sched, name), c in slab_cases(torch, K, A, xfer, taus, b, x,
+                                       xc, full).items():
+        run_case(torch, K, f"{label} {sched}", name, *c[:6], A.num_rows,
+                 summary, c[8], moved_expect=c[6], old=c[7])
+
+
+def tiled_level_setup(torch, amgx, dev):
+    """The levels `tiled_level_cases` runs on, set up before the first
+    profile: the flagship's level 1 (its `level_case`), the D A D
+    hierarchy's level 1, and a 27-point level's case."""
+    A27 = amgx.gallery.poisson("27pt", 48, 48, 48, dtype=torch.float32,
+                               device=dev).init()
+    return (level_case(torch, amgx, coarse_level(torch, amgx, 128, dev),
+                       dev, 7),
+            coarse_level(torch, amgx, 128, dev, dad=True),
+            level_case(torch, amgx, A27, dev, 11))
+
+
+def tiled_level_cases(torch, K, summary, levels):
     """B3-mf and B4-mf beyond the level-0 grids: the tiled kernels on the
-    flagship's level 1 and the per-step route where the wrappers take it."""
+    flagship's level 1 and the per-step route where the wrappers take it;
+    the slab B3 / B4 on the D A D hierarchy's level 1 and their per-step
+    route on a 27-point level (`tiled_level_setup`'s levels)."""
     # the flagship's level 1 (F's second level: the Galerkin 7-pt stencil
     # at 64^3, another tile plan): the tiled B3-mf / B4-mf in float32 and
     # bf16 against their plain forms, the slab kernels and the per-step
     # route
     label = "flagship_l1_64^3"
-    A1, xfer1, taus1, b1, x1, xc1 = level_case(
-        torch, amgx, coarse_level(torch, amgx, 128, dev), dev, 7)
+    (A1, xfer1, taus1, b1, x1, xc1), A1d, case27 = levels
     check(A1.num_rows == 64 ** 3, f"level 1 has {A1.num_rows} rows")
     cases, slab, steps = kernel_cases(torch, K, A1, xfer1, taus1, b1, x1,
                                       xc1)
@@ -1469,18 +1726,26 @@ def tiled_level_cases(torch, amgx, K, dev, summary):
             run_case(torch, K, f"{label} {sched}", name, *named[name][:6],
                      A1.num_rows, summary, named[name][6],
                      old=named[name][7])
+    # the slab B3 / B4 on the D A D hierarchy's level 1 (the Galerkin
+    # product of a variable-coefficient 128^3 operator at 64^3)
+    check(A1d.num_rows == 64 ** 3 and K.slab_grid(
+        A1d.dia_vals, A1d.dia_offsets, A1d.grid_shape) is not None,
+          f"the D A D level 1 ({A1d.num_rows} rows) is a star grid level")
+    run_slab_cases(torch, K, "dad_l1_64^3", A1d, xfer1, taus1, b1, x1,
+                   xc1, summary, full=False)
     # the per-step route of B3-mf / B4-mf: a 27-point level (CHEBYSHEV_
     # POLY's five steps) and a schedule of 20 steps on level 1 (its five
-    # taus four times)
-    A27 = amgx.gallery.poisson("27pt", 48, 48, 48, dtype=torch.float32,
-                               device=dev).init()
+    # taus four times); of the slab B3 / B4 on the 27-point level
     for label, case in (
-            ("27pt_48^3", level_case(torch, amgx, A27, dev, 11)),
+            ("27pt_48^3", case27),
             ("flagship_l1_64^3 20 steps",
              (A1, xfer1, taus1.repeat(4), b1, x1, xc1))):
         for name, c in step_route_cases(torch, K, *case).items():
             run_case(torch, K, label, name, *c[:6], case[0].num_rows,
                      summary, moved_expect=c[6])
+    for name, c in slab_step_cases(torch, K, *case27).items():
+        run_case(torch, K, "27pt_48^3", name, *c[:6], case27[0].num_rows,
+                 summary, moved_expect=c[6])
 
 
 # the temporally blocked kernels (csrc/stencil_tb.cu) and their bf16 forms
@@ -1492,6 +1757,15 @@ MF_STEP_ROUTE = ("dia_smooth_restrict_mf_step", "dia_prolong_smooth_mf_step",
                  "dia_prolong_smooth_mf_step_dot",
                  "dia_smooth_restrict_mf_step_bf16",
                  "dia_prolong_smooth_mf_step_bf16")
+# the slab B3's / B4's per-step route and B3's untiled restriction after
+# it (weighted tables keep their "_w" counters), never taken on the
+# driven GEO paths
+SLAB_STEP_ROUTE = ("dia_smooth_restrict_step", "dia_prolong_smooth_step",
+                   "dia_prolong_smooth_step_dot",
+                   "dia_smooth_restrict_step_bf16",
+                   "dia_prolong_smooth_step_bf16",
+                   "dia_smooth_restrict_epilogue",
+                   "dia_smooth_restrict_epilogue_bf16")
 
 
 def phase_kernels(torch, amgx, dev):
@@ -1501,12 +1775,18 @@ def phase_kernels(torch, amgx, dev):
     from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.ops import cuda_tail as T
     summary = {}
-    # the 32^3 tail hierarchies and the classical 128^3 setup first, then
-    # B8's and B5's profiles: a profile taken before a large setup loses
-    # the kernel records of later ones (the CSR rows' device times were
-    # lost that way)
+    # the 32^3 tail hierarchies, the classical 128^3 setup and every
+    # level of the DIA rows first, then the profiles: a profile taken
+    # before a large setup loses the kernel records of later ones (the
+    # CSR rows' device times were lost that way)
     tails = {(mode, half): tail_cases(torch, amgx, T, dev, mode, half)
              for half in (False, True) for mode in ("slab", "mf")}
+    grids = {}
+    for label, shape in (("flagship_l0_128^3", (128, 128, 128)),
+                         ("ragged_97x61x43", (97, 61, 43))):
+        case = grid_case(torch, amgx, shape, dev)
+        grids[label] = (case, dad_operator(torch, case[0]))
+    tiled_levels = tiled_level_setup(torch, amgx, dev)
     cases, bf16, levels, mm = classical_cases(torch, amgx, K, C, dev)
     emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
           "levels": levels, **mm})
@@ -1555,9 +1835,12 @@ def phase_kernels(torch, amgx, dev):
                       "phase_chain_floor_ms": cbars * costs[0]
                       + bbars * costs[1]},
                      slab=slab, repeat=True)
-    for label, shape in (("flagship_l0_128^3", (128, 128, 128)),
-                         ("ragged_97x61x43", (97, 61, 43))):
-        A, xfer, taus, b, x, xc = grid_case(torch, amgx, shape, dev)
+    for label, ((A, xfer, taus, b, x, xc), A2) in grids.items():
+        # the slab B3 / B4 on the D A D operator of the same grid (its
+        # random per-row values), tiled, against their plain forms and
+        # the per-step route
+        run_slab_cases(torch, K, label + " dad", A2, xfer, taus, b, x, xc,
+                       summary, full=label.startswith("flagship"))
         cases, slab, steps = kernel_cases(torch, K, A, xfer, taus, b, x, xc)
         for name, case in cases.items():
             run_case(torch, K, label, name, *case, A.num_rows, summary,
@@ -1577,7 +1860,7 @@ def phase_kernels(torch, amgx, dev):
               "max_abs_diff_from_smoother_dinv": diffs})
         check(all(d == 0.0 for d in diffs.values()),
               f"{label}: synthesized dinv differs from the smoothers' {diffs}")
-    tiled_level_cases(torch, amgx, K, dev, summary)
+    tiled_level_cases(torch, K, summary, tiled_levels)
     A, cases = shell_cases(torch, amgx, K, KK, dev)
     for name, case in cases.items():
         run_case(torch, K, "pcg_l0_128^3", name, *case, A.num_rows, summary)
@@ -1591,13 +1874,16 @@ def phase_kernels(torch, amgx, dev):
     return summary
 
 
-def solve(torch, amgx, cfg, n, dev, dtype=None):
+def solve(torch, amgx, cfg, n, dev, dtype=None, op=None):
     """Set up and solve the 7-pt n^3 system with b = 1 (float64 unless
-    `dtype`); returns (result, solver, setup s, solve s, true relative
-    residual in float64)."""
+    `dtype`), or the system of `op(A)` (e.g. `dad_operator`); returns
+    (result, solver, setup s, solve s, true relative residual in float64
+    of the solved operator)."""
     from amgx_tpu_torch.ops.spmv import residual
     dtype = dtype or torch.float64
     A = amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev)
+    if op is not None:
+        A = op(torch, A.init())
     slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
     t0 = time.perf_counter()
     slv.setup(A)
@@ -1609,6 +1895,8 @@ def solve(torch, amgx, cfg, n, dev, dtype=None):
     res = slv.solve(b)
     solve_s = time.perf_counter() - t0
     A64 = amgx.gallery.poisson("7pt", n, n, n, device=dev).init()
+    if op is not None:
+        A64 = op(torch, A64)
     b64 = torch.ones(A.num_rows, dtype=torch.float64, device=dev)
     true_rel = float(torch.linalg.norm(residual(A64, res.x.double(), b64))
                      / torch.linalg.norm(b64))
@@ -1713,6 +2001,7 @@ def phase_flagship(torch, amgx, dev, per_path):
     route pinned (flagship_slab), and the slab tail-off run; warm solves
     in alternating pairs: matrix-free against slab, slab against
     tail-off."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
     n = 128
     runs, slvs = {}, {}
@@ -1727,43 +2016,48 @@ def phase_flagship(torch, amgx, dev, per_path):
         inner = int(res.extra_stats["inner_iters"])
         levels = levels_of(slv)
         _, warm_s = warm_solve(torch, slv, n, torch.float64)
+        above = sum(r > 65536 for r in levels[:-1])
+        mf = "_mf" if label == "flagship" else ""
+        other = "" if mf else "_mf"
+        # every V-cycle: B3 and B4 on each level above the tail (all
+        # levels with the tail off) -- B3-mf and B4-mf one launch each,
+        # the slab B3 / B4 the planned split of temporally blocked
+        # launches (3 + 3 and 3 + 2 at 128^3 and 64^3), the GEO tables
+        # restricting in the tile -- then ONE B5 launch for the rest
+        smoothed = range(above if label != "flagship_tail_off"
+                         else len(levels) - 1)
+        per3, per4 = (len(smoothed), len(smoothed)) if mf \
+            else slab_cycle_launches(torch, K, slv, smoothed)
         runs[label] = {"setup_s": setup_s, "solve_s": solve_s,
                        "warm_solve_s": warm_s, "inner_iterations": inner,
-                       "outer_iterations": res.iterations}
+                       "outer_iterations": res.iterations,
+                       "b3_b4_launches_per_cycle": [per3, per4]}
         emit({"phase": "flagship", "config": label, "rows": n ** 3,
               "setup_s": setup_s, "solve_s": solve_s, "warm_solve_s": warm_s,
               "levels": levels, "outer_iterations": res.iterations,
               "inner_iterations": inner, "status": res.status,
               "true_rel_res": true_rel,
               "res_history": [float(h) for h in res.res_history],
-              "launches": c})
+              "b3_b4_launches_per_cycle": [per3, per4], "launches": c})
         check(res.status == "success" and true_rel <= 1e-8,
               f"128^3 {label} true relative residual {true_rel} <= 1e-8")
         check(res.iterations <= 3, f"{res.iterations} outer iterations <= 3")
-        above = sum(r > 65536 for r in levels[:-1])
-        mf = "_mf" if label == "flagship" else ""
-        other = "" if mf else "_mf"
         check(c["dia_spmv"] > 0 and c["dia_smooth_restrict" + mf] > 0
               and c["dia_prolong_smooth" + mf] > 0
               and c["dia_smooth_restrict" + other] == 0
               and c["dia_prolong_smooth" + other] == 0
               and c["dia_coarse_tail" + other] == 0,
               f"{label}: B1, B3{mf}, B4{mf} ran, none of the other route {c}")
+        check(c["dia_smooth_restrict" + mf] == inner * per3
+              and c["dia_prolong_smooth" + mf] == inner * per4
+              and c["dia_smooth_restrict_mf_epilogue"] == 0
+              and sum(c[k] for k in MF_STEP_ROUTE + SLAB_STEP_ROUTE) == 0,
+              f"{label}: B3{mf}/B4{mf} on levels {list(smoothed)}, "
+              f"{per3} / {per4} launches a V-cycle: {c}")
         if label != "flagship_tail_off":
-            # every V-cycle: B3 (6 launches: 5 steps and the restriction)
-            # and B4 (5) on each level above the tail -- B3-mf and B4-mf
-            # one launch each, the GEO tables restricting in the tile --
-            # then ONE B5 launch for the rest
-            per3, per4 = (1, 1) if mf else (6, 5)
             check(above == 2 and c["dia_coarse_tail" + mf] == inner,
                   f"{label}: one B5{mf} launch per V-cycle: {c}, {inner} "
                   f"cycles")
-            check(c["dia_smooth_restrict" + mf] == inner * above * per3
-                  and c["dia_prolong_smooth" + mf] == inner * above * per4
-                  and c["dia_smooth_restrict_mf_epilogue"] == 0
-                  and sum(c[k] for k in MF_STEP_ROUTE) == 0,
-                  f"{label}: B3{mf}/B4{mf} only on the {above} levels above "
-                  f"the tail, {per3} / {per4} launches a call: {c}")
         else:
             check(c["dia_coarse_tail"] == 0, "tail off: no B5 launch")
     check(runs["flagship"]["inner_iterations"]
@@ -1781,6 +2075,69 @@ def phase_flagship(torch, amgx, dev, per_path):
               **{f"{k}_{c}": v for k, r in runs.items() if k in (a, b_)
                  for c, v in r.items()}})
     return runs, slvs
+
+
+def phase_flagship_dad(torch, amgx, dev, per_path):
+    """The untouched FLAGSHIP (matrix_free=auto, the card's default) on
+    A2 = D A D (`dad_operator`): variable coefficients, so the detector
+    finds no constant stencil and every level keeps its value slab. At
+    128^3: the true relative residual of A2 <= 1e-8 in <= 3 outer
+    iterations, the slab B3 / B4 tiled on the levels above the tail (the
+    planned launches a V-cycle, no per-step route, nothing matrix-free)
+    and one slab B5 a V-cycle; at 32^3 the card's outer and inner
+    iterations equal the CPU route's on the same input."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    from amgx_tpu_torch.presets import FLAGSHIP
+    n = 128
+    res, slv, setup_s, solve_s, true_rel = run_path(
+        amgx, per_path, "flagship_dad", lambda: solve(
+            torch, amgx, FLAGSHIP + ", store_res_history=1", n, dev,
+            op=dad_operator))
+    c = per_path["flagship_dad"]
+    inner = int(res.extra_stats["inner_iters"])
+    levels = levels_of(slv)
+    above = sum(r > 65536 for r in levels[:-1])
+    per3, per4 = slab_cycle_launches(torch, K, slv, range(above))
+    amg = precond_amg(slv)
+    b = torch.ones(n ** 3, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    slv.solve(b)
+    warm_s = time.perf_counter() - t0
+    emit({"phase": "flagship_dad", "config": "flagship_dad", "rows": n ** 3,
+          "setup_s": setup_s, "solve_s": solve_s, "warm_solve_s": warm_s,
+          "levels": levels, "outer_iterations": res.iterations,
+          "inner_iterations": inner, "status": res.status,
+          "true_rel_res": true_rel,
+          "res_history": [float(h) for h in res.res_history],
+          "b3_b4_launches_per_cycle": [per3, per4], "launches": c})
+    check(res.status == "success" and true_rel <= 1e-8
+          and res.iterations <= 3,
+          f"128^3 flagship_dad: {res.status}, true relative residual of "
+          f"A2 {true_rel} <= 1e-8 in {res.iterations} <= 3 outer")
+    check(all(lv.smoother._mf_stencil is None for lv in amg.levels),
+          "flagship_dad: no level is a constant stencil")
+    check(above == 2 and c["dia_coarse_tail"] == inner
+          and c["dia_smooth_restrict"] == inner * per3
+          and c["dia_prolong_smooth"] == inner * per4
+          and sum(c[k] for k in MF_STEP_ROUTE + SLAB_STEP_ROUTE) == 0
+          and all(c[k] == 0 for k in c if "_mf" in k),
+          f"flagship_dad: slab B3 / B4 tiled on the {above} levels above "
+          f"the tail ({per3} / {per4} launches a V-cycle), one slab B5 a "
+          f"V-cycle, nothing matrix-free: {c}, {inner} cycles")
+    m3 = 32
+    rc, _, _, _, tc = solve(torch, amgx, FLAGSHIP, m3, dev, op=dad_operator)
+    rh, _, _, _, th = solve(torch, amgx, FLAGSHIP, m3, torch.device("cpu"),
+                            op=dad_operator)
+    inner_c, inner_h = (int(r.extra_stats["inner_iters"]) for r in (rc, rh))
+    emit({"phase": "flagship_dad", "config": f"flagship_dad_{m3}^3",
+          "rows": m3 ** 3, "outer_cuda": rc.iterations,
+          "outer_cpu": rh.iterations, "inner_cuda": inner_c,
+          "inner_cpu": inner_h, "true_rel_res_cuda": tc,
+          "true_rel_res_cpu": th})
+    check(rc.iterations == rh.iterations and inner_c == inner_h
+          and tc <= 1e-8, f"{m3}^3 flagship_dad: the card's {rc.iterations}"
+          f" / {inner_c} iterations against the CPU's {rh.iterations} / "
+          f"{inner_h}")
 
 
 # the float32 smoother forms a bf16 cycle must not launch on its levels
@@ -1804,6 +2161,7 @@ def phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs):
     warm solves of the float32 and the bf16 flagship in alternating pairs:
     mixed_precision_speedup (bench.py's name) = warm f32 / warm bf16,
     recorded, not checked."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
     n = 128
     slvs = {}
@@ -1852,25 +2210,30 @@ def phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs):
         mf = "_mf" if label == "flagship_bf16" else ""
         check(all(c[k] == 0 for k in F32_SMOOTHERS) and c["dia_spmv"] > 0,
               f"{label}: no float32 smoother launch, B1 in FGMRES {c}")
+        check(sum(c[k] for k in MF_STEP_ROUTE + SLAB_STEP_ROUTE) == 0
+              and c["dia_smooth_restrict_mf_epilogue_bf16"] == 0,
+              f"{label}: no per-step route, no untiled restriction {c}")
         if label == "flagship_bf16_tail_off":
-            lv = len(levels) - 1
+            lv = range(len(levels) - 1)
+            per3, per4 = slab_cycle_launches(torch, K, slv, lv)
             check(c["dia_coarse_tail_bf16"] + c["dia_coarse_tail_mf_bf16"]
-                  == 0 and c["dia_smooth_restrict_bf16"] == inner * lv * 6
-                  and c["dia_prolong_smooth_bf16"] == inner * lv * 5,
-                  f"{label}: bf16 B3/B4 on all {lv} levels, no B5 {c}")
+                  == 0 and c["dia_smooth_restrict_bf16"] == inner * per3
+                  and c["dia_prolong_smooth_bf16"] == inner * per4,
+                  f"{label}: bf16 B3/B4 on all {len(lv)} levels, {per3} / "
+                  f"{per4} launches a V-cycle, no B5 {c}")
             continue
         above = sum(r > 65536 for r in levels[:-1])
-        # every V-cycle: B3 (6 launches) and B4 (5) on each level above
-        # the tail (B3-mf and B4-mf: one each), then ONE B5 launch for the
-        # rest
-        per3, per4 = (1, 1) if mf else (6, 5)
+        # every V-cycle: B3 and B4 on each level above the tail (B3-mf
+        # and B4-mf: one launch each; the slab B3 / B4 their planned
+        # split), then ONE B5 launch for the rest
+        per3, per4 = (above, above) if mf \
+            else slab_cycle_launches(torch, K, slv, range(above))
         check(above == 2 and c[f"dia_coarse_tail{mf}_bf16"] == inner
-              and c[f"dia_smooth_restrict{mf}_bf16"] == inner * above * per3
-              and c[f"dia_prolong_smooth{mf}_bf16"] == inner * above * per4
-              and c["dia_smooth_restrict_mf_epilogue_bf16"] == 0
-              and sum(c[k] for k in MF_STEP_ROUTE) == 0,
+              and c[f"dia_smooth_restrict{mf}_bf16"] == inner * per3
+              and c[f"dia_prolong_smooth{mf}_bf16"] == inner * per4,
               f"{label}: bf16 B3{mf}/B4{mf} on the {above} levels above the "
-              f"tail, one bf16 B5{mf} per V-cycle: {c}, {inner} cycles")
+              f"tail ({per3} / {per4} launches a V-cycle), one bf16 B5{mf} "
+              f"per V-cycle: {c}, {inner} cycles")
     warm, wins = paired_warm(torch, {"flagship": f32_slvs["flagship"],
                                      "flagship_bf16": slvs["flagship_bf16"]},
                              n, torch.float64)
@@ -1945,6 +2308,7 @@ def phase_krylov(torch, amgx, dev, per_path):
     per cycle), and krylov_fusion 1 with the slab route pinned (B4's dot,
     B5); warm solves in alternating pairs: fused against unfused,
     matrix-free against slab."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
     n = 128
     iters, slvs = {}, {}
     for path, cfg in (("pcg_krylov_fusion=1", PCG + "1"),
@@ -1986,6 +2350,18 @@ def phase_krylov(torch, amgx, dev, per_path):
         else:
             check(c["dia_spmv"] > res.iterations and c["dia_spmv_dot"] == 0
                   and c["cg_update"] == 0, f"unfused PCG: B1 {c}")
+        if path.endswith("_slab"):
+            # the slab B3 / B4 tiled on the levels above the tail (one
+            # launch a call at PCG's one presweep and two postsweeps)
+            amg = precond_amg(slv)
+            above = range(sum(r > 65536 for r in amg.level_rows()[:-1]))
+            per3, per4 = slab_cycle_launches(torch, K, slv, above)
+            check(c["dia_smooth_restrict"] == cycles * per3
+                  and c["dia_prolong_smooth"] + c["dia_prolong_smooth_dot"]
+                  == cycles * per4
+                  and sum(c[k] for k in SLAB_STEP_ROUTE) == 0,
+                  f"PCG {path}: B3 / B4 tiled, {per3} / {per4} launches a "
+                  f"cycle {c}")
     check(max(iters.values()) - min(iters.values()) <= 1,
           f"PCG fused / slab / unfused iterations {iters}")
     for a, b_ in (("pcg_krylov_fusion=1", "pcg_krylov_fusion=0"),
@@ -2200,10 +2576,11 @@ def agg_transfer_cases(torch, K, lv, dev):
     """B3/B3-mf and B4/B4-mf (and their x'.b variants) on a SIZE_2 level 0
     with its irregular children table, with the path's smoother
     (BLOCK_JACOBI: the diagonal's inverse, three steps at 0.8): name ->
-    case, and name -> the slab kernel's call on the same level. A SIZE_2
-    pair may cross a tile edge, so B3-mf takes two launches there: the
-    temporally blocked steps, then dia.cu's restriction
-    ("dia_smooth_restrict_mf_epilogue")."""
+    case, name -> the slab kernel's call on the same level, and name ->
+    the launches by counter one call makes. A SIZE_2 pair may cross a
+    tile edge, so B3 and B3-mf take the temporally blocked steps there,
+    then dia.cu's restriction ("dia_smooth_restrict_epilogue",
+    "dia_smooth_restrict_mf_epilogue")."""
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import safe_recip
     A = lv.A
@@ -2223,13 +2600,20 @@ def agg_transfer_cases(torch, K, lv, dev):
     xc = torch.randn(nc, generator=g, device=dev)
     app = (2 * k + 4) * n                 # flops of one step with dinv
     rb = (m * nc + nc) * 4                # ctab read, bc written
+    grid = A.grid_shape
+    route, p3, _ = K.slab_route(vals, offs, grid, dinv, x, s, ctab)
+    _, p4, _ = K.slab_route(vals, offs, grid, dinv, x, s)
+    check(route == "tiled+epilogue" and p4 is not None,
+          f"SIZE_2 level 0: B3's tiled steps and the untiled restriction "
+          f"({route}), B4 tiled")
     cases = {
         "dia_smooth_restrict": (
-            lambda: K.dia_smooth_restrict(vals, offs, taus, b, x, ctab, dinv),
+            lambda: K.dia_smooth_restrict(vals, offs, taus, b, x, ctab, dinv,
+                                          grid=grid),
             lambda: K.dia_smooth_restrict_plain(vals, offs, taus, b, x, ctab,
                                                 dinv),
-            (k * n + 4 * n + s) * 4 + rb, s * app + (2 * k + 2) * n, s + 1,
-            None),
+            (k * n + 4 * n + s) * 4 + rb, s * app + (2 * k + 2) * n,
+            len(p3) + 1, None),
         "dia_smooth_restrict_mf": (
             lambda: K.dia_smooth_restrict_mf(st, taus, b, x, ctab),
             lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab),
@@ -2237,20 +2621,21 @@ def agg_transfer_cases(torch, K, lv, dev):
             None),
         "dia_prolong_smooth": (
             lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
-                                         dinv),
+                                         dinv, grid=grid),
             lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
                                                agg, dinv),
-            (k * n + 5 * n + s + nc) * 4, s * app + n, s, None),
+            (k * n + 5 * n + s + nc) * 4, s * app + n, len(p4), None),
         "dia_prolong_smooth_mf": (
             lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg),
             lambda: mf._xla_corr(st.spec(), st.coeffs, taus, b, x, xc, agg),
             (k + 4 * n + s + nc) * 4, s * app + n, 1, None),
         "dia_prolong_smooth_dot": (
             lambda: K.dia_prolong_smooth(vals, offs, taus, b, x, xc, agg,
-                                         dinv, with_dot=True),
+                                         dinv, with_dot=True, grid=grid),
             lambda: K.dia_prolong_smooth_plain(vals, offs, taus, b, x, xc,
                                                agg, dinv, with_dot=True),
-            (k * n + 5 * n + s + nc + 1) * 4, s * app + 3 * n, s, None),
+            (k * n + 5 * n + s + nc + 1) * 4, s * app + 3 * n, len(p4),
+            None),
         "dia_prolong_smooth_mf_dot": (
             lambda: K.dia_prolong_smooth_mf(st, taus, b, x, xc, agg,
                                             with_dot=True),
@@ -2261,7 +2646,15 @@ def agg_transfer_cases(torch, K, lv, dev):
     slab = {"dia_smooth_restrict_mf": cases["dia_smooth_restrict"][0],
             "dia_prolong_smooth_mf": cases["dia_prolong_smooth"][0],
             "dia_prolong_smooth_mf_dot": cases["dia_prolong_smooth_dot"][0]}
-    return cases, slab, {"m": m, "nc": nc}
+    moved = {"dia_smooth_restrict_mf": {"dia_smooth_restrict_mf": 1,
+                                        "dia_smooth_restrict_mf_epilogue": 1},
+             "dia_smooth_restrict": {"dia_smooth_restrict": len(p3),
+                                     "dia_smooth_restrict_epilogue": 1}}
+    if len(p4) > 1:
+        moved["dia_prolong_smooth_dot"] = {
+            "dia_prolong_smooth": len(p4) - 1, "dia_prolong_smooth_dot": 1}
+    return cases, slab, moved, {"m": m, "nc": nc, "b3_split": [
+        p.apps for p in p3], "b4_split": [p.apps for p in p4]}
 
 
 def agg_bits(torch, amg):
@@ -2579,10 +2972,9 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
         case, sizes = relabel_case(torch, R_, lv)
         run_case(torch, K, f"agg_l{lvl}_{n}^3", "rap_values_relabel", *case,
                  lv.A.num_rows, summary, sizes)
-    cases, slab, mm = agg_transfer_cases(torch, K, amg.levels[0], dev)
+    cases, slab, split, mm = agg_transfer_cases(torch, K, amg.levels[0],
+                                                dev)
     emit({"phase": "kernels_size2_level0", "rows": n ** 3, **mm})
-    split = {"dia_smooth_restrict_mf": {
-        "dia_smooth_restrict_mf": 1, "dia_smooth_restrict_mf_epilogue": 1}}
     for name, case in cases.items():
         run_case(torch, K, f"agg_l0_{n}^3", name, *case, n ** 3, summary,
                  slab=slab.get(name), moved_expect=split.get(name))
@@ -2790,8 +3182,9 @@ def main():
     emit({"phase": "build", "seconds": rep["seconds"],
           "built": rep["built"], "ptxas_registers": regs,
           "ptxas_local_memory": local,
-          "ptxas_stencil_tb": cuda_build.resource_lines(
-              rep["ptxas"].get("stencil_tb.cu", ""))})
+          "ptxas_stencil_tb": tb_forms(cuda_build.resource_lines(
+              rep["ptxas"].get("stencil_tb.cu", "") + "\n"
+              + rep["ptxas"].get("stencil_tb_slab.cu", "")))})
 
     summary = phase_kernels(torch, amgx, dev)
     per_path = {}
@@ -2799,6 +3192,7 @@ def main():
     f32_runs, f32_slvs = phase_flagship(torch, amgx, dev, per_path)
     phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs)
     del f32_slvs
+    phase_flagship_dad(torch, amgx, dev, per_path)
     phase_unfused(torch, amgx, dev, per_path)
     phase_unfused_bf16(torch, amgx, dev, per_path)
     phase_krylov(torch, amgx, dev, per_path)
@@ -2829,9 +3223,13 @@ def main():
                     "max_err_bf16_ulps", "bit_equal_share",
                     "bound_launches_ms", "launches_per_call", "step_route_ms",
                     "step_route_device_ms", "step_route_launches_per_call",
-                    "step_route_max_abs_diff"):
+                    "step_route_max_abs_diff", "split"):
             if key in row:
                 entry[key] = row[key]
+        if name in ROUTE_COUNTERS:
+            entry["route_counters"] = {
+                k: {p: c[k] for p, c in per_path.items() if c[k]}
+                for k in ROUTE_COUNTERS[name]}
         kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Time the coarse-tail kernel B5 (six forms) and the CSR SpMV B8 (f32,
-bf16) of one tree of the PyTorch/CUDA port, for comparisons in turns.
+"""Time kernels of one tree of the PyTorch/CUDA port, for comparisons in
+turns: the coarse-tail kernel B5 (six forms), the CSR SpMV B8 (f32,
+bf16), the temporally blocked slab B3 / B4 by split,
+the classical level's B3w / B4w (and B4w's dot) and B9, and the Galerkin
+kernels B10 and B10-relabel.
 
     python3 tools/kernel_turns.py [--tree DIR] [--label NAME] [--out FILE]
+                                  [--sections tail,csr,slab,classical,rap]
 
 `--tree` is the root of a checkout whose `amgx_tpu_torch` is timed (by
 default this one), e.g. an unpacked `git archive` of a parent commit:
@@ -22,6 +26,17 @@ clock (`dia_coarse_tail(..., clock=)`), each B5 row also carries its
 cluster, barrier counts and block 0's SM cycles by level, scope and
 phase kind (`phase_clock`). One JSON line a case on stdout (and appended
 to --out). Needs a CUDA card; imports no JAX.
+
+`slab` (trees with the tiled slab route, ops/cuda_spmv.py `slab_route`):
+chip_smoke.py's `slab_cases` on the D A D operator of the 128^3 grid
+(the flagship's CHEBYSHEV_POLY and PCG's JACOBI_L1 schedules, f32 and
+bf16, B4's dot), each launched with every valid split of its
+applications over 1, 2 or 3 launches (`tiling.split_plans`), beside the
+per-step route on the same inputs; each held to the per-step route's
+bits. `classical`: chip_smoke.py's
+`classical_cases` (B3w / B4w / B4w's dot and B9 on the 128^3 CLASSICAL
+hierarchy, f32 and bf16). `rap`: B10 on the 64^3 CLASSICAL_REFINEMENT
+level 0 and B10-relabel on the SIZE_2 hierarchy's level 0.
 """
 import argparse
 import importlib.util
@@ -31,6 +46,7 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPLITS = 3          # the most launches a slab call is split over here
 
 
 def _chip_smoke():
@@ -67,12 +83,69 @@ def phase_clock(torch, T, spec, arrs, b, x, with_dot):
                                           for k, (n, s) in groups.items()}}
 
 
+def slab_turns(torch, K, cs, case, A, cases, xfer):
+    """The tiled slab B3 / B4 forms (`cases`: chip_smoke.py `slab_cases`
+    on A) launched with each valid split of their applications, each
+    against its plain form and the per-step route's bits; the per-step
+    route timed as its own row."""
+    from amgx_tpu_torch.ops import tiling as TL
+    sms = K._sms(A.device)
+    for (sched, name), c in cases.items():
+        kern, plain, old = c[0], c[1], c[7]
+        half = name.endswith("_bf16")
+        label = f"dad_l0_128^3 {sched}"
+        case(name, label, old[0], plain, old[1], half=half,
+             extra={"route": "per-step"})
+        for k in range(1, SPLITS + 1):
+            probe = {}
+
+            def tiled(k=k, probe=probe):
+                return split_call(K, TL, kern, k, sms, probe)
+            try:
+                tiled()
+            except ValueError:              # no such split
+                continue
+            plans = probe["plans"]
+            case(name, label, tiled, plain, len(plans), half=half,
+                 same_as=old[0],
+                 extra={"route": "tiled", "split": [p.apps for p in plans],
+                        "planned": [p.apps for p in TL.plan_calls(
+                            plans[0].shape, sum(p.apps for p in plans),
+                            plans[-1].residual, sms, plans[0].ring == 8)],
+                        "tiles": [[*p.tile, p.chunk, p.blocks, p.threads,
+                                   p.smem_bytes] for p in plans]})
+
+
+def split_call(K, TL, kern, launches, sms, probe):
+    """kern() with its applications split as evenly as may be over
+    `launches` launches (`tiling.split_plans`) instead of the planner's
+    split; the plans it took in probe["plans"]. Raises ValueError where
+    the kernel takes no such split."""
+    real = K._slab_plans
+
+    def pinned(vals, offsets, grid, dinv, x, apps, residual):
+        shape = K.slab_grid(vals, offsets, grid)
+        if shape is None or not TL.star_fits(TL.STAR, shape, apps):
+            return None
+        probe["plans"] = TL.split_plans(
+            shape, TL._parts(apps, launches), residual, sms,
+            ring=7 + int(dinv is not None))
+        return probe["plans"]
+    K._slab_plans = pinned
+    try:
+        return kern()
+    finally:
+        K._slab_plans = real
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--sections", default="tail,csr,slab,classical,rap")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -82,6 +155,8 @@ def main():
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.ops import cuda_build
     from amgx_tpu_torch.ops import cuda_csr as C
+    from amgx_tpu_torch.ops import cuda_rap as R_
+    from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.ops import cuda_tail as T
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,11 +177,21 @@ def main():
           "package": os.path.dirname(amgx.__file__),
           "ptxas": {src: cuda_build.resource_lines(build["ptxas"][src])
                     for src in ("tail.cu", "csr.cu")
-                    if src in build["ptxas"]}})
+                    if src in build["ptxas"]},
+          "ptxas_stencil_tb": cs.tb_forms(cuda_build.resource_lines(
+              build["ptxas"].get("stencil_tb.cu", "") + "\n"
+              + build["ptxas"].get("stencil_tb_slab.cu", "")))})
 
     def case(name, shape, kern, plain, launches, lib=None, half=False,
-             extra=None):
+             extra=None, same_as=None):
         got, want = kern(), plain()
+        if same_as is not None:       # another route's bits (x', bc)
+            outs_ = (lambda v: v if isinstance(v, tuple) else (v,))
+            other = same_as()
+            exact = 1 if name.endswith("_dot") else 2
+            cs.check(all(torch.equal(a, b) for a, b in list(zip(
+                outs_(got), outs_(other)))[:exact]),
+                f"{name} at {shape}: not the per-step route's bits")
         again = kern()
         torch.cuda.synchronize()
         outs = (lambda v: v if isinstance(v, tuple) else (v,))
@@ -138,7 +223,18 @@ def main():
             "classical R1": l1["R"],
             "size2 A1": cs.precond_amg(slv).levels[1].A}
     lanes = "lanes" in inspect.signature(C.csr_spmv).parameters
-
+    classical = cs.classical_cases(torch, amgx, K, C, dev) \
+        if "classical" in sections else None
+    rap = (cs.rap_case(torch, amgx, R_, dev)[0],
+           cs.relabel_case(torch, R_, cs.precond_amg(slv).levels[0])[0]) \
+        if "rap" in sections else None
+    slab = None
+    if "slab" in sections and hasattr(K, "slab_route"):
+        A0, xfer, taus, b, x, xc = cs.grid_case(torch, amgx, (128,) * 3,
+                                                dev)
+        A2 = cs.dad_operator(torch, A0)
+        slab = (A2, cs.slab_cases(torch, K, A2, xfer, taus, b, x, xc),
+                xfer)
     # B5: each form's main-path case, and W / F on the matrix-free levels
     forms = {("slab", False, "cheb5 V"): "dia_coarse_tail",
              ("slab", False, "jacobi_l1 V dot"): "dia_coarse_tail_dot",
@@ -147,9 +243,25 @@ def main():
              ("mf", True, "cheb5 V"): "dia_coarse_tail_mf_bf16",
              ("mf", False, "jacobi_l1 V dot"): "dia_coarse_tail_mf_dot",
              ("mf", False, "cheb5 W"): "dia_coarse_tail_mf",
-             ("mf", False, "cheb5 F"): "dia_coarse_tail_mf"}
+             ("mf", False, "cheb5 F"): "dia_coarse_tail_mf"} \
+        if "tail" in sections else {}
     tails = {(mode, half): cs.tail_cases(torch, amgx, T, dev, mode, half)
              for mode, half in {(m, h) for m, h, _ in forms}}
+
+    if slab is not None:
+        slab_turns(torch, K, cs, case, *slab)
+    if classical is not None:
+        # B3w / B4w (and B4w's dot) and B9, f32 and bf16
+        cases, bf16, _, _ = classical
+        for shape, named in list(cases.items()) + list(bf16.items()):
+            for name, c in named.items():
+                if name.startswith(("dia_", "csr_smooth")):
+                    case(name, shape, c[0], c[1], c[4],
+                         half=name.endswith("_bf16"))
+    if rap is not None:
+        for name, c in zip(("rap_values", "rap_values_relabel"), rap):
+            case(name, "classical_refinement_l0_64^3" if name == "rap_values"
+                 else "agg_l0_128^3", c[0], c[1], c[4], c[5])
     costs = None
     for (mode, half, tag), name in forms.items():
         spec, arrs, with_dot, b, x = tails[mode, half][tag]
@@ -174,7 +286,7 @@ def main():
 
     # B8 on the classical and SIZE_2 level-1 matrices
     g = torch.Generator(device=dev).manual_seed(99)
-    for tag, M in mats.items():
+    for tag, M in (mats.items() if "csr" in sections else ()):
         for half in (False, True):
             Mh = M.astype(torch.bfloat16 if half else torch.float32)
             x = torch.randn(M.num_cols, generator=g, device=dev).to(

@@ -8,6 +8,8 @@
                                    [--krylov-fusion 1]
                                    [--matrix-free auto|0|1]
                                    [--precision float|bfloat16]
+                                   [--operator poisson|dad]
+                                   [--tree DIR] [--label NAME]
 
 Configurations: `flagship` is the untouched FLAGSHIP preset (its inner
 V-cycle enters the coarse-tail kernel B5 at the first level of at most
@@ -35,6 +37,14 @@ copy durations, one stream) and idle share, device ops and
 device->host copies per inner iteration (FGMRES's for the flagship,
 PCG's own), and the device time by kernel name, largest first. Needs a
 CUDA card; imports no JAX.
+
+`--operator dad` solves A2 = D A D instead of the Poisson operator
+(chip_smoke.py `scaled_values`: variable coefficients, so no level is a
+constant stencil and every GEO level runs the slab kernels: the
+flagship_dad path). `--tree DIR` profiles the `amgx_tpu_torch` of
+another checkout (an unpacked `git archive` of a parent commit) with
+this checkout's configurations, so parent and change run in one call,
+in turns; `--label` names the tree in the output line.
 """
 import argparse
 import json
@@ -46,7 +56,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 # the benched configuration strings, defined once in chip_smoke.py
-from chip_smoke import CLASSICAL, PCG, agg_config  # noqa: E402
+from chip_smoke import (CLASSICAL, PCG, agg_config,  # noqa: E402
+                        scaled_values)
 
 
 def main():
@@ -64,8 +75,14 @@ def main():
     ap.add_argument("--precision", default=None,
                     choices=("float", "bfloat16"),
                     help="solve_precision (unset: the configuration's)")
+    ap.add_argument("--operator", default="poisson",
+                    choices=("poisson", "dad"))
+    ap.add_argument("--tree", default=None)
+    ap.add_argument("--label", default=None)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
@@ -105,7 +122,12 @@ def main():
     dtype = torch.float32 if args.file or args.config in (
         "pcg", "agg-pcg", "agg-fgmres") else torch.float64
     slv = amgx.create_solver(cfg, device=dev)
-    slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev))
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev).init()
+    if args.operator == "dad":
+        A = A.with_values(torch.from_numpy(scaled_values(
+            A.row_offsets.cpu(), A.col_indices.cpu(), A.values.cpu())).to(
+                device=dev, dtype=dtype))
+    slv.setup(A)
     b = torch.ones(n ** 3, dtype=dtype, device=dev)
     slv.solve(b)                                   # warm-up
     torch.cuda.synchronize()
@@ -136,6 +158,8 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     print(json.dumps({
         "phase": "profile", "config": args.config, "rows": n ** 3,
+        "operator": args.operator, "tree": args.label or args.tree,
+        "package": os.path.dirname(amgx.__file__),
         "cycle_fusion": args.cycle_fusion,
         "krylov_fusion": args.krylov_fusion
         if args.file or args.config in ("pcg", "agg-pcg") else None,
