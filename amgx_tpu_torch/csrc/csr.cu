@@ -10,6 +10,13 @@
 // and emulate the gather with 128-lane take_along_axis inside DMA'd x
 // windows; Hopper gathers natively, so none of that is carried over.
 //
+// B8's kernel also computes B3w's restriction (ops/cuda_spmv.py
+// `dia_smooth_restrict` with weights): bc = R r over R's compact rows,
+// r = b - A x' stored once per fine row in float32 by dia.cu's residual
+// kernel, so each residual is computed once and not once for each of the
+// ~3 coarse rows whose child it is. Products rounded, then added in entry
+// order (B8's rounding and the plain form's, `restrict_plain`).
+//
 // What bounds them on an H100: memory. A stored entry costs 8 bytes
 // (value + column) and a gathered x read for one multiply-add; x itself
 // (a coarse level's, a few MB) stays in L2.
@@ -87,18 +94,19 @@ __device__ __forceinline__ float ldg(const bf16* p) {
 
 // entry e's product, rounded to float32 (no fused multiply-add: the
 // row sums add stored products)
-template <class T>
-__device__ __forceinline__ float product(const Csr<T>& a, const T* x,
+template <class T, class XT>
+__device__ __forceinline__ float product(const Csr<T>& a, const XT* x,
                                          int e) {
   return __fmul_rn(ld(a.v, e), ldg(x + a.ci[e]));
 }
 
 // B8: one block per row block [rb[blk], rb[blk + 1]). T is the storage
-// type of the values and vectors; the sums are float32.
-template <class T>
+// type of the values and y, XT that of x (T, or float32: B3w's restriction
+// bc = R r of a float32 residual); the sums are float32.
+template <class T, class XT>
 __global__ void __launch_bounds__(kThreads)
 csr_block_kernel(Csr<T> a, const int* __restrict__ rb,
-                 const T* __restrict__ x, T* __restrict__ y) {
+                 const XT* __restrict__ x, T* __restrict__ y) {
   __shared__ float prod[kChunk];
   const int r0 = rb[blockIdx.x], r1 = rb[blockIdx.x + 1];
   const int e0 = a.ro[r0], e1 = a.ro[r1];
@@ -125,12 +133,12 @@ csr_block_kernel(Csr<T> a, const int* __restrict__ rb,
   }
 }
 
-template <class T>
+template <class T, class XT>
 int spmv_as(const int* ro, const int* ci, const void* vals, const int* rb,
             int nblocks, const void* x, void* y, cudaStream_t stream) {
-  csr_block_kernel<T><<<nblocks, kThreads, 0, stream>>>(
+  csr_block_kernel<T, XT><<<nblocks, kThreads, 0, stream>>>(
       Csr<T>{ro, ci, static_cast<const T*>(vals)}, rb,
-      static_cast<const T*>(x), static_cast<T*>(y));
+      static_cast<const XT*>(x), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,13 +205,17 @@ extern "C" {
 
 // B8: y = A x over the row blocks rb[0..nblocks] (csr_row_blocks: row
 // starts, then the row count); with `bf16_io` set the values, x and y
-// are bfloat16 (the products and the sum float32, y rounded once).
+// are bfloat16 (the products and the sum float32, y rounded once), and
+// with `x_f32` too x is float32 (B3w's bf16 restriction: bf16 weights, a
+// float32 residual, bc rounded once).
 int amgx_csr_spmv(const int* ro, const int* ci, const void* vals,
                   const int* rb, int nblocks, const void* x, void* y,
-                  int bf16_io, cudaStream_t stream) {
+                  int bf16_io, int x_f32, cudaStream_t stream) {
   if (nblocks < 1 || rb == nullptr) return -1;
-  return bf16_io ? spmv_as<bf16>(ro, ci, vals, rb, nblocks, x, y, stream)
-                 : spmv_as<float>(ro, ci, vals, rb, nblocks, x, y, stream);
+  if (!bf16_io)
+    return spmv_as<float, float>(ro, ci, vals, rb, nblocks, x, y, stream);
+  return x_f32 ? spmv_as<bf16, float>(ro, ci, vals, rb, nblocks, x, y, stream)
+               : spmv_as<bf16, bf16>(ro, ci, vals, rb, nblocks, x, y, stream);
 }
 
 // B9: out = x + (taus[t] * (b - A x)) * dinv (dinv optional), one sweep,

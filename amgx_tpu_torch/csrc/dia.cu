@@ -33,13 +33,16 @@
 // fixed order by the last block, no float atomics (common.cuh).
 //
 // Weighted transfer rows (classical AMG's general-CSR P and R = P^T, the
-// `weighted=` forms of the TPU kernels): the restriction epilogue weighs
-// each child, bc[c] = sum_j cwt[j, c] * r[ctab[j, c]] (R's rows hold up to
-// 32 entries against an aggregate's 8, so a coarse row costs more
-// recomputed residuals), and the prolongation prologue reads
-// x_j + sum_t pwt[t, j] * xc[ptab[t, j]] at every neighbour j (P's rows
-// hold up to interp_max_elements entries). Templates keep the
-// unit-weight kernels unchanged.
+// `weighted=` forms of the TPU kernels): a fine row is a child of up to
+// interp_max_elements coarse rows and a row of P holds as many entries, so
+// recomputing r (or x + P xc) at each use, as the unit-weight epilogue
+// and prologue do, would repeat each row's work ~3x. The weighted calls
+// therefore compute each row's transfer quantity once: r = b - A x' is
+// stored in float32 (for bf16 operands too) by the residual kernel below
+// after the per-step launches, or by the tiled slab launch on a grid
+// level (stencil_tb.cuh), and B8's row-block kernel (csr.cu) sums bc = R
+// r over R's compact rows; `amgx_dia_prolong_w` stores x + P xc in
+// float32 and the first step reads it as the float32 state.
 //
 // The coefficient ("matrix-free") mode of the TPU kernels (B2-mf, B3-mf,
 // B4-mf: `_dia_stencil_smooth_call`, `_dia_stencil_smooth_restrict_call`,
@@ -111,11 +114,12 @@ dia_step_kernel(VS vs, const float* __restrict__ taus, int t,
   if (kDot) finish_dot(part, dot.partials, dot.counter, dot.out);
 }
 
-// r = b - A x, x the float32 state, b and r of storage type BT.
-template <class VS, class BT>
+// r = b - A x, x the float32 state, b of storage type BT, r of RT (BT,
+// or float32: the weighted restriction's residual, never rounded).
+template <class VS, class BT, class RT>
 __global__ void __launch_bounds__(kThreads)
 dia_residual_kernel(VS vs, const BT* __restrict__ b,
-                    const float* __restrict__ x, BT* __restrict__ r, int n,
+                    const float* __restrict__ x, RT* __restrict__ r, int n,
                     Offsets of) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n)
@@ -125,31 +129,32 @@ dia_residual_kernel(VS vs, const BT* __restrict__ b,
 // bc[c] = sum_j r[ctab[j, c]] with r = b - A x recomputed at each child:
 // one thread per coarse row, a fixed summation order, no atomics, and r
 // never written to memory; x is the float32 state, the sum float32, bc
-// stored once as BT.
-// With kWeighted, child j of coarse row c carries the weight cwt[j, c].
-template <class VS, class BT, bool kWeighted>
+// stored once as BT. For unit-weight tables only, where each fine row has
+// one coarse row (the SIZE_2 pairs after the tiled steps, B3-mf's
+// epilogue) and nothing is recomputed.
+template <class VS, class BT>
 __global__ void __launch_bounds__(kThreads)
 dia_restrict_kernel(VS vs, const BT* __restrict__ b,
                     const float* __restrict__ x,
-                    const int* __restrict__ ctab,
-                    const BT* __restrict__ cwt, int m, int nc,
+                    const int* __restrict__ ctab, int m, int nc,
                     BT* __restrict__ bc, int n, Offsets of) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   float acc = 0.0f;
   for (int j = 0; j < m; ++j) {
-    const size_t s = static_cast<size_t>(j) * nc + c;
-    const int f = ctab[s];
+    const int f = ctab[static_cast<size_t>(j) * nc + c];
     if (f < 0) continue;
     const float r = ld(b, f) - dia_row(vs, vs.row(f), PlainX{x}, n, f, of);
-    acc += kWeighted ? ld(cwt, s) * r : r;
+    acc += r;
   }
   st(bc, c, acc);
 }
 
-// x as B4's weighted prologue reads it: x_j + (P xc)_j through the
-// (mp, n) tables of P's rows, -1 / 0 past a row's end; x, xc and the
-// weights of storage type T, the sum float32 and not rounded.
+// x + P xc at row j through the (mp, n) tables of P's rows (-1 / 0 past a
+// row's end): the correction a chain of fused multiply-adds over the
+// row's entries in order from 0, then x_j added, float32 and not rounded
+// to T (x, xc and the weights of storage type T). B4w's prologue
+// (`amgx_dia_prolong_w` below: a row's sum once, before the steps).
 template <class T>
 struct WeightedXT {
   const T* __restrict__ x;
@@ -163,12 +168,21 @@ struct WeightedXT {
     for (int t = 0; t < mp; ++t) {
       const size_t s = static_cast<size_t>(t) * n + j;
       const int q = ptab[s];
-      if (q >= 0) corr += ld(pwt, s) * ld(xc, q);
+      if (q >= 0) corr = __fmaf_rn(ld(pwt, s), ld(xc, q), corr);
     }
     return ld(x, j) + corr;
   }
 };
-using WeightedX = WeightedXT<float>;
+
+// B4's weighted prologue: x0 = x + P xc in float32, one thread a row, for
+// the first step to read as the float32 state (so every row's correction
+// is summed once, not once for each of the k stencil rows that read it).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+dia_prolong_w_kernel(WeightedXT<T> xr, float* __restrict__ x0, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x0[i] = xr(i);
+}
 
 template <class VS, class XR, class BT, class OT, bool kHasDinv>
 void launch_step_kernel(const VS& vs, const float* taus, int t, const BT* b,
@@ -208,18 +222,13 @@ void launch_step(const VS& vs, bool has_dinv, const float* taus, int t,
 // x' is stored as float32 (else bfloat16). 0: everything float32.
 enum StepMode { kBf16 = 1, kXf32 = 2, kOutF32 = 4 };
 
-// float32 streams: the first step's x plain, + xc[agg], or + P xc
-// through ptab / pwt.
+// float32 streams: the first step's x plain or + xc[agg].
 template <class VS>
 int launch_step_f32(const VS& vs, bool has_dinv, const float* taus, int t,
                     const float* b, const float* x, const float* xc,
-                    const int* agg, const int* ptab, const float* pwt, int mp,
-                    float* out, float* keep, int n, const Offsets& of,
-                    const DotOut& d, cudaStream_t stream) {
-  if (ptab != nullptr) {
-    launch_step(vs, has_dinv, taus, t, b, WeightedX{x, xc, ptab, pwt, mp, n},
-                out, keep, n, of, d, stream);
-  } else if (xc != nullptr) {
+                    const int* agg, float* out, float* keep, int n,
+                    const Offsets& of, const DotOut& d, cudaStream_t stream) {
+  if (xc != nullptr) {
     launch_step(vs, has_dinv, taus, t, b, CorrectedX{x, xc, agg}, out, keep,
                 n, of, d, stream);
   } else {
@@ -244,25 +253,18 @@ void launch_step_out(const VS& vs, bool has_dinv, int mode,
   }
 }
 
-// bfloat16 streams, no dot; the correction x + xc[agg], or x + P xc
-// through the bf16 weighted rows ptab / pwt, rides the first step, which
-// reads the caller's bf16 x.
+// bfloat16 streams, no dot; the correction x + xc[agg] rides the first
+// step, which reads the caller's bf16 x (or the float32 state, kXf32).
 template <class VS>
 int launch_step_bf16(const VS& vs, bool has_dinv, int mode, const float* taus,
                      int t, const bf16* b, const void* x, const bf16* xc,
-                     const int* agg, const int* ptab, const bf16* pwt, int mp,
-                     void* out, float* keep, int n, const Offsets& of,
-                     cudaStream_t stream) {
+                     const int* agg, void* out, float* keep, int n,
+                     const Offsets& of, cudaStream_t stream) {
   if (mode & kXf32) {
     if (xc != nullptr) return -1;
     launch_step_out(vs, has_dinv, mode, taus, t, b,
                     PlainXT<float>{static_cast<const float*>(x)}, out, keep,
                     n, of, stream);
-  } else if (ptab != nullptr) {
-    launch_step_out(vs, has_dinv, mode, taus, t, b,
-                    WeightedXT<bf16>{static_cast<const bf16*>(x), xc, ptab,
-                                     pwt, mp, n},
-                    out, keep, n, of, stream);
   } else if (xc != nullptr) {
     launch_step_out(vs, has_dinv, mode, taus, t, b,
                     CorrectedXT<bf16>{static_cast<const bf16*>(x), xc, agg},
@@ -275,8 +277,8 @@ int launch_step_bf16(const VS& vs, bool has_dinv, int mode, const float* taus,
   return 0;
 }
 
-template <class VS, class BT>
-void launch_residual(const VS& vs, const BT* b, const float* x, BT* r, int n,
+template <class VS, class BT, class RT>
+void launch_residual(const VS& vs, const BT* b, const float* x, RT* r, int n,
                      const Offsets& of, cudaStream_t stream) {
   dia_residual_kernel<<<blocks_for(n), kThreads, 0, stream>>>(vs, b, x, r, n,
                                                                of);
@@ -284,25 +286,15 @@ void launch_residual(const VS& vs, const BT* b, const float* x, BT* r, int n,
 
 template <class VS, class BT>
 void launch_restrict(const VS& vs, const BT* b, const float* x,
-                     const int* ctab, const BT* cwt, int m, int nc,
-                     BT* bc, int n, const Offsets& of, cudaStream_t stream) {
-  if (cwt != nullptr) {
-    dia_restrict_kernel<VS, BT, true>
-        <<<blocks_for(nc), kThreads, 0, stream>>>(vs, b, x, ctab, cwt, m, nc,
-                                                  bc, n, of);
-  } else {
-    dia_restrict_kernel<VS, BT, false>
-        <<<blocks_for(nc), kThreads, 0, stream>>>(vs, b, x, ctab, cwt, m, nc,
-                                                  bc, n, of);
-  }
+                     const int* ctab, int m, int nc, BT* bc, int n,
+                     const Offsets& of, cudaStream_t stream) {
+  dia_restrict_kernel<VS, BT><<<blocks_for(nc), kThreads, 0, stream>>>(
+      vs, b, x, ctab, m, nc, bc, n, of);
 }
 
-bool step_args_ok(const void* xc, const int* agg, const int* ptab,
-                  const void* pwt, int mp, const float* partials,
+bool step_args_ok(const void* xc, const int* agg, const float* partials,
                   const unsigned int* counter, const float* dot, int mode) {
-  if ((xc == nullptr) != (agg == nullptr && ptab == nullptr)) return false;
-  if (agg != nullptr && ptab != nullptr) return false;
-  if (ptab != nullptr && (pwt == nullptr || mp < 1)) return false;
+  if ((xc == nullptr) != (agg == nullptr)) return false;
   if (mode < 0 || mode > (kBf16 | kXf32 | kOutF32)) return false;
   if (!(mode & kBf16) && mode != 0) return false;
   if ((mode & kBf16) && dot != nullptr) return false;
@@ -315,19 +307,16 @@ bool step_args_ok(const void* xc, const int* agg, const int* ptab,
 template <class VF, class VB>
 int step_any(const VF& vf, const VB& vb, bool has_dinv, int mode,
              const float* taus, int t, const void* b, const void* x,
-             const void* xc, const int* agg, const int* ptab,
-             const void* pwt, int mp, void* out, float* keep, int n,
+             const void* xc, const int* agg, void* out, float* keep, int n,
              const Offsets& of, const DotOut& d, cudaStream_t stream) {
   if (mode & kBf16)
     return launch_step_bf16(vb, has_dinv, mode, taus, t,
                             static_cast<const bf16*>(b), x,
-                            static_cast<const bf16*>(xc), agg, ptab,
-                            static_cast<const bf16*>(pwt), mp, out, keep, n,
+                            static_cast<const bf16*>(xc), agg, out, keep, n,
                             of, stream);
   return launch_step_f32(vf, has_dinv, taus, t, static_cast<const float*>(b),
                          static_cast<const float*>(x),
-                         static_cast<const float*>(xc), agg, ptab,
-                         static_cast<const float*>(pwt), mp,
+                         static_cast<const float*>(xc), agg,
                          static_cast<float*>(out), keep, n, of, d, stream);
 }
 
@@ -346,46 +335,46 @@ int amgx_dia_spmv(const float* vals, const float* x, float* y, int n,
 
 // One smoothing application (B2-B4): out = x + (taus[t] * (b - A x)) *
 // dinv, with dinv optional (nullptr) and x read as x + xc[agg] when xc
-// and agg are given, or as x + P xc through the (mp, n) tables ptab /
-// pwt when xc and ptab are (B4's prolongation prologue, unit or
-// weighted). When dot is given, *dot = out.b (B4's epilogue) through
-// `partials` (one float per block of 256 rows) and `counter` (zero on
-// entry, left zero). `mode` (StepMode) says which operands are
-// bfloat16 (pwt with them); with kBf16 the dot is refused. `keep`, when
-// given, also receives out as float32.
+// and agg are given (B4's unit-weight prolongation prologue). When dot
+// is given, *dot = out.b (B4's epilogue) through `partials` (one float
+// per block of 256 rows) and `counter` (zero on entry, left zero).
+// `mode` (StepMode) says which operands are bfloat16; with kBf16 the dot
+// is refused. `keep`, when given, also receives out as float32.
 int amgx_dia_step(const void* vals, const void* dinv, const float* taus,
                   int t, const void* b, const void* x, const void* xc,
-                  const int* agg, const int* ptab, const void* pwt, int mp,
-                  void* out, float* keep, int n, const int* offs, int k,
-                  float* partials, unsigned int* counter, float* dot,
-                  int mode, cudaStream_t stream) {
+                  const int* agg, void* out, float* keep, int n,
+                  const int* offs, int k, float* partials,
+                  unsigned int* counter, float* dot, int mode,
+                  cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
-  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot, mode))
-    return -1;
+  if (!step_args_ok(xc, agg, partials, counter, dot, mode)) return -1;
   const int rc = step_any(
       SlabVals{static_cast<const float*>(vals),
                static_cast<const float*>(dinv), n},
       SlabValsT<bf16>{static_cast<const bf16*>(vals),
                       static_cast<const bf16*>(dinv), n},
-      dinv != nullptr, mode, taus, t, b, x, xc, agg, ptab, pwt, mp, out, keep,
-      n, of, DotOut{partials, counter, dot}, stream);
+      dinv != nullptr, mode, taus, t, b, x, xc, agg, out, keep, n, of,
+      DotOut{partials, counter, dot}, stream);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
 // B2's trailing residual: r = b - A x, x the float32 state; with `bf16`
-// set, vals, b and r are bfloat16.
+// set, vals, b and r are bfloat16, unless `r_f32` stores r as float32
+// (B3w's residual, which the restriction reads unrounded).
 int amgx_dia_residual(const void* vals, const void* b, const float* x,
                       void* r, int n, const int* offs, int k, int bf16_io,
-                      cudaStream_t stream) {
+                      int r_f32, cudaStream_t stream) {
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of)) return -1;
-  if (bf16_io) {
-    launch_residual(SlabValsT<bf16>{static_cast<const bf16*>(vals), nullptr,
-                                    n},
-                    static_cast<const bf16*>(b), x, static_cast<bf16*>(r), n,
-                    of, stream);
+  const SlabValsT<bf16> vb{static_cast<const bf16*>(vals), nullptr, n};
+  if (bf16_io && r_f32) {
+    launch_residual(vb, static_cast<const bf16*>(b), x, static_cast<float*>(r),
+                    n, of, stream);
+  } else if (bf16_io) {
+    launch_residual(vb, static_cast<const bf16*>(b), x, static_cast<bf16*>(r),
+                    n, of, stream);
   } else {
     launch_residual(SlabVals{static_cast<const float*>(vals), nullptr, n},
                     static_cast<const float*>(b), x, static_cast<float*>(r),
@@ -394,28 +383,51 @@ int amgx_dia_residual(const void* vals, const void* b, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3's restriction epilogue: bc = R (b - A x) through the child table
-// ctab (m, nc), -1 where a coarse row has fewer than m children, each
-// child weighted by cwt (m, nc) when it is given (else unit weights); x
-// is the float32 state. With `bf16_io` set, vals, b, cwt and bc are
-// bfloat16 (the sum float32, bc rounded once).
+// B3's unit-weight restriction epilogue: bc = R (b - A x) through the
+// child table ctab (m, nc), -1 where a coarse row has fewer than m
+// children; x is the float32 state. With `bf16_io` set, vals, b and bc
+// are bfloat16 (the sum float32, bc rounded once).
 int amgx_dia_restrict(const void* vals, const void* b, const float* x,
-                      const int* ctab, const void* cwt, int m, int nc,
-                      void* bc, int n, const int* offs, int k, int bf16_io,
+                      const int* ctab, int m, int nc, void* bc, int n,
+                      const int* offs, int k, int bf16_io,
                       cudaStream_t stream) {
   Offsets of;
   if (n < 1 || nc < 1 || m < 1 || !fill_offsets(offs, k, &of)) return -1;
   if (bf16_io) {
     launch_restrict(SlabValsT<bf16>{static_cast<const bf16*>(vals), nullptr,
                                     n},
-                    static_cast<const bf16*>(b), x, ctab,
-                    static_cast<const bf16*>(cwt), m, nc,
+                    static_cast<const bf16*>(b), x, ctab, m, nc,
                     static_cast<bf16*>(bc), n, of, stream);
   } else {
     launch_restrict(SlabVals{static_cast<const float*>(vals), nullptr, n},
-                    static_cast<const float*>(b), x, ctab,
-                    static_cast<const float*>(cwt), m, nc,
+                    static_cast<const float*>(b), x, ctab, m, nc,
                     static_cast<float*>(bc), n, of, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4's weighted prologue (B4w): x0 = x + P xc in float32 through the
+// (mp, n) tables ptab / pwt of P's rows (-1 / 0 past a row's end), summed
+// as common.cuh WeightedXT sums it. With `bf16_io` set, x, xc and pwt are
+// bfloat16 (x0 float32 all the same: the first step reads it unrounded).
+int amgx_dia_prolong_w(const void* x, const void* xc, const int* ptab,
+                       const void* pwt, int mp, float* x0, int n,
+                       int bf16_io, cudaStream_t stream) {
+  if (n < 1 || mp < 1 || x == nullptr || xc == nullptr || ptab == nullptr ||
+      pwt == nullptr || x0 == nullptr)
+    return -1;
+  if (bf16_io) {
+    dia_prolong_w_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        WeightedXT<bf16>{static_cast<const bf16*>(x),
+                         static_cast<const bf16*>(xc), ptab,
+                         static_cast<const bf16*>(pwt), mp, n},
+        x0, n);
+  } else {
+    dia_prolong_w_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        WeightedXT<float>{static_cast<const float*>(x),
+                          static_cast<const float*>(xc), ptab,
+                          static_cast<const float*>(pwt), mp, n},
+        x0, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -430,20 +442,19 @@ int amgx_dia_restrict(const void* vals, const void* b, const float* x,
 // float32 (exact), and the synthesized dinv is float32.
 int amgx_dia_step_mf(const void* stencil, const float* taus, int t,
                      const void* b, const void* x, const void* xc,
-                     const int* agg, const int* ptab, const void* pwt,
-                     int mp, void* out, float* keep, int n, const int* offs,
-                     int k, float* partials, unsigned int* counter,
-                     float* dot, int mode, cudaStream_t stream) {
+                     const int* agg, void* out, float* keep, int n,
+                     const int* offs, int k, float* partials,
+                     unsigned int* counter, float* dot, int mode,
+                     cudaStream_t stream) {
   const Stencil* st = static_cast<const Stencil*>(stencil);
   Offsets of;
   if (n < 1 || !fill_offsets(offs, k, &of) || !stencil_ok(st, n, k))
     return -1;
-  if (!step_args_ok(xc, agg, ptab, pwt, mp, partials, counter, dot, mode))
-    return -1;
+  if (!step_args_ok(xc, agg, partials, counter, dot, mode)) return -1;
   const int rc = step_any(StencilVals{*st}, StencilVals{*st},
                           st->dinv != kDinvNone, mode, taus, t, b, x, xc, agg,
-                          ptab, pwt, mp, out, keep, n, of,
-                          DotOut{partials, counter, dot}, stream);
+                          out, keep, n, of, DotOut{partials, counter, dot},
+                          stream);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
@@ -475,13 +486,11 @@ int amgx_dia_restrict_mf(const void* stencil, const void* b, const float* x,
       !stencil_ok(st, n, k))
     return -1;
   if (bf16_io) {
-    launch_restrict(StencilVals{*st}, static_cast<const bf16*>(b), x, ctab,
-                    static_cast<const bf16*>(nullptr), m, nc,
-                    static_cast<bf16*>(bc), n, of, stream);
+    launch_restrict(StencilVals{*st}, static_cast<const bf16*>(b), x, ctab, m,
+                    nc, static_cast<bf16*>(bc), n, of, stream);
   } else {
-    launch_restrict(StencilVals{*st}, static_cast<const float*>(b), x, ctab,
-                    static_cast<const float*>(nullptr), m, nc,
-                    static_cast<float*>(bc), n, of, stream);
+    launch_restrict(StencilVals{*st}, static_cast<const float*>(b), x, ctab, m,
+                    nc, static_cast<float*>(bc), n, of, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,6 +81,14 @@
 // state to the next (x read as float32: `XT`), and a smaller halo leaves
 // more of each tile interior and fits the ring in shared memory (a
 // 6-application launch measured 1.9x the time of 3 + 3, 2 + 2 + 2 1.17x).
+// B3w (a classical level's weighted restriction on a slab): the last
+// application stores r of the interior rows in float32 (`rs.r`), and
+// csr.cu's row-block kernel restricts it over R's rows in a launch of its
+// own (R's rows cross the tiles). This beat one launch a step and a
+// residual launch by 1-10 % at the classical 128^3 level 0. B4w takes no
+// tiled form: summing x + P xc in the tile's level 0 (each column its
+// row's P entries, halo columns too) measured 3-12 % slower than dia.cu's
+// prologue launch and the per-step launch after it.
 //
 // What bounds it on an H100: bytes would allow ~10 us at 128^3 (x, b, x',
 // 12 bytes a row; 28 us with a float32 slab); the halo's redundant point
@@ -137,12 +145,15 @@ __host__ __device__ constexpr int tb_star_shift(int d, int axis) {
 }
 
 // B3-mf's in-tile restriction: the children table and the coarse rows of
-// each (block, chunk plane).
+// each (block, chunk plane); or, where `r` is given instead (B3w: R's
+// rows cross the tiles), the residual of every interior row stored there
+// in float32 for the restriction launch that follows.
 struct TbRestrict {
   const int* __restrict__ ctab;  // (m, nc), -1 past a row's children
   const int* __restrict__ rows;  // coarse rows by (block, plane)
   const int* __restrict__ roff;  // blocks * tz + 1 offsets into rows
   int m, nc;
+  float* __restrict__ r;         // (n,) or nullptr
 };
 
 // How many planes outside [lo, hi) coordinate c lies.
@@ -285,7 +296,7 @@ tb_star_kernel(const Stencil sc, const TbGeom g, const TbSlab<BT> sl,
     const int pr = w - kA - 1;
     int cr = -1;
     int kid[kResid ? kTbStarKids : 1];
-    if (kResid && pr >= z0 && pr < z1) {
+    if (kResid && rs.rows != nullptr && pr >= z0 && pr < z1) {
       const int key = blockIdx.x * g.tz + pr - z0;
       const int e = rs.roff[key] + c;
       if (e < rs.roff[key + 1]) {
@@ -326,6 +337,7 @@ tb_star_kernel(const Stencil sc, const TbGeom g, const TbSlab<BT> sl,
         const float r = __fsub_rn(bv, acc);
         if (kResid && t == kA) {
           tb_smem[r_at + sp * g.tx * g.ty + rcol] = r;
+          if (rs.r != nullptr) rs.r[p * nplane + gcol] = r;
         } else {
           float v;
           if (kHasDinv && kVals == kTbRing) {
@@ -459,7 +471,7 @@ constexpr TbStar<BT, XT> tb_entry() {
 template <class BT, class XT, bool kHasDinv, int kVals>
 int launch_tb_typed(const TbArgs& a, cudaStream_t stream) {
   using Star = TbStar<BT, XT>;
-  // by applications; [0]: x' only, [1]: with the in-tile restriction
+  // by applications; [0]: x' only, [1]: with the residual
 #define AMGX_TB_ROW(A)                                  \
   {tb_entry<BT, XT, kHasDinv, kVals, A, false>(),      \
    tb_entry<BT, XT, kHasDinv, kVals, A, true>()}
@@ -519,19 +531,20 @@ bool geom_ok(const Stencil& sc, const TbGeom& g, int k, int blocks) {
 // x is float32 when `x_f32`, a split call's state), x' written to `out`
 // when given and as float32 to `keep` when given. When geom.apps = steps
 // + 1, also bc = R (b - A x') through ctab (m, nc) and the in-tile row
-// lists rows / roff; when dot is given, *dot = x'.b through `partials`
-// (one float per block) and `counter` (zero on entry, left zero). With
-// `bf16_io` b, xc, out, bc (and vals, dinv, and x unless x_f32) are
-// bfloat16 (no dot). Returns 0, -1 for arguments the kernel does not
-// take, else a cudaError_t.
+// lists rows / roff, or instead r = b - A x' in float32 to `resid` (B3w:
+// its restriction is launched after); when dot is given, *dot = x'.b
+// through `partials` (one float per block) and `counter` (zero on entry,
+// left zero). With `bf16_io` b, xc, out, bc (and vals, dinv, and x unless
+// x_f32) are bfloat16 (no dot). Returns 0, -1 for arguments the kernel
+// does not take, else a cudaError_t.
 template <int kVals>
 int tb_smooth(const void* stencil, const void* geom, int k, const void* vals,
               const void* dinv, const float* taus, const void* b,
               const void* x, int x_f32, const void* xc, const int* agg,
               void* out, float* keep, const int* ctab, int m, int nc,
-              const int* rows, const int* roff, void* bc, float* partials,
-              unsigned int* counter, float* dot, int n, int blocks, int smem,
-              int bf16_io, cudaStream_t stream) {
+              const int* rows, const int* roff, float* resid, void* bc,
+              float* partials, unsigned int* counter, float* dot, int n,
+              int blocks, int smem, int bf16_io, cudaStream_t stream) {
   constexpr bool slab = kVals == kTbRing;
   const Stencil* sc = static_cast<const Stencil*>(stencil);
   const TbGeom* g = static_cast<const TbGeom*>(geom);
@@ -545,14 +558,15 @@ int tb_smooth(const void* stencil, const void* geom, int k, const void* vals,
       (slab && sc->dinv != kDinvNone))
     return -1;
   if (out == nullptr && keep == nullptr) return -1;
-  const bool resid = g->apps > g->steps;
-  if (resid && (ctab == nullptr || rows == nullptr || roff == nullptr ||
-                bc == nullptr || m < 1 || m > kTbStarKids || nc < 1))
+  const bool in_tile = g->apps > g->steps && resid == nullptr;
+  if (resid != nullptr && (g->apps == g->steps || rows != nullptr)) return -1;
+  if (in_tile && (ctab == nullptr || rows == nullptr || roff == nullptr ||
+                  bc == nullptr || m < 1 || m > kTbStarKids || nc < 1))
     return -1;
   if (dot != nullptr && (bf16_io || partials == nullptr || counter == nullptr))
     return -1;
   const TbArgs a{sc, g, blocks, smem, vals, dinv, n, taus, b, x, xc, agg,
-                 out, keep, TbRestrict{ctab, rows, roff, m, nc}, bc,
+                 out, keep, TbRestrict{ctab, rows, roff, m, nc, resid}, bc,
                  DotOut{partials, counter, dot}};
   const bool has_dinv = slab ? dinv != nullptr : sc->dinv != kDinvNone;
   int rc = -1;

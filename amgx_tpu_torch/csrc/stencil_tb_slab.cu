@@ -12,12 +12,13 @@ int amgx_tb_smooth_slab(
     const void* dinv, const float* taus, const void* b, const void* x,
     int x_f32, const void* xc, const int* agg, void* out, float* keep,
     const int* ctab, int m, int nc, const int* rows, const int* roff,
-    void* bc, float* partials, unsigned int* counter, float* dot, int n,
-    int blocks, int smem, int bf16_io, cudaStream_t stream) {
+    float* resid, void* bc, float* partials, unsigned int* counter,
+    float* dot, int n, int blocks, int smem, int bf16_io,
+    cudaStream_t stream) {
   return tb_smooth<kTbRing>(
       stencil, geom, k, vals, dinv, taus, b, x, x_f32, xc, agg, out, keep,
-      ctab, m, nc, rows, roff, bc, partials, counter, dot, n, blocks, smem,
-      bf16_io, stream);
+      ctab, m, nc, rows, roff, resid, bc, partials, counter, dot, n, blocks,
+      smem, bf16_io, stream);
 }
 
 }  // extern "C"

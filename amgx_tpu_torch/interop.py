@@ -62,8 +62,10 @@ def _classical_level(d: dict, cfg, scope, i, device):
     level.R = _matrix(d["R"], device)
     xfer = d.get("xfer")
     if xfer is not None:
-        level._xfer_memo = ({k: tensor_from_numpy(v, device)
-                             for k, v in xfer.items()},)
+        from .ops.smooth import r_rows
+        level._xfer_memo = ({**r_rows(level.R),
+                             **{k: tensor_from_numpy(v, device)
+                                for k, v in xfer.items()}},)
     return level
 
 
@@ -99,7 +101,8 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     non-geometric levels). A classical level (one with `cf_map`) adds
     `P` and `R` as CSR-array dicts and, optionally, its weighted
     transfer tables `xfer` (`ctab`, `cwt`, `ptab`, `pwt` on the port's
-    layout; built from P and R when absent and cycle_fusion is on). A
+    layout, R's rows `rro`, `rci`, `rwt` taken from `R` where absent;
+    built from P and R when absent and cycle_fusion is on). A
     level may carry the `stencil` another implementation detected on it
     (`coeffs`, `offsets`, `shifts`, `shape`, `dinv_mode`): the hierarchy
     installs it where `cfg`'s `matrix_free` lets it detect one, instead

@@ -57,7 +57,7 @@ _I = ctypes.c_int
 def _lib():
     from .cuda_build import library
     lib = library("csr.cu")
-    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _P]
+    lib.amgx_csr_spmv.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P]
     lib.amgx_csr_step.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                                   _I, _I, _P]
     for fn in (lib.amgx_csr_spmv, lib.amgx_csr_step):
@@ -153,6 +153,18 @@ def _row_blocks(row_offsets):
     return rb
 
 
+def spmv_into(name, row_offsets, col_indices, values, x, y):
+    """One launch of B8's kernel, y = A x, counted under `name` (the
+    caller checked the operands and set the device): values and y of one
+    dtype, x of theirs or float32 (B3w's restriction of its float32
+    residual, `cuda_spmv.dia_smooth_restrict`)."""
+    rb = _row_blocks(row_offsets)
+    _launch(name, _lib().amgx_csr_spmv, _ptr(row_offsets),
+            _ptr(col_indices), _ptr(values), _ptr(rb), rb.shape[0] - 1,
+            _ptr(x), _ptr(y), int(values.dtype == torch.bfloat16),
+            int(x.dtype == torch.float32), _stream())
+
+
 def csr_spmv(row_offsets, col_indices, values, x):
     """B8: y = A x (A: n x len(x) CSR; values and x float32 or both
     bfloat16), one CUDA block per row block (`csr_row_blocks`)."""
@@ -161,11 +173,8 @@ def csr_spmv(row_offsets, col_indices, values, x):
     name = _name("csr_spmv", x)
     n = _check_csr(name, row_offsets, col_indices, values, x)
     with torch.cuda.device(x.device):
-        rb = _row_blocks(row_offsets)
         y = torch.empty(n, dtype=x.dtype, device=x.device)
-        _launch(name, _lib().amgx_csr_spmv, _ptr(row_offsets),
-                _ptr(col_indices), _ptr(values), _ptr(rb), rb.shape[0] - 1,
-                _ptr(x), _ptr(y), int(x.dtype == torch.bfloat16), _stream())
+        spmv_into(name, row_offsets, col_indices, values, x, y)
     return y
 
 

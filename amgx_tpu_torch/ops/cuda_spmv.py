@@ -50,10 +50,17 @@ B3 `dia_smooth_restrict` replaces `_dia_smooth_restrict_call`
    launch a step
    ("dia_smooth_restrict_step") and the untiled restriction: one thread
    per coarse row that walks its children and recomputes r at each --
-   deterministic, no atomics, r never stored. With `weights` (cwt, (m,
-   nc): classical AMG's R = P^T rows, the TPU kernel's `weighted=` form)
-   bc[c] = sum_j cwt[j, c] r[ctab[j, c]] on the per-step route; its
-   launches count as "dia_smooth_restrict_w".
+   deterministic, no atomics, r never stored (each fine row has one
+   coarse row there). With `weights` (cwt, (m, nc): classical AMG's R =
+   P^T rows, the TPU kernel's `weighted=` form) bc[c] = sum_j cwt[j, c]
+   r[ctab[j, c]], where a fine row is a child of up to
+   interp_max_elements coarse rows: r is computed once a row and stored
+   in float32 (by the tiled launches' last application on a 7-point star
+   slab, else by dia.cu's residual kernel after the per-step launches),
+   then B8's row-block kernel (csrc/csr.cu) sums bc = R r over R's
+   compact rows (`rows`, ctab / cwt's entries in their order, each
+   product rounded, then added in order); every launch counts as
+   "dia_smooth_restrict_w".
 
 B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    (pallas_spmv.py:1585): x <- x + xc[agg] folded into the first
@@ -67,8 +74,11 @@ B4 `dia_prolong_smooth` replaces `_dia_prolong_smooth_call`
    "dia_prolong_smooth_dot" ("dia_prolong_smooth_step_dot"). With
    `ptab`/`pwt` ((mp, n): classical AMG's P rows, the TPU kernel's
    `weighted=` form) the first step reads x_j + sum_t pwt[t, j]
-   xc[ptab[t, j]] instead of x_j + xc[agg[j]], on the per-step route;
-   its launches count as "dia_prolong_smooth_w" (+ "_dot").
+   xc[ptab[t, j]] instead of x_j + xc[agg[j]], summed once a row by
+   dia.cu's prologue kernel into a float32 x0 that the first step launch
+   reads as its state (not once for each of the k stencil rows that read
+   x_j), on every level; its launches count as "dia_prolong_smooth_w"
+   (+ "_dot").
 
 The coefficient ("matrix-free") mode
 -----------------------------------
@@ -121,11 +131,12 @@ last stores bf16 x'. The residual / restriction launch recomputes r from
 the last step's float32 state (`keep`), and bc is rounded once at its
 store. The weighted transfer rows (B3w / B4w, a bf16 classical
 hierarchy) take bf16 weights: bc = sum_j cwt[j, c] r[ctab[j, c]] with r
-from the float32 state and the sum float32, rounded once; the first
-step reads x_j + sum_t pwt[t, j] xc[ptab[t, j]] summed in float32 and
-never rounded. Launches count under the float32 names + "_bf16". Not in
-bf16: the x.b dot epilogues (a reduced-precision cycle declines the
-dot): those wrappers raise NotImplementedError on a CUDA tensor.
+from the float32 state, stored in float32 and never rounded, the sum
+float32, bc rounded once; the first step reads x_j + sum_t pwt[t, j]
+xc[ptab[t, j]] summed in float32 and never rounded (x0). Launches count
+under the float32 names + "_bf16". Not in bf16: the x.b dot epilogues
+(a reduced-precision cycle declines the dot): those wrappers raise
+NotImplementedError on a CUDA tensor.
 
 Not ported here (the wrappers raise): B2's x.b dot epilogue (the JAX
 package has no caller for it).
@@ -258,7 +269,7 @@ def _tb_smooth(slab=False):
     fn.argtypes = [
         ctypes.POINTER(StencilArg), ctypes.POINTER(TbGeomArg), _I, _P, _P,
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _P]
+        _P, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -270,17 +281,20 @@ def _lib():
     _S = ctypes.POINTER(StencilArg)
     lib.amgx_dia_spmv.argtypes = [_P, _P, _P, _I, _P, _I, _P]
     lib.amgx_dia_step.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                  _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
-    lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _P]
-    lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _I,
-                                      _P, _I, _I, _P]
+                                  _I, _P, _I, _P, _P, _P, _I, _P]
+    lib.amgx_dia_residual.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                      _P]
+    lib.amgx_dia_restrict.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _P,
+                                      _I, _I, _P]
+    lib.amgx_dia_prolong_w.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _P]
     lib.amgx_dia_step_mf.argtypes = [_S, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                                     _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
+                                     _P, _I, _P, _P, _P, _I, _P]
     lib.amgx_dia_residual_mf.argtypes = [_S, _P, _P, _P, _I, _P, _I, _I, _P]
     lib.amgx_dia_restrict_mf.argtypes = [_S, _P, _P, _P, _I, _I, _P, _I, _P,
                                          _I, _I, _P]
     for fn in (lib.amgx_dia_spmv, lib.amgx_dia_step, lib.amgx_dia_residual,
-               lib.amgx_dia_restrict, lib.amgx_dia_step_mf,
+               lib.amgx_dia_restrict, lib.amgx_dia_prolong_w,
+               lib.amgx_dia_step_mf,
                lib.amgx_dia_residual_mf, lib.amgx_dia_restrict_mf):
         fn.restype = _I
     return lib
@@ -457,15 +471,14 @@ def dia_smooth_plain(vals, offsets, taus, b, x, dinv=None,
 
 def restrict_plain(ctab, r, weights=None):
     """bc[c] = sum_j weights[j, c] r[ctab[j, c]] over the children
-    present (>= 0); unit weights when `weights` is None, added one child
-    at a time in ctab order from 0 (the kernels' order, and the JAX
-    package's `_xla_restrict`)."""
+    present (>= 0); unit weights when `weights` is None. Each product
+    rounded, then added one child at a time in ctab order from 0 (the
+    kernels' order: B3w's restriction walks R's rows, whose entries are
+    ctab's in this order; the JAX package's `_xla_restrict`)."""
     g = r[ctab.clamp(min=0).long()]
     if weights is not None:
         g = g * weights
     g = torch.where(ctab >= 0, g, torch.zeros_like(g))
-    if weights is not None:
-        return g.sum(dim=0)
     bc = torch.zeros(ctab.shape[1], dtype=r.dtype, device=r.device)
     for j in range(ctab.shape[0]):
         bc = bc + g[j]
@@ -474,13 +487,17 @@ def restrict_plain(ctab, r, weights=None):
 
 def prolong_plain(x, xc, agg=None, ptab=None, pwt=None):
     """x + P xc: xc[agg] (unit weights), or sum_t pwt[t] xc[ptab[t]]
-    over each row's entries (ptab >= 0), added in entry order."""
+    over each row's entries (ptab >= 0) in entry order, each term one
+    fused multiply-add onto the sum (the kernel's chain, csrc/dia.cu
+    `WeightedXT`; in float64, where the product of two float32 values is
+    exact, rounded back once a term), then x added."""
     if ptab is None:
         return x + xc[agg.long()]
     corr = torch.zeros_like(x)
     for t in range(ptab.shape[0]):
-        g = pwt[t] * xc[ptab[t].clamp(min=0).long()]
-        corr = corr + torch.where(ptab[t] >= 0, g, torch.zeros_like(g))
+        g = xc[ptab[t].clamp(min=0).long()]
+        fma = (pwt[t].double() * g.double() + corr.double()).to(x.dtype)
+        corr = torch.where(ptab[t] >= 0, fma, corr)
     return x + corr
 
 
@@ -527,23 +544,23 @@ def dia_spmv(vals, offsets, x):
 
 
 def _steps(name, step, head, offsets, taus, b, x, out, xc=None, agg=None,
-           dot=None, ptab=None, pwt=None, keep=False):
+           dot=None, keep=False, x_f32=False):
     """Launch len(taus) damped steps through the C entry `step` (whose
     leading arguments are `head`: vals and dinv, or the stencil), the last
-    one writing `out`; the first reads x (+ xc[agg], or + P xc through
-    ptab / pwt, when given). The steps before the last pass their state
-    through float32 scratch (two buffers, ping-pong). With dot =
-    (partials, result) the last launch also writes out.b into result and
-    counts under name + "_dot". Returns `out`, or with `keep` (out, the
-    final state in float32): `out` itself for float32 operands, a scratch
-    buffer that the last launch also writes for bfloat16 ones."""
+    one writing `out`; the first reads x (+ xc[agg], when given; x is
+    float32 with `x_f32`, B4w's corrected x). The steps before the last
+    pass their state through float32 scratch (two buffers, ping-pong).
+    With dot = (partials, result) the last launch also writes out.b into
+    result and counts under name + "_dot". Returns `out`, or with `keep`
+    (out, the final state in float32): `out` itself for float32 operands,
+    a scratch buffer that the last launch also writes for bfloat16
+    ones."""
     n = x.shape[0]
     s = taus.shape[0]
-    half = x.dtype == torch.bfloat16
+    half = out.dtype == torch.bfloat16
     scratch = torch.empty((2, n), dtype=torch.float32, device=x.device) \
         if s > 1 or (keep and half) else None
     offs = _offsets_arg(tuple(offsets))
-    mp = 0 if ptab is None else ptab.shape[0]
     src, state = x, out
     for t in range(s):
         first, last = t == 0, t == s - 1
@@ -551,14 +568,13 @@ def _steps(name, step, head, offsets, taus, b, x, out, xc=None, agg=None,
         kept = None
         if last and keep and half:
             kept = state = scratch[t % 2]
-        mode = _BF16 | (0 if first else _X_F32) | (0 if last else _OUT_F32) \
-            if half else 0
+        mode = _BF16 | (0 if first and not x_f32 else _X_F32) \
+            | (0 if last else _OUT_F32) if half else 0
         last_dot = dot is not None and last
         _launch(name + "_dot" if last_dot else name, step, *head,
                 _ptr(taus), t, _ptr(b), _ptr(src),
                 _ptr(xc) if first else None, _ptr(agg) if first else None,
-                _ptr(ptab) if first else None, _ptr(pwt) if first else None,
-                mp, _ptr(dst), _ptr(kept), n, offs, len(offsets),
+                _ptr(dst), _ptr(kept), n, offs, len(offsets),
                 _ptr(dot[0]) if last_dot else None,
                 _ptr(dot_counter(x.device)) if last_dot else None,
                 _ptr(dot[1]) if last_dot else None, mode, _stream())
@@ -605,7 +621,7 @@ def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
         r = torch.empty_like(x)
         _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
                 _ptr(state), _ptr(r), n, _offsets_arg(tuple(offsets)),
-                len(offsets), int(x.dtype == torch.bfloat16), _stream())
+                len(offsets), int(x.dtype == torch.bfloat16), 0, _stream())
     return out, r
 
 
@@ -663,11 +679,18 @@ def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
     tile (`lists`, `tiling.restrict_lists`), in the launches `plans`;
     ("tiled+epilogue", plans, None): B3's steps in those launches, then
     the untiled restriction (a children table that crosses the tiles:
-    SIZE_2 pairs); ("step", None, None): one launch a step (weighted
-    transfer rows, a level the tiled kernel does not take, a longer
-    schedule)."""
+    SIZE_2 pairs); ("step", None, None): one launch a step (a level the
+    tiled kernel does not take, a longer schedule). `weighted`: B3w
+    (with ctab) ("tiled", plans, None), the last launch storing r for
+    the restriction over R's rows, where the tiled kernel takes the
+    level and the schedule; B4w (without) always ("step", None, None):
+    its prologue launch, then one launch a step (faster at the classical
+    128^3 level 0 than summing x + P xc in the tiles, PERF.md)."""
     if weighted:
-        return "step", None, None
+        plans = None if ctab is None else _slab_plans(
+            vals, offsets, grid, dinv, x, steps + 1, True)
+        return ("step", None, None) if plans is None \
+            else ("tiled", plans, None)
     if ctab is not None:
         plans = _slab_plans(vals, offsets, grid, dinv, x, steps + 1, True)
         lists = None if plans is None \
@@ -681,12 +704,13 @@ def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
 
 
 def _tb_calls(name, plans, vals, dinv, taus, b, x, xc=None, agg=None,
-              ctab=None, lists=None, bc=None, dot=None, keep=False):
+              ctab=None, lists=None, bc=None, dot=None, keep=False,
+              resid=None):
     """The launches of a tiled slab call, counted under `name` (the last
     one + "_dot" with the dot): the first reads x (+ xc[agg]), each later
     one the float32 state the one before wrote (two scratch buffers in
-    turn), the last writes x' (and bc, or the dot). Returns x', or with
-    `keep` (x', its float32 state)."""
+    turn), the last writes x' (and bc, or r in float32 to `resid`, or the
+    dot). Returns x', or with `keep` (x', its float32 state)."""
     n, k = x.shape[0], len(plans)
     half = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
@@ -704,7 +728,7 @@ def _tb_calls(name, plans, vals, dinv, taus, b, x, xc=None, agg=None,
                    xc=xc if i == 0 else None, agg=agg if i == 0 else None,
                    keep=st, ctab=ctab if last else None,
                    lists=lists if last else None,
-                   bc=bc if last else None,
+                   bc=bc if last else None, resid=resid if last else None,
                    dot=dot if last else None, vals=vals, dinv=dinv,
                    x_f32=i > 0)
         at += plan.steps
@@ -714,24 +738,44 @@ def _tb_calls(name, plans, vals, dinv, taus, b, x, xc=None, agg=None,
     return out, (ws[mid] if kept else out)
 
 
-def _restrict(name, vals, b, state, ctab, weights, bc, offsets):
-    """bc = R (b - A x') through ctab (weighted by `weights` when given)
-    from x' in float32 (`state`): one dia.cu launch, counted under
-    `name`."""
+def _restrict(name, vals, b, state, ctab, bc, offsets):
+    """bc = R (b - A x') through the unit-weight ctab from x' in float32
+    (`state`): one dia.cu launch, counted under `name`."""
     m, nc = ctab.shape
     _launch(name, _lib().amgx_dia_restrict, _ptr(vals), _ptr(b),
-            _ptr(state), _ptr(ctab), _ptr(weights), m, nc, _ptr(bc),
-            b.shape[0], _offsets_arg(tuple(offsets)), len(offsets),
+            _ptr(state), _ptr(ctab), m, nc, _ptr(bc), b.shape[0],
+            _offsets_arg(tuple(offsets)), len(offsets),
             int(b.dtype == torch.bfloat16), _stream())
 
 
+def _smooth_residual_w(name, vals, offsets, taus, b, x, ctab, dinv, grid):
+    """A weighted B3 call's steps and r = b - A x' in float32, each row's
+    residual once, counted under `name`: the tiled launches (the last
+    storing r) where `slab_route` says so, else one launch a step and
+    dia.cu's residual kernel. Returns (x', r)."""
+    n = x.shape[0]
+    r = torch.empty(n, dtype=torch.float32, device=x.device)
+    _, plans, _ = slab_route(vals, offsets, grid, dinv, x, taus.shape[0],
+                             ctab, weighted=True)
+    if plans is not None:
+        return _tb_calls(name, plans, vals, dinv, taus, b, x, resid=r), r
+    out, state = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
+                        offsets, taus, b, x, torch.empty_like(x), keep=True)
+    _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
+            _ptr(state), _ptr(r), n, _offsets_arg(tuple(offsets)),
+            len(offsets), int(x.dtype == torch.bfloat16), 1, _stream())
+    return out, r
+
+
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
-                        weights=None, grid=None):
+                        weights=None, grid=None, rows=None):
     """B3: B2's steps, then bc = R (b - A x') through the child table
     ctab (m, nc), weighted by `weights` (m, nc, the operands' dtype) when
     given. `grid`: the operator's grid shape (A.grid_shape), which lets
-    a unit-weight call on a 7-point star level run temporally blocked.
-    Returns (x', bc).
+    a call on a 7-point star level run temporally blocked. `rows`: R's
+    compact rows (row offsets, columns, values in the operands' dtype),
+    the entries of ctab / weights in the same order; a weighted call on
+    the card restricts over them. Returns (x', bc).
 
     On the card, by structure: the tiled launches (`_tb_calls`) run the
     steps, the residual and the restriction when the tiled kernel takes
@@ -741,8 +785,10 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
     launch a step ("dia_smooth_restrict_step"), and the untiled
     restriction follows from their float32 state
     ("dia_smooth_restrict_epilogue"); each name + "_bf16" for bf16
-    operands. Weighted tables take the per-step route and count every
-    launch as "dia_smooth_restrict_w" (+ "_bf16")."""
+    operands. Weighted tables compute each fine row's r once, in float32
+    (`_smooth_residual_w`), then bc = R r over `rows` in one launch of
+    B8's row-block kernel (csrc/csr.cu, x read as float32), every launch
+    counted as "dia_smooth_restrict_w" (+ "_bf16")."""
     if x.device.type == "cpu":
         return dia_smooth_restrict_plain(vals, offsets, taus, b, x, ctab,
                                          dinv, weights)
@@ -756,10 +802,25 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
                   ints={"ctab": (ctab, (m, nc))})
     if m < 1 or nc < 1:
         raise ValueError(f"{name}: empty child table")
+    if weights is not None:
+        if rows is None:
+            raise ValueError(f"{name}: a weighted call on the card needs "
+                             f"R's rows")
+        ro, ci, rv = rows
+        _check(name, None, nc, {"rows values": (rv, (ci.shape[0],)),
+                                "x": (x, (x.shape[0],))},
+               {"row offsets": (ro, (nc + 1,)),
+                "columns": (ci, (ci.shape[0],))}, bf16_ok=True)
+        from .cuda_csr import spmv_into
+        with torch.cuda.device(x.device):
+            out, r = _smooth_residual_w(name, vals, offsets, taus, b, x,
+                                        ctab, dinv, grid)
+            bc = torch.empty(nc, dtype=x.dtype, device=x.device)
+            spmv_into(name, ro, ci, rv, r, bc)
+        return out, bc
     with torch.cuda.device(x.device):
         route, plans, lists = slab_route(vals, offsets, grid, dinv, x,
-                                         taus.shape[0], ctab,
-                                         weights is not None)
+                                         taus.shape[0], ctab)
         bc = torch.empty(nc, dtype=x.dtype, device=x.device)
         if route == "tiled":
             out = _tb_calls(name, plans, vals, dinv, taus, b, x, ctab=ctab,
@@ -770,13 +831,11 @@ def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
                                    keep=True)
         else:
             out, state = _steps(
-                name if weights is not None
-                else _name("dia_smooth_restrict_step", x),
-                _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)), offsets,
-                taus, b, x, torch.empty_like(x), keep=True)
-        _restrict(name if weights is not None
-                  else _name("dia_smooth_restrict_epilogue", x), vals, b,
-                  state, ctab, weights, bc, offsets)
+                _name("dia_smooth_restrict_step", x), _lib().amgx_dia_step,
+                (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
+                torch.empty_like(x), keep=True)
+        _restrict(_name("dia_smooth_restrict_epilogue", x), vals, b, state,
+                  ctab, bc, offsets)
     return out, bc
 
 
@@ -789,8 +848,11 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
     float32 tensor on x's device). `grid` as for dia_smooth_restrict:
     with agg, on a level the tiled kernel takes, the tiled launches
     ("dia_prolong_smooth", the last "..._dot" with the dot); otherwise
-    one launch a step ("dia_prolong_smooth_step", "..._step_dot"; with
-    ptab "dia_prolong_smooth_w", "..._w_dot")."""
+    one launch a step ("dia_prolong_smooth_step", "..._step_dot"). With
+    ptab each row's x + P xc is summed once, by dia.cu's prologue kernel
+    into a float32 x0, and one launch a step follows, the first reading
+    x0 as the state (on every level); every launch counted as
+    "dia_prolong_smooth_w" (the dot's as "..._w_dot")."""
     if (agg is None) == (ptab is None) or (ptab is None) != (pwt is None):
         raise ValueError("dia_prolong_smooth: give agg, or ptab and pwt")
     if x.device.type == "cpu":
@@ -814,13 +876,21 @@ def dia_prolong_smooth(vals, offsets, taus, b, x, xc, agg=None, dinv=None,
                 if with_dot else None
             out = _tb_calls(name, plans, vals, dinv, taus, b, x, xc=xc,
                             agg=agg, dot=dot)
+        elif ptab is not None:
+            dot = dot_scratch(n, x.device) if with_dot else None
+            x0 = torch.empty(n, dtype=torch.float32, device=x.device)
+            _launch(name, _lib().amgx_dia_prolong_w, _ptr(x), _ptr(xc),
+                    _ptr(ptab), _ptr(pwt), mp, _ptr(x0), n,
+                    int(x.dtype == torch.bfloat16), _stream())
+            out = _steps(name, _lib().amgx_dia_step,
+                         (_ptr(vals), _ptr(dinv)), offsets, taus, b, x0,
+                         torch.empty_like(x), dot=dot, x_f32=True)
         else:
             dot = dot_scratch(n, x.device) if with_dot else None
-            out = _steps(name if ptab is not None
-                         else _name("dia_prolong_smooth_step", x),
+            out = _steps(_name("dia_prolong_smooth_step", x),
                          _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
                          offsets, taus, b, x, torch.empty_like(x), xc=xc,
-                         agg=agg, dot=dot, ptab=ptab, pwt=pwt)
+                         agg=agg, dot=dot)
     return (out, dot[1]) if with_dot else out
 
 
@@ -890,7 +960,7 @@ def _mf_steps(name, st, taus, b, x, xc=None, agg=None, dot=None,
 
 def _tb_launch(name, sarg, k, plan, taus, b, x, out, xc=None, agg=None,
                keep=None, ctab=None, lists=None, bc=None, dot=None,
-               vals=None, dinv=None, x_f32=False):
+               vals=None, dinv=None, x_f32=False, resid=None):
     """One launch of the temporally blocked kernel (csrc/stencil_tb.cuh)
     with `plan` on the grid of the kernels' Stencil `sarg` (k diagonals):
     from its coefficients (stencil_tb.cu), or with `vals` from the slab
@@ -902,7 +972,7 @@ def _tb_launch(name, sarg, k, plan, taus, b, x, out, xc=None, agg=None,
             ctypes.byref(sarg), ctypes.byref(geom_arg(plan)), k, _ptr(vals),
             _ptr(dinv), _ptr(taus), _ptr(b), _ptr(x),
             int(x_f32), _ptr(xc), _ptr(agg), _ptr(out), _ptr(keep),
-            _ptr(ctab), m, nc, _ptr(rows), _ptr(roff), _ptr(bc),
+            _ptr(ctab), m, nc, _ptr(rows), _ptr(roff), _ptr(resid), _ptr(bc),
             _ptr(None if dot is None else dot[0]),
             _ptr(dot_counter(b.device)) if dot is not None else None,
             _ptr(None if dot is None else dot[1]), b.shape[0], plan.blocks,

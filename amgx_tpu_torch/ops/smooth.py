@@ -41,7 +41,9 @@ TPU's quota padding and VMEM window bases): `ctab` (m, nc) int32, the
 fine rows of each coarse row in ascending order, -1 where absent; `agg`
 (n,) int32, the coarse row of each fine row. Classical levels carry the
 weighted form (`build_csr_transfer_tables`): `ctab`/`cwt` (m, nc) for
-R's rows and `ptab`/`pwt` (mp, n) for P's rows.
+R's rows and `ptab`/`pwt` (mp, n) for P's rows, and R's compact rows
+`rro`/`rci`/`rwt` (row offsets, columns, values: ctab / cwt's entries in
+the same order), over which B3w restricts on the card.
 """
 from __future__ import annotations
 
@@ -139,7 +141,9 @@ def build_csr_transfer_tables(A, P, R):
     """The weighted transfer tables of a classical level (the JAX
     package's `build_csr_transfer_slabs` on the port's layout): `ctab` /
     `cwt` (m, nc), entry j of R's row c; `ptab` / `pwt` (mp, n), entry j
-    of P's row i. None when A has no square DIA view or a row outgrows
+    of P's row i; `rro` / `rci` / `rwt`, R's own CSR arrays (its compact
+    rows, which B3w's restriction walks; `rwt` is cast with `cwt` in a
+    bf16 hierarchy). None when A has no square DIA view or a row outgrows
     the caps (m <= CSR_TRANSFER_MAX_CHILD, mp <= TRANSFER_MAX_CHILD), as
     in the JAX package; the cycle then composes the R / P products."""
     if getattr(A, "dia_vals", None) is None or A.num_rows != A.num_cols:
@@ -154,7 +158,15 @@ def build_csr_transfer_tables(A, P, R):
         return None
     ctab, cwt = _rows_table(R.row_offsets, R.col_indices, R.values, nc, m)
     ptab, pwt = _rows_table(P.row_offsets, P.col_indices, P.values, n, mp)
-    return {"ctab": ctab, "cwt": cwt, "ptab": ptab, "pwt": pwt}
+    return {"ctab": ctab, "cwt": cwt, "ptab": ptab, "pwt": pwt,
+            **r_rows(R)}
+
+
+def r_rows(R):
+    """R's compact rows as B3w's restriction takes them (`rro`, `rci`,
+    `rwt`): R's own CSR arrays, int32 structure."""
+    return {"rro": R.row_offsets.to(torch.int32),
+            "rci": R.col_indices.to(torch.int32), "rwt": R.values}
 
 
 def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
@@ -194,12 +206,14 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
     A = data["A"]
     if xfer is None or not kernel_ok(A, x) or taus.shape[0] < 1:
         return None
+    rows = None if "rwt" not in xfer \
+        else (xfer["rro"], xfer["rci"], xfer["rwt"])
     return cuda_spmv.dia_smooth_restrict(A.dia_vals, A.dia_offsets,
                                          taus.to(compute_dtype(x.dtype)), b,
                                          x,
                                          xfer["ctab"], dinv,
                                          weights=xfer.get("cwt"),
-                                         grid=A.grid_shape)
+                                         grid=A.grid_shape, rows=rows)
 
 
 def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,

@@ -344,7 +344,9 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     level t - 1 alone (values outside the block's previous level are
     NaN, so a halo too small shows in the output), writes x' on its
     interior and, with `plan.residual`, sums each of its coarse rows'
-    residuals in ctab order (`restrict_lists`). With the dot, x'.b is
+    residuals in ctab order (`restrict_lists`), or without ctab keeps
+    the residual of its interior rows (B3w's launch, which stores r for
+    the restriction over R's rows). With the dot, x'.b is
     summed per block over its interior and the blocks' partials added in
     block order (the kernel adds within a block in another order).
 
@@ -353,9 +355,10 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     and the `dinv` vector (or none) of a slab level, read at the row
     being updated; either way an off-grid neighbour is skipped.
 
-    Returns x', (x', bc) with the residual, or (x', dot); x' in x's dtype,
-    or with `state` its float32 state unrounded (what a split call's
-    next launch reads)."""
+    Returns x', (x', bc) with the residual (or (x', r), r in the compute
+    dtype, without ctab), or (x', dot); x' in x's dtype, or with `state`
+    its float32 state unrounded (what a split call's next launch
+    reads)."""
     from . import cuda_spmv
     from .stencil import _dinv_vec, _vec_masks
     from ..precision import compute_dtype
@@ -381,11 +384,14 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
     M = [None if mk is None else _grid3(mk, plan.shape) for mk in masks]
     nan = float("nan")
     out = torch.full((nz, ny, nx), nan, dtype=cdt)
-    lists = restrict_lists(plan, ctab) if plan.residual else None
-    if plan.residual and lists is None:
+    lists = restrict_lists(plan, ctab) \
+        if plan.residual and ctab is not None else None
+    if plan.residual and ctab is not None and lists is None:
         raise ValueError("emulate: the children table leaves the tiles")
     bc = None if ctab is None else torch.full((ctab.shape[1],), nan,
                                               dtype=cdt)
+    rout = torch.full((nz, ny, nx), nan, dtype=cdt) \
+        if plan.residual and ctab is None else None
     partials = []
     for blk in range(plan.blocks):
         xo, yo, zo = plan.origin(blk)
@@ -427,7 +433,9 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
         out[inner] = prev[inner]
         if with_dot:
             partials.append((prev[inner] * B[inner]).sum())
-        if res is not None:
+        if rout is not None:
+            rout[inner] = res[inner]
+        elif res is not None:
             rows, offs = lists
             k0 = blk * plan.chunk
             mine = rows[int(offs[k0]):int(offs[k0 + plan.chunk])].long()
@@ -439,6 +447,8 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
                                         torch.zeros_like(acc))
             bc[mine] = acc
     xout = out.reshape(-1) if state else out.reshape(-1).to(x.dtype)
+    if rout is not None:
+        return xout, rout.reshape(-1)
     if plan.residual:
         return xout, bc.to(x.dtype)
     if with_dot:
@@ -454,7 +464,8 @@ def emulate_calls(plans, spec, coeffs, taus, b, x, xc=None, agg=None,
     """A call split over the launches `plans` (`plan_calls`): each launch
     runs its share of the steps from the state the one before left
     (float32, unrounded), the first adds the correction xc[agg], the
-    last writes x' in x's dtype (and the residual's bc, or the dot)."""
+    last writes x' in x's dtype (and the residual's bc, or without ctab
+    the residual itself, unrounded, or the dot)."""
     at, state = 0, x
     for i, plan in enumerate(plans):
         last = i == len(plans) - 1
@@ -466,7 +477,10 @@ def emulate_calls(plans, spec, coeffs, taus, b, x, xc=None, agg=None,
         if last:
             if state.dtype == x.dtype:
                 return got
-            # x' and bc round once, at the end (bf16 has no dot)
-            return tuple(g.to(x.dtype) for g in got) \
-                if isinstance(got, tuple) else got.to(x.dtype)
+            # x' and bc round once, at the end (bf16 has no dot; r stays
+            # float32)
+            if not isinstance(got, tuple):
+                return got.to(x.dtype)
+            return got[0].to(x.dtype), \
+                got[1] if ctab is None else got[1].to(x.dtype)
         state = got

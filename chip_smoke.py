@@ -75,8 +75,10 @@ Phases, one JSON line each on stdout:
                CLASSICAL hierarchy's float32 solve data besides B8: B9 on
                level 1's operator with JACOBI_L1's dinv, B3w/B4w (and
                B4w's dot) on level 0 with its weighted tables, with and
-               without dinv; and B10 on level 0's plan of the 64^3
-               CLASSICAL_REFINEMENT hierarchy. B8 and B10 are timed
+               without dinv (`weighted_bits`: their x' to 0 ulp of the
+               per-step kernels' arithmetic, and B3w's restriction alone
+               beside cuSPARSE's R @ r); and B10 on level 0's plan of the
+               64^3 CLASSICAL_REFINEMENT hierarchy. B8 and B10 are timed
                against cuSPARSE.
 3. small    -- end-to-end references on small inputs, the card against
                the CPU (plain kernels): the flagship at 16^3 with the
@@ -126,7 +128,8 @@ Phases, one JSON line each on stdout:
                PMIS + D2 cycle) at 128^3 and 64^3: true f64 residual
                <= 1e-8 within 2 of the 20 / 17 iteration anchors, the level
                rows, whether level 0 took the weighted tables (m, mp), B8/B9
-               on the coarse levels, B3w/B4w once per cycle, no B5, no B10;
+               on the coarse levels, B3w/B4w once per cycle (by the
+               launches a call their route makes), no B5, no B10;
                setup, first and warm solve times, setup's peak memory.
 8. determinism -- the same at 32^3: two card setups bit-identical, CF
                splits and P patterns equal to the CPU's, the card's and
@@ -195,6 +198,8 @@ as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero without that line. It exits non-zero
 at once when PyTorch sees no CUDA device.
 """
+import inspect
+import itertools
 import json
 import os
 import subprocess
@@ -291,7 +296,10 @@ SOURCES = {
     "dia_coarse_tail": "tail.cu",
     "dia_coarse_tail_dot": "tail.cu", "dia_spmv_dot": "krylov.cu",
     "dia_spmv_ddot": "krylov.cu",
-    "cg_update": "krylov.cu", "dia_smooth_restrict_w": "dia.cu",
+    "cg_update": "krylov.cu",
+    # B3w's steps and r on a grid level; its restriction runs csr.cu's
+    # kernel, and a level without a grid dia.cu's per-step kernels
+    "dia_smooth_restrict_w": "stencil_tb_slab.cu",
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
     "rap_values_relabel": "rap.cu",
@@ -1247,14 +1255,58 @@ def csr_spmv_case(torch, C, M, x):
             + M.num_rows * 4, 2 * M.nnz, 1, lambda: lib @ x)
 
 
-def classical_cases(torch, amgx, K, C, dev):
+def weighted_launches(torch, K, vals, offs, grid, dinv, x, steps):
+    """Launches of one B3w and one B4w call of `steps` steps on a level:
+    B3w the tiled launches `slab_route` plans there and the restriction,
+    or (route "step") the steps, the residual and the restriction; B4w
+    the prologue and the steps, on every level."""
+    ctab = torch.zeros((1, 1), dtype=torch.int32, device=x.device)
+    p3 = K.slab_route(vals, offs, grid, dinv, x, steps, ctab, True)[1]
+    return (steps + 2 if p3 is None else len(p3) + 1), steps + 1
+
+
+def weighted_per_call(torch, amg):
+    """(B3w, B4w) launches of one call on the classical level 0 of a
+    set-up `amg` (its pre- and post-smoothing schedules) by the route
+    its wrappers take there (`weighted_launches`)."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    ld = amg.solve_data()["levels"][0]
+    A, dinv = ld["A"], ld["smoother"].get("dinv")
+    x = torch.empty(A.num_rows, dtype=A.dia_vals.dtype,
+                    device=A.dia_vals.device)
+    args = (torch, K, A.dia_vals, A.dia_offsets, A.grid_shape, dinv, x)
+    return (weighted_launches(*args, amg._sweeps(0, True))[0],
+            weighted_launches(*args, amg._sweeps(0, False))[1])
+
+
+def weighted_cycles(c, per_call, suffix=""):
+    """The V-cycles a path's counts `c` show on a classical level 0 whose
+    B3w / B4w calls launch `per_call` kernels each: B3w's and B4w's
+    launches over their per-call counts, which must agree (None where
+    they do not or nothing ran)."""
+    w3 = c["dia_smooth_restrict_w" + suffix] / per_call[0]
+    w4 = c["dia_prolong_smooth_w" + suffix] / per_call[1]
+    return int(w3) if w3 == w4 == int(w3) and w3 > 0 else None
+
+
+def weighted_kw(K, xf, dtype):
+    """B3w's R rows argument (`rows`) where the package's wrapper takes
+    it (a parent tree's may not), its values in `dtype`."""
+    if "rows" not in inspect.signature(K.dia_smooth_restrict).parameters:
+        return {}
+    return {"rows": (xf["rro"], xf["rci"], xf["rwt"].to(dtype))}
+
+
+def classical_cases(torch, amgx, K, C, dev, untiled=False):
     """B8, B9 and B3w/B4w at the shapes the 128^3 CLASSICAL path gives
     them, on its own hierarchy's float32 solve data: B8 on the largest
     unstructured operator (level 1) and the P and R that serve it, B9 on
     that operator with JACOBI_L1's dinv, B3w/B4w on level 0 (the 7-pt
-    DIA operator, 2,097,152 rows) with its weighted tables, with and
-    without dinv. label -> {name: case} as kernel_cases gives them, and
-    the level rows."""
+    DIA operator, 2,097,152 rows, its grid given as the cycle gives it)
+    with its weighted tables, with and without dinv; with `untiled` also
+    B3w/B4w without the grid (labels "... untiled": the per-step and
+    prologue routes, which a level without a grid takes). label ->
+    {name: case} as kernel_cases gives them, and the level rows."""
     A = amgx.gallery.poisson("7pt", 128, 128, 128, device=dev)
     amg = amg_of(amgx, CLASSICAL, A, dev).amg
     data = amg.solve_data()
@@ -1309,38 +1361,45 @@ def classical_cases(torch, amgx, K, C, dev):
     b, x = (torch.randn(n, generator=g, device=dev) for _ in range(2))
     xc = torch.randn(nc, generator=g, device=dev)
     tau = amg.levels[0].smoother._fused_taus(1, x)
+    # one step, its residual once a row (B3w) and the transfer's products
     app = (2 * k + 3) * n
-    for tag, dinv in (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)):
+    ops3 = app + (2 * k + 1) * n + 2 * nnz_r
+    routes = (("", A0.grid_shape),) + ((" untiled", None),) * untiled
+    kw32 = weighted_kw(K, xf, torch.float32)
+    for (tag, dinv), (rt, grid) in itertools.product(
+            (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)), routes):
         dn = 0 if dinv is None else n
-        cases[f"classical_l0_128^3 {tag}"] = {
+        l3, l4 = weighted_launches(torch, K, vals, offs, grid, dinv, x, 1)
+        cases[f"classical_l0_128^3 {tag}{rt}"] = {
             "dia_smooth_restrict_w": (
-                lambda d=dinv: K.dia_smooth_restrict(
+                lambda d=dinv, gr=grid: K.dia_smooth_restrict(
                     vals, offs, tau, b, x, xf["ctab"], d,
-                    weights=xf["cwt"]),
+                    weights=xf["cwt"], grid=gr, **kw32),
                 lambda d=dinv: K.dia_smooth_restrict_plain(
                     vals, offs, tau, b, x, xf["ctab"], d,
                     weights=xf["cwt"]),
                 (k * n + 3 * n + dn + 1 + nc) * 4 + r_bytes,
-                app + dn + nnz_r * (2 * k + 3), 2, None),
+                ops3 + dn, l3, None),
             "dia_prolong_smooth_w": (
-                lambda d=dinv: K.dia_prolong_smooth(
+                lambda d=dinv, gr=grid: K.dia_prolong_smooth(
                     vals, offs, tau, b, x, xc, dinv=d, ptab=xf["ptab"],
-                    pwt=xf["pwt"]),
+                    pwt=xf["pwt"], grid=gr),
                 lambda d=dinv: K.dia_prolong_smooth_plain(
                     vals, offs, tau, b, x, xc, None, d, ptab=xf["ptab"],
                     pwt=xf["pwt"]),
                 (k * n + 3 * n + dn + 1 + nc) * 4 + p_bytes,
-                app + dn + 2 * nnz_p, 1, None)}
+                app + dn + 2 * nnz_p, l4, None)}
         if dinv is not None:
-            cases[f"classical_l0_128^3 {tag}"]["dia_prolong_smooth_w_dot"] = (
-                lambda d=dinv: K.dia_prolong_smooth(
+            cases[f"classical_l0_128^3 {tag}{rt}"][
+                "dia_prolong_smooth_w_dot"] = (
+                lambda d=dinv, gr=grid: K.dia_prolong_smooth(
                     vals, offs, tau, b, x, xc, dinv=d, ptab=xf["ptab"],
-                    pwt=xf["pwt"], with_dot=True),
+                    pwt=xf["pwt"], with_dot=True, grid=gr),
                 lambda d=dinv: K.dia_prolong_smooth_plain(
                     vals, offs, tau, b, x, xc, None, d, with_dot=True,
                     ptab=xf["ptab"], pwt=xf["pwt"]),
                 (k * n + 3 * n + dn + 1 + nc + 1) * 4 + p_bytes,
-                app + dn + 2 * nnz_p + 2 * n, 1, None)
+                app + dn + 2 * nnz_p + 2 * n, l4, None)
     # the bf16 forms on the same levels, as the hierarchy's bf16 cast
     # hands them over: B9 / B8 on level 1, B3w / B4w on level 0 (R's and
     # P's entries 6 bytes each: a bf16 weight and an int32 index)
@@ -1353,33 +1412,103 @@ def classical_cases(torch, amgx, K, C, dev):
     t16 = tau.to(bf).float()
     r16 = nnz_r * 6 + (nc + 1) * 4
     p16 = nnz_p * 6 + (n + 1) * 4
-    for tag, dinv in (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)):
+    kw16 = weighted_kw(K, xf, bf)
+    for (tag, dinv), (rt, grid) in itertools.product(
+            (("dinv", l0["smoother"]["dinv"]), ("no dinv", None)), routes):
         dn = 0 if dinv is None else n
         d16 = None if dinv is None else dinv.to(bf)
-        bf16[f"classical_l0_128^3 {tag} bf16"] = {
+        l3, l4 = weighted_launches(torch, K, v16, offs, grid, d16, x16, 1)
+        bf16[f"classical_l0_128^3 {tag}{rt} bf16"] = {
             "dia_smooth_restrict_w_bf16": (
-                lambda d=d16: K.dia_smooth_restrict(
-                    v16, offs, t16, b16, x16, xf["ctab"], d, weights=cwt),
+                lambda d=d16, gr=grid: K.dia_smooth_restrict(
+                    v16, offs, t16, b16, x16, xf["ctab"], d, weights=cwt,
+                    grid=gr, **kw16),
                 lambda d=d16: K.dia_smooth_restrict_plain(
                     v16, offs, t16, b16, x16, xf["ctab"], d, weights=cwt),
                 (k * n + 3 * n + dn + nc) * 2 + 4 + r16,
-                app + dn + nnz_r * (2 * k + 3), 2, None, f32_twin_ms(
-                    torch, lambda d=dinv: K.dia_smooth_restrict(
+                ops3 + dn, l3, None, f32_twin_ms(
+                    torch, lambda d=dinv, gr=grid: K.dia_smooth_restrict(
                         vals, offs, t16, b, x, xf["ctab"], d,
-                        weights=xf["cwt"]), 2)),
+                        weights=xf["cwt"], grid=gr, **kw32), l3)),
             "dia_prolong_smooth_w_bf16": (
-                lambda d=d16: K.dia_prolong_smooth(
+                lambda d=d16, gr=grid: K.dia_prolong_smooth(
                     v16, offs, t16, b16, x16, xc16, dinv=d, ptab=xf["ptab"],
-                    pwt=pwt),
+                    pwt=pwt, grid=gr),
                 lambda d=d16: K.dia_prolong_smooth_plain(
                     v16, offs, t16, b16, x16, xc16, None, d,
                     ptab=xf["ptab"], pwt=pwt),
                 (k * n + 3 * n + dn + nc) * 2 + 4 + p16,
-                app + dn + 2 * nnz_p, 1, None, f32_twin_ms(
-                    torch, lambda d=dinv: K.dia_prolong_smooth(
+                app + dn + 2 * nnz_p, l4, None, f32_twin_ms(
+                    torch, lambda d=dinv, gr=grid: K.dia_prolong_smooth(
                         vals, offs, t16, b, x, xc, dinv=d, ptab=xf["ptab"],
-                        pwt=xf["pwt"]), 1))}
+                        pwt=xf["pwt"], grid=gr), l4))}
     return cases, bf16, amg.level_rows(), {"m": m, "mp": mp}
+
+
+def weighted_bits(torch, K, C, amgx, dev):
+    """x' of B3w / B4w / B4w's dot at the 128^3 CLASSICAL level 0 (one
+    JACOBI_L1 step, with and without dinv, f32 and bf16) against the
+    per-step kernels' arithmetic that the earlier route ran, to the bit:
+    B3w's x' = B2's steps (dia_smooth, the same step kernel); B4w's x'
+    = the step kernel from x + P xc summed as `prolong_plain` sums it
+    (the kernels' chain of fused multiply-adds, emulated in float64), a
+    bf16 call's x0 read as the float32 state. Also B3w's restriction
+    alone (bc = R r over R's rows, r float32) against cuSPARSE's R @ r,
+    timed. Emits one row; checks 0 ulp."""
+    A = amgx.gallery.poisson("7pt", 128, 128, 128, device=dev)
+    amg = amg_of(amgx, CLASSICAL, A, dev).amg
+    l0 = amg.solve_data()["levels"][0]
+    A0, xf = l0["A"], l0["xfer"]
+    vals, offs, n = A0.dia_vals, A0.dia_offsets, A0.num_rows
+    nc = xf["ctab"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(8765)
+    b, x = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    xc = torch.randn(nc, generator=g, device=dev)
+    tau = amg.levels[0].smoother._fused_taus(1, x)
+    grid, bf = A0.grid_shape, torch.bfloat16
+    diffs = {}
+    for half in (False, True):
+        dt = bf if half else torch.float32
+        v, bb, xx, xcc = (t.to(dt) for t in (vals, b, x, xc))
+        tt = tau.to(dt).float()
+        pw, kw = xf["pwt"].to(dt), weighted_kw(K, xf, dt)
+        for dinv in (l0["smoother"]["dinv"], None):
+            d = None if dinv is None else dinv.to(dt)
+            tag = ("bf16 " if half else "") + ("dinv" if d is not None
+                                                else "no dinv")
+            got3 = K.dia_smooth_restrict(v, offs, tt, bb, xx, xf["ctab"], d,
+                                         weights=xf["cwt"].to(dt), grid=grid,
+                                         **kw)[0]
+            ref3 = K.dia_smooth(v, offs, tt, bb, xx, d, with_residual=False)
+            got4 = K.dia_prolong_smooth(v, offs, tt, bb, xx, xcc, dinv=d,
+                                        ptab=xf["ptab"], pwt=pw, grid=grid)
+            x0 = K.prolong_plain(xx.float(), xcc.float(), ptab=xf["ptab"],
+                                 pwt=pw.float())
+            ref4 = K._steps("dia_smooth" + "_bf16" * half,
+                            K._lib().amgx_dia_step,
+                            (K._ptr(v), K._ptr(d)), offs, tt, bb, x0,
+                            torch.empty_like(xx), x_f32=True)
+            diffs[f"B3w x' {tag}"] = max_err(torch, got3, ref3)[0]
+            diffs[f"B4w x' {tag}"] = max_err(torch, got4, ref4)[0]
+            if d is not None and not half:
+                got5 = K.dia_prolong_smooth(v, offs, tt, bb, xx, xcc, dinv=d,
+                                            ptab=xf["ptab"], pwt=pw,
+                                            grid=grid, with_dot=True)[0]
+                diffs[f"B4w-dot x' {tag}"] = max_err(torch, got5, ref4)[0]
+    # the restriction alone, and cuSPARSE's R @ r on the same r
+    r = torch.randn(n, generator=g, device=dev)
+    R = l0["R"]
+    bc = torch.empty(nc, device=dev)
+    lib = csr_library(torch, R)
+    row = {"phase": "weighted_bits", "x_max_abs_diff": diffs,
+           "restrict_ms": time_ms(torch, lambda: C.spmv_into(
+               "csr_spmv", xf["rro"], xf["rci"], xf["rwt"], r, bc)),
+           "restrict_library_ms": time_ms(torch, lambda: lib @ r),
+           "restrict_bound_ms": bound(
+               R.nnz * 8 + (nc + 1) * 4 + n * 4 + nc * 4, 2 * R.nnz)[0]}
+    emit(row)
+    check(all(v == 0.0 for v in diffs.values()),
+          f"B3w / B4w x' not the per-step kernels' bits: {diffs}")
 
 
 def f32_twin_ms(torch, fn, launches):
@@ -1788,6 +1917,7 @@ def phase_kernels(torch, amgx, dev):
         grids[label] = (case, dad_operator(torch, case[0]))
     tiled_levels = tiled_level_setup(torch, amgx, dev)
     cases, bf16, levels, mm = classical_cases(torch, amgx, K, C, dev)
+    weighted_bits(torch, K, C, amgx, dev)
     emit({"phase": "kernels_classical_hierarchy", "rows": 128 ** 3,
           "levels": levels, **mm})
     for label, named in cases.items():
@@ -2415,10 +2545,12 @@ def phase_classical(torch, amgx, dev, per_path):
               and c["dia_coarse_tail"] == 0 and c["rap_values"] == 0,
               f"{path}: B8/B9 ran, B5 and B10 did not {c}")
         if xfer is not None:
-            check(c["dia_smooth_restrict_w"] == 2 * cycles
-                  and c["dia_prolong_smooth_w"] == cycles,
-                  f"{path}: B3w (2 launches) and B4w (1) once per cycle, "
-                  f"{cycles} cycles {c}")
+            per_call = weighted_per_call(torch, amg)
+            emit({"phase": "classical_weighted_launches", "config": path,
+                  "b3w_b4w_per_call": per_call})
+            check(weighted_cycles(c, per_call) == cycles,
+                  f"{path}: B3w ({per_call[0]} launches) and B4w "
+                  f"({per_call[1]}) once per cycle, {cycles} cycles {c}")
         else:
             check(c["dia_smooth_restrict_w"] == 0, f"{path}: level 0 "
                   f"composes its transfers {c}")
@@ -2537,6 +2669,10 @@ def phase_classical_refinement(torch, amgx, dev, per_path):
           and c["rap_values"] == in_setup["rap_values"],
           f"{path}: one B10 call (2 launches) per Galerkin product, "
           f"{products} products {in_setup}")
+    per_call = weighted_per_call(torch, amg)
+    check(weighted_cycles(c, per_call) is not None,
+          f"{path}: B3w ({per_call[0]} launches) and B4w ({per_call[1]}) "
+          f"once per cycle {c}")
 
 def agg_library(torch, A, agg, nc):
     """cuSPARSE's SpGEMM P^T (A P) with P the 0/1 aggregation matrix (n x
@@ -3119,6 +3255,11 @@ def phase_bf16_hierarchies(torch, amgx, dev, per_path):
                   f"{true_rel} <= 1e-8")
         check(all(c[k] > 0 for k in kernels),
               f"{label}: launched its bf16 kernels {kernels}: {c}")
+        if "dia_smooth_restrict_w_bf16" in kernels:
+            per_call = weighted_per_call(torch, amg)
+            check(weighted_cycles(c, per_call, "_bf16") is not None,
+                  f"{label}: B3w ({per_call[0]} launches) and B4w "
+                  f"({per_call[1]}) once per cycle {c}")
         check(all(c[k] == 0 for k in F32_SMOOTHERS)
               and c["dia_coarse_tail_bf16"] + c["dia_coarse_tail_mf_bf16"]
               == 0, f"{label}: no float32 smoother, no coarse tail {c}")

@@ -177,9 +177,10 @@ def _route(A, s, ctab=None, weighted=False, dinv=None):
 def test_dispatch_by_structure():
     """GEO tables on the 7-point star: B3 and B4 tiled (B3 restricting in
     the tile); a SIZE_2 pair table: B3's steps tiled, then the untiled
-    restriction; weighted tables, a 27-point level, a level without
-    `grid_shape`, a single plane and a schedule of more than STAR_MAX_APPS
-    applications: the per-step route."""
+    restriction; a weighted B3 (classical R rows): tiled, the residual
+    stored for the restriction after; a weighted B4, a 27-point level, a
+    level without `grid_shape`, a single plane and a schedule of more
+    than STAR_MAX_APPS applications: the per-step route."""
     shape = (12, 10, 8)
     _, A = grid_operator(shape)
     agg, nc = geo_agg(shape)
@@ -194,7 +195,8 @@ def test_dispatch_by_structure():
         pairs, int(pairs.max()) + 1))
     assert route == "tiled+epilogue" and lists is None \
         and not any(p.residual for p in plans)
-    assert _route(A, 5, ctab, weighted=True) == ("step", None, None)
+    route, plans, lists = _route(A, 5, ctab, weighted=True)
+    assert route == "tiled" and lists is None and plans[-1].residual
     assert _route(A, 5, weighted=True) == ("step", None, None)
     assert _route(A, TL.STAR_MAX_APPS, ctab)[0] == "tiled+epilogue"
     assert _route(A, TL.STAR_MAX_APPS + 1, ctab)[0] == "step"

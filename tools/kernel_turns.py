@@ -35,10 +35,16 @@ applications over 1, 2 or 3 launches (`tiling.split_plans`), beside the
 per-step route on the same inputs; each held to the per-step route's
 bits. `classical`: chip_smoke.py's
 `classical_cases` (B3w / B4w / B4w's dot and B9 on the 128^3 CLASSICAL
-hierarchy, f32 and bf16). `rap`: B10 on the 64^3 CLASSICAL_REFINEMENT
-level 0 and B10-relabel on the SIZE_2 hierarchy's level 0.
+hierarchy, f32 and bf16), B3w / B4w each with the level's grid (the
+cycle's call) and without it (the route of a level without a grid; a
+tree without the weighted routes runs its one route both ways), each
+row with its launches a call and a hash of its outputs' bits
+(`bits`: x' first, then bc; the same inputs in every tree). `rap`:
+B10 on the 64^3 CLASSICAL_REFINEMENT level 0 and B10-relabel on the
+SIZE_2 hierarchy's level 0.
 """
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -114,6 +120,17 @@ def slab_turns(torch, K, cs, case, A, cases, xfer):
                             plans[-1].residual, sms, plans[0].ring == 8)],
                         "tiles": [[*p.tile, p.chunk, p.blocks, p.threads,
                                    p.smem_bytes] for p in plans]})
+
+
+def bits(torch, out):
+    """A short hash of a call's outputs' bytes, in order (x', then bc or
+    the dot): equal hashes, equal bits."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8)
+                 .numpy().tobytes())
+        h.update(b"|")
+    return h.hexdigest()[:16]
 
 
 def split_call(K, TL, kern, launches, sms, probe):
@@ -223,7 +240,7 @@ def main():
             "classical R1": l1["R"],
             "size2 A1": cs.precond_amg(slv).levels[1].A}
     lanes = "lanes" in inspect.signature(C.csr_spmv).parameters
-    classical = cs.classical_cases(torch, amgx, K, C, dev) \
+    classical = cs.classical_cases(torch, amgx, K, C, dev, untiled=True) \
         if "classical" in sections else None
     rap = (cs.rap_case(torch, amgx, R_, dev)[0],
            cs.relabel_case(torch, R_, cs.precond_amg(slv).levels[0])[0]) \
@@ -251,13 +268,20 @@ def main():
     if slab is not None:
         slab_turns(torch, K, cs, case, *slab)
     if classical is not None:
-        # B3w / B4w (and B4w's dot) and B9, f32 and bf16
+        # B3w / B4w (and B4w's dot) and B9, f32 and bf16; the launches a
+        # call as this tree's wrappers count them
         cases, bf16, _, _ = classical
         for shape, named in list(cases.items()) + list(bf16.items()):
             for name, c in named.items():
                 if name.startswith(("dia_", "csr_smooth")):
-                    case(name, shape, c[0], c[1], c[4],
-                         half=name.endswith("_bf16"))
+                    before = dict(K.LAUNCHES)
+                    got = c[0]()
+                    launches = sum(v - before[k]
+                                   for k, v in K.LAUNCHES.items())
+                    case(name, shape, c[0], c[1], launches,
+                         half=name.endswith("_bf16"),
+                         extra={"launches": launches,
+                                "bits": bits(torch, got)})
     if rap is not None:
         for name, c in zip(("rap_values", "rap_values_relabel"), rap):
             case(name, "classical_refinement_l0_64^3" if name == "rap_values"
