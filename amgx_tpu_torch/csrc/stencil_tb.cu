@@ -1,7 +1,8 @@
-// The temporally blocked B3-mf and B4-mf (stencil_tb.cuh): the C entry of
-// the coefficient mode, the rows' values synthesized from the level's
-// stencil (ops/cuda_spmv.py `_tb_launch`). Arguments as `tb_smooth`; no
-// slab, x of the operands' type.
+// The temporally blocked B2-mf, B3-mf and B4-mf (stencil_tb.cuh): the C
+// entry of the coefficient mode, the rows' values synthesized from the
+// level's stencil (ops/cuda_spmv.py `_tb_launch`). Arguments as
+// `tb_smooth`; no slab, x of the operands' type or a split call's float32
+// state.
 #include "stencil_tb.cuh"
 
 extern "C" {
@@ -11,13 +12,13 @@ int amgx_tb_smooth(
     const void* dinv, const float* taus, const void* b, const void* x,
     int x_f32, const void* xc, const int* agg, void* out, float* keep,
     const int* ctab, int m, int nc, const int* rows, const int* roff,
-    float* resid, void* bc, float* partials, unsigned int* counter,
-    float* dot, int n, int blocks, int smem, int bf16_io,
-    cudaStream_t stream) {
+    void* resid, int r_bf16, void* bc, float* partials,
+    unsigned int* counter, float* dot, int n, int blocks, int smem,
+    int bf16_io, cudaStream_t stream) {
   return tb_smooth<kTbCoef>(
       stencil, geom, k, vals, dinv, taus, b, x, x_f32, xc, agg, out, keep,
-      ctab, m, nc, rows, roff, resid, bc, partials, counter, dot, n, blocks,
-      smem, bf16_io, stream);
+      ctab, m, nc, rows, roff, resid, r_bf16, bc, partials, counter, dot, n,
+      blocks, smem, bf16_io, stream);
 }
 
 }  // extern "C"

@@ -1,21 +1,24 @@
-// Temporally blocked smoothers for Hopper (sm_90a): B3 and B4 on a 7-point
-// star grid level in ONE launch per call (or a few, see below), from the
-// level's coefficients (B3-mf, B4-mf) or from its stored value slab.
+// Temporally blocked smoothers for Hopper (sm_90a): B2, B3 and B4 on a
+// 7-point star grid level in ONE launch per call (or a few, see below),
+// from the level's coefficients (B2-mf, B3-mf, B4-mf) or from its stored
+// value slab.
 // stencil_tb.cu builds the coefficient mode and stencil_tb_slab.cu the
 // slab forms from this header, each its own library, so the two sets of
 // kernels compile at once.
 //
-// Replaces `_dia_stencil_smooth_restrict_call` (B3-mf) and
+// Replaces `_dia_stencil_smooth_call` (B2-mf),
+// `_dia_stencil_smooth_restrict_call` (B3-mf) and
 // `_dia_stencil_prolong_smooth_call` (B4-mf, with its x'.b epilogue) of
-// amgx_tpu/ops/pallas_spmv.py (:1379, :1725), and on a slab level
-// `_dia_smooth_restrict_call` (B3) and `_dia_prolong_smooth_call` (B4,
-// :1245, :1585), which run every damped step of a call, and B3's
-// residual and restriction, in one pallas_call by temporal blocking over
-// a VMEM row window. A 1-D row window needs a halo
-// of (steps + 1) x nx*ny rows (393 KB at 128^3), more than the 227 KB of
-// shared memory a Hopper block has; dia.cu's step kernels therefore
-// launched once a step and passed the state through device memory. Here
-// the blocking is 2.5-D, the standard form of a 3-D stencil on a GPU:
+// amgx_tpu/ops/pallas_spmv.py (:781, :1379, :1725), and on a slab level
+// `_dia_smooth_call` (B2), `_dia_smooth_restrict_call` (B3) and
+// `_dia_prolong_smooth_call` (B4, :649, :1245, :1585), which run every
+// damped step of a call, and the residual (B3's restriction), in one
+// pallas_call by temporal blocking over a VMEM row window. A 1-D row
+// window needs a halo of (steps + 1) x nx*ny rows (393 KB at 128^3), more
+// than the 227 KB of shared memory a Hopper block has; dia.cu's step
+// kernels therefore launched once a step and passed the state through
+// device memory. Here the blocking is 2.5-D, the standard form of a 3-D
+// stencil on a GPU:
 //
 // - a block owns an x-y tile of the grid and a chunk of z planes
 //   (ops/tiling.py `plan_tiles` picks both, and `TbGeom` carries them);
@@ -81,6 +84,12 @@
 // state to the next (x read as float32: `XT`), and a smaller halo leaves
 // more of each tile interior and fits the ring in shared memory (a
 // 6-application launch measured 1.9x the time of 3 + 3, 2 + 2 + 2 1.17x).
+// B2 and B2-mf (a smoother with no transfer fused into it): the steps,
+// split as ops/tiling.py `plan_calls` says (slab: launches of at most
+// kTbSlabApps applications; coefficients: of at most kTbCoefApps), the
+// last launch storing r = b - A x' of its interior rows in the operands'
+// type (`rs.r`, `rs.r_bt`), rounded once from the float32 state. A call
+// of any length splits so: `star_fits` limits a launch, not a call.
 // B3w (a classical level's weighted restriction on a slab): the last
 // application stores r of the interior rows in float32 (`rs.r`), and
 // csr.cu's row-block kernel restricts it over R's rows in a launch of its
@@ -124,6 +133,8 @@ constexpr int kTbStarApps = 6;  // ops/tiling.py STAR_MAX_APPS
 enum TbVals { kTbCoef = 0, kTbRing = 1 };
 constexpr int kTbSlabApps = 3;  // a slab launch's applications (ops/tiling.py
                                 // SLAB_MAX_APPS: a call splits above it)
+constexpr int kTbCoefApps = 3;  // a split B2-mf launch's applications
+                                // (ops/tiling.py COEF_MAX_APPS)
 
 // The stored (7, n) value slab of the 7-point star and its dinv (nullptr:
 // none), of the operands' storage type T; unused by kTbCoef.
@@ -145,15 +156,17 @@ __host__ __device__ constexpr int tb_star_shift(int d, int axis) {
 }
 
 // B3-mf's in-tile restriction: the children table and the coarse rows of
-// each (block, chunk plane); or, where `r` is given instead (B3w: R's
-// rows cross the tiles), the residual of every interior row stored there
-// in float32 for the restriction launch that follows.
+// each (block, chunk plane); or, where `r` is given instead, the residual
+// of every interior row stored there: in float32 for the restriction
+// launch that follows (B3w: R's rows cross the tiles), or with `r_bt` in
+// the operands' storage type, rounded once (B2's r, the call's output).
 struct TbRestrict {
   const int* __restrict__ ctab;  // (m, nc), -1 past a row's children
   const int* __restrict__ rows;  // coarse rows by (block, plane)
   const int* __restrict__ roff;  // blocks * tz + 1 offsets into rows
   int m, nc;
-  float* __restrict__ r;         // (n,) or nullptr
+  void* __restrict__ r;          // (n,) or nullptr
+  int r_bt;                      // r of type BT (else float32)
 };
 
 // How many planes outside [lo, hi) coordinate c lies.
@@ -337,7 +350,13 @@ tb_star_kernel(const Stencil sc, const TbGeom g, const TbSlab<BT> sl,
         const float r = __fsub_rn(bv, acc);
         if (kResid && t == kA) {
           tb_smem[r_at + sp * g.tx * g.ty + rcol] = r;
-          if (rs.r != nullptr) rs.r[p * nplane + gcol] = r;
+          if (rs.r != nullptr) {
+            const int gi = p * nplane + gcol;
+            if (rs.r_bt)
+              st(static_cast<BT*>(rs.r), gi, r);
+            else
+              static_cast<float*>(rs.r)[gi] = r;
+          }
         } else {
           float v;
           if (kHasDinv && kVals == kTbRing) {
@@ -459,10 +478,14 @@ using TbStar = void (*)(const Stencil, const TbGeom, const TbSlab<BT>,
 
 // The kernel of kA applications (and the in-tile residual), or nullptr
 // where the value source takes no such launch; only those are compiled.
+// From the coefficients, a bf16 launch reads a float32 x only as a later
+// launch of a split B2-mf call, of at most kTbCoefApps applications.
 template <class BT, class XT, bool kHasDinv, int kVals, int kA, bool kResid>
 constexpr TbStar<BT, XT> tb_entry() {
+  constexpr bool split = !std::is_same<BT, XT>::value;
   if constexpr ((kResid && kA < 2) ||
-                kA > (kVals == kTbCoef ? kTbStarApps : kTbSlabApps))
+                kA > (kVals == kTbCoef ? (split ? kTbCoefApps : kTbStarApps)
+                                       : kTbSlabApps))
     return nullptr;
   else
     return tb_star_kernel<BT, XT, kHasDinv, kA, kResid, kVals>;
@@ -520,31 +543,33 @@ bool geom_ok(const Stencil& sc, const TbGeom& g, int k, int blocks) {
   return true;
 }
 
-// B3 / B4 in one launch on a 7-point star grid (`stencil`, a common.cuh
-// Stencil: the grid, and in the coefficient mode the coefficients and
-// the dinv mode) with the tiling `geom` (TbGeom, `blocks` blocks, `smem`
-// bytes of dynamic shared memory), the rows' values from the value
-// source kVals: the coefficients (`vals`, `dinv` and `x_f32` not given),
+// B2 / B3 / B4 in one launch on a 7-point star grid (`stencil`, a
+// common.cuh Stencil: the grid, and in the coefficient mode the
+// coefficients and the dinv mode) with the tiling `geom` (TbGeom, `blocks`
+// blocks, `smem` bytes of dynamic shared memory), the rows' values from
+// the value source kVals: the coefficients (`vals` and `dinv` not given),
 // or the (7, n) slab `vals` and dinv `dinv` (nullptr: none) of the
 // operands' storage type.
 // len(taus) = geom.steps damped steps from x (+ xc[agg] when xc is given;
 // x is float32 when `x_f32`, a split call's state), x' written to `out`
 // when given and as float32 to `keep` when given. When geom.apps = steps
 // + 1, also bc = R (b - A x') through ctab (m, nc) and the in-tile row
-// lists rows / roff, or instead r = b - A x' in float32 to `resid` (B3w:
-// its restriction is launched after); when dot is given, *dot = x'.b
+// lists rows / roff, or instead r = b - A x' to `resid`: float32 (B3w:
+// its restriction is launched after), or of the operands' type with
+// `r_bf16` (B2's r, bf16 operands); when dot is given, *dot = x'.b
 // through `partials` (one float per block) and `counter` (zero on entry,
 // left zero). With `bf16_io` b, xc, out, bc (and vals, dinv, and x unless
-// x_f32) are bfloat16 (no dot). Returns 0, -1 for arguments the kernel
-// does not take, else a cudaError_t.
+// x_f32) are bfloat16 (no dot). Either value source takes x as float32
+// (`x_f32`). Returns 0, -1 for arguments the kernel does not take, else a
+// cudaError_t.
 template <int kVals>
 int tb_smooth(const void* stencil, const void* geom, int k, const void* vals,
               const void* dinv, const float* taus, const void* b,
               const void* x, int x_f32, const void* xc, const int* agg,
               void* out, float* keep, const int* ctab, int m, int nc,
-              const int* rows, const int* roff, float* resid, void* bc,
-              float* partials, unsigned int* counter, float* dot, int n,
-              int blocks, int smem, int bf16_io, cudaStream_t stream) {
+              const int* rows, const int* roff, void* resid, int r_bf16,
+              void* bc, float* partials, unsigned int* counter, float* dot,
+              int n, int blocks, int smem, int bf16_io, cudaStream_t stream) {
   constexpr bool slab = kVals == kTbRing;
   const Stencil* sc = static_cast<const Stencil*>(stencil);
   const TbGeom* g = static_cast<const TbGeom*>(geom);
@@ -553,28 +578,28 @@ int tb_smooth(const void* stencil, const void* geom, int k, const void* vals,
     return -1;
   if (smem < 1 || smem > 232448 || (xc == nullptr) != (agg == nullptr))
     return -1;
-  if ((vals != nullptr) != slab ||
-      (!slab && (dinv != nullptr || x_f32)) ||
+  if ((vals != nullptr) != slab || (!slab && dinv != nullptr) ||
       (slab && sc->dinv != kDinvNone))
     return -1;
   if (out == nullptr && keep == nullptr) return -1;
   const bool in_tile = g->apps > g->steps && resid == nullptr;
   if (resid != nullptr && (g->apps == g->steps || rows != nullptr)) return -1;
+  if (r_bf16 && (resid == nullptr || !bf16_io)) return -1;
   if (in_tile && (ctab == nullptr || rows == nullptr || roff == nullptr ||
                   bc == nullptr || m < 1 || m > kTbStarKids || nc < 1))
     return -1;
   if (dot != nullptr && (bf16_io || partials == nullptr || counter == nullptr))
     return -1;
+  const TbRestrict rs{ctab, rows, roff, m, nc, resid, r_bf16};
   const TbArgs a{sc, g, blocks, smem, vals, dinv, n, taus, b, x, xc, agg,
-                 out, keep, TbRestrict{ctab, rows, roff, m, nc, resid}, bc,
-                 DotOut{partials, counter, dot}};
+                 out, keep, rs, bc, DotOut{partials, counter, dot}};
   const bool has_dinv = slab ? dinv != nullptr : sc->dinv != kDinvNone;
   int rc = -1;
   if (!bf16_io) {
     rc = launch_tb_vals<float, float, kVals>(a, has_dinv, stream);
   } else if (!x_f32) {
     rc = launch_tb_vals<bf16, bf16, kVals>(a, has_dinv, stream);
-  } else if constexpr (slab) {
+  } else {
     rc = launch_tb_vals<bf16, float, kVals>(a, has_dinv, stream);
   }
   if (rc != 0) return rc;

@@ -29,14 +29,19 @@ B1 `dia_spmv` replaces `_dia_spmv_call` (amgx_tpu/ops/pallas_spmv.py:165).
 B2 `dia_smooth` replaces `_dia_smooth_call` (pallas_spmv.py:649): s
    damped steps x <- x + (tau_t * (b - A x)) * dinv (dinv optional), then
    optionally r = b - A x. The TPU kernel runs every application in one
-   pass by temporal blocking over a VMEM window that at 128^3 spans ~100k
-   rows per block; a Hopper block's 227 KB of shared memory cannot hold
-   it. Design: one grid-wide launch per application, x ping-ponging
-   through two float32 scratch buffers until the last step writes the
-   output, so a call launches
-   s + (1 if with_residual) kernels and streams the value slab as often.
-   Bound by bytes: the function must read vals, b, x (and dinv) once and
-   write x' (and r) once.
+   pass by temporal blocking over a VMEM row window (~100k rows a block
+   at 128^3, more than a Hopper block's 227 KB). Here, on a 7-point star
+   grid level (`grid`, checked once per slab by `slab_grid`), the steps
+   and the residual run in csrc/stencil_tb_slab.cu's 2.5-D temporally
+   blocked kernel (as B3 below): the launches of `tiling.plan_calls`
+   (at most SLAB_MAX_APPS applications each, 3 + 3 for five steps and
+   the residual, any schedule length), each streaming the slab once and
+   passing its float32 state to the next, the last storing r in the
+   operands' dtype, rounded once; x' and r are the per-step route's
+   bits. Anywhere else one grid-wide dia.cu launch a step, x
+   ping-ponging through float32 scratch, and a residual launch
+   ("dia_smooth_step"). Bound by bytes: the function must read vals, b,
+   x (and dinv) once and write x' (and r) once.
 
 B3 `dia_smooth_restrict` replaces `_dia_smooth_restrict_call`
    (pallas_spmv.py:1245): B2's s steps, then bc[c] = sum_j r[ctab[j, c]]
@@ -95,25 +100,31 @@ reads k value floats and dinv per row). The plain versions are the
 masked forms of ops/stencil.py. Launches count under the names above
 (B4-mf's dot launch as "dia_prolong_smooth_mf_dot").
 
-B2-mf launches once a step through dia.cu. B3-mf and B4-mf launch ONCE a
-call through csrc/stencil_tb.cu: 2.5-D spatial and temporal blocking,
-each block an x-y tile plus halo marching along a z chunk with every
-step's state in shared memory (ops/tiling.py plans the tiles). B3-mf's
+B2-mf, B3-mf and B4-mf run in csrc/stencil_tb.cu: 2.5-D spatial and
+temporal blocking, each block an x-y tile plus halo marching along a z
+chunk with every step's state in shared memory (ops/tiling.py plans the
+tiles). B3-mf and B4-mf launch ONCE a call. B2-mf splits its steps and
+residual over the launches of `tiling.plan_calls(..., coef=True)` (at
+most COEF_MAX_APPS applications each: the split the card measured
+fastest, PERF.md), the state passed on in float32 and r stored in the
+operands' dtype by the last; on any other stencil it launches dia.cu's
+per-step kernel and its residual kernel ("dia_smooth_mf_step"). B3-mf's
 residual and restriction run in the tile when every coarse row lies in
 one (GEO); on other children tables the launch writes x' and dia.cu's
 restriction kernel follows ("dia_smooth_restrict_mf_epilogue"). The
 state stays float32 on chip, so the bf16 forms need no scratch. The
 tiled kernel takes the 7-point star and at most six applications
-(`tiling.star_fits`); any other stencil or a longer schedule runs B2-mf's
-per-step launches, counted as "dia_smooth_restrict_mf_step" and
+(`tiling.star_fits`); any other stencil or a longer schedule runs
+dia.cu's per-step launches, counted as "dia_smooth_restrict_mf_step" and
 "dia_prolong_smooth_mf_step" (a dispatch on structure: both routes are
 the kernels of this package).
 
 The tiled slab route takes the 7-point star in its offset order, at most
-six applications a call, and a slab that stores 0 at every off-grid
-entry (a periodic coupling would be skipped): `slab_grid` checks it at
-the first call on a slab (the level's, or its bf16 cast's) and caches
-the answer. Its x' and bc are the per-step route's bits.
+six applications a B3 / B4 call (B2: any number), and a slab that stores
+0 at every off-grid entry (a periodic coupling would be skipped):
+`slab_grid` checks it at the first call on a slab (the level's, or its
+bf16 cast's) and caches the answer. Its x', r and bc are the per-step
+route's bits.
 
 The bfloat16 forms
 ------------------
@@ -124,19 +135,19 @@ outputs in bf16, taus float32, every sum in float32 (`compute_dtype`).
 The TPU kernel keeps its state in f32 across the steps of a call and
 rounds only the final stores; on the per-step routes the steps are
 separate launches whose state `_steps` passes through float32 scratch
-(the tiled B3, B4, B3-mf and B4-mf keep it on chip, and a split call
-passes it from launch to launch in float32): only the first
-step reads bf16 x (+ xc[agg], summed in f32, never rounded) and only the
-last stores bf16 x'. The residual / restriction launch recomputes r from
-the last step's float32 state (`keep`), and bc is rounded once at its
-store. The weighted transfer rows (B3w / B4w, a bf16 classical
-hierarchy) take bf16 weights: bc = sum_j cwt[j, c] r[ctab[j, c]] with r
-from the float32 state, stored in float32 and never rounded, the sum
-float32, bc rounded once; the first step reads x_j + sum_t pwt[t, j]
-xc[ptab[t, j]] summed in float32 and never rounded (x0). Launches count
-under the float32 names + "_bf16". Not in bf16: the x.b dot epilogues
-(a reduced-precision cycle declines the dot): those wrappers raise
-NotImplementedError on a CUDA tensor.
+(the tiled kernels keep it on chip, and a split call passes it from
+launch to launch in float32): only the first step reads bf16 x (+
+xc[agg], summed in f32, never rounded) and only the last stores bf16 x'.
+The residual / restriction launch recomputes r from the last step's
+float32 state (`keep`; the tiled B2 and B2-mf compute it in the tile),
+and r and bc are rounded once at their store. The weighted transfer rows
+(B3w / B4w, a bf16 classical hierarchy) take bf16 weights: bc = sum_j
+cwt[j, c] r[ctab[j, c]] with r from the float32 state, stored in float32
+and never rounded, the sum float32, bc rounded once; the first step
+reads x_j + sum_t pwt[t, j] xc[ptab[t, j]] summed in float32 and never
+rounded (x0). Launches count under the float32 names + "_bf16". Not in
+bf16: the x.b dot epilogues (a reduced-precision cycle declines the
+dot): those wrappers raise NotImplementedError on a CUDA tensor.
 
 Not ported here (the wrappers raise): B2's x.b dot epilogue (the JAX
 package has no caller for it).
@@ -181,7 +192,9 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth_step_dot": 0,
             "dia_smooth_restrict_step_bf16": 0,
             "dia_smooth_restrict_epilogue_bf16": 0,
-            "dia_prolong_smooth_step_bf16": 0}
+            "dia_prolong_smooth_step_bf16": 0, "dia_smooth_step": 0,
+            "dia_smooth_step_bf16": 0, "dia_smooth_mf_step": 0,
+            "dia_smooth_mf_step_bf16": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -268,8 +281,8 @@ def _tb_smooth(slab=False):
                  "amgx_tb_smooth_slab" if slab else "amgx_tb_smooth")
     fn.argtypes = [
         ctypes.POINTER(StencilArg), ctypes.POINTER(TbGeomArg), _I, _P, _P,
-        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-        _P, _I, _I, _I, _I, _P]
+        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+        _P, _P, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -602,27 +615,51 @@ def _check_smooth(name, vals, offsets, taus, b, x, dinv, floats=None,
     return n
 
 
+def _slab_smooth_steps(name, vals, offsets, taus, b, x, dinv, r=None):
+    """B2's per-step route, counted under `name`: one dia.cu launch a
+    step, then (given `r`) dia.cu's residual kernel from the last step's
+    float32 state, storing r = b - A x' into `r` in its dtype (the
+    operands', or float32 for B3w's restriction). Returns x' or (x', r)."""
+    got = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
+                 offsets, taus, b, x, torch.empty_like(x),
+                 keep=r is not None)
+    if r is None:
+        return got
+    out, state = got
+    _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
+            _ptr(state), _ptr(r), x.shape[0], _offsets_arg(tuple(offsets)),
+            len(offsets), int(x.dtype == torch.bfloat16),
+            int(r.dtype == torch.float32), _stream())
+    return out, r
+
+
 def dia_smooth(vals, offsets, taus, b, x, dinv=None, with_residual=True,
-               with_dot=False):
+               with_dot=False, grid=None):
     """B2: len(taus) damped steps (+ the residual r = b - A x'). Returns
-    x' or (x', r). Operands float32 or bfloat16, taus float32."""
+    x' or (x', r). Operands float32 or bfloat16, taus float32. `grid`:
+    the operator's grid shape (A.grid_shape), as for dia_smooth_restrict.
+
+    On the card, by structure: on a level the tiled kernel takes
+    (`slab_grid`) the launches of `smooth_plans` (any number of steps:
+    split over launches of at most SLAB_MAX_APPS applications, the last
+    one storing r in the operands' dtype), counted as "dia_smooth";
+    elsewhere one dia.cu launch a step and its residual kernel, counted
+    as "dia_smooth_step"; each + "_bf16" for bf16 operands."""
     _not_ported("dia_smooth", with_dot=with_dot)
     if x.device.type == "cpu":
         return dia_smooth_plain(vals, offsets, taus, b, x, dinv,
                                 with_residual)
     name = _name("dia_smooth", x)
-    n = _check_smooth(name, vals, offsets, taus, b, x, dinv)
+    _check_smooth(name, vals, offsets, taus, b, x, dinv)
     with torch.cuda.device(x.device):
-        out, state = _steps(name, _lib().amgx_dia_step,
-                            (_ptr(vals), _ptr(dinv)), offsets, taus, b, x,
-                            torch.empty_like(x), keep=True)
-        if not with_residual:
-            return out
-        r = torch.empty_like(x)
-        _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
-                _ptr(state), _ptr(r), n, _offsets_arg(tuple(offsets)),
-                len(offsets), int(x.dtype == torch.bfloat16), 0, _stream())
-    return out, r
+        plans = smooth_plans(vals, offsets, grid, dinv, x, taus.shape[0],
+                             with_residual)
+        r = torch.empty_like(x) if with_residual else None
+        if plans is None:
+            return _slab_smooth_steps(_name("dia_smooth_step", x), vals,
+                                      offsets, taus, b, x, dinv, r)
+        out = _tb_calls(name, plans, vals, dinv, taus, b, x, resid=r)
+    return (out, r) if with_residual else out
 
 
 _SLAB_GRID = WeakIdKeyDictionary()
@@ -663,12 +700,21 @@ def _grid_arg(shape):
 def _slab_plans(vals, offsets, grid, dinv, x, apps, residual):
     """The launches (`tiling.plan_calls`) of a tiled slab call of `apps`
     applications on x's card, or None where the tiled kernel does not
-    take the level or the schedule."""
+    take the level."""
     shape = slab_grid(vals, offsets, grid)
-    if shape is None or not tiling.star_fits(tiling.STAR, shape, apps):
+    if shape is None:
         return None
     return tiling.plan_calls(shape, apps, residual, _sms(x.device),
                              dinv=dinv is not None)
+
+
+def smooth_plans(vals, offsets, grid, dinv, x, steps, with_residual):
+    """The launches of a slab B2 call of `steps` damped steps (+ the
+    residual, in the last launch) on x's card where the tiled kernel
+    takes the level, whatever the schedule's length (`tiling.plan_calls`
+    splits it); None elsewhere (the per-step route)."""
+    return _slab_plans(vals, offsets, grid, dinv, x,
+                       steps + int(with_residual), with_residual)
 
 
 def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
@@ -685,19 +731,22 @@ def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
     the restriction over R's rows, where the tiled kernel takes the
     level and the schedule; B4w (without) always ("step", None, None):
     its prologue launch, then one launch a step (faster at the classical
-    128^3 level 0 than summing x + P xc in the tiles, PERF.md)."""
+    128^3 level 0 than summing x + P xc in the tiles, PERF.md). A B3 /
+    B4 call takes at most STAR_MAX_APPS applications tiled."""
+    def calls(apps, residual):
+        return None if apps > tiling.STAR_MAX_APPS else _slab_plans(
+            vals, offsets, grid, dinv, x, apps, residual)
     if weighted:
-        plans = None if ctab is None else _slab_plans(
-            vals, offsets, grid, dinv, x, steps + 1, True)
+        plans = None if ctab is None else calls(steps + 1, True)
         return ("step", None, None) if plans is None \
             else ("tiled", plans, None)
     if ctab is not None:
-        plans = _slab_plans(vals, offsets, grid, dinv, x, steps + 1, True)
+        plans = calls(steps + 1, True)
         lists = None if plans is None \
             else tiling.restrict_lists(plans[-1], ctab)
         if lists is not None:
             return "tiled", plans, lists
-    plans = _slab_plans(vals, offsets, grid, dinv, x, steps, False)
+    plans = calls(steps, False)
     if plans is None:
         return "step", None, None
     return "tiled" if ctab is None else "tiled+epilogue", plans, None
@@ -705,19 +754,21 @@ def slab_route(vals, offsets, grid, dinv, x, steps, ctab=None,
 
 def _tb_calls(name, plans, vals, dinv, taus, b, x, xc=None, agg=None,
               ctab=None, lists=None, bc=None, dot=None, keep=False,
-              resid=None):
-    """The launches of a tiled slab call, counted under `name` (the last
-    one + "_dot" with the dot): the first reads x (+ xc[agg]), each later
-    one the float32 state the one before wrote (two scratch buffers in
-    turn), the last writes x' (and bc, or r in float32 to `resid`, or the
-    dot). Returns x', or with `keep` (x', its float32 state)."""
+              resid=None, sarg=None):
+    """The launches of a tiled call, from the slab `vals` and `dinv`, or
+    with `sarg` (and no slab) from the coefficients of that Stencil,
+    counted under `name` (the last one + "_dot" with the dot): the first
+    reads x (+ xc[agg]), each later one the float32 state the one before
+    wrote (two scratch buffers in turn), the last writes x' (and bc, or r
+    to `resid` in its dtype, or the dot). Returns x', or with `keep` (x',
+    its float32 state)."""
     n, k = x.shape[0], len(plans)
     half = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
     mid, kept = min(k - 1, 2), keep and half
     ws = torch.empty((mid + kept, n), dtype=torch.float32,
                      device=x.device) if mid + kept else None
-    grid = _grid_arg(plans[0].shape)
+    grid = _grid_arg(plans[0].shape) if sarg is None else sarg
     at, src = 0, x
     for i, plan in enumerate(plans):
         last = i == k - 1
@@ -753,18 +804,12 @@ def _smooth_residual_w(name, vals, offsets, taus, b, x, ctab, dinv, grid):
     residual once, counted under `name`: the tiled launches (the last
     storing r) where `slab_route` says so, else one launch a step and
     dia.cu's residual kernel. Returns (x', r)."""
-    n = x.shape[0]
-    r = torch.empty(n, dtype=torch.float32, device=x.device)
+    r = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
     _, plans, _ = slab_route(vals, offsets, grid, dinv, x, taus.shape[0],
                              ctab, weighted=True)
     if plans is not None:
         return _tb_calls(name, plans, vals, dinv, taus, b, x, resid=r), r
-    out, state = _steps(name, _lib().amgx_dia_step, (_ptr(vals), _ptr(dinv)),
-                        offsets, taus, b, x, torch.empty_like(x), keep=True)
-    _launch(name, _lib().amgx_dia_residual, _ptr(vals), _ptr(b),
-            _ptr(state), _ptr(r), n, _offsets_arg(tuple(offsets)),
-            len(offsets), int(x.dtype == torch.bfloat16), 1, _stream())
-    return out, r
+    return _slab_smooth_steps(name, vals, offsets, taus, b, x, dinv, r)
 
 
 def dia_smooth_restrict(vals, offsets, taus, b, x, ctab, dinv=None,
@@ -917,26 +962,56 @@ def _check_mf(name, st, taus, b, x, floats=None, ints=None):
     return n
 
 
+def _mf_smooth_steps(name, st, taus, b, x, with_residual):
+    """B2-mf's per-step route, counted under `name`: one dia.cu launch a
+    step, then (with the residual) dia.cu's residual kernel from the last
+    step's float32 state. Returns x' or (x', r)."""
+    got = _mf_steps(name, st, taus, b, x, keep=with_residual)
+    if not with_residual:
+        return got
+    out, state = got
+    r = torch.empty_like(x)
+    _launch(name, _lib().amgx_dia_residual_mf, ctypes.byref(stencil_arg(st)),
+            _ptr(b), _ptr(state), _ptr(r), x.shape[0],
+            _offsets_arg(st.offsets), st.k, int(x.dtype == torch.bfloat16),
+            _stream())
+    return out, r
+
+
+def mf_smooth_plans(st, x, steps, with_residual):
+    """The launches of a B2-mf call of `steps` damped steps (+ the
+    residual, in the last launch) on x's card where the tiled kernel takes
+    the stencil (`tiling.star_fits` limits a launch, not a call):
+    `tiling.plan_calls(..., coef=True)`; None elsewhere (the per-step
+    route)."""
+    if not tiling.star_fits(st.shifts, st.shape, 1):
+        return None
+    return tiling.plan_calls(st.shape, steps + int(with_residual),
+                             with_residual, _sms(x.device), coef=True)
+
+
 def dia_smooth_mf(st, taus, b, x, with_residual=True):
     """B2-mf: len(taus) damped steps (+ the residual) on the stencil
-    `st`. Returns x' or (x', r)."""
+    `st`. Returns x' or (x', r). On the card, by structure: on the 7-point
+    star the launches of `mf_smooth_plans` (csrc/stencil_tb.cu, the last
+    one storing r in the operands' dtype), counted as "dia_smooth_mf";
+    on any other stencil one dia.cu launch a step and its residual
+    kernel, counted as "dia_smooth_mf_step"; each + "_bf16" for bf16
+    operands."""
     if x.device.type == "cpu":
         from .stencil import _xla_smooth
         return _xla_smooth(st.spec(), st.coeffs, taus, b, x, with_residual)
     name = _name("dia_smooth_mf", x)
-    n = _check_mf(name, st, taus, b, x)
-    arg = ctypes.byref(stencil_arg(st))
+    _check_mf(name, st, taus, b, x)
     with torch.cuda.device(x.device):
-        out, state = _steps(name, _lib().amgx_dia_step_mf, (arg,),
-                            st.offsets, taus, b, x, torch.empty_like(x),
-                            keep=True)
-        if not with_residual:
-            return out
-        r = torch.empty_like(x)
-        _launch(name, _lib().amgx_dia_residual_mf, arg, _ptr(b),
-                _ptr(state), _ptr(r), n, _offsets_arg(st.offsets), st.k,
-                int(x.dtype == torch.bfloat16), _stream())
-    return out, r
+        plans = mf_smooth_plans(st, x, taus.shape[0], with_residual)
+        if plans is None:
+            return _mf_smooth_steps(_name("dia_smooth_mf_step", x), st, taus,
+                                    b, x, with_residual)
+        r = torch.empty_like(x) if with_residual else None
+        out = _tb_calls(name, plans, None, None, taus, b, x, resid=r,
+                        sarg=stencil_arg(st))
+    return (out, r) if with_residual else out
 
 
 def _tb_plan(st, x, apps, residual):
@@ -950,9 +1025,9 @@ def _tb_plan(st, x, apps, residual):
 
 def _mf_steps(name, st, taus, b, x, xc=None, agg=None, dot=None,
               keep=False):
-    """len(taus) launches of dia.cu's per-step kernel on the stencil `st`
-    (B2-mf's route), counted under `name`: B3-mf's and B4-mf's route on
-    the levels and schedules the tiled kernel does not take."""
+    """len(taus) launches of dia.cu's per-step kernel on the stencil `st`,
+    counted under `name`: the route of B2-mf, B3-mf and B4-mf on the
+    levels and schedules the tiled kernel does not take."""
     return _steps(name, _lib().amgx_dia_step_mf,
                   (ctypes.byref(stencil_arg(st)),), st.offsets, taus, b, x,
                   torch.empty_like(x), xc=xc, agg=agg, dot=dot, keep=keep)
@@ -964,7 +1039,8 @@ def _tb_launch(name, sarg, k, plan, taus, b, x, out, xc=None, agg=None,
     """One launch of the temporally blocked kernel (csrc/stencil_tb.cuh)
     with `plan` on the grid of the kernels' Stencil `sarg` (k diagonals):
     from its coefficients (stencil_tb.cu), or with `vals` from the slab
-    and `dinv` (stencil_tb_slab.cu); x read as float32 when `x_f32`
+    and `dinv` (stencil_tb_slab.cu); x read as float32 when `x_f32`; r
+    stored to `resid` in its dtype, float32 (B3w) or the operands' (B2)
     (the callers set the device and checked the operands)."""
     m, nc = (0, 0) if ctab is None else ctab.shape
     rows, roff = (None, None) if lists is None else lists
@@ -972,7 +1048,9 @@ def _tb_launch(name, sarg, k, plan, taus, b, x, out, xc=None, agg=None,
             ctypes.byref(sarg), ctypes.byref(geom_arg(plan)), k, _ptr(vals),
             _ptr(dinv), _ptr(taus), _ptr(b), _ptr(x),
             int(x_f32), _ptr(xc), _ptr(agg), _ptr(out), _ptr(keep),
-            _ptr(ctab), m, nc, _ptr(rows), _ptr(roff), _ptr(resid), _ptr(bc),
+            _ptr(ctab), m, nc, _ptr(rows), _ptr(roff), _ptr(resid),
+            int(resid is not None and resid.dtype == torch.bfloat16),
+            _ptr(bc),
             _ptr(None if dot is None else dot[0]),
             _ptr(dot_counter(b.device)) if dot is not None else None,
             _ptr(None if dot is None else dot[1]), b.shape[0], plan.blocks,

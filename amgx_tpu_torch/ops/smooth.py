@@ -183,7 +183,7 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
     if kernel_ok(A, x):
         return cuda_spmv.dia_smooth(A.dia_vals, A.dia_offsets,
                                     taus.to(compute_dtype(x.dtype)), b, x,
-                                    dinv, with_residual)
+                                    dinv, with_residual, grid=A.grid_shape)
     if getattr(A, "dia_vals", None) is not None or A.num_rows != A.num_cols \
             or A.values.dtype != x.dtype or x.dtype not in SMOOTH_DTYPES:
         return None

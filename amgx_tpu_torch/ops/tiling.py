@@ -1,21 +1,22 @@
-"""Tile plans of the temporally blocked smoother kernels (B3-mf, B4-mf
-and the slab B3, B4: csrc/stencil_tb.cuh), and a plain tile-by-tile
-emulation of them.
+"""Tile plans of the temporally blocked smoother kernels (B2-mf, B3-mf,
+B4-mf and the slab B2, B3, B4: csrc/stencil_tb.cuh), and a plain
+tile-by-tile emulation of them.
 
-One launch runs every damped step of a call (and B3's residual and
-restriction) on a 7-point star grid level: each block owns an x-y tile
-of the grid and a chunk of its z planes, loads its tile plus a halo,
-and marches along z through its chunk, one plane a step, keeping for
-every time level a ring of three planes in shared memory (2.5-D spatial
-and temporal blocking). Time level t (t = 0: x as read, t = steps: x')
-is computed on the tile grown by apps - t points per axis, so the last
-application needs nothing from outside the block. One thread owns each
-column of the grown tile (so the tile plus its halo holds at most 1024
-columns), and each level lags the one below by one plane, so a step
-reads only values of earlier steps: one barrier a step. The kernel has
+One launch runs every damped step of a call (and B2's residual, B3's
+residual and restriction) on a 7-point star grid level: each block owns
+an x-y tile of the grid and a chunk of its z planes, loads its tile plus
+a halo, and marches along z through its chunk, one plane a step, keeping
+for every time level a ring of three planes in shared memory (2.5-D
+spatial and temporal blocking). Time level t (t = 0: x as read, t =
+steps: x') is computed on the tile grown by apps - t points per axis, so
+the last application needs nothing from outside the block. One thread
+owns each column of the grown tile (so the tile plus its halo holds at
+most 1024 columns), and each level lags the one below by one plane, so
+a step reads only values of earlier steps: one barrier a step. The kernel has
 the applications compiled in, at most STAR_MAX_APPS; `star_fits` says
 whether it takes a level and a schedule. Any other stencil or a longer
-schedule launches dia.cu's per-step kernels (ops/cuda_spmv.py).
+schedule of B3 / B4 launches dia.cu's per-step kernels
+(ops/cuda_spmv.py); B2 / B2-mf split a longer one over several launches.
 
 - `plan_tiles`: the tile's x-y extent, the z chunk, the shared-memory
   bytes, the threads and the block count for a grid shape, a number
@@ -30,7 +31,9 @@ schedule launches dia.cu's per-step kernels (ops/cuda_spmv.py).
   slab once, and its halo and value ring grow with its applications, so
   a call splits its applications over the fewest launches of at most
   SLAB_MAX_APPS each, as evenly as may be (3 + 3 for six, 3 + 2 for
-  five): the splits the card measured fastest (PERF.md).
+  five): the splits the card measured fastest (PERF.md). With `coef`, a
+  B2-mf call's launches from the coefficients: at most COEF_MAX_APPS
+  applications each, the split the card measured fastest for B2-mf.
   `split_plans` plans any other split (tests and tools/kernel_turns.py
   compare them).
 - `restrict_lists`: for B3-mf, whether every coarse row of a children
@@ -71,6 +74,8 @@ SM_REGS = 65536           # registers per SM; the kernel takes at most 64
 STAR_MAX_APPS = 6         # applications per launch (kTbStarApps)
 MAX_KIDS = 8              # children of an in-tile coarse row (kTbStarKids)
 SLAB_MAX_APPS = 3         # applications a slab launch takes (kTbSlabApps)
+COEF_MAX_APPS = 3         # applications a B2-mf launch takes (kTbCoefApps;
+                          # the fastest split, PERF.md §6)
 # the 7-point star's grid shifts in ascending offset order
 STAR = ((0, 0, -1), (0, -1, 0), (-1, 0, 0), (0, 0, 0), (1, 0, 0), (0, 1, 0),
         (0, 0, 1))
@@ -259,14 +264,19 @@ def split_plans(shape, parts, residual=False, sms=SMS, ring=7) -> tuple:
 
 
 @functools.lru_cache(maxsize=512)
-def plan_calls(shape, apps, residual=False, sms=SMS, dinv=False) -> tuple:
+def plan_calls(shape, apps, residual=False, sms=SMS, dinv=False,
+               coef=False) -> tuple:
     """The launches of a slab call of `apps` applications (the last one
-    B3's residual when `residual`): the fewest launches of at most
+    the residual when `residual`): the fewest launches of at most
     SLAB_MAX_APPS applications, as even as may be, the larger first
-    (`split_plans`); `dinv` sizes the ring. Raises ValueError, naming
-    the shape, where no tile fits."""
-    return split_plans(shape, _parts(apps, -(-apps // SLAB_MAX_APPS)),
-                       residual, sms, 7 + int(dinv))
+    (`split_plans`); `dinv` sizes the ring. With `coef`, a B2-mf call
+    from the coefficients (no ring): launches of at most COEF_MAX_APPS.
+    Any number of applications: a launch takes at most STAR_MAX_APPS, a
+    call is split. Raises ValueError, naming the shape, where no tile
+    fits."""
+    most = COEF_MAX_APPS if coef else SLAB_MAX_APPS
+    return split_plans(shape, _parts(apps, -(-apps // most)), residual, sms,
+                       0 if coef else 7 + int(dinv))
 
 
 # ---------------------------------------------------------------------------
@@ -340,15 +350,16 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
 
     Each block loads x (+ xc[agg], summed in the compute dtype) on its
     level-0 region and chunk planes grown by the halo, computes time
-    level t on the region and planes grown by apps - t points from
-    level t - 1 alone (values outside the block's previous level are
-    NaN, so a halo too small shows in the output), writes x' on its
-    interior and, with `plan.residual`, sums each of its coarse rows'
-    residuals in ctab order (`restrict_lists`), or without ctab keeps
-    the residual of its interior rows (B3w's launch, which stores r for
-    the restriction over R's rows). With the dot, x'.b is
-    summed per block over its interior and the blocks' partials added in
-    block order (the kernel adds within a block in another order).
+    level t on the region and planes grown by apps - t points from level
+    t - 1 alone (values outside the block's previous level are NaN, so a
+    halo too small shows in the output), writes x' on its interior and,
+    with `plan.residual`, sums each of its coarse rows' residuals in
+    ctab order (`restrict_lists`), or without ctab keeps the residual of
+    its interior rows (B3w's launch, which stores r for the restriction
+    over R's rows; B2's and B2-mf's, which return it). With the dot,
+    x'.b is summed per block over its interior and the blocks' partials
+    added in block order (the kernel adds within a block in another
+    order).
 
     The rows' values are the coefficients of `spec` (its dinv mode
     synthesizes the diagonal inverse), or with `vals` the (7, n) slab
@@ -460,12 +471,14 @@ def emulate(plan: TilePlan, spec, coeffs, taus, b, x, xc=None, agg=None,
 
 
 def emulate_calls(plans, spec, coeffs, taus, b, x, xc=None, agg=None,
-                  ctab=None, with_dot=False, vals=None, dinv=None):
+                  ctab=None, with_dot=False, vals=None, dinv=None,
+                  resid_io=False):
     """A call split over the launches `plans` (`plan_calls`): each launch
     runs its share of the steps from the state the one before left
     (float32, unrounded), the first adds the correction xc[agg], the
     last writes x' in x's dtype (and the residual's bc, or without ctab
-    the residual itself, unrounded, or the dot)."""
+    the residual itself: unrounded for B3w, rounded once to x's dtype
+    with `resid_io` for B2 / B2-mf; or the dot)."""
     at, state = 0, x
     for i, plan in enumerate(plans):
         last = i == len(plans) - 1
@@ -475,12 +488,11 @@ def emulate_calls(plans, spec, coeffs, taus, b, x, xc=None, agg=None,
                       with_dot and last, vals, dinv, state=not last)
         at += plan.steps
         if last:
-            if state.dtype == x.dtype:
-                return got
-            # x' and bc round once, at the end (bf16 has no dot; r stays
-            # float32)
+            # x' and bc round once, at the end (bf16 has no dot); B2's r
+            # (`resid_io`) too, B3w's stays float32
             if not isinstance(got, tuple):
                 return got.to(x.dtype)
-            return got[0].to(x.dtype), \
-                got[1] if ctab is None else got[1].to(x.dtype)
+            if ctab is None and not resid_io:
+                return got[0].to(x.dtype), got[1]
+            return got[0].to(x.dtype), got[1].to(x.dtype)
         state = got

@@ -31,26 +31,32 @@ Phases, one JSON line each on stdout:
                level 1 and the ragged 97x61x43 grid, with CHEBYSHEV_POLY's
                and PCG's JACOBI_L1 schedules: each against its plain form
                and the per-step route (`slab_step_route`, the same x' and
-               bc), timed against it in turns; their per-step route on
-               a 27-point level under its own counters.
+               bc), timed against it in turns; their per-step route (and
+               B2's) on a 27-point level under its own counters.
                B1, B2 and the coefficient ("matrix-free") mode B2-mf,
                B3-mf, B4-mf, B4-mf's x'.b epilogue at the flagship's
                finest-level shapes (7-pt 128^3) and on a ragged 97x61x43
                grid, each coefficient kernel also against the slab kernel
                on the same level (the same bits; of a dot epilogue x'
                only), and the dinv B2-mf synthesizes ("jacobi", "l1")
-               against the smoothers'. B3-mf and B4-mf (and B4-mf's dot,
-               and their bf16 forms) are the temporally blocked kernels
-               of csrc/stencil_tb.cu, one launch a call: each is also
-               held to the per-step route on the same inputs (one launch a
-               step, `step_route`; the same x' and bc) and timed against
-               it in turns, old, new, new, old (step_route_ms,
-               step_route_device_ms), at 128^3 and on the flagship's
-               level 1 (the Galerkin 7-pt stencil at 64^3, F's second
-               level, another tile plan); the per-step route that B3-mf
-               and B4-mf take where the tiled kernel does not (a 27-point
-               48^3 level; 20 steps on level 1), with its launches under
-               the "_step" counters; B6 and B7 at the PCG path's 128^3
+               against the smoothers'. B2, B2-mf, B3-mf and B4-mf (and
+               B4-mf's dot, and their bf16 forms) are the temporally
+               blocked kernels of csrc/stencil_tb*.cu (B3-mf / B4-mf one
+               launch a call, B2 / B2-mf the planner's split): each is
+               also held to the per-step route on the same inputs (one
+               launch a step, `smooth_step_route`, `step_route`; the same
+               x' and r or bc) and timed against it in turns, old, new,
+               new, old (step_route_ms, step_route_device_ms), at 128^3
+               and on the flagship's level 1 (the Galerkin 7-pt stencil
+               at 64^3, F's second level, another tile plan; there also
+               B2 / B2-mf with 20 steps, split over more launches);
+               B2-mf's candidate splits (one launch, two, three, the
+               per-step route) timed in turns at both levels, with and
+               without the residual (`b2mf_splits`); the per-step route
+               that B2-mf, B3-mf and B4-mf take where the tiled kernel
+               does not (a 27-point 48^3 level; B3-mf / B4-mf also with 20
+               steps on level 1), with its launches under the "_step"
+               counters; B6 and B7 at the PCG path's 128^3
                shapes, and B6's streamed-dot form
                (BiCGStab's: Ap with d.Ap and, with self_dot, Ap.Ap; d
                apart from p and d = p) there. The bf16
@@ -115,9 +121,13 @@ Phases, one JSON line each on stdout:
                one slab B5 a V-cycle, nothing matrix-free); the true
                relative residual of A2 <= 1e-8 in <= 3 outer iterations;
                at 32^3 the card's iterations equal the CPU route's.
-5. unfused  -- the tail-off flagship at 64^3 with amg:cycle_fusion=0: B2
-               on slab levels (pinned), B2-mf on matrix-free ones; the
-               same in bf16 (the bf16 B2 and B2-mf).
+5. unfused  -- the tail-off flagship at 128^3 with amg:cycle_fusion=0:
+               B2 on slab levels (pinned), B2-mf on matrix-free ones,
+               each temporally blocked on every level in the planned
+               launches a V-cycle (`smooth_cycle_launches`), no per-step
+               route; <= 1e-8 in 2 outer iterations and within one inner
+               iteration of the fused tail-off flagship's; the same in
+               bf16 at 64^3 (a depth cut; the bf16 B2 and B2-mf).
 6. krylov   -- PCG + GEO aggregation + JACOBI_L1 at 128^3 in float32,
                krylov_fusion 1 (B6, B7, B4-mf's dot, B5-mf), the same with
                the slab route pinned (the tiled B3, B4's dot, B5), and
@@ -289,7 +299,7 @@ REPLACES = {
 }
 _CSRC = "amgx_tpu_torch/csrc/"
 SOURCES = {
-    "dia_spmv": "dia.cu", "dia_smooth": "dia.cu",
+    "dia_spmv": "dia.cu", "dia_smooth": "stencil_tb_slab.cu",
     "dia_smooth_restrict": "stencil_tb_slab.cu",
     "dia_prolong_smooth": "stencil_tb_slab.cu",
     "dia_prolong_smooth_dot": "stencil_tb_slab.cu",
@@ -303,7 +313,8 @@ SOURCES = {
     "dia_prolong_smooth_w": "dia.cu", "dia_prolong_smooth_w_dot": "dia.cu",
     "csr_spmv": "csr.cu", "csr_smooth": "csr.cu", "rap_values": "rap.cu",
     "rap_values_relabel": "rap.cu",
-    "dia_smooth_mf": "dia.cu", "dia_smooth_restrict_mf": "stencil_tb.cu",
+    "dia_smooth_mf": "stencil_tb.cu",
+    "dia_smooth_restrict_mf": "stencil_tb.cu",
     "dia_prolong_smooth_mf": "stencil_tb.cu",
     "dia_prolong_smooth_mf_dot": "stencil_tb.cu",
     "dia_coarse_tail_mf": "tail.cu", "dia_coarse_tail_mf_dot": "tail.cu",
@@ -317,6 +328,10 @@ REPLACES["csr_spmv_bf16"] = "amgx_tpu/ops/pallas_swell.py:493"
 # where the tiled kernel does not take a level, the untiled restriction
 # after tiled steps): the kernels line lists their launches by path
 ROUTE_COUNTERS = {
+    "dia_smooth": ("dia_smooth_step",),
+    "dia_smooth_bf16": ("dia_smooth_step_bf16",),
+    "dia_smooth_mf": ("dia_smooth_mf_step",),
+    "dia_smooth_mf_bf16": ("dia_smooth_mf_step_bf16",),
     "dia_smooth_restrict": ("dia_smooth_restrict_step",
                             "dia_smooth_restrict_epilogue"),
     "dia_prolong_smooth": ("dia_prolong_smooth_step",),
@@ -806,12 +821,12 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     """name -> (kernel call, plain call, bytes, flops, launches per call,
     library call or None) at one shape (B1, B2 and the coefficient mode;
     the slab B3 / B4 are `slab_cases`), name -> the slab kernel's call
-    on the same level for each coefficient-mode kernel (B3 / B4 tiled:
+    on the same level for each coefficient-mode kernel (B2-B4 tiled:
     the level's grid), and name -> (the per-step route's call, its
-    launches per call) for the temporally blocked B3-mf / B4-mf
-    (`step_route`). The coefficient kernels take the level's
-    stencil: CHEBYSHEV_POLY's (no dinv) for B2-B4-mf, JACOBI_L1's ("l1")
-    with PCG's two steps for B4-mf's dot."""
+    launches per call) for the temporally blocked B2, B2-mf, B3-mf and
+    B4-mf (`smooth_step_route`, `step_route`). The coefficient kernels
+    take the level's stencil: CHEBYSHEV_POLY's (no dinv) for B2-B4-mf,
+    JACOBI_L1's ("l1") with PCG's two steps for B4-mf's dot."""
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                    safe_recip)
@@ -827,20 +842,24 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     check(st is not None and st_l1 is not None, "the 7-pt level is a stencil")
     dinv = safe_recip(l1_strengthened_diag(A))
     t2 = torch.full((2,), 0.75, device=x.device)
+    grid = A.grid_shape
+    # B2's and B2-mf's tiled launches (the planner's split)
+    n2 = len(K.smooth_plans(vals, offs, grid, None, x, s, True))
+    n2mf = len(K.mf_smooth_plans(st, x, s, True))
     cases = {
         "dia_spmv": (
             lambda: K.dia_spmv(vals, offs, x),
             lambda: K.dia_spmv_plain(vals, offs, x),
             (k + 2) * n * 4, 2 * k * n, 1, lambda: csr @ x),
         "dia_smooth": (
-            lambda: K.dia_smooth(vals, offs, taus, b, x),
+            lambda: K.dia_smooth(vals, offs, taus, b, x, grid=grid),
             lambda: K.dia_smooth_plain(vals, offs, taus, b, x),
-            (k * n + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None),
+            (k * n + 4 * n + s) * 4, s * app + 2 * k * n, n2, None),
         # the coefficient mode moves no slab and no dinv: k coefficients
         "dia_smooth_mf": (
             lambda: K.dia_smooth_mf(st, taus, b, x),
             lambda: mf._xla_smooth(st.spec(), st.coeffs, taus, b, x, True),
-            (k + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None),
+            (k + 4 * n + s) * 4, s * app + 2 * k * n, n2mf, None),
         "dia_smooth_restrict_mf": (
             lambda: K.dia_smooth_restrict_mf(st, taus, b, x, xfer["ctab"]),
             lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x,
@@ -860,9 +879,9 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             (k + 4 * n + 2 + nc + 1) * 4, 2 * (2 * k + 4) * n + 3 * n, 1,
             None),
     }
-    grid = A.grid_shape
     slab = {
-        "dia_smooth_mf": lambda: K.dia_smooth(vals, offs, taus, b, x),
+        "dia_smooth_mf": lambda: K.dia_smooth(vals, offs, taus, b, x,
+                                              grid=grid),
         "dia_smooth_restrict_mf": lambda: K.dia_smooth_restrict(
             vals, offs, taus, b, x, xfer["ctab"], grid=grid),
         "dia_prolong_smooth_mf": lambda: K.dia_prolong_smooth(
@@ -872,6 +891,11 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
             grid=grid),
     }
     step = {
+        "dia_smooth": (
+            lambda: smooth_step_route(K, taus, b, x, vals=vals, offs=offs),
+            s + 1),
+        "dia_smooth_mf": (
+            lambda: smooth_step_route(K, taus, b, x, st=st), s + 1),
         "dia_smooth_restrict_mf": (
             lambda: step_route(torch, K, st, taus, b, x, ctab=xfer["ctab"]),
             s + 1),
@@ -883,6 +907,20 @@ def kernel_cases(torch, K, A, xfer, taus, b, x, xc):
                               agg=xfer["agg"], with_dot=True), 2),
     }
     return cases, slab, step
+
+
+def smooth_step_route(K, taus, b, x, vals=None, offs=None, st=None,
+                      dinv=None, with_residual=True):
+    """B2 (the slab `vals`) or B2-mf (the stencil `st`) through the
+    per-step route, to hold and time beside the tiled launches in one
+    run: one dia.cu launch a damped step and its residual kernel
+    ("dia_smooth_step", "dia_smooth_mf_step"). Every B2 call took this
+    route before the tiled kernel; the package keeps it for the levels
+    the tiled kernel does not take."""
+    if st is None:                          # no grid: the per-step route
+        return K.dia_smooth(vals, offs, taus, b, x, dinv, with_residual)
+    return K._mf_smooth_steps(K._name("dia_smooth_mf_step", x), st, taus,
+                              b, x, with_residual)
 
 
 def step_route(torch, K, st, taus, b, x, ctab=None, xc=None, agg=None,
@@ -910,9 +948,10 @@ def step_route(torch, K, st, taus, b, x, ctab=None, xc=None, agg=None,
 
 def step_route_cases(torch, K, A, xfer, taus, b, x, xc):
     """B3-mf, B4-mf and B4-mf's dot on a level or schedule the tiled
-    kernel does not take, where the wrappers launch the per-step route:
-    name -> (kernel call, plain call, bytes, flops, launches per call,
-    None, the launches per counter a call makes)."""
+    kernel does not take, where the wrappers launch the per-step route
+    (and B2-mf there on a stencil it does not take): name -> (kernel
+    call, plain call, bytes, flops, launches per call, None, the
+    launches per counter a call makes)."""
     from amgx_tpu_torch.ops import stencil as mf
     st = mf.detect_stencil(A)
     st_l1 = mf.detect_stencil(A, dinv_mode="l1")
@@ -921,7 +960,14 @@ def step_route_cases(torch, K, A, xfer, taus, b, x, xc):
     n, k, s = A.num_rows, st.k, taus.shape[0]
     m, nc = ctab.shape
     app = (2 * k + 3) * n
+    out = {} if K.mf_smooth_plans(st, x, s, True) is not None else {
+        "dia_smooth_mf": (
+            lambda: K.dia_smooth_mf(st, taus, b, x),
+            lambda: mf._xla_smooth(st.spec(), st.coeffs, taus, b, x, True),
+            (k + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None,
+            {"dia_smooth_mf_step": s + 1})}
     return {
+        **out,
         "dia_smooth_restrict_mf": (
             lambda: K.dia_smooth_restrict_mf(st, taus, b, x, ctab),
             lambda: mf._xla_restrict(st.spec(), st.coeffs, taus, b, x, ctab),
@@ -945,11 +991,11 @@ def step_route_cases(torch, K, A, xfer, taus, b, x, xc):
 
 
 def slab_step_cases(torch, K, A, xfer, taus, b, x, xc):
-    """The slab B3, B4 and B4's dot on a level the tiled kernel does not
-    take (here a 27-point one), where the wrappers launch the per-step
-    route under its own counters: name -> (kernel call, plain call,
-    bytes, flops, launches per call, None, the launches per counter a
-    call makes)."""
+    """The slab B2, B3, B4 and B4's dot on a level the tiled kernel does
+    not take (here a 27-point one), where the wrappers launch the
+    per-step route under its own counters: name -> (kernel call, plain
+    call, bytes, flops, launches per call, None, the launches per counter
+    a call makes)."""
     from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                    safe_recip)
     vals, offs, grid = A.dia_vals, A.dia_offsets, A.grid_shape
@@ -958,9 +1004,15 @@ def slab_step_cases(torch, K, A, xfer, taus, b, x, xc):
     m, nc = ctab.shape
     app = (2 * k + 3) * n
     dinv = safe_recip(l1_strengthened_diag(A))
-    check(K.slab_route(vals, offs, grid, None, x, s, ctab)[0] == "step",
+    check(K.slab_route(vals, offs, grid, None, x, s, ctab)[0] == "step"
+          and K.smooth_plans(vals, offs, grid, None, x, s, True) is None,
           "the 27-point level takes the per-step route")
     return {
+        "dia_smooth": (
+            lambda: K.dia_smooth(vals, offs, taus, b, x, grid=grid),
+            lambda: K.dia_smooth_plain(vals, offs, taus, b, x),
+            (k * n + 4 * n + s) * 4, s * app + 2 * k * n, s + 1, None,
+            {"dia_smooth_step": s + 1}),
         "dia_smooth_restrict": (
             lambda: K.dia_smooth_restrict(vals, offs, taus, b, x, ctab,
                                           grid=grid),
@@ -1019,13 +1071,12 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
     bytes: each input read once and each output written once, bf16
     streams at 2 bytes (the one-pass bound the TPU's temporal blocking
     attains). bound_launches_ms: the bytes the port's launch sequence
-    moves at least -- each B2 (and B2-mf) launch reads the slab, dinv
-    and b, the middle steps read and write the float32 scratch, the last
-    step writes x' and keeps its float32 state for the residual launch;
-    the one launch of B3-mf / B4-mf reads b, x (xc and agg; ctab and its
-    row lists) and writes x' (bc). The
-    temporally blocked B3-mf / B4-mf rows carry, as an eighth entry, the
-    per-step route's call and launches (`step_route`)."""
+    moves at least -- each tiled B2 (and B2-mf) launch reads the slab,
+    dinv and b, the first x, each later one the float32 state the one
+    before wrote, the last writes x' and r; the one launch of B3-mf /
+    B4-mf reads b, x (xc and agg; ctab and its row lists) and writes x'
+    (bc). Every row carries, as an eighth entry, the per-step route's
+    call and launches (`smooth_step_route`, `step_route`)."""
     from amgx_tpu_torch.amg.hierarchy import _cast_leaf
     from amgx_tpu_torch.ops import stencil as mf
     from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
@@ -1045,31 +1096,39 @@ def bf16_kernel_cases(torch, K, A, xfer, taus, b, x, xc):
         dn = 0 if dinv is None else n              # dinv entries
         app = (2 * k + 3 + (dinv is not None)) * n
 
-        def launches(kind, slab):
-            """bytes the port's s (+1) launches move at least"""
+        grid = A.grid_shape
+        n2 = len(K.smooth_plans(vals, offs, grid, dinv, x16, s, True))
+        n2mf = len(K.mf_smooth_plans(st, x16, s, True))
+
+        def launches(kind, slab, calls=1):
+            """bytes the port's launches move at least"""
             if not slab and kind == "B3":             # one tiled launch
                 return 3 * n * 2 + m * nc * 4 + nc * 4 + nc * 2
             if not slab and kind == "B4":
                 return 3 * n * 2 + nc * 2 + n * 4
             per = (k * n * 2 if slab else 0) + (dn * 2 if slab else 0) \
                 + 2 * n                               # vals, dinv, b
-            steps = s * per + 2 * n + (s - 1) * 8 * n + 2 * n
-            return steps + 4 * n + per + 4 * n + 2 * n  # keep, residual
+            # B2: x in, the float32 state between launches, x' and r out
+            return calls * per + 2 * n + (calls - 1) * 8 * n + 4 * n
         ctab, agg = xfer["ctab"], xfer["agg"]
         cases = {
             "dia_smooth_bf16": (
                 lambda t=t, d=dinv: K.dia_smooth(vals, offs, t, b16, x16,
-                                                 d),
+                                                 d, grid=grid),
                 lambda t=t, d=dinv: K.dia_smooth_plain(vals, offs, t, b16,
                                                        x16, d),
                 (k * n + 4 * n + dn) * 2 + s * 4, s * app + 2 * k * n,
-                s + 1, None, launches("B2", True)),
+                n2, None, launches("B2", True, n2),
+                (lambda t=t, d=dinv: smooth_step_route(
+                    K, t, b16, x16, vals=vals, offs=offs, dinv=d), s + 1)),
             "dia_smooth_mf_bf16": (
                 lambda t=t, st=st: K.dia_smooth_mf(st, t, b16, x16),
                 lambda t=t, st=st: mf._xla_smooth(st.spec(), st.coeffs, t,
                                                   b16, x16, True),
-                4 * n * 2 + (s + k) * 4, s * app + 2 * k * n, s + 1, None,
-                launches("B2", False)),
+                4 * n * 2 + (s + k) * 4, s * app + 2 * k * n, n2mf, None,
+                launches("B2", False, n2mf),
+                (lambda t=t, st=st: smooth_step_route(K, t, b16, x16,
+                                                      st=st), s + 1)),
             "dia_smooth_restrict_mf_bf16": (
                 lambda t=t, st=st: K.dia_smooth_restrict_mf(st, t, b16, x16,
                                                             ctab),
@@ -1484,7 +1543,7 @@ def weighted_bits(torch, K, C, amgx, dev):
                                         ptab=xf["ptab"], pwt=pw, grid=grid)
             x0 = K.prolong_plain(xx.float(), xcc.float(), ptab=xf["ptab"],
                                  pwt=pw.float())
-            ref4 = K._steps("dia_smooth" + "_bf16" * half,
+            ref4 = K._steps("dia_smooth_step" + "_bf16" * half,
                             K._lib().amgx_dia_step,
                             (K._ptr(v), K._ptr(d)), offs, tt, bb, x0,
                             torch.empty_like(xx), x_f32=True)
@@ -1820,6 +1879,79 @@ def run_slab_cases(torch, K, label, A, xfer, taus, b, x, xc, summary,
                  summary, c[8], moved_expect=c[6], old=c[7])
 
 
+def b2_split_call(torch, K, plans, taus, b, x, with_residual, vals=None,
+                  st=None):
+    """B2 (the slab `vals`, no dinv) or B2-mf (the stencil `st`) through
+    the tiled launches `plans` (a split other than the planner's, to time
+    beside it): x', or (x', r)."""
+    r = torch.empty_like(x) if with_residual else None
+    name = "dia_smooth" if st is None else "dia_smooth_mf"
+    out = K._tb_calls(K._name(name, x), plans, vals, None, taus, b, x,
+                      resid=r,
+                      sarg=None if st is None else K.stencil_arg(st))
+    return (out, r) if with_residual else out
+
+
+def b2mf_splits(torch, K, levels):
+    """B2-mf's candidate splits, measured where the unfused flagship
+    runs them (`levels`: (label, level_case) of its 128^3 level 0 and 64^3
+    level 1), CHEBYSHEV_POLY's five steps with and without the residual,
+    float32 and bf16: the call's applications in one launch, split as
+    evenly as may be over two or three launches, and the per-step route.
+    Each tiled split must give the per-step route's bits (x' and r);
+    times in turns (per-step, 1, 2, 3, 3, 2, 1, per-step launches: CUDA
+    events and the profiler's device time). One row a case, naming the
+    planner's split (`tiling.plan_calls(..., coef=True)`)."""
+    from amgx_tpu_torch.amg.hierarchy import _cast_leaf
+    from amgx_tpu_torch.ops import stencil as mf
+    from amgx_tpu_torch.ops import tiling as TL
+    for label, (A, _, taus, b, x, _) in levels:
+        st32 = mf.detect_stencil(A)
+        sms = K._sms(x.device)
+        for dt in (torch.float32, torch.bfloat16):
+            st = st32 if dt == torch.float32 else _cast_leaf(st32, dt)
+            t = taus.to(dt).float()
+            b_, x_ = b.to(dt), x.to(dt)
+            s = t.shape[0]
+            for wr in (True, False):
+                apps = s + int(wr)
+                cands = {"per-step": (
+                    lambda wr=wr, st=st, t=t, b_=b_, x_=x_:
+                    smooth_step_route(K, t, b_, x_, st=st,
+                                      with_residual=wr), s + int(wr))}
+                for k in (1, 2, 3):
+                    try:
+                        plans = TL.split_plans(A.grid_shape,
+                                               TL._parts(apps, k), wr, sms,
+                                               ring=0)
+                    except ValueError:          # no such split
+                        continue
+                    cands["+".join(str(p.apps) for p in plans)] = (
+                        lambda p=plans, wr=wr, st=st, t=t, b_=b_, x_=x_:
+                        b2_split_call(torch, K, p, t, b_, x_, wr, st=st), k)
+                ref = cands["per-step"][0]()
+                for key, (fn, _) in cands.items():
+                    got = fn()
+                    got, want = (v if isinstance(v, tuple) else (v,)
+                                 for v in (got, ref))
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"B2-mf split {key} at {label}: not the per-step "
+                          f"route's bits")
+                order = list(cands) + list(cands)[::-1]
+                ms = {key: [] for key in cands}
+                dev = {key: [] for key in cands}
+                for key in order:
+                    fn, launches = cands[key]
+                    ms[key].append(time_ms(torch, fn))
+                    dev[key].append(device_ms(torch, fn, launches)[0])
+                planned = [p.apps for p in TL.plan_calls(
+                    A.grid_shape, apps, wr, sms, coef=True)]
+                emit({"phase": "kernels_b2mf_splits", "shape": label,
+                      "dtype": str(dt).split(".")[-1], "residual": wr,
+                      "applications": apps, "planned": planned,
+                      "ms": ms, "device_ms": dev})
+
+
 def tiled_level_setup(torch, amgx, dev):
     """The levels `tiled_level_cases` runs on, set up before the first
     profile: the flagship's level 1 (its `level_case`), the D A D
@@ -1846,15 +1978,23 @@ def tiled_level_cases(torch, K, summary, levels):
     check(A1.num_rows == 64 ** 3, f"level 1 has {A1.num_rows} rows")
     cases, slab, steps = kernel_cases(torch, K, A1, xfer1, taus1, b1, x1,
                                       xc1)
-    for name in TILED:
+    for name in TILED + B2_TILED:
         run_case(torch, K, label, name, *cases[name], A1.num_rows, summary,
                  slab=slab.get(name), old=steps.get(name))
     for sched, named in bf16_kernel_cases(torch, K, A1, xfer1, taus1, b1, x1,
                                           xc1).items():
-        for name in TILED_BF16:
+        for name in TILED_BF16 + B2_TILED_BF16:
             run_case(torch, K, f"{label} {sched}", name, *named[name][:6],
                      A1.num_rows, summary, named[name][6],
                      old=named[name][7])
+    # a schedule longer than one launch takes (20 steps and the residual
+    # on level 1): B2 and B2-mf split it over the planner's launches
+    t20 = taus1.repeat(4)
+    cases, slab, steps = kernel_cases(torch, K, A1, xfer1, t20, b1, x1, xc1)
+    for name in B2_TILED:
+        run_case(torch, K, f"{label} 20 steps", name, *cases[name],
+                 A1.num_rows, summary, slab=slab.get(name),
+                 old=steps.get(name))
     # the slab B3 / B4 on the D A D hierarchy's level 1 (the Galerkin
     # product of a variable-coefficient 128^3 operator at 64^3)
     check(A1d.num_rows == 64 ** 3 and K.slab_grid(
@@ -1881,15 +2021,21 @@ def tiled_level_cases(torch, K, summary, levels):
 TILED = ("dia_smooth_restrict_mf", "dia_prolong_smooth_mf",
          "dia_prolong_smooth_mf_dot")
 TILED_BF16 = ("dia_smooth_restrict_mf_bf16", "dia_prolong_smooth_mf_bf16")
-# B3-mf's / B4-mf's per-step route, never taken on the driven paths
+# B2 and B2-mf, temporally blocked since the unfused paths moved to them
+B2_TILED = ("dia_smooth", "dia_smooth_mf")
+B2_TILED_BF16 = ("dia_smooth_bf16", "dia_smooth_mf_bf16")
+# B2-mf's, B3-mf's and B4-mf's per-step route, never taken on the driven
+# paths
 MF_STEP_ROUTE = ("dia_smooth_restrict_mf_step", "dia_prolong_smooth_mf_step",
                  "dia_prolong_smooth_mf_step_dot",
                  "dia_smooth_restrict_mf_step_bf16",
-                 "dia_prolong_smooth_mf_step_bf16")
-# the slab B3's / B4's per-step route and B3's untiled restriction after
-# it (weighted tables keep their "_w" counters), never taken on the
-# driven GEO paths
-SLAB_STEP_ROUTE = ("dia_smooth_restrict_step", "dia_prolong_smooth_step",
+                 "dia_prolong_smooth_mf_step_bf16", "dia_smooth_mf_step",
+                 "dia_smooth_mf_step_bf16")
+# the slab B2's, B3's and B4's per-step route and B3's untiled
+# restriction after it (weighted tables keep their "_w" counters), never
+# taken on the driven GEO paths
+SLAB_STEP_ROUTE = ("dia_smooth_step", "dia_smooth_step_bf16",
+                   "dia_smooth_restrict_step", "dia_prolong_smooth_step",
                    "dia_prolong_smooth_step_dot",
                    "dia_smooth_restrict_step_bf16",
                    "dia_prolong_smooth_step_bf16",
@@ -1990,6 +2136,9 @@ def phase_kernels(torch, amgx, dev):
               "max_abs_diff_from_smoother_dinv": diffs})
         check(all(d == 0.0 for d in diffs.values()),
               f"{label}: synthesized dinv differs from the smoothers' {diffs}")
+    b2mf_splits(torch, K, [("flagship_l0_128^3",
+                            grids["flagship_l0_128^3"][0]),
+                           ("flagship_l1_64^3", tiled_levels[0])])
     tiled_level_cases(torch, K, summary, tiled_levels)
     A, cases = shell_cases(torch, amgx, K, KK, dev)
     for name, case in cases.items():
@@ -2373,49 +2522,121 @@ def phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs):
           / warm["flagship_bf16"]["median"]})
 
 
+def smooth_cycle_launches(torch, K, slv, levels):
+    """B2 (or B2-mf) launches of one unfused V-cycle on the levels
+    `levels` of a solver's hierarchy: on each, the presmoother with the
+    residual and the postsmoother without, asked of the dispatch
+    (`K.smooth_plans` on a slab level, `K.mf_smooth_plans` on a
+    matrix-free one) on the cycle's own level data (its dtype, its
+    smoother's schedule): checks that each takes the tiled route and
+    counts the planned launches."""
+    amg = precond_amg(slv)
+    data = amg.solve_data()["levels"]
+    total = 0
+    for i in levels:
+        ld = data[i]
+        A, smd = ld["A"], ld["smoother"]
+        st = smd.get("stencil")
+        per_sweep = smd["taus"].shape[0] if "taus" in smd else 1
+        dt = (st.coeffs if st is not None else A.dia_vals).dtype
+        x = torch.zeros(A.num_rows, dtype=dt, device=A.device)
+        for pre in (True, False):
+            s = per_sweep * amg._sweeps(i, pre=pre)
+            plans = K.mf_smooth_plans(st, x, s, pre) if st is not None \
+                else K.smooth_plans(A.dia_vals, A.dia_offsets, A.grid_shape,
+                                    smd.get("dinv"), x, s, pre)
+            check(plans is not None, f"level {i} ({A.num_rows} rows): B2"
+                  f"{'-mf' if st is not None else ''} takes the per-step "
+                  f"route")
+            total += len(plans)
+    return total
+
+
+# every counter of B2 and B2-mf, each route and dtype
+B2_COUNTERS = ("dia_smooth", "dia_smooth_mf", "dia_smooth_step",
+               "dia_smooth_mf_step", "dia_smooth_bf16", "dia_smooth_mf_bf16",
+               "dia_smooth_step_bf16", "dia_smooth_mf_step_bf16")
+
+
 def phase_unfused_bf16(torch, amgx, dev, per_path):
-    """The tail-off bf16 flagship at 64^3 with amg:cycle_fusion=0: bf16 B2
-    on slab levels (pinned), bf16 B2-mf on matrix-free ones."""
+    """The tail-off bf16 flagship at 64^3 with amg:cycle_fusion=0 (a
+    depth cut that keeps the script within its time; the float32 unfused
+    paths run at 128^3): bf16 B2 on slab levels (pinned), bf16 B2-mf on
+    matrix-free ones, tiled on every level, the planned launches a
+    V-cycle."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
     for path, pin, b2 in (("unfused_bf16", SLAB, "dia_smooth_bf16"),
                           ("unfused_mf_bf16", "", "dia_smooth_mf_bf16")):
-        unf, _, _, _, rel_u = run_path(
+        unf, slv, _, _, rel_u = run_path(
             amgx, per_path, path, lambda p=pin: solve(
                 torch, amgx, FLAGSHIP_TAIL_OFF + ", amg:cycle_fusion=0" + p
                 + BF16, 64, dev))
         c = per_path[path]
+        inner = int(unf.extra_stats["inner_iters"])
+        per_cycle = smooth_cycle_launches(
+            torch, K, slv, range(len(levels_of(slv)) - 1))
         emit({"phase": "unfused_bf16", "config": path, "rows": 64 ** 3,
-              "outer_iterations": unf.iterations,
-              "inner_iterations": int(unf.extra_stats["inner_iters"]),
-              "true_rel_res": rel_u, "launches": c})
+              "outer_iterations": unf.iterations, "inner_iterations": inner,
+              "true_rel_res": rel_u, "b2_launches_per_cycle": per_cycle,
+              "launches": c})
         check(unf.status == "success" and rel_u <= 1e-8,
               f"64^3 {path} true relative residual {rel_u} <= 1e-8")
-        check(c[b2] > 0 and c["dia_smooth_bf16"] + c["dia_smooth_mf_bf16"]
-              == c[b2] and all(c[k] == 0 for k in F32_SMOOTHERS),
+        check(c[b2] > 0 and sum(c[k] for k in B2_COUNTERS) == c[b2]
+              and all(c[k] == 0 for k in F32_SMOOTHERS),
               f"{b2} ran unfused, nothing else smoothed {c}")
+        check(c[b2] == inner * per_cycle,
+              f"{path}: {per_cycle} tiled {b2} launches a V-cycle, {inner} "
+              f"cycles: {c}")
 
 
-def phase_unfused(torch, amgx, dev, per_path):
-    """The tail-off flagship at 64^3 with cycle_fusion=0: B2 on slab
-    levels (pinned), B2-mf on matrix-free ones (the card's default)."""
+def phase_unfused(torch, amgx, dev, per_path, f32_runs):
+    """The tail-off flagship at 128^3 with cycle_fusion=0: B2 on slab
+    levels (pinned), B2-mf on matrix-free ones (the card's default),
+    temporally blocked on every level (`smooth_cycle_launches`: the
+    planned launches a V-cycle, none of the per-step route); <= 1e-8 in 2
+    outer iterations, inner iterations within one of the fused tail-off
+    flagship's on the same card."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
     from amgx_tpu_torch.presets import FLAGSHIP_TAIL_OFF
+    n = 128
+    fused_inner = f32_runs["flagship_tail_off"]["inner_iterations"]
     for path, pin, b2 in (("unfused", SLAB, "dia_smooth"),
                           ("unfused_mf", "", "dia_smooth_mf")):
         unf, slv, setup_u, solve_u, rel_u = run_path(
             amgx, per_path, path, lambda p=pin: solve(
                 torch, amgx, FLAGSHIP_TAIL_OFF + ", amg:cycle_fusion=0" + p,
-                64, dev))
-        _, warm_u = warm_solve(torch, slv, 64, torch.float64)
+                n, dev))
+        _, warm_u = warm_solve(torch, slv, n, torch.float64)
         c = per_path[path]
-        emit({"phase": "unfused", "config": path, "rows": 64 ** 3,
+        inner = int(unf.extra_stats["inner_iters"])
+        levels = levels_of(slv)
+        per_cycle = smooth_cycle_launches(torch, K, slv,
+                                          range(len(levels) - 1))
+        emit({"phase": "unfused", "config": path, "rows": n ** 3,
               "setup_s": setup_u, "solve_s": solve_u, "warm_solve_s": warm_u,
-              "outer_iterations": unf.iterations,
-              "inner_iterations": int(unf.extra_stats["inner_iters"]),
-              "true_rel_res": rel_u, "launches": c})
-        check(unf.status == "success" and rel_u <= 1e-8,
-              f"64^3 {path} true relative residual {rel_u} <= 1e-8")
-        check(c[b2] > 0 and c["dia_smooth"] + c["dia_smooth_mf"] == c[b2],
-              f"{b2} ran unfused, the other route did not {c}")
+              "levels": levels, "outer_iterations": unf.iterations,
+              "inner_iterations": inner,
+              "flagship_tail_off_inner_iterations": fused_inner,
+              "true_rel_res": rel_u, "b2_launches_per_cycle": per_cycle,
+              "launches": c})
+        check(unf.status == "success" and rel_u <= 1e-8
+              and unf.iterations == 2,
+              f"128^3 {path}: {unf.status}, true relative residual {rel_u} "
+              f"<= 1e-8 in {unf.iterations} == 2 outer iterations")
+        check(abs(inner - fused_inner) <= 1,
+              f"{path}: {inner} inner iterations against the fused "
+              f"tail-off flagship's {fused_inner}")
+        check(c[b2] > 0 and sum(c[k] for k in B2_COUNTERS) == c[b2],
+              f"{b2} ran unfused, the other route and the per-step route "
+              f"did not {c}")
+        check(c[b2] == inner * per_cycle and all(
+            c[k] == 0 for k in ("dia_smooth_restrict", "dia_prolong_smooth",
+                                "dia_smooth_restrict_mf",
+                                "dia_prolong_smooth_mf", "dia_coarse_tail",
+                                "dia_coarse_tail_mf")),
+              f"{path}: {per_cycle} tiled {b2} launches a V-cycle, {inner} "
+              f"cycles, no fused B3 / B4 / B5: {c}")
 
 
 def count_syncs(torch, fn):
@@ -3334,7 +3555,7 @@ def main():
     phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs)
     del f32_slvs
     phase_flagship_dad(torch, amgx, dev, per_path)
-    phase_unfused(torch, amgx, dev, per_path)
+    phase_unfused(torch, amgx, dev, per_path, f32_runs)
     phase_unfused_bf16(torch, amgx, dev, per_path)
     phase_krylov(torch, amgx, dev, per_path)
     phase_classical(torch, amgx, dev, per_path)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time kernels of one tree of the PyTorch/CUDA port, for comparisons in
 turns: the coarse-tail kernel B5 (six forms), the CSR SpMV B8 (f32,
-bf16), the temporally blocked slab B3 / B4 by split,
-the classical level's B3w / B4w (and B4w's dot) and B9, and the Galerkin
-kernels B10 and B10-relabel.
+bf16), the temporally blocked slab B3 / B4 by split, the unfused
+smoothers B2 / B2-mf by route and split, the classical level's B3w / B4w
+(and B4w's dot) and B9, and the Galerkin kernels B10 and B10-relabel.
 
     python3 tools/kernel_turns.py [--tree DIR] [--label NAME] [--out FILE]
-                                  [--sections tail,csr,slab,classical,rap]
+                                  [--sections tail,csr,slab,smooth,
+                                              classical,rap]
 
 `--tree` is the root of a checkout whose `amgx_tpu_torch` is timed (by
 default this one), e.g. an unpacked `git archive` of a parent commit:
@@ -33,7 +34,15 @@ chip_smoke.py's `slab_cases` on the D A D operator of the 128^3 grid
 bf16, B4's dot), each launched with every valid split of its
 applications over 1, 2 or 3 launches (`tiling.split_plans`), beside the
 per-step route on the same inputs; each held to the per-step route's
-bits. `classical`: chip_smoke.py's
+bits. `smooth`: B2 and B2-mf at the flagship's 128^3 level 0 and its
+64^3 level 1 (CHEBYSHEV_POLY's five steps, the level's values), float32
+and bf16, with and without the residual: the tree's own wrapper (the
+call the unfused cycle makes; a tree whose `dia_smooth` takes no `grid`
+has one route), and in a tree with the tiled routes also the per-step
+route and each split of the applications over 1, 2 or 3 launches (the
+slab's launches take at most three), each held to the per-step route's
+bits; each row with its launches a call and a hash of its outputs' bits
+(x' first, then r). `classical`: chip_smoke.py's
 `classical_cases` (B3w / B4w / B4w's dot and B9 on the 128^3 CLASSICAL
 hierarchy, f32 and bf16), B3w / B4w each with the level's grid (the
 cycle's call) and without it (the route of a level without a grid; a
@@ -122,6 +131,85 @@ def slab_turns(torch, K, cs, case, A, cases, xfer):
                                    p.smem_bytes] for p in plans]})
 
 
+def launched(K, fn):
+    """(fn(), the launches it made, summed over the counters)."""
+    before = dict(K.LAUNCHES)
+    out = fn()
+    return out, sum(v - before.get(k, 0) for k, v in K.LAUNCHES.items())
+
+
+def smooth_turns(torch, K, cs, case, levels):
+    """B2 and B2-mf on `levels` ((label, chip_smoke.py level_case)), f32
+    and bf16, with and without the residual: the wrapper's route, and
+    where the tree has the tiled routes the per-step route and each split
+    over 1, 2 or 3 launches, held to the per-step route's bits."""
+    from amgx_tpu_torch.amg.hierarchy import _cast_leaf
+    from amgx_tpu_torch.ops import stencil as mf
+    from amgx_tpu_torch.ops import tiling as TL
+    tiled = "grid" in inspect.signature(K.dia_smooth).parameters
+    for label, (A, _, taus, b, x, _) in levels:
+        sms = K._sms(A.device)
+        offs, grid = A.dia_offsets, A.grid_shape
+        st32 = mf.detect_stencil(A)
+        for dt in (torch.float32, torch.bfloat16):
+            half = dt == torch.bfloat16
+            vals = A.dia_vals.to(dt)
+            st = _cast_leaf(st32, dt) if half else st32
+            t, b_, x_ = taus.to(dt).float(), b.to(dt), x.to(dt)
+            s = t.shape[0]
+            for wr in (True, False):
+                shape = f"{label} {'residual' if wr else 'no residual'}"
+                for form in ("slab", "mf"):
+                    name = ("dia_smooth" if form == "slab"
+                            else "dia_smooth_mf") + ("_bf16" if half else "")
+                    kw = {"st": st} if form == "mf" \
+                        else {"vals": vals, "offs": offs}
+                    if form == "slab":
+                        wrap = (lambda wr=wr, g=grid if tiled else None:
+                                K.dia_smooth(vals, offs, t, b_, x_, None,
+                                             wr, **({"grid": g} if g
+                                                    else {})))
+                        plain = (lambda wr=wr: K.dia_smooth_plain(
+                            vals, offs, t, b_, x_, None, wr))
+                    else:
+                        wrap = (lambda wr=wr: K.dia_smooth_mf(st, t, b_, x_,
+                                                              wr))
+                        plain = (lambda wr=wr: mf._xla_smooth(
+                            st.spec(), st.coeffs, t, b_, x_, wr))
+                    got, n_wrap = launched(K, wrap)
+                    step = None
+                    if tiled:
+                        step = (lambda wr=wr, kw=kw: cs.smooth_step_route(
+                            K, t, b_, x_, with_residual=wr, **kw))
+                    case(name, shape, wrap, plain, n_wrap, half=half,
+                         same_as=step,
+                         extra={"route": "wrapper", "launches": n_wrap,
+                                "bits": bits(torch, got)})
+                    if not tiled:
+                        continue
+                    case(name, shape, step, plain, s + int(wr), half=half,
+                         extra={"route": "per-step",
+                                "launches": s + int(wr)})
+                    for k in (1, 2, 3):
+                        try:
+                            plans = TL.split_plans(
+                                grid, TL._parts(s + int(wr), k), wr, sms,
+                                ring=0 if form == "mf" else 7)
+                        except ValueError:      # no such split
+                            continue
+                        case(name, shape,
+                             lambda p=plans, wr=wr, kw=kw: cs.b2_split_call(
+                                 torch, K, p, t, b_, x_, wr, **{
+                                     k_: v for k_, v in kw.items()
+                                     if k_ != "offs"}),
+                             plain, k, half=half, same_as=step,
+                             extra={"route": "tiled",
+                                    "split": [p.apps for p in plans],
+                                    "tiles": [[*p.tile, p.chunk, p.blocks,
+                                               p.threads, p.smem_bytes]
+                                              for p in plans]})
+
+
 def bits(torch, out):
     """A short hash of a call's outputs' bytes, in order (x', then bc or
     the dot): equal hashes, equal bits."""
@@ -160,7 +248,8 @@ def main():
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--sections", default="tail,csr,slab,classical,rap")
+    ap.add_argument("--sections",
+                    default="tail,csr,slab,smooth,classical,rap")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     tree = os.path.abspath(args.tree)
@@ -245,6 +334,11 @@ def main():
     rap = (cs.rap_case(torch, amgx, R_, dev)[0],
            cs.relabel_case(torch, R_, cs.precond_amg(slv).levels[0])[0]) \
         if "rap" in sections else None
+    smooth = None
+    if "smooth" in sections:
+        smooth = [("l0_128^3", cs.grid_case(torch, amgx, (128,) * 3, dev)),
+                  ("l1_64^3", cs.level_case(torch, amgx, cs.coarse_level(
+                      torch, amgx, 128, dev), dev, 7))]
     slab = None
     if "slab" in sections and hasattr(K, "slab_route"):
         A0, xfer, taus, b, x, xc = cs.grid_case(torch, amgx, (128,) * 3,
@@ -267,6 +361,8 @@ def main():
 
     if slab is not None:
         slab_turns(torch, K, cs, case, *slab)
+    if smooth is not None:
+        smooth_turns(torch, K, cs, case, smooth)
     if classical is not None:
         # B3w / B4w (and B4w's dot) and B9, f32 and bf16; the launches a
         # call as this tree's wrappers count them
