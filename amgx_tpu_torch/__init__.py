@@ -12,7 +12,7 @@ CUDA (amgx_tpu_torch/csrc/), built with nvcc at first use.
     slv.setup(A)
     res = slv.solve(torch.ones(A.num_rows, dtype=torch.float64))
 """
-from . import amg, solvers  # noqa: F401  (register the solver tree)
+from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
 from . import gallery, presets
 from .config import Config
 from .matrix import CsrMatrix

@@ -248,6 +248,7 @@ class AMG:
         from ..solvers.base import make_solver
         name, scope = self._smoother_spec(level.level_index)
         level.smoother = make_solver(name, self.cfg, scope, level.A.device)
+        level.smoother._owns_scaling = False
         level.smoother.setup(level.A)
         self._maybe_install_stencil(level)
 
@@ -275,6 +276,7 @@ class AMG:
         cs_name, cs_scope = self.cfg.get_solver("coarse_solver", self.scope)
         self.coarse_solver = make_solver(cs_name, self.cfg, cs_scope,
                                          self.coarsest_A.device)
+        self.coarse_solver._owns_scaling = False
         self.coarse_solver.setup(self.coarsest_A)
 
     # -- solve -------------------------------------------------------------

@@ -93,9 +93,11 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     Each entry of `levels` holds the level operator's CSR arrays
     (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
     optional `grid_shape`), its `coarse_size`, and the smoother's
-    payload: CHEBYSHEV_POLY's `taus`, the Jacobi family's `dinv`, or
+    payload: CHEBYSHEV_POLY's `taus`, the Jacobi family's `dinv`,
     CHEBYSHEV's spectral bounds `lmax` and `lmin` (floats; its
-    preconditioner, if any, is set up on the level's operator). An
+    preconditioner, if any, is set up on the level's operator), or a
+    multicolor smoother's coloring `row_colors` and `num_colors` with
+    MULTICOLOR_DILU's `Einv` (MULTICOLOR_GS's `dinv`). An
     aggregation level adds its `aggregates` and the GEO pairing
     (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
     non-geometric levels). A classical level (one with `cf_map`) adds
@@ -130,11 +132,16 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
                 int(e) for e in d["geo_coarse_shape"])
         name, sm_scope = amg._smoother_spec(i)
         sm = make_solver(name, cfg, sm_scope, device)
+        sm._owns_scaling = False
         sm.A = level.A
-        for key in ("taus", "dinv"):
+        for key in ("taus", "dinv", "Einv"):
             if d.get(key) is not None:
                 setattr(sm, "_" + key, tensor_from_numpy(
                     d[key], device, level.A.dtype))
+        if d.get("row_colors") is not None:
+            sm.row_colors = tensor_from_numpy(d["row_colors"], device,
+                                              torch.int32)
+            sm.num_colors = int(d["num_colors"])
         if d.get("lmax") is not None:
             if sm.preconditioner is not None:
                 sm.preconditioner.setup(level.A)
@@ -146,6 +153,7 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     amg.coarsest_A = _matrix(coarse, device)
     cs_name, cs_scope = cfg.get_solver("coarse_solver", scope)
     cs = make_solver(cs_name, cfg, cs_scope, device)
+    cs._owns_scaling = False
     cs.A = amg.coarsest_A
     cs._qt = tensor_from_numpy(coarse["qt"], device)
     cs._r = tensor_from_numpy(coarse["r"], device)

@@ -38,30 +38,51 @@ def coalesce(rows, cols, num_cols: int):
     return order, starts, ukey // num_cols, ukey % num_cols
 
 
-def ordered_segment_sum(values: torch.Tensor,
-                        starts: torch.Tensor) -> torch.Tensor:
-    """out[s] = 0 + values[starts[s]] + values[starts[s] + 1] + ...,
-    added left to right. Segments run longest first, so position j of
-    every segment longer than j is one contiguous gather-add: as many
-    steps as the longest segment, nnz work in all, one host read."""
+def ordered_sum_plan(starts: torch.Tensor):
+    """(order, first, live) of sorted segment boundaries: the segments
+    longest first, their first positions, and how many are longer than
+    j for each position j. Made once (one host read), it serves every
+    `ordered_sum` over the same segments."""
     starts = starts.long()
     nseg = starts.numel() - 1
-    out = torch.zeros(nseg, dtype=values.dtype, device=values.device)
-    if nseg <= 0 or values.numel() == 0:
-        return out
+    if nseg <= 0:
+        return None
     lengths = starts[1:] - starts[:-1]
     order = torch.argsort(lengths, descending=True, stable=True)
     lsorted = lengths[order]
-    first = starts[:-1][order]
     longest = int(lsorted[0])
     # live[j] = number of segments longer than j
     hist = torch.bincount(lsorted, minlength=longest + 1)
     live = (nseg - torch.cumsum(hist, 0))[:longest].tolist()
+    return order, starts[:-1][order], live
+
+
+def ordered_sum(values: torch.Tensor, plan, nseg: int) -> torch.Tensor:
+    """out[s] = 0 + values[starts[s]] + values[starts[s] + 1] + ...,
+    added left to right over `plan` (ordered_sum_plan). Segments run
+    longest first, so position j of every segment longer than j is one
+    contiguous gather-add: as many steps as the longest segment, nnz
+    work in all, no host read."""
+    out = torch.zeros(nseg, dtype=values.dtype, device=values.device)
+    if plan is None or values.numel() == 0:
+        return out
+    order, first, live = plan
     acc = torch.zeros(nseg, dtype=values.dtype, device=values.device)
     for j, k in enumerate(live):
         acc[:k] += values[first[:k] + j]
     out[order] = acc
     return out
+
+
+def ordered_segment_sum(values: torch.Tensor,
+                        starts: torch.Tensor) -> torch.Tensor:
+    """The ordered sum of each segment of `values` between `starts`
+    (ordered_sum with a plan made for this call)."""
+    nseg = starts.numel() - 1
+    if nseg <= 0 or values.numel() == 0:
+        return torch.zeros(max(nseg, 0), dtype=values.dtype,
+                           device=values.device)
+    return ordered_sum(values, ordered_sum_plan(starts), nseg)
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,

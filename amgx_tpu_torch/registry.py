@@ -50,3 +50,5 @@ convergence = Factory("Convergence")
 strength = Factory("Strength")
 classical_selectors = Factory("ClassicalSelector")
 interpolators = Factory("Interpolator")
+matrix_coloring = Factory("MatrixColoring")
+scalers = Factory("Scaler")

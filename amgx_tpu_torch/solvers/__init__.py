@@ -1,3 +1,3 @@
 """Solvers of the port; importing this package registers them."""
-from . import (base, direct, gmres, krylov, polynomial,  # noqa: F401
-               refinement, relaxation)
+from . import (base, direct, gmres, idr, krylov, multicolor,  # noqa: F401
+               polynomial, refinement, relaxation)

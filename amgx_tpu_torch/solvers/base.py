@@ -13,6 +13,10 @@ column instead).
 State keys a solver maintains live in a plain dict; host scalars (norms,
 flags, counters) are numpy scalars in the norm's dtype, so the
 convergence arithmetic rounds as the JAX package's does.
+
+`scaling` (scalers.py): the tree's root scales A before it builds the
+tree, b and x0 on the way in and x on the way out; its children never
+scale.
 """
 from __future__ import annotations
 
@@ -159,10 +163,12 @@ class Solver:
         self.health_guards = bool(int(cfg.get("health_guards", scope)))
         self.stall_window = int(cfg.get("stall_detection_window", scope))
         self.stall_tolerance = float(cfg.get("stall_tolerance", scope))
-        scaling = str(cfg.get("scaling", scope)).upper()
-        if scaling not in ("NONE", ""):
-            raise NotImplementedError(
-                f"scaling={scaling} is not ported to amgx_tpu_torch yet")
+        self.scaling = str(cfg.get("scaling", scope)).upper()
+        self.scaler = None
+        # only the tree's root scales the equations: children get the
+        # scaled matrix and exchange vectors in its coordinates (their
+        # creation sites clear the flag)
+        self._owns_scaling = True
         # rejects contradictory precision knobs at construction
         resolve_precision(cfg, scope)
         self.convergence: Convergence = registry.convergence.create(
@@ -173,6 +179,7 @@ class Solver:
             if pname.upper() != "NOSOLVER":
                 self.preconditioner = make_solver(pname, cfg, pscope,
                                                   self.device)
+                self.preconditioner._owns_scaling = False
         self.setup_time = 0.0
 
     def _norm(self, v):
@@ -195,6 +202,13 @@ class Solver:
         A = A.to(self.device)
         if not A.initialized:
             A = A.init()
+        if self._owns_scaling and self.scaling not in ("NONE", ""):
+            # the whole tree works on L A R (Solver::setup's scaler path,
+            # src/solvers/solver.cu:465-476); with_values refills the DIA
+            # view from the scaled values
+            from ..scalers import make_scaler
+            self.scaler = make_scaler(self.scaling, self.cfg, self.scope)
+            A = self.scaler.setup(A).scale_matrix(A)
         self.A = A
         if self.preconditioner is not None:
             pre = self.preconditioner
@@ -343,8 +357,15 @@ class Solver:
             x0 = torch.zeros_like(b)
         else:
             x0 = torch.as_tensor(x0).to(device=self.device, dtype=b.dtype)
+        if self.scaler is not None:
+            # solve (L A R) x' = L b and return x = R x'; the monitored
+            # residuals are the scaled system's (solver.cu:449)
+            b = self.scaler.scale_rhs(b)
+            x0 = self.scaler.to_scaled_x(x0)
         t0 = time.perf_counter()
         x, st = self.run_loop(self.solve_data(), b, x0)
+        if self.scaler is not None:
+            x = self.scaler.from_scaled_x(x)
         if x.device.type == "cuda":
             torch.cuda.synchronize(x.device)
         solve_time = time.perf_counter() - t0

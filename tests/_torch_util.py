@@ -68,8 +68,9 @@ def _np_or_none(v):
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
     layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
-    smoother's taus (CHEBYSHEV_POLY), dinv (Jacobi family) or spectral
-    bounds lmax / lmin (CHEBYSHEV), the
+    smoother's taus (CHEBYSHEV_POLY), dinv (Jacobi family, MULTICOLOR_GS),
+    spectral bounds lmax / lmin (CHEBYSHEV) or coloring (row_colors,
+    num_colors) and MULTICOLOR_DILU's Einv, the
     stencil of a matrix-free level, a classical level's cf_map, P and R,
     and DENSE_LU's explicit inverse when the JAX package built one."""
     amg = amg_solver.amg
@@ -85,6 +86,10 @@ def jax_hierarchy_arrays(amg_solver):
                  lmin=lv.smoother.lmin if cheb else None,
                  taus=_np_or_none(smd.get("taus")),
                  dinv=_np_or_none(smd.get("dinv")),
+                 Einv=_np_or_none(smd.get("Einv")),
+                 row_colors=_np_or_none(getattr(lv.smoother, "row_colors",
+                                                None)),
+                 num_colors=getattr(lv.smoother, "num_colors", None),
                  stencil=None if st is None else {
                      "coeffs": np.asarray(st.coeffs), "offsets": st.offsets,
                      "shifts": st.shifts, "shape": st.shape,

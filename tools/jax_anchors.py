@@ -10,8 +10,11 @@ peak resident memory.
     python3 tools/jax_anchors.py --size 64 PBICGSTAB_AGGREGATION_W_JACOBI
 
 `chip_smoke.py` holds the PyTorch port's runs on the card to these
-numbers. The JAX package's 128^3 classical setup needs more than 26 GB
-of host memory; 64^3 about 5 GB.
+numbers. `--port` runs the same files through the port on the CPU
+instead (`device="cpu"`), with the same line: the spread between the
+two packages where a float32 run ends at max_iters. The JAX package's
+128^3 classical setup needs more than 26 GB of host memory; 64^3 about
+5 GB.
 """
 import argparse
 import json
@@ -30,34 +33,43 @@ def main():
     ap.add_argument("--krylov-fusion", type=int, default=None)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
+    ap.add_argument("--port", action="store_true",
+                    help="run amgx_tpu_torch on the CPU instead")
     ap.add_argument("files", nargs="+", help="names under configs/")
     args = ap.parse_args()
-    import jax
-    jax.config.update("jax_platforms", "cpu")
     import numpy as np
     import scipy.sparse as sp
-    import amgx_tpu as jx
     n = args.size
     dt = np.dtype(args.dtype)
-    A = jx.gallery.poisson("7pt", n, n, n, dtype=dt).init()
+    if args.port:
+        import torch
+        import amgx_tpu_torch as pkg
+        A = pkg.gallery.poisson("7pt", n, n, n, device="cpu",
+                               dtype=getattr(torch, args.dtype)).init()
+    else:
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        import amgx_tpu as pkg
+        A = pkg.gallery.poisson("7pt", n, n, n, dtype=dt).init()
     A64 = sp.csr_matrix((np.asarray(A.values, np.float64),
                          np.asarray(A.col_indices),
                          np.asarray(A.row_offsets)))
     b = np.ones(n ** 3, dt)
     for name in args.files:
-        cfg = jx.Config.from_file(os.path.join(ROOT, "configs",
+        cfg = pkg.Config.from_file(os.path.join(ROOT, "configs",
                                                name + ".json"))
         cfg.set("print_solve_stats", 0)
         cfg.set("print_grid_stats", 0)
         cfg.set("store_res_history", 1)
         if args.krylov_fusion is not None:
             cfg.set("krylov_fusion", args.krylov_fusion)
-        slv = jx.create_solver(cfg)
+        slv = pkg.create_solver(cfg, device="cpu") if args.port \
+            else pkg.create_solver(cfg)
         t0 = time.perf_counter()
         slv.setup(A)
         setup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res = slv.solve(b)
+        res = slv.solve(torch.from_numpy(b) if args.port else b)
         solve_s = time.perf_counter() - t0
         x = np.asarray(res.x, np.float64)
         hist = np.asarray(res.res_history, np.float64).ravel()
@@ -69,7 +81,8 @@ def main():
                     amg.coarsest_A.num_rows]
             s = getattr(s, "preconditioner", None)
         print(json.dumps({
-            "file": name, "rows": n ** 3, "dtype": args.dtype,
+            "file": name, "package": "amgx_tpu_torch" if args.port
+            else "amgx_tpu", "rows": n ** 3, "dtype": args.dtype,
             "krylov_fusion": args.krylov_fusion,
             "iterations": int(res.iterations), "status": str(res.status),
             "final_rel_res": float(hist[-1] / hist[0]),
