@@ -15,13 +15,15 @@ CUDA (amgx_tpu_torch/csrc/), built with nvcc at first use.
 from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
 from . import gallery, presets
 from .config import Config
+from .output import register_print_callback
 from .matrix import CsrMatrix
 from .ops.cuda_spmv import LAUNCHES as _LAUNCHES
 from .resilience.status import SolveStatus
 from .solvers.base import create_solver
 
 __all__ = ["Config", "CsrMatrix", "SolveStatus", "create_solver", "gallery",
-           "presets", "kernel_launches", "reset_kernel_launches"]
+           "presets", "kernel_launches", "register_print_callback",
+           "reset_kernel_launches"]
 
 
 def kernel_launches() -> dict:

@@ -14,6 +14,11 @@ restriction rides B3's weighted epilogue and the prolongation B4's
 weighted prologue; levels the caps decline, and every level whose
 operator has no DIA view, compose the R / P products (B8 in float32).
 Structure reuse on resetup is not ported.
+
+Aggressive coarsening: the first `aggressive_levels` levels take
+`aggressive_selector` (DEFAULT: AGGRESSIVE_ plus the selector's name,
+unless it already starts with AGGRESSIVE; an unknown name falls back to
+PMIS) and `aggressive_interpolator` (an unknown name falls back to D1).
 """
 from __future__ import annotations
 
@@ -37,17 +42,22 @@ class ClassicalAMGLevel(AMGLevel):
     P = None
     R = None
     rap_plan = None       # the level's RAP structure (ops/spgemm.py)
+    _aggressive = False
 
     def create_coarse_vertices(self):
         cfg, scope = self.cfg, self.scope
-        if self.level_index < int(cfg.get("aggressive_levels", scope)):
-            raise NotImplementedError(
-                "aggressive coarsening (aggressive_levels > 0) is not "
-                "ported yet (see ROADMAP.md)")
         st = registry.strength.create(str(cfg.get("strength", scope)),
                                       cfg, scope)
         self.strong = st.strong_mask(self.A)
         name = str(cfg.get("selector", scope))
+        self._aggressive = self.level_index < int(
+            cfg.get("aggressive_levels", scope))
+        if self._aggressive:
+            agg = str(cfg.get("aggressive_selector", scope))
+            if agg == "DEFAULT":
+                agg = name if name.startswith("AGGRESSIVE") \
+                    else "AGGRESSIVE_" + name
+            name = agg
         if not registry.classical_selectors.has(name):
             name = "PMIS"             # the JAX package's fallback
         sel = registry.classical_selectors.create(name, cfg, scope)
@@ -56,7 +66,8 @@ class ClassicalAMGLevel(AMGLevel):
 
     def create_coarse_matrix(self) -> CsrMatrix:
         cfg, scope = self.cfg, self.scope
-        name = str(cfg.get("interpolator", scope))
+        name = str(cfg.get("aggressive_interpolator" if self._aggressive
+                           else "interpolator", scope))
         if not registry.interpolators.has(name):
             name = "D1"               # the JAX package's fallback
         interp = registry.interpolators.create(name, cfg, scope)

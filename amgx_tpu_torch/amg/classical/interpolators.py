@@ -1,5 +1,6 @@
-"""Classical interpolation (the port of D2 and `_truncate` of
-amgx_tpu/amg/classical/interpolators.py), on the operator's device.
+"""Classical interpolation (the port of amgx_tpu/amg/classical/
+interpolators.py: D1, D2, MULTIPASS and `_truncate`), on the operator's
+device.
 
 D2 is the extended+i distance-two interpolation (De Sterck, Falgout,
 Nolting, Yang 2008):
@@ -17,7 +18,22 @@ diagonal. It follows the JAX package's device formulation
 membership by binary search over sorted keys, and every sum an ordered
 segment sum in the same entry order, so P -- and above all the ties
 `_truncate` breaks by magnitude -- comes out the same on the CPU, on the
-card and in the JAX package. D1 and MULTIPASS are not ported.
+card and in the JAX package.
+
+D1 is direct interpolation from the strong negative C neighbours, the
+positive off-diagonals lumped into the diagonal:
+
+    w_ij = -alpha_i a_ij / ~a_ii,   alpha_i = sum_{k != i, a_ik < 0} a_ik
+                                            / sum_{j in C_i} a_ij,
+    ~a_ii = a_ii + sum_{k != i, a_ik > 0} a_ik.
+
+MULTIPASS (aggressive coarsening's interpolation) ranks the F points by
+their breadth-first distance to C through strong negative edges; pass p
+interpolates from the rows already built for pass < p neighbours,
+w_i = -(alpha_i / ~a_ii) sum_{j in J_i} a_ij P_j, as one product of A
+restricted to the pass's rows and columns with the current P
+(`csr_multiply`), keeping the product's nonzero entries. Both end in
+`truncate`, and every sum is an ordered segment sum.
 """
 from __future__ import annotations
 
@@ -130,6 +146,99 @@ class Distance2Interpolator(Interpolator):
         return truncate(P, self.trunc_factor, self.max_elements)
 
 
+@registry.interpolators.register("D1")
+class Distance1Interpolator(Interpolator):
+    def generate(self, A: CsrMatrix, cf_map, strong) -> CsrMatrix:
+        n = A.num_rows
+        dev = A.device
+        rows, cols, vals = A.coo()
+        cols = cols.long()
+        zero = torch.zeros((), dtype=vals.dtype, device=dev)
+        diag = A.diagonal()
+        cidx, nc = coarse_index(cf_map)
+        neg = vals < 0
+        offd = rows != cols
+        in_ci = strong & (cidx[cols] >= 0) & neg & offd
+        sum_neg = segment_sum(torch.where(offd & neg, vals, zero), rows, n)
+        sum_ci = segment_sum(torch.where(in_ci, vals, zero), rows, n)
+        pos_lump = segment_sum(torch.where(offd & ~neg, vals, zero), rows,
+                               n)
+        dmod = diag + pos_lump
+        one = torch.ones_like(sum_ci)
+        alpha = torch.where(sum_ci == 0, zero,
+                            sum_neg / torch.where(sum_ci == 0, one, sum_ci))
+        d_r = dmod[rows]
+        w = -alpha[rows] * vals / torch.where(d_r == 0,
+                                              torch.ones_like(d_r), d_r)
+        mask = in_ci & (cf_map == 0)[rows]
+        c_rows = torch.nonzero(cf_map == 1)[:, 0]
+        P = CsrMatrix.from_coo(
+            torch.cat([rows[mask], c_rows]),
+            torch.cat([cidx[cols[mask]], cidx[c_rows]]),
+            torch.cat([w[mask], torch.ones(nc, dtype=vals.dtype,
+                                           device=dev)]), n, nc)
+        return truncate(P, self.trunc_factor, self.max_elements)
+
+
+@registry.interpolators.register("MULTIPASS")
+class MultipassInterpolator(Interpolator):
+    BIG = 2 ** 30
+
+    def generate(self, A: CsrMatrix, cf_map, strong) -> CsrMatrix:
+        n = A.num_rows
+        dev = A.device
+        rows, cols, vals = A.coo()
+        cols = cols.long()
+        zero = torch.zeros((), dtype=vals.dtype, device=dev)
+        diag = A.diagonal()
+        cidx, nc = coarse_index(cf_map)
+        is_c = cf_map == 1
+        offd = rows != cols
+        neg = vals < 0
+        strong_neg = strong & offd & neg
+        dmod = diag + segment_sum(torch.where(offd & ~neg, vals, zero),
+                                  rows, n)
+        sum_neg = segment_sum(torch.where(offd & neg, vals, zero), rows, n)
+        one = torch.ones_like(dmod)
+        dsafe = torch.where(dmod == 0, one, dmod)
+
+        # pass numbers: breadth-first distance to C through strong edges
+        big = self.BIG
+        pnum = torch.where(is_c, 0, big).to(torch.int64)
+        for _ in range(64):
+            nbr_min = torch.full((n,), big, dtype=torch.int64,
+                                 device=dev).scatter_reduce_(
+                0, rows, torch.where(strong_neg, pnum[cols], big), "amin",
+                include_self=True)
+            new = torch.where(is_c, 0, torch.minimum(pnum, nbr_min + 1))
+            if torch.equal(new, pnum):
+                break
+            pnum = new
+        reached = pnum < big
+        max_pass = int(torch.where(reached, pnum, 0).max()) if n else 0
+
+        # P rows pass by pass, the C rows injecting
+        c_rows = torch.nonzero(is_c)[:, 0]
+        p_rows, p_cols = [c_rows], [cidx[c_rows]]
+        p_vals = [torch.ones(nc, dtype=vals.dtype, device=dev)]
+        for p in range(1, max_pass + 1):
+            emask = strong_neg & (pnum == p)[rows] & (pnum[cols] < p)
+            denom = segment_sum(torch.where(emask, vals, zero), rows, n)
+            alpha = torch.where(denom != 0, sum_neg / torch.where(
+                denom == 0, one, denom), zero)
+            scale = -alpha / dsafe
+            P_cur = CsrMatrix.from_coo(torch.cat(p_rows), torch.cat(p_cols),
+                                       torch.cat(p_vals), n, nc)
+            rr, rc, rv = csr_multiply(A.compact(emask), P_cur).coo()
+            keep = torch.nonzero(rv != 0)[:, 0]
+            p_rows.append(rr[keep])
+            p_cols.append(rc[keep].long())
+            p_vals.append((rv * scale[rr])[keep])
+        P = CsrMatrix.from_coo(torch.cat(p_rows), torch.cat(p_cols),
+                               torch.cat(p_vals), n, nc)
+        return truncate(P, self.trunc_factor, self.max_elements)
+
+
 def truncate(P: CsrMatrix, factor: float, max_elements: int) -> CsrMatrix:
     """Drop small entries (below factor * the row's largest |w|, when
     factor <= 1) and keep at most max_elements per row (the largest |w|,
@@ -160,16 +269,3 @@ def truncate(P: CsrMatrix, factor: float, max_elements: int) -> CsrMatrix:
     scale = torch.where(keptsum == 0, one,
                         rowsum / torch.where(keptsum == 0, one, keptsum))
     return P.compact(keep, vals * scale[rows])
-
-
-def _unported(name):
-    class _Unported(Interpolator):
-        def generate(self, A, cf_map, strong):
-            raise NotImplementedError(
-                f"interpolator={name} is not ported yet (D2 is; see "
-                f"ROADMAP.md)")
-    return _Unported
-
-
-for _name in ("D1", "MULTIPASS"):
-    registry.interpolators.register(_name)(_unported(_name))

@@ -12,15 +12,29 @@ The degree is a count of halves and the hash has 20 bits, so w is exact
 in float64 and every comparison is strict: the split is identical on
 the CPU, on the card and in the JAX package. The hash needs uint32
 wrap-around multiplication; it runs in int64 masked to 32 bits after
-each step. RS, HMIS, CR and the aggressive selectors are not ported.
+each step. An `init` split seeds the fixed point: its FINE and COARSE
+entries stay, its UNDECIDED ones are resolved.
+
+RS is the classical serial first pass: a bucket queue on the host
+(numpy arrays read into Python lists), for an operator on the card too,
+as the JAX package runs it (`rs_split_python`, bit-identical to its
+native `rs.cpp`): S and S^T adjacency, pushes in ascending node order,
+the LIFO tie-break of each bucket. The split is the reference's bit for
+bit. HMIS is that pass followed by PMIS seeded with it. The JAX
+package's device-parallel RS sweep (`selector_device_sweep=1`) is not
+ported. The aggressive selectors run PMIS on the two-hop strength graph
+S S (a sort-based product, ops/spgemm.py `csr_multiply`). CR is not
+ported.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import registry
 from ...matrix import CsrMatrix
 from ...ops.segment import segment_any, segment_max
+from ...ops.spgemm import csr_multiply
 
 FINE, COARSE, UNDECIDED = 0, 1, -1
 _MASK32 = 0xFFFFFFFF
@@ -45,9 +59,10 @@ def _symmetrize(rows, cols, mask):
     return r[order], c[order]
 
 
-def pmis_split(A: CsrMatrix, strong: torch.Tensor,
-               max_iters: int = 30) -> torch.Tensor:
-    """cf_map (n,) int32 in {FINE, COARSE}."""
+def pmis_split(A: CsrMatrix, strong: torch.Tensor, max_iters: int = 30,
+               init=None) -> torch.Tensor:
+    """cf_map (n,) int32 in {FINE, COARSE}; `init`, when given, seeds
+    the fixed point (its FINE / COARSE entries are kept)."""
     n = A.num_rows
     dev = A.device
     rows, cols, _ = A.coo()
@@ -55,9 +70,13 @@ def pmis_split(A: CsrMatrix, strong: torch.Tensor,
     deg = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
         0, sr, torch.ones(sr.shape[0], dtype=torch.float64, device=dev))
     w = deg * 0.5 + _hash01(n, dev)
+    state = torch.full((n,), UNDECIDED, dtype=torch.int32, device=dev) \
+        if init is None else torch.as_tensor(init, device=dev).to(
+            torch.int32)
     # isolated points (no strong connection) cannot interpolate: COARSE
     has_nbr = segment_any(torch.ones_like(sr, dtype=torch.bool), sr, n)
-    state = torch.where(has_nbr, UNDECIDED, COARSE).to(torch.int32)
+    state = torch.where((state == UNDECIDED) & ~has_nbr, COARSE,
+                        state).to(torch.int32)
     for _ in range(max_iters):
         und = state == UNDECIDED
         if not bool(und.any()):
@@ -69,6 +88,122 @@ def pmis_split(A: CsrMatrix, strong: torch.Tensor,
         c_nbr = segment_any(state[sc] == COARSE, sr, n)
         state = torch.where((state == UNDECIDED) & c_nbr, FINE, state)
     return torch.where(state == UNDECIDED, FINE, state).to(torch.int32)
+
+
+def rs_split(A: CsrMatrix, strong: torch.Tensor) -> np.ndarray:
+    """The RS first pass as a host bucket queue (the JAX package's
+    `rs_split_python`, bit-identical to its native rs.cpp): cf_map (n,)
+    int32 numpy, in {FINE, COARSE}."""
+    n = A.num_rows
+    ro = A.row_offsets.cpu().numpy()
+    ci = A.col_indices.cpu().numpy()
+    st = strong.cpu().numpy().astype(bool)
+    row_ids = np.repeat(np.arange(n), np.diff(ro))
+    mask = st & (ci < n) & (ci != row_ids)
+    # S (by row) and S^T (by column) adjacency
+    s_r, s_c = row_ids[mask], ci[mask]
+    order = np.argsort(s_c, kind="stable")
+    st_r = s_r[order]
+    st_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(s_c, minlength=n), out=st_off[1:])
+    s_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(s_r, minlength=n), out=s_off[1:])
+    lam = np.diff(st_off)
+    in_q = lam > 0
+    state = np.full(n, UNDECIDED, np.int32)
+    # lam == 0: FINE, except fully isolated points (no edge either way),
+    # which cannot interpolate: COARSE
+    state[~in_q] = np.where(np.diff(s_off)[~in_q] == 0, COARSE, FINE)
+    # the queue on Python lists: a bucket head per weight and a doubly
+    # linked list of nodes; a weight is at most 2 |S^T_i|
+    st_off, st_r = st_off.tolist(), st_r.tolist()
+    s_off, s_c = s_off.tolist(), s_c.tolist()
+    state, weight = state.tolist(), lam.tolist()
+    head = [-1] * (2 * n + 2)
+    prev = [-1] * n
+    nxt = [-1] * n
+    maxw = 0
+    for i in np.nonzero(in_q)[0].tolist():     # ascending node order
+        w = weight[i]
+        h = head[w]
+        nxt[i] = h
+        if h >= 0:
+            prev[h] = i
+        head[w] = i
+        if w > maxw:
+            maxw = w
+    und, coarse, fine = UNDECIDED, COARSE, FINE
+    while True:
+        while maxw >= 0 and head[maxw] < 0:
+            maxw -= 1
+        if maxw < 0:
+            break
+        i = head[maxw]
+        # remove i: it heads its bucket
+        j = nxt[i]
+        head[maxw] = j
+        if j >= 0:
+            prev[j] = -1
+        nxt[i] = -1
+        if state[i] != und:
+            continue
+        state[i] = coarse
+        for t in range(st_off[i], st_off[i + 1]):
+            j = st_r[t]
+            if state[j] != und:
+                continue
+            state[j] = fine
+            # remove j from its bucket
+            p, q = prev[j], nxt[j]
+            if p >= 0:
+                nxt[p] = q
+            else:
+                head[weight[j]] = q
+            if q >= 0:
+                prev[q] = p
+            prev[j] = nxt[j] = -1
+            for u in range(s_off[j], s_off[j + 1]):
+                k = s_c[u]
+                if state[k] != und:
+                    continue
+                # move k to the head of the next bucket up
+                w = weight[k]
+                p, q = prev[k], nxt[k]
+                if p >= 0:
+                    nxt[p] = q
+                else:
+                    head[w] = q
+                if q >= 0:
+                    prev[q] = p
+                w += 1
+                weight[k] = w
+                prev[k] = -1
+                h = head[w]
+                nxt[k] = h
+                if h >= 0:
+                    prev[h] = k
+                head[w] = k
+                if w > maxw:
+                    maxw = w
+    return np.where(np.asarray(state) == COARSE, COARSE,
+                    FINE).astype(np.int32)
+
+
+def _rs_first_pass(cfg, scope, A: CsrMatrix, strong) -> torch.Tensor:
+    """The RS pass on the host queue, its split on A's device."""
+    if str(cfg.get("selector_device_sweep", scope)) == "1":
+        raise NotImplementedError(
+            "selector_device_sweep=1 (the device-parallel RS sweep) is not "
+            "ported yet; the host queue is (see ROADMAP.md)")
+    return torch.from_numpy(rs_split(A, strong)).to(A.device)
+
+
+def two_hop_strength(A: CsrMatrix, strong: torch.Tensor) -> CsrMatrix:
+    """S S with S = 1.0 on A's strong entries, 0.0 elsewhere: the
+    aggressive coarsening graph (every candidate entry kept)."""
+    S = CsrMatrix(A.row_offsets, A.col_indices,
+                  strong.to(torch.float64), A.num_rows, A.num_cols)
+    return csr_multiply(S, S)
 
 
 class ClassicalSelector:
@@ -86,15 +221,48 @@ class PMISSelector(ClassicalSelector):
         return pmis_split(A, strong)
 
 
+@registry.classical_selectors.register("RS")
+class RSSelector(ClassicalSelector):
+    def mark_coarse_fine_points(self, A, strong):
+        return _rs_first_pass(self.cfg, self.scope, A, strong)
+
+
+@registry.classical_selectors.register("HMIS")
+class HMISSelector(ClassicalSelector):
+    """The RS pass, then PMIS seeded with it (on one device it keeps the
+    pass's split: every point is decided)."""
+
+    def mark_coarse_fine_points(self, A, strong):
+        cf = _rs_first_pass(self.cfg, self.scope, A, strong)
+        return pmis_split(A, strong, init=cf)
+
+
+@registry.classical_selectors.register("AGGRESSIVE_PMIS")
+@registry.classical_selectors.register("AGGRESSIVE_HMIS")
+class AggressivePMISSelector(ClassicalSelector):
+    """PMIS on the two-hop strength graph S S."""
+
+    def mark_coarse_fine_points(self, A, strong):
+        S2 = two_hop_strength(A, strong)
+        r2, c2, v2 = S2.coo()
+        return pmis_split(S2, (v2 > 0) & (r2 != c2.long()))
+
+
+@registry.classical_selectors.register("DUMMY_CLASSICAL")
+class DummyClassicalSelector(ClassicalSelector):
+    """Every other point coarse."""
+
+    def mark_coarse_fine_points(self, A, strong):
+        return (torch.arange(A.num_rows, device=A.device) % 2 == 0).to(
+            torch.int32)
+
+
 def _unported(name):
     class _Unported(ClassicalSelector):
         def mark_coarse_fine_points(self, A, strong):
             raise NotImplementedError(
-                f"selector={name} is not ported yet (PMIS is; see "
-                f"ROADMAP.md)")
+                f"selector={name} is not ported yet (see ROADMAP.md)")
     return _Unported
 
 
-for _name in ("RS", "HMIS", "CR", "AGGRESSIVE_PMIS", "AGGRESSIVE_HMIS",
-              "DUMMY_CLASSICAL"):
-    registry.classical_selectors.register(_name)(_unported(_name))
+registry.classical_selectors.register("CR")(_unported("CR"))

@@ -1,10 +1,18 @@
-"""Multigrid cycles V, W, F (the port of amgx_tpu/amg/cycles.py):
+"""Multigrid cycles V, W, F, CG and CGF (the port of
+amgx_tpu/amg/cycles.py):
 presmooth -> residual -> restrict -> recurse -> prolongate + correct ->
 postsmooth, recursing in Python over the static hierarchy depth. With
 cycle_fusion the sub-cycle below the first level of at most
 cycle_fusion_tail_rows rows runs as one coarse-tail launch (B5,
 ops/smooth.py `coarse_tail_cycle`), on the CPU through its plain twin.
-The K-cycles (CG, CGF) are not ported yet. A residual the cycle forms
+The K-cycles CG and CGF accelerate each level's coarse-grid correction
+by `cycle_iters` steps (at least 1) of CG on the coarse equation,
+preconditioned by the next-coarser K-cycle from a zero guess: CG takes
+the Fletcher-Reeves beta (the next r.z), CGF the Polak-Ribiere one
+((r - r_old).z), both guarded against a zero denominator, and the last
+step skips its trailing preconditioner. A K-cycle never enters the
+coarse tail (B5), as the reference's does not, and carries no
+cycle-borne dot. A residual the cycle forms
 itself reads the level's operator through ops/stencil.py
 `level_operator`, which rebuilds a matrix-free level's matrix. A
 bfloat16 cycle solves its coarsest level in float32 (the precision
@@ -13,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.spmv import residual
+from ..ops.spmv import residual, spmv
 from ..ops.stencil import level_operator
+from ..solvers.krylov import _safe_div
 
 
 def _smooth(level, data, b, x, sweeps: int):
@@ -121,17 +130,73 @@ def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
                               want_dot=want_dot)
 
 
+def _kcycle(amg, data, lvl: int, b, x, flex: bool):
+    """CG / CGF cycle (cg_cycle.cu, cg_flex_cycle.cu)."""
+    levels = amg.levels
+    if lvl == len(levels):
+        return _coarse_solve(amg, data, b, x)
+    level = levels[lvl]
+    ldata = data["levels"][lvl]
+    x, bc = _smooth_restrict(amg, level, ldata, b, x,
+                             amg._sweeps(lvl, pre=True))
+    nxt = lvl + 1
+
+    def M(v):
+        return _kcycle(amg, data, nxt, v, torch.zeros_like(v), flex)
+
+    def Ac_mv(v):
+        if nxt == len(levels):
+            if v.dtype == torch.bfloat16:
+                # the coarsest operator stays float32 under a bf16 cycle
+                return spmv_coarsest(amg, data, v.to(torch.float32)).to(
+                    v.dtype)
+            return spmv_coarsest(amg, data, v)
+        return spmv(level_operator(data["levels"][nxt]), v)
+
+    xc = torch.zeros_like(bc)
+    rc = bc
+    z = M(rc)
+    p = z
+    rz = torch.dot(rc, z)
+    k_iters = max(amg.cycle_iters, 1)
+    for it in range(k_iters):
+        Ap = Ac_mv(p)
+        alpha = _safe_div(rz, torch.dot(p, Ap))
+        xc = xc + alpha * p
+        rc_old = rc
+        rc = rc - alpha * Ap
+        if it + 1 == k_iters:
+            break             # the last step needs no M, beta or p
+        z = M(rc)
+        rz_new = torch.dot(rc, z)
+        # Polak-Ribiere tolerates a varying M; Fletcher-Reeves reuses rz
+        num = torch.dot(rc - rc_old, z) if flex else rz_new
+        beta = _safe_div(num, rz)
+        rz = rz_new
+        p = z + beta * p
+    return _prolongate_smooth(amg, level, ldata, b, x, xc,
+                              amg._sweeps(lvl, pre=False))
+
+
+def spmv_coarsest(amg, data, v):
+    """v times the coarsest operator (the coarse solver's matrix)."""
+    return spmv(data["coarse"]["A"], v)
+
+
 def run_cycle(amg, name: str, data, b, x):
     name = name.upper()
     if name in ("V", "W", "F"):
         return _cycle(amg, name, data, 0, b, x)
-    raise NotImplementedError(f"cycle {name!r} is not ported yet")
+    if name in ("CG", "CGF"):
+        return _kcycle(amg, data, 0, b, x, flex=name == "CGF")
+    raise ValueError(f"unknown cycle {name!r}")
 
 
 def run_cycle_dot(amg, name: str, data, b, x):
     """One cycle that also asks its last kernel for x'.b (the Krylov
     shell's cycle-borne r.z). Returns (x', dot), dot None when the cycle
-    cannot carry it -- the caller then reduces explicitly."""
+    cannot carry it (a K-cycle never does) -- the caller then reduces
+    explicitly."""
     name = name.upper()
     if name in ("V", "W", "F"):
         return _cycle(amg, name, data, 0, b, x, want_dot=True)

@@ -40,6 +40,10 @@ again. This is the JAX package's generic reuse loop; its pipelined GEO
 value-only resetup (`value_resetup.py`) is not ported, and classical
 levels do not reuse their structure yet (`reuse_structure` raises). Not
 ported yet: telemetry.
+
+`print_grid_stats` (read in the AMG's own scope) prints the grid table
+after each setup through output.py (`grid_stats`, rendered from
+`grid_stats_dict`, the JAX package's text).
 """
 from __future__ import annotations
 
@@ -150,6 +154,7 @@ class AMG:
         self.coarsest_sweeps = int(cfg.get("coarsest_sweeps", scope))
         self.dense_lu_num_rows = int(cfg.get("dense_lu_num_rows", scope))
         self.cycle_name = str(cfg.get("cycle", scope)).upper()
+        self.cycle_iters = int(cfg.get("cycle_iters", scope))
         self.cycle_fusion = bool(int(cfg.get("cycle_fusion", scope)))
         self.cycle_fusion_tail_rows = int(
             cfg.get("cycle_fusion_tail_rows", scope))
@@ -157,9 +162,7 @@ class AMG:
                                                 scope))
         self.matrix_free = str(cfg.get("matrix_free", scope))
         self.precision_policy = resolve_precision(cfg, scope)
-        if self.cycle_name not in ("V", "W", "F"):
-            raise NotImplementedError(
-                f"cycle={self.cycle_name} is not ported yet (V, W, F are)")
+        self.print_grid_stats = bool(cfg.get("print_grid_stats", scope))
         self.levels: List[AMGLevel] = []
         self.coarse_solver = None
         self.coarsest_A: Optional[CsrMatrix] = None
@@ -278,6 +281,9 @@ class AMG:
                                          self.coarsest_A.device)
         self.coarse_solver._owns_scaling = False
         self.coarse_solver.setup(self.coarsest_A)
+        if self.print_grid_stats:
+            from ..output import amgx_printf
+            amgx_printf(self.grid_stats())
 
     # -- solve -------------------------------------------------------------
     def solve_data(self) -> Dict[str, Any]:
@@ -346,3 +352,52 @@ class AMG:
         return [lv.A.num_rows for lv in self.levels] + [
             self.coarsest_A.num_rows]
 
+    # -- observability -----------------------------------------------------
+    @staticmethod
+    def _layout_of(level: Optional[AMGLevel], M: CsrMatrix) -> str:
+        """The port's storage of a level's operator: "dia", "csr", or
+        "dia-mf" for a matrix-free level (its kernels synthesize the DIA
+        values from stencil coefficients)."""
+        if level is not None and level.smoother is not None \
+                and getattr(level.smoother, "_mf_stencil", None) is not None:
+            return "dia-mf"
+        return "dia" if M.dia_offsets is not None else "csr"
+
+    def grid_stats_dict(self) -> Dict[str, Any]:
+        """Grid statistics as data (`grid_stats` renders its text from
+        it); host metadata only."""
+        pairs = [(lv, lv.A) for lv in self.levels]
+        if self.coarsest_A is not None:
+            pairs.append((None, self.coarsest_A))
+        rows = [{"level": i, "rows": int(M.num_rows), "nnz": int(M.nnz),
+                 "sparsity": M.nnz / max(M.num_rows, 1) ** 2,
+                 "layout": self._layout_of(lv, M)}
+                for i, (lv, M) in enumerate(pairs)]
+        total_rows = sum(r["rows"] for r in rows)
+        total_nnz = sum(r["nnz"] for r in rows)
+        fine_rows = rows[0]["rows"] if rows else 0
+        fine_nnz = rows[0]["nnz"] if rows else 0
+        return {"algorithm": self.algorithm, "cycle": self.cycle_name,
+                "num_levels": len(rows), "levels": rows,
+                "total_rows": total_rows, "total_nnz": total_nnz,
+                "grid_complexity": total_rows / max(fine_rows, 1),
+                "operator_complexity": total_nnz / max(fine_nnz, 1)}
+
+    def grid_stats(self) -> str:
+        """The grid table of print_grid_stats (src/amg.cu:1231-1350)."""
+        d = self.grid_stats_dict()
+        rule = "         " + "-" * 50
+        lines = ["AMG Grid:",
+                 f"         Number of Levels: {d['num_levels']}",
+                 "            LVL         ROWS               NNZ    SPRSTY",
+                 rule]
+        for row in d["levels"]:
+            lines.append(f"           {row['level']:3d}  "
+                         f"{row['rows']:11d}  {row['nnz']:16d}  "
+                         f"{row['sparsity']:8.3g}")
+        lines.append(rule)
+        lines.append(f"         Grid Complexity: "
+                     f"{d['grid_complexity']:.5g}")
+        lines.append(f"         Operator Complexity: "
+                     f"{d['operator_complexity']:.5g}")
+        return "\n".join(lines)

@@ -324,9 +324,9 @@ def _register_default_parameters():
     R("setup_device_min_rows", int, "setup_backend=device: levels below "
       "this many rows may take host fast paths in the JAX package; "
       "accepted, inert in the port", 0, None, 0)
-    R("selector_device_sweep", str, "RS/HMIS first-pass implementation "
-      "in the JAX package; accepted, inert in the port (its PMIS split is "
-      "identical on every device, RS/HMIS are not ported)",
+    R("selector_device_sweep", str, "RS/HMIS first-pass implementation: "
+      "auto and 0 run the host bucket queue; 1 (the JAX package's "
+      "device-parallel sweep) is not ported and raises",
       "auto", ("auto", "0", "1"))
     # resilience (solve-loop status classification)
     R("health_guards", int, "NaN/breakdown guards in the solve loop "

@@ -17,6 +17,12 @@ convergence arithmetic rounds as the JAX package's does.
 `scaling` (scalers.py): the tree's root scales A before it builds the
 tree, b and x0 on the way in and x on the way out; its children never
 scale.
+
+`print_solve_stats` prints the per-iteration residual table, the totals
+and the status after a solve, and `obtain_timings` the setup and solve
+seconds, through output.py, in the JAX package's text; the memory
+column is the device's current allocation (`torch.cuda.memory_allocated`;
+0 on the CPU, where the JAX package prints 0 too).
 """
 from __future__ import annotations
 
@@ -159,6 +165,8 @@ class Solver:
         self.monitor_residual = bool(cfg.get("monitor_residual", scope))
         self.norm_type = str(cfg.get("norm", scope))
         self.store_res_history = bool(cfg.get("store_res_history", scope))
+        self.print_solve_stats = bool(cfg.get("print_solve_stats", scope))
+        self.obtain_timings = bool(cfg.get("obtain_timings", scope))
         self.rel_div_tolerance = float(cfg.get("rel_div_tolerance", scope))
         self.health_guards = bool(int(cfg.get("health_guards", scope)))
         self.stall_window = int(cfg.get("stall_detection_window", scope))
@@ -369,13 +377,44 @@ class Solver:
         if x.device.type == "cuda":
             torch.cuda.synchronize(x.device)
         solve_time = time.perf_counter() - t0
-        return SolveResult(
+        res = SolveResult(
             x=x, iterations=st["iters"], converged=st["converged"],
             res_norm=np.asarray(st["res_norm"]),
             norm0=np.asarray(st["norm0"]),
             res_history=st["res_hist"] if self.store_res_history else None,
             setup_time=self.setup_time, solve_time=solve_time,
             status_code=st["status"], extra_stats=st["extra"])
+        if self.print_solve_stats:
+            self._print_stats(res, np.asarray(st["res_hist"]))
+        return res
+
+    def _print_stats(self, res: SolveResult, hist):
+        """The solve table of print_solve_stats (and obtain_timings)."""
+        from ..output import amgx_printf
+        mem_gb = (torch.cuda.memory_allocated(self.device)
+                  if self.device.type == "cuda" else 0) / 2**30
+        rule = f"    {'-' * 62}"
+        amgx_printf("    iter      Mem Usage (GB)       residual"
+                    "           rate")
+        amgx_printf(rule)
+        for i in range(res.iterations + 1):
+            rate = ""
+            if i > 0 and np.all(hist[i - 1] > 0):
+                rate = f"{float(np.max(hist[i] / hist[i - 1])):14.4f}"
+            tag = "Ini" if i == 0 else f"{i - 1:4d}"
+            amgx_printf(f"    {tag}         {mem_gb:10.4f}      "
+                        f"{float(np.max(hist[i])):14.6e} {rate}")
+        amgx_printf(rule)
+        last, first = np.max(hist[res.iterations]), np.max(hist[0])
+        rate = float((last / max(first, 1e-300))
+                     ** (1.0 / max(res.iterations, 1)))
+        amgx_printf(f"    Total Iterations: {res.iterations}")
+        amgx_printf(f"    Avg Convergence Rate: {rate:10.4f}")
+        amgx_printf(f"    Final Residual: {float(np.max(res.res_norm)):.6e}")
+        amgx_printf(f"    Solve Status: {res.status}")
+        if self.obtain_timings:
+            amgx_printf(f"    Setup Time: {res.setup_time:.4f}s")
+            amgx_printf(f"    Solve Time: {res.solve_time:.4f}s")
 
     # -- smoother interface (AMG levels) ---------------------------------
     def smooth(self, data, b, x, sweeps: int):

@@ -220,6 +220,25 @@ Phases, one JSON line each on stdout:
                scaling) at 64^3 in float64 against its anchor (max_iters:
                the reference diverges there), and in float32 recorded
                beside the JAX package's nan_detected.
+14. aggressive_kcycle -- AmgX's stock aggressive coarsening and K-cycle
+               files, read verbatim: FGMRES_CLASSICAL_AGGRESSIVE_PMIS
+               (aggressive PMIS + MULTIPASS on level 0, D2 below) at
+               128^3 in float32, the main path: success, B10 in the
+               setup, B8 and B9 in the solve, its level rows, setup
+               seconds, peak memory and level 0's transfer route; at
+               64^3 the JAX package's iterations +- 2 over the CPU
+               route's level rows; FGMRES_CLASSICAL_AGGRESSIVE_HMIS at
+               64^3 (the host RS queue's seconds a level);
+               AMG_CLASSICAL_CG at 128^3 and 64^3, AMG_CLASSICAL_CGF and
+               AMG_AGGRREGATION_CG at 64^3 in float32 (max_iters, the
+               final residual within KCYCLE_FINAL_TOL of the anchor's; B8
+               in the coarse matvec, B5 never) and at 32^3 in float64
+               (the JAX package's iterations exactly);
+               PCG_CLASSICAL_V_JACOBI (aggressive_levels 2) at 64^3 (B6 /
+               B7); two 32^3 card setups of the main file bit-identical
+               and equal to the CPU route's. The package's solve and grid
+               tables go to a registered callback (counted on the done
+               line), never to stdout.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -547,6 +566,58 @@ KRYLOV_ANCHORS = {
         iterations=42, status="success", final=8.25617522662711e-07,
         levels=None),
 }
+
+
+# The aggressive coarsening and K-cycle files (phase_aggressive_kcycle),
+# read verbatim: the JAX package's anchors on the 7-pt n^3 Poisson with b
+# = 1 (tools/jax_anchors.py; float32 unless keyed "float64"). The main
+# path's level rows at 64^3 are the port's CPU route's
+# (tools/jax_anchors.py --port; the JAX package's part from level 3,
+# below). In
+# float32 the K-cycle files end at max_iters on float32's rounding floor
+# (the float64 runs converge: their iterations are held exactly); their
+# final monitored residual is held to the anchor's within
+# KCYCLE_FINAL_TOL, set before the first card run from the port's CPU
+# route against the JAX package at 32^3 and 64^3 (PERF.md section 2).
+# AMG_CLASSICAL_CG at 128^3 has no anchor (the JAX package's 128^3
+# classical setup outgrows the host): it is held to max_iters at a final
+# residual of at most KCYCLE_F32_FLOOR_MAX. The spreads, port against
+# JAX, AMG_CLASSICAL_CG / _CGF / AMG_AGGRREGATION_CG: -2.5 / +0.5 / +0.7 %
+# at 32^3, +0.5 / -0.2 / -0.7 % at 64^3, so 6 % is more than twice the
+# largest; the floor grew 3.7x from 32^3 (6.9e-6) to 64^3 (2.6e-5), so
+# 8x the 64^3 anchor is twice the growth's extrapolation to 128^3.
+# The JAX package's float32 aggressive hierarchies part from the port's
+# from level 3 at 64^3: its host D2 route sums the truncation in float64
+# (ROADMAP Queue C); its device route gives the port's rows.
+KCYCLE_FINAL_TOL = 0.06
+KCYCLE_F32_FLOOR_MAX = 8 * 2.5878904125420377e-05
+KRYLOV_ANCHORS.update({
+    ("FGMRES_CLASSICAL_AGGRESSIVE_PMIS", 64): dict(
+        iterations=15, status="success", final=8.269793738691078e-07,
+        levels=[262144, 30216, 9647, 1363, 179, 41]),
+    ("FGMRES_CLASSICAL_AGGRESSIVE_HMIS", 64): dict(
+        iterations=15, status="success", final=8.563295637031842e-07,
+        levels=None),
+    ("PCG_CLASSICAL_V_JACOBI", 64): dict(
+        iterations=22, status="success", final=8.029768423511996e-07,
+        levels=None),
+    ("AMG_CLASSICAL_CG", 64): dict(
+        iterations=100, status="max_iters", final=2.5878904125420377e-05,
+        levels=[262144, 81948, 9371, 758, 83], final_tol=KCYCLE_FINAL_TOL),
+    ("AMG_CLASSICAL_CGF", 64): dict(
+        iterations=100, status="max_iters", final=2.6005787731264718e-05,
+        levels=[262144, 81948, 9371, 758, 83], final_tol=KCYCLE_FINAL_TOL),
+    ("AMG_AGGRREGATION_CG", 64): dict(
+        iterations=100, status="max_iters", final=2.5067731257877313e-05,
+        levels=[262144, 56435, 12808, 2922, 677, 155, 35],
+        final_tol=KCYCLE_FINAL_TOL),
+    ("AMG_CLASSICAL_CG", 32, "float64"): dict(
+        iterations=21, status="success", final=7.82e-07, levels=None),
+    ("AMG_CLASSICAL_CGF", 32, "float64"): dict(
+        iterations=21, status="success", final=7.82e-07, levels=None),
+    ("AMG_AGGRREGATION_CG", 32, "float64"): dict(
+        iterations=43, status="success", final=8.28e-07, levels=None),
+})
 
 
 def agg_config(Config, name, reuse=None):
@@ -3125,7 +3196,8 @@ def true_rel_res(torch, A, x, b):
 
 
 def krylov_file_run(torch, amgx, dev, per_path, name, n, fusion=None,
-                    dtype=None, extra=None, hold=True, warm=True):
+                    dtype=None, extra=None, hold=True, warm=True,
+                    phase="bicgstab"):
     """Set up and solve configs/<name>.json on the 7-pt n^3 in float32
     (or `dtype`; krylov_fusion set to `fusion` on top of the file when
     given), then a warm solve under the sync counter; where
@@ -3133,8 +3205,9 @@ def krylov_file_run(torch, amgx, dev, per_path, name, n, fusion=None,
     for a float64 run), hold the run to it. `extra(slv, A, b, res)`, when
     given, returns more fields for the record; `hold=False` records the
     run without holding its status or iterations; `warm=False` skips the
-    warm solve (its time and host syncs are then None). Returns (the
-    emitted record, launch counts in the solve, result)."""
+    warm solve (its time and host syncs are then None); `phase` names the
+    record's phase. Returns (the emitted record, launch counts in the
+    solve, result)."""
     dtype = dtype or torch.float32
     f64 = dtype == torch.float64
     path = f"{name}_{n}^3" + ("" if fusion is None
@@ -3172,7 +3245,7 @@ def krylov_file_run(torch, amgx, dev, per_path, name, n, fusion=None,
     while s is not None and amg is None:
         amg = getattr(s, "amg", None)
         s = s.preconditioner
-    rec = {"phase": "bicgstab", "config": path,
+    rec = {"phase": phase, "config": path,
            "file": f"configs/{name}.json", "rows": n ** 3,
            "levels": None if amg is None else amg.level_rows(),
            "iterations": res.iterations, "status": res.status,
@@ -3461,6 +3534,154 @@ def phase_multicolor(torch, amgx, dev, per_path):
     krylov_file_run(torch, amgx, dev, per_path, "V-cheby-smoother", 64,
                     hold=False, extra=lambda slv, A, b, res: {
                         "anchor_recorded": VCHEBY_F32_64})
+
+
+AGGRESSIVE_MAIN = "FGMRES_CLASSICAL_AGGRESSIVE_PMIS"
+
+
+def classical_bits(torch, amg):
+    """Each level's CF split, strength, A, P and R and the coarsest
+    operator of a set-up classical hierarchy, on the CPU."""
+    out = []
+    for lv in amg.levels:
+        out += [lv.cf_map, lv.strong]
+        for M in (lv.A, lv.P, lv.R):
+            out += [M.row_offsets, M.col_indices, M.values]
+    M = amg.coarsest_A
+    return [t.cpu() for t in out + [M.row_offsets, M.col_indices,
+                                    M.values]]
+
+
+def timed_rs_pass(selectors, times):
+    """selectors.rs_split wrapped to append (rows, host seconds) of each
+    RS pass to `times`; returns the original."""
+    real = selectors.rs_split
+
+    def timed(A, strong):
+        t0 = time.perf_counter()
+        out = real(A, strong)
+        times.append((A.num_rows, time.perf_counter() - t0))
+        return out
+
+    selectors.rs_split = timed
+    return real
+
+
+def phase_aggressive_kcycle(torch, amgx, dev, per_path):
+    """AmgX's stock aggressive coarsening and K-cycle files, read
+    verbatim: the main path FGMRES_CLASSICAL_AGGRESSIVE_PMIS at 128^3 in
+    float32 (success; B10 in the setup, B8 and B9 in the solve; level
+    rows, setup seconds, peak memory, which transfers level 0 takes), at
+    64^3 against its anchor and the CPU route's level rows;
+    FGMRES_CLASSICAL_AGGRESSIVE_HMIS at 64^3 (the RS pass's host seconds
+    a level); AMG_CLASSICAL_CG at 128^3 and 64^3, AMG_CLASSICAL_CGF and
+    AMG_AGGRREGATION_CG at 64^3 in float32 (max_iters, the final
+    residual within KCYCLE_FINAL_TOL of the anchor's; B8 in the coarse
+    matvec, no B5) and at 32^3 in float64 (the JAX package's iterations
+    exactly); PCG_CLASSICAL_V_JACOBI at 64^3 (B6 / B7); and two 32^3
+    card setups of the main file, bit-identical and equal to the CPU
+    route's."""
+    from amgx_tpu_torch.amg.classical import selectors
+
+    def main_extra(slv, A, b, res):
+        amg = precond_amg(slv)
+        lv = amg.levels[0]
+        stats = amg.grid_stats_dict()
+        return {"aggressive": [lv_._aggressive for lv_ in amg.levels],
+                "level0_transfers": "weighted (B3w / B4w)"
+                if lv._transfer_tables() is not None else "composed (B8)",
+                "level0_R_max_row": int(torch.diff(lv.R.row_offsets).max()),
+                "level0_P_max_row": int(torch.diff(lv.P.row_offsets).max()),
+                "grid_complexity": stats["grid_complexity"],
+                "operator_complexity": stats["operator_complexity"]}
+
+    rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
+                                  AGGRESSIVE_MAIN, 128, extra=main_extra,
+                                  hold=False, phase="aggressive_kcycle")
+    path = rec["config"]
+    setup = {k: v - c[k] for k, v in per_path[path].items()}
+    check(res.status == "success", f"{path}: {res.status}")
+    check(setup["rap_values"] > 0 and c["csr_spmv"] > 0
+          and c["csr_smooth"] > 0, f"{path}: B10 in the setup {setup}, B8 "
+          f"and B9 in the solve {c}")
+    rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
+                                  AGGRESSIVE_MAIN, 64, warm=False,
+                                  extra=main_extra,
+                                  phase="aggressive_kcycle")
+
+    times = []
+    real = timed_rs_pass(selectors, times)
+    try:
+        rec, c, res = krylov_file_run(
+            torch, amgx, dev, per_path, "FGMRES_CLASSICAL_AGGRESSIVE_HMIS",
+            64, warm=False, phase="aggressive_kcycle")
+    finally:
+        selectors.rs_split = real
+    emit({"phase": "aggressive_kcycle", "config": rec["config"],
+          "rs_pass_rows_seconds": times})
+    check(len(times) >= len(rec["levels"]) - 2,
+          f"{rec['config']}: an RS pass on each level below level 0 "
+          f"{times}")
+
+    for name, n in (("AMG_CLASSICAL_CG", 128), ("AMG_CLASSICAL_CG", 64),
+                    ("AMG_CLASSICAL_CGF", 64), ("AMG_AGGRREGATION_CG", 64)):
+        rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name, n,
+                                      hold=n < 128, warm=n == 128,
+                                      phase="aggressive_kcycle")
+        tail = {k: v for k, v in per_path[rec["config"]].items()
+                if k.startswith("dia_coarse_tail") and v}
+        check(c["csr_spmv"] > 0 and not tail, f"{rec['config']}: B8 in "
+              f"the coarse matvec, no B5 {tail}")
+        if n == 128:
+            check(res.status == "max_iters"
+                  and rec["final_rel_res"] <= KCYCLE_F32_FLOOR_MAX,
+                  f"{rec['config']}: {res.status} at a final residual "
+                  f"{rec['final_rel_res']}, at most {KCYCLE_F32_FLOOR_MAX}")
+    for name in ("AMG_CLASSICAL_CG", "AMG_CLASSICAL_CGF",
+                 "AMG_AGGRREGATION_CG"):
+        rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name, 32,
+                                      dtype=torch.float64, warm=False,
+                                      phase="aggressive_kcycle")
+        it0 = KRYLOV_ANCHORS[(name, 32, "float64")]["iterations"]
+        check(res.iterations == it0, f"{rec['config']}: {res.iterations} "
+              f"iterations, the JAX package's float64 {it0}")
+    rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
+                                  "PCG_CLASSICAL_V_JACOBI", 64, warm=False,
+                                  phase="aggressive_kcycle")
+    check(c["dia_spmv_dot"] > 0 and c["cg_update"] > 0,
+          f"{rec['config']}: B6 and B7 in PCG's shell {c}")
+
+    # 32^3 determinism: two card setups and the CPU route's
+    n = 32
+    cpu = torch.device("cpu")
+    cfg = amgx.Config.from_file(os.path.join(ROOT, "configs",
+                                             AGGRESSIVE_MAIN + ".json"))
+    slvs = []
+    for d in (dev, dev, cpu):
+        slv = amgx.create_solver(cfg, device=d)
+        slv.setup(amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                                       device=d))
+        slvs.append(slv)
+    bits = [classical_bits(torch, precond_amg(slv)) for slv in slvs]
+    same = [len(bits[0]) == len(x) and all(torch.equal(a, b_) for a, b_
+                                           in zip(bits[0], x))
+            for x in bits[1:]]
+    b = torch.ones(n ** 3, dtype=torch.float32)
+    config = f"{AGGRESSIVE_MAIN}_{n}^3_determinism"
+    rc = run_path(amgx, per_path, config, lambda: slvs[0].solve(b.to(dev)))
+    rh = slvs[2].solve(b)
+    emit({"phase": "aggressive_kcycle", "config": config,
+          "levels": precond_amg(slvs[0]).level_rows(),
+          "tensors_compared": len(bits[0]),
+          "card_setups_bit_identical": same[0], "card_equals_cpu": same[1],
+          "iterations_cuda": rc.iterations, "iterations_cpu": rh.iterations,
+          "status_cuda": rc.status, "status_cpu": rh.status})
+    check(same[0], f"{config}: two card setups are bit-identical")
+    check(same[1], f"{config}: the card's setup equals the CPU's")
+    check(rc.status == rh.status == "success"
+          and rc.iterations == rh.iterations,
+          f"{config}: card {rc.status} in {rc.iterations}, CPU "
+          f"{rh.status} in {rh.iterations}")
 
 
 def phase_aggregation(torch, amgx, dev, per_path, summary):
@@ -3824,6 +4045,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # the stock files' solve and grid tables go to a callback, away from
+    # the JSON lines: only their count is reported
+    printed = []
+    amgx.register_print_callback(lambda msg, n: printed.append(n))
     card = nvidia_smi()
     print(card, flush=True)
     emit({"phase": "env", "nvidia_smi": card,
@@ -3866,6 +4091,7 @@ def main():
     phase_bf16_hierarchies(torch, amgx, dev, per_path)
     phase_bicgstab(torch, amgx, dev, per_path)
     phase_multicolor(torch, amgx, dev, per_path)
+    phase_aggressive_kcycle(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():
@@ -3895,7 +4121,9 @@ def main():
                 k: {p: c[k] for p, c in per_path.items() if c[k]}
                 for k in ROUTE_COUNTERS[name]}
         kernels.append(entry)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "package_output_messages": len(printed),
+          "package_output_chars": sum(printed)})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

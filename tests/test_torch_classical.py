@@ -157,10 +157,7 @@ def test_strength_max_row_sum_weakening(max_row_sum):
         == (max_row_sum < 0.625)
 
 
-@pytest.mark.parametrize("option", ["selector=RS", "selector=HMIS",
-                                    "interpolator=MULTIPASS",
-                                    "interpolator=D1", "strength=AFFINITY",
-                                    "aggressive_levels=1"])
+@pytest.mark.parametrize("option", ["strength=AFFINITY", "selector=CR"])
 def test_unported_classical_options_raise(option):
     cfg = Config.from_string(LEVEL_CFG + ", " + option)
     with pytest.raises(NotImplementedError):

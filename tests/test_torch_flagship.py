@@ -197,9 +197,3 @@ def test_coarse_tail_entry_level(monkeypatch, tail_rows, fusion, entry):
     rows = amg.level_rows()
     assert entered == ([] if entry is None else [rows[entry]])
 
-
-@pytest.mark.parametrize("option", ["cycle=CGF", "cycle=CG"])
-def test_unported_hierarchy_options_raise(option):
-    from amgx_tpu_torch.amg.hierarchy import AMG
-    with pytest.raises(NotImplementedError):
-        AMG(Config.from_string(option))

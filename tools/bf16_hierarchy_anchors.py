@@ -64,7 +64,13 @@ def main():
     import torch
     import amgx_tpu as jx
     import amgx_tpu_torch as pt
+    from amgx_tpu import output as jx_output
     from amgx_tpu.ops import pallas_spmv as jps
+    # the stock files' solve and grid tables go to stderr: stdout holds
+    # the JSON lines
+    for pkg_output in (jx_output, pt):
+        pkg_output.register_print_callback(
+            lambda msg, _n: sys.stderr.write(msg))
     n = args.size
     P = jx.gallery.poisson("7pt", n, n, n).init()
     A64 = sp.csr_matrix((np.asarray(P.values, np.float64),

@@ -5,14 +5,19 @@ Poisson with b = 1 in float32 (or --dtype float64) on the CPU. One JSON
 line per file: the iterations, the status, the final monitored residual
 relative to the initial one, the true relative residual of x in
 float64, the level rows of an AMG preconditioner, and the process's
-peak resident memory.
+peak resident memory. The package's solve and grid tables (the files
+set print_solve_stats / print_grid_stats, some in nested scopes) go to
+stderr, so stdout holds only the JSON lines.
 
     python3 tools/jax_anchors.py --size 64 PBICGSTAB_AGGREGATION_W_JACOBI
 
 `chip_smoke.py` holds the PyTorch port's runs on the card to these
 numbers. `--port` runs the same files through the port on the CPU
 instead (`device="cpu"`), with the same line: the spread between the
-two packages where a float32 run ends at max_iters. The JAX package's
+two packages where a float32 run ends at max_iters. `--device-route`
+runs the JAX package's setup through its device (jnp) formulation, the
+route a TPU takes, instead of its host numpy route: the port follows
+the device route (the host route's D2 truncation sums in float64). The JAX package's
 128^3 classical setup needs more than 26 GB of host memory; 64^3 about
 5 GB.
 """
@@ -35,6 +40,9 @@ def main():
                     choices=("float32", "float64"))
     ap.add_argument("--port", action="store_true",
                     help="run amgx_tpu_torch on the CPU instead")
+    ap.add_argument("--device-route", action="store_true",
+                    help="the JAX package's device (jnp) setup route on "
+                    "the CPU instead of its host numpy route")
     ap.add_argument("files", nargs="+", help="names under configs/")
     args = ap.parse_args()
     import numpy as np
@@ -44,13 +52,20 @@ def main():
     if args.port:
         import torch
         import amgx_tpu_torch as pkg
+        from amgx_tpu_torch import output
         A = pkg.gallery.poisson("7pt", n, n, n, device="cpu",
                                dtype=getattr(torch, args.dtype)).init()
     else:
         import jax
         jax.config.update("jax_platforms", "cpu")
         import amgx_tpu as pkg
+        from amgx_tpu import output
+        if args.device_route:
+            from amgx_tpu.ops import spgemm
+            spgemm._on_host = lambda A: False
         A = pkg.gallery.poisson("7pt", n, n, n, dtype=dt).init()
+    output.register_print_callback(
+        lambda msg, _n: sys.stderr.write(msg))
     A64 = sp.csr_matrix((np.asarray(A.values, np.float64),
                          np.asarray(A.col_indices),
                          np.asarray(A.row_offsets)))
@@ -58,8 +73,6 @@ def main():
     for name in args.files:
         cfg = pkg.Config.from_file(os.path.join(ROOT, "configs",
                                                name + ".json"))
-        cfg.set("print_solve_stats", 0)
-        cfg.set("print_grid_stats", 0)
         cfg.set("store_res_history", 1)
         if args.krylov_fusion is not None:
             cfg.set("krylov_fusion", args.krylov_fusion)
@@ -82,7 +95,8 @@ def main():
             s = getattr(s, "preconditioner", None)
         print(json.dumps({
             "file": name, "package": "amgx_tpu_torch" if args.port
-            else "amgx_tpu", "rows": n ** 3, "dtype": args.dtype,
+            else "amgx_tpu", "device_route": args.device_route,
+            "rows": n ** 3, "dtype": args.dtype,
             "krylov_fusion": args.krylov_fusion,
             "iterations": int(res.iterations), "status": str(res.status),
             "final_rel_res": float(hist[-1] / hist[0]),

@@ -259,6 +259,10 @@ def main():
         print("kernel_turns: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
     import amgx_tpu_torch as amgx
+    if hasattr(amgx, "register_print_callback"):
+        # the stock file's grid table goes to stderr, away from the JSON
+        # lines (a parent tree without output.py prints nothing)
+        amgx.register_print_callback(lambda msg, _n: sys.stderr.write(msg))
     from amgx_tpu_torch.ops import cuda_build
     from amgx_tpu_torch.ops import cuda_csr as C
     from amgx_tpu_torch.ops import cuda_rap as R_

@@ -22,10 +22,14 @@ sys.path.insert(0, ROOT)
 
 
 def _cfg(mod, path):
-    cfg = mod.Config.from_file(path)
-    for key in ("print_solve_stats", "print_grid_stats"):
-        cfg.set(key, 0)
-    return cfg
+    return mod.Config.from_file(path)
+
+
+def _quiet(output):
+    """Send a package's solve and grid tables away: the files set
+    print_solve_stats / print_grid_stats in nested scopes too, and
+    stdout carries only the JSON lines."""
+    output.register_print_callback(lambda msg, n: None)
 
 
 def main():
@@ -40,6 +44,10 @@ def main():
     import torch
     import amgx_tpu as jx
     import amgx_tpu_torch as pt
+    from amgx_tpu import output as jx_output
+    from amgx_tpu_torch import output as pt_output
+    _quiet(jx_output)
+    _quiet(pt_output)
     n = args.size
     names = args.files or sorted(
         os.path.basename(p)[:-5]

@@ -36,7 +36,8 @@ line: the solve's wall time, the device's busy time (sum of kernel and
 copy durations, one stream) and idle share, device ops and
 device->host copies per inner iteration (FGMRES's for the flagship,
 PCG's own), and the device time by kernel name, largest first. Needs a
-CUDA card; imports no JAX.
+CUDA card; imports no JAX. The solve and grid tables that a stock file
+asks for go to stderr.
 
 `--operator dad` solves A2 = D A D instead of the Poisson operator
 (chip_smoke.py `scaled_values`: variable coefficients, so no level is a
@@ -90,6 +91,10 @@ def main():
         return 2
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.presets import FLAGSHIP, FLAGSHIP_TAIL_OFF
+    if hasattr(amgx, "register_print_callback"):
+        # a stock file's solve and grid tables go to stderr: stdout holds
+        # the JSON line (a parent tree without output.py prints nothing)
+        amgx.register_print_callback(lambda msg, _n: sys.stderr.write(msg))
 
     n = args.size
     dev = torch.device("cuda", 0)
