@@ -18,12 +18,13 @@ from .config import Config
 from .output import register_print_callback
 from .matrix import CsrMatrix
 from .ops.cuda_spmv import LAUNCHES as _LAUNCHES
+from .ops.spgemm import PLAN_COUNTS as _PLAN_COUNTS
 from .resilience.status import SolveStatus
 from .solvers.base import create_solver
 
 __all__ = ["Config", "CsrMatrix", "SolveStatus", "create_solver", "gallery",
-           "presets", "kernel_launches", "register_print_callback",
-           "reset_kernel_launches"]
+           "presets", "kernel_launches", "plan_counts",
+           "register_print_callback", "reset_kernel_launches"]
 
 
 def kernel_launches() -> dict:
@@ -33,6 +34,15 @@ def kernel_launches() -> dict:
     return dict(_LAUNCHES)
 
 
+def plan_counts() -> dict:
+    """Galerkin plans built and served from the cross-setup caches since
+    the last reset, by kind ("rap", "agg": ops/spgemm.py; "geo":
+    amg/aggregation/galerkin.py)."""
+    return dict(_PLAN_COUNTS)
+
+
 def reset_kernel_launches():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    """Zero the launch counts and, beside them, the plan counts."""
+    for counts in (_LAUNCHES, _PLAN_COUNTS):
+        for name in counts:
+            counts[name] = 0

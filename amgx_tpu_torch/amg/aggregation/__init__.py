@@ -9,9 +9,14 @@ gets the relabel Galerkin product through a plan memoized on the level
 (ops/spgemm.py `AggPlan`; its value phase is B10's relabel form in
 float32), restricts through its children table (each coarse row's fine
 rows added in ascending order: deterministic on the card) and
-prolongates by a gather. `reuse_structure` carries the aggregates, the
-grid fields and the plan memo into a structure-reuse resetup's new
-level, which then reruns only the relabel value phase. With
+prolongates by a gather. A GEO level's product goes through its
+`GeoRapPlan` (galerkin.py), memoized on the level (`_geo_plan_memo`).
+The relabel plan is memoized on the level for the tensors it was built
+from and otherwise looked up in the cross-setup cache
+(ops/spgemm.py `get_agg_plan`). `reuse_structure` carries the
+aggregates, the grid fields and both plan memos into a structure-reuse
+resetup's new level, which then reruns only the value phase;
+`structure_snapshot` / `structure_restore` persist what it reads. With
 cycle_fusion=1 the level's transfers ride the smoother kernels instead:
 the restriction in B3's epilogue through the children table `ctab`, the
 prolongation in B4's prologue through the aggregate ids `agg` (with
@@ -24,14 +29,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
 from ... import registry
 from ...ops import spgemm
 from ...ops.smooth import (build_transfer_tables, children_index,
                            children_table, restrict_children)
 from ..hierarchy import AMGLevel
 from . import selectors  # noqa: F401  (registers the selectors)
-from .galerkin import (geo_assemble_dia, geo_coarse_values, geo_shapes,
-                       pair_sum_axis)
+from .galerkin import get_geo_plan, geo_shapes, pair_sum_axis
 
 
 def _geo_restrict(r, fine_shape, axis):
@@ -70,28 +77,32 @@ class AggregationAMGLevel(AMGLevel):
 
     def create_coarse_matrix(self):
         if self.geo_axes is not None:
-            pre = geo_coarse_values(self.A, self.geo_fine_shape,
-                                    self.geo_axes, self.geo_coarse_shape)
-            if pre is not None:
-                return geo_assemble_dia(pre[0], pre[1],
-                                        self.geo_coarse_shape)
+            # the memo names the plan that built this level's coarse
+            # operator, and no other (the value resetup splices into it)
+            self._geo_plan_memo = None
+            plan = get_geo_plan(self.A, self.geo_fine_shape, self.geo_axes,
+                                self.geo_coarse_shape)
+            Ac = None if plan is None else plan.coarse_matrix(self.A)
+            if Ac is not None:
+                self._geo_plan_memo = (plan,)
+                return Ac
         Ac = self._relabel_planned()
         if self.geo_coarse_shape is not None:
             Ac = dataclasses.replace(Ac, grid_shape=self.geo_coarse_shape)
         return Ac
 
     def _relabel_planned(self):
-        """The relabel Galerkin through the level's plan, built once per
-        (aggregates, A's pattern): the memo holds the tensors it was
-        built from and is reused only for those same objects, so a
-        structure-reuse resetup (same aggregates, same pattern tensors,
-        new values) reruns only the value phase."""
+        """The relabel Galerkin through the level's plan: the memo holds
+        the tensors it was built from and is reused only for those same
+        objects, so a structure-reuse resetup (same aggregates, same
+        pattern tensors, new values) reruns only the value phase; other
+        tensors look the plan up by content (`spgemm.get_agg_plan`)."""
         memo = getattr(self, "_rap_plan_memo", None)
         if memo is None or memo[0] is not self.aggregates \
                 or memo[1] is not self.A.row_offsets \
                 or memo[2] is not self.A.col_indices:
-            plan = spgemm.build_agg_plan(self.A, self.aggregates,
-                                         int(self.coarse_size))
+            plan = spgemm.get_agg_plan(self.A, self.aggregates,
+                                       int(self.coarse_size))
             memo = self._rap_plan_memo = (self.aggregates,
                                           self.A.row_offsets,
                                           self.A.col_indices, plan)
@@ -99,15 +110,46 @@ class AggregationAMGLevel(AMGLevel):
 
     def reuse_structure(self, old):
         """structure_reuse_levels: keep the old level's aggregates, grid
-        fields and relabel plan; no selector runs."""
-        self.aggregates = old.aggregates
+        fields and plan memos; no selector runs. A restored level's
+        aggregates (numpy) move to this level's device."""
+        agg = old.aggregates
+        if agg is not None and not torch.is_tensor(agg):
+            agg = torch.from_numpy(np.asarray(agg)).to(self.A.device)
+        self.aggregates = agg
         self.coarse_size = old.coarse_size
         self.geo_axes = old.geo_axes
         self.geo_fine_shape = old.geo_fine_shape
         self.geo_coarse_shape = old.geo_coarse_shape
-        memo = getattr(old, "_rap_plan_memo", None)
-        if memo is not None:
-            self._rap_plan_memo = memo
+        for attr in ("_rap_plan_memo", "_geo_plan_memo"):
+            memo = getattr(old, attr, None)
+            if memo is not None:
+                setattr(self, attr, memo)
+
+    def structure_snapshot(self):
+        if self.coarse_size is None:
+            return None
+
+        def listed(v):
+            return None if v is None else [int(e) for e in v]
+
+        meta = {"num_rows": int(self.A.num_rows),
+                "coarse_size": int(self.coarse_size),
+                "geo_axes": listed(self.geo_axes),
+                "geo_fine_shape": listed(self.geo_fine_shape),
+                "geo_coarse_shape": listed(self.geo_coarse_shape)}
+        arrays = {}
+        if self.aggregates is not None:
+            arrays["aggregates"] = self.aggregates.cpu().numpy()
+        return meta, arrays
+
+    @classmethod
+    def structure_restore(cls, meta, arrays):
+        g = cls._ghost(meta["num_rows"])
+        g.coarse_size = int(meta["coarse_size"])
+        g.aggregates = arrays.get("aggregates")
+        for k in ("geo_axes", "geo_fine_shape", "geo_coarse_shape"):
+            setattr(g, k, None if meta[k] is None else tuple(meta[k]))
+        return g
 
     def _geo_shapes(self):
         return geo_shapes(self.geo_fine_shape, self.geo_axes)

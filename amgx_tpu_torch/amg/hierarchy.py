@@ -32,14 +32,25 @@ kernels carry (`AMGLevel.matrix_free`: the unit-weight aggregation
 levels) take it.
 
 `resetup(A)` (AMGX_solver_resetup) honours `structure_reuse_levels`: 0
-sets up anew; -1 (all levels) or k (the first k) rebuild those levels
-from the old levels' structure (`AMGLevel.reuse_structure`: no selector
-runs) on the new coefficients, and set up every level below anew. The
-smoothers set up on the new values and the matrix-free detector runs
-again. This is the JAX package's generic reuse loop; its pipelined GEO
-value-only resetup (`value_resetup.py`) is not ported, and classical
-levels do not reuse their structure yet (`reuse_structure` raises). Not
-ported yet: telemetry.
+sets up anew. -1 (all levels) or at least the depth first tries the
+value-only route (value_resetup.py: a GEO / CHEBYSHEV_POLY / DENSE_LU
+hierarchy recomputes its values, taus, stencil coefficients and coarse
+QR with one host read; `_last_resetup_value_only` says it ran). Else
+the generic reuse loop: -1 or k (the first k) rebuild those levels from
+the old levels' structure (`AMGLevel.reuse_structure`: no selector
+runs; aggregation and classical levels keep their plans, so only the
+Galerkin value phase reruns) on the new coefficients, and set up every
+level below anew; the smoothers set up on the new values and the
+matrix-free detector runs again. Every build defers the GEO wrap
+checks to one host read (galerkin.py `deferred_wrap_checks`) and
+rebuilds without the GEO product when one fails.
+
+Structure snapshots: `AMGLevel.structure_snapshot()` gives (JSON-able
+meta, numpy arrays) of what `reuse_structure` reads, the level class's
+`structure_restore(meta, arrays)` a ghost level from them, and
+`AMG.adopt_structure(ghosts)` makes the next `setup` take the reuse
+loop on them (discarded on a row-count mismatch). Not ported yet:
+telemetry.
 
 `print_grid_stats` (read in the AMG's own scope) prints the grid table
 after each setup through output.py (`grid_stats`, rendered from
@@ -103,8 +114,31 @@ class AMGLevel:
         resetup (create_coarse_matrix then recomputes only the Galerkin
         values)."""
         raise NotImplementedError(
-            f"structure reuse of {self.algorithm} levels is not ported yet "
-            f"(structure_reuse_levels=0 sets up anew; ROADMAP.md A5)")
+            f"structure reuse of {self.algorithm} levels is not implemented "
+            f"(structure_reuse_levels=0 sets up anew; ROADMAP.md Queue A "
+            f"item 7 covers AGGREGATION and CLASSICAL levels)")
+
+    def structure_snapshot(self):
+        """(meta, arrays): what `reuse_structure` reads, as JSON-able
+        scalars and numpy arrays; None where the class does not persist
+        its structure."""
+        return None
+
+    @classmethod
+    def structure_restore(cls, meta, arrays):
+        """A ghost level from a snapshot: only what `reuse_structure`
+        reads, and A.num_rows for the reuse loop's check; never solved
+        with."""
+        raise NotImplementedError(
+            f"{cls.__name__} does not restore a structure snapshot")
+
+    @classmethod
+    def _ghost(cls, num_rows: int):
+        import types
+        g = cls.__new__(cls)
+        g.A = types.SimpleNamespace(num_rows=int(num_rows))
+        g.smoother = None
+        return g
 
     def level_data(self) -> Dict[str, Any]:
         d = {"A": self.A}
@@ -170,32 +204,69 @@ class AMG:
         self._tail_plans: Dict[tuple, Any] = {}
         # id(leaf) -> (leaf, cast twin): the reduced-precision solve data
         self._cast_memo: Dict[int, tuple] = {}
+        # the value-only resetup's plan (value_resetup.py; False: none)
+        self._vr_plan = None
+        self._last_resetup_value_only = False
+        self._ghost_levels = None
+
+    def _reset_caches(self):
+        self._tail_plans = {}
+        self._cast_memo = {}
+        self._vr_plan = None
 
     # -- setup -----------------------------------------------------------
     def setup(self, A: CsrMatrix):
+        """Build the hierarchy on A; after `adopt_structure`, the reuse
+        loop on the adopted levels instead (when A's rows match)."""
+        Af = A if A.initialized else A.init()
+        ghosts, self._ghost_levels = self._ghost_levels, None
+        self._last_resetup_value_only = False
+        if ghosts and ghosts[0].A.num_rows == Af.num_rows:
+            self.levels = list(ghosts)
+            return self._resetup_impl(Af, -1)
         self.levels = []
-        self._tail_plans = {}
-        self._cast_memo = {}
-        self._build_levels(A if A.initialized else A.init(), 0)
+        self._reset_caches()
+        self._build_levels_checked(Af, 0)
         self._finalize_setup()
         return self
+
+    def adopt_structure(self, ghost_levels):
+        """Make the next `setup` rebuild from these levels' structure
+        (`structure_restore` ghosts): Galerkin values and smoothers only,
+        no selector. One-shot: that setup consumes the ghosts, or
+        discards them when its operator has another row count."""
+        self._ghost_levels = list(ghost_levels)
 
     def resetup(self, A: CsrMatrix):
         """Set up on new coefficients keeping the coarsening structure of
         the first `structure_reuse_levels` levels (-1: all); 0, an empty
-        hierarchy or another row count set up anew (the JAX package's
-        generic reuse loop, src/amg.cu's structure-reuse path)."""
+        hierarchy or another row count set up anew (src/amg.cu's
+        structure-reuse path). Reusing every level first tries the
+        value-only route, as the JAX package does."""
         reuse = int(self.cfg.get("structure_reuse_levels", self.scope))
         if reuse == 0 or not self.levels \
                 or A.num_rows != self.levels[0].A.num_rows:
             return self.setup(A)
         Af = A if A.initialized else A.init()
+        self._last_resetup_value_only = False
+        if reuse < 0 or reuse >= len(self.levels):
+            from .value_resetup import try_value_resetup
+            if try_value_resetup(self, Af):
+                self._last_resetup_value_only = True
+                return self
+        return self._resetup_impl(Af, reuse)
+
+    def _resetup_impl(self, Af: CsrMatrix, reuse: int):
+        """The generic reuse loop over the first `reuse` (-1: all) of the
+        current levels, then a fresh build below them."""
         k = len(self.levels) if reuse < 0 else min(reuse, len(self.levels))
         old_levels, self.levels = self.levels, []
-        self._tail_plans = {}
-        self._cast_memo = {}
-        lvl = 0
-        try:
+        self._reset_caches()
+        from .aggregation.galerkin import (deferred_wrap_checks,
+                                           geo_dia_disabled)
+
+        def reuse_loop(Af):
+            lvl = 0
             while lvl < k:
                 old = old_levels[lvl]
                 if Af.num_rows != old.A.num_rows:
@@ -207,12 +278,38 @@ class AMG:
                 self._attach_level_smoother(level)
                 Af = Ac if Ac.initialized else Ac.init()
                 lvl += 1
+            return Af, lvl
+
+        try:
+            with deferred_wrap_checks() as flush:
+                Ac, lvl = reuse_loop(Af)
+                failed = flush()
+            if failed:
+                # values that break the GEO product's invariant: the same
+                # structure through the relabel product
+                self.levels = []
+                with geo_dia_disabled():
+                    Ac, lvl = reuse_loop(Af)
         except NotImplementedError:
             self.levels = old_levels     # a refused resetup changes nothing
             raise
-        self._build_levels(Af, lvl)
+        self._build_levels_checked(Ac, lvl)
         self._finalize_setup()
         return self
+
+    def _build_levels_checked(self, Af: CsrMatrix, lvl: int):
+        """`_build_levels` with the GEO wrap checks read once at the end;
+        a failed check rebuilds those levels with the relabel product."""
+        from .aggregation.galerkin import (deferred_wrap_checks,
+                                           geo_dia_disabled)
+        base = list(self.levels)
+        with deferred_wrap_checks() as flush:
+            self._build_levels(Af, lvl)
+            failed = flush()
+        if failed:
+            self.levels = base
+            with geo_dia_disabled():
+                self._build_levels(Af, lvl)
 
     def _build_levels(self, Af: CsrMatrix, lvl: int):
         level_cls = registry.amg_levels.get(self.algorithm)

@@ -307,7 +307,8 @@ def _register_default_parameters():
     # setup placement and the Galerkin plan (the JAX package's values and
     # defaults; what each one means in the port)
     R("spgemm_plan", str, "plan-split Galerkin RAP (ops/spgemm.py): the "
-      "structure phase runs once per level on the operator's device, the "
+      "structure phase runs once per pattern on the operator's device "
+      "(memoized on the level, cached across setups), the "
       "value phase through the RAP value kernel (float32) or the plain "
       "ordered sums; 0 = the eager (R A) P composition on classical "
       "levels; aggregation levels always take the planned relabel "

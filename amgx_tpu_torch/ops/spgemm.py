@@ -32,10 +32,22 @@ relabel form in float32 (`cuda_rap.rap_values_relabel`), the plain sum
 otherwise. The aggregation level memoizes its plan, so a structure-reuse
 resetup reruns only the value phase. `spgemm_plan=0` (the JAX package's
 eager `coarse_a_from_aggregates`) takes the planned product here too.
-The JAX package's digest-keyed cross-setup cache is not ported.
+
+The cross-setup plan cache (`get_rap_plan`, `get_agg_plan`; the JAX
+package's digest-keyed `_PLAN_CACHE`): a warm setup of a pattern seen
+before, or a resetup on new pattern tensors of the same content, builds
+no plan. An entry is keyed on the pattern's content: a fingerprint
+computed on the patterns' device (two int64 sums a tensor, one host
+read) finds it, and `_same_content` then holds the tensors the entry
+keeps against the new ones, so a same-size pattern of other content
+(a permutation) is never served a stale plan. The cache is LRU and
+bounded in bytes (plans and kept patterns, PLAN_CACHE_MAX_BYTES).
+`PLAN_COUNTS` counts its builds and hits, and the GEO plan cache's
+(amg/aggregation/galerkin.py), beside the kernel launch counts.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -163,14 +175,105 @@ def rap_values(plan: RapPlan, a, r, p) -> torch.Tensor:
     return cuda_rap.rap_values_plain(plan, a, r, p)
 
 
-def planned_rap(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix):
-    """(coarse matrix, plan): the structure phase, then the value phase
-    on the plan's output pattern."""
-    plan = build_rap_plan(R, A, P)
+def rap_coarse_matrix(plan: RapPlan, A: CsrMatrix, R: CsrMatrix,
+                      P: CsrMatrix) -> CsrMatrix:
+    """The coarse operator of a RAP plan: the value phase on the plan's
+    output pattern."""
     vals = rap_values(plan, A.values, R.values, P.values).to(A.dtype)
     return CsrMatrix(row_offsets=plan.row_offsets,
                      col_indices=plan.col_indices, values=vals,
-                     num_rows=plan.num_rows, num_cols=plan.num_cols), plan
+                     num_rows=plan.num_rows, num_cols=plan.num_cols)
+
+
+def planned_rap(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix):
+    """(coarse matrix, plan): the structure phase (or the cached plan of
+    the same patterns), then the value phase."""
+    plan = get_rap_plan(R, A, P)
+    return rap_coarse_matrix(plan, A, R, P), plan
+
+
+# -- the cross-setup plan cache ----------------------------------------------
+
+_PLAN_CACHE = collections.OrderedDict()   # key -> (patterns, plan), LRU
+PLAN_CACHE_MAX_BYTES = 4 << 30
+PLAN_COUNTS = {"rap_build": 0, "rap_hit": 0, "agg_build": 0, "agg_hit": 0,
+               "geo_build": 0, "geo_hit": 0}
+
+
+def clear_plan_cache():
+    """Drop every cached plan (RAP, relabel and GEO): a measurement's
+    device memory then holds only the live hierarchies'."""
+    from ..amg.aggregation.galerkin import _GEO_PLAN_CACHE
+    _PLAN_CACHE.clear()
+    _GEO_PLAN_CACHE.clear()
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _fingerprint(tensors) -> tuple:
+    """Two int64 sums a tensor (of its entries, and of its entries times
+    their position + 1; wrapping), on its device, read in one go."""
+    parts = []
+    for t in tensors:
+        v = t.reshape(-1).long()
+        parts.append(v.sum())
+        parts.append((v * torch.arange(1, v.numel() + 1, device=v.device)
+                      ).sum())
+    return tuple(torch.stack(parts).tolist())
+
+
+def _same_content(kept, new) -> bool:
+    """Every tensor of `new` equals its counterpart in `kept` (one host
+    read for all of them)."""
+    if any(a.shape != b.shape or a.dtype != b.dtype or a.device != b.device
+           for a, b in zip(kept, new)):
+        return False
+    eq = [(a == b).all() for a, b in zip(kept, new) if a is not b]
+    return not eq or bool(torch.stack(eq).all())
+
+
+def _cached_plan(kind: str, meta: tuple, patterns: tuple, build):
+    """The plan of `patterns` (plus `meta`) from the cache, else
+    `build()` stored there."""
+    key = (kind, meta, str(patterns[0].device), _fingerprint(patterns))
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None and _same_content(hit[0], patterns):
+        _PLAN_CACHE.move_to_end(key)
+        PLAN_COUNTS[kind + "_hit"] += 1
+        return hit[1]
+    plan = build()
+    PLAN_COUNTS[kind + "_build"] += 1
+    _PLAN_CACHE[key] = (patterns, plan)
+    _PLAN_CACHE.move_to_end(key)
+    total = 0
+    for k in reversed(list(_PLAN_CACHE)):
+        kept, p = _PLAN_CACHE[k]
+        total += p.nbytes() + sum(_nbytes(t) for t in kept)
+        if total > PLAN_CACHE_MAX_BYTES and k != key:
+            del _PLAN_CACHE[k]
+    return plan
+
+
+def get_rap_plan(R: CsrMatrix, A: CsrMatrix, P: CsrMatrix) -> RapPlan:
+    """The RAP plan of (R, A, P)'s patterns, built or from the cache."""
+    return _cached_plan(
+        "rap", (R.num_rows, A.num_rows, A.num_cols, P.num_cols),
+        (R.row_offsets, R.col_indices, A.row_offsets, A.col_indices,
+         P.row_offsets, P.col_indices),
+        lambda: build_rap_plan(R, A, P))
+
+
+def get_agg_plan(A: CsrMatrix, agg: torch.Tensor, nc: int,
+                 fold_diag: bool = False) -> "AggPlan":
+    """The relabel plan of (A's pattern, aggregates), built or from the
+    cache."""
+    agg = agg.to(A.device)
+    return _cached_plan(
+        "agg", (A.num_rows, A.num_cols, int(nc), bool(fold_diag)),
+        (A.row_offsets, A.col_indices, agg),
+        lambda: build_agg_plan(A, agg, nc, fold_diag))
 
 
 # -- the relabel (aggregation) Galerkin ------------------------------------

@@ -239,6 +239,17 @@ Phases, one JSON line each on stdout:
                and equal to the CPU route's. The package's solve and grid
                tables go to a registered callback (counted on the done
                line), never to stdout.
+15. resetup  -- AMGX_solver_resetup at 128^3 (`phase_resetup`): the
+               untouched FLAGSHIP with structure_reuse_levels=-1 (the
+               value-only route on 2 A, coefficients exactly doubled,
+               the solve of a fresh setup on 2 A; the generic loop on
+               D A D, stencils dropped, 2 / 81 as flagship_dad) and
+               FGMRES_CLASSICAL_AGGRESSIVE_PMIS with it (CF split, P, R
+               and plan kept, B10 twice a level, no plan built; a second
+               setup of the same content served by the plan cache, its
+               level-0 lookup timed against a build); setup, resetup and
+               warm-setup seconds, host syncs, peak memory; at 32^3 the
+               card's classical resetup equal to the CPU's bit for bit.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -3684,6 +3695,216 @@ def phase_aggressive_kcycle(torch, amgx, dev, per_path):
           f"{rh.status} in {rh.iterations}")
 
 
+def timed(torch, fn):
+    """(fn(), wall seconds with the card's queue drained on both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stencils(amg):
+    return [lv.smoother._mf_stencil for lv in amg.levels]
+
+
+def phase_resetup(torch, amgx, dev, per_path):
+    """AMGX_solver_resetup at 128^3 through the entry points.
+    (F) the untouched FLAGSHIP with amg:structure_reuse_levels=-1:
+    setup(A) and solve (2 / 31); resetup(2 A) takes the value route (one
+    host read; every matrix-free level's coefficients exactly twice the
+    old), then solves as a fresh setup on 2 A does (the same iterations,
+    x within 1e-6); resetup(D A D) takes the generic route, drops every
+    stencil and solves as flagship_dad (2 / 81, true residual of A2 <=
+    1e-8). (C) FGMRES_CLASSICAL_AGGRESSIVE_PMIS with
+    structure_reuse_levels=-1 in float32: setup(A), solve (17),
+    resetup(D A D) keeps each level's CF split, P and R (the same
+    tensors), builds no RAP plan and runs B10's value phase twice a
+    level, then solves; a second solver's setup on new pattern tensors of
+    the same content is served every plan from the cache (the lookup
+    timed against a build at level 0); peak memory of setup + resetup.
+    At 32^3 (C)'s card resetup equals the CPU route's, bit for bit, with
+    the same iterations. Wall seconds of every setup and resetup."""
+    from amgx_tpu_torch.ops import spgemm
+    from amgx_tpu_torch.presets import FLAGSHIP
+    card = nvidia_smi()
+    n = 128
+
+    # -- (F) ---------------------------------------------------------------
+    cfg = amgx.Config.from_string(FLAGSHIP + ", amg:structure_reuse_levels=-1")
+    A = amgx.gallery.poisson("7pt", n, n, n, device=dev).init()
+    b = torch.ones(n ** 3, dtype=torch.float64, device=dev)
+
+    def inner(res):
+        return int(res.extra_stats["inner_iters"])
+
+    def flagship():
+        rec = {}
+        slv = amgx.create_solver(cfg, device=dev)
+        _, rec["setup_s"] = timed(torch, lambda: slv.setup(A))
+        res = slv.solve(b)
+        rec["setup_iterations"] = [res.iterations, inner(res)]
+        check(rec["setup_iterations"] == [2, 31],
+              f"resetup (F): setup(A) solves in {rec['setup_iterations']}, "
+              f"2 / 31 as the flagship phase")
+        amg = precond_amg(slv)
+        old = stencils(amg)
+        A2 = A.with_values(2 * A.values)
+        _, rec["resetup_value_first_s"] = timed(torch,
+                                                lambda: slv.resetup(A2))
+        value_only = amg._last_resetup_value_only
+        new = stencils(amg)
+        _, rec["resetup_value_s"] = timed(torch, lambda: slv.resetup(A2))
+        _, rec["resetup_value_host_syncs"] = count_syncs(
+            torch, lambda: slv.resetup(A2))
+        _, rec["coarse_qr_host_syncs"] = count_syncs(
+            torch, amg.coarse_solver.solver_setup)
+        doubled = all(
+            (o is None and s is None) or (
+                torch.equal(s.coeffs, 2 * o.coeffs)
+                and s.host == tuple(2 * h for h in o.host))
+            for o, s in zip(old, new))
+        res2 = slv.solve(b)
+        fresh = amgx.create_solver(cfg, device=dev)
+        _, rec["fresh_setup_2A_s"] = timed(torch, lambda: fresh.setup(A2))
+        ref = fresh.solve(b)
+        x_rel = float(torch.linalg.norm(res2.x - ref.x)
+                      / torch.linalg.norm(ref.x))
+        _, rec["warm_solve_s"] = timed(torch, lambda: slv.solve(b))
+        rec.update(value_route=value_only, matrix_free_levels=sum(
+            s is not None for s in new), coefficients_doubled=doubled,
+            iterations_2A=[res2.iterations, inner(res2)],
+            fresh_iterations_2A=[ref.iterations, inner(ref)],
+            x_rel_diff_2A=x_rel)
+        del fresh
+        check(value_only and doubled and rec["matrix_free_levels"] > 0,
+              f"resetup (F): resetup(2 A) takes the value route and doubles "
+              f"every matrix-free level's coefficients {rec}")
+        check(res2.status == "success"
+              and rec["iterations_2A"] == rec["fresh_iterations_2A"]
+              and x_rel <= 1e-6,
+              f"resetup (F): the solve after resetup(2 A) is a fresh "
+              f"setup's {rec}")
+        A3 = dad_operator(torch, A)
+        _, rec["resetup_generic_s"] = timed(torch, lambda: slv.resetup(A3))
+        rec["generic_route"] = not amg._last_resetup_value_only
+        rec["stencils_left"] = sum(s is not None for s in stencils(amg))
+        res3 = slv.solve(b)
+        rec["iterations_dad"] = [res3.iterations, inner(res3)]
+        rec["true_rel_res_dad"] = true_rel_res(torch, A3, res3.x, b)
+        _, rec["resetup_generic_host_syncs"] = count_syncs(
+            torch, lambda: slv.resetup(A3))
+        check(rec["generic_route"] and rec["stencils_left"] == 0
+              and res3.status == "success"
+              and rec["iterations_dad"] == [2, 81]
+              and rec["true_rel_res_dad"] <= 1e-8,
+              f"resetup (F): resetup(D A D) takes the generic route and "
+              f"solves as flagship_dad {rec}")
+        rec["levels"] = amg.level_rows()
+        return rec
+
+    rec = run_path(amgx, per_path, "resetup_flagship", flagship)
+    c = per_path["resetup_flagship"]
+    emit({"phase": "resetup", "config": "flagship_128^3", "rows": n ** 3,
+          "nvidia_smi": card, **rec, "launches": c})
+    check(c["dia_smooth_restrict_mf"] > 0 and c["dia_coarse_tail_mf"] > 0
+          and c["dia_smooth_restrict"] > 0,
+          f"resetup (F): B3-mf / B5-mf before D A D, the slab B3 after {c}")
+
+    # -- (C) ---------------------------------------------------------------
+    def classical_cfg():
+        cfg = amgx.Config.from_file(os.path.join(ROOT, "configs",
+                                                 AGGRESSIVE_MAIN + ".json"))
+        cfg.set("structure_reuse_levels", -1, scope="amg_solver")
+        return cfg
+
+    spgemm.clear_plan_cache()
+    torch.cuda.empty_cache()
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    b = torch.ones(n ** 3, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slv = amgx.create_solver(classical_cfg(), device=dev)
+    _, setup_s = timed(torch, lambda: slv.setup(A))
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    res = slv.solve(b)
+    amg = precond_amg(slv)
+    kept = [(lv.cf_map, lv.P, lv.R, lv.rap_plan) for lv in amg.levels]
+    A2 = dad_operator(torch, A)
+    amgx.reset_kernel_launches()
+    _, resetup_s = timed(torch, lambda: slv.resetup(A2))
+    in_resetup, plans = amgx.kernel_launches(), amgx.plan_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    res2 = slv.solve(b)
+    per_path["resetup_classical"] = amgx.kernel_launches()
+    same = [lv.cf_map is k[0] and lv.P is k[1] and lv.R is k[2]
+            and lv.rap_plan is k[3] for lv, k in zip(amg.levels, kept)]
+    amgx.reset_kernel_launches()
+    slv2 = amgx.create_solver(classical_cfg(), device=dev)
+    A_new = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                                 device=dev).init()
+    _, warm_setup_s = timed(torch, lambda: slv2.setup(A_new))
+    per_path["resetup_classical_warm_setup"] = amgx.kernel_launches()
+    warm_plans = amgx.plan_counts()
+    lv = precond_amg(slv2).levels[0]
+    lookup = [timed(torch, lambda: spgemm.get_rap_plan(lv.R, lv.A, lv.P))[1]
+              for _ in range(3)]
+    build = [timed(torch, lambda: spgemm.build_rap_plan(lv.R, lv.A, lv.P))[1]
+             for _ in range(3)]
+    nlev = len(amg.levels)
+    rec = {"phase": "resetup", "config": f"{AGGRESSIVE_MAIN}_128^3",
+           "rows": n ** 3, "nvidia_smi": card, "levels": amg.level_rows(),
+           "setup_s": setup_s, "resetup_s": resetup_s,
+           "resetup_over_setup": resetup_s / setup_s,
+           "warm_setup_s": warm_setup_s,
+           "setup_peak_bytes": setup_peak,
+           "setup_resetup_peak_bytes": peak,
+           "iterations": res.iterations, "status": res.status,
+           "iterations_dad": res2.iterations, "status_dad": res2.status,
+           "structure_kept": same,
+           "rap_values_launches_in_resetup": in_resetup["rap_values"],
+           "plans_in_resetup": plans, "plans_in_warm_setup": warm_plans,
+           "level0_plan_lookup_s": sorted(lookup)[1],
+           "level0_plan_build_s": sorted(build)[1],
+           "level0_plan_bytes": lv.rap_plan.nbytes(),
+           "launches": per_path["resetup_classical"]}
+    emit(rec)
+    check(res.status == "success" and res.iterations == 17,
+          f"resetup (C): setup(A) solves in {res.iterations}, 17 as the "
+          f"aggressive phase")
+    check(all(same), f"resetup (C): CF split, P, R and plan kept {same}")
+    check(in_resetup["rap_values"] == 2 * nlev and plans["rap_build"] == 0,
+          f"resetup (C): B10 twice on each of {nlev} levels, no plan built "
+          f"{in_resetup} {plans}")
+    check(res2.status == "success", f"resetup (C): {res2.status} on D A D")
+    check(warm_plans["rap_build"] == 0 and warm_plans["rap_hit"]
+          == len(precond_amg(slv2).levels), f"resetup (C): the second "
+          f"setup's plans all come from the cache {warm_plans}")
+    del slv, slv2, amg, lv, kept
+
+    # -- (C) at 32^3: the card's resetup is the CPU route's ----------------
+    m = 32
+    out = []
+    for d in (dev, torch.device("cpu")):
+        A = amgx.gallery.poisson("7pt", m, m, m, dtype=torch.float32,
+                                 device=d).init()
+        s = amgx.create_solver(classical_cfg(), device=d)
+        s.setup(A)
+        s.resetup(dad_operator(torch, A))
+        r = s.solve(torch.ones(m ** 3, dtype=torch.float32, device=d))
+        out.append((classical_bits(torch, precond_amg(s)), r))
+    (bc, rc), (bh, rh) = out
+    equal = len(bc) == len(bh) and all(torch.equal(x, y)
+                                       for x, y in zip(bc, bh))
+    emit({"phase": "resetup", "config": f"{AGGRESSIVE_MAIN}_{m}^3_cpu",
+          "rows": m ** 3, "tensors_compared": len(bc),
+          "card_equals_cpu": equal, "iterations_cuda": rc.iterations,
+          "iterations_cpu": rh.iterations})
+    check(equal and rc.iterations == rh.iterations and rc.status == "success",
+          f"resetup (C) {m}^3: the card's resetup equals the CPU's "
+          f"({equal}), {rc.iterations} / {rh.iterations} iterations")
+
+
 def phase_aggregation(torch, amgx, dev, per_path, summary):
     """AmgX's stock PCG_AGGREGATION_JACOBI and FGMRES_AGGREGATION_JACOBI,
     read from configs/, on the 7-pt 128^3 Poisson in float32 (b = 1):
@@ -4092,6 +4313,7 @@ def main():
     phase_bicgstab(torch, amgx, dev, per_path)
     phase_multicolor(torch, amgx, dev, per_path)
     phase_aggressive_kcycle(torch, amgx, dev, per_path)
+    phase_resetup(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():

@@ -3,8 +3,8 @@ JAX package, on the CPU: configs/PCG_AGGREGATION_JACOBI.json (with a
 structure-reuse resetup on D A D, all levels and one),
 FGMRES_AGGREGATION_JACOBI.json and AGGREGATION_MULTI_PAIRWISE.json at
 12^3 in float32: the same iterations, status, hierarchy (rows,
-aggregates) and residual history; and the classical levels' refusal to
-reuse their structure. The selectors, the relabel plan and the transfer
+aggregates) and residual history; and a classical resetup's level rows
+with and without structure reuse. The selectors, the relabel plan and the transfer
 tables are in test_torch_aggregation.py.
 
 The JAX side runs as its own tests run it: its default host setup.
@@ -24,7 +24,7 @@ from amgx_tpu_torch.amg.hierarchy import AMG
 from amgx_tpu_torch.config import Config
 
 from _torch_util import rel
-from chip_smoke import ROOT, agg_config, scaled_values
+from chip_smoke import CLASSICAL, ROOT, agg_config, scaled_values
 
 # f32: one rounding per addition
 TOL32 = 1e-6
@@ -39,18 +39,31 @@ def _t(a):
 
 
 def test_classical_structure_reuse_raises():
-    """Classical levels do not reuse their structure yet: a resetup with
-    structure_reuse_levels != 0 says so; 0 sets up anew."""
-    cfg = ("algorithm=CLASSICAL, selector=PMIS, interpolator=D2,"
-           " smoother=JACOBI_L1, max_levels=3, structure_reuse_levels={}")
-    A = pt.gallery.poisson("7pt", 8, 8, 8, device="cpu")
-    amg = AMG(Config.from_string(cfg.format(-1))).setup(A)
-    levels = list(amg.levels)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        amg.resetup(A)
-    assert amg.levels == levels          # the refused resetup kept them
-    amg = AMG(Config.from_string(cfg.format(0))).setup(A)
-    assert amg.resetup(A).level_rows() == amg.level_rows()
+    """A classical resetup with structure_reuse_levels -1 (every level's
+    structure kept) and 0 (set up anew) on 2 A gives the JAX package's
+    level rows (CLASSICAL at 8^3; the strength of 2 A is that of A, so
+    the JAX package's fresh setup reuses its compiled shapes)."""
+    n = 8
+    Aj = jx.gallery.poisson("7pt", n, n, n).init()
+    A2j = jx.CsrMatrix.from_scipy_like(
+        np.asarray(Aj.row_offsets), np.asarray(Aj.col_indices),
+        2 * np.asarray(Aj.values), n ** 3, n ** 3).init()
+    A = pt.gallery.poisson("7pt", n, n, n, device="cpu").init()
+    for reuse in (-1, 0):
+        cfg = CLASSICAL + f", amg:structure_reuse_levels={reuse}"
+        js = jx.create_solver(JaxConfig.from_string(cfg))
+        js.setup(Aj)
+        js.resetup(A2j)
+        ps = pt.create_solver(Config.from_string(cfg), device="cpu")
+        ps.setup(A)
+        levels = list(_amg(ps).levels)
+        ps.resetup(A.with_values(2 * A.values))
+        amg = _amg(ps)
+        jamg = _amg(js)
+        assert amg.level_rows() == [lv.A.num_rows for lv in jamg.levels] + [
+            jamg.coarsest_A.num_rows]
+        assert all((a.P is b.P) == (reuse != 0)
+                   for a, b in zip(amg.levels, levels))
 
 
 # -- whole solves --------------------------------------------------------------
