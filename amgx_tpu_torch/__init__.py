@@ -13,7 +13,7 @@ CUDA (amgx_tpu_torch/csrc/), built with nvcc at first use.
     res = slv.solve(torch.ones(A.num_rows, dtype=torch.float64))
 """
 from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
-from . import gallery, presets
+from . import batch, gallery, presets
 from .config import Config
 from .output import register_print_callback
 from .matrix import CsrMatrix
@@ -22,8 +22,8 @@ from .ops.spgemm import PLAN_COUNTS as _PLAN_COUNTS
 from .resilience.status import SolveStatus
 from .solvers.base import create_solver
 
-__all__ = ["Config", "CsrMatrix", "SolveStatus", "create_solver", "gallery",
-           "presets", "kernel_launches", "plan_counts",
+__all__ = ["Config", "CsrMatrix", "SolveStatus", "batch", "create_solver",
+           "gallery", "presets", "kernel_launches", "plan_counts",
            "register_print_callback", "reset_kernel_launches"]
 
 

@@ -120,7 +120,11 @@ class AggregationAMGLevel(AMGLevel):
         self.geo_axes = old.geo_axes
         self.geo_fine_shape = old.geo_fine_shape
         self.geo_coarse_shape = old.geo_coarse_shape
-        for attr in ("_rap_plan_memo", "_geo_plan_memo"):
+        # the transfer tables too (each memo names the aggregates it was
+        # built from): every system of a multi-matrix batch then shares
+        # them by identity (batch/core.py `stack_solve_datas`)
+        for attr in ("_rap_plan_memo", "_geo_plan_memo", "_children_memo",
+                     "_xfer_memo"):
             memo = getattr(old, attr, None)
             if memo is not None:
                 setattr(self, attr, memo)
@@ -151,6 +155,13 @@ class AggregationAMGLevel(AMGLevel):
             setattr(g, k, None if meta[k] is None else tuple(meta[k]))
         return g
 
+    def batch_refusal(self):
+        if self.geo_axes is not None:
+            return ("GEO aggregation levels have no batched cycle yet "
+                    "(ROADMAP.md Queue A item 9: SERVING_CG's GEO + "
+                    "CHEBYSHEV_POLY through the value route)")
+        return None
+
     def _geo_shapes(self):
         return geo_shapes(self.geo_fine_shape, self.geo_axes)
 
@@ -179,14 +190,16 @@ class AggregationAMGLevel(AMGLevel):
         per level; None with cycle_fusion=0, on a level without a DIA
         view or with an aggregate of more than TRANSFER_MAX_CHILD rows."""
         memo = getattr(self, "_xfer_memo", None)
-        if memo is None:
+        has_dia = self.A.dia_offsets is not None
+        if memo is None or memo[0] is not self.aggregates \
+                or memo[1] != has_dia:
             tables = None
             if bool(int(self.cfg.get("cycle_fusion", self.scope))) \
                     and self.aggregates is not None and self.coarse_size:
                 tables = build_transfer_tables(self.A, self.aggregates,
                                                int(self.coarse_size))
-            memo = self._xfer_memo = (tables,)
-        return memo[0]
+            memo = self._xfer_memo = (self.aggregates, has_dia, tables)
+        return memo[2]
 
     def supports_fusion(self, data):
         """The fused transfers; a matrix-free level (its stencil installed
@@ -227,4 +240,4 @@ class AggregationAMGLevel(AMGLevel):
                 xc = _geo_prolongate(xc, shapes[k], shapes[k + 1],
                                      self.geo_axes[k])
             return xc
-        return xc[data["aggregates"]]
+        return xc[..., data["aggregates"]]

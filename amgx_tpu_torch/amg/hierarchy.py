@@ -116,7 +116,7 @@ class AMGLevel:
         raise NotImplementedError(
             f"structure reuse of {self.algorithm} levels is not implemented "
             f"(structure_reuse_levels=0 sets up anew; ROADMAP.md Queue A "
-            f"item 7 covers AGGREGATION and CLASSICAL levels)")
+            f"item 8 covers the ENERGYMIN level)")
 
     def structure_snapshot(self):
         """(meta, arrays): what `reuse_structure` reads, as JSON-able
@@ -158,6 +158,11 @@ class AMGLevel:
 
     def prolongate(self, data, xc):
         raise NotImplementedError
+
+    def batch_refusal(self):
+        """Why a batched cycle cannot run this level, or None."""
+        return (f"{self.algorithm} levels have no batched cycle yet "
+                f"(ROADMAP.md Queue A item 9: classical levels)")
 
     # fused cycle hooks (amg/cycles.py consults supports_fusion first)
     def supports_fusion(self, data):
@@ -440,7 +445,8 @@ class AMG:
         declines: its epilogue would reduce the rounded product while the
         caller needs x'.b in its own dtype."""
         from .cycles import run_cycle_dot
-        if self.precision_policy.cast_dtype is not None:
+        if self.precision_policy.cast_dtype is not None or b.dim() == 2:
+            # a batch declines too: no batched kernel carries the dot
             return self.cycle(data, b, x), None
         return run_cycle_dot(self, self.cycle_name, data, b, x)
 

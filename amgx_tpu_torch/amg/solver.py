@@ -16,6 +16,30 @@ class AlgebraicMultigridSolver(Solver):
         super().__init__(cfg, scope, name, device)
         self.amg = AMG(cfg, scope)
 
+    batched_iteration = True
+
+    def batch_refusal(self):
+        """A batched cycle needs a fixed cycle shape and levels with a
+        batched form (AMGLevel.batch_refusal), in the operator's dtype:
+        the batched kernels take float32 operands, so a hierarchy cast
+        to another precision (amg_precision / solve_precision) is
+        refused here on every device, not in the first cycle on the
+        card. The smoothers and the coarse solver answer for
+        themselves."""
+        if self.amg.cycle_name not in ("V", "W", "F"):
+            return (f"the {self.amg.cycle_name} cycle has no batched form "
+                    f"yet (ROADMAP.md Queue A item 9)")
+        cast = self.amg.precision_policy.cast_dtype
+        if cast is not None:
+            return (f"a {cast} hierarchy has no batched cycle yet "
+                    f"(ROADMAP.md Queue A item 9: reduced-precision "
+                    f"hierarchies)")
+        for lv in self.amg.levels:
+            why = lv.batch_refusal()
+            if why is not None:
+                return why
+        return super().batch_refusal()
+
     def solver_setup(self):
         self.amg.setup(self.A)
 
@@ -47,5 +71,6 @@ class AlgebraicMultigridSolver(Solver):
     def breakdown(self, state):
         # a non-finite cycle output means the hierarchy itself is broken:
         # BREAKDOWN, not a NaN storm at max_iters. Evaluated only by the
-        # monitored driver, so a preconditioner application pays nothing
-        return ~torch.isfinite(state["x"]).all()
+        # monitored loop, so a preconditioner application pays nothing;
+        # one flag a system under a batch
+        return ~torch.isfinite(state["x"]).all(-1)

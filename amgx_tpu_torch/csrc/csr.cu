@@ -10,6 +10,13 @@
 // and emulate the gather with 128-lane take_along_axis inside DMA'd x
 // windows; Hopper gathers natively, so none of that is carried over.
 //
+// The batched forms (K3, K4: a batched solve's CSR levels) are these two
+// kernels with grid.y over the systems: system s reads its values at
+// v + s * stride (stride 0: a shared matrix, multi-RHS; the systems'
+// blocks then read the same values, from L2 after the first) and its
+// vectors at s times their length, so its row sums and updates are the
+// single launch's, bit for bit. A single launch is system 0 of one.
+//
 // B8's kernel also computes B3w's restriction (ops/cuda_spmv.py
 // `dia_smooth_restrict` with weights): bc = R r over R's compact rows,
 // r = b - A x' stored once per fine row in float32 by dia.cu's residual
@@ -77,6 +84,12 @@ struct Csr {
   const T* __restrict__ v;
 };
 
+// A batch's strides (elements from one system to the next): the values
+// (0: shared), x, y and B9's dinv (0: shared); all 0 for a single launch.
+struct Strides {
+  long long v, x, y, d;
+};
+
 // B9's operands
 template <class T>
 struct Step {
@@ -106,8 +119,12 @@ __device__ __forceinline__ float product(const Csr<T>& a, const XT* x,
 template <class T, class XT>
 __global__ void __launch_bounds__(kThreads)
 csr_block_kernel(Csr<T> a, const int* __restrict__ rb,
-                 const XT* __restrict__ x, T* __restrict__ y) {
+                 const XT* __restrict__ x, T* __restrict__ y, Strides bs) {
   __shared__ float prod[kChunk];
+  const long long sys = blockIdx.y;
+  a.v += sys * bs.v;
+  x += sys * bs.x;
+  y += sys * bs.y;
   const int r0 = rb[blockIdx.x], r1 = rb[blockIdx.x + 1];
   const int e0 = a.ro[r0], e1 = a.ro[r1];
   if (r1 - r0 == 1 && e1 - e0 > kLongRow) {
@@ -135,10 +152,11 @@ csr_block_kernel(Csr<T> a, const int* __restrict__ rb,
 
 template <class T, class XT>
 int spmv_as(const int* ro, const int* ci, const void* vals, const int* rb,
-            int nblocks, const void* x, void* y, cudaStream_t stream) {
-  csr_block_kernel<T, XT><<<nblocks, kThreads, 0, stream>>>(
+            int nblocks, const void* x, void* y, int nsys,
+            const Strides& bs, cudaStream_t stream) {
+  csr_block_kernel<T, XT><<<dim3(nblocks, nsys), kThreads, 0, stream>>>(
       Csr<T>{ro, ci, static_cast<const T*>(vals)}, rb,
-      static_cast<const XT*>(x), static_cast<T*>(y));
+      static_cast<const XT*>(x), static_cast<T*>(y), bs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,7 +165,14 @@ int spmv_as(const int* ro, const int* ci, const void* vals, const int* rb,
 // lanes combine by a fixed shuffle tree, so every row sums in one order.
 template <class T, int kLanes>
 __global__ void __launch_bounds__(kThreads)
-csr_step_kernel(Csr<T> a, T* __restrict__ y, int n, Step<T> s) {
+csr_step_kernel(Csr<T> a, T* __restrict__ y, int n, Step<T> s,
+                Strides bs) {
+  const long long sys = blockIdx.y;
+  a.v += sys * bs.v;
+  y += sys * bs.y;
+  s.x += sys * bs.x;
+  s.b += sys * bs.y;
+  if (s.dinv != nullptr) s.dinv += sys * bs.d;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int i = static_cast<int>(t / kLanes);
@@ -172,28 +197,30 @@ csr_step_kernel(Csr<T> a, T* __restrict__ y, int n, Step<T> s) {
 }
 
 template <class T, int kLanes>
-void launch_lanes(const Csr<T>& a, T* y, int n, const Step<T>& s,
-                  cudaStream_t stream) {
+void launch_lanes(const Csr<T>& a, T* y, int n, const Step<T>& s, int nsys,
+                  const Strides& bs, cudaStream_t stream) {
   const long long threads = static_cast<long long>(kLanes) * n;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  csr_step_kernel<T, kLanes><<<blocks, kThreads, 0, stream>>>(a, y, n, s);
+  csr_step_kernel<T, kLanes>
+      <<<dim3(blocks, nsys), kThreads, 0, stream>>>(a, y, n, s, bs);
 }
 
 template <class T>
 int step_as(const int* ro, const int* ci, const void* vals, const void* x,
             const void* b, const void* dinv, const float* taus, int t,
-            void* out, int n, int lanes, cudaStream_t stream) {
+            void* out, int n, int lanes, int nsys, const Strides& bs,
+            cudaStream_t stream) {
   const Csr<T> a{ro, ci, static_cast<const T*>(vals)};
   T* y = static_cast<T*>(out);
   const Step<T> s{static_cast<const T*>(x), static_cast<const T*>(b),
                   static_cast<const T*>(dinv), taus, t};
   switch (lanes) {
-    case 1: launch_lanes<T, 1>(a, y, n, s, stream); break;
-    case 2: launch_lanes<T, 2>(a, y, n, s, stream); break;
-    case 4: launch_lanes<T, 4>(a, y, n, s, stream); break;
-    case 8: launch_lanes<T, 8>(a, y, n, s, stream); break;
-    case 16: launch_lanes<T, 16>(a, y, n, s, stream); break;
-    case 32: launch_lanes<T, 32>(a, y, n, s, stream); break;
+    case 1: launch_lanes<T, 1>(a, y, n, s, nsys, bs, stream); break;
+    case 2: launch_lanes<T, 2>(a, y, n, s, nsys, bs, stream); break;
+    case 4: launch_lanes<T, 4>(a, y, n, s, nsys, bs, stream); break;
+    case 8: launch_lanes<T, 8>(a, y, n, s, nsys, bs, stream); break;
+    case 16: launch_lanes<T, 16>(a, y, n, s, nsys, bs, stream); break;
+    case 32: launch_lanes<T, 32>(a, y, n, s, nsys, bs, stream); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());
@@ -212,10 +239,14 @@ int amgx_csr_spmv(const int* ro, const int* ci, const void* vals,
                   const int* rb, int nblocks, const void* x, void* y,
                   int bf16_io, int x_f32, cudaStream_t stream) {
   if (nblocks < 1 || rb == nullptr) return -1;
+  const Strides one{0, 0, 0, 0};
   if (!bf16_io)
-    return spmv_as<float, float>(ro, ci, vals, rb, nblocks, x, y, stream);
-  return x_f32 ? spmv_as<bf16, float>(ro, ci, vals, rb, nblocks, x, y, stream)
-               : spmv_as<bf16, bf16>(ro, ci, vals, rb, nblocks, x, y, stream);
+    return spmv_as<float, float>(ro, ci, vals, rb, nblocks, x, y, 1, one,
+                                 stream);
+  return x_f32 ? spmv_as<bf16, float>(ro, ci, vals, rb, nblocks, x, y, 1,
+                                      one, stream)
+               : spmv_as<bf16, bf16>(ro, ci, vals, rb, nblocks, x, y, 1, one,
+                                     stream);
 }
 
 // B9: out = x + (taus[t] * (b - A x)) * dinv (dinv optional), one sweep,
@@ -227,10 +258,41 @@ int amgx_csr_step(const int* ro, const int* ci, const void* vals,
                   const float* taus, int t, void* out, int n, int lanes,
                   int bf16_io, cudaStream_t stream) {
   if (n < 1 || taus == nullptr || b == nullptr || out == x) return -1;
+  const Strides one{0, 0, 0, 0};
   return bf16_io ? step_as<bf16>(ro, ci, vals, x, b, dinv, taus, t, out, n,
-                                 lanes, stream)
+                                 lanes, 1, one, stream)
                  : step_as<float>(ro, ci, vals, x, b, dinv, taus, t, out, n,
-                                  lanes, stream);
+                                  lanes, 1, one, stream);
+}
+
+// K3 (B8 batched): Y = A X for nsys systems, float32; X (nsys, ncols), Y
+// (nsys, nrows); the values (nnz,) shared or, with `per_system`,
+// (nsys, nnz).
+int amgx_csr_spmv_multi(const int* ro, const int* ci, const float* vals,
+                        const int* rb, int nblocks, const float* x, float* y,
+                        int nrows, int ncols, long long nnz, int nsys,
+                        int per_system, cudaStream_t stream) {
+  if (nblocks < 1 || rb == nullptr || nsys < 1 || nsys > 65535) return -1;
+  const Strides bs{per_system ? nnz : 0, ncols, nrows, 0};
+  return spmv_as<float, float>(ro, ci, vals, rb, nblocks, x, y, nsys, bs,
+                               stream);
+}
+
+// K4 (B9 batched): one damped sweep out = x + (taus[t] * (b - A x)) * dinv
+// for nsys systems of n rows, float32; the values (nnz,) or (nsys, nnz)
+// by `per_system`, dinv (optional) (n,) or (nsys, n) by
+// `dinv_per_system`.
+int amgx_csr_step_multi(const int* ro, const int* ci, const float* vals,
+                        const float* x, const float* b, const float* dinv,
+                        const float* taus, int t, float* out, int n,
+                        int lanes, long long nnz, int nsys, int per_system,
+                        int dinv_per_system, cudaStream_t stream) {
+  if (n < 1 || taus == nullptr || b == nullptr || out == x || nsys < 1 ||
+      nsys > 65535)
+    return -1;
+  const Strides bs{per_system ? nnz : 0, n, n, dinv_per_system ? n : 0};
+  return step_as<float>(ro, ci, vals, x, b, dinv, taus, t, out, n, lanes,
+                        nsys, bs, stream);
 }
 
 }  // extern "C"

@@ -496,3 +496,255 @@ int amgx_dia_restrict_mf(const void* stencil, const void* b, const float* x,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Batched forms (K1, K2): B1 and B2's per-step kernels over a batch of
+// systems, the vectors (nsys, n) row-major. The operator is shared by
+// every system (stride 0: multi-RHS) or one slab / coefficient set a
+// system (multi-matrix). Each system's row is computed by the same
+// `dia_row` and the same update expression as the single kernels above,
+// so row s of a batched output has the single kernel's bits on system s.
+// A thread takes one row of every system when the operator is shared (its
+// values leave HBM once for the whole batch; the later systems read them
+// from L1), and one row of one system (grid.y = system) when it is not.
+// float32 only: the batched solve runs the float32 hierarchy.
+// ---------------------------------------------------------------------------
+namespace {
+
+// A batch's value sources: what a block stages in shared memory before
+// its rows (`stage`), what row i needs of every system (`geom(i)`,
+// computed once a thread), then system s's row (`row(s, i, geom)`).
+//
+// The slab source: system s reads vals + s * vstride and dinv + s *
+// dstride (stride 0: shared). Row s, i of it is SlabVals's row i.
+struct SlabBatchVals {
+  const float* __restrict__ vals;
+  const float* __restrict__ dinv;
+  int n;
+  long long vstride, dstride;
+  struct Row {
+    int i;
+    const float* __restrict__ v;
+    const float* __restrict__ d;
+  };
+  __device__ __forceinline__ void stage(float*) const {}
+  __device__ __forceinline__ int geom(int, const float*) const { return 0; }
+  __device__ __forceinline__ Row row(int s, int i, int) const {
+    return Row{i, vals + s * vstride,
+               dinv == nullptr ? nullptr : dinv + s * dstride};
+  }
+  __device__ __forceinline__ float val(const Row& r, int d) const {
+    return r.v[static_cast<size_t>(d) * n + r.i];
+  }
+  __device__ __forceinline__ float inv(const Row& r, int i, int) const {
+    return r.d[i];
+  }
+};
+
+// The coefficient source: the stencil's geometry by value (its c[]
+// unread) and the k coefficients of system s at c + s * cstride in device
+// memory (stride 0: shared). A block stages its coefficients in shared
+// memory: the shared set, or system blockIdx.y's when the coefficients
+// are per system (then a thread takes one system). Row i's geometry is
+// the set of its diagonals whose grid shift stays in-grid (one bit each),
+// the same for every system. The values and the synthesized dinv are
+// StencilVals's, from the same floats.
+struct StencilBatchVals {
+  Stencil st;
+  const float* __restrict__ c;
+  int cstride;
+  int k;
+  struct Row {
+    unsigned in;
+    const float* c;  // the staged coefficients
+  };
+  __device__ __forceinline__ void stage(float* smem) const {
+    if (threadIdx.x < static_cast<unsigned>(k))
+      smem[threadIdx.x] = c[static_cast<size_t>(blockIdx.y) * cstride +
+                            threadIdx.x];
+  }
+  __device__ __forceinline__ Row geom(int i, const float* staged) const {
+    const GridRow g = grid_row(i, st.nx, st.ny, st.by_nx, st.by_ny);
+    unsigned in = 0u;
+#pragma unroll
+    for (int d = 0; d < kMaxOffsets; ++d) {
+      if (d >= k) break;
+      if (in_grid(g, st.sx[d], st.sy[d], st.sz[d], st.nx, st.ny, st.nz))
+        in |= 1u << d;
+    }
+    return Row{in, staged};
+  }
+  __device__ __forceinline__ Row row(int, int, const Row& g) const {
+    return g;
+  }
+  __device__ __forceinline__ float val(const Row& r, int d) const {
+    return (r.in >> d) & 1u ? r.c[d] : 0.0f;
+  }
+  __device__ __forceinline__ float inv(const Row& r, int, int k) const {
+    return stencil_inv([&](int d) { return val(r, d); }, k, st.diag, st.dinv);
+  }
+};
+
+// The systems [s0, s1) a thread of this launch takes.
+struct SysRange {
+  int s0, s1;
+};
+__device__ __forceinline__ SysRange sys_range(int nsys) {
+  return gridDim.y == 1 ? SysRange{0, nsys}
+                        : SysRange{static_cast<int>(blockIdx.y),
+                                   static_cast<int>(blockIdx.y) + 1};
+}
+
+// Every batched kernel first stages its block's share of the value source
+// (the coefficients, for a stencil) in shared memory.
+#define STAGE_VALUES(vs)                   \
+  __shared__ float staged_[kMaxOffsets];   \
+  vs.stage(staged_);                       \
+  __syncthreads()
+
+// K1: Y = A X, row i of every system.
+template <class VS>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_multi_kernel(VS vs, const float* __restrict__ x,
+                      float* __restrict__ y, int n, int nsys, Offsets of) {
+  STAGE_VALUES(vs);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const SysRange sr = sys_range(nsys);
+  const auto gm = vs.geom(i, staged_);
+  for (int s = sr.s0; s < sr.s1; ++s) {
+    const size_t o = static_cast<size_t>(s) * n;
+    y[o + i] = dia_row(vs, vs.row(s, i, gm), PlainX{x + o}, n, i, of);
+  }
+}
+
+// K2: one damped step X' = X + (tau_t * (B - A X)) * dinv per system.
+template <class VS, bool kHasDinv>
+__global__ void __launch_bounds__(kThreads)
+dia_step_multi_kernel(VS vs, const float* __restrict__ taus, int t,
+                      const float* __restrict__ b,
+                      const float* __restrict__ x, float* __restrict__ out,
+                      int n, int nsys, Offsets of) {
+  STAGE_VALUES(vs);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const SysRange sr = sys_range(nsys);
+  const auto gm = vs.geom(i, staged_);
+  // a thread's systems share row i's dinv (the operator is shared, or the
+  // thread takes one system): one synthesis a row, not one a system
+  const float dv = kHasDinv ? vs.inv(vs.row(sr.s0, i, gm), i, of.k) : 1.0f;
+  for (int s = sr.s0; s < sr.s1; ++s) {
+    const size_t o = static_cast<size_t>(s) * n;
+    const PlainX xr{x + o};
+    const typename VS::Row r = vs.row(s, i, gm);
+    float upd = taus[t] * (b[o + i] - dia_row(vs, r, xr, n, i, of));
+    if (kHasDinv) upd *= dv;
+    out[o + i] = xr(i) + upd;
+  }
+}
+
+// K2's residual: R = B - A X per system.
+template <class VS>
+__global__ void __launch_bounds__(kThreads)
+dia_residual_multi_kernel(VS vs, const float* __restrict__ b,
+                          const float* __restrict__ x, float* __restrict__ r,
+                          int n, int nsys, Offsets of) {
+  STAGE_VALUES(vs);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const SysRange sr = sys_range(nsys);
+  const auto gm = vs.geom(i, staged_);
+  for (int s = sr.s0; s < sr.s1; ++s) {
+    const size_t o = static_cast<size_t>(s) * n;
+    r[o + i] =
+        b[o + i] - dia_row(vs, vs.row(s, i, gm), PlainX{x + o}, n, i, of);
+  }
+}
+
+// grid.y: 1 when the operator is shared (a thread takes every system),
+// else one block row a system
+dim3 multi_grid(int n, int nsys, bool per_system) {
+  return dim3(blocks_for(n), per_system ? nsys : 1);
+}
+
+// One K2 launch on the value source vs: a step (x, taus, t) or, with
+// `resid`, the residual of x.
+template <class VS>
+int step_multi(const VS& vs, bool has_dinv, bool per_system,
+               const float* taus, int t, const float* b, const float* x,
+               float* out, int resid, int n, int nsys, const Offsets& of,
+               cudaStream_t stream) {
+  const dim3 grid = multi_grid(n, nsys, per_system);
+  if (resid) {
+    dia_residual_multi_kernel<VS>
+        <<<grid, kThreads, 0, stream>>>(vs, b, x, out, n, nsys, of);
+  } else if (has_dinv) {
+    dia_step_multi_kernel<VS, true>
+        <<<grid, kThreads, 0, stream>>>(vs, taus, t, b, x, out, n, nsys, of);
+  } else {
+    dia_step_multi_kernel<VS, false>
+        <<<grid, kThreads, 0, stream>>>(vs, taus, t, b, x, out, n, nsys, of);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: Y = A X for nsys systems; vals (k, n) shared or, with
+// `per_system`, (nsys, k, n).
+int amgx_dia_spmv_multi(const float* vals, const float* x, float* y, int n,
+                        int nsys, int per_system, const int* offs, int k,
+                        cudaStream_t stream) {
+  Offsets of;
+  if (n < 1 || nsys < 1 || nsys > 65535 || !fill_offsets(offs, k, &of))
+    return -1;
+  const long long vstride = per_system ? static_cast<long long>(k) * n : 0;
+  dia_spmv_multi_kernel<<<multi_grid(n, nsys, per_system), kThreads, 0,
+                          stream>>>(SlabBatchVals{vals, nullptr, n, vstride, 0},
+                                    x, y, n, nsys, of);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 on a slab: one damped step out = x + (taus[t] * (b - A x)) * dinv
+// for every system (dinv optional: (n,) shared or (nsys, n)), or with
+// `resid` r = b - A x into out. vals (k, n) or (nsys, k, n) by
+// `per_system`; `dinv_per_system` says the same of dinv.
+int amgx_dia_step_multi(const float* vals, const float* dinv,
+                        const float* taus, int t, const float* b,
+                        const float* x, float* out, int resid, int n,
+                        int nsys, int per_system, int dinv_per_system,
+                        const int* offs, int k, cudaStream_t stream) {
+  Offsets of;
+  if (n < 1 || nsys < 1 || nsys > 65535 || !fill_offsets(offs, k, &of) ||
+      out == x || (!resid && taus == nullptr))
+    return -1;
+  const SlabBatchVals vs{vals, dinv, n,
+                         per_system ? static_cast<long long>(k) * n : 0,
+                         dinv_per_system ? static_cast<long long>(n) : 0};
+  return step_multi(vs, dinv != nullptr, per_system || dinv_per_system, taus,
+                    t, b, x, out, resid, n, nsys, of, stream);
+}
+
+// K2 on a stencil (the coefficient mode): the geometry and dinv mode from
+// the host stencil `stencil` (common.cuh Stencil; its coefficients are
+// not read), the k coefficients from `coef`: (k,) shared or, with
+// `per_system`, (nsys, k).
+int amgx_dia_step_mf_multi(const void* stencil, const float* coef,
+                           const float* taus, int t, const float* b,
+                           const float* x, float* out, int resid, int n,
+                           int nsys, int per_system, const int* offs, int k,
+                           cudaStream_t stream) {
+  const Stencil* st = static_cast<const Stencil*>(stencil);
+  Offsets of;
+  if (n < 1 || nsys < 1 || nsys > 65535 || coef == nullptr ||
+      !fill_offsets(offs, k, &of) || !stencil_ok(st, n, k) || out == x ||
+      (!resid && taus == nullptr))
+    return -1;
+  const StencilBatchVals vs{*st, coef, per_system ? k : 0, k};
+  return step_multi(vs, st->dinv != kDinvNone, per_system, taus, t, b, x, out,
+                    resid, n, nsys, of, stream);
+}
+
+}  // extern "C"

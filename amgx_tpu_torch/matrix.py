@@ -62,7 +62,8 @@ class CsrMatrix:
     # ------------------------------------------------------------------
     @property
     def nnz(self) -> int:
-        return self.values.shape[0]
+        # the last axis: a batch's stacked operator holds (B, nnz) values
+        return self.values.shape[-1]
 
     @property
     def dtype(self):

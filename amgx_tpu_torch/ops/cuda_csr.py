@@ -72,14 +72,16 @@ def _lib():
 
 def csr_spmv_plain(row_offsets, col_indices, values, x):
     """y = A x: the products of each entry added into its row, in the
-    compute dtype (a bf16 operand widened, the sum rounded once)."""
+    compute dtype (a bf16 operand widened, the sum rounded once). A
+    batch: x (B, ncols), values (nnz,) shared or (B, nnz)."""
     n = row_offsets.shape[0] - 1
     cdt = compute_dtype(x.dtype)
     rows = torch.repeat_interleave(
         torch.arange(n, device=x.device), torch.diff(row_offsets.long()),
-        output_size=values.shape[0])
-    y = torch.zeros(n, dtype=cdt, device=x.device)
-    y.index_add_(0, rows, values.to(cdt) * x.to(cdt)[col_indices.long()])
+        output_size=col_indices.shape[0])
+    y = torch.zeros(x.shape[:-1] + (n,), dtype=cdt, device=x.device)
+    y.index_add_(-1, rows,
+                 values.to(cdt) * x.to(cdt)[..., col_indices.long()])
     return y.to(x.dtype)
 
 

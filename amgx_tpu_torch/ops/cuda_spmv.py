@@ -194,7 +194,11 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_smooth_restrict_epilogue_bf16": 0,
             "dia_prolong_smooth_step_bf16": 0, "dia_smooth_step": 0,
             "dia_smooth_step_bf16": 0, "dia_smooth_mf_step": 0,
-            "dia_smooth_mf_step_bf16": 0}
+            "dia_smooth_mf_step_bf16": 0,
+            # the batched forms K1-K4 (ops/cuda_batched.py)
+            "dia_spmv_multi": 0, "dia_step_multi": 0,
+            "dia_step_mf_multi": 0, "csr_spmv_multi": 0,
+            "csr_step_multi": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)
@@ -432,13 +436,14 @@ def dia_spmv_plain(vals, offsets, x):
     """y = A x: one shifted multiply-add per stored diagonal over a
     zero-padded copy of x (the slab form `spmv_dia_multi` of
     amgx_tpu/ops/batched.py), each fused into one rounding as the kernel
-    (nvcc) and the JAX package's compiled XLA make it."""
-    n = x.shape[0]
+    (nvcc) and the JAX package's compiled XLA make it. A batch: x (B, n)
+    and vals (k, n) shared or (B, k, n), row by row the same sums."""
+    n = x.shape[-1]
     left = max(0, -min(offsets))
     xp = torch.nn.functional.pad(x, (left, max(0, max(offsets))))
     y = torch.zeros_like(x)
     for d, o in enumerate(offsets):
-        y = torch.addcmul(y, vals[d], xp[left + o:left + o + n])
+        y = torch.addcmul(y, vals[..., d, :], xp[..., left + o:left + o + n])
     return y
 
 
@@ -487,14 +492,15 @@ def restrict_plain(ctab, r, weights=None):
     present (>= 0); unit weights when `weights` is None. Each product
     rounded, then added one child at a time in ctab order from 0 (the
     kernels' order: B3w's restriction walks R's rows, whose entries are
-    ctab's in this order; the JAX package's `_xla_restrict`)."""
-    g = r[ctab.clamp(min=0).long()]
+    ctab's in this order; the JAX package's `_xla_restrict`). r may be a batch (B, n)."""
+    g = r[..., ctab.clamp(min=0).long()]
     if weights is not None:
         g = g * weights
     g = torch.where(ctab >= 0, g, torch.zeros_like(g))
-    bc = torch.zeros(ctab.shape[1], dtype=r.dtype, device=r.device)
+    bc = torch.zeros(r.shape[:-1] + (ctab.shape[1],), dtype=r.dtype,
+                     device=r.device)
     for j in range(ctab.shape[0]):
-        bc = bc + g[j]
+        bc = bc + g[..., j, :]
     return bc
 
 
@@ -503,12 +509,13 @@ def prolong_plain(x, xc, agg=None, ptab=None, pwt=None):
     over each row's entries (ptab >= 0) in entry order, each term one
     fused multiply-add onto the sum (the kernel's chain, csrc/dia.cu
     `WeightedXT`; in float64, where the product of two float32 values is
-    exact, rounded back once a term), then x added."""
+    exact, rounded back once a term), then x added. x and xc may be a
+    batch (B, n), (B, nc)."""
     if ptab is None:
-        return x + xc[agg.long()]
+        return x + xc[..., agg.long()]
     corr = torch.zeros_like(x)
     for t in range(ptab.shape[0]):
-        g = xc[ptab[t].clamp(min=0).long()]
+        g = xc[..., ptab[t].clamp(min=0).long()]
         fma = (pwt[t].double() * g.double() + corr.double()).to(x.dtype)
         corr = torch.where(ptab[t] >= 0, fma, corr)
     return x + corr

@@ -36,6 +36,15 @@ StencilOperator, solve data "stencil"; its A has no value slab) routes
 every entry to ops/stencil.py: the coefficient-mode kernels B2-mf,
 B3-mf, B4-mf, and B5's matrix-free levels.
 
+A batch (x and b (B, n); the level's operator, dinv and stencil shared or
+per system, amgx_tpu_torch/batch/) runs `fused_smooth` through the
+batched kernels (ops/cuda_batched.py): K2 on a DIA level (K2's
+coefficient mode on a matrix-free one), K4's sweeps and K3's residual
+on a CSR level. The transfer-carrying entries and the coarse tail
+decline (None) under a batch: the cycle composes the smoothing, the
+residual and the transfers, as the JAX package's vmap rules
+(`smooth_restrict_dia_multi`, `corr_smooth_dia_multi`) compute them.
+
 Transfer tables (the JAX package's `build_transfer_slabs`, without the
 TPU's quota padding and VMEM window bases): `ctab` (m, nc) int32, the
 fine rows of each coarse row in ascending order, -1 where absent; `agg`
@@ -50,7 +59,7 @@ from __future__ import annotations
 import torch
 
 from ..precision import SMOOTH_DTYPES, compute_dtype
-from . import cuda_csr, cuda_spmv, cuda_tail
+from . import cuda_batched, cuda_csr, cuda_spmv, cuda_tail
 from . import stencil as mf
 
 # the JAX package's child caps (amgx_tpu/ops/pallas_spmv.py), kept so the
@@ -92,11 +101,13 @@ def restrict_children(ctab: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     sequential scatter-add, `index_add_` on the CPU), the same bits on
     the CPU and on the card, run after run. `ctab` is int64 with the
     fine size n where a child is absent (`children_index`): one gather
-    of the whole table from r with a 0 appended, then one add per row."""
-    g = torch.cat([r, r.new_zeros(1)])[ctab]
-    out = torch.zeros(ctab.shape[1], dtype=r.dtype, device=r.device)
+    of the whole table from r with a 0 appended, then one add per row.
+    A batch r (B, n) gives (B, nc), row by row the same sums."""
+    g = torch.cat([r, r.new_zeros(r.shape[:-1] + (1,))], -1)[..., ctab]
+    out = torch.zeros(r.shape[:-1] + (ctab.shape[1],), dtype=r.dtype,
+                      device=r.device)
     for j in range(ctab.shape[0]):
-        out += g[j]
+        out += g[..., j, :]
     return out
 
 
@@ -180,16 +191,21 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
     A = data["A"]
     if taus.shape[0] < 1:
         return None
+    batch = x.dim() == 2
     if kernel_ok(A, x):
-        return cuda_spmv.dia_smooth(A.dia_vals, A.dia_offsets,
-                                    taus.to(compute_dtype(x.dtype)), b, x,
+        taus = taus.to(compute_dtype(x.dtype))
+        if batch:
+            return cuda_batched.dia_smooth_multi(
+                A.dia_vals, A.dia_offsets, taus, b, x, dinv, with_residual)
+        return cuda_spmv.dia_smooth(A.dia_vals, A.dia_offsets, taus, b, x,
                                     dinv, with_residual, grid=A.grid_shape)
     if getattr(A, "dia_vals", None) is not None or A.num_rows != A.num_cols \
             or A.values.dtype != x.dtype or x.dtype not in SMOOTH_DTYPES:
         return None
-    x = cuda_csr.csr_smooth(A.row_offsets, A.col_indices, A.values,
-                            taus.to(compute_dtype(x.dtype)), b, x, dinv,
-                            lanes=A.csr_lanes or 1)
+    sweep = cuda_batched.csr_smooth_multi if batch else cuda_csr.csr_smooth
+    x = sweep(A.row_offsets, A.col_indices, A.values,
+              taus.to(compute_dtype(x.dtype)), b, x, dinv,
+              lanes=A.csr_lanes or 1)
     if not with_residual:
         return x
     from .spmv import residual
@@ -200,6 +216,8 @@ def fused_smooth_restrict(data, b, x, taus, xfer, dinv=None):
     """(x', bc) with bc = R (b - A x') after len(taus) damped steps
     through B3 (B3-mf on a matrix-free level), or None (the caller
     composes smooth_residual + restrict)."""
+    if x.dim() == 2:
+        return None
     st = data.get("stencil")
     if st is not None:
         return mf.stencil_smooth_restrict(st, taus, b, x, xfer)
@@ -222,6 +240,8 @@ def fused_corr_smooth(data, b, x, xc, taus, xfer, dinv=None,
     a matrix-free level), or None (the caller composes prolongate +
     smooth). `want_dot` returns (x', x'.b) with the dot from the last
     step's launch (PCG's r.z: the cycle's rhs is r and its output z)."""
+    if x.dim() == 2:
+        return None
     st = data.get("stencil")
     if st is not None:
         return mf.stencil_corr_smooth(st, taus, b, x, xc, xfer,
@@ -318,7 +338,7 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
     tables are cached beside it (ops/cuda_tail.py)."""
     levels = amg.levels
     if shape not in ("V", "W", "F") or x.dtype not in SMOOTH_DTYPES \
-            or lvl >= len(levels) \
+            or x.dim() != 1 or lvl >= len(levels) \
             or levels[lvl].A.num_rows > amg.cycle_fusion_tail_rows:
         return None
     key = (shape, lvl, x.dtype, x.device)

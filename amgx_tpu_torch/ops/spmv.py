@@ -14,6 +14,15 @@ the plain CSR gather + scatter-add otherwise (float64). `spmv_pdot` (the
 Krylov shell's direction update + SpMV + dot) and `spmv_ddot` (SpMV
 with dots against a streamed operand, BiCGStab's) route the same way
 through B6's two forms.
+
+A batch (amgx_tpu_torch/batch/): x of shape (B, num_cols), and A shared
+or per system (`dia_vals` (B, k, n), `values` (B, nnz): a multi-matrix
+batch's stacked operator). Float32 DIA products run K1 and float32 CSR
+products K3 (ops/cuda_batched.py: B1 and B8 over the batch, one launch
+for all systems); other dtypes the plain forms, which take the batch
+axis. `spmv_pdot` / `spmv_ddot` under a batch compute the JAX package's
+vmap route of B6, `spmv_dot_multi` (ops/batched.py): the prologue, one
+K1 launch and the row dots in float32 or wider.
 """
 from __future__ import annotations
 
@@ -21,25 +30,36 @@ import torch
 
 from ..matrix import CsrMatrix
 from ..precision import SMOOTH_DTYPES
-from . import cuda_csr, cuda_krylov, cuda_spmv
+from . import cuda_batched, cuda_csr, cuda_krylov, cuda_spmv
 
 
 def _check(A: CsrMatrix, x: torch.Tensor):
     if not A.initialized:
         raise ValueError("spmv requires an initialized matrix (A.init())")
-    if tuple(x.shape) != (A.num_cols,):
+    batched = A.values.dim() == 2
+    if x.dim() not in (1, 2) or x.shape[-1] != A.num_cols \
+            or (batched and (x.dim() != 2
+                             or x.shape[0] != A.values.shape[0])):
+        want = f"({A.values.shape[0]}, {A.num_cols})" if batched \
+            else f"({A.num_cols},) or (batch, {A.num_cols})"
         raise ValueError(f"spmv: x has shape {tuple(x.shape)}, expected "
-                         f"({A.num_cols},)")
+                         f"{want}")
 
 
 def spmv_dia(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and A.dia_vals.dtype == torch.float32:
+        if x.dim() == 2:
+            return cuda_batched.dia_spmv_multi(A.dia_vals, A.dia_offsets, x)
         return cuda_spmv.dia_spmv(A.dia_vals, A.dia_offsets, x)
     return cuda_spmv.dia_spmv_plain(A.dia_vals, A.dia_offsets, x)
 
 
 def spmv_csr(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.dtype in SMOOTH_DTYPES and A.values.dtype == x.dtype:
+        if x.dim() == 2:
+            # the batched form is float32: a bf16 batch raises on the card
+            return cuda_batched.csr_spmv_multi(A.row_offsets,
+                                               A.col_indices, A.values, x)
         return cuda_csr.csr_spmv(A.row_offsets, A.col_indices, A.values, x)
     return cuda_csr.csr_spmv_plain(A.row_offsets, A.col_indices,
                                    A.values.to(x.dtype), x)
@@ -70,6 +90,9 @@ def spmv_pdot(A: CsrMatrix, p, z, beta):
     launch on a float32 DIA operator, the unfused compose otherwise
     (float64, CSR), as the JAX package routes it to XLA."""
     _check(A, p)
+    if p.dim() == 2:
+        from .batched import spmv_dot_multi
+        return spmv_dot_multi(A, p, z, beta, product=spmv)
     if _shell_kernel_ok(A, p):
         return cuda_krylov.dia_spmv_dot(A.dia_vals, A.dia_offsets, p, z,
                                         beta)
@@ -83,6 +106,9 @@ def spmv_ddot(A: CsrMatrix, p, d, self_dot: bool = False):
     (its streamed-dot form) on a float32 DIA operator, the unfused
     compose `_spmv_ddot_xla` otherwise. d may be p."""
     _check(A, p)
+    if p.dim() == 2:
+        from .batched import spmv_dot_multi
+        return spmv_dot_multi(A, p, D=d, self_dot=self_dot, product=spmv)
     if _shell_kernel_ok(A, p):
         return cuda_krylov.dia_spmv_dot(A.dia_vals, A.dia_offsets, p, d=d,
                                         self_dot=self_dot)

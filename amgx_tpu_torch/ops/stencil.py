@@ -20,6 +20,9 @@ every step; from k coefficients they stream only the vectors.
   versions. They apply each diagonal as the slab forms of
   `ops/cuda_spmv.py` do, with the masked coefficient in place of the
   stored row, so the two agree bit for bit on the same level.
+  `_apply_vec` and `_xla_smooth` also take a batch: x (B, n) and the
+  coefficients (k,) shared or (B, k) (a multi-matrix batch's per-system
+  stencils; K2's plain version, ops/cuda_batched.py).
 - The dispatch (`stencil_fused_smooth`, `stencil_smooth_restrict`,
   `stencil_corr_smooth`): float32 and bfloat16 (`SMOOTH_DTYPES`) through
   the coefficient-mode kernels of `ops/cuda_spmv.py` (B2-mf, B3-mf,
@@ -220,8 +223,9 @@ def _vec_masks(spec, device):
 
 def _rows(spec, coeffs, masks, t):
     """Diagonal t's (n,) value row: the coefficient where its shift stays
-    in-grid, 0 elsewhere -- the row the slab would store."""
-    c = coeffs[t].expand(spec.n)
+    in-grid, 0 elsewhere -- the row the slab would store ((B, n) for a
+    batch's per-system coefficients (B, k))."""
+    c = coeffs[..., t, None].expand(coeffs.shape[:-1] + (spec.n,))
     return c if masks[t] is None else torch.where(masks[t], c,
                                                   torch.zeros_like(c))
 
@@ -232,14 +236,14 @@ def _apply_vec(spec, coeffs, x, masks=None):
     each stored row synthesized)."""
     masks = _vec_masks(spec, x.device) if masks is None else masks
     coeffs = coeffs.to(x.dtype)
-    n = x.shape[0]
+    n = x.shape[-1]
     offs = spec.offsets
     left = max(0, -min(offs))
     xp = torch.nn.functional.pad(x, (left, max(0, max(offs))))
     y = torch.zeros_like(x)
     for t, o in enumerate(offs):
         y = torch.addcmul(y, _rows(spec, coeffs, masks, t),
-                          xp[left + o:left + o + n])
+                          xp[..., left + o:left + o + n])
     return y
 
 
@@ -251,11 +255,12 @@ def _dinv_vec(spec, coeffs, dtype, device, masks=None):
     if spec.dinv is None:
         return None
     coeffs = coeffs.to(dtype)
-    c0 = coeffs[spec.diag_rank].expand(spec.n)
+    c0 = coeffs[..., spec.diag_rank, None].expand(coeffs.shape[:-1]
+                                                  + (spec.n,))
     den = c0
     if spec.dinv == "l1":
         masks = _vec_masks(spec, device) if masks is None else masks
-        l1 = torch.zeros(spec.n, dtype=dtype, device=device)
+        l1 = torch.zeros(c0.shape, dtype=dtype, device=device)
         for t in range(len(spec.offsets)):
             if t != spec.diag_rank:
                 l1 = l1 + _rows(spec, coeffs, masks, t).abs()
@@ -325,8 +330,9 @@ def _kernel_dtype(x) -> bool:
 def stencil_fused_smooth(st: StencilOperator, taus, b, x,
                          with_residual=True):
     """x' (and r) after len(taus) damped steps from the coefficients:
-    B2-mf for float32 and bfloat16, the plain form otherwise. Always
-    produces a result: there is no slab to fall back to."""
+    B2-mf for float32 and bfloat16, the plain form otherwise; a batch
+    (B, n) through K2's coefficient mode. Always produces a result: there
+    is no slab to fall back to."""
     taus = taus.to(compute_dtype(x.dtype))
     if taus.shape[0] < 1:
         if with_residual:
@@ -334,6 +340,9 @@ def stencil_fused_smooth(st: StencilOperator, taus, b, x,
                                   True)[1]
         return x
     if _kernel_dtype(x):
+        if x.dim() == 2:
+            from .cuda_batched import dia_smooth_mf_multi
+            return dia_smooth_mf_multi(st, taus, b, x, with_residual)
         return cuda_spmv.dia_smooth_mf(st, taus, b, x, with_residual)
     return _xla_smooth(st.spec(), st.coeffs, taus, b, x, with_residual)
 

@@ -1,4 +1,5 @@
-"""Named solver presets (a copy of amgx_tpu/presets.py's FLAGSHIP).
+"""Named solver presets (copies of amgx_tpu/presets.py's FLAGSHIP and
+BATCHED_CG).
 
 FLAGSHIP is the configuration the JAX package's benchmarks and driver
 entry use: full f64 accuracy via defect correction (REFINEMENT) around
@@ -23,3 +24,18 @@ FLAGSHIP = (
     " amg:min_coarse_rows=32")
 
 FLAGSHIP_TAIL_OFF = FLAGSHIP + ", amg:cycle_fusion_tail_rows=0"
+
+# The batched-solve preset (amgx_tpu_torch/batch/): CG + aggregation-AMG
+# V-cycle with Jacobi-L1 smoothing, every value-derived piece in the
+# solve data; structure_reuse_levels=-1 is load-bearing -- multi-matrix
+# batches reuse ONE hierarchy structure and splice per-system values
+# through resetup, and the request batcher assumes a resetup never
+# re-coarsens.
+BATCHED_CG = (
+    "solver(s)=PCG, s:max_iters=100, s:tolerance=1e-8,"
+    " s:convergence=RELATIVE_INI, s:norm=L2, s:monitor_residual=1,"
+    " s:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION,"
+    " amg:selector=SIZE_2, amg:smoother(sm)=JACOBI_L1, sm:max_iters=1,"
+    " amg:presweeps=1, amg:postsweeps=1, amg:cycle=V, amg:max_iters=1,"
+    " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=32,"
+    " amg:max_levels=20, amg:structure_reuse_levels=-1")

@@ -23,6 +23,19 @@ and the status after a solve, and `obtain_timings` the setup and solve
 seconds, through output.py, in the JAX package's text; the memory
 column is the device's current allocation (`torch.cuda.memory_allocated`;
 0 on the CPU, where the JAX package prints 0 too).
+
+Batched solves (`solve_many`, amgx_tpu_torch/batch/): `run_loop_batched`
+runs one loop over a batch of systems, b and x (B, n), the per-system
+scalars (B,) tensors. It iterates while any system runs; each iteration
+launches its kernels once for the whole batch and reads the host once
+(the (B,) monitored norms with the breakdown flags). Each system's
+status follows `run_loop`'s rules, and a system that has stopped is
+frozen by a device mask (every state tensor `where(active, new, old)`),
+so its x, residual norm, iterations and history are those of its own
+stopping iteration, as the JAX package's `while_loop` batching rule
+gives; its history past that is NaN. A solver class that runs a batch
+sets `batched_iteration`; the others name the ROADMAP item that will
+port theirs (`batch_refusal`).
 """
 from __future__ import annotations
 
@@ -64,6 +77,11 @@ class Convergence:
 
     def check(self, res_norm, norm0) -> bool:
         raise NotImplementedError
+
+    def check_each(self, res_norm, norm0) -> np.ndarray:
+        """`check` on each system of a batch's (B,) norms (host values)."""
+        return np.array([self.check(r, n0)
+                         for r, n0 in zip(res_norm, norm0)], dtype=bool)
 
 
 @registry.convergence.register("ABSOLUTE")
@@ -129,6 +147,30 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
+def _host_norm_flags(norms, flags):
+    """A batch's (B,) norms and breakdown flags (a (B,) device bool, or
+    None / False) on the host with one device->host transfer."""
+    if torch.is_tensor(flags):
+        both = _host(torch.stack([norms, flags.to(norms.dtype).expand(
+            norms.shape)]))
+        return both[0], both[1] != 0
+    return _host(norms), np.zeros(norms.shape, dtype=bool)
+
+
+def _freeze(active, new, old):
+    """The state after a batched iteration: each tensor with a leading
+    batch axis takes the new value where its system is `active` and keeps
+    the old one elsewhere (the while_loop batching rule's select)."""
+    nb = active.shape[0]
+    out = dict(new)
+    for k, v in new.items():
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == nb \
+                and k in old:
+            out[k] = torch.where(active.reshape((nb,) + (1,) * (v.dim() - 1)),
+                                 v, old[k])
+    return out
+
+
 def _host_norm_flag(norm, flag):
     """(norm, flag) on the host, each given as a device tensor or a host
     value, with at most one device->host transfer."""
@@ -153,6 +195,13 @@ class Solver:
     is_smoother = False
     # solve_data key of the preconditioner's subtree
     _child_data_key = "precond"
+    # runs a batch (vectors (B, n), scalars (B,)): run_loop_batched
+    batched_iteration = False
+    # where a class without it will get it (batch_refusal's message)
+    batch_todo = "ROADMAP.md Queue A item 9"
+    # value-derived scalars kept outside solve_data (CHEBYSHEV's spectral
+    # bounds, host floats): one batch cannot give each system its own
+    trace_bakes_values = False
 
     def __init__(self, cfg: Config, scope: str = "default", name: str = "?",
                  device="cpu"):
@@ -353,6 +402,93 @@ class Solver:
 
     def _extra_stats(self, final_state) -> Optional[Dict[str, float]]:
         return None
+
+    # -- batched solves -----------------------------------------------------
+    def batch_refusal(self) -> Optional[str]:
+        """Why this node cannot run in a batched solve, or None."""
+        if not self.batched_iteration:
+            return (f"{self.name} has no batched iteration yet "
+                    f"({self.batch_todo})")
+        return None
+
+    def run_loop_batched(self, data, b, x0):
+        """`run_loop` on a batch: b, x0 (B, n). Returns (X, stats) with
+        stats a dict of host arrays: iters, converged, status, norm0 and
+        res_norm (B,), res_hist (B, max_iters + 1) (NaN past each
+        system's stop)."""
+        S = SolveStatus
+        nb = b.shape[0]
+        monitor = self.monitor_residual
+        conv = self.convergence
+        r0 = _residual(data["A"], x0, b)
+        norm0 = _host(self._norm(r0))
+        state = {"x": x0, "r": r0}
+        state.update(self.solve_init(data, b, x0, r0))
+        done = norm0 == 0
+        if monitor:
+            done |= conv.check_each(norm0, norm0)
+        status = np.where(done, int(S.CONVERGED), _ST_RUNNING)
+        hist = np.full((nb, self.max_iters + 1), np.nan, norm0.dtype)
+        hist[:, 0] = norm0
+        res_norm = norm0.copy()
+        iters = np.zeros(nb, np.int64)
+        active, active_host, it = None, None, 0
+        while not done.all() and it < self.max_iters:
+            run = ~done
+            if active_host is None or not np.array_equal(active_host, run):
+                active_host = run
+                active = torch.from_numpy(run).to(b.device)
+            new = self.solve_iteration(data, b, state)
+            state = new if run.all() else _freeze(active, new, state)
+            it += 1
+            iters[run] = it
+            if not monitor:
+                continue
+            rn = self.internal_res_norm(state)
+            if rn is None:
+                r = state["r"] if self.computes_residual() \
+                    else _residual(data["A"], state["x"], b)
+                rn = self._norm(r)
+            rn, broken = _host_norm_flags(
+                rn, self.breakdown(state) if self.health_guards else None)
+            rn = np.asarray(rn, norm0.dtype)
+            res_norm[run] = rn[run]
+            hist[run, it] = rn[run]
+            now = np.full(nb, _ST_RUNNING)
+            if self.stall_window > 0 and self.health_guards \
+                    and it >= self.stall_window:
+                past = hist[:, it - self.stall_window]
+                now[rn >= np.asarray(1.0 - self.stall_tolerance,
+                                     rn.dtype) * past] = int(S.STALLED)
+            if self.rel_div_tolerance > 0:
+                now[rn > np.asarray(self.rel_div_tolerance, rn.dtype)
+                    * norm0] = int(S.DIVERGED)
+            if self.health_guards:
+                now[~np.isfinite(rn)] = int(S.NAN_DETECTED)
+                now[broken] = int(S.BREAKDOWN)
+            now[conv.check_each(rn, norm0)] = int(S.CONVERGED)
+            status[run] = now[run]
+            done = status != _ST_RUNNING
+        x = self.finalize(data, b, state)
+        status[status == _ST_RUNNING] = int(S.MAX_ITERS)
+        return x, {"iters": iters, "converged": status == int(S.CONVERGED),
+                   "status": status, "norm0": norm0, "res_norm": res_norm,
+                   "res_hist": hist}
+
+    def solve_many(self, bs, matrices=None, x0s=None,
+                   zero_initial_guess: bool = False):
+        """Solve many systems in one batched loop (batch/core.py): `bs`
+        stacks the right-hand sides (B, n). With matrices=None this is
+        multi-RHS against the set-up matrix; with a list of same-pattern
+        matrices each system gets its own coefficients (the hierarchy
+        structure reused, values spliced through `resetup`). Returns a
+        BatchedSolveResult. The batched wrapper is kept on the solver."""
+        if getattr(self, "_batched", None) is None:
+            from ..batch import BatchedSolver
+            self._batched = BatchedSolver(solver=self)
+        return self._batched.solve_many(
+            bs, matrices=matrices, x0s=x0s,
+            zero_initial_guess=zero_initial_guess)
 
     def solve(self, b, x0=None, zero_initial_guess: bool = False
               ) -> SolveResult:

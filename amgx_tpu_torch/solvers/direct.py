@@ -23,6 +23,7 @@ class DenseLUSolver(Solver):
     # the explicit inverse is built only up to this size (as in the JAX
     # package, whose tail kernel holds it in fast memory)
     _TAIL_INV_MAX_ROWS = 1024
+    batched_iteration = True
 
     def __init__(self, cfg, scope="default", name="DENSE_LU_SOLVER",
                  device="cpu"):
@@ -58,6 +59,11 @@ class DenseLUSolver(Solver):
 
     @staticmethod
     def _direct(data, rhs):
+        if rhs.dim() == 2:
+            # a batch: (B, nc) right-hand sides against shared factors, or
+            # each against its own (qt, r (B, nc, nc): a multi-matrix batch)
+            return torch.linalg.solve_triangular(
+                data["r"], data["qt"] @ rhs[..., None], upper=True)[..., 0]
         return torch.linalg.solve_triangular(
             data["r"], (data["qt"] @ rhs)[:, None], upper=True)[:, 0]
 

@@ -49,6 +49,9 @@ def _solve_upper(R, g):
 
 
 class _GmresBase(Solver):
+    batch_todo = ("ROADMAP.md Queue A item 9: BATCHED_GMRES / FGMRES, "
+                  "per-system Arnoldi and Givens")
+
     uses_preconditioner = True
     flexible = False
 

@@ -17,6 +17,14 @@ iteration meets the host once, when the solve loop reads the monitored
 norm (with the breakdown flag in the same transfer, solvers/base.py).
 Chebyshev's spectral bounds are host floats set at setup, as in the JAX
 package.
+
+CG and PCG also run a batch (amgx_tpu_torch/batch/): vectors (B, n), the
+scalars (B,) tensors, one per system (`_safe_div` is elementwise), every
+dot a row dot (`_dot`, `_ldot`), and a scalar meets a vector through
+`_bc`. Under a batch the fused route computes the JAX package's vmap
+route: B6's work as `spmv_dot_multi` (one K1 launch), B7's as
+`cg_update_multi`, and r.z reduced explicitly (the cycle declines its
+dot).
 """
 from __future__ import annotations
 
@@ -30,14 +38,27 @@ from .base import Solver
 
 
 def _safe_div(a, b):
+    """a / b elementwise, 0 where b is 0 (0-dim scalars or a batch's
+    (B,) ones)."""
     return a / torch.where(b == 0, torch.ones_like(b), b) * (b != 0)
+
+
+def _dot(a, b):
+    """a.b; one dot a row for a batch (B, n)."""
+    return (a * b).sum(-1) if a.dim() == 2 else torch.dot(a, b)
 
 
 def _ldot(a, b):
     """Dot accumulated in float32 or wider (the fused kernels' epilogue
-    dtype)."""
+    dtype); one a row for a batch."""
     cdt = torch.promote_types(a.dtype, torch.float32)
-    return torch.dot(a.to(cdt), b.to(cdt))
+    return _dot(a.to(cdt), b.to(cdt))
+
+
+def _bc(s, v):
+    """A scalar shaped to scale v: a 0-dim one as it is, a batch's (B,)
+    one as a column against v (B, n)."""
+    return s[..., None] if s.dim() == 1 and v.dim() == 2 else s
 
 
 class _KrylovBase(Solver):
@@ -60,7 +81,7 @@ class _KrylovBase(Solver):
         return z, _ldot(r, z) if d is None else d
 
     def _zero_scalar(self, like):
-        return torch.zeros((), dtype=like.dtype, device=like.device)
+        return torch.zeros_like(like)
 
     def _monitored(self, state, key):
         """sqrt(state[key]) stands in for the monitored norm when that is
@@ -74,6 +95,8 @@ class _KrylovBase(Solver):
 class CGSolver(_KrylovBase):
     """Unpreconditioned conjugate gradients."""
 
+    batched_iteration = True
+
     def solve_init(self, data, b, x, r):
         if self.krylov_fusion:
             # the first fused iteration's p' = z + beta p with z = r,
@@ -81,7 +104,7 @@ class CGSolver(_KrylovBase):
             (rz,) = blas.psum_bundle((_ldot(r, r),))
             return {"p": torch.zeros_like(r), "beta": self._zero_scalar(rz),
                     "rz": rz, **self._guard_init()}
-        return {"p": r, "rz": torch.dot(r, r), **self._guard_init()}
+        return {"p": r, "rz": _dot(r, r), **self._guard_init()}
 
     def solve_iteration(self, data, b, st):
         if self.krylov_fusion:
@@ -89,13 +112,13 @@ class CGSolver(_KrylovBase):
         A = data["A"]
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
         Ap = spmv(A, p)
-        pAp = torch.dot(p, Ap)
+        pAp = _dot(p, Ap)
         alpha = _safe_div(rz, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rz_new = torch.dot(r, r)
+        x = x + _bc(alpha, p) * p
+        r = r - _bc(alpha, Ap) * Ap
+        rz_new = _dot(r, r)
         beta = _safe_div(rz_new, rz)
-        p = r + beta * p
+        p = r + _bc(beta, p) * p
         out = {**st, "x": x, "r": r, "p": p, "rz": rz_new}
         if self.health_guards:
             # p.Ap <= 0: A is not SPD on this Krylov space
@@ -126,6 +149,7 @@ class PCGSolver(_KrylovBase):
     """Preconditioned CG."""
 
     uses_preconditioner = True
+    batched_iteration = True
 
     def solve_init(self, data, b, x, r):
         if self.krylov_fusion:
@@ -135,7 +159,7 @@ class PCGSolver(_KrylovBase):
                     "beta": self._zero_scalar(rz), "rz": rz, "rr": rr,
                     **self._guard_init()}
         z = self._precond(data, r)
-        return {"p": z, "z": z, "rz": torch.dot(r, z), **self._guard_init()}
+        return {"p": z, "z": z, "rz": _dot(r, z), **self._guard_init()}
 
     def solve_iteration(self, data, b, st):
         if self.krylov_fusion:
@@ -143,14 +167,14 @@ class PCGSolver(_KrylovBase):
         A = data["A"]
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
         Ap = spmv(A, p)
-        pAp = torch.dot(p, Ap)
+        pAp = _dot(p, Ap)
         alpha = _safe_div(rz, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = x + _bc(alpha, p) * p
+        r = r - _bc(alpha, Ap) * Ap
         z = self._precond(data, r)
-        rz_new = torch.dot(r, z)
+        rz_new = _dot(r, z)
         beta = _safe_div(rz_new, rz)
-        p = z + beta * p
+        p = z + _bc(beta, p) * p
         out = {**st, "x": x, "r": r, "p": p, "z": z, "rz": rz_new}
         if self.health_guards:
             out["breakdown"] = pAp <= 0
@@ -327,6 +351,8 @@ class ChebyshevSolver(_KrylovBase):
 
     uses_preconditioner = True
     is_smoother = True
+    # the spectral bounds are host floats set at setup
+    trace_bakes_values = True
 
     def __init__(self, cfg, scope="default", name="CHEBYSHEV",
                  device="cpu"):

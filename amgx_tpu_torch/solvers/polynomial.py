@@ -36,6 +36,9 @@ def _abs_row_sums(A):
 
 @registry.solvers.register("CHEBYSHEV_POLY")
 class ChebyshevPolySolver(Solver):
+    batch_todo = ("ROADMAP.md Queue A item 9: SERVING_CG's GEO + "
+                  "CHEBYSHEV_POLY through the value route")
+
     """One application = `chebyshev_polynomial_order` damped Richardson
     steps x += tau_i (b - A x)."""
 

@@ -15,6 +15,11 @@ StencilOperator on the smoother (`_mf_stencil`, amg/hierarchy.py
 operator without its value slab; the kernels synthesize dinv from the
 diagonal coefficient ("jacobi": JACOBI, BLOCK_JACOBI) or the
 L1-strengthened diagonal ("l1": JACOBI_L1).
+
+A batch (x, b (B, n); solve data shared or per system) smooths through
+the batched kernels K2 / K4 (ops/smooth.py `fused_smooth`); float64 and
+`fused_smoother=0` compose `solve_iteration`, which broadcasts dinv (n,)
+or (B, n) over the rows.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ class _FusedJacobiMixin:
     damped-Jacobi solvers, through the smoother kernels with dinv."""
 
     is_smoother = True
+    batched_iteration = True
     # consulted by AMG._maybe_install_stencil: the sweeps need only the
     # stencil coefficients, dinv synthesized per `matrix_free_dinv`
     supports_matrix_free = True
@@ -121,8 +127,10 @@ class _FusedJacobiMixin:
         return super().smooth_residual(data, b, x, sweeps)
 
     # -- cycle fusion (AMGLevel.restrict_fused / prolongate_smooth) ----
+    # Under a batch (x (B, n)) both decline: the cycle composes smoothing,
+    # residual and transfer, as the JAX package's vmap rules do.
     def smooth_restrict(self, data, b, x, sweeps: int, xfer):
-        if not self._fused_ok(data, sweeps):
+        if not self._fused_ok(data, sweeps) or x.dim() == 2:
             return None
         return fused.fused_smooth_restrict(
             data, b, x, self._fused_taus(sweeps, x), xfer,
@@ -130,7 +138,7 @@ class _FusedJacobiMixin:
 
     def smooth_corr(self, data, b, x, xc, sweeps: int, xfer,
                     want_dot: bool = False):
-        if not self._fused_ok(data, sweeps):
+        if not self._fused_ok(data, sweeps) or x.dim() == 2:
             return None
         return fused.fused_corr_smooth(
             data, b, x, xc, self._fused_taus(sweeps, x), xfer,
@@ -179,6 +187,7 @@ class NoSolver(Solver):
     coarse correction (amg/cycles.py)."""
 
     is_smoother = True
+    batched_iteration = True
 
     def computes_residual(self):
         return False

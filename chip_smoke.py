@@ -250,17 +250,37 @@ Phases, one JSON line each on stdout:
                level-0 lookup timed against a build); setup, resetup and
                warm-setup seconds, host syncs, peak memory; at 32^3 the
                card's classical resetup equal to the CPU's bit for bit.
+16. batch    -- batched solves through amgx_tpu_torch.batch
+               (`phase_batch`): BATCHED_CG at 8 x 128^3 in float32,
+               multi-RHS (M), multi-matrix A + c I (MM: one resetup a
+               system, B10-relabel in the splice, at least three distinct
+               iteration counts) and the RequestBatcher (Q: dispatches
+               (8, 8), (3, 4) and the fast path's (5, 8)), then the slab
+               route at 64^3 (S); every system against its solo solve on
+               the card (status, iterations +- 1, true residual within
+               2x); only the batched kernels K1-K4 launch, exactly
+               `batch_launches` (once a use an iteration, whatever B);
+               K1-K4 at the path's shapes (K2's slab mode at (S)'s 64^3
+               level 0, the row the kernels line reports, and at 128^3),
+               shared and per system, row by row equal to their single
+               kernels and within 1e-6 of their plain forms, timed beside
+               8 single launches, their bound and cuSPARSE (K1, K3);
+               warm batched wall against the 8 solo solves; one
+               profiled batched solve.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
 lists, beside each tiled kernel, its other routes' counters by path
 (`ROUTE_COUNTERS`), and the build line nvcc's registers and spills of
-each form of the tiled kernel (`tb_forms`). Then the card's
-name and power limit (nvidia-smi), the {"kernels": [...]} summary, and
+each form of the tiled kernel (`tb_forms`). Every phase row carries the
+script's seconds so far (`t_s`), and the done line the seconds of each
+phase (`phase_seconds`). Then the card's name and power limit
+(nvidia-smi), the {"kernels": [...]} summary, and
 as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero without that line. It exits non-zero
 at once when PyTorch sees no CUDA device.
 """
+import dataclasses
 import inspect
 import itertools
 import json
@@ -377,6 +397,18 @@ for _bf, _f32 in BF16_FORMS.items():
 # B8 is float32 only in the reference: on bf16 operands it runs the XLA
 # form of the same product, which B8's bf16 form computes
 REPLACES["csr_spmv_bf16"] = "amgx_tpu/ops/pallas_swell.py:493"
+# the batched forms K1-K4 (ops/cuda_batched.py) are port-added: under
+# `jax.vmap` the TPU route runs no Pallas kernel but the XLA multi form
+# each replaces (`custom_vmap`: spmv_dia_multi, smooth_dia_multi, the
+# vmapped matrix-free _xla_smooth, swell_spmv_xla, _xla_step)
+REPLACES.update({"dia_spmv_multi": "amgx_tpu/ops/batched.py:35",
+                 "dia_step_multi": "amgx_tpu/ops/batched.py:79",
+                 "dia_step_mf_multi": "amgx_tpu/ops/stencil.py:268",
+                 "csr_spmv_multi": "amgx_tpu/ops/spmv.py:118",
+                 "csr_step_multi": "amgx_tpu/ops/smooth.py:292"})
+SOURCES.update({"dia_spmv_multi": "dia.cu", "dia_step_multi": "dia.cu",
+                "dia_step_mf_multi": "dia.cu", "csr_spmv_multi": "csr.cu",
+                "csr_step_multi": "csr.cu"})
 # the counters of each tiled kernel's other routes (the per-step route
 # where the tiled kernel does not take a level, the untiled restriction
 # after tiled steps): the kernels line lists their launches by path
@@ -706,13 +738,22 @@ def tb_forms(lines):
 
 
 T_START = time.perf_counter()
+# seconds by phase: the time from one phase row to the next goes to the
+# later row's phase (a row is emitted when its work is done)
+PHASE_SECONDS = {}
+_LAST_ROW = [T_START]
 
 
 def emit(obj):
     """One JSON line on stdout; a phase's row also gets the seconds since
-    the script started (`t_s`: where a run's time goes)."""
+    the script started (`t_s`: where a run's time goes), which
+    PHASE_SECONDS sums by phase for the done line."""
     if "phase" in obj:
-        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
+        now = time.perf_counter()
+        PHASE_SECONDS[obj["phase"]] = PHASE_SECONDS.get(obj["phase"], 0.0) \
+            + now - _LAST_ROW[0]
+        _LAST_ROW[0] = now
+        obj = {**obj, "t_s": round(now - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -3313,7 +3354,8 @@ def phase_bicgstab(torch, amgx, dev, per_path):
     krylov_fusion 1 (the files' default: B6's streamed-dot form twice
     per iteration) and 0 (none; B1 carries the SpMVs), the two routes
     within one iteration of each other; PBICGSTAB_AGGREGATION_W_JACOBI
-    at 64^3; GMRES_AMG_D2 at 128^3 and 64^3 and agg_cheb4 at 128^3. An
+    at 64^3 (no warm solve: its W cycle over 11 levels is ~19 s a solve);
+    GMRES_AMG_D2 at 128^3 and 64^3 and agg_cheb4 at 128^3. An
     anchored run holds the JAX package's status and iterations +- 2 (at
     max_iters its final residual to 1 %); every run reports the host
     syncs of a warm solve."""
@@ -3342,7 +3384,8 @@ def phase_bicgstab(torch, amgx, dev, per_path):
         check(abs(iters[1] - iters[0]) <= 1,
               f"{name} {n}^3: krylov_fusion 1 / 0 iterations {iters}")
     rec, c, res = krylov_file_run(torch, amgx, dev, per_path,
-                                  "PBICGSTAB_AGGREGATION_W_JACOBI", 64)
+                                  "PBICGSTAB_AGGREGATION_W_JACOBI", 64,
+                                  warm=False)
     check(c["dia_spmv_ddot"] == 2 * res.iterations and c["csr_smooth"] > 0,
           f"{rec['config']}: B6-ddot twice per iteration, B9 {c}")
     for n in (128, 64):
@@ -3905,6 +3948,475 @@ def phase_resetup(torch, amgx, dev, per_path):
           f"({equal}), {rc.iterations} / {rh.iterations} iterations")
 
 
+# ---------------------------------------------------------------------------
+# batched solves (phase_batch)
+# ---------------------------------------------------------------------------
+
+# BATCHED_CG (amgx_tpu_torch/presets.py) on the 7-pt BATCH_N^3 in float32,
+# BATCH_B systems from numpy's default_rng(BATCH_SEED)
+BATCH_N = 128
+BATCH_B = 8
+BATCH_SEED = 17
+# the multi-matrix systems A + c I: from none to shifts well above the
+# Poisson operator's smallest eigenvalue (~1.8e-3 at 128^3), so the
+# systems stop at different iterations and the freeze runs
+BATCH_SHIFTS = (0.0, 0.0005, 0.002, 0.008, 0.03, 0.1, 0.4, 2.0)
+# the request batcher's second pattern
+BATCH_Q_N = 64
+# the batched kernels (ops/cuda_batched.py); K2 in its slab and its
+# coefficient ("mf") mode
+BATCHED = ("dia_spmv_multi", "dia_step_multi", "dia_step_mf_multi",
+           "csr_spmv_multi", "csr_step_multi")
+# a batched kernel against its plain multi form (max |diff| / max |plain|,
+# float32): one row sum (K1, K3), one damped step and its residual (K2),
+# one sweep (K4), each summed in the single kernel's order
+BATCH_LIMIT = 1e-6
+# a batched system against its solo solve: the batched dots and the
+# composed transfers round otherwise than B6 / B7 and B3-mf / B4-mf
+BATCH_ITER_TOL = 1
+BATCH_RES_RATIO = 2.0
+
+
+def batch_launches(amg, iters):
+    """The batched kernels' launches in one batched PCG solve of `iters`
+    iterations (the batch's longest): K1 for the initial residual and A p
+    once an iteration; in each cycle (one in the set-up, one an
+    iteration) on every level K2 (its coefficient mode on a matrix-free
+    level) for each damped step and the residual, or on a CSR level K4
+    for each sweep and K3 for the residual. None of it depends on B."""
+    per = dict.fromkeys(BATCHED, 0)
+    for i, lv in enumerate(amg.levels):
+        steps = amg._sweeps(i, pre=True) + amg._sweeps(i, pre=False)
+        if lv.smoother._mf_stencil is not None:
+            per["dia_step_mf_multi"] += steps + 1
+        elif lv.A.dia_vals is not None:
+            per["dia_step_multi"] += steps + 1
+        else:
+            per["csr_step_multi"] += steps
+            per["csr_spmv_multi"] += 1
+    out = {k: v * (iters + 1) for k, v in per.items()}
+    out["dia_spmv_multi"] = iters + 1
+    return out
+
+
+def batch_only(c, allowed=()):
+    """The launches of counters other than the batched forms (and
+    `allowed`): a batched path launches no single kernel."""
+    return {k: v for k, v in c.items()
+            if v and k not in BATCHED and k not in allowed}
+
+
+def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
+                      flops, per_call, lib, nsys, summary, main=False):
+    """One batched kernel at a path's shape: its launches, row s of each
+    output equal to the single kernel on system s bit for bit (`single`
+    gives the B single calls' outputs), within BATCH_LIMIT of the plain
+    multi form; its time beside B launches of the single form, the plain
+    form, its bound and its library call. The kernels line reports the
+    `main` shape's row (else the first), with the largest errors."""
+    before = dict(K.LAUNCHES)
+    got = kern()
+    moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
+             if v != before[k]}
+    check(moved == {name: per_call},
+          f"{name} at {label}: launches {moved}, expected {per_call}")
+    got = got if isinstance(got, tuple) else (got,)
+    ones = single()
+    for s, one in enumerate(ones):
+        one = one if isinstance(one, tuple) else (one,)
+        check(all(torch.equal(g[s], o) for g, o in zip(got, one)),
+              f"{name} at {label}: system {s} differs from its single "
+              f"kernel")
+    want = plain()
+    abs_err, rel_err = max_err(torch, got, want)
+    check(rel_err <= BATCH_LIMIT,
+          f"{name} at {label}: {rel_err} from the plain form")
+    ms = time_ms(torch, kern)
+    dev_ms, recs = None, 0
+    for _ in range(3):
+        dev_ms, recs = device_ms(torch, kern, per_call)
+        if dev_ms is not None:
+            break
+    single_ms = time_ms(torch, single)
+    plain_ms = time_ms(torch, plain, reps=5, batch=2)
+    lib_ms = None if lib is None else time_ms(torch, lib)
+    b_ms, b_by = bound(nbytes, flops)
+    row = {"phase": "kernels_batch", "shape": label, "name": name,
+           "systems": nsys, "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "limit": BATCH_LIMIT, "single_bits_equal": True,
+           "launches_per_call": per_call, "ms": ms, "device_ms": dev_ms,
+           "device_records": recs, "single_x_b_ms": single_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+           "bound_by": b_by, "library_ms": lib_ms}
+    emit(row)
+    prev = summary.get(name)
+    if prev is None or main:
+        summary[name] = row
+    if prev is not None:
+        for key in ("max_abs_err", "max_rel_err"):
+            summary[name][key] = max(prev[key], row[key])
+
+
+def batch_cases(torch, amgx, data, X, Bv, summary, label):
+    """K1-K4 on one batch's solve data (shared or stacked): K1 on the
+    Krylov operator, K2 on level 0 (its stencil, and its slab with the
+    L1 dinv), K3 and K4 on the first two CSR levels."""
+    from amgx_tpu_torch.ops import cuda_batched as KB
+    from amgx_tpu_torch.ops import cuda_csr as C
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    from amgx_tpu_torch.ops import stencil as mf
+    nb, n = X.shape
+    A = data["A"]
+    per = A.dia_vals.dim() == 3
+    offs = A.dia_offsets
+    k = len(offs)
+    vs = A.dia_vals
+    vrows = [vs[s] if per else vs for s in range(nb)]
+
+    def csr_of(M):
+        return csr_library(torch, M)
+
+    lib = None if per else csr_of(A)
+    batch_kernel_case(
+        torch, K, f"{label} level 0 ({n} rows)", "dia_spmv_multi",
+        lambda: KB.dia_spmv_multi(vs, offs, X),
+        lambda: [K.dia_spmv(vrows[s], offs, X[s]) for s in range(nb)],
+        lambda: K.dia_spmv_plain(vs, offs, X),
+        vs.numel() * 4 + 2 * X.numel() * 4, 2 * k * n * nb, 1,
+        None if lib is None else (lambda: lib @ X.t()), nb, summary)
+    lv0 = data["precond"]["amg"]["levels"][0]
+    taus = torch.ones(1, dtype=torch.float32, device=X.device)
+    st = lv0["stencil"]
+    srows = [dataclasses.replace(st, coeffs=st.coeffs[s], host=st.host[s])
+             if st.coeffs.dim() == 2 else st for s in range(nb)]
+    batch_kernel_case(
+        torch, K, f"{label} level 0 ({n} rows), 1 step + residual",
+        "dia_step_mf_multi",
+        lambda: KB.dia_smooth_mf_multi(st, taus, Bv, X, True),
+        lambda: [K.dia_smooth_mf(srows[s], taus, Bv[s], X[s], True)
+                 for s in range(nb)],
+        lambda: mf._xla_smooth(st.spec(), st.coeffs, taus, Bv, X, True),
+        4 * X.numel() * 4, (4 * k + 6) * n * nb, 2, None, nb, summary)
+    # the slab mode on the same level
+    batch_slab_case(torch, A, X, Bv, summary, label)
+    gen = torch.Generator(device=X.device).manual_seed(BATCH_SEED)
+    for i in (1, 2):
+        ld = data["precond"]["amg"]["levels"][i]
+        M, dinv = ld["A"], ld["smoother"]["dinv"]
+        m = M.num_rows
+        Y = torch.randn((nb, m), generator=gen, device=X.device)
+        Bc = torch.randn((nb, m), generator=gen, device=X.device)
+        pv = M.values.dim() == 2
+        mrows = [M.values[s] if pv else M.values for s in range(nb)]
+        lib = None if pv else csr_of(M)
+        ro, ci = M.row_offsets, M.col_indices
+        batch_kernel_case(
+            torch, K, f"{label} level {i} ({m} rows)", "csr_spmv_multi",
+            lambda: KB.csr_spmv_multi(ro, ci, M.values, Y),
+            lambda: [C.csr_spmv(ro, ci, mrows[s], Y[s]) for s in range(nb)],
+            lambda: C.csr_spmv_plain(ro, ci, M.values, Y),
+            M.values.numel() * 4 + M.nnz * 4 + (m + 1) * 4
+            + 2 * Y.numel() * 4, 2 * M.nnz * nb, 1,
+            None if lib is None else (lambda: lib @ Y.t()), nb, summary)
+        drs = [dinv[s] if dinv.dim() == 2 else dinv for s in range(nb)]
+        lanes = M.csr_lanes or 1
+        batch_kernel_case(
+            torch, K, f"{label} level {i} ({m} rows), 1 sweep",
+            "csr_step_multi",
+            lambda: KB.csr_smooth_multi(ro, ci, M.values, taus, Bc, Y, dinv,
+                                        lanes),
+            lambda: [C.csr_smooth(ro, ci, mrows[s], taus, Bc[s], Y[s],
+                                  drs[s], lanes) for s in range(nb)],
+            lambda: C.csr_smooth_plain(ro, ci, M.values, taus, Bc, Y, dinv),
+            M.values.numel() * 4 + M.nnz * 4 + (m + 1) * 4
+            + dinv.numel() * 4 + 3 * Y.numel() * 4,
+            (2 * M.nnz + 4 * m) * nb, 1, None, nb, summary)
+
+
+def batch_slab_case(torch, A, X, Bv, summary, label, main=False):
+    """K2's slab mode on a DIA level 0 (`A` shared or stacked): one
+    damped step with the L1 dinv of each system's slab, and the
+    residual."""
+    from amgx_tpu_torch.ops import cuda_batched as KB
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
+                                                   safe_recip)
+    nb, n = X.shape
+    vs, offs = A.dia_vals, A.dia_offsets
+    per = vs.dim() == 3
+    vrows = [vs[s] if per else vs for s in range(nb)]
+    taus = torch.ones(1, dtype=torch.float32, device=X.device)
+    d = torch.stack([safe_recip(l1_strengthened_diag(dataclasses.replace(
+        A, values=A.values[s]))) for s in range(nb)]) if per \
+        else safe_recip(l1_strengthened_diag(A))
+    drows = [d[s] if per else d for s in range(nb)]
+    batch_kernel_case(
+        torch, K, f"{label} level 0 ({n} rows) slab, 1 step + residual",
+        "dia_step_multi",
+        lambda: KB.dia_smooth_multi(vs, offs, taus, Bv, X, d, True),
+        lambda: [K.dia_smooth(vrows[s], offs, taus, Bv[s], X[s], drows[s],
+                              True, grid=A.grid_shape) for s in range(nb)],
+        lambda: K.dia_smooth_plain(vs, offs, taus, Bv, X, d, True),
+        vs.numel() * 4 + d.numel() * 4 + 4 * X.numel() * 4,
+        (4 * len(offs) + 6) * n * nb, 2, None, nb, summary, main)
+
+
+def diag_shifted(torch, A, shifts):
+    """The systems A + c I for c in `shifts`, through with_values."""
+    rows = torch.repeat_interleave(
+        torch.arange(A.num_rows, device=A.values.device),
+        torch.diff(A.row_offsets.long()))
+    diag = (rows == A.col_indices.long()).to(A.values.dtype)
+    return [A.with_values(A.values + c * diag) for c in shifts]
+
+
+def batch_check(label, got, ref):
+    """A batched system against its solo solve on the card: the same
+    status, iterations within BATCH_ITER_TOL, true relative residual
+    within BATCH_RES_RATIO."""
+    check(got["status"] == ref["status"]
+          and abs(got["iterations"] - ref["iterations"]) <= BATCH_ITER_TOL
+          and got["true_rel_res"] <= BATCH_RES_RATIO * ref["true_rel_res"]
+          and ref["true_rel_res"] <= BATCH_RES_RATIO * got["true_rel_res"],
+          f"{label}: batched {got} against solo {ref}")
+
+
+def batch_systems(torch, res, mats, bs):
+    """Per-system status, iterations and true relative residual of a
+    batched result (`mats[i]` system i's matrix)."""
+    out = []
+    for i, r in enumerate(res.per_system()):
+        out.append({"status": r.status, "iterations": r.iterations,
+                    "true_rel_res": true_rel_res(torch, mats[i], r.x,
+                                                 bs[i])})
+    return out
+
+
+def solo_systems(torch, slv, mats, bs, resetup):
+    """Solo solves of the same systems on the card (resetup to each
+    matrix first when `resetup`), after one warm-up solve: per system
+    status, iterations, true relative residual and warm solve seconds."""
+    slv.solve(bs[0])
+    out = []
+    for i in range(len(bs)):
+        if resetup:
+            slv.resetup(mats[i])
+        r, s = timed(torch, lambda: slv.solve(bs[i]))
+        out.append({"status": r.status, "iterations": r.iterations,
+                    "true_rel_res": true_rel_res(torch, mats[i], r.x,
+                                                 bs[i]), "solve_s": s})
+    return out
+
+
+def batch_profile(torch, fn, iterations):
+    """One batched solve under torch.profiler (device activity only):
+    wall, device busy time, idle share, device ops and device->host copies
+    per iteration (the batch's longest)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, ops, dtoh = 0.0, 0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += ev.time_range.elapsed_us()
+        if "Memcpy DtoH" in ev.name:
+            dtoh += 1
+        elif not ev.name.startswith(("Memcpy", "Memset")):
+            ops += 1
+    it = max(iterations, 1)
+    return {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
+            "idle_share": 1.0 - busy_us * 1e-6 / wall, "device_ops": ops,
+            "device_ops_per_iteration": ops / it,
+            "dtoh_per_iteration": dtoh / it}
+
+
+def phase_batch(torch, amgx, dev, per_path, summary):
+    """Batched solves through the entry points (amgx_tpu_torch.batch):
+    BATCHED_CG on the 7-pt 128^3 in float32 with 8 systems.
+    (M) multi-RHS: BatchedSolver.solve_many of 8 seeded right-hand sides;
+    (MM) multi-matrix: the systems A + c I (BATCH_SHIFTS, with_values of
+    one template), hierarchy structure shared, values spliced through
+    resetup (B10's relabel form), at least three distinct iteration
+    counts; (Q) RequestBatcher: a drain of 8 requests on the 128^3
+    pattern (values of three A_i) and 3 on a 64^3 one, dispatched as
+    (8, 8) and (3, 4), then a drain of 5 requests sharing one matrix (the
+    single-matrix fast path, (5, 8)). Each system against its solo solve
+    on the card (resetup + solve): the same status, iterations within
+    BATCH_ITER_TOL, true residual within BATCH_RES_RATIO. Only the
+    batched kernels launch, each per `batch_launches` (once a use an
+    iteration, whatever B is). K1-K4 at the path's shapes, shared and per
+    system, against their single kernels bit for bit and their plain
+    forms; warm batched wall times against the 8 solo solves'; one
+    profiled batched solve. Then (S) the slab route (matrix_free=0) at
+    64^3, which runs K2 from the level's slab."""
+    from amgx_tpu_torch.batch import BatchedSolver, RequestBatcher
+    from amgx_tpu_torch.batch import stack_solve_datas
+    from amgx_tpu_torch.presets import BATCHED_CG
+    n, nb = BATCH_N, BATCH_B
+    rng = np.random.default_rng(BATCH_SEED)
+
+    def rhs(count, rows):
+        return torch.from_numpy(rng.standard_normal((count, rows)).astype(
+            np.float32)).to(dev)
+
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    bs = BatchedSolver(amgx.Config.from_string(BATCHED_CG), device=dev)
+    _, setup_s = timed(torch, lambda: bs.setup(A))
+    slv, amg = bs.solver, precond_amg(bs.solver)
+    levels = amg.level_rows()
+    # (M) multi-RHS
+    BM = rhs(nb, n ** 3)
+    res_m, first_s = timed(torch, lambda: run_path(
+        amgx, per_path, "batch_multi_rhs", lambda: bs.solve_many(BM)))
+    c = per_path["batch_multi_rhs"]
+    want = batch_launches(amg, int(res_m.iterations.max()))
+    check({k: c[k] for k in BATCHED} == want and not batch_only(c),
+          f"batch (M): launches {c}, expected {want} and no single kernel")
+    got_m = batch_systems(torch, res_m, [A] * nb, BM)
+    warm_m = [timed(torch, lambda: bs.solve_many(BM))[1] for _ in range(2)]
+    prof_m = batch_profile(torch, lambda: bs.solve_many(BM),
+                           int(res_m.iterations.max()))
+    ref_m = solo_systems(torch, slv, [A] * nb, BM, False)
+    for i in range(nb):
+        batch_check(f"batch (M) system {i}", got_m[i], ref_m[i])
+    batch_cases(torch, amgx, slv.solve_data(), rhs(nb, n ** 3),
+                rhs(nb, n ** 3), summary, "shared")
+    emit({"phase": "batch", "case": "multi_rhs", "rows": n ** 3,
+          "systems": nb, "levels": levels, "setup_s": setup_s,
+          "iterations": res_m.iterations.tolist(),
+          "status": [g["status"] for g in got_m],
+          "true_rel_res": [g["true_rel_res"] for g in got_m],
+          "solo": ref_m, "first_batched_s": first_s,
+          "warm_batched_s": warm_m,
+          "solo_warm_sum_s": sum(r["solve_s"] for r in ref_m),
+          "warm_batched_over_one_solo": min(warm_m)
+          / float(np.median([r["solve_s"] for r in ref_m])),
+          "profile": prof_m, "launches": c})
+    # (MM) multi-matrix
+    mats = diag_shifted(torch, A, BATCH_SHIFTS)
+    BMM = rhs(nb, n ** 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res_mm, first_mm = timed(torch, lambda: run_path(
+        amgx, per_path, "batch_multi_matrix",
+        lambda: bs.solve_many(BMM, matrices=mats)))
+    peak_mm = torch.cuda.max_memory_allocated(dev)
+    c = per_path["batch_multi_matrix"]
+    want = batch_launches(amg, int(res_mm.iterations.max()))
+    check({k: c[k] for k in BATCHED} == want
+          and c["rap_values_relabel"] > 0
+          and not batch_only(c, ("rap_values_relabel",)),
+          f"batch (MM): launches {c}, expected {want}, B10 in the splice "
+          f"and no single kernel")
+    its = res_mm.iterations.tolist()
+    check(len(set(its)) >= 3, f"batch (MM): iterations {its}, fewer than "
+          f"three distinct counts")
+    got_mm = batch_systems(torch, res_mm, mats, BMM)
+    warm_mm = []
+    for _ in range(2):
+        r, s = timed(torch, lambda: bs.solve_many(BMM, matrices=mats))
+        warm_mm.append({"wall_s": s, "loop_s": r.solve_time})
+    splice_s = timed(torch, lambda: stack_solve_datas(
+        bs._per_system_data(mats)))[1]
+    ref_mm = solo_systems(torch, slv, mats, BMM, True)
+    for i in range(nb):
+        batch_check(f"batch (MM) system {i}", got_mm[i], ref_mm[i])
+    data_mm, _ = stack_solve_datas(bs._per_system_data(mats))
+    batch_cases(torch, amgx, data_mm, rhs(nb, n ** 3), rhs(nb, n ** 3),
+                summary, "per-system")
+    del data_mm
+    emit({"phase": "batch", "case": "multi_matrix", "rows": n ** 3,
+          "systems": nb, "shifts": list(BATCH_SHIFTS), "iterations": its,
+          "status": [g["status"] for g in got_mm],
+          "true_rel_res": [g["true_rel_res"] for g in got_mm],
+          "solo": ref_mm, "first_batched_s": first_mm,
+          "warm_batched": warm_mm, "splice_and_stack_s": splice_s,
+          "solo_warm_sum_s": sum(r["solve_s"] for r in ref_mm),
+          "peak_bytes": peak_mm, "launches": c})
+    # (Q) the request batcher
+    Aq = amgx.gallery.poisson("7pt", BATCH_Q_N, BATCH_Q_N, BATCH_Q_N,
+                              dtype=torch.float32, device=dev).init()
+    Bq = rhs(3, BATCH_Q_N ** 3)
+    first = [(mats[0], BM[k], ref_m[k]) for k in range(6)] + [
+        (mats[3], BMM[3], ref_mm[3]), (mats[6], BMM[6], ref_mm[6])]
+    second = [(mats[0], BM[k], ref_m[k]) for k in range(5)]
+
+    def queue():
+        rb = RequestBatcher(amgx.Config.from_string(BATCHED_CG), device=dev)
+        t1 = [rb.submit(M, b) for M, b, _ in first]
+        tq = [rb.submit(Aq, b) for b in Bq]
+        rb.drain()
+        t2 = [rb.submit(M, b) for M, b, _ in second]
+        rb.drain()
+        return rb, t1, tq, t2
+
+    (rb, t1, tq, t2), q_s = timed(torch, lambda: run_path(
+        amgx, per_path, "batch_queue", queue))
+    c = per_path["batch_queue"]
+    log = [(r, p) for _, r, p in rb.dispatch_log]
+    check(log == [(8, 8), (3, 4), (5, 8)], f"batch (Q): dispatches {log}")
+    check(all(c[k] > 0 for k in ("dia_spmv_multi", "dia_step_mf_multi",
+                                 "csr_spmv_multi", "csr_step_multi"))
+          and not batch_only(c, ("rap_values_relabel",)),
+          f"batch (Q): launches {c}")
+    slv_q = amgx.create_solver(amgx.Config.from_string(BATCHED_CG),
+                               device=dev)
+    slv_q.setup(Aq)
+    ref_q = solo_systems(torch, slv_q, [Aq] * 3, Bq, False)
+    got_q = []
+    for tickets, cases in ((t1, first), (t2, second)):
+        for t, (M, b, ref) in zip(tickets, cases):
+            g = {"status": t.result.status,
+                 "iterations": t.result.iterations,
+                 "true_rel_res": true_rel_res(torch, M, t.result.x, b)}
+            batch_check("batch (Q)", g, ref)
+            got_q.append(g)
+    for t, b, ref in zip(tq, Bq, ref_q):
+        g = {"status": t.result.status, "iterations": t.result.iterations,
+             "true_rel_res": true_rel_res(torch, Aq, t.result.x, b)}
+        batch_check("batch (Q) 64^3", g, ref)
+        got_q.append(g)
+    emit({"phase": "batch", "case": "queue", "dispatches": log,
+          "systems": got_q, "solo_64": ref_q, "seconds": q_s,
+          "launches": c})
+    del rb, t1, tq, t2, slv_q, bs, slv, amg, mats, res_mm
+    torch.cuda.empty_cache()
+    # (S) the slab route at 64^3: K2 from the level's value slab
+    bss = BatchedSolver(amgx.Config.from_string(BATCHED_CG + SLAB),
+                        device=dev)
+    bss.setup(Aq)
+    BS = rhs(nb, BATCH_Q_N ** 3)
+    res_s = run_path(amgx, per_path, "batch_slab_64^3",
+                     lambda: bss.solve_many(BS))
+    c = per_path["batch_slab_64^3"]
+    want = batch_launches(precond_amg(bss.solver),
+                          int(res_s.iterations.max()))
+    check({k: c[k] for k in BATCHED} == want and want["dia_step_multi"] > 0
+          and not batch_only(c),
+          f"batch (S): launches {c}, expected {want}")
+    got_s = batch_systems(torch, res_s, [Aq] * nb, BS)
+    ref_s = solo_systems(torch, bss.solver, [Aq] * nb, BS, False)
+    for i in range(nb):
+        batch_check(f"batch (S) system {i}", got_s[i], ref_s[i])
+    # K2's slab mode at the shape (S) launches it, shared and stacked:
+    # the kernels line reports the shared row
+    batch_slab_case(torch, bss.solver.solve_data()["A"], rhs(nb, Aq.num_rows),
+                    rhs(nb, Aq.num_rows), summary, "(S) shared", main=True)
+    data_s, _ = stack_solve_datas(bss._per_system_data(
+        diag_shifted(torch, Aq, BATCH_SHIFTS)))
+    batch_slab_case(torch, data_s["A"], rhs(nb, Aq.num_rows),
+                    rhs(nb, Aq.num_rows), summary, "(S) per-system")
+    del data_s
+    emit({"phase": "batch", "case": "slab_64^3",
+          "iterations": res_s.iterations.tolist(), "solo": ref_s,
+          "launches": c})
+
+
 def phase_aggregation(torch, amgx, dev, per_path, summary):
     """AmgX's stock PCG_AGGREGATION_JACOBI and FGMRES_AGGREGATION_JACOBI,
     read from configs/, on the 7-pt 128^3 Poisson in float32 (b = 1):
@@ -4101,8 +4613,9 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
 # twin, size, operator dtype, the bf16 kernels it must launch). The card
 # runs each at its size and at BF16_WITNESS, where the CPU route (the
 # kernels' plain forms) runs it too: the same status, iterations within
-# one, the same level rows.
+# one, the same level rows. Warm solves in BF16_PAIRS alternating pairs.
 BF16_WITNESS = 64
+BF16_PAIRS = 4
 BF16_AGG_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
                     "dia_prolong_smooth_mf_bf16")
 BF16_CLS_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
@@ -4186,7 +4699,7 @@ def phase_bf16_hierarchies(torch, amgx, dev, per_path):
         r32, slv32, _, _, rel32 = run_solve(torch, amgx, make32, n, dev,
                                             dtype)
         warm, wins = paired_warm(torch, {"float32": slv32, "bf16": slv}, n,
-                                 dtype)
+                                 dtype, pairs=BF16_PAIRS)
         amg = precond_amg(slv)
         fits = []
         for i, lv in enumerate(amg.levels):
@@ -4208,7 +4721,7 @@ def phase_bf16_hierarchies(torch, amgx, dev, per_path):
               "true_rel_res": true_rel, "f32_true_rel_res": rel32,
               "setup_s": setup_s, "solve_s": solve_s,
               "setup_peak_bytes": peak, "warm_solve_s": warm,
-              "pairs": PAIRS, "f32_first_wins": wins,
+              "pairs": BF16_PAIRS, "f32_first_wins": wins,
               "warm_f32_over_bf16": warm["float32"]["median"]
               / warm["bf16"]["median"],
               "swell_fit": fits, "launches": c})
@@ -4314,6 +4827,7 @@ def main():
     phase_multicolor(torch, amgx, dev, per_path)
     phase_aggressive_kcycle(torch, amgx, dev, per_path)
     phase_resetup(torch, amgx, dev, per_path)
+    phase_batch(torch, amgx, dev, per_path, summary)
 
     kernels = []
     for name, row in summary.items():
@@ -4335,7 +4849,8 @@ def main():
                     "max_err_bf16_ulps", "bit_equal_share",
                     "bound_launches_ms", "launches_per_call", "step_route_ms",
                     "step_route_device_ms", "step_route_launches_per_call",
-                    "step_route_max_abs_diff", "split"):
+                    "step_route_max_abs_diff", "split", "systems",
+                    "single_x_b_ms"):
             if key in row:
                 entry[key] = row[key]
         if name in ROUTE_COUNTERS:
@@ -4344,6 +4859,8 @@ def main():
                 for k in ROUTE_COUNTERS[name]}
         kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": {k: round(v, 3)
+                            for k, v in PHASE_SECONDS.items()},
           "package_output_messages": len(printed),
           "package_output_chars": sum(printed)})
     print(card, flush=True)

@@ -2,7 +2,8 @@
 """Where the time goes in one solve of the PyTorch/CUDA port.
 
     python3 tools/torch_profile.py [--config flagship|tail-off|pcg|classical
-                                             |agg-pcg|agg-fgmres]
+                                             |agg-pcg|agg-fgmres|batch]
+                                   [--batch 8] [--multi-matrix]
                                    [--file NAME]
                                    [--size 128] [--cycle-fusion 1]
                                    [--krylov-fusion 1]
@@ -39,6 +40,14 @@ PCG's own), and the device time by kernel name, largest first. Needs a
 CUDA card; imports no JAX. The solve and grid tables that a stock file
 asks for go to stderr.
 
+`--config batch` profiles one batched solve (amgx_tpu_torch.batch,
+BATCHED_CG in float32) of `--batch` right-hand sides from numpy's
+default_rng(17) (multi-RHS: K1-K4 and the composed Krylov and transfer
+work), or with `--multi-matrix` of the systems A + c I of chip_smoke.py's
+BATCH_SHIFTS (the per-system values stacked; the splice is not
+profiled); the per-iteration numbers are over the batch's longest
+system.
+
 `--operator dad` solves A2 = D A D instead of the Poisson operator
 (chip_smoke.py `scaled_values`: variable coefficients, so no level is a
 constant stencil and every GEO level runs the slab kernels: the
@@ -57,15 +66,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 # the benched configuration strings, defined once in chip_smoke.py
-from chip_smoke import (CLASSICAL, PCG, agg_config,  # noqa: E402
-                        scaled_values)
+from chip_smoke import (BATCH_SEED, BATCH_SHIFTS,  # noqa: E402
+                        CLASSICAL, PCG, agg_config, scaled_values)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "tail-off", "pcg", "classical",
-                             "agg-pcg", "agg-fgmres"))
+                             "agg-pcg", "agg-fgmres", "batch"))
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--multi-matrix", action="store_true")
     ap.add_argument("--file", default=None,
                     help="a stock configs/ file name (overrides --config)")
     ap.add_argument("--size", type=int, default=128)
@@ -98,6 +109,8 @@ def main():
 
     n = args.size
     dev = torch.device("cuda", 0)
+    if args.config == "batch":
+        return profile_batch(args, torch, amgx, profile, ProfilerActivity)
     if args.file:
         args.config = args.file
         cfg = amgx.Config.from_file(os.path.join(
@@ -176,6 +189,70 @@ def main():
         "device_ops": launches, "dtoh_copies": dtoh,
         "device_ops_per_inner_iteration": launches / max(inner, 1),
         "dtoh_per_inner_iteration": dtoh / max(inner, 1),
+        "top": [{"name": k[:140], "ms": v[0] * 1e-3, "count": v[1],
+                 "share_of_busy": v[0] / max(busy_us, 1e-9)}
+                for k, v in top]}), flush=True)
+    return 0
+
+
+def profile_batch(args, torch, amgx, profile, activity):
+    """One warm batched solve under torch.profiler (device activity)."""
+    import numpy as np
+    from amgx_tpu_torch.batch import BatchedSolver, stack_solve_datas
+    from amgx_tpu_torch.presets import BATCHED_CG
+    n, nb = args.size, args.batch
+    dev = torch.device("cuda", 0)
+    cfg = amgx.Config.from_string(BATCHED_CG)
+    cfg.set("matrix_free", args.matrix_free, scope="amg")
+    bs = BatchedSolver(cfg, device=dev)
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    bs.setup(A)
+    B = torch.from_numpy(np.random.default_rng(BATCH_SEED).standard_normal(
+        (nb, n ** 3)).astype(np.float32)).to(dev)
+    data = bs.solver.solve_data()
+    if args.multi_matrix:
+        rows = torch.repeat_interleave(torch.arange(n ** 3, device=dev),
+                                       torch.diff(A.row_offsets.long()))
+        diag = (rows == A.col_indices.long()).to(torch.float32)
+        shifts = [BATCH_SHIFTS[i % len(BATCH_SHIFTS)] for i in range(nb)]
+        data, _ = stack_solve_datas(bs._per_system_data(
+            [A.with_values(A.values + c * diag) for c in shifts]))
+    x0 = torch.zeros_like(B)
+    bs.solver.run_loop_batched(data, B, x0)             # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[activity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = bs.solver.run_loop_batched(data, B, x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches, dtoh = 0.0, 0, 0
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = ev.time_range.elapsed_us()
+        busy_us += dur
+        if "Memcpy DtoH" in ev.name:
+            dtoh += 1
+        elif not ev.name.startswith(("Memcpy", "Memset")):
+            launches += 1
+        ent = by_name.setdefault(ev.name, [0.0, 0])
+        ent[0] += dur
+        ent[1] += 1
+    it = int(st["iters"].max())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
+    print(json.dumps({
+        "phase": "profile", "config": "batch", "rows": n ** 3,
+        "systems": nb, "multi_matrix": args.multi_matrix,
+        "matrix_free": args.matrix_free,
+        "device": torch.cuda.get_device_name(0),
+        "iterations": st["iters"].tolist(), "wall_s": wall,
+        "device_busy_s": busy_us * 1e-6,
+        "idle_share": 1.0 - busy_us * 1e-6 / wall,
+        "device_ops": launches, "dtoh_copies": dtoh,
+        "device_ops_per_iteration": launches / max(it, 1),
+        "dtoh_per_iteration": dtoh / max(it, 1),
         "top": [{"name": k[:140], "ms": v[0] * 1e-3, "count": v[1],
                  "share_of_busy": v[0] / max(busy_us, 1e-9)}
                 for k, v in top]}), flush=True)
