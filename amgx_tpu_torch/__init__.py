@@ -11,20 +11,32 @@ CUDA (amgx_tpu_torch/csrc/), built with nvcc at first use.
         amgx.presets.FLAGSHIP))
     slv.setup(A)
     res = slv.solve(torch.ones(A.num_rows, dtype=torch.float64))
+    res.report.to_json()              # telemetry=1 (the default)
+
+Resilience: `create_solver` on a config with `fallback_policy` (e.g.
+`presets.RESILIENT_CG`) returns a `resilience.ResilientSolver`;
+`resilience.faultinject.inject(...)` arms the fault harness. Runtime
+helpers: `profiling`, `memory_info`, `determinism`, `thread_manager`
+(`Solver.setup_async`) and `Resources`.
 """
 from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
 from . import batch, gallery, presets
+from . import (determinism, memory_info, profiling, resilience,  # noqa: F401
+               telemetry, thread_manager)
 from .config import Config
 from .output import register_print_callback
 from .matrix import CsrMatrix
+from .resources import Resources
 from .ops.cuda_spmv import LAUNCHES as _LAUNCHES
 from .ops.spgemm import PLAN_COUNTS as _PLAN_COUNTS
 from .resilience.status import SolveStatus
 from .solvers.base import create_solver
 
-__all__ = ["Config", "CsrMatrix", "SolveStatus", "batch", "create_solver",
-           "gallery", "presets", "kernel_launches", "plan_counts",
-           "register_print_callback", "reset_kernel_launches"]
+__all__ = ["Config", "CsrMatrix", "Resources", "SolveStatus", "batch",
+           "create_solver", "determinism", "gallery", "kernel_launches",
+           "memory_info", "plan_counts", "presets", "profiling",
+           "register_print_callback", "reset_kernel_launches", "resilience",
+           "telemetry", "thread_manager"]
 
 
 def kernel_launches() -> dict:

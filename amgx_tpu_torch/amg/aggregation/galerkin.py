@@ -32,6 +32,7 @@ import threading
 import torch
 
 from ...matrix import CsrMatrix
+from ...telemetry import metrics as _tm
 
 
 def _decompose(d: int, nx: int, ny: int, nz: int):
@@ -341,8 +342,14 @@ def get_geo_plan(A: CsrMatrix, fine_shape, axes, coarse_shape):
     if plan is not None:
         _GEO_PLAN_CACHE.move_to_end(key)
         spgemm.PLAN_COUNTS["geo_hit"] += 1
+        # the plan carries the coarse CSR structure: its cache is the
+        # JAX package's plan cache and structure cache at once
+        _tm.inc("amg.spgemm.plan_hit")
+        _tm.inc("amg.geo_struct_cache.hit")
         return plan
     spgemm.PLAN_COUNTS["geo_build"] += 1
+    _tm.inc("amg.spgemm.plan_build")
+    _tm.inc("amg.geo_struct_cache.miss")
     plan = _GEO_PLAN_CACHE[key] = GeoRapPlan(
         key[0], tuple(shifts), key[1], key[2], key[3], A.device)
     total = 0

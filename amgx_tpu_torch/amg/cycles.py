@@ -16,14 +16,24 @@ cycle-borne dot. A residual the cycle forms
 itself reads the level's operator through ops/stencil.py
 `level_operator`, which rebuilds a matrix-free level's matrix. A
 bfloat16 cycle solves its coarsest level in float32 (the precision
-policy keeps the coarse-solver payload at float32 or wider)."""
+policy keeps the coarse-solver payload at float32 or wider).
+
+Two things make a fixed cycle take the composed route at a level (no
+B5 tail; the correction and the postsmooth apart): a diagnostics
+recorder (telemetry/diagnostics.py) records the level's stage residual
+norms, and an iteration targeted by an armed SpMV fault
+(resilience/faultinject.py) poisons each level's restricted residual, as
+the JAX package's XLA route poisons the SpMVs inside its cycle. Neither
+is active in a normal cycle: one attribute read a level visit."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.spmv import residual, spmv
 from ..ops.stencil import level_operator
+from ..resilience import faultinject as _fi
 from ..solvers.krylov import _safe_div
+from ..telemetry import diagnostics as _diag
 
 
 def _smooth(level, data, b, x, sweeps: int):
@@ -102,7 +112,9 @@ def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
     if lvl == len(levels):
         out = _coarse_solve(amg, data, b, x)
         return (out, None) if want_dot else out
-    if amg.cycle_fusion:
+    rec = _diag.current()
+    fault = _fi.loop_fault_hit()
+    if amg.cycle_fusion and rec is None and fault is None:
         from ..ops.smooth import coarse_tail_cycle
         out = coarse_tail_cycle(amg, shape, data, lvl, b, x,
                                 want_dot=want_dot)
@@ -110,8 +122,14 @@ def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
             return out
     level = levels[lvl]
     ldata = data["levels"][lvl]
+    if rec is not None:
+        rec.record(lvl, 0, level_operator(ldata), x, b)
     x, bc = _smooth_restrict(amg, level, ldata, b, x,
                              amg._sweeps(lvl, pre=True))
+    if rec is not None:
+        rec.record(lvl, 1, level_operator(ldata), x, b)
+    if fault is not None:
+        bc = _fi.corrupt_spmv(bc)
     xc = torch.zeros_like(bc)
     if shape == "V":
         xc = _cycle(amg, "V", data, lvl + 1, bc, xc)
@@ -125,6 +143,12 @@ def _cycle(amg, shape: str, data, lvl: int, b, x, want_dot: bool = False):
             xc = _cycle(amg, "V", data, lvl + 1, bc, xc)
     else:
         raise ValueError(f"unknown fixed cycle {shape!r}")
+    if rec is not None:
+        x = x + level.prolongate(ldata, xc)
+        rec.record(lvl, 2, level_operator(ldata), x, b)
+        x = _smooth(level, ldata, b, x, amg._sweeps(lvl, pre=False))
+        rec.record(lvl, 3, level_operator(ldata), x, b)
+        return (x, None) if want_dot else x
     return _prolongate_smooth(amg, level, ldata, b, x, xc,
                               amg._sweeps(lvl, pre=False),
                               want_dot=want_dot)

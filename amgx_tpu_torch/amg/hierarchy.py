@@ -49,8 +49,17 @@ Structure snapshots: `AMGLevel.structure_snapshot()` gives (JSON-able
 meta, numpy arrays) of what `reuse_structure` reads, the level class's
 `structure_restore(meta, arrays)` a ghost level from them, and
 `AMG.adopt_structure(ghosts)` makes the next `setup` take the reuse
-loop on them (discarded on a row-count mismatch). Not ported yet:
-telemetry.
+loop on them (discarded on a row-count mismatch).
+
+Telemetry: each setup route is counted (`amg.setup.full`,
+`amg.setup.restored`, `amg.resetup.value`, `amg.resetup.structure`) and
+recorded on the flight recorder (`resetup.route`); the build's phases
+are disjoint host spans (`amg.L<k>.selector`, `amg.L<k>.galerkin`,
+`amg.L<k>.smoother_setup`, `amg.coarse_solver_setup`,
+`amg.value_resetup`). `diagnostics` (this scope) turns on the probe
+cycle (telemetry/diagnostics.py). The fault harness's
+`galerkin_perturb` scales a level's coarse operator right after its
+Galerkin product (resilience/faultinject.py `perturb_galerkin`).
 
 `print_grid_stats` (read in the AMG's own scope) prints the grid table
 after each setup through output.py (`grid_stats`, rendered from
@@ -68,6 +77,9 @@ from ..config import Config
 from ..matrix import CsrMatrix
 from ..ops.stencil import StencilOperator, detect_stencil, mf_slim
 from ..precision import resolve_precision
+from ..profiling import trace_region
+from ..resilience import faultinject as _fault
+from ..telemetry import metrics as _tm
 
 
 def _cast_leaf(leaf, dtype):
@@ -176,6 +188,13 @@ class AMGLevel:
         return None
 
 
+def _record_route(route: str, A):
+    """Flight-recorder trail of the setup-routing decision (full build vs
+    value / structure resetup vs restored-from-snapshot)."""
+    from ..telemetry import flightrec
+    flightrec.record("resetup.route", route=route, rows=int(A.num_rows))
+
+
 class AMG:
     """Hierarchy owner + setup loop (AMG<>::setup analog)."""
 
@@ -202,6 +221,7 @@ class AMG:
         self.matrix_free = str(cfg.get("matrix_free", scope))
         self.precision_policy = resolve_precision(cfg, scope)
         self.print_grid_stats = bool(cfg.get("print_grid_stats", scope))
+        self.diagnostics = bool(int(cfg.get("diagnostics", scope)))
         self.levels: List[AMGLevel] = []
         self.coarse_solver = None
         self.coarsest_A: Optional[CsrMatrix] = None
@@ -227,8 +247,12 @@ class AMG:
         ghosts, self._ghost_levels = self._ghost_levels, None
         self._last_resetup_value_only = False
         if ghosts and ghosts[0].A.num_rows == Af.num_rows:
+            _tm.inc("amg.setup.restored")
+            _record_route("restored", Af)
             self.levels = list(ghosts)
             return self._resetup_impl(Af, -1)
+        _tm.inc("amg.setup.full")
+        _record_route("full", Af)
         self.levels = []
         self._reset_caches()
         self._build_levels_checked(Af, 0)
@@ -256,9 +280,14 @@ class AMG:
         self._last_resetup_value_only = False
         if reuse < 0 or reuse >= len(self.levels):
             from .value_resetup import try_value_resetup
-            if try_value_resetup(self, Af):
-                self._last_resetup_value_only = True
-                return self
+            with trace_region("amg.value_resetup"):
+                if try_value_resetup(self, Af):
+                    self._last_resetup_value_only = True
+                    _tm.inc("amg.resetup.value")
+                    _record_route("value", Af)
+                    return self
+        _tm.inc("amg.resetup.structure")
+        _record_route("structure", Af)
         return self._resetup_impl(Af, reuse)
 
     def _resetup_impl(self, Af: CsrMatrix, reuse: int):
@@ -278,7 +307,7 @@ class AMG:
                     break
                 level = type(old)(Af, self.cfg, self.scope, lvl)
                 level.reuse_structure(old)
-                Ac = level.create_coarse_matrix()
+                Ac = self._galerkin(level, lvl)
                 self.levels.append(level)
                 self._attach_level_smoother(level)
                 Af = Ac if Ac.initialized else Ac.init()
@@ -326,18 +355,27 @@ class AMG:
                     or n <= self.dense_lu_num_rows and lvl > 0):
                 break
             level = level_cls(Af, self.cfg, self.scope, lvl)
-            level.create_coarse_vertices()
+            with trace_region(f"amg.L{lvl}.selector"):
+                level.create_coarse_vertices()
             nc = level.coarse_size
             # stalling coarsening stops the hierarchy
             if nc <= 0 or nc >= n or (n / max(nc, 1)) < \
                     self.coarsen_threshold:
                 break
-            Ac = level.create_coarse_matrix()
+            Ac = self._galerkin(level, lvl)
             self.levels.append(level)
             self._attach_level_smoother(level)
             Af = Ac if Ac.initialized else Ac.init()
             lvl += 1
         self.coarsest_A = Af
+
+    @staticmethod
+    def _galerkin(level: AMGLevel, lvl: int) -> CsrMatrix:
+        """The level's coarse operator; an armed `galerkin_perturb` scales
+        it (resilience/faultinject.py; inert when nothing is armed)."""
+        with trace_region(f"amg.L{lvl}.galerkin"):
+            Ac = level.create_coarse_matrix()
+        return _fault.perturb_galerkin(Ac, lvl)
 
     def _smoother_spec(self, level_index: int):
         """Smoother (name, scope) for one level: fine_levels >= 0 splits
@@ -352,10 +390,12 @@ class AMG:
     def _attach_level_smoother(self, level: AMGLevel):
         from ..solvers.base import make_solver
         name, scope = self._smoother_spec(level.level_index)
-        level.smoother = make_solver(name, self.cfg, scope, level.A.device)
-        level.smoother._owns_scaling = False
-        level.smoother.setup(level.A)
-        self._maybe_install_stencil(level)
+        with trace_region(f"amg.L{level.level_index}.smoother_setup"):
+            level.smoother = make_solver(name, self.cfg, scope,
+                                         level.A.device)
+            level.smoother._owns_scaling = False
+            level.smoother.setup(level.A)
+            self._maybe_install_stencil(level)
 
     def _maybe_install_stencil(self, level: AMGLevel, stencil=None):
         """Install the level's StencilOperator on its smoother when the
@@ -379,10 +419,11 @@ class AMG:
     def _finalize_setup(self):
         from ..solvers.base import make_solver
         cs_name, cs_scope = self.cfg.get_solver("coarse_solver", self.scope)
-        self.coarse_solver = make_solver(cs_name, self.cfg, cs_scope,
-                                         self.coarsest_A.device)
-        self.coarse_solver._owns_scaling = False
-        self.coarse_solver.setup(self.coarsest_A)
+        with trace_region("amg.coarse_solver_setup"):
+            self.coarse_solver = make_solver(cs_name, self.cfg, cs_scope,
+                                             self.coarsest_A.device)
+            self.coarse_solver._owns_scaling = False
+            self.coarse_solver.setup(self.coarsest_A)
         if self.print_grid_stats:
             from ..output import amgx_printf
             amgx_printf(self.grid_stats())

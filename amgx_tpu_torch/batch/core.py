@@ -33,10 +33,15 @@ index tensors) is shared too, after one comparison on the device: the
 kernels never take per-system index arrays. A float leaf is stacked
 unless it is the same object.
 
-The JAX package's `_jit_cache`, `trace_count`, `_keep_batched_traces`
-and the fault-injection epoch of its cache key have no counterpart: the
-port traces nothing, so a value-only resetup never invalidates a
-program. Its `telemetry` reports wait for ROADMAP.md Queue A item 10.
+The JAX package's `_jit_cache`, `trace_count` and
+`_keep_batched_traces` have no counterpart: the port traces nothing, so
+a value-only resetup never invalidates a program. Its cache key (batch
+geometry, which operand carries the batch axis, the fault-injection
+epoch) keys the `solver.retrace.solve_batched` counter: a batched solve
+with a key this batched solver had not seen counts one. With the
+wrapped solver's `telemetry` knob on, `BatchedSolveResult.reports`
+holds one SolveReport per system, built from the host values the loop
+read.
 """
 from __future__ import annotations
 
@@ -51,7 +56,9 @@ from ..config import Config
 from ..errors import BadParametersError
 from ..matrix import CsrMatrix
 from ..ops.stencil import StencilOperator
+from ..resilience import faultinject as _fi
 from ..solvers.base import SolveResult, Solver
+from ..telemetry import metrics as _tm
 
 
 @dataclasses.dataclass
@@ -69,6 +76,9 @@ class BatchedSolveResult:
     solve_time: float = 0.0
     # per-system SolveStatus codes (resilience/status.py), (B,) int
     status: Optional[np.ndarray] = None
+    # per-system structured reports (telemetry/report.py SolveReport),
+    # built when the wrapped solver's `telemetry` knob is on
+    reports: Optional[List[Any]] = None
 
     @property
     def batch_size(self) -> int:
@@ -92,7 +102,9 @@ class BatchedSolveResult:
                 res_history=hist, setup_time=self.setup_time,
                 solve_time=self.solve_time,
                 status_code=int(self.status[i])
-                if self.status is not None else 1))
+                if self.status is not None else 1,
+                report=self.reports[i]
+                if self.reports is not None else None))
         return out
 
 
@@ -231,6 +243,7 @@ class BatchedSolver:
         # Solver.solve_many reuses the latest wrapper
         solver._batched = self
         self.setup_time = 0.0
+        self._solve_keys = {}          # solver.retrace.solve_batched
 
     # -- setup ----------------------------------------------------------
     def setup(self, A: CsrMatrix) -> "BatchedSolver":
@@ -332,14 +345,36 @@ class BatchedSolver:
             X0 = torch.zeros_like(B)
         else:
             X0 = self._stack_vectors(x0s, "x0s")
+        # the JAX package's jit cache key: batch geometry, whether the
+        # operator carries the batch axis, the fault-injection epoch
+        key = (tuple(B.shape), str(B.dtype), matrices is not None,
+               _fi.epoch())
+        if key not in self._solve_keys:
+            _tm.inc("solver.retrace.solve_batched")
+            _fi.evict_stale_epochs(self._solve_keys, key[-1])
+            self._solve_keys[key] = True
         t0 = time.perf_counter()
         X, st = slv.run_loop_batched(data, B, X0)
         if X.device.type == "cuda":
             torch.cuda.synchronize(X.device)
         solve_time = time.perf_counter() - t0
-        return BatchedSolveResult(
+        out = BatchedSolveResult(
             x=X, iterations=st["iters"], converged=st["converged"],
             res_norm=st["res_norm"], norm0=st["norm0"],
             res_history=st["res_hist"] if slv.store_res_history else None,
             setup_time=self.setup_time, solve_time=solve_time,
             status=st["status"])
+        if slv.telemetry:
+            # per-system reports from the host values the loop read;
+            # each system's history trimmed to its own stop iteration
+            from ..telemetry import build_report
+            out.reports = [
+                build_report(slv, SolveResult(
+                    x=None, iterations=int(st["iters"][i]),
+                    converged=bool(st["converged"][i]),
+                    res_norm=st["res_norm"][i], norm0=st["norm0"][i],
+                    setup_time=self.setup_time, solve_time=solve_time,
+                    status_code=int(st["status"][i])),
+                    hist=st["res_hist"][i][: int(st["iters"][i]) + 1])
+                for i in range(nb)]
+        return out

@@ -17,8 +17,10 @@ A stream of solve requests -- many users posting same-shaped systems
   copy of what it needs of amgx_tpu/serving/cache.py `HierarchyCache`).
 
 Sync callers use `solve_many()`; streaming callers use `submit()` /
-`drain()`. The JAX package's `telemetry` counters wait for ROADMAP.md
-Queue A item 10; `dispatch_log` records every dispatch.
+`drain()`. `dispatch_log` records every dispatch; the JAX package's
+counters and gauges record the traffic (`batch.requests`,
+`batch.dispatches`, `batch.padded_systems`, `batch.bucket_occupancy`,
+`batch.bucket_evictions`, `batch.live_buckets`; telemetry/metrics.py).
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..telemetry import metrics as _tm
 
 import torch
 
@@ -138,8 +142,10 @@ class _BucketCache:
             victim, old = self._entries.popitem(last=False)
             self._bytes.pop(victim, None)
             self.evictions += 1
+            _tm.inc("batch.bucket_evictions")
             if self.on_evict is not None:
                 self.on_evict(victim, old)
+        _tm.set_gauge("batch.live_buckets", len(self._entries))
 
 
 @dataclasses.dataclass
@@ -214,6 +220,7 @@ class RequestBatcher:
                            fingerprint=self._bucket_key(A, b),
                            submit_t=time.monotonic())
         self._pending.setdefault(req.fingerprint, []).append(req)
+        _tm.inc("batch.requests")
         return req
 
     def pending_count(self) -> int:
@@ -261,6 +268,10 @@ class RequestBatcher:
         size = pad_to_bucket_size(len(reqs), self.batch_sizes)
         pad = size - len(reqs)
         self.dispatch_log.append((key, len(reqs), size))
+        # bucket occupancy + pad waste: whether the ladder fits traffic
+        _tm.inc("batch.dispatches")
+        _tm.inc("batch.padded_systems", pad)
+        _tm.set_gauge("batch.bucket_occupancy", len(reqs) / size)
         solver = self._solver_for(key, reqs[0].A)
         matrices = [r.A for r in reqs] + [reqs[-1].A] * pad
         bs = torch.stack([r.b for r in reqs] + [reqs[-1].b] * pad)

@@ -339,6 +339,40 @@ def _register_default_parameters():
     R("stall_tolerance", float, "minimum relative residual decrease "
       "over the stall window; 0 = any non-decrease stalls", 0.0, None,
       0.0, 1.0)
+    R("fallback_policy", str, "resilience chains "
+      "'STATUS>action[=arg]|...' (actions: retry, rescale_retry, "
+      "switch_solver=<NAME>, escalate_sweeps), applied host-side by "
+      "ResilientSolver (resilience/policy.py) when a solve ends in that "
+      "status; a rebuilt tree is built on the solver's device", "")
+    R("max_fallback_attempts", int, "bound on total fallback/retry "
+      "attempts per solve", 2, None, 0)
+    # telemetry (amgx_tpu_torch/telemetry/)
+    R("telemetry", int, "attach a structured SolveReport to solve "
+      "results and sample the allocator's memory watermarks per phase "
+      "(telemetry/report.py): built on the host from values the solve "
+      "already holds, so the kernels launched and the device->host "
+      "reads are the same either way; 0 skips report construction", 1,
+      BOOL01)
+    R("diagnostics", int, "convergence diagnostics "
+      "(telemetry/diagnostics.py): after a root solve, ONE instrumented "
+      "probe cycle on the final residual records per-level residual "
+      "norms at the entry/post-presmooth/post-correction/post-postsmooth "
+      "cycle stages (one device->host read for all of them); host-side "
+      "derivation attaches per-level reduction factors, smoother "
+      "effectiveness, an asymptotic convergence-factor estimate and a "
+      "bottleneck-level attribution to SolveReport.diagnostics. Cost "
+      "when on: about one composed cycle per solve; 0 (default) runs "
+      "nothing extra", 0, BOOL01)
+    R("telemetry_sync", int, "fence device work at every span boundary "
+      "(telemetry/spans.py: torch.cuda.synchronize) so host spans bound "
+      "device occupancy in the exported Perfetto timeline. Debugging "
+      "mode. Process-wide: each create_solver latches the mode from its "
+      "config, in both directions", 0, BOOL01)
+    R("flightrec_dir", str, "directory for the crash-surviving flight "
+      "recorder (telemetry/flightrec.py): state transitions (fallback "
+      "hops, resetup routing, chaos injections) append one JSON line "
+      "each, rotated and corruption-tolerant. '' = in-memory ring only "
+      "(AMGX_TPU_FLIGHTREC_DIR env also attaches a directory)", "")
 
 
 _register_default_parameters()
@@ -515,6 +549,9 @@ class Config:
     def get_solver(self, role: str, scope: str = "default") -> Tuple[str, str]:
         """Return (algorithm_name, child_scope) for a solver-role param."""
         return str(self.get(role, scope)), self.get_scope(role, scope)
+
+    def clone(self) -> "Config":
+        return Config(dict(self.values), dict(self.param_scopes))
 
     def __repr__(self):
         items = ", ".join(f"{s}:{n}={v!r}" for (s, n), v in sorted(self.values.items()))

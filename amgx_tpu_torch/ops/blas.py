@@ -47,8 +47,11 @@ def cg_update(x, p, r, ap, alpha):
     if x.dim() == 2:
         from .batched import cg_update_multi
         return cg_update_multi(x, p, r, ap, alpha)
+    from ..telemetry import metrics as _tm
     if x.dtype == torch.float32:
+        _tm.inc("krylov.fused_dispatch")
         return cuda_krylov.cg_update(x, p, r, ap, alpha)
+    _tm.inc("krylov.fused_declined")
     return cuda_krylov.cg_update_plain(x, p, r, ap, alpha)
 
 

@@ -201,6 +201,11 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
                                     dinv, with_residual, grid=A.grid_shape)
     if getattr(A, "dia_vals", None) is not None or A.num_rows != A.num_cols \
             or A.values.dtype != x.dtype or x.dtype not in SMOOTH_DTYPES:
+        if x.dtype not in SMOOTH_DTYPES:
+            # a fused smoother's level off the kernels' dtypes composes
+            # unfused (SolveReport's levels[].fused_routing says where)
+            from ..telemetry import metrics as _tm
+            _tm.inc("fusion.declined_dtype")
         return None
     sweep = cuda_batched.csr_smooth_multi if batch else cuda_csr.csr_smooth
     x = sweep(A.row_offsets, A.col_indices, A.values,

@@ -53,6 +53,7 @@ import dataclasses
 import torch
 
 from ..matrix import CsrMatrix
+from ..telemetry import metrics as _tm
 from . import cuda_rap
 from .segment import coalesce, ordered_segment_sum
 
@@ -242,9 +243,11 @@ def _cached_plan(kind: str, meta: tuple, patterns: tuple, build):
     if hit is not None and _same_content(hit[0], patterns):
         _PLAN_CACHE.move_to_end(key)
         PLAN_COUNTS[kind + "_hit"] += 1
+        _tm.inc("amg.spgemm.plan_hit")
         return hit[1]
     plan = build()
     PLAN_COUNTS[kind + "_build"] += 1
+    _tm.inc("amg.spgemm.plan_build")
     _PLAN_CACHE[key] = (patterns, plan)
     _PLAN_CACHE.move_to_end(key)
     total = 0

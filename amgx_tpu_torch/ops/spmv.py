@@ -23,6 +23,15 @@ for all systems); other dtypes the plain forms, which take the batch
 axis. `spmv_pdot` / `spmv_ddot` under a batch compute the JAX package's
 vmap route of B6, `spmv_dot_multi` (ops/batched.py): the prologue, one
 K1 launch and the row dots in float32 or wider.
+
+Fault injection (resilience/faultinject.py): `spmv`'s product passes
+through `corrupt_spmv`, so an armed `spmv_nan` poisons it inside a solve
+loop's target iteration. The Krylov shell's fused products compose
+unfused on that iteration only (`loop_fault_hit`), so the poison lands
+in A p and p.Ap is formed from it, as on the JAX package's XLA route
+(the one its CPU runs, where the Pallas shell declines). With nothing
+armed every route and launch is unchanged. `krylov.fused_dispatch` /
+`krylov.fused_declined` count the shell's routing per call.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch
 
 from ..matrix import CsrMatrix
 from ..precision import SMOOTH_DTYPES
+from ..resilience import faultinject as _fi
+from ..telemetry import metrics as _tm
 from . import cuda_batched, cuda_csr, cuda_krylov, cuda_spmv
 
 
@@ -68,9 +79,8 @@ def spmv_csr(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 def spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A x, dispatching on the layout built by A.init()."""
     _check(A, x)
-    if A.dia_offsets is not None:
-        return spmv_dia(A, x)
-    return spmv_csr(A, x)
+    y = spmv_dia(A, x) if A.dia_offsets is not None else spmv_csr(A, x)
+    return _fi.corrupt_spmv(y)
 
 
 def residual(A: CsrMatrix, x: torch.Tensor, b: torch.Tensor):
@@ -80,9 +90,15 @@ def residual(A: CsrMatrix, x: torch.Tensor, b: torch.Tensor):
 
 def _shell_kernel_ok(A: CsrMatrix, p) -> bool:
     """B6 takes a float32 DIA operator and float32 vectors; the JAX
-    package's `_shell_kernel_ok` declines everything else to XLA."""
-    return A.dia_offsets is not None and p.dtype == torch.float32 \
-        and A.dia_vals.dtype == torch.float32
+    package's `_shell_kernel_ok` declines everything else to XLA. An
+    iteration targeted by an armed SpMV fault composes unfused."""
+    if A.dia_offsets is not None and p.dtype == torch.float32 \
+            and A.dia_vals.dtype == torch.float32 \
+            and _fi.loop_fault_hit() is None:
+        _tm.inc("krylov.fused_dispatch")
+        return True
+    _tm.inc("krylov.fused_declined")
+    return False
 
 
 def spmv_pdot(A: CsrMatrix, p, z, beta):

@@ -1,5 +1,5 @@
-"""Named solver presets (copies of amgx_tpu/presets.py's FLAGSHIP and
-BATCHED_CG).
+"""Named solver presets (copies of amgx_tpu/presets.py's FLAGSHIP,
+BATCHED_CG and RESILIENT_CG).
 
 FLAGSHIP is the configuration the JAX package's benchmarks and driver
 entry use: full f64 accuracy via defect correction (REFINEMENT) around
@@ -39,3 +39,20 @@ BATCHED_CG = (
     " amg:presweeps=1, amg:postsweeps=1, amg:cycle=V, amg:max_iters=1,"
     " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=32,"
     " amg:max_levels=20, amg:structure_reuse_levels=-1")
+
+# Resilient preset (amgx_tpu_torch/resilience/): CG + AMG with the full
+# guard stack on -- NaN storms retry (transient-fault model), a CG
+# breakdown re-runs as GMRES, a stall escalates the smoother sweeps. The
+# status classification rides the residual the monitor already reads, so
+# the guards add no per-iteration host reads.
+RESILIENT_CG = (
+    "solver(s)=PCG, s:max_iters=100, s:tolerance=1e-8,"
+    " s:convergence=RELATIVE_INI, s:norm=L2, s:monitor_residual=1,"
+    " s:health_guards=1, s:stall_detection_window=10,"
+    " s:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION,"
+    " amg:selector=SIZE_2, amg:smoother(sm)=JACOBI_L1, sm:max_iters=1,"
+    " amg:presweeps=1, amg:postsweeps=1, amg:cycle=V, amg:max_iters=1,"
+    " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=32,"
+    " amg:max_levels=20,"
+    " fallback_policy=NAN_DETECTED>retry|BREAKDOWN>switch_solver=GMRES"
+    "|STALLED>escalate_sweeps, max_fallback_attempts=2")

@@ -21,8 +21,9 @@ scale.
 `print_solve_stats` prints the per-iteration residual table, the totals
 and the status after a solve, and `obtain_timings` the setup and solve
 seconds, through output.py, in the JAX package's text; the memory
-column is the device's current allocation (`torch.cuda.memory_allocated`;
-0 on the CPU, where the JAX package prints 0 too).
+column is the device's current allocation (memory_info.py,
+`torch.cuda.memory_allocated`; 0 on the CPU, where the JAX package
+prints 0 too).
 
 Batched solves (`solve_many`, amgx_tpu_torch/batch/): `run_loop_batched`
 runs one loop over a batch of systems, b and x (B, n), the per-system
@@ -36,6 +37,20 @@ stopping iteration, as the JAX package's `while_loop` batching rule
 gives; its history past that is NaN. A solver class that runs a batch
 sets `batched_iteration`; the others name the ROADMAP item that will
 port theirs (`batch_refusal`).
+
+Telemetry (amgx_tpu_torch/telemetry/): setup, resetup and solve are host
+spans (`<NAME>.setup`, `<NAME>.resetup`, `<NAME>.solve`); with the
+`telemetry` knob on (the default) a root solve attaches a SolveReport
+built from the host values it already read, and the allocator's peaks
+feed `memory.setup_peak_bytes` / `memory.solve_peak_bytes` (no device
+synchronization). With `diagnostics=1` on an AMG member of the tree, the
+root solve runs one probe cycle on its final residual
+(telemetry/diagnostics.py) and reads its norms in one transfer.
+
+Fault injection (resilience/faultinject.py): each loop is a
+`solve_scope` (the outermost one, the root solve, consumes the armed
+firings its hooks reached) and each iteration an `iteration_scope`, so
+the hooks under `solve_iteration` know the iteration they run in.
 """
 from __future__ import annotations
 
@@ -54,8 +69,10 @@ from ..matrix import CsrMatrix
 from ..ops import blas
 from ..ops.spmv import residual as _residual
 from ..precision import resolve_precision
+from ..resilience import faultinject as _fi
 from ..resilience.status import RUNNING as _ST_RUNNING
 from ..resilience.status import SolveStatus, status_string
+from ..telemetry import metrics as _tm
 
 # ---------------------------------------------------------------------------
 # convergence criteria
@@ -132,6 +149,9 @@ class SolveResult:
     status_code: int = int(SolveStatus.MAX_ITERS)
     # solver-specific scalars (REFINEMENT: accumulated inner iterations)
     extra_stats: Optional[Dict[str, float]] = None
+    # structured telemetry (telemetry/report.py SolveReport), attached by
+    # a root solve when the `telemetry` knob is on
+    report: Optional[Any] = None
 
     def __post_init__(self):
         if self.converged:
@@ -220,6 +240,9 @@ class Solver:
         self.health_guards = bool(int(cfg.get("health_guards", scope)))
         self.stall_window = int(cfg.get("stall_detection_window", scope))
         self.stall_tolerance = float(cfg.get("stall_tolerance", scope))
+        # report construction and the memory watermarks (telemetry/);
+        # telemetry_sync is a process mode latched by create_solver
+        self.telemetry = bool(int(cfg.get("telemetry", scope)))
         self.scaling = str(cfg.get("scaling", scope)).upper()
         self.scaler = None
         # only the tree's root scales the equations: children get the
@@ -227,7 +250,7 @@ class Solver:
         # creation sites clear the flag)
         self._owns_scaling = True
         # rejects contradictory precision knobs at construction
-        resolve_precision(cfg, scope)
+        self._precision_policy = resolve_precision(cfg, scope)
         self.convergence: Convergence = registry.convergence.create(
             str(cfg.get("convergence", scope)), cfg, scope)
         self.preconditioner: Optional[Solver] = None
@@ -238,6 +261,9 @@ class Solver:
                                                   self.device)
                 self.preconditioner._owns_scaling = False
         self.setup_time = 0.0
+        # solve keys seen (solver.retrace.solve: the JAX package's jit
+        # cache key -- rhs shape, dtype, fault-injection epoch)
+        self._solve_keys: Dict[Any, bool] = {}
 
     def _norm(self, v):
         return blas.norm(v, self.norm_type)
@@ -254,7 +280,30 @@ class Solver:
         solver."""
         return self._setup_impl(A, reuse=True)
 
+    def setup_async(self, A: CsrMatrix):
+        """Run setup on a worker thread (thread_manager.py; the reference's
+        AsyncSolverSetupTask): returns a task whose wait() joins and
+        re-raises. The worker builds on this solver's device and the
+        caller's current stream; the solver must not be used before
+        wait()."""
+        from ..thread_manager import setup_async
+        return setup_async(self, A)
+
     def _setup_impl(self, A: CsrMatrix, reuse: bool):
+        from ..profiling import trace_region
+        # two literal span names, so the span registry check covers them
+        if reuse:
+            with trace_region(f"{self.name}.resetup"):
+                out = self._setup_body(A, reuse)
+        else:
+            with trace_region(f"{self.name}.setup"):
+                out = self._setup_body(A, reuse)
+        if self.telemetry:
+            from ..memory_info import peak_bytes
+            _tm.max_gauge("memory.setup_peak_bytes", peak_bytes([self.device]))
+        return out
+
+    def _setup_body(self, A: CsrMatrix, reuse: bool):
         t0 = time.perf_counter()
         A = A.to(self.device)
         if not A.initialized:
@@ -341,6 +390,10 @@ class Solver:
         """The solve loop on (data, b, x0): returns (x, stats) with stats
         a dict of host values (iters, converged, status, norm0,
         res_norm, res_hist, extra)."""
+        with _fi.solve_scope():
+            return self._run_loop(data, b, x0)
+
+    def _run_loop(self, data, b, x0):
         S = SolveStatus
         A = data["A"]
         monitor = self.monitor_residual
@@ -357,7 +410,8 @@ class Solver:
         res_norm = norm0
         iters = 0
         while not done and iters < self.max_iters:
-            state = self.solve_iteration(data, b, state)
+            with _fi.iteration_scope(iters):
+                state = self.solve_iteration(data, b, state)
             iters += 1
             if not monitor:
                 continue
@@ -416,6 +470,10 @@ class Solver:
         stats a dict of host arrays: iters, converged, status, norm0 and
         res_norm (B,), res_hist (B, max_iters + 1) (NaN past each
         system's stop)."""
+        with _fi.solve_scope():
+            return self._run_loop_batched(data, b, x0)
+
+    def _run_loop_batched(self, data, b, x0):
         S = SolveStatus
         nb = b.shape[0]
         monitor = self.monitor_residual
@@ -438,7 +496,8 @@ class Solver:
             if active_host is None or not np.array_equal(active_host, run):
                 active_host = run
                 active = torch.from_numpy(run).to(b.device)
-            new = self.solve_iteration(data, b, state)
+            with _fi.iteration_scope(it):
+                new = self.solve_iteration(data, b, state)
             state = new if run.all() else _freeze(active, new, state)
             it += 1
             iters[run] = it
@@ -493,6 +552,44 @@ class Solver:
     def solve(self, b, x0=None, zero_initial_guess: bool = False
               ) -> SolveResult:
         """Solve A x = b from x0 (zeros when absent)."""
+        from ..profiling import trace_region
+        with trace_region(f"{self.name}.solve"):
+            return self._solve(b, x0, zero_initial_guess)
+
+    def _diag_probe_spec(self):
+        """(amg, data_keys) when this tree owns an AMG hierarchy with
+        `diagnostics` on: `data_keys` is the solve_data path from the
+        root to the hierarchy's data, at any preconditioner depth. None
+        when the knob is off or the hierarchy has no smoothed level."""
+        s, keys = self, []
+        for _ in range(8):
+            if s is None:
+                return None
+            amg = getattr(s, "amg", None)
+            if amg is not None:
+                if amg.diagnostics and amg.levels:
+                    return amg, keys + ["amg"]
+                return None
+            keys.append(s._child_data_key)
+            s = s.preconditioner
+        return None
+
+    def _precision_block(self, res) -> Optional[Dict[str, Any]]:
+        """SolveReport.precision, or None when solve_precision is unset."""
+        pol = self._precision_policy
+        if not pol.solve_precision:
+            return None
+        cast = pol.cast_dtype
+        return {
+            "solve_precision": pol.name,
+            "cycle_dtype": "native" if cast is None
+            else str(cast).replace("torch.", ""),
+            "outer_dtype": None if self.A is None
+            else str(self.A.dtype).replace("torch.", ""),
+            "outer_iterations": int(res.iterations),
+        }
+
+    def _solve(self, b, x0, zero_initial_guess):
         if self.A is None:
             raise BadParametersError(
                 f"solver {self.name}: solve() before setup()")
@@ -506,29 +603,63 @@ class Solver:
             # residuals are the scaled system's (solver.cu:449)
             b = self.scaler.scale_rhs(b)
             x0 = self.scaler.to_scaled_x(x0)
+        key = (tuple(b.shape), str(b.dtype), _fi.epoch())
+        if key not in self._solve_keys:
+            _tm.inc("solver.retrace.solve")
+            _fi.evict_stale_epochs(self._solve_keys, key[-1])
+            self._solve_keys[key] = True
         t0 = time.perf_counter()
-        x, st = self.run_loop(self.solve_data(), b, x0)
+        data = self.solve_data()
+        x, st = self.run_loop(data, b, x0)
+        diag_spec = self._diag_probe_spec()
+        probe = None
+        if diag_spec is not None:
+            # one instrumented cycle on the final residual, its norms
+            # read in one transfer (telemetry/diagnostics.py)
+            from ..telemetry import diagnostics as _dg
+            amg, keys = diag_spec
+            sub = data
+            for k in keys:
+                sub = sub[k]
+            r_fin = _residual(data["A"], x, b)
+            probe = _host(_dg.probe_cycle(
+                amg, sub, r_fin, torch.promote_types(r_fin.dtype,
+                                                     torch.float32)))
         if self.scaler is not None:
             x = self.scaler.from_scaled_x(x)
         if x.device.type == "cuda":
             torch.cuda.synchronize(x.device)
         solve_time = time.perf_counter() - t0
+        hist = np.asarray(st["res_hist"])
         res = SolveResult(
             x=x, iterations=st["iters"], converged=st["converged"],
             res_norm=np.asarray(st["res_norm"]),
             norm0=np.asarray(st["norm0"]),
-            res_history=st["res_hist"] if self.store_res_history else None,
+            res_history=hist if self.store_res_history else None,
             setup_time=self.setup_time, solve_time=solve_time,
             status_code=st["status"], extra_stats=st["extra"])
+        if self.telemetry:
+            # the report reads host values the loop already holds
+            from ..memory_info import peak_bytes
+            from ..telemetry import build_report
+            diag = None
+            if probe is not None:
+                from ..telemetry import diagnostics as _dg
+                diag = _dg.derive(probe, len(diag_spec[0].levels),
+                                  res_hist=hist)
+            res.report = build_report(self, res, hist=hist,
+                                      diagnostics=diag,
+                                      precision=self._precision_block(res))
+            _tm.max_gauge("memory.solve_peak_bytes", peak_bytes([self.device]))
         if self.print_solve_stats:
-            self._print_stats(res, np.asarray(st["res_hist"]))
+            self._print_stats(res, hist)
         return res
 
     def _print_stats(self, res: SolveResult, hist):
         """The solve table of print_solve_stats (and obtain_timings)."""
+        from ..memory_info import update_max_memory_usage
         from ..output import amgx_printf
-        mem_gb = (torch.cuda.memory_allocated(self.device)
-                  if self.device.type == "cuda" else 0) / 2**30
+        mem_gb = update_max_memory_usage([self.device]) / 2**30
         rule = f"    {'-' * 62}"
         amgx_printf("    iter      Mem Usage (GB)       residual"
                     "           rate")
@@ -570,9 +701,10 @@ class Solver:
         return x, _residual(data["A"], x, b)
 
 
-def make_solver(name: str, cfg: Config, scope: str = "default",
-                device="cpu") -> Solver:
-    """SolverFactory::allocate analog."""
+def make_solver(name: str, cfg: Config, scope: str, device) -> Solver:
+    """SolverFactory::allocate analog. `device` has no default: every
+    node of a tree (and every tree a fallback rebuilds) is built on the
+    device its caller names."""
     cls = registry.solvers.get(name)
     return cls(cfg, scope, name=name.upper(), device=device)
 
@@ -581,7 +713,23 @@ def create_solver(cfg: Config, scope: str = "default",
                   device=None) -> Solver:
     """Build the root solver tree from a config. `device=None` runs on
     the card and raises when there is none; pass device="cpu" for the
-    CPU."""
+    CPU. A non-empty `fallback_policy` wraps the tree in a
+    ResilientSolver (resilience/policy.py), so a failed solve runs its
+    recovery chain; `telemetry_sync` latches the span fencing mode (in
+    both directions; the AMGX_TPU_TELEMETRY_SYNC environment toggle
+    keeps it on) and `flightrec_dir` attaches the flight recorder's
+    disk mirror."""
     device = resolve_device(device)
     name, child_scope = cfg.get_solver("solver", scope)
-    return make_solver(name, cfg, child_scope, device)
+    from ..telemetry import spans as _spans
+    _spans.set_sync(bool(int(cfg.get("telemetry_sync", child_scope)))
+                    or _spans.env_sync())
+    fdir = str(cfg.get("flightrec_dir", child_scope)).strip()
+    if fdir:
+        from ..telemetry import flightrec
+        flightrec.configure(fdir)
+    slv = make_solver(name, cfg, child_scope, device)
+    if str(cfg.get("fallback_policy", child_scope)).strip():
+        from ..resilience.policy import ResilientSolver
+        return ResilientSolver(cfg, child_scope, solver=slv)
+    return slv

@@ -61,5 +61,15 @@ class RefinementSolver(Solver):
         out["inner_iters"] = st["inner_iters"] + stats["iters"]
         return out
 
+    def _precision_block(self, res):
+        block = super()._precision_block(res)
+        if block is None:
+            return None
+        block["inner_dtype"] = str(self.inner_dtype).replace("torch.", "")
+        if res.extra_stats is not None:
+            block["inner_iterations"] = int(round(
+                res.extra_stats.get("inner_iters", 0.0)))
+        return block
+
     def _extra_stats(self, final_state):
         return {"inner_iters": float(final_state.get("inner_iters", 0))}

@@ -266,7 +266,37 @@ Phases, one JSON line each on stdout:
                kernels and within 1e-6 of their plain forms, timed beside
                8 single launches, their bound and cuSPARSE (K1, K3);
                warm batched wall against the 8 solo solves; one
-               profiled batched solve.
+               profiled batched solve. (BR) the (M) result carries one
+               SolveReport a system, each valid against the schema.
+17. resilience -- fault injection, fallback chains and telemetry on the
+               card (`phase_resilience`), 7-pt Poisson: (RC)
+               RESILIENT_CG at 128^3 f32, a clean solve (success, through
+               the chain the preset's stall guard calls where it calls
+               one: CG's residual with b = 1 grows before it falls), then
+               spmv_nan at iteration 3 on the tree it left (the first
+               attempt nan_detected after 4 iterations, `retry` that
+               tree's clean status and iterations, true residual within
+               2x), then clean again;
+               (RS) the JAX stall drill (SIZE_2, JACOBI_L1, 0 + 0 sweeps,
+               stall window 4, STALLED>escalate_sweeps, max_iters 200) at
+               128^3: stalled first, the rebuilt tree's B10-relabel
+               launches, every tensor of the adopted tree on the card;
+               at 32^3 the card's chain and iterations = the CPU route's
+               in float64 (its float32 statuses too: a float32 stall at
+               the rounding floor ends at a rounding-dependent iteration);
+               (RG) galerkin_perturb (level 0, scale -1) armed for
+               RESILIENT_CG's setup: the card's chain = the CPU route's at
+               32^3 as for (RS), recorded at 128^3 (a switch to GMRES
+               launches B1);
+               (FT) FLAGSHIP 128^3 with telemetry=1, diagnostics=1: 2 /
+               31, <= 1e-8, a valid report, finite reduction factors and
+               a bottleneck level, the probe's launches exactly one
+               composed cycle's (no B5), one more host read; telemetry=1
+               and 0 launch what the flagship phase launched, with the
+               same host reads; a telemetry_sync=1 Chrome trace;
+               memory.setup_peak_bytes = the allocator's peak; 4 warm
+               pairs telemetry 1 / 0; (AS) setup_async of FLAGSHIP at
+               64^3 bit-identical to setup, the same iterations.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -4279,6 +4309,14 @@ def phase_batch(torch, amgx, dev, per_path, summary):
     check({k: c[k] for k in BATCHED} == want and not batch_only(c),
           f"batch (M): launches {c}, expected {want} and no single kernel")
     got_m = batch_systems(torch, res_m, [A] * nb, BM)
+    # (BR) one report a system, valid, each with its own stop
+    from amgx_tpu_torch.telemetry import validate_report
+    reps = res_m.reports or []
+    check(len(reps) == nb and all(
+        validate_report(r.to_dict()) == [] and r.iterations == int(i)
+        and r.status == g["status"]
+        for r, i, g in zip(reps, res_m.iterations, got_m)),
+        f"batch (BR): {len(reps)} reports, want {nb} valid ones")
     warm_m = [timed(torch, lambda: bs.solve_many(BM))[1] for _ in range(2)]
     prof_m = batch_profile(torch, lambda: bs.solve_many(BM),
                            int(res_m.iterations.max()))
@@ -4297,7 +4335,7 @@ def phase_batch(torch, amgx, dev, per_path, summary):
           "solo_warm_sum_s": sum(r["solve_s"] for r in ref_m),
           "warm_batched_over_one_solo": min(warm_m)
           / float(np.median([r["solve_s"] for r in ref_m])),
-          "profile": prof_m, "launches": c})
+          "profile": prof_m, "launches": c, "reports_valid": len(reps)})
     # (MM) multi-matrix
     mats = diag_shifted(torch, A, BATCH_SHIFTS)
     BMM = rhs(nb, n ** 3)
@@ -4767,6 +4805,310 @@ def phase_bf16_hierarchies(torch, amgx, dev, per_path):
               f"{path} at {w}^3: the card {a} against the CPU {h}")
 
 
+# ---------------------------------------------------------------------------
+# resilience and telemetry (phase_resilience)
+# ---------------------------------------------------------------------------
+
+# the grid edges: (RC), (RS), (RG) and (FT) at RES_N, the card-vs-CPU
+# witnesses at RES_SMALL, (AS) at RES_ASYNC_N
+RES_N = 128
+RES_SMALL = 32
+RES_ASYNC_N = 64
+# the JAX package's stall drill (tests/test_resilience.py), max_iters
+# raised to 200
+RES_STALL = (
+    "solver(amg)=AMG, amg:max_iters=200, amg:monitor_residual=1,"
+    " amg:tolerance=1e-8, amg:convergence=RELATIVE_INI,"
+    " amg:algorithm=AGGREGATION, amg:selector=SIZE_2,"
+    " amg:smoother(sm)=JACOBI_L1, sm:max_iters=1,"
+    " amg:presweeps=0, amg:postsweeps=0, amg:cycle=V,"
+    " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=8,"
+    " amg:stall_detection_window=4,"
+    " fallback_policy=STALLED>escalate_sweeps, max_fallback_attempts=1")
+# warm solves telemetry=1 against telemetry=0, alternating
+RES_PAIRS = 4
+# the B5 tail's launch counters: a probe cycle composes every level
+TAIL_COUNTERS = ("dia_coarse_tail", "dia_coarse_tail_dot",
+                 "dia_coarse_tail_mf", "dia_coarse_tail_mf_dot",
+                 "dia_coarse_tail_bf16", "dia_coarse_tail_mf_bf16")
+
+
+def on_card(torch, tree):
+    """Whether every tensor of a solve-data tree lies on a CUDA device."""
+    from amgx_tpu_torch.determinism import tensor_leaves
+    leaves = tensor_leaves(tree)
+    return bool(leaves) and all(t.device.type == "cuda" for t in leaves)
+
+
+def chain(res):
+    """(fallback history as lists, final status, final iterations)."""
+    return ([list(h) for h in getattr(res, "fallback_history", [])],
+            res.status, res.iterations)
+
+
+def witness(torch, amgx, cfg, n, dev, arm=None):
+    """The chains of a drill at n^3 on `dev` and on the CPU: float64,
+    held equal (iterations too), and float32, whose statuses are held
+    equal (a float32 solve that stalls at float32's rounding floor stops
+    at a rounding-dependent iteration)."""
+    cpu = torch.device("cpu")
+    got = {f"{d.type}_{str(dt)[6:]}": chain(resilient_pair(
+        torch, amgx, cfg, n, d, dt, arm)[0])
+        for dt in (torch.float64, torch.float32) for d in (dev, cpu)}
+    ok = got[f"{dev.type}_float64"] == got["cpu_float64"] and [
+        h[1] for h in got[f"{dev.type}_float32"][0]] == [
+        h[1] for h in got["cpu_float32"][0]]
+    return got, ok
+
+
+def resilient_pair(torch, amgx, cfg, n, dev, dtype, arm=None):
+    """(result, solver) of a set-up-and-solve of the 7-pt n^3 system
+    (b = 1) under `arm` (faultinject.inject's args) around the setup."""
+    from amgx_tpu_torch.resilience import faultinject as fi
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=dtype, device=dev).init()
+    slv = amgx.create_solver(amgx.Config.from_string(cfg), device=dev)
+    if arm is None:
+        slv.setup(A)
+    else:
+        with fi.inject(arm[0], **arm[1]):
+            slv.setup(A)
+    return slv.solve(torch.ones(A.num_rows, dtype=dtype, device=dev)), slv
+
+
+def phase_resilience(torch, amgx, dev, per_path):
+    """The resilience layer and the telemetry on the card: (RC), (RS),
+    (RG), (FT) and (AS) of the module docs."""
+    from amgx_tpu_torch import determinism
+    from amgx_tpu_torch.memory_info import peak_bytes
+    from amgx_tpu_torch.presets import FLAGSHIP, RESILIENT_CG
+    from amgx_tpu_torch.resilience import ResilientSolver
+    from amgx_tpu_torch.resilience import faultinject as fi
+    from amgx_tpu_torch.telemetry import diagnostics as dg
+    from amgx_tpu_torch.telemetry import metrics, spans, validate_report
+    cuda = dev.type == "cuda"
+    n, f32 = RES_N, torch.float32
+    # (RC) RESILIENT_CG: a clean solve (through its chain where the
+    # preset's guards call one), a transient NaN on the tree the clean
+    # solve left, clean again
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=f32, device=dev).init()
+    b = torch.ones(A.num_rows, dtype=f32, device=dev)
+    rs = amgx.create_solver(amgx.Config.from_string(RESILIENT_CG),
+                            device=dev)
+    check(isinstance(rs, ResilientSolver), "RESILIENT_CG is resilient")
+    rs.setup(A)
+    preset = rs.solver.solve(b)         # the preset's tree, no chain
+    clean = run_path(amgx, per_path, "resilient_cg", lambda: rs.solve(b))
+    ref = rs.solve(b)                   # the tree the clean solve left
+    ref_rel = true_rel_res(torch, A, ref.x, b)
+    with fi.inject("spmv_nan", iteration=3, fires=1):
+        first = rs.solver.solve(b)
+    with fi.inject("spmv_nan", iteration=3, fires=1):
+        hit = run_path(amgx, per_path, "resilient_cg_nan",
+                       lambda: rs.solve(b))
+    hit_rel = true_rel_res(torch, A, hit.x, b)
+    after = rs.solve(b)
+    emit({"phase": "resilience", "case": "RC", "rows": n ** 3,
+          "preset_tree": [preset.status, preset.iterations],
+          "preset_residuals_0_12": preset.report.residuals[:13],
+          "clean": chain(clean), "reference": chain(ref),
+          "true_rel_res": ref_rel, "adopted": rs.solver.name,
+          "first_attempt": [first.status, first.iterations],
+          "armed": chain(hit), "retry_true_rel_res": hit_rel,
+          "after": chain(after), "launches": per_path["resilient_cg_nan"]})
+    check(clean.status == "success"
+          and ref.fallback_history == [("initial", "success")],
+          f"(RC) clean: {chain(clean)}, then {chain(ref)}")
+    check((first.status, first.iterations) == ("nan_detected", 4),
+          f"(RC) first attempt {first.status} after {first.iterations}")
+    check(hit.fallback_history == [("initial", "nan_detected"),
+                                   ("retry", "success")]
+          and (hit.status, hit.iterations) == (ref.status, ref.iterations)
+          and hit_rel <= 2.0 * ref_rel,
+          f"(RC) armed: {chain(hit)}, {hit_rel} against {ref_rel}")
+    check(chain(after) == chain(ref), f"(RC) after: {chain(after)}")
+    del rs, A, b
+    # (RS) the stall drill: escalate_sweeps rebuilds on the card
+    rs_run = run_path(amgx, per_path, "resilient_stall", lambda: (
+        resilient_pair(torch, amgx, RES_STALL, n, dev, f32)))
+    res, slv = rs_run
+    c = per_path["resilient_stall"]
+    small, same = witness(torch, amgx, RES_STALL, RES_SMALL, dev)
+    emit({"phase": "resilience", "case": "RS", "rows": n ** 3,
+          "chain": chain(res), "levels": levels_of(slv.solver),
+          "adopted_on_card": on_card(torch, slv.solver.solve_data()),
+          f"chain_{RES_SMALL}": small, "launches": c})
+    check(res.fallback_history[0] == ("initial", "stalled")
+          and res.fallback_history[1][0] == "escalate_sweeps",
+          f"(RS) chain {chain(res)}")
+    check(not cuda or c["rap_values_relabel"] >= 2 * (
+        len(levels_of(slv.solver)) - 1),
+        f"(RS) the rebuild's Galerkin products: {c}")
+    check(not cuda or on_card(torch, slv.solver.solve_data()),
+          "(RS) the adopted tree lies on the card")
+    check(same, f"(RS) {RES_SMALL}^3 card against CPU: {small}")
+    del res, slv, rs_run
+    # (RG) a perturbed Galerkin product under RESILIENT_CG
+    arm = ("galerkin_perturb", {"index": 0, "scale": -1.0})
+    small, same = witness(torch, amgx, RESILIENT_CG, RES_SMALL, dev, arm)
+    res, slv = run_path(amgx, per_path, "resilient_galerkin", lambda: (
+        resilient_pair(torch, amgx, RESILIENT_CG, n, dev, f32, arm)))
+    c = per_path["resilient_galerkin"]
+    print(f"chip_smoke: (RG) {n}^3 galerkin_perturb chain: "
+          f"{res.fallback_history} -> {res.status} after "
+          f"{res.iterations}, adopted {slv.solver.name}", flush=True)
+    emit({"phase": "resilience", "case": "RG", "rows": n ** 3,
+          "chain": chain(res), "adopted": slv.solver.name,
+          f"chain_{RES_SMALL}": small, "launches": c})
+    check(same, f"(RG) {RES_SMALL}^3 card against CPU: {small}")
+    if any(h[0] == "switch_solver=GMRES" for h in res.fallback_history):
+        check(slv.solver.name == "GMRES" and (not cuda or c["dia_spmv"] > 0),
+              f"(RG) GMRES adopted and launching B1: {c}")
+    del res, slv
+    # (FT) the flagship with telemetry and diagnostics
+    n3 = RES_N
+    cfg = FLAGSHIP + ", store_res_history=1"
+    runs, slvs = {}, {}
+    for label, extra in (("flagship_telemetry", ", diagnostics=0"),
+                         ("flagship_telemetry_off", ", telemetry=0"),
+                         ("flagship_diagnostics", ", diagnostics=1")):
+        runs[label] = run_path(amgx, per_path, label, lambda e=extra: solve(
+            torch, amgx, cfg + e, n3, dev))
+        slvs[label] = runs[label][1]
+    res, slv, _, _, true_rel = runs["flagship_diagnostics"]
+    inner = int(res.extra_stats["inner_iters"])
+    rep = res.report.to_dict()
+    diag = rep["diagnostics"]
+    amg = precond_amg(slv)
+    # the probe alone, on the solve's final residual
+    from amgx_tpu_torch.ops.spmv import residual
+    A64 = slv.A
+    r_fin = residual(A64, res.x, torch.ones_like(res.x))
+    sub = slv.solve_data()["inner"]["precond"]["amg"]
+    probe = run_path(amgx, per_path, "probe_cycle", lambda: dg.probe_cycle(
+        amg, sub, r_fin, torch.float64))
+    pc = per_path["probe_cycle"]
+    base = per_path["flagship_telemetry"]
+    extra = {k: per_path["flagship_diagnostics"][k] - base[k]
+             for k in base if per_path["flagship_diagnostics"][k] != base[k]}
+    # host syncs of a warm solve, two rounds in turns (the second is
+    # held: the first of a process may count a one-time read)
+    syncs = []
+    for _ in range(2 if cuda else 0):
+        syncs.append({label: count_syncs(torch, lambda lb=label: (
+            warm_solve(torch, slvs[lb], n3, torch.float64)))[1]
+            for label in ("flagship_telemetry", "flagship_telemetry_off",
+                          "flagship_diagnostics")})
+    # warm solves of one solver with its telemetry knob on and off, in
+    # turns: the same hierarchy either way
+    tslv = slvs["flagship_telemetry"]
+    times = {"telemetry_1": [], "telemetry_0": []}
+    for i in range(RES_PAIRS):
+        for flag in ((1, 0) if i % 2 == 0 else (0, 1)):
+            tslv.telemetry = bool(flag)
+            times[f"telemetry_{flag}"].append(
+                warm_solve(torch, tslv, n3, torch.float64)[1])
+    tslv.telemetry = True
+    warm = {k: {"median": sorted(v)[len(v) // 2], "all": v}
+            for k, v in times.items()}
+    wins = sum(a < b for a, b in zip(times["telemetry_1"],
+                                     times["telemetry_0"]))
+    emit({"phase": "resilience", "case": "FT", "rows": n3 ** 3,
+          "outer_iterations": res.iterations, "inner_iterations": inner,
+          "true_rel_res": true_rel, "report_errors": validate_report(rep),
+          "diagnostics": diag, "tail_entry_level": rep["tail_entry_level"],
+          "report_levels": rep["levels"], "probe_launches": {
+              k: v for k, v in pc.items() if v},
+          "diagnostics_minus_telemetry": extra, "host_syncs_warm": syncs,
+          "warm_solve_s": warm, "telemetry_1_wins": wins,
+          "warm_median_ratio_1_over_0": warm["telemetry_1"]["median"]
+          / warm["telemetry_0"]["median"],
+          "probe_norms": probe.cpu().tolist()})
+    check(res.status == "success" and res.iterations <= 3
+          and true_rel <= 1e-8, f"(FT) {res.status} {res.iterations} "
+          f"outer, {true_rel}")
+    for label in ("flagship_telemetry", "flagship_telemetry_off"):
+        r = runs[label][0]
+        check((r.iterations, int(r.extra_stats["inner_iters"]))
+              == (res.iterations, inner), f"(FT) {label} iterations")
+    check(validate_report(rep) == [], f"(FT) report: {validate_report(rep)}")
+    check(diag is not None and diag["bottleneck_level"] is not None
+          and len(diag["levels"]) == len(amg.levels) and all(
+              all(np.isfinite(r[k]) for k in ("presmooth_reduction",
+                                              "correction_reduction",
+                                              "postsmooth_reduction",
+                                              "level_reduction"))
+              for r in diag["levels"]), f"(FT) diagnostics {diag}")
+    check(extra == {k: v for k, v in pc.items() if v}
+          and (not cuda or pc["dia_spmv"] > 0)
+          and sum(pc[k] for k in TAIL_COUNTERS if k in pc) == 0,
+          f"(FT) the probe's launches {extra} against one composed cycle "
+          f"{pc}")
+    if "flagship" in per_path:
+        for label in ("flagship_telemetry", "flagship_telemetry_off"):
+            check(per_path[label] == per_path["flagship"],
+                  f"(FT) {label} launches what the flagship phase did")
+    if cuda:
+        last = syncs[-1]
+        check(last["flagship_telemetry"] == last["flagship_telemetry_off"]
+              and last["flagship_diagnostics"]
+              == last["flagship_telemetry"] + 1,
+              f"(FT) host syncs {syncs}")
+    # a telemetry_sync=1 solve's Chrome trace; the next create_solver
+    # latches the fence off again
+    spans.reset()
+    tslv = amgx.create_solver(amgx.Config.from_string(
+        FLAGSHIP + ", telemetry_sync=1"), device=dev)
+    check(spans.sync_enabled(), "(FT) telemetry_sync latched on")
+    A = amgx.gallery.poisson("7pt", n3, n3, n3, device=dev)
+    tslv.setup(A)
+    tslv.solve(torch.ones(n3 ** 3, dtype=torch.float64, device=dev))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "resilience_trace.json")
+    n_ev = spans.export_chrome_trace(path)
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    # the allocator's peak against the gauge
+    metrics.reset()
+    mslv = amgx.create_solver(amgx.Config.from_string(FLAGSHIP),
+                              device=dev)
+    check(not spans.sync_enabled(), "(FT) telemetry_sync latched off")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mslv.setup(A)
+    gauge = metrics.snapshot()["memory.setup_peak_bytes"]
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    emit({"phase": "resilience", "case": "FT_trace", "events": n_ev,
+          "spans": sorted(names), "setup_peak_bytes_gauge": gauge,
+          "max_memory_allocated": peak})
+    check({"REFINEMENT.setup", "REFINEMENT.solve"} <= names,
+          f"(FT) trace spans {sorted(names)[:20]}")
+    check(gauge == peak == peak_bytes([dev]), f"(FT) gauge {gauge}, "
+          f"allocator {peak}")
+    del runs, slvs, res, slv, tslv, mslv, A, A64, sub, r_fin
+    # (AS) setup_async against setup
+    na = RES_ASYNC_N
+    A = amgx.gallery.poisson("7pt", na, na, na, device=dev)
+    sync = amgx.create_solver(amgx.Config.from_string(FLAGSHIP),
+                              device=dev).setup(A)
+    aslv = amgx.create_solver(amgx.Config.from_string(FLAGSHIP), device=dev)
+    task = aslv.setup_async(A)
+    check(task.wait() is aslv, "(AS) wait returns the solver")
+    fs = determinism.tree_fingerprints(sync.solve_data())
+    fa = determinism.tree_fingerprints(aslv.solve_data())
+    bb = torch.ones(na ** 3, dtype=torch.float64, device=dev)
+    rsync, rasync = sync.solve(bb), aslv.solve(bb)
+    its = [(r.iterations, int(r.extra_stats["inner_iters"]))
+           for r in (rsync, rasync)]
+    emit({"phase": "resilience", "case": "AS", "rows": na ** 3,
+          "leaves": len(fs), "bit_identical": fs == fa,
+          "iterations": its,
+          "on_card": on_card(torch, aslv.solve_data())})
+    check(fs == fa and len(fs) > 10, "(AS) async setup = setup, bit for bit")
+    check(its[0] == its[1], f"(AS) iterations {its}")
+    check(not cuda or on_card(torch, aslv.solve_data()),
+          "(AS) the async hierarchy lies on the card")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4828,6 +5170,7 @@ def main():
     phase_aggressive_kcycle(torch, amgx, dev, per_path)
     phase_resetup(torch, amgx, dev, per_path)
     phase_batch(torch, amgx, dev, per_path, summary)
+    phase_resilience(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():

@@ -4,6 +4,7 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 import torch
 
 import amgx_tpu as jx
@@ -11,6 +12,22 @@ import amgx_tpu_torch as pt
 import amgx_tpu_torch.interop as pti
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_torch_thread():
+    """One intra-op thread for PyTorch while a module runs (autouse in
+    each module that imports it). The suite runs six workers at once,
+    each beside the JAX package's own thread pool: PyTorch's default of
+    one thread per core then oversubscribes the CPU, and the port's many
+    small CPU ops wait on each other's threads (a 10^3 stock solve took
+    ~60 s under the full suite against ~1 s alone). The tests it is used
+    in compare against the JAX package at the same tolerances either
+    way."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def grid_operator(shape, dtype=np.float32, seed=0):

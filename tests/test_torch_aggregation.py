@@ -46,6 +46,7 @@ from amgx_tpu_torch.solvers.relaxation import safe_recip
 
 from _torch_util import grid_operator, rel
 from chip_smoke import scaled_values
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 ODD = (11, 9, 7)
 # f64: the same relabel sums in another association (numpy's reduceat

@@ -25,6 +25,7 @@ from amgx_tpu_torch.config import Config
 
 from _torch_util import rel
 from chip_smoke import CLASSICAL, ROOT, agg_config, scaled_values
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f32: one rounding per addition
 TOL32 = 1e-6

@@ -38,6 +38,7 @@ from amgx_tpu_torch.ops.cuda_csr import csr_spmv_plain
 from amgx_tpu_torch.ops.spmv import residual, spmv
 from amgx_tpu_torch.ops.smooth import children_table
 from amgx_tpu_torch.presets import BATCHED_CG
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 jx.initialize()
 

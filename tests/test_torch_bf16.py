@@ -47,6 +47,7 @@ from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                safe_recip)
 
 from _torch_util import geo_agg
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

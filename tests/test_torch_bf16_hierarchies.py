@@ -51,6 +51,7 @@ from amgx_tpu_torch.ops.spmv import residual, spmv
 from chip_smoke import agg_config, swell_fit
 from test_torch_bf16 import MAX_ULPS, MIN_EQUAL, bf16_ulps
 from test_torch_classical import LEVEL_CFG
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

@@ -18,6 +18,7 @@ from amgx_tpu_torch.config import Config
 from amgx_tpu_torch.ops.spmv import residual
 
 from test_torch_bf16 import FLAG_BF16, SOLVES
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=sorted(SOLVES))

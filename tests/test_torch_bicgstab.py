@@ -24,6 +24,7 @@ from amgx_tpu_torch.ops import spmv as pspmv
 from amgx_tpu_torch.solvers import base as pbase
 
 from _torch_util import assert_same_solve, grid_operator, rel, stock_pair
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 GRIDS = [(8, 8, 8), (13, 9, 7), (12, 11, 10)]
 # one pass of arithmetic with the dots summed in another order than XLA's

@@ -37,6 +37,7 @@ from amgx_tpu_torch.ops.smooth import build_csr_transfer_tables
 
 from _torch_util import csr_arrays, jax_hierarchy_arrays, rel
 from chip_smoke import CLASSICAL, classical_refinement
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # bench.py's `_classical_cfg("JACOBI_L1")` and CLASSICAL_REFINEMENT
 # (FLAGSHIP's REFINEMENT + FGMRES around its AMG block, without

@@ -32,6 +32,7 @@ from amgx_tpu_torch.amg.classical.strength import AhatStrength
 from amgx_tpu_torch.amg.hierarchy import AMG
 
 from _torch_util import ROOT, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 STRENGTH = "strength_threshold=0.25, max_row_sum=0.9"

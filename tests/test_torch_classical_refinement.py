@@ -20,6 +20,7 @@ from amgx_tpu_torch.config import Config
 from _torch_util import rel
 from test_torch_classical import (CLASSICAL_REFINEMENT, X_TOL, _precond_amg,
                                   _true_rel_res)
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f32: one rounding per product and per addition
 TOL32 = 1e-6

@@ -26,6 +26,7 @@ from amgx_tpu_torch.ops import cuda_csr as C
 
 from _torch_util import rel
 from chip_smoke import CLASSICAL, amg_of
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 THREADS = 256               # csrc/common.cuh kThreads
 # float32: one rounded product and one rounded add per entry, in another

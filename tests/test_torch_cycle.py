@@ -20,6 +20,7 @@ import amgx_tpu_torch as pt
 from amgx_tpu_torch.interop import hierarchy_from_numpy
 
 from _torch_util import jax_hierarchy_arrays, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 AMG_CFG = ("solver=AMG, algorithm=AGGREGATION, selector=GEO,"
            " smoother=CHEBYSHEV_POLY, chebyshev_polynomial_order=2,"

@@ -27,6 +27,7 @@ import amgx_tpu_torch.interop as pti
 
 from _torch_util import (assert_same_solve, jax_hierarchy_arrays, rel,
                          stock_pair)
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 N = 10
 STOCK_N = 8

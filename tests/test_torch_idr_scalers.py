@@ -22,7 +22,8 @@ from amgx_tpu import scalers as jsc
 import amgx_tpu_torch as pt
 from amgx_tpu_torch import scalers as psc
 
-from _torch_util import assert_same_solve, grid_operator, rel, stock_pair
+from _torch_util import (assert_same_solve, grid_operator, rel,  # noqa: F401
+                         single_torch_thread, stock_pair)
 
 N = 10
 IDR_CFG = ("solver(main)={solver}, main:max_iters=80, main:tolerance=1e-8,"

@@ -26,6 +26,7 @@ from amgx_tpu_torch.interop import hierarchy_from_numpy
 from amgx_tpu_torch.ops import cuda_tail
 
 from _torch_util import ROOT, jax_hierarchy_arrays, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 KCYCLE = ("solver=AMG, algorithm=AGGREGATION, selector=SIZE_4,"

@@ -22,6 +22,7 @@ from amgx_tpu_torch.ops import cuda_spmv as K
 from amgx_tpu_torch.ops.smooth import build_transfer_tables
 
 from _torch_util import geo_agg, grid_operator, rel, vectors
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 GRIDS = [(8, 8, 8), (13, 9, 7)]
 # f64: the same arithmetic in another summation order

@@ -25,6 +25,7 @@ from amgx_tpu_torch.ops.smooth import build_transfer_tables
 from amgx_tpu_torch.solvers import base as pbase
 
 from _torch_util import geo_agg, grid_operator, rel, vectors
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 GRIDS = [(8, 8, 8), (13, 9, 7)]
 # one pass of float32 arithmetic summed in another order (the dots over

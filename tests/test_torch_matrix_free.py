@@ -40,6 +40,7 @@ from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                safe_recip)
 
 from _torch_util import geo_agg, grid_operator, jax_hierarchy_arrays, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f32 kernel math in two implementations (ROADMAP.md): 1e-6
 TOL32 = 1e-6

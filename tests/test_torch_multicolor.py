@@ -33,6 +33,7 @@ from amgx_tpu_torch.ops import coloring as pcol
 from amgx_tpu_torch.solvers.base import make_solver as pt_make_solver
 
 from _torch_util import grid_operator, jax_hierarchy_arrays, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(8, 8, 8), (7, 5, 9)]
 SCHEMES = ["MIN_MAX", "PARALLEL_GREEDY", "LOCALLY_DOWNWIND",

@@ -25,6 +25,7 @@ from amgx_tpu_torch.ops import cuda_spmv, spgemm
 
 from _torch_util import rel
 from test_torch_classical import LEVEL_CFG
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f64: the same products, segments added left to right (the port) or by
 # numpy's reduceat (pairwise for long runs): ulps

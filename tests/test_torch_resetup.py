@@ -27,6 +27,7 @@ from amgx_tpu_torch.presets import FLAGSHIP
 
 from _torch_util import rel
 from chip_smoke import CLASSICAL, agg_config, scaled_values
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # float64 Galerkin sums in two implementations
 TOL64 = 1e-12

@@ -10,6 +10,7 @@ import amgx_tpu as jx
 from amgx_tpu.config import Config as JaxConfig
 
 import amgx_tpu_torch as pt
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 AMG_CFG = ("solver=AMG, algorithm=AGGREGATION, selector=GEO,"
            " smoother=CHEBYSHEV_POLY, chebyshev_polynomial_order=2,"

@@ -38,6 +38,7 @@ from amgx_tpu_torch.presets import FLAGSHIP
 from amgx_tpu_torch.solvers.polynomial import chebyshev_poly_coeffs
 
 from _torch_util import geo_agg, grid_operator, vectors
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f32 kernel math in two implementations (ROADMAP.md)
 TOL32 = 1e-6

@@ -28,6 +28,7 @@ from amgx_tpu_torch.ops import cuda_tail as T
 from amgx_tpu_torch.presets import FLAGSHIP
 
 from _torch_util import jax_hierarchy_arrays, rel
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 AMG_CFG = ("solver=AMG, algorithm=AGGREGATION, selector=GEO,"
            " smoother={smoother}, chebyshev_polynomial_order=2,"

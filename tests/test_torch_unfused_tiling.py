@@ -42,6 +42,7 @@ from amgx_tpu_torch.solvers.relaxation import (l1_strengthened_diag,
                                                safe_recip)
 
 from _torch_util import grid_operator
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # f32 kernel math in two implementations (ROADMAP.md)
 TOL32 = 1e-6

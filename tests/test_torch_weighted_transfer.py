@@ -35,6 +35,7 @@ from amgx_tpu_torch.ops.smooth import build_csr_transfer_tables
 
 from _torch_util import rel
 from chip_smoke import CLASSICAL
+from _torch_util import single_torch_thread  # noqa: F401  (autouse)
 
 # CLASSICAL's AMG block in the default scope (the level setup alone)
 LEVEL_CFG = CLASSICAL[CLASSICAL.index("amg:algorithm"):].replace(
