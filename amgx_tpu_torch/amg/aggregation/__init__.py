@@ -34,6 +34,7 @@ import torch
 
 from ... import registry
 from ...ops import spgemm
+from ...ops.cuda_spmv import restrict_plain
 from ...ops.smooth import (build_transfer_tables, children_index,
                            children_table, restrict_children)
 from ..hierarchy import AMGLevel
@@ -42,18 +43,26 @@ from .galerkin import get_geo_plan, geo_shapes, pair_sum_axis
 
 
 def _geo_restrict(r, fine_shape, axis):
-    """Pair-sum along one grid axis (x fastest in the linear index)."""
+    """Pair-sum along one grid axis (x fastest in the linear index); r
+    may carry a leading batch axis."""
     nx, ny, nz = fine_shape
-    return pair_sum_axis(r.reshape(nz, ny, nx), fine_shape[axis],
-                         axis).reshape(-1)
+    lead = r.shape[:-1]
+    g = r.reshape(lead + (nz, ny, nx))
+    if lead:
+        # pair_sum_axis reads the grid's three axes last to first
+        return torch.stack([pair_sum_axis(v, fine_shape[axis], axis)
+                            for v in g]).reshape(lead + (-1,))
+    return pair_sum_axis(g, fine_shape[axis], axis).reshape(-1)
 
 
 def _geo_prolongate(xc, fine_shape, coarse_shape, axis):
-    """Repeat each coarse value on both fine points of its pair."""
+    """Repeat each coarse value on both fine points of its pair; xc may
+    carry a leading batch axis."""
     nx, ny, nz = coarse_shape
-    dims = 2 - axis
-    out = xc.reshape(nz, ny, nx).repeat_interleave(2, dim=dims)
-    return out.narrow(dims, 0, fine_shape[axis]).reshape(-1)
+    lead = xc.shape[:-1]
+    dims = len(lead) + 2 - axis
+    out = xc.reshape(lead + (nz, ny, nx)).repeat_interleave(2, dim=dims)
+    return out.narrow(dims, 0, fine_shape[axis]).reshape(lead + (-1,))
 
 
 @registry.amg_levels.register("AGGREGATION")
@@ -156,10 +165,6 @@ class AggregationAMGLevel(AMGLevel):
         return g
 
     def batch_refusal(self):
-        if self.geo_axes is not None:
-            return ("GEO aggregation levels have no batched cycle yet "
-                    "(ROADMAP.md Queue A item 9: SERVING_CG's GEO + "
-                    "CHEBYSHEV_POLY through the value route)")
         return None
 
     def _geo_shapes(self):
@@ -226,6 +231,12 @@ class AggregationAMGLevel(AMGLevel):
                   want_dot=want_dot)
 
     def restrict(self, data, r):
+        xfer = data.get("xfer")
+        if self.geo_axes is not None and r.dim() == 2 and xfer is not None:
+            # a batch restricts through the children table, each coarse
+            # row's children added in ascending fine index (the JAX
+            # package's `restrict_multi`)
+            return restrict_plain(xfer["ctab"], r)
         if self.geo_axes is not None:
             shapes = self._geo_shapes()
             for k, a in enumerate(self.geo_axes):
@@ -234,6 +245,10 @@ class AggregationAMGLevel(AMGLevel):
         return restrict_children(data["children"], r)
 
     def prolongate(self, data, xc):
+        xfer = data.get("xfer")
+        if self.geo_axes is not None and xc.dim() == 2 and xfer is not None:
+            # `prolong_corr_multi`'s aggregate gather
+            return xc[..., xfer["agg"].long()]
         if self.geo_axes is not None:
             shapes = self._geo_shapes()
             for k in range(len(self.geo_axes) - 1, -1, -1):

@@ -12,7 +12,7 @@ from .hierarchy import AMG
 
 @registry.solvers.register("AMG")
 class AlgebraicMultigridSolver(Solver):
-    def __init__(self, cfg, scope="default", name="AMG", device="cpu"):
+    def __init__(self, cfg, scope="default", name="AMG", device=None):
         super().__init__(cfg, scope, name, device)
         self.amg = AMG(cfg, scope)
 

@@ -48,6 +48,9 @@ PAD_SIZES: Tuple[int, ...] = (1, 2, 4, 8, 16, 32)
 # system's index arrays costs a device read and tens of ms: a stream
 # resubmitting one matrix object must not repay it per request)
 _FP_CACHE: Dict[int, str] = {}
+# (ids of the index tensors, shape, dtype, grid) -> digest, dropped with
+# either index tensor
+_FP_PATTERN: Dict[tuple, str] = {}
 
 
 def pattern_fingerprint(A: CsrMatrix) -> str:
@@ -58,12 +61,21 @@ def pattern_fingerprint(A: CsrMatrix) -> str:
     cached = _FP_CACHE.get(id(A))
     if cached is not None:
         return cached
-    h = hashlib.blake2b(digest_size=16)
-    h.update(repr((A.num_rows, A.num_cols, str(A.dtype),
-                   A.grid_shape)).encode())
-    for t in (A.row_offsets, A.col_indices):
-        h.update(t.to(torch.int32).cpu().contiguous().numpy().tobytes())
-    digest = h.hexdigest()
+    # matrices made by with_values share their index tensors: one digest
+    # serves them all
+    pkey = (id(A.row_offsets), id(A.col_indices), A.num_rows, A.num_cols,
+            str(A.dtype), A.grid_shape)
+    digest = _FP_PATTERN.get(pkey)
+    if digest is None:
+        h = hashlib.blake2b(digest_size=16)
+        h.update(repr((A.num_rows, A.num_cols, str(A.dtype),
+                       A.grid_shape)).encode())
+        for t in (A.row_offsets, A.col_indices):
+            h.update(t.to(torch.int32).cpu().contiguous().numpy().tobytes())
+        digest = h.hexdigest()
+        for t in (A.row_offsets, A.col_indices):
+            weakref.finalize(t, _FP_PATTERN.pop, pkey, None)
+        _FP_PATTERN[pkey] = digest
     weakref.finalize(A, _FP_CACHE.pop, id(A), None)
     _FP_CACHE[id(A)] = digest
     return digest

@@ -374,6 +374,117 @@ def _register_default_parameters():
       "each, rotated and corruption-tolerant. '' = in-memory ring only "
       "(AMGX_TPU_FLIGHTREC_DIR env also attaches a directory)", "")
 
+    # serving subsystem (amgx_tpu_torch/serving/)
+    R("serving_chunk_iters", int, "continuous-batching cycle length: "
+      "iterations every in-flight system advances per scheduler cycle "
+      "before the service checks convergence/deadlines and refills "
+      "drained bucket slots (serving/engine.py). Smaller = lower "
+      "admission latency, more host syncs per solve", 8, None, 1)
+    R("serving_bucket_slots", int, "in-flight systems per serving "
+      "bucket: the fixed batch width of the continuous-batching engine "
+      "(one set of stacked tensors serves the bucket for its lifetime; empty slots ride along "
+      "converged and cost nothing)", 4, None, 1)
+    R("serving_cache_bytes", int, "byte budget for the hierarchy/LRU "
+      "cache of live serving buckets (solve-data footprint estimate); "
+      "idle least-recently-used buckets are evicted past it. 0 = "
+      "unbounded", 0, None, 0)
+    R("serving_cache_entries", int, "max live serving buckets "
+      "regardless of bytes (each holds a hierarchy + engine traces)",
+      16, None, 1)
+    R("serving_aot_dir", str, "directory of the warm-start store "
+      "(serving/aot.py) keyed by (pattern fingerprint, bucket geometry, "
+      "solver config): each bucket's per-slot / shared split of the "
+      "solve data, its widths and the CUDA libraries it launches, so a "
+      "restarted service builds a bucket without the probe resetup and "
+      "loads its kernels before the first request. '' = off", "")
+    R("serving_deadline_action", str, "what an expired in-flight "
+      "request completes with: 'partial' = its current iterate "
+      "(best-effort degrade), 'reject' = the initial/zero iterate; "
+      "either way the status is DEADLINE_EXCEEDED and the bucket keeps "
+      "cycling — deadlines never stall neighbors", "partial",
+      ("partial", "reject"))
+    R("serving_max_queue", int, "admission control: submits beyond "
+      "this many queued requests complete immediately with "
+      "OVERLOADED instead of growing the queue without bound "
+      "(0 = unbounded)", 0, None, 0)
+    # serving fault tolerance (serving/{journal,hstore}.py + the
+    # recovery/shed/supervision machinery in serving/service.py)
+    R("serving_journal_dir", str, "directory for the durable request "
+      "journal + solve checkpoints (serving/journal.py): submits are "
+      "journaled write-ahead, in-flight states checkpoint every "
+      "serving_checkpoint_cycles cycles, and a restarted service "
+      "replays pending records — resuming checkpointed solves from "
+      "their saved iterate. '' = journaling off", "")
+    R("serving_checkpoint_cycles", int, "scheduler cycles between "
+      "solve-state checkpoints of journaled in-flight requests (each "
+      "checkpoint is one device->host state pull + one file write per "
+      "slot). 0 = journal requests but never checkpoint mid-flight",
+      4, None, 0)
+    R("serving_recover", int, "replay the journal at service "
+      "construction (crash recovery); 0 defers to an explicit "
+      "recover() call", 1, BOOL01)
+    R("serving_hierarchy_dir", str, "directory persisting hierarchy "
+      "STRUCTURE snapshots next to the warm-start store "
+      "(serving/hstore.py): a restarted service rebuilds each "
+      "bucket's hierarchy via load + structure-reuse (values only, "
+      "amg.setup.restored) instead of a full multi-second coarsening. "
+      "'' = off", "")
+    R("serving_shed_policy", str, "load shedding beyond the hard "
+      "queue bound: 'deadline' rejects requests (OVERLOADED) whose "
+      "deadline the live execution-time estimate (median of recent "
+      "in-bucket execs, scaled by queue-depth waves + 25% margin) "
+      "says is unmeetable; '' = hard bound only",
+      "", ("", "deadline"))
+    R("serving_tenant_quota", int, "per-tenant fairness quota: a "
+      "tenant with this many live (queued + in-flight) requests has "
+      "further submits shed OVERLOADED (0 = unbounded)", 0, None, 0)
+    R("serving_supervisor_cycles", int, "wedged-bucket detector: a "
+      "busy bucket whose progress heartbeat (per-cycle iteration "
+      "counters) flatlines for this many consecutive cycles is "
+      "quarantined — salvageable slots finalize, the rest requeue. "
+      "0 = supervision off", 8, None, 0)
+    R("serving_fault_policy", str, "service-level failure chains "
+      "'EVENT>action|...' (events: BUILD_FAILED, STEP_FAILED, WEDGED; "
+      "actions: retry_backoff, requeue, reject — "
+      "resilience/policy.py parse_service_policy). Multiple steps per "
+      "event are tried in order across consecutive failures",
+      "BUILD_FAILED>reject|STEP_FAILED>requeue|WEDGED>requeue")
+    R("serving_retry_backoff_s", float, "base delay of the "
+      "retry_backoff action: rebuild attempt n waits base * 2^n",
+      0.05)
+    R("serving_retry_max_attempts", int, "bound on per-fingerprint "
+      "build/step recovery attempts; beyond it the affected tickets "
+      "reject with BREAKDOWN", 3, None, 0)
+    # request-path observability (telemetry/spans.py flow chains +
+    # telemetry/flightrec.py)
+    R("serving_tracing", int, "request-path tracing: every ticket "
+      "mints a trace id and the serving pipeline emits per-lifecycle "
+      "spans (submit / shed / queue / build / admit / chunk-cycle / "
+      "checkpoint / finalize) tagged with it, exported as one "
+      "connected Perfetto flow chain per request "
+      "(spans.export_chrome_trace); the journal persists trace ids so "
+      "a crash-recovered resume links its spans to the ORIGINAL "
+      "trace. Host-side dict appends only; 0 restores the "
+      "pre-tracing span set",
+      1, BOOL01)
+    R("serving_replica_id", str, "replica/shard label stamped on "
+      "every OpenMetrics sample (replica=\"...\") so multi-replica "
+      "scrapes don't collide — the fleet-router prerequisite. '' "
+      "defers to the AMGX_REPLICA_ID env var; either is process-wide "
+      "(one replica = one process)", "")
+    R("serving_bucket_ladder", str, "mixed bucket-width ladder "
+      "(serving/ladder.py): '|'-separated strictly-increasing slot "
+      "widths (e.g. '1|4|16') the bucket builder draws from by queue "
+      "composition — each BUILD uses the smallest rung seating every "
+      "queued same-fingerprint request (capped at the top rung) "
+      "instead of the fixed serving_bucket_slots width, cutting pad "
+      "waste for singleton patterns and queue latency for bursts. "
+      "Each rung keeps its own warm-start entry (slots is part of the "
+      "store's key). '' = fixed width", "")
+    R("autotune", int, "the online per-fingerprint config autotuner of "
+      "the JAX package's serving layer; not ported yet: a SolveService "
+      "with autotune=1 raises (ROADMAP.md Queue A item 11: the "
+      "autotuner). 0 (default): no tuner", 0, BOOL01)
 
 _register_default_parameters()
 

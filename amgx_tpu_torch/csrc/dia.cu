@@ -618,11 +618,12 @@ dia_spmv_multi_kernel(VS vs, const float* __restrict__ x,
   }
 }
 
-// K2: one damped step X' = X + (tau_t * (B - A X)) * dinv per system.
+// K2: one damped step X' = X + (tau_t * (B - A X)) * dinv per system,
+// system s's damping factors at taus + s * tstride (0: shared).
 template <class VS, bool kHasDinv>
 __global__ void __launch_bounds__(kThreads)
 dia_step_multi_kernel(VS vs, const float* __restrict__ taus, int t,
-                      const float* __restrict__ b,
+                      int tstride, const float* __restrict__ b,
                       const float* __restrict__ x, float* __restrict__ out,
                       int n, int nsys, Offsets of) {
   STAGE_VALUES(vs);
@@ -637,7 +638,8 @@ dia_step_multi_kernel(VS vs, const float* __restrict__ taus, int t,
     const size_t o = static_cast<size_t>(s) * n;
     const PlainX xr{x + o};
     const typename VS::Row r = vs.row(s, i, gm);
-    float upd = taus[t] * (b[o + i] - dia_row(vs, r, xr, n, i, of));
+    float upd = taus[static_cast<size_t>(s) * tstride + t] *
+                (b[o + i] - dia_row(vs, r, xr, n, i, of));
     if (kHasDinv) upd *= dv;
     out[o + i] = xr(i) + upd;
   }
@@ -671,7 +673,8 @@ dim3 multi_grid(int n, int nsys, bool per_system) {
 // `resid`, the residual of x.
 template <class VS>
 int step_multi(const VS& vs, bool has_dinv, bool per_system,
-               const float* taus, int t, const float* b, const float* x,
+               const float* taus, int t, int tstride, const float* b,
+               const float* x,
                float* out, int resid, int n, int nsys, const Offsets& of,
                cudaStream_t stream) {
   const dim3 grid = multi_grid(n, nsys, per_system);
@@ -679,11 +682,11 @@ int step_multi(const VS& vs, bool has_dinv, bool per_system,
     dia_residual_multi_kernel<VS>
         <<<grid, kThreads, 0, stream>>>(vs, b, x, out, n, nsys, of);
   } else if (has_dinv) {
-    dia_step_multi_kernel<VS, true>
-        <<<grid, kThreads, 0, stream>>>(vs, taus, t, b, x, out, n, nsys, of);
+    dia_step_multi_kernel<VS, true><<<grid, kThreads, 0, stream>>>(
+        vs, taus, t, tstride, b, x, out, n, nsys, of);
   } else {
-    dia_step_multi_kernel<VS, false>
-        <<<grid, kThreads, 0, stream>>>(vs, taus, t, b, x, out, n, nsys, of);
+    dia_step_multi_kernel<VS, false><<<grid, kThreads, 0, stream>>>(
+        vs, taus, t, tstride, b, x, out, n, nsys, of);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -710,29 +713,33 @@ int amgx_dia_spmv_multi(const float* vals, const float* x, float* y, int n,
 // K2 on a slab: one damped step out = x + (taus[t] * (b - A x)) * dinv
 // for every system (dinv optional: (n,) shared or (nsys, n)), or with
 // `resid` r = b - A x into out. vals (k, n) or (nsys, k, n) by
-// `per_system`; `dinv_per_system` says the same of dinv.
+// `per_system`; `dinv_per_system` says the same of dinv. System s's
+// damping factors start at taus + s * tstride: tstride 0 shares one
+// schedule, the schedule's length gives each system its own.
 int amgx_dia_step_multi(const float* vals, const float* dinv,
-                        const float* taus, int t, const float* b,
+                        const float* taus, int t, int tstride,
+                        const float* b,
                         const float* x, float* out, int resid, int n,
                         int nsys, int per_system, int dinv_per_system,
                         const int* offs, int k, cudaStream_t stream) {
   Offsets of;
   if (n < 1 || nsys < 1 || nsys > 65535 || !fill_offsets(offs, k, &of) ||
-      out == x || (!resid && taus == nullptr))
+      out == x || tstride < 0 || (!resid && taus == nullptr))
     return -1;
   const SlabBatchVals vs{vals, dinv, n,
                          per_system ? static_cast<long long>(k) * n : 0,
                          dinv_per_system ? static_cast<long long>(n) : 0};
   return step_multi(vs, dinv != nullptr, per_system || dinv_per_system, taus,
-                    t, b, x, out, resid, n, nsys, of, stream);
+                    t, tstride, b, x, out, resid, n, nsys, of, stream);
 }
 
 // K2 on a stencil (the coefficient mode): the geometry and dinv mode from
 // the host stencil `stencil` (common.cuh Stencil; its coefficients are
 // not read), the k coefficients from `coef`: (k,) shared or, with
-// `per_system`, (nsys, k).
+// `per_system`, (nsys, k); the damping factors as amgx_dia_step_multi's.
 int amgx_dia_step_mf_multi(const void* stencil, const float* coef,
-                           const float* taus, int t, const float* b,
+                           const float* taus, int t, int tstride,
+                           const float* b,
                            const float* x, float* out, int resid, int n,
                            int nsys, int per_system, const int* offs, int k,
                            cudaStream_t stream) {
@@ -740,11 +747,11 @@ int amgx_dia_step_mf_multi(const void* stencil, const float* coef,
   Offsets of;
   if (n < 1 || nsys < 1 || nsys > 65535 || coef == nullptr ||
       !fill_offsets(offs, k, &of) || !stencil_ok(st, n, k) || out == x ||
-      (!resid && taus == nullptr))
+      tstride < 0 || (!resid && taus == nullptr))
     return -1;
   const StencilBatchVals vs{*st, coef, per_system ? k : 0, k};
-  return step_multi(vs, st->dinv != kDinvNone, per_system, taus, t, b, x, out,
-                    resid, n, nsys, of, stream);
+  return step_multi(vs, st->dinv != kDinvNone, per_system, taus, t, tstride,
+                    b, x, out, resid, n, nsys, of, stream);
 }
 
 }  // extern "C"

@@ -51,6 +51,18 @@
 //     cluster barrier, so no block leaves while its shared memory is
 //     read.
 //
+// K5, the batched form (the port's counterpart of `tail_cycle_multi` under
+// `_tail_fn`'s vmap rule): one cluster a system, grid = nsys clusters.
+// Block b is block b % cluster of system b / cluster's cluster; each
+// cluster runs the program above on its own system's b, x and output
+// (rows s * n of the (nsys, n) batch) and its own tail vectors in its own
+// distributed shared memory. A level array is shared by every system or
+// stacked with a leading system axis: the host passes a per-field byte
+// stride a system (0: shared; `strides`), which each block adds to the
+// level pointers once, when it stages them. The clusters never wait on
+// each other, so system s gets exactly the single launch's arithmetic on
+// its own arrays, bit for bit.
+//
 // The level tables and the program are staged in shared memory once per
 // launch. The entry level's last write (flag OUT) also stores its rows in
 // the output.
@@ -69,6 +81,10 @@
 // OUT store rounds to bf16: the only bf16 store of the launch. Stencil
 // coefficients arrive as float32 (the bf16 level's values, exact).
 #include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "common.cuh"
 
@@ -105,6 +121,7 @@ struct TailArgs {
   const int* prog;
   int nops;
   const long long* ptrs;  // (nlev, kPtrFields) device addresses
+  const long long* strides;  // (nlev, kPtrFields) bytes a system, or null
   const int* ints;        // (nlev, kIntFields)
   int nlev;
   const void* b0;         // entry level's b, x in (storage VT)
@@ -116,7 +133,24 @@ struct TailArgs {
   int off_part;           // the blocks' partials of x'.b (block 0's)
   float* dot;
   long long* clock;       // nullptr, or nops + 1 SM clock readings
+  long long inv_stride;   // floats of inv a system (0: shared)
 };
+
+// this block's place in its cluster, and the cluster's size
+__device__ __forceinline__ int crank() {
+  return static_cast<int>(cg::this_cluster().block_rank());
+}
+__device__ __forceinline__ int csize() {
+  return static_cast<int>(cg::this_cluster().num_blocks());
+}
+
+// A level array's address for system `sys`: shared, or (stacked) one
+// stride a system further.
+__device__ __forceinline__ long long sys_ptr(const TailArgs& a, int f,
+                                             int sys) {
+  const long long p = a.ptrs[f];
+  return p == 0 || a.strides == nullptr ? p : p + sys * a.strides[f];
+}
 
 __host__ __device__ size_t tables_bytes(int nlev, int nops) {
   const size_t b = static_cast<size_t>(nlev) *
@@ -139,13 +173,14 @@ struct Tables {
   float* vec;             // this block's vector arrays
 };
 
-__device__ Tables stage_tables(const TailArgs& a, unsigned char* smem) {
+__device__ Tables stage_tables(const TailArgs& a, unsigned char* smem,
+                               int sys) {
   long long* ptrs = reinterpret_cast<long long*>(smem);
   int* ints = reinterpret_cast<int*>(ptrs + a.nlev * kPtrFields);
   float* coef = reinterpret_cast<float*>(ints + a.nlev * kIntFields);
   int* prog = reinterpret_cast<int*>(coef + a.nlev * kMaxOffsets);
   for (int f = threadIdx.x; f < a.nlev * kPtrFields; f += blockDim.x)
-    ptrs[f] = a.ptrs[f];
+    ptrs[f] = sys_ptr(a, f, sys);
   for (int f = threadIdx.x; f < a.nlev * kIntFields; f += blockDim.x)
     ints[f] = a.ints[f];
   const bool staged = a.nops <= kMaxStagedOps;
@@ -155,7 +190,7 @@ __device__ Tables stage_tables(const TailArgs& a, unsigned char* smem) {
   for (int f = threadIdx.x; f < a.nlev * kMaxOffsets; f += blockDim.x) {
     const int l = f / kMaxOffsets, d = f % kMaxOffsets;
     const float* c = reinterpret_cast<const float*>(
-        a.ptrs[l * kPtrFields + P_COEF]);
+        sys_ptr(a, l * kPtrFields + P_COEF, sys));
     coef[f] = c != nullptr && d < a.ints[l * kIntFields + I_K] ? c[d] : 0.0f;
   }
   __syncthreads();
@@ -350,8 +385,8 @@ __device__ __forceinline__ void item_range(int total, bool local, int* lo,
     *hi = total;
     return;
   }
-  const int per = ((total + gridDim.x - 1) / gridDim.x + 31) & ~31;
-  *lo = min(total, static_cast<int>(blockIdx.x) * per);
+  const int per = ((total + csize() - 1) / csize() + 31) & ~31;
+  *lo = min(total, crank() * per);
   *hi = min(total, *lo + per);
 }
 
@@ -457,7 +492,7 @@ __device__ void level_phase(const TailArgs& a, const Tables& t, const int* op,
                   : 0.0f,
              flags, 0.0f};
   // the rows this block holds (block 0: all rows of a block-local level)
-  const int lo = static_cast<int>(blockIdx.x) << lv.I[I_SH];
+  const int lo = crank() << lv.I[I_SH];
   const int hi = min(lv.n, lo + (1 << lv.I[I_SH]));
   if (step && (flags & F_CORRECTED))
     step_rows<true, VT>(a, lv, x, b, true, lo, hi, o);
@@ -466,7 +501,7 @@ __device__ void level_phase(const TailArgs& a, const Tables& t, const int* op,
   if (flags & F_DOT) {
     o.part = block_sum(o.part);
     if (threadIdx.x == 0)
-      *cg::this_cluster().map_shared_rank(t.vec + a.off_part + blockIdx.x,
+      *cg::this_cluster().map_shared_rank(t.vec + a.off_part + crank(),
                                           0) = o.part;
   }
 }
@@ -525,8 +560,18 @@ template <class VT>
 __global__ void __launch_bounds__(kTailThreads, 1)
 coarse_tail_kernel(TailArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tables t = stage_tables(a, smem);
   cg::cluster_group cluster = cg::this_cluster();
+  const int rank = crank();
+  // this cluster's system: its rows of the batch's b, x, out, its
+  // coarse inverse and its dot
+  const int sys = static_cast<int>(blockIdx.x) / csize();
+  const size_t row0 = static_cast<size_t>(sys) * a.ints[I_N];
+  a.b0 = static_cast<const VT*>(a.b0) + row0;
+  a.xin = static_cast<const VT*>(a.xin) + row0;
+  a.out = static_cast<VT*>(a.out) + row0;
+  if (a.inv != nullptr) a.inv += sys * a.inv_stride;
+  if (a.dot != nullptr) a.dot += sys;
+  const Tables t = stage_tables(a, smem, sys);
   // the phase clock: block 0's clock after staging and after each
   // phase's barrier (a measuring aid; off when `clock` is null)
   const bool stamp = a.clock != nullptr && blockIdx.x == 0 &&
@@ -536,11 +581,11 @@ coarse_tail_kernel(TailArgs a) {
   for (int p = 0; p < a.nops; ++p) {
     const int* op = t.prog + static_cast<size_t>(p) * kOpCols;
     const bool local = op[6] & F_LOCAL;
-    if (!local || blockIdx.x == 0) run_phase<VT>(a, t, op, parts);
-    parts = local ? 1 : gridDim.x;
+    if (!local || rank == 0) run_phase<VT>(a, t, op, parts);
+    parts = local ? 1 : csize();
     if (op[7] == BAR_CLUSTER)
       cluster.sync();
-    else if (op[7] == BAR_BLOCK && blockIdx.x == 0)
+    else if (op[7] == BAR_BLOCK && rank == 0)
       __syncthreads();
     if (stamp) a.clock[p + 1] = clock64();
   }
@@ -559,11 +604,12 @@ barrier_probe_kernel(int iters) {
   }
 }
 
+// `count` clusters of `cluster` blocks
 template <class... Args>
-cudaError_t launch_cluster(void (*kernel)(Args...), int cluster, size_t smem,
-                           cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster(void (*kernel)(Args...), int cluster, int count,
+                           size_t smem, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(cluster * count);
   cfg.blockDim = dim3(kTailThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -577,17 +623,31 @@ cudaError_t launch_cluster(void (*kernel)(Args...), int cluster, size_t smem,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// let a kernel take a 16-block cluster and `smem` bytes of dynamic
-// shared memory
+// The dynamic-shared-memory limit of a kernel belongs to the function
+// on its device, shared by every plan and thread of the process: one
+// lowered for a smaller tail between another thread's query and its
+// launch would fail that launch. So the limit only grows, under a lock,
+// and a launch never finds it below the size its plan was allowed.
+std::mutex g_allow_mu;
+std::map<std::pair<int, const void*>, size_t> g_allowed;
+
+// let a kernel take a 16-block cluster and at least `smem` bytes of
+// dynamic shared memory
 template <class... Args>
 cudaError_t allow(void (*kernel)(Args...), size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const void* f = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(g_allow_mu);
+  auto it = g_allowed.find({dev, f});
+  if (it != g_allowed.end() && it->second >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
+  if (e == cudaSuccess) g_allowed[{dev, f}] = smem;
   return e;
 }
 
@@ -629,6 +689,40 @@ int amgx_tail_clusters(int cluster, long long smem, int half, int* active) {
       cudaOccupancyMaxActiveClusters(active, kernel, &cfg));
 }
 
+// K5: B5 on `nsys` systems, one `cluster`-block cluster each (grid: nsys
+// clusters). b0, xin and out are (nsys, n) row-major; `strides` (nlev,
+// kPtrFields) gives each level array's bytes a system (0: shared; null:
+// every array shared), `inv_stride` the floats of the coarse inverse a
+// system (0: shared); dot, when not null, receives one float a system.
+int amgx_dia_coarse_tail_multi(const int* prog, int nops,
+                               const long long* ptrs,
+                               const long long* strides, const int* ints,
+                               int nlev, const void* b0, const void* xin,
+                               void* out, int half, const float* inv,
+                               long long inv_stride, int nz, int sh_z,
+                               int off_bz, int off_xz, int off_part,
+                               float* dot, int cluster, int nsys,
+                               long long smem, long long* clock,
+                               cudaStream_t stream) {
+  if (nops < 1 || nlev < 1 || nlev > kMaxLevels || nz < 1 || cluster < 1 ||
+      cluster > kMaxCluster || smem < 0 || nsys < 1 ||
+      static_cast<long long>(nsys) * cluster > 0x7fffffffLL ||
+      inv_stride < 0)
+    return -1;
+  if (half && dot != nullptr) return -1;
+  TailArgs a{prog,  nops,    ptrs,   strides, ints,     nlev,
+             b0,    xin,     out,    inv,     nz,       sh_z,
+             off_bz, off_xz, off_part, dot,   clock,    inv_stride};
+  void (*kernel)(TailArgs) =
+      half ? coarse_tail_kernel<bf16> : coarse_tail_kernel<float>;
+  // amgx_tail_clusters, at the plan's build, has let the kernel take
+  // `smem` (the limit only grows)
+  cudaError_t e = launch_cluster(kernel, cluster, nsys,
+                                 static_cast<size_t>(smem), stream, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // B5: one launch of a `cluster`-block cluster walking `prog` (nops rows
 // of kOpCols ints) with `smem` bytes of dynamic shared memory
 // (amgx_tail_smem; amgx_tail_clusters has let the kernel take it). With
@@ -643,20 +737,10 @@ int amgx_dia_coarse_tail(const int* prog, int nops, const long long* ptrs,
                          int off_xz, int off_part, float* dot, int cluster,
                          long long smem, long long* clock,
                          cudaStream_t stream) {
-  if (nops < 1 || nlev < 1 || nlev > kMaxLevels || nz < 1 || cluster < 1 ||
-      cluster > kMaxCluster || smem < 0)
-    return -1;
-  if (half && dot != nullptr) return -1;
-  TailArgs a{prog, nops, ptrs,   ints,   nlev,   b0,       xin,
-             out,  inv,  nz,     sh_z,   off_bz, off_xz,   off_part,
-             dot,  clock};
-  const cudaError_t e =
-      half ? launch_cluster(coarse_tail_kernel<bf16>, cluster,
-                            static_cast<size_t>(smem), stream, a)
-           : launch_cluster(coarse_tail_kernel<float>, cluster,
-                            static_cast<size_t>(smem), stream, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return amgx_dia_coarse_tail_multi(prog, nops, ptrs, nullptr, ints, nlev,
+                                    b0, xin, out, half, inv, 0, nz, sh_z,
+                                    off_bz, off_xz, off_part, dot, cluster,
+                                    1, smem, clock, stream);
 }
 
 // `iters` barriers in one launch of a `cluster`-block cluster: cluster
@@ -668,9 +752,9 @@ int amgx_tail_barrier_probe(int cluster, int iters, int kind,
   cudaError_t e = kind ? allow(barrier_probe_kernel<true>, 0)
                        : allow(barrier_probe_kernel<false>, 0);
   if (e == cudaSuccess)
-    e = kind ? launch_cluster(barrier_probe_kernel<true>, cluster, 0, stream,
-                              iters)
-             : launch_cluster(barrier_probe_kernel<false>, cluster, 0,
+    e = kind ? launch_cluster(barrier_probe_kernel<true>, cluster, 1, 0,
+                              stream, iters)
+             : launch_cluster(barrier_probe_kernel<false>, cluster, 1, 0,
                               stream, iters);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -12,9 +12,10 @@ The JAX package's other multi forms (`spmv_dia_multi`, `spmv_multi`,
 and an operator shared or stacked, and are the CPU route of the batched
 kernels K1-K4 (ops/cuda_batched.py).
 
-`rap_values_multi` and `tail_cycle_multi` have no caller on the batched
-path yet (ROADMAP.md Queue A item 9); `affine_window_sweeps` belongs to
-the distributed solves (item 13).
+`tail_cycle_multi` is K5 (ops/cuda_tail.py `dia_coarse_tail_multi`, its
+plain form `dia_coarse_tail_multi_plain`); `rap_values_multi` has no
+caller on the batched path yet (ROADMAP.md Queue A item 9);
+`affine_window_sweeps` belongs to the distributed solves (item 13).
 """
 from __future__ import annotations
 

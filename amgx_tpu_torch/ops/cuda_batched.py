@@ -1,5 +1,6 @@
 """The batched Hopper kernels K1-K4: B1, B2 / B2-mf, B8 and B9 over a
-batch of systems, with their plain PyTorch twins and launch counters.
+batch of systems, with their plain PyTorch twins and launch counters
+(K5, the batched coarse tail, is in ops/cuda_tail.py).
 
 A batched solve (amgx_tpu_torch/batch/) carries its vectors as (B, n)
 tensors. Its operator is shared by every system (multi-RHS: the solve
@@ -22,9 +23,11 @@ K2 `dia_smooth_multi` / `dia_smooth_mf_multi` (counters
    slab (+ dinv) or from k stencil coefficients (each block stages its
    coefficient set in shared memory; a row's grid geometry and its
    synthesized dinv are computed once for all the systems a thread
-   takes); one launch a step, one for the residual. Replaces
-   `smooth_dia_multi` and, on matrix-free levels, the vmapped
-   `_xla_smooth`.
+   takes); one launch a step, one for the residual. The damping factors
+   are shared (T,) or one schedule a system (B, T): a multi-matrix
+   CHEBYSHEV_POLY batch's taus come from each system's spectral bound
+   (system stride 0 or T in the launch). Replaces `smooth_dia_multi`
+   and, on matrix-free levels, the vmapped `_xla_smooth`.
 K3 `csr_spmv_multi` (counter "csr_spmv_multi"), csrc/csr.cu: B8's
    row-block kernel with grid.y over the systems; replaces the vmapped
    `swell_spmv_xla`.
@@ -62,11 +65,11 @@ def _dia():
     from .cuda_build import library
     lib = library("dia.cu")
     lib.amgx_dia_spmv_multi.argtypes = [_P, _P, _P, _I, _I, _I, _P, _I, _P]
-    lib.amgx_dia_step_multi.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                        _I, _I, _I, _P, _I, _P]
+    lib.amgx_dia_step_multi.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _P, _I, _P]
     lib.amgx_dia_step_mf_multi.argtypes = [
-        ctypes.POINTER(_k.StencilArg), _P, _P, _I, _P, _P, _P, _I, _I, _I,
-        _I, _P, _I, _P]
+        ctypes.POINTER(_k.StencilArg), _P, _P, _I, _I, _P, _P, _P, _I, _I,
+        _I, _I, _P, _I, _P]
     for fn in (lib.amgx_dia_spmv_multi, lib.amgx_dia_step_multi,
                lib.amgx_dia_step_mf_multi):
         fn.restype = _I
@@ -138,10 +141,10 @@ def dia_spmv_multi(vals, offsets, x):
 
 
 def _steps_multi(name, launch, taus, b, x, with_residual):
-    """len(taus) launches of a K2 entry (`launch(t, src, dst, resid)`),
-    each step into a fresh buffer, then the residual's launch."""
+    """One launch of a K2 entry (`launch(t, src, dst, resid)`) a damping
+    factor, each step into a fresh buffer, then the residual's launch."""
     src = x
-    for t in range(taus.shape[0]):
+    for t in range(taus.shape[-1]):
         dst = torch.empty_like(x)
         _launch(name, launch, t, src, dst, 0)
         src = dst
@@ -152,33 +155,39 @@ def _steps_multi(name, launch, taus, b, x, with_residual):
     return src, r
 
 
-def _check_taus(name, taus):
-    if taus.dim() != 1 or taus.shape[0] < 1:
-        raise ValueError(f"{name}: needs at least one step (taus "
-                         f"{tuple(taus.shape)})")
+def _check_taus(name, taus, nb):
+    """The damping factors: (T,) shared by every system or (B, T), one
+    schedule a system (CHEBYSHEV_POLY's taus come from each system's own
+    spectral bound); returns the launches' system stride (0 or T)."""
+    if taus.dim() not in (1, 2) or taus.shape[-1] < 1 or (
+            taus.dim() == 2 and taus.shape[0] != nb):
+        raise ValueError(f"{name}: needs at least one step, (T,) or "
+                         f"({nb}, T) (taus {tuple(taus.shape)})")
+    return taus.shape[-1] if taus.dim() == 2 else 0
 
 
 def dia_smooth_multi(vals, offsets, taus, b, x, dinv=None,
                      with_residual=True):
-    """K2 on a slab: len(taus) damped steps X <- X + (tau_t (B - A X))
-    dinv per system (+ R = B - A X'). vals (k, n) or (B, k, n), dinv
-    (n,) or (B, n). Returns X' or (X', R)."""
+    """K2 on a slab: T damped steps X <- X + (tau_t (B - A X)) dinv per
+    system (+ R = B - A X'). vals (k, n) or (B, k, n), dinv (n,) or (B,
+    n), taus (T,) or (B, T). Returns X' or (X', R)."""
     if x.device.type == "cpu":
         return _k.dia_smooth_plain(vals, offsets, taus, b, x, dinv,
                                    with_residual)
     name = "dia_step_multi"
-    _check_taus(name, taus)
     nb, n = _batch(name, x)
+    tstride = _check_taus(name, taus, nb)
     k = len(offsets)
     _check(name, offsets, n,
            {"vals": (vals, _shape(vals, (k, n), nb)), "x": (x, (nb, n)),
             "b": (b, (nb, n)), "dinv": (dinv, _shape(dinv, (n,), nb))},
-           f32={"taus": (taus, (taus.shape[0],))})
+           f32={"taus": (taus, tuple(taus.shape))})
     lib, offs = _dia(), _k._offsets_arg(tuple(offsets))
 
     def launch(t, src, dst, resid):
         return lib.amgx_dia_step_multi(
             _ptr(vals), None if resid else _ptr(dinv), _ptr(taus), t,
+            tstride,
             _ptr(b), _ptr(src), _ptr(dst), resid, n, nb,
             int(_per(vals, 2)), int(_per(dinv, 1)), offs, k, _stream())
 
@@ -189,14 +198,14 @@ def dia_smooth_multi(vals, offsets, taus, b, x, dinv=None,
 def dia_smooth_mf_multi(st, taus, b, x, with_residual=True):
     """K2 on a stencil (the coefficient mode): B2-mf's steps (+ the
     residual) per system from the coefficients `st.coeffs`, (k,) shared
-    or (B, k), the dinv synthesized per `st.dinv_mode`. Returns X' or
-    (X', R)."""
+    or (B, k), the dinv synthesized per `st.dinv_mode`, the damping
+    factors (T,) or (B, T). Returns X' or (X', R)."""
     if x.device.type == "cpu":
         from .stencil import _xla_smooth
         return _xla_smooth(st.spec(), st.coeffs, taus, b, x, with_residual)
     name = "dia_step_mf_multi"
-    _check_taus(name, taus)
     nb, n = _batch(name, x)
+    tstride = _check_taus(name, taus, nb)
     if st.num_rows != n or st.shape[0] * st.shape[1] * st.shape[2] != n:
         raise ValueError(f"{name}: the stencil's grid {st.shape} does not "
                          f"cover the {n} rows of X")
@@ -204,7 +213,7 @@ def dia_smooth_mf_multi(st, taus, b, x, with_residual=True):
     _check(name, st.offsets, n,
            {"x": (x, (nb, n)), "b": (b, (nb, n)),
             "coeffs": (coef, _shape(coef, (st.k,), nb))},
-           f32={"taus": (taus, (taus.shape[0],))})
+           f32={"taus": (taus, tuple(taus.shape))})
     # the geometry and dinv mode by value; the coefficients from `coef`
     sarg = _k._stencil_struct((0.0,) * st.k, st.shifts, st.shape,
                               st.diag_rank, st.dinv_mode)
@@ -212,7 +221,7 @@ def dia_smooth_mf_multi(st, taus, b, x, with_residual=True):
 
     def launch(t, src, dst, resid):
         return lib.amgx_dia_step_mf_multi(
-            ctypes.byref(sarg), _ptr(coef), _ptr(taus), t, _ptr(b),
+            ctypes.byref(sarg), _ptr(coef), _ptr(taus), t, tstride, _ptr(b),
             _ptr(src), _ptr(dst), resid, n, nb, int(_per(coef, 1)), offs,
             st.k, _stream())
 
@@ -267,8 +276,11 @@ def csr_smooth_multi(row_offsets, col_indices, values, taus, b, x,
         return csr_smooth_plain(row_offsets, col_indices, values, taus, b,
                                 x, dinv)
     name = "csr_step_multi"
-    _check_taus(name, taus)
     nb, n = _batch(name, x)
+    if _check_taus(name, taus, nb):
+        raise ValueError(f"{name}: per-system damping factors are not "
+                         f"taken (CSR levels run the Jacobi family, whose "
+                         f"omega is one for the batch)")
     if row_offsets.shape[0] - 1 != n:
         raise ValueError(f"{name}: the matrix must be square")
     nnz = _check_csr(name, row_offsets, col_indices, values, x, n, nb,

@@ -31,6 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# the sources compiled by this process (each nvcc run) and the libraries
+# it has loaded, in load order: the serving warm-start store records the
+# latter so a restarted bucket loads them before its first request
+BUILT: list = []
+LOADED: list = []
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
 
@@ -91,6 +98,7 @@ def build_all() -> dict:
                 os.unlink(tmp)
             else:
                 os.replace(tmp, _lib_path(src))
+                BUILT.append(src)
         if failed:
             raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     report["seconds"] = time.perf_counter() - t0
@@ -119,4 +127,6 @@ def library(source: str = "dia.cu") -> ctypes.CDLL:
     path = _lib_path(source)
     if not os.path.isfile(path):
         build_all()
-    return ctypes.CDLL(path)
+    lib = ctypes.CDLL(path)
+    LOADED.append(source)
+    return lib

@@ -198,6 +198,8 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             # the batched forms K1-K4 (ops/cuda_batched.py)
             "dia_spmv_multi": 0, "dia_step_multi": 0,
             "dia_step_mf_multi": 0, "csr_spmv_multi": 0,
+            # K5, the batched tail (ops/cuda_tail.py)
+            "dia_coarse_tail_multi": 0, "dia_coarse_tail_mf_multi": 0,
             "csr_step_multi": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
@@ -456,6 +458,12 @@ def damped_update(x, tau, r, dinv=None):
     return torch.addcmul(x, tau * r, dinv)
 
 
+def tau_at(taus, t):
+    """Damping factor t of a schedule: a 0-dim scalar of a shared (T,)
+    schedule, or a (B, 1) column of a batch's per-system (B, T) ones."""
+    return taus[..., t, None] if taus.dim() == 2 else taus[t]
+
+
 def _up(*ts):
     """The tensors in the compute dtype of the first one's (identity for
     float32 and float64; None stays None)."""
@@ -467,9 +475,9 @@ def _smooth_state(vals, offsets, taus, b, x, dinv):
     """The damped steps in the compute dtype: (state, b, vals) widened,
     nothing rounded."""
     x, b, vals, dinv, taus = _up(x, b, vals, dinv, taus)
-    for t in range(taus.shape[0]):
-        x = damped_update(x, taus[t], b - dia_spmv_plain(vals, offsets, x),
-                          dinv)
+    for t in range(taus.shape[-1]):
+        x = damped_update(x, tau_at(taus, t),
+                          b - dia_spmv_plain(vals, offsets, x), dinv)
     return x, b, vals
 
 

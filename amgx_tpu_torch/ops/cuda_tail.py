@@ -47,6 +47,21 @@ shared memory (`tail_fits`) is declined, as the JAX package declines a
 tail that outgrows VMEM. Launches count in
 `cuda_spmv.LAUNCHES["dia_coarse_tail"]`, those that return the dot in
 "dia_coarse_tail_dot".
+
+K5 (`dia_coarse_tail_multi`, counters "dia_coarse_tail_multi" /
+"dia_coarse_tail_mf_multi") is the batched form, the port's counterpart
+of the JAX package's `tail_cycle_multi` (amgx_tpu/ops/batched.py) and of
+the vmap rule of `_tail_fn` (amgx_tpu/ops/smooth.py): a batch (B, n)
+runs in ONE launch of B clusters, one a system, each walking the same
+program with its own vectors in its own distributed shared memory. A
+level array is shared by the batch (multi-RHS, and the structure of a
+multi-matrix batch) or stacked with a leading system axis (a
+multi-matrix batch's values, coefficients, damping factors and coarse
+inverses); the card plan carries each array's byte stride a system
+(0: shared), so one plan serves the batch. Per system the arithmetic is
+the single launch's: row s has B5's bits on system s's arrays. float32
+only (a bf16 batch is ROADMAP.md Queue A item 9.5), and no x'.b
+epilogue: a batched cycle reduces its dot itself (Queue B.1).
 """
 from __future__ import annotations
 
@@ -100,9 +115,12 @@ def _lib():
     lib.amgx_dia_coarse_tail.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _I,
                                          _P, _I, _I, _I, _I, _I, _P, _I, _L,
                                          _P, _P]
+    lib.amgx_dia_coarse_tail_multi.argtypes = [
+        _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I,
+        _P, _I, _I, _L, _P, _P]
     lib.amgx_tail_barrier_probe.argtypes = [_I, _I, _I, _P]
     for fn in (lib.amgx_tail_clusters, lib.amgx_dia_coarse_tail,
-               lib.amgx_tail_barrier_probe):
+               lib.amgx_dia_coarse_tail_multi, lib.amgx_tail_barrier_probe):
         fn.restype = _I
     return lib
 
@@ -295,27 +313,52 @@ def _same(refs, held):
         for r, t in zip(refs, held))
 
 
+# each level array's dimensions when every system shares it; one more
+# (a leading system axis) when a batch stacks it (K5)
+_SHARED_DIMS = {"vals": 2, "dinv": 1, "coeffs": 1, "taus_pre": 1,
+                "taus_post": 1, "ctab": 2, "agg": 1, "inv": 2}
+
+
+def _stacked(name, t, nb):
+    """Does level array `t` carry a batch's system axis?"""
+    return nb is not None and t is not None \
+        and t.dim() == _SHARED_DIMS[name] + 1
+
+
 class _CardPlan:
     """The program and pointer and integer tables of one tail on the
     card, and its cluster. It refers to the arrays its tables point into
     weakly (the caller holds them while it launches), so a dropped
-    hierarchy frees both."""
+    hierarchy frees both. For a batch of `nb` systems (K5) it also holds
+    each array's byte stride a system (0: shared)."""
 
-    def __init__(self, spec, arrs, with_dot, half, device):
+    def __init__(self, spec, arrs, with_dot, half, device, nb=None):
         L = len(spec.levels)
         nz = spec.coarse[1]
+        name = "dia_coarse_tail" if nb is None else "dia_coarse_tail_multi"
         self.refs = tuple(None if t is None else weakref.ref(t)
                           for t in _held(arrs))
         prog = tail_program(spec, with_dot)
         self.nops = len(prog)
         self.barriers = barrier_counts(prog)
         self.cluster, self.smem, lay = _cluster(spec, prog, half, device)
-        ptrs, ints = [], []
+
+        def want(f, t, shape):
+            return (t, None if t is None else
+                    ((nb,) + tuple(shape) if _stacked(f, t, nb)
+                     else tuple(shape)))
+
+        def stride(f, t):
+            if not _stacked(f, t, nb):
+                return 0
+            return t[0].numel() * t.element_size()
+
+        ptrs, ints, strides = [], [], []
         for l, (ls, ar) in enumerate(zip(spec.levels, arrs)):
             n, k = ls.n, len(ls.offsets)
             want_nc = spec.levels[l + 1].n if l + 1 < L else nz
             if ls.nc != want_nc or tuple(ar["ctab"].shape) != (ls.m, ls.nc):
-                raise ValueError(f"dia_coarse_tail: level {l} restricts to "
+                raise ValueError(f"{name}: level {l} restricts to "
                                  f"{ls.nc} rows, the next level has "
                                  f"{want_nc}")
             mf = ls.mf
@@ -324,23 +367,27 @@ class _CardPlan:
                     mf is not None and (ar["dinv"] is not None
                                         or mf.n != n or mf.shape[0]
                                         * mf.shape[1] * mf.shape[2] != n)):
-                raise ValueError(f"dia_coarse_tail: level {l} needs a value "
+                raise ValueError(f"{name}: level {l} needs a value "
                                  f"slab or (with its stencil) coefficients")
-            _check("dia_coarse_tail", ls.offsets, n,
-                   {"vals": (ar["vals"], (k, n)), "dinv": (ar["dinv"], (n,))},
+            _check(name, ls.offsets, n,
+                   {"vals": want("vals", ar["vals"], (k, n)),
+                    "dinv": want("dinv", ar["dinv"], (n,))},
                    {"ctab": (ar["ctab"], (ls.m, ls.nc)),
                     "agg": (ar["agg"], (n,))},
-                   {"coeffs": (ar["coeffs"], (k,)),
-                    "taus_pre": (ar["taus_pre"], (ls.n_pre,)),
-                    "taus_post": (ar["taus_post"], (ls.n_post,))},
+                   {"coeffs": want("coeffs", ar["coeffs"], (k,)),
+                    "taus_pre": want("taus_pre", ar["taus_pre"],
+                                     (ls.n_pre,)),
+                    "taus_post": want("taus_post", ar["taus_post"],
+                                      (ls.n_post,))},
                    bf16_ok=True)
             for f in ("vals", "dinv"):
                 if ar[f] is not None and (ar[f].dtype == torch.bfloat16) \
                         != half:
-                    raise TypeError(f"dia_coarse_tail: level {l}'s {f} is "
+                    raise TypeError(f"{name}: level {l}'s {f} is "
                                     f"{ar[f].dtype}, the vectors are "
                                     f"{'bf16' if half else 'float32'}")
             ptrs.append([_ptr(ar[f]) or 0 for f in _PTR_FIELDS])
+            strides.append([stride(f, ar[f]) for f in _PTR_FIELDS])
             pad = [0] * (_k.MAX_OFFSETS - k)
             geo = [0] * 9 if mf is None else [
                 *mf.shape, mf.diag_rank, _k._DINV_MODE[mf.dinv],
@@ -351,13 +398,16 @@ class _CardPlan:
                          *ls.offsets, *pad]
                         + [v for axis in shifts for v in axis + pad])
         self.inv = arrs[-1]["inv"] if spec.coarse[0] == "inv" else None
+        self.inv_stride = 0
         if self.inv is not None:
-            _check("dia_coarse_tail", None, nz,
-                   {"inv": (self.inv, (nz, nz))})
+            _check(name, None, nz, {"inv": want("inv", self.inv, (nz, nz))})
+            self.inv_stride = nz * nz if _stacked("inv", self.inv, nb) else 0
         self.coarse, self.part = lay.coarse, lay.part
         self.prog = torch.tensor(prog, dtype=torch.int32, device=device)
         self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
         self.ints = torch.tensor(ints, dtype=torch.int32, device=device)
+        self.strides = None if nb is None else torch.tensor(
+            strides, dtype=torch.int64, device=device)
 
 
 def _cluster(spec, prog, half, device):
@@ -393,12 +443,19 @@ def _int32_div(d):
     return (mul - (1 << 32) if mul >= 1 << 31 else mul), shr
 
 
-def _card_plan(spec, arrs, with_dot, half, device):
+# _CardPlan builds (the number of plans made; a serving bucket whose
+# arrays stay in place builds one)
+PLAN_BUILDS = collections.Counter()
+
+
+def _card_plan(spec, arrs, with_dot, half, device, nb=None):
     plans = _PLANS.setdefault(arrs[0]["ctab"], {})
-    key = (spec, with_dot, half)
+    key = (spec, with_dot, half, nb)
     plan = plans.get(key)
     if plan is None or not _same(plan.refs, _held(arrs)):
-        plan = plans[key] = _CardPlan(spec, arrs, with_dot, half, device)
+        plan = plans[key] = _CardPlan(spec, arrs, with_dot, half, device,
+                                      nb)
+        PLAN_BUILDS["multi" if nb is not None else "single"] += 1
     return plan
 
 
@@ -447,6 +504,71 @@ def dia_coarse_tail(spec, arrs, b, x, with_dot=False, clock=None):
                 _ptr(clock), _stream(),
                 detail=f" of a {plan.cluster}-block cluster")
     return (out, dot) if with_dot else out
+
+
+# ---------------------------------------------------------------------------
+# K5: the batched tail
+# ---------------------------------------------------------------------------
+
+
+def system_arrays(arrs, s):
+    """System s's tail arrays: each stacked array's row s, the shared ones
+    as they are."""
+    return tuple({f: t[s] if _stacked(f, t, 0) else t
+                  for f, t in ar.items()} for ar in arrs)
+
+
+def dia_coarse_tail_multi_plain(spec, arrs, b, x):
+    """The batch form of `dia_coarse_tail_plain` (the JAX package's
+    `tail_cycle_multi` and the `_tail_fn` vmap rule): row s of the result
+    is the single tail on system s's arrays, (b[s], x[s])."""
+    return torch.stack([dia_coarse_tail_plain(spec, system_arrays(arrs, s),
+                                              b[s], x[s])
+                        for s in range(x.shape[0])])
+
+
+def _multi_not_ported(what):
+    raise NotImplementedError(
+        f"dia_coarse_tail_multi: {what} is not ported (ROADMAP.md Queue "
+        f"B.1: no batched caller; a batched cycle reduces r.z itself)")
+
+
+def dia_coarse_tail_multi(spec, arrs, b, x, with_dot=False):
+    """K5: the tail sub-cycle for a batch, b and x (B, n) float32; each
+    level array shared or stacked with a leading system axis (vals (B,
+    k, n), dinv (B, n), coeffs (B, k), taus_pre / taus_post (B, T), inv
+    (B, nz, nz)). One launch of B clusters, one a system. Row s equals
+    `dia_coarse_tail` on system s's arrays, bit for bit."""
+    if with_dot:
+        _multi_not_ported("the x'.b epilogue")
+    if x.device.type == "cpu":
+        return dia_coarse_tail_multi_plain(spec, arrs, b, x)
+    if x.dtype != torch.float32:
+        _multi_not_ported(f"a {x.dtype} batch (ROADMAP.md Queue A item "
+                          f"9.5)")
+    if x.dim() != 2:
+        raise ValueError(f"dia_coarse_tail_multi: x must be (batch, n), "
+                         f"got {tuple(x.shape)}")
+    nb, n = x.shape
+    if n != spec.levels[0].n:
+        raise ValueError(f"dia_coarse_tail_multi: x has {n} rows, the "
+                         f"tail's entry level {spec.levels[0].n}")
+    _check("dia_coarse_tail_multi", None, n,
+           {"b": (b, (nb, n)), "x": (x, (nb, n))})
+    name = "dia_coarse_tail" + (
+        "_mf" if any(ls.mf is not None for ls in spec.levels) else "") \
+        + "_multi"
+    with torch.cuda.device(x.device):
+        plan = _card_plan(spec, arrs, False, False, x.device, nb)
+        out = torch.empty_like(x)
+        _launch(name, _lib().amgx_dia_coarse_tail_multi,
+                _ptr(plan.prog), plan.nops, _ptr(plan.ptrs),
+                _ptr(plan.strides), _ptr(plan.ints), len(spec.levels),
+                _ptr(b), _ptr(x), _ptr(out), 0, _ptr(plan.inv),
+                plan.inv_stride, spec.coarse[1], *plan.coarse, plan.part,
+                None, plan.cluster, nb, plan.smem, None, _stream(),
+                detail=f" of {nb} {plan.cluster}-block clusters")
+    return out
 
 
 def barrier_probe(cluster, iters, cluster_barriers, device=None):

@@ -40,10 +40,11 @@ A batch (x and b (B, n); the level's operator, dinv and stencil shared or
 per system, amgx_tpu_torch/batch/) runs `fused_smooth` through the
 batched kernels (ops/cuda_batched.py): K2 on a DIA level (K2's
 coefficient mode on a matrix-free one), K4's sweeps and K3's residual
-on a CSR level. The transfer-carrying entries and the coarse tail
-decline (None) under a batch: the cycle composes the smoothing, the
-residual and the transfers, as the JAX package's vmap rules
-(`smooth_restrict_dia_multi`, `corr_smooth_dia_multi`) compute them.
+on a CSR level. The transfer-carrying entries decline (None) under a
+batch: the cycle composes the smoothing, the residual and the
+transfers, as the JAX package's vmap rules (`smooth_restrict_dia_multi`,
+`corr_smooth_dia_multi`) compute them. The coarse tail takes a batch
+as one K5 launch (`coarse_tail_cycle`).
 
 Transfer tables (the JAX package's `build_transfer_slabs`, without the
 TPU's quota padding and VMEM window bases): `ctab` (m, nc) int32, the
@@ -189,7 +190,7 @@ def fused_smooth(data, b, x, taus, dinv=None, with_residual=True):
     if st is not None:
         return mf.stencil_fused_smooth(st, taus, b, x, with_residual)
     A = data["A"]
-    if taus.shape[0] < 1:
+    if taus.shape[-1] < 1:
         return None
     batch = x.dim() == 2
     if kernel_ok(A, x):
@@ -296,7 +297,7 @@ def _tail_plan(amg, shape, data, lvl, x):
         m, nc = xfer["ctab"].shape
         specs.append(cuda_tail.TailLevelSpec(
             offsets=tuple(A.dia_offsets), n=A.num_rows,
-            n_pre=int(pre[0].shape[0]), n_post=int(post[0].shape[0]),
+            n_pre=int(pre[0].shape[-1]), n_post=int(post[0].shape[-1]),
             has_dinv=pre[1] is not None, nc=int(nc), m=int(m),
             mf=None if st is None else st.spec()))
         arrs.append({"vals": A.dia_vals, "dinv": pre[1],
@@ -309,7 +310,7 @@ def _tail_plan(amg, shape, data, lvl, x):
     nz = specs[-1].nc
     if amg.coarse_solver.name in ("NOSOLVER", "DUMMY"):
         coarse = ("none", nz)
-    elif "inv" in cd and tuple(cd["inv"].shape) == (nz, nz) \
+    elif "inv" in cd and tuple(cd["inv"].shape[-2:]) == (nz, nz) \
             and cd["inv"].dtype == torch.float32:
         arrs.append({"inv": cd["inv"]})
         coarse = ("inv", nz)
@@ -340,13 +341,20 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
 
     The plan (spec and arrays, the tiled damping schedules) is built once
     per (entry level, shape, dtype) and cached on the hierarchy; B5's card
-    tables are cached beside it (ops/cuda_tail.py)."""
+    tables are cached beside it (ops/cuda_tail.py).
+
+    A batch (x (B, n), float32; the level data shared or stacked) runs
+    the same sub-cycle as ONE K5 launch (`cuda_tail.dia_coarse_tail_multi`,
+    one cluster a system), the JAX package's `tail_cycle_multi` route; it
+    never carries the dot."""
     levels = amg.levels
+    batch = x.dim() == 2
     if shape not in ("V", "W", "F") or x.dtype not in SMOOTH_DTYPES \
-            or x.dim() != 1 or lvl >= len(levels) \
-            or levels[lvl].A.num_rows > amg.cycle_fusion_tail_rows:
+            or x.dim() not in (1, 2) or lvl >= len(levels) \
+            or levels[lvl].A.num_rows > amg.cycle_fusion_tail_rows \
+            or (batch and (want_dot or x.dtype != torch.float32)):
         return None
-    key = (shape, lvl, x.dtype, x.device)
+    key = (shape, lvl, x.dtype, x.device, batch)
     sources = tuple(ld["A"] for ld in data["levels"][lvl:]) + (
         data["coarse"].get("inv"),)
     hit = amg._tail_plans.get(key)
@@ -356,4 +364,6 @@ def coarse_tail_cycle(amg, shape, data, lvl, b, x, want_dot=False):
     if hit[1] is None:
         return None
     spec, arrs = hit[1]
+    if batch:
+        return cuda_tail.dia_coarse_tail_multi(spec, arrs, b, x)
     return cuda_tail.dia_coarse_tail(spec, arrs, b, x, with_dot=want_dot)

@@ -280,9 +280,10 @@ def _state(spec, coeffs, taus, b, x, masks):
     x, b, coeffs, taus = (t.to(compute_dtype(x.dtype))
                           for t in (x, b, coeffs, taus))
     dinv = _dinv_vec(spec, coeffs, x.dtype, x.device, masks)
-    for t in range(taus.shape[0]):
+    for t in range(taus.shape[-1]):
         x = cuda_spmv.damped_update(
-            x, taus[t], b - _apply_vec(spec, coeffs, x, masks), dinv)
+            x, cuda_spmv.tau_at(taus, t),
+            b - _apply_vec(spec, coeffs, x, masks), dinv)
     return x, b, coeffs
 
 
@@ -334,7 +335,7 @@ def stencil_fused_smooth(st: StencilOperator, taus, b, x,
     (B, n) through K2's coefficient mode. Always produces a result: there
     is no slab to fall back to."""
     taus = taus.to(compute_dtype(x.dtype))
-    if taus.shape[0] < 1:
+    if taus.shape[-1] < 1:
         if with_residual:
             return x, _xla_smooth(st.spec(), st.coeffs, taus, b, x,
                                   True)[1]

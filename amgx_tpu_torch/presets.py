@@ -1,5 +1,5 @@
 """Named solver presets (copies of amgx_tpu/presets.py's FLAGSHIP,
-BATCHED_CG and RESILIENT_CG).
+BATCHED_CG, RESILIENT_CG and SERVING_CG).
 
 FLAGSHIP is the configuration the JAX package's benchmarks and driver
 entry use: full f64 accuracy via defect correction (REFINEMENT) around
@@ -56,3 +56,20 @@ RESILIENT_CG = (
     " amg:max_levels=20,"
     " fallback_policy=NAN_DETECTED>retry|BREAKDOWN>switch_solver=GMRES"
     "|STALLED>escalate_sweeps, max_fallback_attempts=2")
+
+# Serving preset (amgx_tpu_torch/serving/): the continuous-batching
+# service shape whose coefficient updates take the value-only resetup
+# (amg/value_resetup.py: GEO hierarchy, CHEBYSHEV_POLY smoothing,
+# DENSE_LU coarse), so a hierarchy-cache hit admits a repeat-pattern
+# system through the value route. Needs a structured grid (gallery
+# matrices carry grid_shape); unstructured request streams should serve
+# BATCHED_CG instead (same service, generic structure-reuse resetup).
+SERVING_CG = (
+    "solver(s)=PCG, s:max_iters=100, s:tolerance=1e-8,"
+    " s:convergence=RELATIVE_INI, s:norm=L2, s:monitor_residual=1,"
+    " s:preconditioner(amg)=AMG, amg:algorithm=AGGREGATION,"
+    " amg:selector=GEO, amg:smoother=CHEBYSHEV_POLY,"
+    " amg:chebyshev_polynomial_order=2, amg:presweeps=1,"
+    " amg:postsweeps=1, amg:cycle=V, amg:max_iters=1,"
+    " amg:coarse_solver=DENSE_LU_SOLVER, amg:min_coarse_rows=32,"
+    " amg:max_levels=20, amg:structure_reuse_levels=-1")

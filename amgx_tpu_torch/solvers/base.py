@@ -36,7 +36,9 @@ so its x, residual norm, iterations and history are those of its own
 stopping iteration, as the JAX package's `while_loop` batching rule
 gives; its history past that is NaN. A solver class that runs a batch
 sets `batched_iteration`; the others name the ROADMAP item that will
-port theirs (`batch_refusal`).
+port theirs (`batch_refusal`). `_build_chunk_fns` is the same loop in
+resumable chunks, its decisions made on the device (the serving engine's
+continuous batching, amgx_tpu_torch/serving/engine.py).
 
 Telemetry (amgx_tpu_torch/telemetry/): setup, resetup and solve are host
 spans (`<NAME>.setup`, `<NAME>.resetup`, `<NAME>.solve`); with the
@@ -79,6 +81,10 @@ from ..telemetry import metrics as _tm
 # ---------------------------------------------------------------------------
 
 
+# the tolerance tensors of `Convergence._d`
+_DEVICE_TOLS: Dict[Any, torch.Tensor] = {}
+
+
 class Convergence:
     """Predicate deciding convergence from host scalars (res_norm,
     norm0); the tolerance is rounded to the norms' dtype first, as the
@@ -95,16 +101,33 @@ class Convergence:
     def check(self, res_norm, norm0) -> bool:
         raise NotImplementedError
 
-    def check_each(self, res_norm, norm0) -> np.ndarray:
-        """`check` on each system of a batch's (B,) norms (host values)."""
-        return np.array([self.check(r, n0)
-                         for r, n0 in zip(res_norm, norm0)], dtype=bool)
+    @staticmethod
+    def _d(tol, like):
+        """The tolerance as a tensor of the norms' dtype (`_t`'s rounding)
+        on their device, made once per (value, dtype, device): a step of
+        the chunked entry then copies nothing to the device."""
+        key = (float(tol), like.dtype, like.device)
+        t = _DEVICE_TOLS.get(key)
+        if t is None:
+            t = _DEVICE_TOLS[key] = torch.tensor(tol, dtype=like.dtype,
+                                                 device=like.device)
+        return t
+
+    def check_each(self, res_norm, norm0):
+        """`check` on each system of a batch: a (B,) bool tensor from (B,)
+        norm tensors (on the host or the device), with `check`'s
+        arithmetic."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no per-system check")
 
 
 @registry.convergence.register("ABSOLUTE")
 class AbsoluteConvergence(Convergence):
     def check(self, res_norm, norm0):
         return bool(np.all(res_norm <= self._t(self.tolerance, res_norm)))
+
+    def check_each(self, res_norm, norm0):
+        return res_norm <= self._d(self.tolerance, res_norm)
 
 
 @registry.convergence.register("RELATIVE_INI")
@@ -114,6 +137,9 @@ class RelativeIniConvergence(Convergence):
         return bool(np.all(res_norm <= self._t(self.tolerance, norm0)
                            * norm0))
 
+    def check_each(self, res_norm, norm0):
+        return res_norm <= self._d(self.tolerance, norm0) * norm0
+
 
 @registry.convergence.register("RELATIVE_MAX")
 @registry.convergence.register("RELATIVE_MAX_CORE")
@@ -122,6 +148,10 @@ class RelativeMaxConvergence(Convergence):
         return bool(np.all(res_norm <= self._t(self.tolerance, norm0)
                            * np.max(norm0)))
 
+    def check_each(self, res_norm, norm0):
+        # one norm a system (scalar matrices): its max is itself
+        return res_norm <= self._d(self.tolerance, norm0) * norm0
+
 
 @registry.convergence.register("COMBINED_REL_INI_ABS")
 class CombinedRelIniAbsConvergence(Convergence):
@@ -129,6 +159,10 @@ class CombinedRelIniAbsConvergence(Convergence):
         return bool(np.all(
             (res_norm <= self._t(self.tolerance, res_norm))
             | (res_norm <= self._t(self.alt_rel_tolerance, norm0) * norm0)))
+
+    def check_each(self, res_norm, norm0):
+        return (res_norm <= self._d(self.tolerance, res_norm)) | (
+            res_norm <= self._d(self.alt_rel_tolerance, norm0) * norm0)
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +258,14 @@ class Solver:
     trace_bakes_values = False
 
     def __init__(self, cfg: Config, scope: str = "default", name: str = "?",
-                 device="cpu"):
+                 device=None):
         self.cfg = cfg
         self.scope = scope
         self.name = name
-        self.device = torch.device(device)
+        # no CPU default: None means the card, as in create_solver (a
+        # tree built in a service's builder thread or rebuilt by a
+        # supervisor lands on the device its builder names)
+        self.device = resolve_device(device)
         self.A: Optional[CsrMatrix] = None
         self.max_iters = int(cfg.get("max_iters", scope))
         self.monitor_residual = bool(cfg.get("monitor_residual", scope))
@@ -465,6 +502,33 @@ class Solver:
                     f"({self.batch_todo})")
         return None
 
+    def _status_now(self, rn, norm0, past, broken):
+        """The status a batch's residual norms `rn` (B,) call for after
+        an iteration, the one rule of both batched loops (host tensors in
+        `run_loop_batched`, device ones in `_build_chunk_fns`): a (B,)
+        int64 tensor, RUNNING where no test holds, a later test taking
+        precedence (stall, divergence, NaN, breakdown, convergence).
+        `past`: the norms `stall_window` iterations back (NaN where a
+        system has not run that long), or None; `broken`: (B,) bool
+        breakdown flags, or None."""
+        S = SolveStatus
+        now = torch.full(rn.shape, _ST_RUNNING, dtype=torch.int64,
+                         device=rn.device)
+        guards = self.health_guards
+        if guards and self.stall_window > 0 and past is not None:
+            now.masked_fill_(rn >= Convergence._d(
+                1.0 - self.stall_tolerance, rn) * past, int(S.STALLED))
+        if self.rel_div_tolerance > 0:
+            now.masked_fill_(rn > Convergence._d(
+                self.rel_div_tolerance, rn) * norm0, int(S.DIVERGED))
+        if guards:
+            now.masked_fill_(~torch.isfinite(rn), int(S.NAN_DETECTED))
+            if broken is not None:
+                now.masked_fill_(broken, int(S.BREAKDOWN))
+        now.masked_fill_(self.convergence.check_each(rn, norm0),
+                         int(S.CONVERGED))
+        return now
+
     def run_loop_batched(self, data, b, x0):
         """`run_loop` on a batch: b, x0 (B, n). Returns (X, stats) with
         stats a dict of host arrays: iters, converged, status, norm0 and
@@ -484,7 +548,8 @@ class Solver:
         state.update(self.solve_init(data, b, x0, r0))
         done = norm0 == 0
         if monitor:
-            done |= conv.check_each(norm0, norm0)
+            n0 = torch.from_numpy(norm0)
+            done |= conv.check_each(n0, n0).numpy()
         status = np.where(done, int(S.CONVERGED), _ST_RUNNING)
         hist = np.full((nb, self.max_iters + 1), np.nan, norm0.dtype)
         hist[:, 0] = norm0
@@ -513,19 +578,11 @@ class Solver:
             rn = np.asarray(rn, norm0.dtype)
             res_norm[run] = rn[run]
             hist[run, it] = rn[run]
-            now = np.full(nb, _ST_RUNNING)
-            if self.stall_window > 0 and self.health_guards \
-                    and it >= self.stall_window:
-                past = hist[:, it - self.stall_window]
-                now[rn >= np.asarray(1.0 - self.stall_tolerance,
-                                     rn.dtype) * past] = int(S.STALLED)
-            if self.rel_div_tolerance > 0:
-                now[rn > np.asarray(self.rel_div_tolerance, rn.dtype)
-                    * norm0] = int(S.DIVERGED)
-            if self.health_guards:
-                now[~np.isfinite(rn)] = int(S.NAN_DETECTED)
-                now[broken] = int(S.BREAKDOWN)
-            now[conv.check_each(rn, norm0)] = int(S.CONVERGED)
+            w = self.stall_window
+            now = self._status_now(
+                torch.from_numpy(rn), torch.from_numpy(norm0),
+                torch.from_numpy(hist[:, it - w]) if 0 < w <= it else None,
+                torch.from_numpy(broken)).numpy()
             status[run] = now[run]
             done = status != _ST_RUNNING
         x = self.finalize(data, b, state)
@@ -533,6 +590,155 @@ class Solver:
         return x, {"iters": iters, "converged": status == int(S.CONVERGED),
                    "status": status, "norm0": norm0, "res_norm": res_norm,
                    "res_hist": hist}
+
+    # -- chunked stepping (serving/engine.py continuous batching) ---------
+    # the state leaves the chunked entry keeps beside the solver's own
+    CHUNK_BOOK = ("iters", "done", "converged", "status", "res_norm",
+                  "norm0", "res_hist")
+
+    def _build_chunk_fns(self, chunk: int):
+        """Resumable chunked iteration over a batch -- the substrate of the
+        serving layer's continuous batching (the counterpart of the JAX
+        package's `_build_chunk_fns`). Returns three functions::
+
+            init(data, b, x0)           -> state
+            step(data, b, state, n_it)  -> state   # <= `chunk` more iters
+            finish(data, b, state)      -> (x, stats)
+
+        on a batch: b, x0 (B, n), the solve data shared or stacked as
+        `run_loop_batched` takes it. The state is `run_loop_batched`'s
+        recurrence with its host bookkeeping moved to the device as (B,)
+        leaves (`CHUNK_BOOK`; `norm0` among them, so stepping resumes
+        across host boundaries) and the history (B, max_iters + 1), NaN
+        past each system's stop. `run_loop_batched`'s status rule
+        (`_status_now`) runs here on the device tensors, so `step` reads
+        the host nowhere: it launches `n_it` iterations (at most `chunk`; the
+        caller knows from its last read how many can still run) and each
+        freezes, by the device mask, the systems that are terminal or
+        have run `chunk` iterations since the step's entry (the window
+        is per system, `iters < entry + chunk`). A system stepped in
+        chunks visits the iterates of a one-shot batched solve of the
+        same width, bit for bit. `finish` returns x and the per-system
+        stats in one host read: a (B, 5 + max_iters + 1) float64 array
+        of iters, converged, status, norm0, res_norm and the history."""
+        S = SolveStatus
+        max_iters = self.max_iters
+        monitor = self.monitor_residual
+        conv = self.convergence
+        guards = self.health_guards
+        stall_w = self.stall_window if guards else 0
+        chunk = int(chunk)
+        book = self.CHUNK_BOOK
+        running, converged_ = int(_ST_RUNNING), int(S.CONVERGED)
+
+        def as_leaves(core, like):
+            # a host flag (the guards' initial breakdown) as a (B,) leaf
+            out = {}
+            for k, v in core.items():
+                if not torch.is_tensor(v):
+                    v = torch.full(like.shape[:1], v, device=like.device)
+                out[k] = v
+            return out
+
+        def init(data, b, x0):
+            r0 = _residual(data["A"], x0, b)
+            norm0 = self._norm(r0)
+            core = {"x": x0, "r": r0}
+            core.update(self.solve_init(data, b, x0, r0))
+            st = as_leaves(core, b)
+            done = norm0 == 0
+            if monitor:
+                done = done | conv.check_each(norm0, norm0)
+            status = torch.full(norm0.shape, running, dtype=torch.int64,
+                                device=b.device)
+            st.update(
+                iters=torch.zeros(norm0.shape, dtype=torch.int64,
+                                  device=b.device),
+                done=done, converged=done.clone(),
+                status=torch.where(done, torch.full_like(status,
+                                                         converged_),
+                                   status),
+                res_norm=norm0.clone(), norm0=norm0,
+                res_hist=torch.cat([norm0[:, None], torch.full(
+                    (norm0.shape[0], max_iters), float("nan"),
+                    dtype=norm0.dtype, device=b.device)], 1))
+            return st
+
+        def iterate(data, b, st, active, it):
+            core = {k: v for k, v in st.items() if k not in book}
+            with _fi.iteration_scope(it):
+                new = self.solve_iteration(data, b, core)
+            core = _freeze(active, as_leaves(new, b), core)
+            out = dict(st)
+            out.update(core)
+            iters = st["iters"] + active.to(torch.int64)
+            out["iters"] = iters
+            if not monitor:
+                return out
+            rn = self.internal_res_norm(core)
+            if rn is None:
+                r = core["r"] if self.computes_residual() \
+                    else _residual(data["A"], core["x"], b)
+                rn = self._norm(r)
+            rn = rn.to(st["norm0"].dtype)
+            norm0, hist = st["norm0"], st["res_hist"]
+            out["res_norm"] = torch.where(active, rn, st["res_norm"])
+            idx = iters.clamp(max=max_iters)[:, None]
+            hist = hist.scatter(1, idx, torch.where(
+                active, rn, hist.gather(1, idx)[:, 0])[:, None])
+            out["res_hist"] = hist
+            past = None
+            if stall_w > 0:
+                past = torch.where(iters >= stall_w, hist.gather(1, (
+                    iters - stall_w).clamp(min=0)[:, None])[:, 0],
+                    torch.full_like(rn, float("nan")))
+            brk = self.breakdown(core) if guards else None
+            now = self._status_now(rn, norm0, past, brk.to(torch.bool)
+                                   if torch.is_tensor(brk) else None)
+            status = torch.where(active & (st["status"] == running), now,
+                                 st["status"])
+            out["status"] = status
+            out["done"] = status != running
+            out["converged"] = status == converged_
+            return out
+
+        def step(data, b, st, n_it=None, first_iter=0):
+            entry = st["iters"]
+            with _fi.solve_scope():
+                for k in range(chunk if n_it is None else min(n_it,
+                                                              chunk)):
+                    active = (~st["done"]) & (st["iters"] < max_iters) \
+                        & (st["iters"] < entry + chunk)
+                    st = iterate(data, b, st, active, first_iter + k)
+            return st
+
+        def finish(data, b, st):
+            core = {k: v for k, v in st.items() if k not in book}
+            x = self.finalize(data, b, core)
+            status = torch.where(st["status"] == running,
+                                 torch.full_like(st["status"],
+                                                 int(S.MAX_ITERS)),
+                                 st["status"])
+            f64 = torch.float64
+            stats = _host(torch.cat([
+                torch.stack([st["iters"].to(f64),
+                             st["converged"].to(f64), status.to(f64),
+                             st["norm0"].to(f64), st["res_norm"].to(f64)],
+                            1), st["res_hist"].to(f64)], 1))
+            return x, stats
+
+        return init, step, finish
+
+    @staticmethod
+    def unpack_stats(stats, hist_len: int):
+        """One system's row of `finish`'s stats: (iters, converged,
+        status, norm0, res_norm, res_hist), the history trimmed to iters
+        + 1 entries; norms in float64 (the host view of the norms)."""
+        stats = np.asarray(stats)
+        iters = int(stats[0])
+        hist = stats[5:5 + hist_len][: iters + 1]
+        return (iters, bool(stats[1]), int(stats[2]), stats[3], stats[4],
+                hist)
 
     def solve_many(self, bs, matrices=None, x0s=None,
                    zero_initial_guess: bool = False):

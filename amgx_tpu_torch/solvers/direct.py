@@ -26,7 +26,7 @@ class DenseLUSolver(Solver):
     batched_iteration = True
 
     def __init__(self, cfg, scope="default", name="DENSE_LU_SOLVER",
-                 device="cpu"):
+                 device=None):
         super().__init__(cfg, scope, name, device)
         self.cycle_fusion = bool(int(cfg.get("cycle_fusion", scope)))
 

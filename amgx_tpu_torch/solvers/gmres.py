@@ -55,7 +55,7 @@ class _GmresBase(Solver):
     uses_preconditioner = True
     flexible = False
 
-    def __init__(self, cfg, scope="default", name="GMRES", device="cpu"):
+    def __init__(self, cfg, scope="default", name="GMRES", device=None):
         super().__init__(cfg, scope, name, device)
         self.m = int(cfg.get("gmres_n_restart", scope))
         # gmres_krylov_dim caps the stored basis (0 = match the restart)

@@ -29,7 +29,7 @@ class IDRSolver(_KrylovBase):
 
     uses_preconditioner = True
 
-    def __init__(self, cfg, scope="default", name="IDR", device="cpu"):
+    def __init__(self, cfg, scope="default", name="IDR", device=None):
         super().__init__(cfg, scope, name, device)
         self.s = max(int(cfg.get("subspace_dim_s", scope)), 1)
         self.kappa = 0.7          # omega angle correction (standard)

@@ -62,7 +62,7 @@ def _bc(s, v):
 
 
 class _KrylovBase(Solver):
-    def __init__(self, cfg, scope="default", name="?", device="cpu"):
+    def __init__(self, cfg, scope="default", name="?", device=None):
         super().__init__(cfg, scope, name, device)
         self.krylov_fusion = bool(int(cfg.get("krylov_fusion", scope)))
 
@@ -355,7 +355,7 @@ class ChebyshevSolver(_KrylovBase):
     trace_bakes_values = True
 
     def __init__(self, cfg, scope="default", name="CHEBYSHEV",
-                 device="cpu"):
+                 device=None):
         super().__init__(cfg, scope, name, device)
         self.estimate_mode = int(cfg.get("chebyshev_lambda_estimate_mode",
                                          scope))

@@ -64,7 +64,7 @@ class _ColoredSolver(Solver):
 
     is_smoother = True
 
-    def __init__(self, cfg, scope="default", name="?", device="cpu"):
+    def __init__(self, cfg, scope="default", name="?", device=None):
         super().__init__(cfg, scope, name, device)
         self.relaxation_factor = float(cfg.get("relaxation_factor", scope))
         self.row_colors = None
@@ -102,7 +102,7 @@ class MulticolorGSSolver(_ColoredSolver):
     `symmetric_GS=1` appends the reverse color sweep."""
 
     def __init__(self, cfg, scope="default", name="MULTICOLOR_GS",
-                 device="cpu"):
+                 device=None):
         super().__init__(cfg, scope, name, device)
         self.symmetric = bool(int(cfg.get("symmetric_GS", scope)))
 
@@ -196,7 +196,7 @@ class MulticolorDILUSolver(_ColoredSolver):
 
 
 class _NotPorted(Solver):
-    def __init__(self, cfg, scope="default", name="?", device="cpu"):
+    def __init__(self, cfg, scope="default", name="?", device=None):
         raise NotImplementedError(
             f"{name} is not ported to amgx_tpu_torch yet (ROADMAP.md Queue A "
             f"item 8)")

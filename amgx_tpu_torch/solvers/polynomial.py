@@ -2,7 +2,11 @@
 amgx_tpu/solvers/polynomial.py): the "magic damping" tau sequence of
 chebyshev_poly.cu, tau_i = cos^2(beta) / (cos^2(beta(2i+1)) -
 sin^2(beta)) / lambda with beta = pi/(4m+2) and lambda the Gershgorin
-bound (max absolute row sum), applied as x += tau_i (b - A x)."""
+bound (max absolute row sum), applied as x += tau_i (b - A x).
+
+The taus are solve data ("taus"), so a multi-matrix batch stacks them to
+(B, T): each system smooths with the taus of its own spectral bound
+(the batched kernels K2 / K2-mf and K5 take them per system)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,6 +14,7 @@ import torch
 
 from .. import registry
 from ..ops import smooth as fused
+from ..ops.cuda_spmv import tau_at
 from ..ops.spmv import spmv
 from ..ops.stencil import mf_slim
 from ..precision import compute_dtype
@@ -36,13 +41,11 @@ def _abs_row_sums(A):
 
 @registry.solvers.register("CHEBYSHEV_POLY")
 class ChebyshevPolySolver(Solver):
-    batch_todo = ("ROADMAP.md Queue A item 9: SERVING_CG's GEO + "
-                  "CHEBYSHEV_POLY through the value route")
-
     """One application = `chebyshev_polynomial_order` damped Richardson
     steps x += tau_i (b - A x)."""
 
     is_smoother = True
+    batched_iteration = True
     # matrix-free capable (amg/hierarchy.py `matrix_free`): the damped
     # Richardson steps need only the stencil coefficients, no dinv
     supports_matrix_free = True
@@ -50,7 +53,7 @@ class ChebyshevPolySolver(Solver):
     _mf_stencil = None
 
     def __init__(self, cfg, scope="default", name="CHEBYSHEV_POLY",
-                 device="cpu"):
+                 device=None):
         super().__init__(cfg, scope, name, device)
         order = int(cfg.get("chebyshev_polynomial_order", scope))
         self.order = min(10, max(order, 1))
@@ -82,7 +85,7 @@ class ChebyshevPolySolver(Solver):
         A = data["A"]
         x = st["x"]
         for i in range(self.order):
-            x = x + data["taus"][i] * (b - spmv(A, x))
+            x = x + tau_at(data["taus"], i) * (b - spmv(A, x))
         out = dict(st)
         out["x"] = x
         return out
@@ -92,15 +95,30 @@ class ChebyshevPolySolver(Solver):
     def _fused_taus(self, data, sweeps: int):
         """The level's taus tiled `sweeps` times in their compute dtype
         (a bf16 cycle's bf16 leaf widened to float32), made once per
-        (taus leaf, sweeps)."""
+        (taus leaf, sweeps); a batch's (B, T) taus tile along T."""
         taus = data["taus"]
         key = (id(taus), sweeps)
         hit = self._tau_cache.get(key)
         if hit is None or hit[0] is not taus:
-            tiled = taus.repeat(sweeps) if sweeps > 1 else taus
+            if len(self._tau_cache) > 64:
+                # a multi-matrix batch stacks new taus each solve
+                self._tau_cache.clear()
+            reps = (1,) * (taus.dim() - 1) + (sweeps,)
+            tiled = taus.repeat(reps) if sweeps > 1 else taus
             hit = self._tau_cache[key] = (
                 taus, tiled.to(compute_dtype(taus.dtype)))
         return hit[1]
+
+    def refresh_tau_cache(self):
+        """Re-tile, in place, every cached schedule whose taus leaf was
+        written in place (a serving bucket's admit copies a system's
+        taus into its slot): the cached tensors keep their storage, so
+        the card plans pointing at them stay valid."""
+        for taus, tiled in self._tau_cache.values():
+            if tiled is not taus:
+                reps = (1,) * (taus.dim() - 1) + (
+                    tiled.shape[-1] // max(taus.shape[-1], 1),)
+                tiled.copy_(taus.repeat(reps))
 
     def smooth(self, data, b, x, sweeps: int):
         if sweeps > 0 and self.fused_smoother:
@@ -142,5 +160,6 @@ class ChebyshevPolySolver(Solver):
         if not self.fused_smoother:
             return None
         if sweeps <= 0:
-            return data["taus"].new_zeros(0, dtype=dtype), None
+            taus = data["taus"]
+            return taus.new_zeros(taus.shape[:-1] + (0,), dtype=dtype), None
         return self._fused_taus(data, sweeps).to(dtype), None

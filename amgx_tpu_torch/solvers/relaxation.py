@@ -65,7 +65,7 @@ class _FusedJacobiMixin:
     matrix_free_dinv = "jacobi"
     _mf_stencil = None
 
-    def __init__(self, cfg, scope="default", name="?", device="cpu"):
+    def __init__(self, cfg, scope="default", name="?", device=None):
         super().__init__(cfg, scope, name, device)
         self.relaxation_factor = float(cfg.get("relaxation_factor", scope))
         self.fused_smoother = bool(int(cfg.get("fused_smoother", scope)))

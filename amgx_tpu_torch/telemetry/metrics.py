@@ -611,9 +611,8 @@ declare_counter("solver.retrace.distributed",
                 "distributed-solve shard_map rebuilds "
                 "(DistributedSolver.solve)")
 
-# serving subsystem (the JAX package's serving/; the port's comes with
-# ROADMAP.md Queue A item 11): continuous batching, hierarchy cache
-# routing, AOT warm paths and per-tenant deadlines all report here
+# serving subsystem (serving/): continuous batching, hierarchy cache
+# routing, warm starts and per-tenant deadlines all report here
 declare_counter("serving.requests",
                 "solve requests submitted to the service")
 declare_counter("serving.completed",
@@ -925,7 +924,6 @@ declare_gauge("memory.solve_peak_bytes",
 # port (fnmatch patterns -> where it comes from); tests hold every other
 # declared name to a site in the package
 WAITING: Dict[str, str] = {
-    "serving.*": "ROADMAP.md Queue A item 11 (serving)",
     "fleet.*": "ROADMAP.md Queue A item 11 (serving: the fleet)",
     "autotune.*": "ROADMAP.md Queue A item 11 (serving: the autotuner)",
     "dist.*": "ROADMAP.md Queue A item 13 (distributed solves)",

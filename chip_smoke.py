@@ -209,7 +209,7 @@ Phases, one JSON line each on stdout:
                timed; at 32^3 two card setups bit-identical (aggregates,
                operators, row colors, Einv) and equal to the CPU route's,
                the same iterations. PCG_DILU at 128^3 (B6 / B7 once an
-               iteration); AGGREGATION_DILU / _GS / _THRUST_GS at 128^3
+               iteration); AGGREGATION_DILU / _GS / _THRUST_GS at 64^3
                (max_iters in float32: status, level rows, final residual
                within MC_FINAL_TOL of the anchor's) and at 32^3 in
                float64 (the JAX package's iterations exactly);
@@ -431,6 +431,13 @@ REPLACES["csr_spmv_bf16"] = "amgx_tpu/ops/pallas_swell.py:493"
 # `jax.vmap` the TPU route runs no Pallas kernel but the XLA multi form
 # each replaces (`custom_vmap`: spmv_dia_multi, smooth_dia_multi, the
 # vmapped matrix-free _xla_smooth, swell_spmv_xla, _xla_step)
+# K5, the batched tail (csrc/tail.cu, one cluster a system): under
+# `jax.vmap` B5 gives way to `tail_cycle_multi` (its `_tail_fn` rule)
+REPLACES.update({"dia_coarse_tail_multi": "amgx_tpu/ops/batched.py:332",
+                 "dia_coarse_tail_mf_multi":
+                     "amgx_tpu/ops/batched.py:332"})
+SOURCES.update({"dia_coarse_tail_multi": "tail.cu",
+                "dia_coarse_tail_mf_multi": "tail.cu"})
 REPLACES.update({"dia_spmv_multi": "amgx_tpu/ops/batched.py:35",
                  "dia_step_multi": "amgx_tpu/ops/batched.py:79",
                  "dia_step_mf_multi": "amgx_tpu/ops/stencil.py:268",
@@ -544,6 +551,9 @@ AGG_ROWS_64 = [262144, 120263, 56799, 27033, 12901, 6171, 2947, 1418, 678,
 # +0.8 % at 32^3 and -0.2 / -0.8 / -0.7 % at 64^3, so 5 % is more than
 # twice the largest spread.
 MC_FINAL_TOL = 0.05
+# their float32 size: 64^3 (at 128^3 they took ~55 s of the script at
+# max_iters, which its later phases need)
+MC_SIZE = 64
 # the JAX package's float32 V-cheby-smoother at 64^3 (tools/jax_anchors.py),
 # recorded beside the card's run and not held: it diverges
 VCHEBY_F32_64 = dict(iterations=63, status="nan_detected",
@@ -612,15 +622,17 @@ KRYLOV_ANCHORS = {
                                 final=9.229181614500703e-07, levels=None,
                                 iter_tol=IDR_ITER_TOL,
                                 true_max=IDR_TRUE_MAX),
-    ("AGGREGATION_DILU", 128): dict(
-        iterations=100, status="max_iters", final=0.0007931640138849616,
-        levels=AGG_ROWS_128, final_tol=MC_FINAL_TOL),
-    ("AGGREGATION_GS", 128): dict(
-        iterations=100, status="max_iters", final=0.006006072741001844,
-        levels=AGG_ROWS_128, final_tol=MC_FINAL_TOL),
-    ("AGGREGATION_THRUST_GS", 128): dict(
-        iterations=100, status="max_iters", final=0.0006197858019731939,
-        levels=AGG_ROWS_128, final_tol=MC_FINAL_TOL),
+    # run at MC_SIZE (64^3; the 128^3 anchors were 7.932e-4,
+    # 6.006e-3, 6.198e-4 over AGG_ROWS_128)
+    ("AGGREGATION_DILU", 64): dict(
+        iterations=100, status="max_iters", final=1.6568810679018497e-05,
+        levels=AGG_ROWS_64, final_tol=MC_FINAL_TOL),
+    ("AGGREGATION_GS", 64): dict(
+        iterations=100, status="max_iters", final=2.9411334253381938e-05,
+        levels=AGG_ROWS_64, final_tol=MC_FINAL_TOL),
+    ("AGGREGATION_THRUST_GS", 64): dict(
+        iterations=100, status="max_iters", final=1.3010801012569573e-05,
+        levels=AGG_ROWS_64, final_tol=MC_FINAL_TOL),
     ("PCG_DILU", 128): dict(iterations=16, status="success",
                             final=9.28464328639852e-07, levels=None),
     # DIAGONAL_SYMMETRIC + classical D2 + CHEBYSHEV diverges at 64^3 in the
@@ -3512,7 +3524,7 @@ def phase_multicolor(torch, amgx, dev, per_path):
     a profile of a warm solve, level 0's color step), its 32^3
     determinism (two card setups bit-identical and equal to the CPU
     route's, the same iterations), PCG_DILU (B6 / B7 once an iteration),
-    AGGREGATION_DILU / _GS / _THRUST_GS at 128^3 (max_iters: status,
+    AGGREGATION_DILU / _GS / _THRUST_GS at MC_SIZE^3 (max_iters: status,
     level rows, final residual within MC_FINAL_TOL) and at 32^3 in
     float64 (the JAX package's iterations exactly), FGMRES_AGGREGATION
     at 64^3, IDR_DILU / IDRMSYNC_DILU at 64^3, V-cheby-smoother at 64^3
@@ -3593,7 +3605,7 @@ def phase_multicolor(torch, amgx, dev, per_path):
                  "AGGREGATION_THRUST_GS"):
         # no warm solves on these non-main files: the script's time
         rec, c, res = krylov_file_run(
-            torch, amgx, dev, per_path, name, 128, warm=False,
+            torch, amgx, dev, per_path, name, MC_SIZE, warm=False,
             extra=lambda slv, A, b, res: {"colors": [
                 lv.smoother.num_colors for lv in precond_amg(slv).levels]})
         cp = per_path[rec["config"]]
@@ -4037,7 +4049,8 @@ def batch_only(c, allowed=()):
 
 
 def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
-                      flops, per_call, lib, nsys, summary, main=False):
+                      flops, per_call, lib, nsys, summary, main=False,
+                      limit=BATCH_LIMIT):
     """One batched kernel at a path's shape: its launches, row s of each
     output equal to the single kernel on system s bit for bit (`single`
     gives the B single calls' outputs), within BATCH_LIMIT of the plain
@@ -4059,7 +4072,7 @@ def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
               f"kernel")
     want = plain()
     abs_err, rel_err = max_err(torch, got, want)
-    check(rel_err <= BATCH_LIMIT,
+    check(rel_err <= limit,
           f"{name} at {label}: {rel_err} from the plain form")
     ms = time_ms(torch, kern)
     dev_ms, recs = None, 0
@@ -4073,7 +4086,7 @@ def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
     b_ms, b_by = bound(nbytes, flops)
     row = {"phase": "kernels_batch", "shape": label, "name": name,
            "systems": nsys, "max_abs_err": abs_err, "max_rel_err": rel_err,
-           "limit": BATCH_LIMIT, "single_bits_equal": True,
+           "limit": limit, "single_bits_equal": True,
            "launches_per_call": per_call, "ms": ms, "device_ms": dev_ms,
            "device_records": recs, "single_x_b_ms": single_ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_us": b_ms * 1e3,
@@ -4652,7 +4665,9 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
 # runs each at its size and at BF16_WITNESS, where the CPU route (the
 # kernels' plain forms) runs it too: the same status, iterations within
 # one, the same level rows. Warm solves in BF16_PAIRS alternating pairs.
-BF16_WITNESS = 64
+# 48^3: at 64^3 the CPU route's runs were ~60 s of the script, whose
+# later phases need the time.
+BF16_WITNESS = 48
 BF16_PAIRS = 4
 BF16_AGG_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
                     "dia_prolong_smooth_mf_bf16")
@@ -5109,6 +5124,561 @@ def phase_resilience(torch, amgx, dev, per_path):
           "(AS) the async hierarchy lies on the card")
 
 
+# ---------------------------------------------------------------------------
+# serving: the GEO + CHEBYSHEV_POLY batch, K5 and the service
+# ---------------------------------------------------------------------------
+
+SERVE_N = 128
+SERVE_COLD_N = 130          # odd coarse sizes (130 -> 65 -> 33 ...)
+SERVE_SMALL_N = 64          # the slab route's batch and the anchor's size
+SERVE_B = 8
+SERVE_SEED = 11
+SERVE_SLOTS = 4
+SERVE_CHUNK = 4
+SERVE_REQUESTS = 24
+SERVE_GAP_S = 0.002         # open-loop spacing (bench.py bench_serving)
+# the JAX package's SERVING_CG on the 7-pt 64^3 Poisson, float32, b = 1
+# (tools/jax_anchors.py --size 64 preset:SERVING_CG): 14 iterations
+SERVE_ANCHOR_64 = 14
+SINGLE_TAILS = ("dia_coarse_tail", "dia_coarse_tail_mf",
+                "dia_coarse_tail_dot", "dia_coarse_tail_mf_dot",
+                "dia_coarse_tail_bf16", "dia_coarse_tail_mf_bf16")
+MULTI_TAILS = ("dia_coarse_tail_multi", "dia_coarse_tail_mf_multi")
+
+
+def serve_shift(s):
+    """System s of the serving paths is A + serve_shift(s) I (bench.py's
+    shifted traffic)."""
+    return 0.1 * (s % 3)
+
+
+def tail_entry(amg):
+    """The first level the coarse tail takes."""
+    return next(i for i, lv in enumerate(amg.levels)
+                if lv.A.num_rows <= amg.cycle_fusion_tail_rows)
+
+
+def tail_launches(c):
+    """(batched tail launches, single tail launches) of a path."""
+    return (sum(c[k] for k in MULTI_TAILS), sum(c[k] for k in SINGLE_TAILS))
+
+
+def k5_case(torch, K, T, amg, data, X, Bv, summary, label, main=False):
+    """K5 on a batch's tail (its arrays shared or stacked): row s equal to
+    B5 on system s's arrays bit for bit, within the tail's limit of the
+    plain form; timed beside B launches of B5."""
+    from amgx_tpu_torch.ops.smooth import _tail_plan
+    lvl = tail_entry(amg)
+    spec, arrs = _tail_plan(amg, "V", data, lvl, X)
+    nb = X.shape[0]
+    mf = any(ls.mf is not None for ls in spec.levels)
+    name = "dia_coarse_tail_mf_multi" if mf else "dia_coarse_tail_multi"
+    sys_arrs = [T.system_arrays(arrs, s) for s in range(nb)]
+    seen, nbytes = set(), 3 * X.numel() * 4
+    for ar in arrs:
+        for t in ar.values():
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                nbytes += t.numel() * t.element_size()
+    _, flops, phases = tail_work(T, spec, sys_arrs[0], False)
+    batch_kernel_case(
+        torch, K, f"{label} tail at level {lvl} ({spec.levels[0].n} rows)",
+        name, lambda: T.dia_coarse_tail_multi(spec, arrs, Bv, X),
+        lambda: [T.dia_coarse_tail(spec, sys_arrs[s], Bv[s], X[s])
+                 for s in range(nb)],
+        lambda: T.dia_coarse_tail_multi_plain(spec, arrs, Bv, X),
+        nbytes, flops * nb, 1, None, nb, summary, main,
+        limit=LIMITS["dia_coarse_tail"])
+    cluster, cbar, bbar = T.launch_shape(spec, sys_arrs[0], X[0])
+    summary[name].update(phases=phases, cluster=cluster,
+                         cluster_barriers=cbar, block_barriers=bbar)
+
+
+def k2_taus_case(torch, K, data, X, Bv, summary, label):
+    """K2-mf with per-system damping factors (B, T) on a stacked level 0:
+    row s equal to B2-mf with system s's taus and coefficients bit for
+    bit. The kernels line keeps the shared-taus row and adds this one as
+    `per_system_taus`."""
+    from amgx_tpu_torch.ops import cuda_batched as KB
+    from amgx_tpu_torch.ops import stencil as mf
+    nb, n = X.shape
+    lv0 = data["levels"][0]
+    st = lv0["stencil"]
+    taus = lv0["smoother"]["taus"].float().contiguous()
+    check(st.coeffs.dim() == 2 and taus.dim() == 2
+          and not torch.equal(taus[0], taus[1]),
+          f"serving K2-mf: stacked coefficients and distinct taus "
+          f"({tuple(st.coeffs.shape)}, {tuple(taus.shape)})")
+    srows = [dataclasses.replace(st, coeffs=st.coeffs[s], host=st.host[s])
+             for s in range(nb)]
+    k = st.k
+    steps = taus.shape[-1]
+    own = {}
+    batch_kernel_case(
+        torch, K, f"{label} level 0 ({n} rows), {steps} steps + residual",
+        "dia_step_mf_multi",
+        lambda: KB.dia_smooth_mf_multi(st, taus, Bv, X, True),
+        lambda: [K.dia_smooth_mf(srows[s], taus[s], Bv[s], X[s], True)
+                 for s in range(nb)],
+        lambda: mf._xla_smooth(st.spec(), st.coeffs, taus, Bv, X, True),
+        4 * X.numel() * 4 + taus.numel() * 4 + st.coeffs.numel() * 4,
+        ((2 * k + 3) * steps + 2 * k + 1) * n * nb, steps + 1, None, nb,
+        own, limit=LIMITS["dia_smooth_mf"])
+    row = own["dia_step_mf_multi"]
+    if "dia_step_mf_multi" in summary:
+        summary["dia_step_mf_multi"]["per_system_taus"] = row
+    else:
+        summary["dia_step_mf_multi"] = dict(row, per_system_taus=row)
+
+
+def serving_requests(torch, amgx, dev, n, cold_n):
+    """The SV traffic: (matrix, rhs, deadline_s, pattern, system index) a
+    request, spaced SERVE_GAP_S apart by the caller. Every 5th request is
+    on the cold pattern; every 7th hot one has deadline_s = 0; system i
+    is A + serve_shift(i) I with a rhs from default_rng(SERVE_SEED)."""
+    hot = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                               device=dev).init()
+    cold = amgx.gallery.poisson("7pt", cold_n, cold_n, cold_n,
+                                dtype=torch.float32, device=dev).init()
+    rng = np.random.default_rng(SERVE_SEED)
+    shifted = {}
+    out, n_hot = [], 0
+    for i in range(SERVE_REQUESTS):
+        pat = "cold" if i % 5 == 0 else "hot"
+        A = cold if pat == "cold" else hot
+        deadline = None
+        if pat == "hot":
+            n_hot += 1
+            deadline = 0.0 if n_hot % 7 == 0 else None
+        key = (pat, i % 3)
+        if key not in shifted:
+            shifted[key] = diag_shifted(torch, A, [serve_shift(i)])[0]
+        b = torch.from_numpy(rng.standard_normal(A.num_rows).astype(
+            np.float32)).to(dev)
+        out.append((shifted[key], b, deadline, pat, i))
+    return out
+
+
+def sync_sites(torch, fn):
+    """The synchronizing CUDA operations fn() makes, as PyTorch's sync
+    debug mode reports them: each as the innermost frames of the package
+    (and this script) that led to it."""
+    import traceback
+    torch.cuda.synchronize()
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f"{os.path.basename(f.filename)}:{f.lineno}"
+                      for f in traceback.extract_stack()
+                      if "amgx_tpu_torch" in f.filename
+                      or f.filename.endswith("chip_smoke.py")]
+            sites.append(frames[-4:] + [f"{os.path.basename(filename)}:"
+                                        f"{lineno}"])
+
+    # the mode switch warns itself: the hook sees fn() alone
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def serve_cfg(amgx, base, store, extra="", aot=True):
+    """A service's config: `store` holds its hierarchy store and, with
+    `aot`, its warm-start store."""
+    return amgx.Config.from_string(
+        base + f", serving_bucket_slots={SERVE_SLOTS},"
+        f" serving_chunk_iters={SERVE_CHUNK}" + (
+            (f", serving_aot_dir={store}/aot" if aot else "")
+            + f", serving_hierarchy_dir={store}/hier" if store else "")
+        + extra)
+
+
+def serving_restart(argv):
+    """The (SR) process: a new SolveService on the stores the first
+    process filled serves one hot request (system `index` of
+    serving_requests) on the device named last. Then the warm-start
+    store's gain: the same request's first latency in a service without
+    it (its bucket probes) and in one with it again, both in this warm
+    process. Prints one JSON line and writes x to `out`."""
+    import torch
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.ops import cuda_build
+    from amgx_tpu_torch.presets import SERVING_CG
+    from amgx_tpu_torch.serving import SolveService
+    from amgx_tpu_torch.telemetry import metrics as tm
+    store, out, n, cold_n, index = argv[0], argv[1], *map(int, argv[2:5])
+    dev = torch.device(argv[5])
+    t0 = time.perf_counter()
+    reqs = serving_requests(torch, amgx, dev, n, cold_n)
+    M, b, _, _, _ = reqs[index]
+    names = ("amg.setup.full", "amg.setup.restored", "serving.retrace",
+             "serving.aot.load")
+    def first_request(aot):
+        before = {k: tm.get(k) for k in names}
+        svc = SolveService(serve_cfg(amgx, SERVING_CG, store, aot=aot),
+                           device=dev)
+        t1 = time.perf_counter()
+        t = svc.submit(M, b)
+        svc.drain(timeout_s=300)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        eng = svc.buckets.peek(t.fingerprint)
+        row = {"counters": {k: tm.get(k) - before[k] for k in names},
+               "aot_warm": eng.aot_warm, "hier_restored": eng.hier_restored,
+               "first_request_s": first_s}
+        del svc, eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return t, row
+
+    t, row = first_request(True)
+    np.save(out, t.result.x.cpu().numpy())
+    builds = list(cuda_build.BUILT)
+    gain = {}
+    for case, aot in (("without_store", False), ("with_store", True)):
+        tc, gain[case] = first_request(aot)
+        gain[case]["x_equal"] = torch.equal(tc.result.x, t.result.x)
+    print(json.dumps({
+        **row, "kernel_builds": builds,
+        "status": t.result.status, "iterations": t.result.iterations,
+        "ticket_latency_s": t.latency_s, "store_gain": gain,
+        "process_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase_serving(torch, amgx, dev, per_path, summary, n=SERVE_N,
+                  cold_n=SERVE_COLD_N, nb=SERVE_B, small_n=SERVE_SMALL_N):
+    """The serving core on SERVING_CG (PCG + GEO aggregation +
+    CHEBYSHEV_POLY + DENSE_LU, structure_reuse_levels=-1), 7-pt Poisson
+    in float32, system s = A + serve_shift(s) I.
+    (SG) the GEO batch, nb x n^3: solve_many multi-RHS and multi-matrix,
+    each system against its solo solve (status, iterations +- 1, true
+    residual within 2x); K5 once a batched V-cycle and no B5; K5 row s =
+    B5 on system s's arrays and K2-mf with per-system taus row s = B2-mf
+    with system s's taus, bit for bit; the solo 64^3 solve at the JAX
+    package's count (+- 1); the slab route (K5 on slab levels) at 64^3.
+    (SV) the service at n^3 (hot) and cold_n^3 (cold), SERVE_SLOTS slots,
+    SERVE_CHUNK iterations a cycle, SERVE_REQUESTS open-loop requests
+    SERVE_GAP_S apart on the background scheduler: every ticket
+    completes, the deadline ones DEADLINE_EXCEEDED, every other one the
+    status and iterations of a solve_many of its own system at the
+    bucket's width; two full setups; the hot admits through value
+    resetups; one host read an engine step; one _CardPlan a bucket.
+    (SR) a second process on the same stores serves one hot request:
+    zero full setups, serving.retrace 0, no kernel build, x bit-identical;
+    then the same request's first latency without the warm-start store
+    (one probe) and with it again, in that warm process.
+    (SJ) a journaled service dropped after 3 cycles resumes in a new one
+    bit-identically. (SC) an armed step_crash quarantines the bucket,
+    which resumes bit-identically."""
+    import shutil
+    import tempfile
+    from amgx_tpu_torch.batch import BatchedSolver, stack_solve_datas
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    from amgx_tpu_torch.ops import cuda_tail as T
+    from amgx_tpu_torch.presets import SERVING_CG
+    cfg = amgx.Config.from_string(SERVING_CG)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+
+    def rhs(count, rows):
+        return torch.from_numpy(rng.standard_normal((count, rows)).astype(
+            np.float32)).to(dev)
+
+    # (SG) the GEO batch
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    bs = BatchedSolver(cfg, device=dev)
+    _, setup_s = timed(torch, lambda: bs.setup(A))
+    slv, amg = bs.solver, precond_amg(bs.solver)
+    levels = amg.level_rows()
+    Bm = rhs(nb, n ** 3)
+    mats = diag_shifted(torch, A, [serve_shift(s) for s in range(nb)])
+    got, sg = {}, {}
+    for case, mm in (("multi_rhs", None), ("multi_matrix", mats)):
+        path = f"serving_geo_{case}"
+        res, first_s = timed(torch, lambda: run_path(
+            amgx, per_path, path, lambda: bs.solve_many(Bm, matrices=mm)))
+        c = per_path[path]
+        multi, single = tail_launches(c)
+        iters = int(res.iterations.max())
+        check(multi == iters + 1 and single == 0,
+              f"serving (SG) {case}: {multi} K5 launches for {iters} "
+              f"iterations (want one a batched V-cycle), {single} B5")
+        got[case] = batch_systems(torch, res, mats if mm else [A] * nb, Bm)
+        warm = [timed(torch, lambda: bs.solve_many(Bm, matrices=mm))[1]
+                for _ in range(2)]
+        prof = batch_profile(torch, lambda: bs.solve_many(
+            Bm, matrices=mm), iters)
+        sg[case] = {"iterations": res.iterations.tolist(),
+                    "status": [g["status"] for g in got[case]],
+                    "true_rel_res": [g["true_rel_res"] for g in got[case]],
+                    "first_batched_s": first_s, "warm_batched_s": warm,
+                    "profile": prof, "launches": c}
+    solo = amgx.create_solver(cfg, device=dev)
+    solo.setup(A)
+    ref_m = solo_systems(torch, solo, [A] * nb, Bm, False)
+    ref_mm = solo_systems(torch, solo, mats, Bm, True)
+    for case, ref in (("multi_rhs", ref_m), ("multi_matrix", ref_mm)):
+        for i in range(nb):
+            batch_check(f"serving (SG) {case} system {i}", got[case][i],
+                        ref[i])
+        sg[case]["solo"] = ref
+        sg[case]["warm_batched_over_one_solo"] = min(
+            sg[case]["warm_batched_s"]) / float(np.median(
+                [r["solve_s"] for r in ref]))
+    del solo
+    # K5 (shared and stacked arrays) and K2-mf with per-system taus
+    lvl = tail_entry(amg)
+    nt = amg.levels[lvl].A.num_rows
+    k5_case(torch, K, T, amg, slv.solve_data()["precond"]["amg"],
+            rhs(nb, nt), rhs(nb, nt), summary, "shared", main=True)
+    data_mm, _ = stack_solve_datas(bs._per_system_data(mats))
+    amg_mm = data_mm["precond"]["amg"]
+    k5_case(torch, K, T, amg, amg_mm, rhs(nb, nt), rhs(nb, nt), summary,
+            "per-system")
+    k2_taus_case(torch, K, amg_mm, rhs(nb, n ** 3), rhs(nb, n ** 3),
+                 summary, "per-system")
+    del data_mm, amg_mm
+    emit({"phase": "serving", "case": "SG", "rows": n ** 3, "systems": nb,
+          "levels": levels, "tail_entry": lvl, "setup_s": setup_s,
+          **sg})
+    del bs, slv
+    torch.cuda.empty_cache()
+    # the solo 64^3 solve against the JAX package's count; the slab route
+    A64 = amgx.gallery.poisson("7pt", small_n, small_n, small_n,
+                               dtype=torch.float32, device=dev).init()
+    s64 = amgx.create_solver(cfg, device=dev)
+    s64.setup(A64)
+    r64 = s64.solve(torch.ones(small_n ** 3, device=dev))
+    check(r64.status == "success"
+          and abs(r64.iterations - SERVE_ANCHOR_64) <= BATCH_ITER_TOL,
+          f"serving 64^3 solo: {r64.status} in {r64.iterations}, the JAX "
+          f"package {SERVE_ANCHOR_64}")
+    bss = BatchedSolver(amgx.Config.from_string(SERVING_CG + SLAB),
+                        device=dev)
+    bss.setup(A64)
+    m64 = diag_shifted(torch, A64, [serve_shift(s) for s in range(nb)])
+    B64 = rhs(nb, small_n ** 3)
+    res_s = run_path(amgx, per_path, "serving_geo_slab_64^3",
+                     lambda: bss.solve_many(B64, matrices=m64))
+    c = per_path["serving_geo_slab_64^3"]
+    check(c["dia_coarse_tail_multi"] == int(res_s.iterations.max()) + 1
+          and tail_launches(c)[1] == 0,
+          f"serving slab 64^3: tail launches {c}")
+    got_s = batch_systems(torch, res_s, m64, B64)
+    ref_s = solo_systems(torch, bss.solver, m64, B64, True)
+    for i in range(nb):
+        batch_check(f"serving slab 64^3 system {i}", got_s[i], ref_s[i])
+    data_s, _ = stack_solve_datas(bss._per_system_data(m64))
+    amg_s = precond_amg(bss.solver)
+    nts = amg_s.levels[tail_entry(amg_s)].A.num_rows
+    k5_case(torch, K, T, amg_s, data_s["precond"]["amg"], rhs(nb, nts),
+            rhs(nb, nts), summary, "slab per-system 64^3", main=True)
+    emit({"phase": "serving", "case": "SG64", "rows": small_n ** 3,
+          "solo_iterations": r64.iterations, "solo_status": r64.status,
+          "anchor": SERVE_ANCHOR_64,
+          "slab_iterations": res_s.iterations.tolist(), "slab_solo": ref_s,
+          "launches": c})
+    del bss, data_s, s64
+    torch.cuda.empty_cache()
+
+    store = tempfile.mkdtemp(prefix=".serving-", dir=ROOT)
+    try:
+        serving_service(torch, amgx, dev, per_path, store, n, cold_n)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def serving_service(torch, amgx, dev, per_path, store, n, cold_n):
+    """(SV), (SR), (SJ), (SC) of `phase_serving`, their stores under
+    `store`."""
+    from amgx_tpu_torch.batch import BatchedSolver
+    from amgx_tpu_torch.ops import cuda_tail as T
+    from amgx_tpu_torch.presets import SERVING_CG
+    from amgx_tpu_torch.resilience import faultinject
+    from amgx_tpu_torch.serving import SolveService
+    from amgx_tpu_torch.telemetry import metrics as tm
+    reqs = serving_requests(torch, amgx, dev, n, cold_n)
+    names = ("amg.setup.full", "amg.resetup.value", "amg.resetup.structure",
+             "serving.retrace", "serving.cache.hit", "serving.cache.miss")
+    before = {k: tm.get(k) for k in names}
+    plans0 = T.PLAN_BUILDS["multi"]
+    svc = SolveService(serve_cfg(amgx, SERVING_CG, store), device=dev)
+
+    def serve():
+        svc.start()
+        tickets = []
+        t0 = time.perf_counter()
+        for i, (M, b, dl, _, _) in enumerate(reqs):
+            wait = t0 + i * SERVE_GAP_S - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            tickets.append(svc.submit(M, b, deadline_s=dl))
+        # a dead scheduler fails the outstanding tickets (BREAKDOWN with
+        # the error) instead of leaving them waiting
+        svc.drain(timeout_s=600)
+        wall = time.perf_counter() - t0
+        svc.stop()
+        errors = sorted({repr(t.error)[:300] for t in tickets
+                         if t.error is not None})
+        check(all(t.done for t in tickets) and not errors
+              and svc._thread_error is None,
+              f"serving (SV): {sum(t.done for t in tickets)} of "
+              f"{len(tickets)} tickets done, errors {errors}, scheduler "
+              f"{svc._thread_error!r}")
+        return tickets, wall
+
+    tickets, wall = run_path(amgx, per_path, "serving_service", serve)
+    moved = {k: tm.get(k) - before[k] for k in names}
+    plans = T.PLAN_BUILDS["multi"] - plans0
+    c = per_path["serving_service"]
+    hot = [t for t, r in zip(tickets, reqs) if r[3] == "hot"]
+    dl = [t for t, r in zip(tickets, reqs) if r[2] is not None]
+    check(all(t.result.status == "deadline_exceeded" for t in dl),
+          f"serving (SV): deadline tickets {[t.result.status for t in dl]}")
+    check(moved["amg.setup.full"] == 2, f"serving (SV): {moved}")
+    admitted_hot = sum(1 for t, r in zip(tickets, reqs)
+                       if r[3] == "hot" and r[2] is None)
+    check(moved["amg.resetup.value"] >= admitted_hot
+          and moved["amg.resetup.structure"] == 0,
+          f"serving (SV): {admitted_hot} hot admits, resetups {moved}")
+    check(plans == 2, f"serving (SV): {plans} K5 card plans for two "
+          f"buckets")
+    check(tail_launches(c)[1] == 0 and c["dia_coarse_tail_mf_multi"] > 0,
+          f"serving (SV): tail launches {c}")
+    engines = [svc.buckets.peek(k) for k in svc.buckets.keys()]
+    # one host read an engine step (a bucket admitted directly)
+    heng = svc.buckets.peek(hot[0].fingerprint)
+    M, b = reqs[1][0], reqs[1][1]
+    heng.admit(0, M, b)
+    heng.step()
+    sites = sync_sites(torch, heng.step)
+    check(len(sites) == 1, f"serving (SV): {len(sites)} host reads in one "
+          f"step, at {sites}")
+    heng.finalize([0])
+    heng.release(0)
+    # every other ticket: its system's solve_many at the bucket's width
+    served = [(t, r) for t, r in zip(tickets, reqs) if r[2] is None]
+    for pat in ("hot", "cold"):
+        group = [(t, r) for t, r in served if r[3] == pat]
+        ref = BatchedSolver(amgx.Config.from_string(SERVING_CG), device=dev)
+        ref.setup(group[0][1][0].with_values(group[0][1][0].values * 1))
+        for k in range(0, len(group), SERVE_SLOTS):
+            part = group[k:k + SERVE_SLOTS]
+            part = part + [part[-1]] * (SERVE_SLOTS - len(part))
+            res = ref.solve_many(torch.stack([r[1] for _, r in part]),
+                                 matrices=[r[0] for _, r in part])
+            for s, (t, r) in enumerate(part):
+                check(t.result.status == _status(res, s)
+                      and t.result.iterations == int(res.iterations[s]),
+                      f"serving (SV) request {r[4]}: {t.result.status} in "
+                      f"{t.result.iterations}, solve_many "
+                      f"{_status(res, s)} in {int(res.iterations[s])}")
+        del ref
+    lat = sorted(t.latency_s for t, _ in served)
+    emit({"phase": "serving", "case": "SV", "rows": [n ** 3, cold_n ** 3],
+          "requests": len(reqs), "slots": SERVE_SLOTS,
+          "chunk": SERVE_CHUNK, "gap_s": SERVE_GAP_S,
+          "statuses": [t.result.status for t in tickets],
+          "iterations": [t.result.iterations for t in tickets],
+          "solves_per_s": len(served) / wall, "wall_s": wall,
+          "latency_p50_s": float(np.percentile(lat, 50)),
+          "latency_p99_s": float(np.percentile(lat, 99)),
+          "counters": moved, "card_plans": plans,
+          "engine_steps": [e.host_reads for e in engines],
+          "build_s": [e.build_time for e in engines], "launches": c})
+    # (SR) a second process on the same stores
+    x_path = os.path.join(store, "restart_x.npy")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--serving-restart",
+         store, x_path, str(n), str(cold_n), "1", str(dev)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"serving (SR) process: {proc.stderr[-2000:]}")
+    sr = json.loads(proc.stdout.strip().splitlines()[-1])
+    x_sr = torch.from_numpy(np.load(x_path)).to(dev)
+    first = tickets[1]
+    gain = sr["store_gain"]
+    check(sr["counters"]["amg.setup.full"] == 0
+          and sr["counters"]["serving.retrace"] == 0
+          and sr["kernel_builds"] == [] and sr["aot_warm"]
+          and sr["hier_restored"]
+          and torch.equal(x_sr, first.result.x)
+          and sr["iterations"] == first.result.iterations
+          and gain["without_store"]["counters"]["serving.retrace"] == 1
+          and gain["with_store"]["counters"]["serving.retrace"] == 0
+          and all(g["x_equal"] for g in gain.values()),
+          f"serving (SR): {sr}, x equal "
+          f"{torch.equal(x_sr, first.result.x)}")
+    emit({"phase": "serving", "case": "SR", **sr})
+    x_first, it_first = first.result.x, first.result.iterations
+    del svc, tickets, served, engines, heng, first
+    torch.cuda.empty_cache()
+    # (SJ) journal resume and (SC) step_crash, on hot request 3 (A
+    # itself, the slowest of the shifts)
+    M, b = reqs[3][0], reqs[3][1]
+    jcfg = serve_cfg(amgx, SERVING_CG, None,
+                     f", serving_journal_dir={store}/journal,"
+                     f" serving_checkpoint_cycles=1")
+    ref = SolveService(serve_cfg(amgx, SERVING_CG, None), device=dev)
+    rt = ref.submit(M, b)
+    # request 1 again, its bucket built inline: the bits of the (SV)
+    # bucket the builder thread built
+    r1 = ref.submit(reqs[1][0], reqs[1][1])
+    ref.drain(timeout_s=600)
+    check(torch.equal(r1.result.x, x_first)
+          and r1.result.iterations == it_first,
+          "serving: the builder thread's bucket and an inline build "
+          "differ")
+    del ref, r1
+    victim = SolveService(jcfg, device=dev)
+    vt = victim.submit(M, b)
+    for _ in range(3):
+        victim.step()
+    check(not vt.done, "serving (SJ): finished before the drop")
+    del victim, vt
+    torch.cuda.empty_cache()
+    res0 = tm.get("serving.recovery.resumed")
+    # serving_recover=1 (the default): the journal replays here
+    succ = SolveService(jcfg, device=dev)
+    done = succ.drain(timeout_s=600)
+    resumed = tm.get("serving.recovery.resumed") - res0
+    check(len(done) == 1 and resumed == 1
+          and done[0].result.iterations == rt.result.iterations
+          and torch.equal(done[0].result.x.to(dev), rt.result.x),
+          f"serving (SJ): {len(done)} replayed, {resumed} resumed, "
+          f"iterations {[d.result.iterations for d in done]} against "
+          f"{rt.result.iterations}")
+    del succ, done
+    torch.cuda.empty_cache()
+    svc = SolveService(serve_cfg(amgx, SERVING_CG, None), device=dev)
+    q0 = tm.get("serving.recovery.quarantined")
+    t = svc.submit(M, b)
+    svc.step()
+    with faultinject.inject("step_crash", fires=1):
+        svc.step()
+    quarantined = tm.get("serving.recovery.quarantined") - q0
+    svc.drain(timeout_s=600)
+    check(quarantined == 1 and t.result.iterations == rt.result.iterations
+          and torch.equal(t.result.x, rt.result.x),
+          f"serving (SC): {quarantined} quarantined, {t.result.iterations} "
+          f"iterations against {rt.result.iterations}")
+    emit({"phase": "serving", "case": "SJ+SC", "iterations":
+          rt.result.iterations, "status": rt.result.status,
+          "journal_resumed": resumed, "quarantined": quarantined})
+
+
+def _status(res, s):
+    from amgx_tpu_torch.resilience.status import status_string
+    return status_string(int(res.status[s]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5171,6 +5741,7 @@ def main():
     phase_resetup(torch, amgx, dev, per_path)
     phase_batch(torch, amgx, dev, per_path, summary)
     phase_resilience(torch, amgx, dev, per_path)
+    phase_serving(torch, amgx, dev, per_path, summary)
 
     kernels = []
     for name, row in summary.items():
@@ -5193,7 +5764,7 @@ def main():
                     "bound_launches_ms", "launches_per_call", "step_route_ms",
                     "step_route_device_ms", "step_route_launches_per_call",
                     "step_route_max_abs_diff", "split", "systems",
-                    "single_x_b_ms"):
+                    "single_x_b_ms", "per_system_taus"):
             if key in row:
                 entry[key] = row[key]
         if name in ROUTE_COUNTERS:
@@ -5215,4 +5786,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serving-restart"]:
+        sys.exit(serving_restart(sys.argv[2:]))
     sys.exit(main())

@@ -32,6 +32,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight tests excluded from the tier-1 budgeted run "
         "(`-m 'not slow'`); run them with `-m slow` on a capable rig")
+    config.addinivalue_line(
+        "markers",
+        "card: needs the CUDA card (skips without one); run on the card "
+        "as tests/test_torch_card.py says")
 
 
 @pytest.fixture(scope="session")

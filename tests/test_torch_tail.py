@@ -246,7 +246,7 @@ def test_phase_program_matches_plain_recursion(case, with_dot):
                        f", presweeps={pre}, postsweeps={post}")
     if case == "V-nosolver":
         amg.coarse_solver = pt.solvers.relaxation.NoSolver(
-            amg.cfg, name="NOSOLVER")
+            amg.cfg, name="NOSOLVER", device="cpu")
         amg.coarse_solver.setup(amg.coarsest_A)
     from amgx_tpu_torch.ops.smooth import _tail_plan
     rng = np.random.default_rng(4)

@@ -11,6 +11,9 @@ stderr, so stdout holds only the JSON lines.
 
     python3 tools/jax_anchors.py --size 64 PBICGSTAB_AGGREGATION_W_JACOBI
 
+A name `preset:NAME` runs the package's `presets.NAME` string instead of
+a file (`preset:SERVING_CG`).
+
 `chip_smoke.py` holds the PyTorch port's runs on the card to these
 numbers. `--port` runs the same files through the port on the CPU
 instead (`device="cpu"`), with the same line: the spread between the
@@ -43,7 +46,8 @@ def main():
     ap.add_argument("--device-route", action="store_true",
                     help="the JAX package's device (jnp) setup route on "
                     "the CPU instead of its host numpy route")
-    ap.add_argument("files", nargs="+", help="names under configs/")
+    ap.add_argument("files", nargs="+", help="names under configs/, or "
+                    "preset:NAME")
     args = ap.parse_args()
     import numpy as np
     import scipy.sparse as sp
@@ -71,8 +75,13 @@ def main():
                          np.asarray(A.row_offsets)))
     b = np.ones(n ** 3, dt)
     for name in args.files:
-        cfg = pkg.Config.from_file(os.path.join(ROOT, "configs",
-                                               name + ".json"))
+        if name.startswith("preset:"):
+            import importlib
+            presets = importlib.import_module(pkg.__name__ + ".presets")
+            cfg = pkg.Config.from_string(getattr(presets, name[7:]))
+        else:
+            cfg = pkg.Config.from_file(os.path.join(ROOT, "configs",
+                                                   name + ".json"))
         cfg.set("store_res_history", 1)
         if args.krylov_fusion is not None:
             cfg.set("krylov_fusion", args.krylov_fusion)
