@@ -17,10 +17,13 @@ Resilience: `create_solver` on a config with `fallback_policy` (e.g.
 `presets.RESILIENT_CG`) returns a `resilience.ResilientSolver`;
 `resilience.faultinject.inject(...)` arms the fault harness. Runtime
 helpers: `profiling`, `memory_info`, `determinism`, `thread_manager`
-(`Solver.setup_async`) and `Resources`.
+(`Solver.setup_async`) and `Resources`. Eigensolvers:
+`create_eigensolver` (`eigen`, the eig_* parameters and
+configs/eigen_configs). Serving: `amgx_tpu_torch.serving` (the service,
+the fleet, the autotuner).
 """
 from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
-from . import batch, gallery, presets
+from . import batch, eigen, gallery, presets
 from . import (determinism, memory_info, profiling, resilience,  # noqa: F401
                telemetry, thread_manager)
 from .config import Config
@@ -30,10 +33,12 @@ from .resources import Resources
 from .ops.cuda_spmv import LAUNCHES as _LAUNCHES
 from .ops.spgemm import PLAN_COUNTS as _PLAN_COUNTS
 from .resilience.status import SolveStatus
+from .eigen import create_eigensolver
 from .solvers.base import create_solver
 
 __all__ = ["Config", "CsrMatrix", "Resources", "SolveStatus", "batch",
-           "create_solver", "determinism", "gallery", "kernel_launches",
+           "create_eigensolver", "create_solver", "determinism", "eigen",
+           "gallery", "kernel_launches",
            "memory_info", "plan_counts", "presets", "profiling",
            "register_print_callback", "reset_kernel_launches", "resilience",
            "telemetry", "thread_manager"]

@@ -481,10 +481,92 @@ def _register_default_parameters():
       "waste for singleton patterns and queue latency for bursts. "
       "Each rung keeps its own warm-start entry (slots is part of the "
       "store's key). '' = fixed width", "")
-    R("autotune", int, "the online per-fingerprint config autotuner of "
-      "the JAX package's serving layer; not ported yet: a SolveService "
-      "with autotune=1 raises (ROADMAP.md Queue A item 11: the "
-      "autotuner). 0 (default): no tuner", 0, BOOL01)
+    # online config autotuner (serving/autotune.py): shadow-solve
+    # search over diagnostics-suggested config deltas, per hot
+    # fingerprint. All autotune* knobs are service-layer only -- they
+    # can never influence coarsening, so (like serving_*) they are
+    # excluded from the hstore config signature
+    R("autotune", int, "online per-fingerprint config autotuner: "
+      "watch hot fingerprints, generate candidate config deltas from "
+      "the diagnostics probe, SHADOW-solve them on idle service "
+      "capacity against the journaled workload sample, and promote a "
+      "measured iterations x wall win as that fingerprint's serving "
+      "config overlay (persisted in the hstore; demoted on live "
+      "regression). 0 (default) is inert: no tuner object, no overlay "
+      "lookup, no shadow work -- the same kernels and host reads as a "
+      "service without the tuner", 0, BOOL01)
+    R("autotune_hot_requests", int, "hotness threshold: completed "
+      "requests a fingerprint needs before the tuner considers it "
+      "(with autotune_hot_exec_share) worth a shadow search", 8,
+      None, 1)
+    R("autotune_hot_exec_share", float, "hotness threshold: minimum "
+      "share of this service's total in-bucket execution seconds a "
+      "fingerprint must account for -- a rare-but-slow or "
+      "frequent-and-slow pattern qualifies, background noise never "
+      "does", 0.1, None, 0.0, 1.0)
+    R("autotune_shadow_budget", int, "bounded search: max shadow "
+      "solves (baseline probe included) the tuner may spend per "
+      "fingerprint, ever -- the search can never consume unbounded "
+      "idle capacity", 6, None, 1)
+    R("autotune_min_improvement", float, "promotion hysteresis: a "
+      "candidate's measured iterations x wall score must beat the "
+      "shadow baseline by at least this factor (and win iterations "
+      "AND wall outright) before its deltas promote to the serving "
+      "overlay", 1.2, None, 1.0)
+    R("autotune_demote_factor", float, "regression hysteresis: a "
+      "promoted fingerprint whose live exec median exceeds its "
+      "pre-promotion median by this factor (over "
+      "autotune_demote_window completions) is demoted -- overlay "
+      "dropped, persisted record deleted, bucket retired", 1.5,
+      None, 1.0)
+    R("autotune_demote_window", int, "post-promotion completions the "
+      "demote watch needs before judging a regression", 4, None, 2)
+    # fleet router (serving/fleet.py): N replicas behind one
+    # fingerprint-affine submit/step/drain surface
+    R("fleet_replicas", int, "replica count FleetRouter.build "
+      "fronts: N "
+      "SolveService instances sharing this config, each with a "
+      "derived per-service replica id (r0..rN-1, labels its metric "
+      "series; the process-global serving_replica_id scrape label is "
+      "left alone) and, when journaling is on, a per-replica journal "
+      "subdirectory", 2, None, 1)
+    R("fleet_spill_depth", int, "queue depth at which a fingerprint's "
+      "home replica counts as overloaded and the router spills the "
+      "request to the next rendezvous candidate (only when that "
+      "candidate is strictly less loaded -- a uniformly saturated "
+      "fleet keeps affinity and sheds instead of ping-ponging). "
+      "0 = auto: max(2 x serving_bucket_slots, 2)", 0, None, 0)
+    R("fleet_fault_policy", str, "per-replica breaker chains "
+      "'EVENT>action|...' (serving/health.py): events REPLICA_DEAD/"
+      "REPLICA_WEDGED/REPLICA_SLOW, actions failover (rehome + move "
+      "tickets + journal adoption), probe_backoff (OPEN the breaker "
+      "for fleet_probe_backoff_s x 2^n, then HALF_OPEN one trial "
+      "fingerprint), ignore. The Nth consecutive event takes the "
+      "chain's Nth step (last repeats)",
+      "REPLICA_DEAD>failover|REPLICA_WEDGED>probe_backoff"
+      "|REPLICA_WEDGED>failover|REPLICA_SLOW>probe_backoff")
+    R("fleet_suspect_checks", int, "consecutive rate-limited health "
+      "checks a BUSY replica's scheduler-cycle counter must flatline "
+      "before the monitor calls it REPLICA_WEDGED (the first "
+      "flatlined check already marks it SUSPECT in the flight "
+      "recorder)", 4, None, 1)
+    R("fleet_probe_backoff_s", float, "base of the breaker's bounded "
+      "exponential backoff: an OPEN replica is re-probed (HALF_OPEN, "
+      "one trial fingerprint) after fleet_probe_backoff_s x 2^n, "
+      "exponent capped at 6", 0.05, None, 0.0)
+    R("fleet_health_check_s", float, "heartbeat sampling window: "
+      "wedge/slow counting reads each replica's cycle counter at "
+      "most once per this many seconds (dead-thread detection is "
+      "never rate-limited)", 0.25, None, 0.001)
+    R("fleet_warmup_s", float, "restore grace: a just-restored "
+      "replica takes no COLD placements for this long, so an empty "
+      "(least-loaded) returnee doesn't instantly become every new "
+      "fingerprint's home; warm traffic returns at once", 1.0,
+      None, 0.0)
+    R("fleet_slow_cycle_s", float, "pace threshold: a busy replica "
+      "whose per-scheduler-cycle wall between health checks exceeds "
+      "this emits REPLICA_SLOW through the fault-policy chain. "
+      "0 = disabled", 0.0, None, 0.0)
 
 _register_default_parameters()
 

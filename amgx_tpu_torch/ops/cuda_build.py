@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # latter so a restarted bucket loads them before its first request
 BUILT: list = []
 LOADED: list = []
+# one build and one load per library, whichever thread asks first: the
+# builder and scheduler threads of several service replicas may all
+# launch their first kernel at once
+_LOCK = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -72,6 +77,11 @@ def build_all() -> dict:
     """Compile every missing library, all sources at once. Returns
     {"seconds": wall time, "built": [sources compiled], "ptxas": {source:
     nvcc's resource report}}; raises KernelBuildError on any failure."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict:
     t0 = time.perf_counter()
     todo = [s for s in SOURCES if not os.path.isfile(_lib_path(s))]
     report = {"seconds": 0.0, "built": todo, "ptxas": {}}
@@ -121,9 +131,14 @@ def resource_lines(log: str) -> list:
     return lines
 
 
-@functools.lru_cache(maxsize=None)
 def library(source: str = "dia.cu") -> ctypes.CDLL:
     """The loaded library of one source, built on first use."""
+    with _LOCK:
+        return _library(source)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str) -> ctypes.CDLL:
     path = _lib_path(source)
     if not os.path.isfile(path):
         build_all()

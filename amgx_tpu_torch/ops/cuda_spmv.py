@@ -156,6 +156,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -165,6 +166,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..precision import SMOOTH_DTYPES, compute_dtype
 from . import tiling
 
+_LAUNCH_LOCK = threading.Lock()
 LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_prolong_smooth": 0, "dia_prolong_smooth_dot": 0,
             "dia_smooth_restrict_w": 0, "dia_prolong_smooth_w": 0,
@@ -358,7 +360,10 @@ def _launch(name: str, fn, *args, detail: str = ""):
         raise RuntimeError(
             f"{name}: kernel launch{detail} failed (code {rc}; -1 = "
             f"arguments the kernel does not take, else a cudaError_t)")
-    LAUNCHES[name] += 1
+    # fleet replicas launch from several threads: a count is a
+    # read-modify-write, so it takes the lock
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check(name: str, offsets: Optional[Sequence[int]], n: int,

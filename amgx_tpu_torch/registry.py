@@ -44,6 +44,7 @@ class Factory:
 
 
 solvers = Factory("Solver")
+eigensolvers = Factory("EigenSolver")
 amg_levels = Factory("AMG_Level")
 aggregation_selectors = Factory("AggregationSelector")
 convergence = Factory("Convergence")

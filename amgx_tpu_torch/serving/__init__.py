@@ -1,5 +1,4 @@
-"""The serving subsystem (the port of amgx_tpu/serving/, without the
-fleet, its health monitor and the autotuner: ROADMAP.md Queue A item 11).
+"""The serving subsystem (the port of amgx_tpu/serving/).
 
 The async multi-tenant solve service over the batch / resilience /
 telemetry machinery:
@@ -28,7 +27,15 @@ telemetry machinery:
 - **shedding + supervision** (`service.SolveService`): OVERLOADED load
   shedding, per-tenant quotas, and a wedged-bucket supervisor with
   bounded retry/backoff under the `serving_fault_policy` grammar;
-- **mixed bucket-width ladder** (`ladder`).
+- **mixed bucket-width ladder** (`ladder`);
+- **fleet router** (`fleet.FleetRouter`): N replicas behind one
+  submit/step/drain surface with fingerprint-affine rendezvous routing
+  (warm|cold|spill), fleet-wide shed consults, and a `HealthMonitor`
+  (`health`) whose per-replica breakers drive zero-loss failover,
+  journal adoption and rolling restarts;
+- **online config autotuner** (`autotune.ConfigAutotuner`, `autotune=1`):
+  shadow solves of diagnostics-suggested config deltas on idle
+  capacity, promoted per fingerprint and persisted in the hstore.
 
 Quick start (the card; pass device="cpu" for the CPU)::
 
@@ -37,12 +44,23 @@ Quick start (the card; pass device="cpu" for the CPU)::
     t = svc.submit(A, b, tenant="alice", deadline_s=0.5)
     svc.drain()          # or svc.start() for the background scheduler
     print(t.result.status, t.latency_s)
+
+Fleet (two replicas sharing one card)::
+
+    from amgx_tpu_torch.serving import FleetRouter
+    fleet = FleetRouter.build(cfg, n_replicas=2)
+    t = fleet.submit(A, b, tenant="alice")
+    fleet.drain()
+    print(t.replica, t.route, fleet.stats()["routes"])
 """
 from __future__ import annotations
 
 from .aot import AotStore  # noqa: F401
 from .cache import HierarchyCache, solve_data_bytes  # noqa: F401
+from .autotune import ConfigAutotuner  # noqa: F401
 from .engine import BucketEngine  # noqa: F401
+from .fleet import FleetRouter  # noqa: F401
+from .health import HealthMonitor, ReplicaBreaker  # noqa: F401
 from .hstore import HierarchyStore  # noqa: F401
 from .journal import SolveJournal  # noqa: F401
 from .ladder import choose_slots, parse_ladder  # noqa: F401

@@ -186,3 +186,62 @@ class HierarchyStore:
         for amg, g in zip(nodes, ghosts):
             amg.adopt_structure(g)
         return True
+
+    # -- tuned-config overlays (serving/autotune.py) ----------------------
+    # the promoted config deltas persist BESIDE the hierarchy/AOT
+    # snapshots, keyed by fingerprint ALONE (digest of the same
+    # fingerprint string): the overlay must resolve BEFORE the
+    # engine's config -- and therefore before any (fingerprint, cfg)
+    # key -- exists, so a restarted replica can serve the tuned config
+    # from its first request
+
+    def _tuned_path(self, fingerprint: str) -> str:
+        d = hashlib.blake2b(str(fingerprint).encode(),
+                            digest_size=12).hexdigest()
+        return os.path.join(self.directory, f"tuned-{d}.json")
+
+    def save_tuned(self, fingerprint: str, record: dict) -> bool:
+        """Persist one fingerprint's promoted tuner record (deltas +
+        the shadow measurements that justified them). Atomic; a
+        failure degrades to not-persisted (the live overlay still
+        serves until restart)."""
+        from ..telemetry import metrics as _tm
+        path = self._tuned_path(fingerprint)
+        try:
+            with open(path + ".tmp", "w") as f:
+                json.dump(dict(record, fingerprint=str(fingerprint)),
+                          f)
+            os.replace(path + ".tmp", path)
+            return True
+        except Exception:
+            _tm.inc("serving.recovery.hstore_error")
+            return False
+
+    def load_tuned(self, fingerprint: str) -> Optional[dict]:
+        """The persisted tuner record for a fingerprint, or None
+        (missing/corrupt -- corrupt records are dropped so they cannot
+        poison every future lookup)."""
+        path = self._tuned_path(fingerprint)
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+            if not isinstance(rec.get("deltas"), list):
+                raise ValueError("malformed tuned record")
+            return rec
+        except Exception:
+            from ..telemetry import metrics as _tm
+            _tm.inc("serving.recovery.hstore_error")
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return None
+
+    def drop_tuned(self, fingerprint: str):
+        """Delete a fingerprint's persisted tuner record (demotion)."""
+        try:
+            os.remove(self._tuned_path(fingerprint))
+        except OSError:
+            pass

@@ -1,5 +1,5 @@
 """The multi-tenant solve service (the port of
-amgx_tpu/serving/service.py, without the autotuner).
+amgx_tpu/serving/service.py).
 
 `SolveService` is the front end of the serving layer: a stream of
 (matrix, rhs, tenant, deadline) requests goes in; batched, cached,
@@ -57,10 +57,12 @@ complete asynchronously (`ticket.wait()`).
 Device: the service runs on the card unless built with device="cpu"
 (`resolve_device`); every bucket is built on that device, in a builder
 thread too. A request's matrix and rhs may live anywhere; results
-(`ticket.result.x`) are tensors on the service's device. The online
-autotuner (`autotune=1`) is not ported (ROADMAP.md Queue A item 11);
-`adopt_journal` and `_fail_outstanding` serve the fleet, which is not
-ported yet either, and have no caller in this package.
+(`ticket.result.x`) are tensors on the service's device. With
+`autotune=1` the service owns a `ConfigAutotuner` (serving/autotune.py)
+that shadow-solves candidate configs on idle capacity and serves a
+promoted overlay per fingerprint; `adopt_journal` and the replica chaos
+hooks at the top of `step()` serve the `FleetRouter`
+(serving/fleet.py).
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ import torch
 
 from ..batch.queue import pattern_fingerprint
 from ..config import Config
-from ..device import resolve_device
+from ..device import load_cuda_linalg, resolve_device
 from ..errors import BadParametersError
 from ..matrix import CsrMatrix
 from ..resilience import faultinject as _fi
@@ -186,15 +188,12 @@ class SolveService:
     serves every bucket; knobs are the `serving_*` parameters."""
 
     def __init__(self, cfg: Config, scope: str = "default", device=None):
-        if int(cfg.get("autotune", scope)):
-            raise BadParametersError(
-                "serving: autotune=1 needs the online config autotuner, "
-                "which is not ported yet (ROADMAP.md Queue A item 11: the "
-                "autotuner)")
         self.cfg = cfg
         self.scope = scope
-        # every bucket is built here (the card unless device="cpu")
+        # every bucket is built here (the card unless device="cpu"), on
+        # builder threads too: the first CUDA linalg call comes first
         self.device = resolve_device(device)
+        load_cuda_linalg(self.device)
         self.chunk = int(cfg.get("serving_chunk_iters", scope))
         self.slots = int(cfg.get("serving_bucket_slots", scope))
         self.max_queue = int(cfg.get("serving_max_queue", scope))
@@ -307,6 +306,14 @@ class SolveService:
         self._fr_dump_reason: Optional[str] = None
         # per-tenant tallies for stats()
         self._tenants: Dict[str, Dict[str, int]] = {}
+        # online config autotuner (autotune=1): default-off -- a
+        # disabled service never constructs the tuner, schedules no
+        # shadow work and applies no overlay
+        self._draining = False
+        self._tuner = None
+        if int(cfg.get("autotune", scope)):
+            from .autotune import ConfigAutotuner
+            self._tuner = ConfigAutotuner(self)
         if self.journal is not None and \
                 int(cfg.get("serving_recover", scope)):
             self.recover()
@@ -656,6 +663,8 @@ class SolveService:
                 fpw = collections.deque(maxlen=64)
                 self._exec_fp[t.fingerprint] = fpw
             fpw.append(exec_s)
+            if self._tuner is not None:
+                self._tuner.note_finish(t, exec_s)
         if t.journal_id is not None \
                 and self._journal_for(t) is not None:
             # queued, not written: _finish runs under the service lock
@@ -988,10 +997,21 @@ class SolveService:
         same-fingerprint ticket, but the oldest unserved one caused
         it) and logged on the flight recorder."""
         slots = self._slots_for(t)
+        # tuned-config overlay: a promoted (or hstore-restored)
+        # fingerprint builds its bucket from the service config PLUS
+        # the tuner's deltas -- real AMG knobs, so the engine's
+        # hstore/warm-start keys change with them and a restarted
+        # replica restores the TUNED hierarchy (zero full setups)
+        cfg, tuned = self.cfg, None
+        if self._tuner is not None:
+            tuned = self._tuner.overlay_for(t.fingerprint)
+            if tuned is not None:
+                cfg = self._tuner.apply_overlay(self.cfg, tuned)
+                _tm.inc("autotune.overlay.applied")
         with self._tspan("serving.build", trace=t.trace_id,
                          fingerprint=t.fingerprint[:24], slots=slots):
             eng = BucketEngine(
-                self.cfg, self.scope, t.A, slots=slots,
+                cfg, self.scope, t.A, slots=slots,
                 chunk=self.chunk, fingerprint=t.fingerprint, aot=self.aot,
                 hstore=self.hstore, device=self.device)
         _fr.record("bucket.build", trace=t.trace_id,
@@ -999,7 +1019,8 @@ class SolveService:
                    slots=eng.slots,
                    wall_s=round(eng.build_time, 4),
                    aot_warm=eng.aot_warm,
-                   hier_restored=eng.hier_restored)
+                   hier_restored=eng.hier_restored,
+                   tuned=tuned is not None)
         return eng
 
     def _builder(self, t: ServiceTicket):
@@ -1034,6 +1055,19 @@ class SolveService:
         synchronously (no start()), builds run inline -- one per cycle,
         for the oldest unserved ticket -- which keeps step()
         deterministic for tests."""
+        # fleet-level chaos hooks, BEFORE the cycle lock and BEFORE
+        # the cycle counter: replica_kill raises out of step() (the
+        # background loop captures it and dies, an inline fleet's
+        # router captures it -- either way the health monitor sees a
+        # dead scheduler); replica_wedge returns without advancing
+        # _cycle (the heartbeat flatline); replica_slow stalls the
+        # cycle so per-cycle wall blows the pace threshold
+        delay = _fi.replica_delay(self.replica)
+        if delay > 0.0:
+            time.sleep(delay)
+        if _fi.replica_wedged(self.replica):
+            return []
+        _fi.replica_crash(self.replica)
         with self._sched_lock:
             return self._step_impl()
 
@@ -1294,6 +1328,11 @@ class SolveService:
             self._checkpoint()
         if self.journal is not None and self._cycle % 512 == 0:
             self.journal.prune()
+        # the tuner's tick rides the off-lock tail too: at most one
+        # shadow solve, and only when the service has idle capacity
+        # (never while draining -- drain() quiesces it first)
+        if self._tuner is not None and not self._draining:
+            self._tuner.maybe_step()
         return completed
 
     def _inflight(self) -> int:
@@ -1325,24 +1364,37 @@ class SolveService:
         hold) for counts in that mode."""
         t0 = time.monotonic()
         done: List[ServiceTicket] = []
-        while not self.idle:
-            if timeout_s is not None \
-                    and time.monotonic() - t0 > timeout_s:
-                break
-            if self._thread is not None:
-                if self._thread_error is not None \
-                        and not self._thread.is_alive():
-                    # the background scheduler died: nothing will
-                    # ever step this work -- surface the captured
-                    # exception on the outstanding tickets
-                    # (BREAKDOWN + ticket.error) instead of
-                    # spinning to timeout
-                    done.extend(
-                        self._fail_outstanding(self._thread_error))
+        # quiesce the tuner for the duration: drain waits on
+        # PRODUCTION work only, so no new shadow solves may start
+        # while it runs (search state is kept; the search resumes
+        # after). _draining also gates the background scheduler's
+        # tuner tick, which reads the flag per cycle.
+        self._draining = True
+        if self._tuner is not None:
+            self._tuner.quiesce()
+        try:
+            while not self.idle:
+                if timeout_s is not None \
+                        and time.monotonic() - t0 > timeout_s:
                     break
-                time.sleep(0.001)
-            else:
-                done.extend(self.step())
+                if self._thread is not None:
+                    if self._thread_error is not None \
+                            and not self._thread.is_alive():
+                        # the background scheduler died: nothing will
+                        # ever step this work -- surface the captured
+                        # exception on the outstanding tickets
+                        # (BREAKDOWN + ticket.error) instead of
+                        # spinning to timeout
+                        done.extend(
+                            self._fail_outstanding(self._thread_error))
+                        break
+                    time.sleep(0.001)
+                else:
+                    done.extend(self.step())
+        finally:
+            self._draining = False
+            if self._tuner is not None:
+                self._tuner.resume()
         return done
 
     def _fail_outstanding(self, err: BaseException
@@ -1453,5 +1505,6 @@ class SolveService:
                 "bucket_ladder": list(self.ladder),
                 "tenants": {k: dict(v)
                             for k, v in self._tenants.items()},
-                "autotune": {"enabled": False},
+                "autotune": {"enabled": False}
+                if self._tuner is None else self._tuner.snapshot(),
             }

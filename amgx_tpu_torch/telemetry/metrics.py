@@ -924,8 +924,6 @@ declare_gauge("memory.solve_peak_bytes",
 # port (fnmatch patterns -> where it comes from); tests hold every other
 # declared name to a site in the package
 WAITING: Dict[str, str] = {
-    "fleet.*": "ROADMAP.md Queue A item 11 (serving: the fleet)",
-    "autotune.*": "ROADMAP.md Queue A item 11 (serving: the autotuner)",
     "dist.*": "ROADMAP.md Queue A item 13 (distributed solves)",
     "solver.retrace.distributed":
         "ROADMAP.md Queue A item 13 (distributed solves)",

@@ -64,6 +64,8 @@ def setup_async(solver, A) -> AsyncSetupTask:
     stream = None
     if solver.device.type == "cuda":
         import torch
+        from .device import load_cuda_linalg
+        load_cuda_linalg(solver.device)
         stream = torch.cuda.current_stream(solver.device)
     return AsyncSetupTask(_get_pool().submit(
         _run_on, solver.device, stream, solver.setup, A), solver)

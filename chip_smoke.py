@@ -170,7 +170,8 @@ Phases, one JSON line each on stdout:
                and B8's bf16 forms there.
 11. bf16_hierarchies -- the same stock aggregation files with
                amg:amg_precision=bfloat16 and CLASSICAL with it at
-               128^3, CLASSICAL_REFINEMENT with solve_precision=bfloat16
+               BF16_N^3 (96^3; 128^3 until the eigen phase needed the
+               time), CLASSICAL_REFINEMENT with solve_precision=bfloat16
                at 64^3 (the AMG cycle in bf16: bf16 B9 / B8 on the CSR
                levels, bf16 B3w / B4w on the classical level 0, bf16
                B4-mf on the aggregation level 0, the coarsest level in
@@ -183,15 +184,15 @@ Phases, one JSON line each on stdout:
                (`swell_fit`); each also at BF16_WITNESS^3 on the card and
                on the CPU route: the same status and level rows,
                iterations within one.
-12. bicgstab -- AmgX's stock PBICGSTAB_CLASSICAL_JACOBI and
-               PBICGSTAB_NOPREC on the 7-pt 128^3 in float32 with
-               krylov_fusion 1 (B6's streamed-dot form exactly twice per
-               iteration) and 0 (no B6, B1 for the SpMVs), the routes
-               within one iteration of each other;
+12. bicgstab -- AmgX's stock PBICGSTAB_CLASSICAL_JACOBI (64^3, where
+               the JAX package's anchor is; 128^3 until the eigen phase
+               needed the time) and PBICGSTAB_NOPREC (128^3) in float32
+               with krylov_fusion 1 (B6's streamed-dot form exactly
+               twice per iteration) and 0 (no B6, B1 for the SpMVs), the
+               routes within one iteration of each other;
                PBICGSTAB_AGGREGATION_W_JACOBI (SIZE_2, W cycle) at 64^3;
                GMRES_AMG_D2 (128^3 and 64^3) and agg_cheb4 (SIZE_8,
-               CHEBYSHEV smoothers, 128^3); the classical files also at
-               64^3, where the JAX package's anchors are. Each anchored
+               CHEBYSHEV smoothers, 128^3). Each anchored
                run within 2 iterations of the JAX package's CPU anchor
                and with its status (a run ending at max_iters: the final
                residual within 1 % of the anchor's); setup, first and
@@ -297,6 +298,30 @@ Phases, one JSON line each on stdout:
                memory.setup_peak_bytes = the allocator's peak; 4 warm
                pairs telemetry 1 / 0; (AS) setup_async of FLAGSHIP at
                64^3 bit-identical to setup, the same iterations.
+18. serving  -- the serving core on SERVING_CG (`phase_serving`: SG the
+               GEO batch with K5 and K2-mf with per-system taus, SV the
+               service on 128^3 / 130^3, SR a second process on its
+               stores, SJ / SC journal resume and a step crash).
+19. fleet    -- FleetRouter over two SERVING_CG replicas sharing the card
+               (`phase_fleet`): (FA) sticky placement on both replicas'
+               background schedulers, route counts, latency p50 / p99,
+               K2-mf / K5 launches; (FK) a replica_kill failover with no
+               ticket lost, x bit-identical to (FA), the victim's
+               journal settled; (FD) drain_replica / restore_replica;
+               (FS) a load spill with its fleet.handoff note.
+20. autotune -- the online autotuner on the JAX tests' mistuned
+               BATCHED_CG at 128^3 (`phase_autotune`): the shadow search
+               promotes within autotune_shadow_budget, the next request
+               takes fewer iterations, a second process on the same
+               hierarchy store serves the tuned config with 0 full
+               setups, an armed shadow_crash fails no ticket.
+21. eigen    -- the eight configs/eigen_configs files verbatim
+               (`phase_eigen`): each eigenvalue against the box's
+               closed-form spectrum (128 x 120 x 112; LOBPCG and
+               INVERSE_FGMRES on smaller boxes), PAGERANK on a seeded
+               10^6-node graph against scipy's float64 PageRank; the
+               iterations, seconds, device ops an iteration and the B1 /
+               B8 launches of each.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -3391,8 +3416,9 @@ def krylov_file_run(torch, amgx, dev, per_path, name, n, fusion=None,
 
 
 def phase_bicgstab(torch, amgx, dev, per_path):
-    """AmgX's stock PBICGSTAB_CLASSICAL_JACOBI (128^3, and 64^3 against
-    its anchor) and PBICGSTAB_NOPREC (128^3) in float32 with
+    """AmgX's stock PBICGSTAB_CLASSICAL_JACOBI (64^3, against its
+    anchor; its 128^3 pair gave its time to phase_eigen) and
+    PBICGSTAB_NOPREC (128^3) in float32 with
     krylov_fusion 1 (the files' default: B6's streamed-dot form twice
     per iteration) and 0 (none; B1 carries the SpMVs), the two routes
     within one iteration of each other; PBICGSTAB_AGGREGATION_W_JACOBI
@@ -3401,8 +3427,7 @@ def phase_bicgstab(torch, amgx, dev, per_path):
     anchored run holds the JAX package's status and iterations +- 2 (at
     max_iters its final residual to 1 %); every run reports the host
     syncs of a warm solve."""
-    for name, n in (("PBICGSTAB_CLASSICAL_JACOBI", 128),
-                    ("PBICGSTAB_CLASSICAL_JACOBI", 64),
+    for name, n in (("PBICGSTAB_CLASSICAL_JACOBI", 64),
                     ("PBICGSTAB_NOPREC", 128)):
         iters = {}
         for fusion in (1, 0):
@@ -4076,8 +4101,10 @@ def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
           f"{name} at {label}: {rel_err} from the plain form")
     ms = time_ms(torch, kern)
     dev_ms, recs = None, 0
-    for _ in range(3):
-        dev_ms, recs = device_ms(torch, kern, per_call)
+    # three profiles of BATCH calls, then shorter ones: a profile of
+    # fewer calls holds fewer records to lose (K3's level 1 lost them)
+    for batch in (BATCH, BATCH, BATCH, 2, 1):
+        dev_ms, recs = device_ms(torch, kern, per_call, batch=batch)
         if dev_ms is not None:
             break
     single_ms = time_ms(torch, single)
@@ -4666,9 +4693,12 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
 # kernels' plain forms) runs it too: the same status, iterations within
 # one, the same level rows. Warm solves in BF16_PAIRS alternating pairs.
 # 48^3: at 64^3 the CPU route's runs were ~60 s of the script, whose
-# later phases need the time.
+# later phases need the time; for the same reason the three paths that
+# ran at 128^3 run at BF16_N^3 (~0.42x the rows) with two pairs, not
+# four.
 BF16_WITNESS = 48
-BF16_PAIRS = 4
+BF16_N = 96
+BF16_PAIRS = 2
 BF16_AGG_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
                     "dia_prolong_smooth_mf_bf16")
 BF16_CLS_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
@@ -4681,13 +4711,13 @@ def bf16_paths(amgx, torch):
     return {
         "agg-fgmres_bf16": (
             lambda: agg_bf16_config(amgx.Config, "agg-fgmres"),
-            lambda: agg_config(amgx.Config, "agg-fgmres"), 128,
+            lambda: agg_config(amgx.Config, "agg-fgmres"), BF16_N,
             torch.float32, BF16_AGG_KERNELS),
         "agg-pcg_bf16": (
             lambda: agg_bf16_config(amgx.Config, "agg-pcg"),
-            lambda: agg_config(amgx.Config, "agg-pcg"), 128,
+            lambda: agg_config(amgx.Config, "agg-pcg"), BF16_N,
             torch.float32, BF16_AGG_KERNELS),
-        "classical_bf16": (cfg(CLASSICAL_BF16), cfg(CLASSICAL), 128,
+        "classical_bf16": (cfg(CLASSICAL_BF16), cfg(CLASSICAL), BF16_N,
                            torch.float64, BF16_CLS_KERNELS),
         "classical_refinement_bf16": (
             cfg(classical_refinement() + ", solve_precision=bfloat16"),
@@ -4729,7 +4759,7 @@ def inner_of(res):
 def phase_bf16_hierarchies(torch, amgx, dev, per_path):
     """The aggregation and classical hierarchies with their AMG cycle in
     bfloat16: the stock FGMRES_ / PCG_AGGREGATION_JACOBI with
-    amg:amg_precision=bfloat16 and CLASSICAL with it at 128^3,
+    amg:amg_precision=bfloat16 and CLASSICAL with it at BF16_N^3,
     CLASSICAL_REFINEMENT with solve_precision=bfloat16 at 64^3. Each:
     success (the classical paths at a true f64 residual <= 1e-8), its
     bf16 kernels launched (B9 and B8 on the CSR levels, B3w / B4w on the
@@ -5674,6 +5704,675 @@ def serving_service(torch, amgx, dev, per_path, store, n, cold_n):
           "journal_resumed": resumed, "quarantined": quarantined})
 
 
+# the eigensolvers (phase_eigen): a 7-pt Poisson box of about the
+# flagship's rows with three distinct sides (a cube's repeated
+# eigenvalues defeat single-vector Krylov), in float32
+EIG_BOX = (128, 120, 112)            # 1,720,320 rows
+PAGERANK_N = 1_000_000
+PAGERANK_SEED = 23
+PAGERANK_DANGLING = 0.05             # share of nodes without out-links
+
+
+def box_eigenvalues(shape):
+    """The spectrum of the gallery's 7-point operator (6 on the
+    diagonal, -1 to each neighbour, Dirichlet boundary) on a box, in
+    ascending order: lambda = sum_d (2 - 2 cos(k_d pi / (n_d + 1)))."""
+    lam = np.zeros(1)
+    for n in shape:
+        per = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+        lam = np.add.outer(per, lam).ravel()
+    return np.sort(lam)
+
+
+def pagerank_graph(n, seed=PAGERANK_SEED, dangling=PAGERANK_DANGLING):
+    """A seeded directed graph on n nodes as (rows, cols) link arrays:
+    out-degrees 1-20, a `dangling` share of nodes with none, targets
+    uniform (repeated links sum into one heavier link)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, 21, n)
+    deg[rng.random(n) < dangling] = 0
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, rows.size)
+    return rows, cols
+
+
+def pagerank_reference(rows, cols, n, damping, tol=1e-13, max_iters=1000,
+                       v=None):
+    """The PageRank vector of the graph in float64 with scipy on the
+    host: the Google-matrix power iteration to an L1 step below `tol`
+    (the same operator as PageRankOperator: out-degree normalisation,
+    dangling nodes and teleport spread uniformly). With `v`, also the
+    L1 residual ||G v - v||_1 of v scaled to sum 1: (pi, residual)."""
+    import scipy.sparse as sp
+    A = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+    deg = np.asarray(A.sum(axis=1)).ravel()
+    Ht = (sp.diags(np.where(deg > 0, 1.0 / np.maximum(deg, 1e-300), 0.0))
+          @ A).T.tocsr()
+    a = damping * (deg == 0) + (1.0 - damping)
+    pi = np.full(n, 1.0 / n)
+    for _ in range(max_iters):
+        y = damping * (Ht @ pi) + (a @ pi) / n
+        y /= y.sum()
+        step = np.abs(y - pi).sum()
+        pi = y
+        if step < tol:
+            break
+    if v is None:
+        return pi
+    v = v / v.sum()
+    return pi, float(np.abs(damping * (Ht @ v) + (a @ v) / n - v).sum())
+
+
+# the fleet (phase_fleet): two SERVING_CG replicas sharing one card
+FLEET_REQUESTS = 12
+FLEET_GAP_S = 0.002          # open-loop spacing, as SV
+FLEET_KILL_REQUESTS = 4      # the kill drill's requests (journaled)
+
+
+def fleet_requests(torch, amgx, dev, n, cold_n, count):
+    """(matrix, rhs) a request, alternating the n^3 and cold_n^3
+    patterns; system i is A + serve_shift(i) I with a rhs from
+    default_rng(SERVE_SEED + 2)."""
+    pats = [amgx.gallery.poisson("7pt", m, m, m, dtype=torch.float32,
+                                 device=dev).init() for m in (n, cold_n)]
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    shifted, out = {}, []
+    for i in range(count):
+        key = (i % 2, i % 3)
+        if key not in shifted:
+            shifted[key] = diag_shifted(torch, pats[i % 2],
+                                        [serve_shift(i)])[0]
+        b = torch.from_numpy(rng.standard_normal(
+            pats[i % 2].num_rows).astype(np.float32)).to(dev)
+        out.append((shifted[key], b))
+    return out
+
+
+def fleet_check_x(label, tickets, xs):
+    check(all(t.done and t.result.converged for t in tickets),
+          f"fleet ({label}): {[(t.done, t.result and t.result.status) for t in tickets]}")
+    same = [bool(t.result.x.equal(x)) for t, x in zip(tickets, xs)]
+    check(all(same), f"fleet ({label}): x bit-identical to the unfaulted "
+          f"run: {same}")
+
+
+def phase_fleet(torch, amgx, dev, per_path, n=SERVE_N, cold_n=SERVE_COLD_N):
+    """FleetRouter over two SERVING_CG replicas on one card (float32,
+    7-pt 128^3 and 130^3: SV's two fingerprints), SERVE_SLOTS slots,
+    SERVE_CHUNK iterations a cycle.
+    (FA) FLEET_REQUESTS open-loop requests FLEET_GAP_S apart on both
+    replicas' background schedulers: every ticket converges, every
+    repeat of a fingerprint routes warm to its home (2 cold, the rest
+    warm, no spill), the two homes differ; route counts, latency p50 /
+    p99, the fleet's K2-mf and K5 launches; then one request a replica
+    driven inline under torch.profiler (device ops, host reads, idle
+    share per ticket iteration). Its x are the unfaulted reference of
+    the drills below.
+    (FK) a journaled fleet (checkpoints every cycle), driven inline:
+    FLEET_KILL_REQUESTS requests, cycles until the victim (request 0's
+    home) has tickets in flight and one more, then replica_kill on it:
+    no ticket lost, x bit-identical to (FA), the victim DOWN, its
+    journal settled (nothing pending), its unfinished tickets requeued
+    on the survivor.
+    (FD) a rolling restart on (FA)'s fleet: drain_replica on request 0's
+    home (its fingerprint spills to the other replica, which builds it
+    cold), then restore_replica (the next request routes warm home
+    again); x bit-identical.
+    (FS) with fleet_spill_depth 1, a second request behind a queued one
+    spills with its fleet.handoff note; x bit-identical."""
+    import shutil
+    import tempfile
+    from amgx_tpu_torch.presets import SERVING_CG
+    from amgx_tpu_torch.resilience import faultinject
+    from amgx_tpu_torch.serving import FleetRouter
+    from amgx_tpu_torch.telemetry import flightrec
+    from amgx_tpu_torch.telemetry import metrics as tm
+    reqs = fleet_requests(torch, amgx, dev, n, cold_n, FLEET_REQUESTS)
+    names = ("amg.setup.full", "amg.resetup.value", "fleet.route.warm",
+             "fleet.route.cold", "fleet.route.spill",
+             "fleet.health.requeued", "fleet.health.adopted",
+             "fleet.health.dead", "fleet.health.down",
+             "fleet.health.drains", "fleet.health.restores")
+    store = tempfile.mkdtemp(prefix=".fleet-", dir=ROOT)
+    try:
+        # (FA)
+        before = {k: tm.get(k) for k in names}
+        fa = FleetRouter.build(serve_cfg(amgx, SERVING_CG, None), 2,
+                               device=dev)
+
+        def serve():
+            fa.start()
+            tickets = []
+            t0 = time.perf_counter()
+            for i, (M, b) in enumerate(reqs):
+                wait = t0 + i * FLEET_GAP_S - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                tickets.append(fa.submit(M, b))
+            fa.drain(timeout_s=600)
+            wall = time.perf_counter() - t0
+            fa.stop()
+            return tickets, wall
+
+        tickets, wall = run_path(amgx, per_path, "fleet", serve)
+        moved = {k: tm.get(k) - before[k] for k in names}
+        errors = sorted({repr(t.error)[:300] for t in tickets
+                         if t.error is not None})
+        check(all(t.done and t.result.converged for t in tickets)
+              and not errors and all(s._thread_error is None
+                                     for s in fa.replicas.values()),
+              f"fleet (FA): {[t.result and t.result.status for t in tickets]}"
+              f", errors {errors}")
+        homes = {}
+        for t in tickets:
+            homes.setdefault(t.fingerprint, t.replica)
+        sticky = all(t.replica == homes[t.fingerprint] for t in tickets)
+        routes = fa.stats()["routes"]
+        tot = {k: sum(c[k] for c in routes.values())
+               for k in ("cold", "warm", "spill")}
+        check(sticky and len(set(homes.values())) == 2
+              and tot == {"cold": 2, "warm": len(reqs) - 2, "spill": 0},
+              f"fleet (FA): homes {homes}, routes {routes}")
+        c = per_path["fleet"]
+        k2 = c["dia_step_mf_multi"] + c["dia_step_multi"]
+        k5 = tail_launches(c)[0]
+        check(k2 > 0 and k5 > 0 and tail_launches(c)[1] == 0,
+              f"fleet (FA): K2 {k2}, K5 {k5} launches, {c}")
+        lat = sorted(t.latency_s for t in tickets)
+        x_ref = [t.result.x for t in tickets]
+        # one request a replica, driven inline under the profiler: device
+        # ops and host reads per iteration of the two tickets together
+        prof_ts = []
+
+        def two():
+            prof_ts.extend(fa.submit(M, b) for M, b in reqs[:2])
+            fa.drain(timeout_s=600)
+
+        prof = batch_profile(torch, two, 1)
+        its = sum(t.result.iterations for t in prof_ts)
+        prof = {"ticket_iterations": its, "wall_s": prof["wall_s"],
+                "device_busy_s": prof["device_busy_s"],
+                "idle_share": prof["idle_share"],
+                "device_ops_per_iteration": prof["device_ops"] / its,
+                "dtoh_per_iteration": prof["dtoh_per_iteration"] / its}
+        emit({"phase": "fleet", "case": "FA", "rows": [n ** 3, cold_n ** 3],
+              "replicas": 2, "requests": len(reqs), "slots": SERVE_SLOTS,
+              "chunk": SERVE_CHUNK, "homes": sorted(homes.values()),
+              "routes": routes, "wall_s": wall,
+              "solves_per_s": len(reqs) / wall,
+              "latency_p50_s": float(np.percentile(lat, 50)),
+              "latency_p99_s": float(np.percentile(lat, 99)),
+              "iterations": [t.result.iterations for t in tickets],
+              "counters": moved, "k2_launches": k2, "k5_launches": k5,
+              "profile": prof, "launches": c})
+        # (FK) kill failover, inline
+        before = {k: tm.get(k) for k in names}
+        kf = FleetRouter.build(serve_cfg(
+            amgx, SERVING_CG, None, f", serving_journal_dir={store}/fk,"
+            " serving_checkpoint_cycles=1"), 2, device=dev)
+        sub = reqs[:FLEET_KILL_REQUESTS]
+        kts = [kf.submit(M, b) for M, b in sub]
+        victim = kts[0].replica
+        on_victim = sum(t.replica == victim for t in kts)
+        # step until the victim's tickets are in flight, then one cycle
+        # more (a checkpoint of their progress)
+        for _ in range(8):
+            kf.step()
+            inflight = sum(1 for t in kts if t.replica == victim
+                           and not t.done and t.admit_t is not None)
+            if inflight:
+                kf.step()
+                break
+        pending = [t for t in kts if t.replica == victim and not t.done]
+        seq0 = flightrec.last_seq()
+        t0 = time.perf_counter()
+        with faultinject.inject("replica_kill", fires=1, target=victim):
+            run_path(amgx, per_path, "fleet_failover",
+                     lambda: kf.drain(timeout_s=600))
+        fk_s = time.perf_counter() - t0
+        fleet_check_x("FK", kts, x_ref)
+        moved = {k: tm.get(k) - before[k] for k in names}
+        hs = kf.health_snapshot()
+        fo = flightrec.events(kind="fleet.failover", since_seq=seq0)
+        check(hs[victim]["down"] and inflight > 0 and pending
+              and all(t.replica != victim for t in pending)
+              and kf.replicas[victim].journal.pending() == []
+              and moved["fleet.health.requeued"] == len(pending)
+              and moved["fleet.health.dead"] == 1 and len(fo) == 1,
+              f"fleet (FK): victim {victim} ({on_victim} tickets, "
+              f"{len(pending)} pending at the kill), health {hs[victim]}, "
+              f"{moved}, "
+              f"failover {fo}")
+        emit({"phase": "fleet", "case": "FK", "victim": victim,
+              "victim_tickets": on_victim, "victim_pending": len(pending),
+              "replicas": [t.replica for t in kts],
+              "iterations": [t.result.iterations for t in kts],
+              "failover": fo[0], "counters": moved, "drain_s": fk_s,
+              "launches": per_path["fleet_failover"]})
+        del kf, kts
+        # (FD) rolling restart on (FA)'s fleet, inline
+        before = {k: tm.get(k) for k in names}
+        home0 = tickets[0].replica
+        queued_moved = fa.drain_replica(home0)
+        dts = [fa.submit(M, b) for M, b in reqs[:2]]
+        fa.drain(timeout_s=600)
+        fleet_check_x("FD drained", dts, x_ref[:2])
+        check(all(t.replica != home0 for t in dts)
+              and dts[0].route == "spill",
+              f"fleet (FD): {[(t.replica, t.route) for t in dts]} with "
+              f"{home0} draining")
+        fa.restore_replica(home0)
+        rt = fa.submit(*reqs[2])
+        fa.drain(timeout_s=600)
+        fleet_check_x("FD restored", [rt], [x_ref[2]])
+        check(rt.replica == home0 and rt.route == "warm",
+              f"fleet (FD): after restore {rt.replica} {rt.route}")
+        # (FS) a load spill
+        fa.spill_depth = 1
+        seq0 = flightrec.last_seq()
+        sts = [fa.submit(*reqs[4]), fa.submit(*reqs[4])]
+        fa.drain(timeout_s=600)
+        fleet_check_x("FS", sts, [x_ref[4]] * 2)
+        ho = flightrec.events(kind="fleet.handoff", since_seq=seq0)
+        check([t.route for t in sts] == ["warm", "spill"] and len(ho) == 1
+              and ho[0]["reason"] == "overload",
+              f"fleet (FS): routes {[t.route for t in sts]}, handoffs {ho}")
+        moved = {k: tm.get(k) - before[k] for k in names}
+        emit({"phase": "fleet", "case": "FD+FS", "drained": home0,
+              "queued_moved": queued_moved,
+              "drained_routes": [(t.replica, t.route) for t in dts],
+              "restored_route": [rt.replica, rt.route],
+              "spill": [(t.replica, t.route) for t in sts],
+              "handoff": ho[0], "counters": moved,
+              "health": fa.health_snapshot()})
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+# the autotuner (phase_autotune): the JAX tests' mistuned BATCHED_CG
+# (tests/test_autotune.py: an overdamped BLOCK_JACOBI smoother) at 128^3
+AUTOTUNE_N = 128
+AUTOTUNE_SEED = 29
+AUTOTUNE_MISTUNED = (", amg:smoother(sm2)=BLOCK_JACOBI, sm2:max_iters=1,"
+                     " sm2:relaxation_factor=0.15,"
+                     " serving_bucket_slots=2, serving_chunk_iters=8,"
+                     " autotune=1, autotune_hot_requests=4,"
+                     " autotune_hot_exec_share=0.0")
+AUTOTUNE_BUDGET = 6          # autotune_shadow_budget's default
+
+
+def autotune_cfg(amgx, store):
+    from amgx_tpu_torch.presets import BATCHED_CG
+    return amgx.Config.from_string(
+        BATCHED_CG + AUTOTUNE_MISTUNED + (
+            f", serving_hierarchy_dir={store}/hier,"
+            f" serving_journal_dir={store}/journal" if store else ""))
+
+
+def autotune_inputs(torch, amgx, dev, n):
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=torch.float32,
+                             device=dev).init()
+    rng = np.random.default_rng(AUTOTUNE_SEED)
+    bs = [torch.from_numpy(rng.standard_normal(n ** 3).astype(
+        np.float32)).to(dev) for _ in range(8)]
+    return A, bs
+
+
+def autotune_restart(argv):
+    """The second autotune process: a new service on the first one's
+    stores serves request 5 once. Prints one JSON line, writes x."""
+    import torch
+    import amgx_tpu_torch as amgx
+    from amgx_tpu_torch.serving import SolveService
+    from amgx_tpu_torch.telemetry import metrics as tm
+    store, out, n = argv[0], argv[1], int(argv[2])
+    dev = torch.device(argv[3])
+    A, bs = autotune_inputs(torch, amgx, dev, n)
+    names = ("amg.setup.full", "amg.setup.restored",
+             "autotune.overlay.restored", "autotune.overlay.applied")
+    before = {k: tm.get(k) for k in names}
+    svc = SolveService(autotune_cfg(amgx, store), device=dev)
+    t0 = time.perf_counter()
+    t = svc.submit(A, bs[5])
+    svc.drain(timeout_s=600)
+    first_s = time.perf_counter() - t0
+    np.save(out, t.result.x.cpu().numpy())
+    rec = next(iter(svc.stats()["autotune"]["fingerprints"].values()))
+    print(json.dumps({
+        "counters": {k: tm.get(k) - before[k] for k in names},
+        "status": t.result.status, "iterations": t.result.iterations,
+        "first_request_s": first_s, "tuner": rec}), flush=True)
+    return 0
+
+
+def phase_autotune(torch, amgx, dev, per_path, n=AUTOTUNE_N):
+    """The online autotuner on the JAX tests' mistuned config: BATCHED_CG
+    with an overdamped BLOCK_JACOBI (relaxation 0.15), 7-pt n^3 float32,
+    autotune=1 (hot after 4 requests), hierarchy store and journal.
+    Five requests make the fingerprint hot (drain quiesces the tuner:
+    no shadow runs there); idle scheduler cycles then run the search --
+    the probe baseline and the candidates, each a setup and two solves
+    on the card (the wall of the warm second one, read after
+    torch.cuda.synchronize) -- and promote within the shadow budget;
+    the next request builds with the overlay and takes fewer iterations
+    than before (a second one profiled: device ops, host reads, idle
+    share an iteration). A second process on the same stores serves that request
+    from its first one with 0 full setups, the overlay restored from the
+    hierarchy store, x bit-identical. Then a fresh tuned service with an
+    armed shadow_crash: the shadow error is counted, every ticket
+    completes as it would without it."""
+    import shutil
+    import tempfile
+    from amgx_tpu_torch.resilience import faultinject
+    from amgx_tpu_torch.serving import SolveService
+    from amgx_tpu_torch.telemetry import flightrec
+    from amgx_tpu_torch.telemetry import metrics as tm
+    A, bs = autotune_inputs(torch, amgx, dev, n)
+    names = ("autotune.hot", "autotune.shadow.runs", "autotune.shadow.errors",
+             "autotune.candidates", "autotune.promotions",
+             "autotune.overlay.applied", "amg.setup.full")
+    store = tempfile.mkdtemp(prefix=".autotune-", dir=ROOT)
+    try:
+        before = {k: tm.get(k) for k in names}
+        svc = SolveService(autotune_cfg(amgx, store), device=dev)
+
+        def heat():
+            tix = [svc.submit(A, b) for b in bs[:5]]
+            svc.drain(timeout_s=600)
+            return tix
+
+        tix, heat_s = timed(torch, lambda: run_path(
+            amgx, per_path, "autotune_serve", heat))
+        pre = [t.result.iterations for t in tix]
+        check(all(t.done for t in tix)
+              and tm.get("autotune.shadow.runs")
+              == before["autotune.shadow.runs"],
+              f"autotune: heat {[t.result.status for t in tix]}, shadows "
+              f"during drain")
+
+        def search():
+            for step in range(1, 17):
+                svc.step()
+                if svc.stats()["autotune"]["promoted"]:
+                    return step
+            return None
+
+        steps, search_s = timed(torch, lambda: run_path(
+            amgx, per_path, "autotune_shadow", search))
+        snap = svc.stats()["autotune"]
+        rec = next(iter(snap["fingerprints"].values()))
+        shadows = tm.get("autotune.shadow.runs") \
+            - before["autotune.shadow.runs"]
+        check(snap["promoted"] == 1 and steps is not None
+              and shadows <= AUTOTUNE_BUDGET,
+              f"autotune: no promotion in {steps} steps, {shadows} "
+              f"shadows: {rec}")
+        trail = [e for e in flightrec.events()
+                 if e["kind"] in ("autotune.shadow", "autotune.promote")]
+
+        def tuned():
+            t = svc.submit(A, bs[5])
+            svc.drain(timeout_s=600)
+            return t
+
+        t1, tuned_s = timed(torch, lambda: run_path(
+            amgx, per_path, "autotune_tuned", tuned))
+        check(t1.result.converged and t1.result.iterations < min(pre),
+              f"autotune: tuned {t1.result.status} in "
+              f"{t1.result.iterations}, before {pre}")
+        # a second tuned request under the profiler (its bucket warm)
+        t2 = []
+
+        def tuned2():
+            t2.append(svc.submit(A, bs[7]))
+            svc.drain(timeout_s=600)
+
+        prof = batch_profile(torch, tuned2, 1)
+        its = t2[0].result.iterations
+        prof.update(iterations=its,
+                    device_ops_per_iteration=prof["device_ops"] / its,
+                    dtoh_per_iteration=prof["dtoh_per_iteration"] / its)
+        moved = {k: tm.get(k) - before[k] for k in names}
+        emit({"phase": "autotune", "case": "promote", "rows": n ** 3,
+              "iterations_before": pre,
+              "statuses_before": [t.result.status for t in tix],
+              "iterations_tuned": t1.result.iterations,
+              "status_tuned": t1.result.status, "search_steps": steps,
+              "shadow_runs": shadows, "tuner": rec,
+              "shadow_trail": trail[-(shadows + 1):],
+              "heat_s": heat_s, "search_s": search_s, "tuned_s": tuned_s,
+              "tuned_profile": prof, "counters": moved,
+              "launches": {p: per_path[p] for p in (
+                  "autotune_serve", "autotune_shadow", "autotune_tuned")}})
+        x_path = os.path.join(store, "restart_x.npy")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--autotune-restart",
+             store, x_path, str(n), str(dev)],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"autotune restart process: {proc.stderr[-2000:]}")
+        sr = json.loads(proc.stdout.strip().splitlines()[-1])
+        x_sr = torch.from_numpy(np.load(x_path)).to(dev)
+        check(sr["counters"]["amg.setup.full"] == 0
+              and sr["counters"]["autotune.overlay.restored"] == 1
+              and sr["iterations"] == t1.result.iterations
+              and torch.equal(x_sr, t1.result.x),
+              f"autotune restart: {sr}, x equal "
+              f"{torch.equal(x_sr, t1.result.x)}")
+        emit({"phase": "autotune", "case": "restart", **sr})
+        del svc, tix, t1
+        torch.cuda.empty_cache()
+        # shadow_crash on a fresh tuned service
+        err0 = tm.get("autotune.shadow.errors")
+        svc = SolveService(autotune_cfg(amgx, None), device=dev)
+        tix = [svc.submit(A, b) for b in bs[:5]]
+        svc.drain(timeout_s=600)
+        with faultinject.inject("shadow_crash", fires=1):
+            svc.step()
+        late = svc.submit(A, bs[6])
+        svc.drain(timeout_s=600)
+        errors = tm.get("autotune.shadow.errors") - err0
+        crec = next(iter(svc.stats()["autotune"]["fingerprints"].values()))
+        check(errors == 1 and crec["errors"] == 1
+              and all(t.done and t.error is None for t in tix + [late])
+              and [t.result.iterations for t in tix] == pre,
+              f"autotune shadow_crash: {errors} errors, {crec}, tickets "
+              f"{[(t.result.status, t.result.iterations) for t in tix]}")
+        emit({"phase": "autotune", "case": "shadow_crash",
+              "shadow_errors": errors, "tuner": crec,
+              "late_iterations": late.result.iterations,
+              "late_status": late.result.status})
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+# the eigensolvers (phase_eigen): the stock files, verbatim, in order
+# Two of them stop, verbatim, short of eig_tolerance against the
+# closed-form top of a 1.72 M-row box, as their algorithms must (the JAX
+# package's are the same): ARNOLDI is one 20-step factorization with no
+# restart (not converged), and SUBSPACE_ITERATION's residual test at
+# 1e-2 passes on Ritz pairs of the dense cluster just below the top (a
+# residual bounds the distance to SOME eigenvalue). Both are held to
+# the bounds every run meets (EIG_NOT_AT_TOLERANCE); the rest also to
+# eig_tolerance.
+EIG_NOT_AT_TOLERANCE = ("ARNOLDI", "SUBSPACE_ITERATION")
+EIG_FILES = ("POWER_ITERATION", "SUBSPACE_ITERATION", "LANCZOS", "ARNOLDI",
+             "JACOBI_DAVIDSON", "LOBPCG", "INVERSE_FGMRES", "PAGERANK")
+# the two with a nested solve at every outer step run on smaller boxes
+# (three distinct sides still), set by the script's 1200 s limit:
+# INVERSE_FGMRES applies 100 FGMRES iterations of the aggregation +
+# MULTICOLOR_DILU cycle a step, LOBPCG 100 V-cycles of the default
+# scope's CLASSICAL AMG a step, both launch-bound; and LOBPCG's
+# iterations grow with the box, its preconditioner (an approximate
+# inverse) damping the very components the largest eigenpair needs
+# (1,000 iterations without converging at 24 x 20 x 16; 206 at
+# 12 x 10 x 9, as the JAX package's float64 run there; 63 at 6 x 5 x 4,
+# as its float32 and float64 runs). PERF.md has the times
+EIG_CUT_BOX = {"LOBPCG": (6, 5, 4), "INVERSE_FGMRES": (6, 5, 4)}
+# the profiled iterations (eigen_profile): INVERSE_FGMRES launches
+# ~6 x 10^4 kernels an iteration at 8 x 7 x 6, and the profiler's
+# records of a dozen take minutes to gather
+EIG_PROFILE = {"INVERSE_FGMRES": (0, 1)}
+
+
+def eigen_profile(torch, es, iterations=(2, 12)):
+    """Device ops and device->host copies per iteration of an eigensolve
+    under torch.profiler: two short solves of `iterations` (eig_max_iters
+    cut, nothing else), the difference over the extra iterations (the
+    set-up and finalize ops cancel); and the idle share of the longer
+    solve (under the profiler's own host cost). Every stock file checks
+    convergence each iteration, one host read, so a pair reading fewer
+    copies than iterations lost records: it is taken again, up to three
+    times, then reported as None."""
+    for _ in range(3):
+        row = _eigen_profile(torch, es, iterations)
+        if row["dtoh_per_iteration"] >= 1.0:
+            return row
+    return {k: None for k in row}
+
+
+def _eigen_profile(torch, es, iterations):
+    from torch.profiler import ProfilerActivity, profile
+    full = es.max_iters
+    counts = []
+    try:
+        for it in iterations:
+            es.max_iters = it
+            es.solve()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = es.solve()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ops = dtoh = 0
+            busy = 0.0
+            for ev in prof.events():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                busy += ev.time_range.elapsed_us()
+                if "Memcpy DtoH" in ev.name:
+                    dtoh += 1
+                elif not ev.name.startswith(("Memcpy", "Memset")):
+                    ops += 1
+            counts.append((res.iterations, ops, dtoh, wall, busy * 1e-6))
+    finally:
+        es.max_iters = full
+    (i0, o0, d0, w0, b0), (i1, o1, d1, w1, b1) = counts
+    di = max(i1 - i0, 1)
+    return {"device_ops_per_iteration": (o1 - o0) / di,
+            "dtoh_per_iteration": (d1 - d0) / di,
+            "profiled_idle_share": 1.0 - b1 / w1}
+
+
+def phase_eigen(torch, amgx, dev, per_path):
+    """The eight configs/eigen_configs files, verbatim, on the card in
+    float32. POWER_ITERATION, SUBSPACE_ITERATION, LANCZOS, ARNOLDI and
+    JACOBI_DAVIDSON on the 7-pt Poisson EIG_BOX (three distinct sides);
+    LOBPCG and INVERSE_FGMRES on EIG_CUT_BOX. Each eigenvalue is held to
+    the box's closed-form Dirichlet spectrum (`box_eigenvalues`): every
+    returned value within its own residual (+ float32 rounding) of an
+    exact eigenvalue (a symmetric operator's bound), none past the exact
+    value it approximates (interlacing; not INVERSE_FGMRES, whose
+    operator is an approximate inverse), and, but for
+    EIG_NOT_AT_TOLERANCE, converged within eig_tolerance (relative) of
+    the wanted end of the spectrum.
+    PAGERANK on a seeded directed graph of PAGERANK_N nodes (out-degrees
+    1-20, PAGERANK_DANGLING of them with none): eigenvalue 1 to
+    eig_tolerance, and the vector within eig_tolerance (L1) of scipy's
+    float64 PageRank and within the bound its own L1 residual gives
+    (||G v - v||_1 / (1 - damping)). Each: iterations, seconds, the device ops and host reads
+    an iteration (`eigen_profile`) and the B1 / B8 launches."""
+    from amgx_tpu_torch.eigen import create_eigensolver
+    boxes = {}
+    for name in EIG_FILES:
+        cfg = amgx.Config.from_file(
+            os.path.join(ROOT, "configs", "eigen_configs", name))
+        tol = float(cfg.get("eig_tolerance", "default"))
+        if name == "PAGERANK":
+            rows, cols = pagerank_graph(PAGERANK_N)
+            M = amgx.CsrMatrix.from_coo(
+                torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev),
+                torch.ones(rows.size, dtype=torch.float32, device=dev),
+                PAGERANK_N, PAGERANK_N)
+            box = None
+        else:
+            box = EIG_CUT_BOX.get(name, EIG_BOX)
+            if box not in boxes:
+                boxes[box] = amgx.gallery.poisson(
+                    "7pt", *box, dtype=torch.float32, device=dev).init()
+            M = boxes[box]
+
+        def run():
+            es = create_eigensolver(cfg, device=dev)
+            es.setup(M)
+            return es, es.solve()
+
+        (es, res), secs = timed(torch, lambda: run_path(
+            amgx, per_path, f"eigen_{name}", run))
+        c = per_path[f"eigen_{name}"]
+        lam = np.real(np.asarray(res.eigenvalues, dtype=np.float64))
+        row = {"phase": "eigen", "config": name, "rows": M.num_rows,
+               "box": box, "iterations": res.iterations,
+               "converged": res.converged, "eigenvalues": lam.tolist(),
+               "residuals": np.asarray(res.residuals).tolist(),
+               "tolerance": tol, "seconds": secs,
+               "setup_s": res.setup_time, "solve_s": res.solve_time,
+               "solve_s_per_iteration": res.solve_time
+               / max(res.iterations, 1),
+               "b1_launches": c["dia_spmv"], "b8_launches": c["csr_spmv"],
+               "launches": {k: v for k, v in c.items() if v}}
+        if name != "ARNOLDI":
+            row.update(eigen_profile(torch, es, EIG_PROFILE.get(
+                name, (2, 12))))
+        if name == "PAGERANK":
+            v = res.eigenvectors[:, 0].double().cpu().numpy()
+            pi, r1 = pagerank_reference(rows, cols, PAGERANK_N,
+                                        es.damping, v=v)
+            l1 = float(np.abs(v / v.sum() - pi).sum())
+            # the Google matrix contracts by the damping factor in L1:
+            # ||v - pi||_1 <= ||G v - v||_1 / (1 - damping)
+            bound = r1 / (1.0 - es.damping) + 1e-6
+            row.update(l1_to_reference=l1, l1_residual=r1, l1_bound=bound)
+            check(res.converged and abs(lam[0] - 1.0) <= tol
+                  and l1 <= bound and l1 <= tol
+                  and c["csr_spmv"] >= res.iterations,
+                  f"eigen PAGERANK: {row}")
+        else:
+            exact = box_eigenvalues(box)
+            k = lam.size
+            want = exact[:k] if es.which == "smallest" \
+                else exact[::-1][:k]
+            near = np.array([np.min(np.abs(exact - x)) for x in lam])
+            resid = np.asarray(res.residuals, dtype=np.float64)
+            if name == "INVERSE_FGMRES":
+                # the residual is the inverse operator's (eigenvalue
+                # 1 / lambda): it bounds lambda to resid x lambda^2
+                resid = resid * lam ** 2
+            slack = 1e-5 * np.abs(lam)          # float32 rounding
+            rel = np.abs(np.sort(lam) - np.sort(want)) / np.abs(np.sort(want))
+            # Rayleigh-Ritz values never pass the exact ones they
+            # approximate (Cauchy interlacing): the i-th largest at most
+            # the box's i-th largest, the smallest at least its smallest
+            sign = 1.0 if es.which == "smallest" else -1.0
+            order = np.sort(sign * lam) * sign
+            inter = bool(np.all(sign * (order - want) >= -slack))
+            row.update(exact=want.tolist(), rel_err=rel.tolist(),
+                       nearest_exact_dist=near.tolist(), interlaced=inter,
+                       meets_tolerance=bool(res.converged
+                                            and np.all(rel <= tol)))
+            spmv = c["dia_spmv"] + c["csr_spmv"]
+            check(np.all(near <= resid + slack) and spmv > 0
+                  and (inter or name == "INVERSE_FGMRES"),
+                  f"eigen {name}: eigenvalues off the spectrum by more "
+                  f"than their residuals, or past the exact ones: {row}")
+            if name not in EIG_NOT_AT_TOLERANCE:
+                check(row["meets_tolerance"], f"eigen {name}: {row}")
+        emit(row)
+        del es, res
+        torch.cuda.empty_cache()
+
+
 def _status(res, s):
     from amgx_tpu_torch.resilience.status import status_string
     return status_string(int(res.status[s]))
@@ -5742,6 +6441,9 @@ def main():
     phase_batch(torch, amgx, dev, per_path, summary)
     phase_resilience(torch, amgx, dev, per_path)
     phase_serving(torch, amgx, dev, per_path, summary)
+    phase_fleet(torch, amgx, dev, per_path)
+    phase_autotune(torch, amgx, dev, per_path)
+    phase_eigen(torch, amgx, dev, per_path)
 
     kernels = []
     for name, row in summary.items():
@@ -5788,4 +6490,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serving-restart"]:
         sys.exit(serving_restart(sys.argv[2:]))
+    if sys.argv[1:2] == ["--autotune-restart"]:
+        sys.exit(autotune_restart(sys.argv[2:]))
     sys.exit(main())

@@ -115,3 +115,93 @@ def test_builder_thread_builds_other_sizes_while_a_bucket_steps(card):
         ref = alone.submit(hot, b)
         alone.drain(timeout_s=300)
         assert torch.equal(ref.result.x, t.result.x)
+
+
+def test_concurrent_launches_all_counted(card):
+    """Two threads launch B1 at once (two fleet replicas on one card):
+    every launch is counted, and the library is loaded once."""
+    import threading
+    from amgx_tpu_torch.ops import cuda_build
+    from amgx_tpu_torch.ops.spmv import spmv
+    A = _poisson(24, card)
+    x = _rhs(24 ** 3, 1, 3, card)[0]
+    libs, errors = [], []
+    n0 = pt.kernel_launches()["dia_spmv"]
+
+    def work():
+        try:
+            libs.append(cuda_build.library("dia.cu"))
+            for _ in range(500):
+                spmv(A, x)
+        except Exception as e:          # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors
+    assert pt.kernel_launches()["dia_spmv"] - n0 == 1000
+    assert libs[0] is libs[1]
+
+
+def test_fleet_background_replicas_match_inline(card):
+    """Two SERVING_CG replicas on one card, each with its own builder and
+    scheduler threads: every ticket converges with the bits of the same
+    requests served by an inline-driven fleet."""
+    from amgx_tpu_torch.serving import FleetRouter
+    cfg = pt.Config.from_string(
+        SERVING_CG + ", serving_bucket_slots=2, serving_chunk_iters=2")
+    mats = [_poisson(16, card), _poisson(18, card)]
+    reqs = [(mats[i % 2], _rhs(mats[i % 2].num_rows, 1, i, card)[0])
+            for i in range(8)]
+    runs = []
+    for background in (True, False):
+        fleet = FleetRouter.build(cfg, 2, device=card)
+        if background:
+            fleet.start()
+        ts = [fleet.submit(M, b) for M, b in reqs]
+        fleet.drain(timeout_s=300)
+        fleet.stop()
+        assert all(t.done and t.result.converged and t.error is None
+                   for t in ts)
+        runs.append([t.result.x for t in ts])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_eigensolvers_on_card_match_cpu(card):
+    """LANCZOS and POWER_ITERATION on a box with three distinct sides:
+    the card's float32 run takes the CPU's iterations and eigenvalues
+    (to float32 rounding), through B1."""
+    from amgx_tpu_torch.eigen import create_eigensolver
+    for cfg in ("eig_solver=LANCZOS, eig_wanted_count=2, "
+                "eig_subspace_size=30, eig_tolerance=1e-4",
+                "eig_solver=POWER_ITERATION, eig_max_iters=3000, "
+                "eig_tolerance=1e-4"):
+        res = {}
+        for dev in (card, torch.device("cpu")):
+            A = pt.gallery.poisson("7pt", 12, 10, 9, dtype=torch.float32,
+                                   device=dev).init()
+            es = create_eigensolver(pt.Config.from_string(cfg), device=dev)
+            es.setup(A)
+            n0 = pt.kernel_launches()["dia_spmv"]
+            res[dev.type] = (es.solve(),
+                             pt.kernel_launches()["dia_spmv"] - n0)
+        (rc, launches), (rh, _) = res["cuda"], res["cpu"]
+        assert rc.converged and rh.converged and launches > 0
+        assert abs(rc.iterations - rh.iterations) <= 1
+        np.testing.assert_allclose(rc.eigenvalues, rh.eigenvalues,
+                                   rtol=1e-5)
+
+
+def test_shadow_clock_waits_for_the_card(card):
+    """The autotuner's shadow clock reads the host clock only after the
+    card's queued work finished."""
+    from amgx_tpu_torch.serving.autotune import _shadow_clock
+    a = torch.randn(4096, 4096, device=card)
+    for _ in range(8):
+        a = a @ a / 64.0
+    _shadow_clock(card)
+    assert torch.cuda.current_stream(card).query()

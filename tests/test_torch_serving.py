@@ -293,8 +293,11 @@ def test_builder_thread_and_rebuild_land_on_the_service_device(poisson16):
 
 
 def test_autotune_is_refused():
-    with pytest.raises(BadParametersError, match="Queue A item 11"):
-        _svc(extra="autotune=1")
+    """autotune=1 is no longer refused: it builds the service's
+    ConfigAutotuner; autotune=0 builds none."""
+    from amgx_tpu_torch.serving import ConfigAutotuner
+    assert isinstance(_svc(extra="autotune=1")._tuner, ConfigAutotuner)
+    assert _svc()._tuner is None
 
 
 # ---------------------------------------------------------------------------
@@ -825,8 +828,8 @@ def test_serving_metrics_declared():
                  "amg.setup.restored", "resilience.config_fallback"):
         assert name in snap
     assert "serving.exec_s" in metrics.HISTOGRAMS
-    # the serving names have their sites now; the fleet's and the
-    # autotuner's wait for the next part of item 11
+    # the serving names have their sites, and so have the fleet's and
+    # the autotuner's
     assert metrics.waiting("serving.requests") is None
-    assert metrics.waiting("fleet.route.warm") is not None
-    assert metrics.waiting("autotune.promotions") is not None
+    assert metrics.waiting("fleet.route.warm") is None
+    assert metrics.waiting("autotune.promotions") is None
