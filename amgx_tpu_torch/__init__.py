@@ -20,10 +20,14 @@ helpers: `profiling`, `memory_info`, `determinism`, `thread_manager`
 (`Solver.setup_async`) and `Resources`. Eigensolvers:
 `create_eigensolver` (`eigen`, the eig_* parameters and
 configs/eigen_configs). Serving: `amgx_tpu_torch.serving` (the service,
-the fleet, the autotuner).
+the fleet, the autotuner). System files: `io` (MatrixMarket and binary
+`read_system` / `write_system`, complex conversion, partitioned reads).
+The AmgX C API: `amgx_tpu_torch.capi` (every AMGX_* call, its handles
+and return codes), on the card unless its resources say
+platform="cpu".
 """
 from . import amg, scalers, solvers  # noqa: F401  (register the solver tree)
-from . import batch, eigen, gallery, presets
+from . import batch, eigen, gallery, io, modes, presets  # noqa: F401
 from . import (determinism, memory_info, profiling, resilience,  # noqa: F401
                telemetry, thread_manager)
 from .config import Config
@@ -36,12 +40,27 @@ from .resilience.status import SolveStatus
 from .eigen import create_eigensolver
 from .solvers.base import create_solver
 
-__all__ = ["Config", "CsrMatrix", "Resources", "SolveStatus", "batch",
-           "create_eigensolver", "create_solver", "determinism", "eigen",
-           "gallery", "kernel_launches",
-           "memory_info", "plan_counts", "presets", "profiling",
-           "register_print_callback", "reset_kernel_launches", "resilience",
-           "telemetry", "thread_manager"]
+__all__ = ["API_VERSION", "Config", "CsrMatrix", "Resources", "SolveStatus",
+           "batch", "create_eigensolver", "create_solver", "determinism",
+           "eigen", "finalize", "gallery", "initialize", "io",
+           "kernel_launches", "memory_info", "modes", "plan_counts",
+           "presets", "profiling", "register_print_callback",
+           "reset_kernel_launches", "resilience", "telemetry",
+           "thread_manager"]
+
+__version__ = "0.1.0"
+# API-parity version info (AMGX_get_api_version)
+API_VERSION = (2, 0)
+
+def initialize():
+    """AMGX_initialize analog (src/amgx_c.cu:2360). Every pluggable
+    component (solvers, levels, eigensolvers, scalers, the IO formats)
+    registers when the package is imported, so there is nothing left to
+    do; kept for the JAX package's call sequence."""
+
+
+def finalize():
+    """AMGX_finalize analog: nothing to release (see `initialize`)."""
 
 
 def kernel_launches() -> dict:

@@ -63,7 +63,9 @@ Galerkin product (resilience/faultinject.py `perturb_galerkin`).
 
 `print_grid_stats` (read in the AMG's own scope) prints the grid table
 after each setup through output.py (`grid_stats`, rendered from
-`grid_stats_dict`, the JAX package's text).
+`grid_stats_dict`, the JAX package's text); `convergence_analysis=k`
+then prints the per-level error-propagation report of amg/analysis.py
+for the first k levels.
 """
 from __future__ import annotations
 
@@ -221,6 +223,8 @@ class AMG:
         self.matrix_free = str(cfg.get("matrix_free", scope))
         self.precision_policy = resolve_precision(cfg, scope)
         self.print_grid_stats = bool(cfg.get("print_grid_stats", scope))
+        self.convergence_analysis = int(cfg.get("convergence_analysis",
+                                                scope))
         self.diagnostics = bool(int(cfg.get("diagnostics", scope)))
         self.levels: List[AMGLevel] = []
         self.coarse_solver = None
@@ -427,6 +431,12 @@ class AMG:
         if self.print_grid_stats:
             from ..output import amgx_printf
             amgx_printf(self.grid_stats())
+        if self.convergence_analysis > 0 and self.levels:
+            # convergence_analysis.cu: an instrumented error-propagation
+            # cycle over the first `convergence_analysis` levels
+            from ..output import amgx_printf
+            from .analysis import convergence_analysis
+            amgx_printf(convergence_analysis(self) + "\n")
 
     # -- solve -------------------------------------------------------------
     def solve_data(self) -> Dict[str, Any]:

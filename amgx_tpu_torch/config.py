@@ -50,6 +50,17 @@ def register_parameter(name, type_, doc, default, allowed=None,
                                 min_value, max_value)
 
 
+def describe_parameters() -> str:
+    """AMGX_write_parameters_description analog: one line per
+    registered parameter, by name."""
+    lines = []
+    for name in sorted(_REGISTRY):
+        p = _REGISTRY[name]
+        lines.append(f"{name} ({p.type.__name__}, default={p.default!r}): "
+                     f"{p.doc}")
+    return "\n".join(lines)
+
+
 BOOL01 = (0, 1)
 
 # Solver-role parameters whose value names a child solver and whose JSON

@@ -1,6 +1,7 @@
 """Error codes and exceptions (from amgx_tpu/errors.py, copied so the
-port imports nothing of the JAX package): AMGX_RC return codes plus the
-exception types raised by the config and the factories."""
+port imports nothing of the JAX package): AMGX_RC return codes, their
+strings (AMGX_get_error_string) and the exception types raised by the
+config, the factories, the readers and the C API."""
 from __future__ import annotations
 
 import enum
@@ -24,6 +25,28 @@ class RC(enum.IntEnum):
     NOT_IMPLEMENTED = 11
     LICENSE_NOT_FOUND = 12
     INTERNAL = 13
+
+
+_RC_STRINGS = {
+    RC.OK: "No error.",
+    RC.BAD_PARAMETERS: "Incorrect parameters for amgx call.",
+    RC.UNKNOWN: "Unknown error.",
+    RC.NOT_SUPPORTED_TARGET: "Unsupported target.",
+    RC.NOT_SUPPORTED_BLOCKSIZE: "Unsupported block size.",
+    RC.CUDA_FAILURE: "Device failure.",
+    RC.IO_ERROR: "I/O error.",
+    RC.BAD_MODE: "Incorrect mode.",
+    RC.CORE: "Error initializing amgx core.",
+    RC.PLUGIN: "Error initializing plugin.",
+    RC.BAD_CONFIGURATION: "Incorrect configuration provided.",
+    RC.NOT_IMPLEMENTED: "Requested feature is not implemented.",
+    RC.LICENSE_NOT_FOUND: "License not found.",
+    RC.INTERNAL: "Internal error.",
+}
+
+
+def get_error_string(rc: RC) -> str:
+    return _RC_STRINGS.get(RC(rc), "Unknown error code.")
 
 
 class AMGXError(Exception):
@@ -56,6 +79,16 @@ class BadConfigurationError(AMGXError):
         super().__init__(message, RC.BAD_CONFIGURATION)
 
 
+class IOError_(AMGXError):
+    def __init__(self, message: str):
+        super().__init__(message, RC.IO_ERROR)
+
+
+class NotImplementedError_(AMGXError):
+    def __init__(self, message: str):
+        super().__init__(message, RC.NOT_IMPLEMENTED)
+
+
 def did_you_mean(name: str, candidates) -> str:
     """A ' (did you mean ...?)' suffix for unknown-key errors, or ''
     when nothing is close. Used by the config registry and the
@@ -69,3 +102,7 @@ def did_you_mean(name: str, candidates) -> str:
     return " (did you mean " + " or ".join(
         repr(m) for m in matches) + "?)"
 
+
+def fatal_error(message: str, rc: RC = RC.INTERNAL):
+    """FatalError analog (include/error.h): raise an AMGXError."""
+    raise AMGXError(message, rc)

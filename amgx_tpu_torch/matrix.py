@@ -17,6 +17,10 @@ view the kernels stream. Differences from the JAX package, by design:
   (`cuda_csr.csr_row_blocks`). No block or external-diagonal matrices
   yet.
 
+`user_colors` / `user_num_colors` hold a coloring that the user attached
+(AMGX_matrix_attach_coloring); `ops/coloring.py` `color_matrix` takes it
+over the configured scheme.
+
 `with_values` swaps the coefficients and keeps the structure tensors
 (AMGX_matrix_replace_coefficients, the input of a structure-reuse
 `resetup`).
@@ -54,6 +58,10 @@ class CsrMatrix:
     dia_vals: Optional[torch.Tensor] = None   # (k, n), contiguous
     csr_lanes: Optional[int] = None    # lanes per row in B9, by init()
     initialized: bool = False
+    # a row coloring attached by the user (AMGX_matrix_attach_coloring):
+    # the multicolor smoothers take it over the configured scheme
+    user_colors: Optional[torch.Tensor] = None    # (n,) int32
+    user_num_colors: Optional[int] = None
 
     DIA_MAX_OFFSETS = 32
     DIA_FILL_RATIO = 3.0
@@ -158,7 +166,7 @@ class CsrMatrix:
         return dataclasses.replace(
             self, row_offsets=mv(self.row_offsets),
             col_indices=mv(self.col_indices), values=mv(self.values),
-            dia_vals=mv(self.dia_vals))
+            dia_vals=mv(self.dia_vals), user_colors=mv(self.user_colors))
 
     def astype(self, dtype) -> "CsrMatrix":
         """Cast the values (and the DIA view) to `dtype`, keeping the

@@ -23,8 +23,8 @@ the JAX package's bit for bit. The per-row maximum and minimum over the
 neighbours are order-free (`scatter_reduce`). Each round's "any row
 uncolored?" is a host read: at most one per color at setup.
 
-A coloring attached by the user (AMGX_matrix_attach_coloring) waits for
-the C API (ROADMAP Queue A item 12): only the computed schemes run.
+A coloring attached by the user (AMGX_matrix_attach_coloring, the
+matrix's `user_colors`) overrides the configured scheme.
 """
 from __future__ import annotations
 
@@ -254,6 +254,11 @@ class SerialGreedyBfsColoring(MatrixColoring):
 
 def color_matrix(A: CsrMatrix, cfg, scope: str = "default") -> Coloring:
     """MatrixColoringFactory entry (src/core.cu:669): the configured
-    `matrix_coloring_scheme`."""
+    `matrix_coloring_scheme`. A user-attached coloring
+    (AMGX_matrix_attach_coloring) overrides it, as the reference's
+    attach does."""
+    if A.user_colors is not None:
+        return Coloring(A.user_colors.to(device=A.device, dtype=torch.int32),
+                        int(A.user_num_colors))
     name = str(cfg.get("matrix_coloring_scheme", scope))
     return registry.matrix_coloring.create(name, cfg, scope).color_matrix(A)

@@ -53,3 +53,5 @@ classical_selectors = Factory("ClassicalSelector")
 interpolators = Factory("Interpolator")
 matrix_coloring = Factory("MatrixColoring")
 scalers = Factory("Scaler")
+matrix_io_readers = Factory("MatrixReader")
+matrix_io_writers = Factory("MatrixWriter")

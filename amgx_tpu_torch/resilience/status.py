@@ -46,6 +46,23 @@ class SolveStatus(enum.IntEnum):
     #                    DEADLINE_EXCEEDED surprise after queueing
 
 
+# AMGX_SOLVE_STATUS codes (include/amgx_c.h) for the C-API surface.
+AMGX_SOLVE_SUCCESS = 0
+AMGX_SOLVE_FAILED = 1
+AMGX_SOLVE_DIVERGED = 2
+AMGX_SOLVE_NOT_CONVERGED = 3
+
+_TO_AMGX = {
+    SolveStatus.CONVERGED: AMGX_SOLVE_SUCCESS,
+    SolveStatus.MAX_ITERS: AMGX_SOLVE_NOT_CONVERGED,
+    SolveStatus.STALLED: AMGX_SOLVE_NOT_CONVERGED,
+    SolveStatus.DIVERGED: AMGX_SOLVE_DIVERGED,
+    SolveStatus.BREAKDOWN: AMGX_SOLVE_FAILED,
+    SolveStatus.NAN_DETECTED: AMGX_SOLVE_FAILED,
+    SolveStatus.DEADLINE_EXCEEDED: AMGX_SOLVE_NOT_CONVERGED,
+    SolveStatus.OVERLOADED: AMGX_SOLVE_NOT_CONVERGED,
+}
+
 _STRINGS = {
     SolveStatus.CONVERGED: "success",
     SolveStatus.MAX_ITERS: "max_iters",
@@ -70,3 +87,8 @@ def coerce(code) -> SolveStatus:
 
 def status_string(code) -> str:
     return _STRINGS[coerce(code)]
+
+
+def to_amgx_status(code) -> int:
+    """SolveStatus -> AMGX_SOLVE_* (the C API's coarser vocabulary)."""
+    return _TO_AMGX[coerce(code)]

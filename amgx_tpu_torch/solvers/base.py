@@ -66,7 +66,7 @@ import torch
 from .. import registry
 from ..config import Config
 from ..device import resolve_device
-from ..errors import BadParametersError
+from ..errors import BadParametersError, NotImplementedError_
 from ..matrix import CsrMatrix
 from ..ops import blas
 from ..ops.spmv import residual as _residual
@@ -342,6 +342,12 @@ class Solver:
 
     def _setup_body(self, A: CsrMatrix, reuse: bool):
         t0 = time.perf_counter()
+        if A.dtype.is_complex:
+            raise NotImplementedError_(
+                f"solver {self.name}: complex arithmetic is not ported to "
+                "amgx_tpu_torch yet (ROADMAP.md Queue A item 15); read the "
+                "system with complex_conversion set to solve its real "
+                "K-formulation")
         A = A.to(self.device)
         if not A.initialized:
             A = A.init()

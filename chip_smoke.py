@@ -72,7 +72,8 @@ Phases, one JSON line each on stdout:
                times on the same level (`f32_ms`).
                Max error with its limit, launches per call, kernel /
                plain / library times per call (CUDA events around BATCH
-               back-to-back calls, median of REPS, after a warm-up), the
+               back-to-back calls, median of REPS, after a warm-up; the
+               plain version PLAIN_BATCH calls, median of PLAIN_REPS), the
                kernel's device time per call under torch.profiler (host
                launch cost left out; a profile holding fewer kernel
                records than launches is taken again, up to three times,
@@ -322,6 +323,26 @@ Phases, one JSON line each on stdout:
                10^6-node graph against scipy's float64 PageRank; the
                iterations, seconds, device ops an iteration and the B1 /
                B8 launches of each.
+22. capi     -- the AmgX C API (amgx_tpu_torch/capi.py, `phase_capi`),
+               every call's RC held to OK and each path to its direct
+               twin: (CA) the amgx_capi.c sequence on FLAGSHIP at 128^3
+               (dDDI): 2 outer / 31 inner, true residual below 1e-10, x
+               bit-identical to create_solver's, the same kernel
+               launches, no added host read in the solve; warm walls
+               against the direct solve's and a profile of each; (CI)
+               the system in binary read back with AMGX_read_system and
+               AMGX_matrix_attach_geometry (x bit-identical to CA's), a
+               32^3 MatrixMarket round trip and examples/matrix.mtx with
+               FGMRES_AGGREGATION; (CT) matvec = spmv's bits,
+               download_all round trip, convergence_analysis=2's report
+               (every ratio below 1), replace_coefficients (D A D) +
+               resetup = the direct resetup; (CB) the batched solve on
+               BATCHED_CG, 8 x 64^3; (CS) the service on SERVING_CG, 4
+               requests at 64^3; (CF) the fleet, 2 replicas, 4 requests;
+               (CE) POWER_ITERATION on 64 x 60 x 56 and PAGERANK on 10^5
+               nodes; (CC) PCG + MULTICOLOR_DILU at 64^3 with a
+               red-black coloring attached by AMGX_matrix_attach_coloring;
+               a block upload refused, with no launch.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -351,6 +372,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 REPS = 25
 BATCH = 10
+# the plain versions (PyTorch op sequences, slower than their kernels by
+# up to 300x) are timed over PLAIN_BATCH calls, median of PLAIN_REPS: at
+# REPS x BATCH they took a fifth of the script's time (PERF.md §6)
+PLAIN_REPS = 5
+PLAIN_BATCH = 2
 PAIRS = 10                  # alternating warm solves per compared pair
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3, data sheet
 PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -2122,7 +2148,7 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
         dev_ms, dev_recs = device_ms(torch, kern, per_call)
         if dev_ms is not None:
             break
-    plain_ms = time_ms(torch, plain)
+    plain_ms = time_ms(torch, plain, reps=PLAIN_REPS, batch=PLAIN_BATCH)
     # a library call is only timed, never used; one that fails fails the run
     lib_ms = None if lib is None else time_ms(torch, lib)
     b_ms, b_by = bound(nbytes, flops)
@@ -3479,38 +3505,23 @@ def mc_forbidden(c, allowed=MC_ALLOWED):
 
 def profile_solve(torch, slv, b, iterations=6):
     """The first `iterations` iterations of a warm solve under
-    torch.profiler (device activity only: a whole solve is ~10^5
-    launches): wall, the device's busy time (kernel and copy durations,
-    one stream), idle share, device ops and device->host copies, each
-    also per iteration."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (`profile_call`; a whole solve is ~10^5 launches):
+    wall, the device's busy time, idle share, device ops and
+    device->host copies, each also per iteration."""
     full = slv.max_iters
     slv.max_iters = iterations
     try:
         slv.solve(b)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = slv.solve(b)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        res, prof = profile_call(torch, lambda: slv.solve(b))
     finally:
         slv.max_iters = full
-    busy_us, ops, dtoh = 0.0, 0, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        busy_us += ev.time_range.elapsed_us()
-        if "Memcpy DtoH" in ev.name:
-            dtoh += 1
-        elif not ev.name.startswith(("Memcpy", "Memset")):
-            ops += 1
     it = max(res.iterations, 1)
-    return {"iterations": res.iterations, "wall_s": wall,
-            "device_busy_s": busy_us * 1e-6,
-            "idle_share": 1.0 - busy_us * 1e-6 / wall, "device_ops": ops,
-            "device_ops_per_iteration": ops / it,
-            "dtoh_per_iteration": dtoh / it}
+    return {"iterations": res.iterations, "wall_s": prof["wall_s"],
+            "device_busy_s": prof["device_busy_s"],
+            "idle_share": prof["idle_share"],
+            "device_ops": prof["device_ops"],
+            "device_ops_per_iteration": prof["device_ops"] / it,
+            "dtoh_per_iteration": prof["dtoh"] / it}
 
 
 def mc_bits(torch, amg):
@@ -4108,7 +4119,7 @@ def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
         if dev_ms is not None:
             break
     single_ms = time_ms(torch, single)
-    plain_ms = time_ms(torch, plain, reps=5, batch=2)
+    plain_ms = time_ms(torch, plain, reps=PLAIN_REPS, batch=PLAIN_BATCH)
     lib_ms = None if lib is None else time_ms(torch, lib)
     b_ms, b_by = bound(nbytes, flops)
     row = {"phase": "kernels_batch", "shape": label, "name": name,
@@ -6373,6 +6384,569 @@ def phase_eigen(torch, amgx, dev, per_path):
         torch.cuda.empty_cache()
 
 
+CAPI_N = 128                   # the flagship's grid through the C API (CA)
+CAPI_SMALL_N = 64              # CB, CS, CF, CC
+CAPI_MM_N = 32                 # the MatrixMarket round trip (CI)
+CAPI_PAIRS = 10                # alternating warm solves, C API / direct
+CAPI_EIG_BOX = (64, 60, 56)    # POWER_ITERATION (CE)
+CAPI_PAGERANK_N = 100_000      # PAGERANK (CE)
+CAPI_DILU = ("solver=PCG, max_iters=200, monitor_residual=1,"
+             " tolerance=1e-6, convergence=RELATIVE_INI, norm=L2,"
+             " preconditioner(p)=MULTICOLOR_DILU, p:max_iters=1")
+
+
+def capi_caller(capi, calls):
+    """call(name, *args): the C API function `name`, its RC held to OK
+    (a failure raises with the call's name and exception text); returns
+    what follows the RC (None, one value or a tuple). `calls` counts the
+    calls by name."""
+    def call(name, *args, **kw):
+        out = getattr(capi, name)(*args, **kw)
+        rc = out if isinstance(out, capi.RC) else out[0]
+        calls[name] = calls.get(name, 0) + 1
+        check(rc == capi.RC.OK, f"C API {name} returned {rc!r}: "
+                                f"{capi.last_error()}")
+        if isinstance(out, capi.RC):
+            return None
+        return out[1] if len(out) == 2 else out[1:]
+    return call
+
+
+def profile_call(torch, fn):
+    """(fn(), its profile): fn() once under torch.profiler (device
+    activity only, one stream): wall, the device's busy time (kernel and
+    copy durations), idle share, device ops, device->host and
+    host->device copies."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, ops, dtoh, htod = 0.0, 0, 0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += ev.time_range.elapsed_us()
+        if "Memcpy DtoH" in ev.name:
+            dtoh += 1
+        elif "Memcpy HtoD" in ev.name:
+            htod += 1
+        elif not ev.name.startswith(("Memcpy", "Memset")):
+            ops += 1
+    return out, {"wall_s": wall, "device_busy_s": busy_us * 1e-6,
+                 "idle_share": 1.0 - busy_us * 1e-6 / wall,
+                 "device_ops": ops, "dtoh": dtoh, "htod": htod}
+
+
+def red_black(shape):
+    """The red-black coloring of a grid's rows (x fastest): (x + y + z)
+    mod 2, a valid coloring of the 7-point stencil."""
+    nx, ny, nz = shape
+    i = np.arange(nx * ny * nz)
+    return ((i % nx + (i // nx) % ny + i // (nx * ny)) % 2).astype(np.int32)
+
+
+def phase_capi(torch, amgx, dev, per_path, printed):
+    """The AmgX C API (amgx_tpu_torch/capi.py) on the card, every call's
+    RC held to OK (`capi_caller`), each path against its direct twin:
+    (CA) the amgx_capi.c sequence on FLAGSHIP at 128^3 in dDDI:
+    AMGX_generate_distributed_poisson_7pt, setup, a zero-guess solve,
+    status, iterations, residual history, download and
+    AMGX_solver_calculate_residual_norm: 2 outer / 31 inner, a true
+    relative residual below 1e-10, x bit-identical to
+    create_solver(FLAGSHIP)'s on the same A and b, every kernel launched
+    as often as in the direct solve; warm walls in alternating pairs (the
+    C API's solve alone and with b's upload and x's download, against
+    the direct solve), a profile of each (device ops, idle share, copies
+    an inner iteration: the C API adds no host read to the solve).
+    (CI) the same system written in binary (io.write_system), read back
+    with AMGX_read_system, AMGX_matrix_attach_geometry, setup and solve:
+    x bit-identical to CA's; a 32^3 MatrixMarket round trip through
+    AMGX_write_system / AMGX_read_system to equal arrays;
+    examples/matrix.mtx with configs/FGMRES_AGGREGATION.json to success.
+    (CT) AMGX_matrix_vector_multiply = spmv bit for bit,
+    AMGX_matrix_download_all round-trips through AMGX_matrix_upload_all,
+    the setup with amg:convergence_analysis=2 prints the per-level report
+    (every ratio below 1), AMGX_matrix_replace_coefficients with D A D
+    values (`scaled_values`) + AMGX_solver_resetup + solve = the direct
+    resetup's iterations and x. (CB) AMGX_vector_upload_batched /
+    AMGX_solver_solve_batched on BATCHED_CG, 8 x 64^3 float32: the
+    direct solve_many's statuses, iterations and x, bit for bit. (CS)
+    AMGX_service_* on SERVING_CG, 4 requests at 64^3: each ticket's x =
+    a direct SolveService's. (CF) AMGX_fleet_* with 2 replicas, 4
+    requests on 64^3 and 64x64x62: each ticket's replica and x = a
+    direct FleetRouter's, AMGX_fleet_health. (CE) AMGX_eigensolver_*:
+    POWER_ITERATION on 64 x 60 x 56 and PAGERANK on 10^5 nodes, the
+    direct eigensolver's eigenvalues and iterations. (CC) PCG +
+    MULTICOLOR_DILU at 64^3 with a red-black coloring attached through
+    AMGX_matrix_attach_coloring = the same coloring set on the
+    CsrMatrix directly: the iterations and x. A block upload returns
+    BAD_PARAMETERS and the setup after it launches nothing."""
+    import tempfile
+    from amgx_tpu_torch import capi
+    from amgx_tpu_torch.eigen import create_eigensolver
+    from amgx_tpu_torch.ops.spmv import residual, spmv
+    from amgx_tpu_torch.presets import BATCHED_CG, FLAGSHIP, SERVING_CG
+    from amgx_tpu_torch.serving import FleetRouter, SolveService
+    calls = {}
+    call = capi_caller(capi, calls)
+    n = CAPI_N
+    rows = n ** 3
+    call("AMGX_initialize")
+    cfg_text = FLAGSHIP + ", store_res_history=1"
+    cfg = call("AMGX_config_create", cfg_text)
+    rs = call("AMGX_resources_create_simple", cfg)
+    A, b, x = (call(f"AMGX_{k}_create", rs, "dDDI")
+               for k in ("matrix", "vector", "vector"))
+    slv = call("AMGX_solver_create", rs, "dDDI", cfg)
+
+    # -- (CA) ----------------------------------------------------------------
+    def ca():
+        call("AMGX_generate_distributed_poisson_7pt", A, b, x, 1, 1, n, n, n)
+        call("AMGX_solver_setup", slv, A)
+        call("AMGX_solver_solve_with_0_initial_guess", slv, b, x)
+    _, ca_s = timed(torch, lambda: run_path(amgx, per_path, "CA", ca))
+    status = call("AMGX_solver_get_status", slv)
+    outer = call("AMGX_solver_get_iterations_number", slv)
+    hist = [call("AMGX_solver_get_iteration_residual", slv, i)
+            for i in range(outer + 1)]
+    x_ca = call("AMGX_vector_download", x)
+    norm = call("AMGX_solver_calculate_residual_norm", slv, A, b, x)
+    inner = int(capi._get(slv).result.extra_stats["inner_iters"])
+    A_ca = capi._get(A).A
+    amgx.reset_kernel_launches()
+    direct = amgx.create_solver(amgx.Config.from_string(cfg_text),
+                                device=dev)
+    A_dir = amgx.gallery.poisson("7pt", n, n, n, device=dev)
+    b_dir = torch.ones(rows, dtype=torch.float64, device=dev)
+    direct.setup(A_dir)
+    r_dir = direct.solve(b_dir)
+    direct_counts = amgx.kernel_launches()
+    x_dir = r_dir.x.cpu().numpy()
+    true_rel = float(torch.linalg.norm(residual(
+        A_ca, torch.from_numpy(x_ca).to(dev), b_dir))
+        / torch.linalg.norm(b_dir))
+    b_host = np.ones(rows)
+
+    def capi_solve():
+        call("AMGX_solver_solve_with_0_initial_guess", slv, b, x)
+
+    def capi_round():
+        call("AMGX_vector_upload", b, rows, 1, b_host)
+        capi_solve()
+        return call("AMGX_vector_download", x)
+
+    turns = {"capi_round": capi_round, "capi_solve": capi_solve,
+             "direct": lambda: direct.solve(b_dir)}
+    walls = {k: [] for k in turns}
+    for i in range(CAPI_PAIRS):
+        for k in (list(turns) if i % 2 == 0 else list(turns)[::-1]):
+            walls[k].append(timed(torch, turns[k])[1])
+    warm = {k: {"median": float(np.median(v)), "all": v}
+            for k, v in walls.items()}
+    # a profile can lose device records (fewer ops than launched): the
+    # fullest of three is kept; host reads are counted apart, by sync
+    # debug mode, which loses none
+    prof, syncs = {}, {}
+    for k, f in turns.items():
+        prof[k] = max((profile_call(torch, f)[1] for _ in range(3)),
+                      key=lambda p: p["device_ops"])
+        prof[k].update(device_ops_per_iteration=prof[k]["device_ops"] / inner,
+                       dtoh_per_iteration=prof[k]["dtoh"] / inner)
+        syncs[k] = count_syncs(torch, f)[1]
+    row = {"phase": "capi", "path": "CA", "rows": rows, "seconds": ca_s,
+           "status": status, "outer_iterations": outer,
+           "inner_iterations": inner,
+           "direct_iterations": [r_dir.iterations,
+                                 int(r_dir.extra_stats["inner_iters"])],
+           "res_history": hist, "residual_norm": norm.tolist(),
+           "true_rel_res": true_rel,
+           "x_bit_identical": bool(np.array_equal(x_ca, x_dir)),
+           "launches": per_path["CA"], "direct_launches": direct_counts,
+           "warm_s": warm, "profile": prof, "host_syncs": syncs,
+           "capi_minus_direct_round_ms":
+               1e3 * (warm["capi_round"]["median"]
+                      - warm["direct"]["median"]),
+           "capi_minus_direct_solve_ms":
+               1e3 * (warm["capi_solve"]["median"]
+                      - warm["direct"]["median"])}
+    emit(row)
+    check(status == 0 and [outer, inner] == [2, 31] and true_rel < 1e-10,
+          f"capi CA: 2 outer / 31 inner to below 1e-10: {row}")
+    check(row["x_bit_identical"] and row["direct_iterations"] == [2, 31],
+          "capi CA: x bit-identical to the direct FLAGSHIP solve")
+    check(per_path["CA"] == direct_counts
+          and all(per_path["CA"][k] > 0 for k in (
+              "dia_spmv", "dia_smooth_restrict_mf", "dia_prolong_smooth_mf",
+              "dia_coarse_tail_mf")),
+          f"capi CA: the direct solve's launches: {per_path['CA']} vs "
+          f"{direct_counts}")
+    check(syncs["capi_solve"] == syncs["direct"],
+          f"capi CA: the C API's solve reads the host as often as the "
+          f"direct one: {syncs}")
+
+    # -- (CI) ----------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.bin")
+
+        def ci():
+            amgx.io.write_system(path, A_ca, b=capi._get(b).v, fmt="binary")
+            Ai, bi, xi = (call(f"AMGX_{k}_create", rs, "dDDI")
+                          for k in ("matrix", "vector", "vector"))
+            call("AMGX_read_system", Ai, bi, xi, path)
+            i = np.arange(rows)
+            call("AMGX_matrix_attach_geometry", Ai, i % n, (i // n) % n,
+                 i // (n * n))
+            si = call("AMGX_solver_create", rs, "dDDI", cfg)
+            call("AMGX_solver_setup", si, Ai)
+            call("AMGX_solver_solve", si, bi, xi)
+            out = call("AMGX_vector_download", xi), os.path.getsize(path)
+            for h, k in ((si, "solver"), (xi, "vector"), (bi, "vector"),
+                         (Ai, "matrix")):
+                call(f"AMGX_{k}_destroy", h)
+            return out
+        (x_ci, size), ci_s = timed(torch, lambda: run_path(
+            amgx, per_path, "CI", ci))
+        mm = os.path.join(tmp, "small.mtx")
+        m = CAPI_MM_N
+        Am, bm, Am2, bm2, xm2 = (
+            call(f"AMGX_{k}_create", rs, "dDDI")
+            for k in ("matrix", "vector", "matrix", "vector", "vector"))
+        call("AMGX_generate_distributed_poisson_7pt", Am, None, None, 1, 1,
+             m, m, m)
+        bvals = np.random.default_rng(7).standard_normal(m ** 3)
+        call("AMGX_vector_upload", bm, m ** 3, 1, bvals)
+        _, mm_write_s = timed(torch, lambda: call(
+            "AMGX_write_system", Am, bm, None, mm))
+        _, mm_read_s = timed(torch, lambda: call(
+            "AMGX_read_system", Am2, bm2, xm2, mm))
+        arrs = [call("AMGX_matrix_download_all", h)[:3] for h in (Am, Am2)]
+        mm_equal = all(np.array_equal(p, q) for p, q in zip(*arrs)) \
+            and np.array_equal(call("AMGX_vector_download", bm2), bvals)
+    cfg_ex = call("AMGX_config_create_from_file",
+                  os.path.join(ROOT, "configs", "FGMRES_AGGREGATION.json"))
+    Ae, be, xe = (call(f"AMGX_{k}_create", rs, "dDDI")
+                  for k in ("matrix", "vector", "vector"))
+    se = call("AMGX_solver_create", rs, "dDDI", cfg_ex)
+    call("AMGX_read_system", Ae, be, xe,
+         os.path.join(ROOT, "examples", "matrix.mtx"))
+    call("AMGX_solver_setup", se, Ae)
+    call("AMGX_solver_solve", se, be, xe)
+    ex = [call("AMGX_solver_get_status", se),
+          call("AMGX_solver_get_iterations_number", se)]
+    row = {"phase": "capi", "path": "CI", "rows": rows, "seconds": ci_s,
+           "binary_bytes": size,
+           "x_bit_identical_to_CA": bool(np.array_equal(x_ci, x_ca)),
+           "launches": per_path["CI"], "mm_rows": m ** 3,
+           "mm_round_trip_equal": mm_equal, "mm_write_s": mm_write_s,
+           "mm_read_s": mm_read_s, "example_status_iterations": ex}
+    emit(row)
+    check(row["x_bit_identical_to_CA"] and mm_equal and ex[0] == 0,
+          f"capi CI: {row}")
+    del Am, bm, Am2, bm2, xm2
+
+    # -- (CT) ----------------------------------------------------------------
+    y = call("AMGX_vector_create", rs, "dDDI")
+    texts = []
+
+    def capture(msg, length):
+        texts.append(msg)
+        printed.append(length)
+    cfg_an = call("AMGX_config_create",
+                  cfg_text + ", amg:convergence_analysis=2")
+    s_an = call("AMGX_solver_create", rs, "dDDI", cfg_an)
+    vals2 = scaled_values(A_ca.row_offsets.cpu(), A_ca.col_indices.cpu(),
+                          A_ca.values.cpu())
+
+    def ct():
+        call("AMGX_matrix_vector_multiply", A, x, y)
+        ro, ci, va = call("AMGX_matrix_download_all", A)[:3]
+        Ar = call("AMGX_matrix_create", rs, "dDDI")
+        call("AMGX_matrix_upload_all", Ar, rows, va.size, 1, 1, ro, ci, va)
+        back = call("AMGX_matrix_download_all", Ar)[:3]
+        call("AMGX_matrix_destroy", Ar)
+        call("AMGX_register_print_callback", capture)
+        try:
+            call("AMGX_solver_setup", s_an, A)
+        finally:
+            call("AMGX_register_print_callback",
+                 lambda msg, length: printed.append(length))
+        call("AMGX_matrix_replace_coefficients", A, rows, va.size, vals2)
+        call("AMGX_solver_resetup", slv, A)
+        call("AMGX_solver_solve_with_0_initial_guess", slv, b, x)
+        return all(np.array_equal(p, q) for p, q in zip((ro, ci, va), back))
+    round_trip, ct_s = timed(torch, lambda: run_path(amgx, per_path, "CT",
+                                                     ct))
+    spmv_bits = bool(torch.equal(capi._get(y).v, spmv(
+        A_ca, torch.from_numpy(x_ca).to(dev))))
+    report = [ln for ln in "".join(texts).splitlines()
+              if ln.split()[:1] and ln.split()[0].isdigit()]
+    ratios = [[float(v) for v in ln.split()[2:6]] for ln in report]
+    res_ct = capi._get(slv).result
+    x_ct = call("AMGX_vector_download", x)
+    direct.resetup(dad_operator(torch, A_dir.init()))
+    r_dr = direct.solve(b_dir)
+    row = {"phase": "capi", "path": "CT", "rows": rows, "seconds": ct_s,
+           "spmv_bit_identical": spmv_bits,
+           "download_all_round_trip": round_trip,
+           "analysis_report": report, "analysis_ratios": ratios,
+           "resetup_iterations": [res_ct.iterations,
+                                  int(res_ct.extra_stats["inner_iters"])],
+           "direct_resetup_iterations": [
+               r_dr.iterations, int(r_dr.extra_stats["inner_iters"])],
+           "resetup_x_bit_identical": bool(np.array_equal(
+               x_ct, r_dr.x.cpu().numpy())),
+           "launches": per_path["CT"]}
+    emit(row)
+    check(spmv_bits and round_trip, f"capi CT: matvec and download: {row}")
+    check(len(ratios) == 2 and all(0 < r < 1 for rr in ratios for r in rr),
+          f"capi CT: the convergence_analysis report, 2 levels, every "
+          f"ratio below 1: {row}")
+    check(res_ct.status == "success" and row["resetup_x_bit_identical"]
+          and row["resetup_iterations"] == row["direct_resetup_iterations"],
+          f"capi CT: replace_coefficients + resetup = the direct "
+          f"resetup: {row}")
+    for h, k in ((s_an, "solver"), (cfg_an, "config"), (slv, "solver"),
+                 (y, "vector"), (x, "vector"), (b, "vector"),
+                 (A, "matrix")):
+        call(f"AMGX_{k}_destroy", h)
+    del direct, A_dir, A_ca, r_dir, r_dr, res_ct
+    torch.cuda.empty_cache()
+
+    # -- (CB) ----------------------------------------------------------------
+    s = CAPI_SMALL_N
+    rng = np.random.default_rng(SERVE_SEED + 5)
+    Bs = rng.standard_normal((SERVE_B, s ** 3)).astype(np.float32)
+    cfg_b = call("AMGX_config_create", BATCHED_CG)
+    Ab, bb, xb = (call(f"AMGX_{k}_create", rs, "dFFI")
+                  for k in ("matrix", "vector", "vector"))
+    sb = call("AMGX_solver_create", rs, "dFFI", cfg_b)
+
+    def cb():
+        call("AMGX_generate_distributed_poisson_7pt", Ab, None, None, 1, 1,
+             s, s, s)
+        call("AMGX_vector_upload_batched", bb, SERVE_B, s ** 3, 1, Bs)
+        call("AMGX_solver_setup", sb, Ab)
+        call("AMGX_solver_solve_batched", sb, bb, xb)
+    _, cb_s = timed(torch, lambda: run_path(amgx, per_path, "CB", cb))
+    res_b = capi._get(sb).result
+    xbs = call("AMGX_vector_download", xb)
+    d_b = amgx.create_solver(amgx.Config.from_string(BATCHED_CG), device=dev)
+    d_b.setup(amgx.gallery.poisson("7pt", s, s, s, dtype=torch.float32,
+                                   device=dev))
+    r_db = d_b.solve_many(torch.from_numpy(Bs).to(dev))
+    row = {"phase": "capi", "path": "CB", "systems": SERVE_B,
+           "rows": s ** 3, "seconds": cb_s,
+           "batch_status": call("AMGX_solver_get_batch_status",
+                                sb).tolist(),
+           "iterations": np.asarray(res_b.iterations).tolist(),
+           "direct_iterations": np.asarray(r_db.iterations).tolist(),
+           "direct_status": np.asarray(r_db.status).tolist(),
+           "status": np.asarray(res_b.status).tolist(),
+           "x_bit_identical": bool(np.array_equal(
+               xbs, r_db.x.cpu().numpy())),
+           "launches": per_path["CB"]}
+    emit(row)
+    check(row["x_bit_identical"] and row["iterations"]
+          == row["direct_iterations"] and row["status"]
+          == row["direct_status"] and row["batch_status"] == [0] * SERVE_B,
+          f"capi CB: the direct solve_many: {row}")
+    for h, k in ((sb, "solver"), (xb, "vector"), (bb, "vector"),
+                 (Ab, "matrix")):
+        call(f"AMGX_{k}_destroy", h)
+    del d_b, r_db, res_b
+
+    # -- (CS) / (CF) ---------------------------------------------------------
+    serve_text = SERVING_CG + ", serving_bucket_slots=4, serving_chunk_iters=4"
+    cfg_s = call("AMGX_config_create", serve_text)
+    shapes = {"CS": [(s, s, s)] * 4, "CF": [(s, s, s), (s, s, s - 2)] * 2}
+    for path_name, shp in shapes.items():
+        fleet = path_name == "CF"
+        mats, vecs = {}, []
+        for i, sh in enumerate(shp):
+            if sh not in mats:
+                mats[sh] = call("AMGX_matrix_create", rs, "dFFI")
+                call("AMGX_generate_distributed_poisson_7pt", mats[sh], None,
+                     None, 1, 1, *sh)
+            v = call("AMGX_vector_create", rs, "dFFI")
+            call("AMGX_vector_upload", v, int(np.prod(sh)), 1,
+                 rng.standard_normal(int(np.prod(sh))).astype(np.float32))
+            vecs.append(v)
+
+        def serve():
+            h = call("AMGX_fleet_create", rs, "dFFI", cfg_s, 2) if fleet \
+                else call("AMGX_service_create", rs, "dFFI", cfg_s)
+            pre = "AMGX_fleet_" if fleet else "AMGX_service_"
+            ts = [call(pre + "submit", h, mats[sh], v)
+                  for sh, v in zip(shp, vecs)]
+            done = call(pre + "drain", h, 600)
+            return h, ts, done
+        (h, ts, done), serve_s = timed(torch, lambda: run_path(
+            amgx, per_path, path_name, serve))
+        out = []
+        for t in ts:
+            st = call("AMGX_service_ticket_status", t)
+            xv = call("AMGX_vector_create", rs, "dFFI")
+            call("AMGX_service_ticket_download", t, xv)
+            out.append((st, call("AMGX_vector_download", xv),
+                        call("AMGX_fleet_ticket_replica", t)))
+            call("AMGX_vector_destroy", xv)
+        cfg_d = amgx.Config.from_string(serve_text)
+        twin = FleetRouter.build(cfg_d, 2, device=dev) if fleet \
+            else SolveService(cfg_d, device=dev)
+        dts = [twin.submit(capi._get(mats[sh]).A, capi._get(v).v)
+               for sh, v in zip(shp, vecs)]
+        twin.drain(timeout_s=600)
+        row = {"phase": "capi", "path": path_name, "requests": len(ts),
+               "shapes": shp, "seconds": serve_s, "completed": done,
+               "ticket_status": [o[0] for o in out],
+               "replicas": [o[2] for o in out],
+               "direct_replicas": [getattr(t, "replica", None)
+                                   for t in dts],
+               "x_bit_identical": [bool(np.array_equal(
+                   o[1], t.result.x.cpu().numpy())) for o, t in zip(out, dts)],
+               "launches": per_path[path_name]}
+        if fleet:
+            row["health"] = json.loads(json.dumps(
+                call("AMGX_fleet_health", h), default=str))
+            row["routes"] = json.loads(json.dumps(
+                call("AMGX_fleet_stats", h)["routes"], default=str))
+        else:
+            row["stats_queue_depth"] = call("AMGX_service_stats",
+                                            h)["queue_depth"]
+        emit(row)
+        check(done == len(ts) and all(o[0] == (1, 0) for o in out)
+              and all(row["x_bit_identical"])
+              and row["replicas"] == row["direct_replicas"],
+              f"capi {path_name}: the direct twin's tickets: {row}")
+        for t in ts:
+            call("AMGX_service_ticket_destroy", t)
+        call("AMGX_fleet_destroy" if fleet else "AMGX_service_destroy", h)
+        twin.stop()
+        for v in vecs:
+            call("AMGX_vector_destroy", v)
+        for mh in mats.values():
+            call("AMGX_matrix_destroy", mh)
+        del twin, dts
+
+    # -- (CE) ----------------------------------------------------------------
+    rows_pr, cols_pr = pagerank_graph(CAPI_PAGERANK_N)
+    M = amgx.CsrMatrix.from_coo(
+        torch.from_numpy(rows_pr).to(dev), torch.from_numpy(cols_pr).to(dev),
+        torch.ones(rows_pr.size, dtype=torch.float32, device=dev),
+        CAPI_PAGERANK_N, CAPI_PAGERANK_N)
+    handles = {}
+    for name in ("POWER_ITERATION", "PAGERANK"):
+        fpath = os.path.join(ROOT, "configs", "eigen_configs", name)
+        cfg_e = call("AMGX_config_create_from_file", fpath)
+        Ah = call("AMGX_matrix_create", rs, "dFFI")
+        if name == "PAGERANK":
+            call("AMGX_matrix_upload_all", Ah, M.num_rows, M.nnz, 1, 1,
+                 M.row_offsets.cpu().numpy(), M.col_indices.cpu().numpy(),
+                 M.values.cpu().numpy())
+        else:
+            call("AMGX_generate_distributed_poisson_7pt", Ah, None, None,
+                 1, 1, *CAPI_EIG_BOX)
+        handles[name] = (fpath, Ah, call("AMGX_vector_create", rs, "dFFI"),
+                         call("AMGX_eigensolver_create", rs, "dFFI", cfg_e))
+
+    def ce():
+        out = {}
+        for name, (_, Ah, xh, es) in handles.items():
+            call("AMGX_eigensolver_setup", es, Ah)
+            if name == "PAGERANK":
+                call("AMGX_eigensolver_pagerank_setup", es, xh)
+            call("AMGX_eigensolver_solve", es, xh)
+            out[name] = call("AMGX_eigensolver_get_eigenvalues", es)
+        return out
+    lams, ce_s = timed(torch, lambda: run_path(amgx, per_path, "CE", ce))
+    eig = {}
+    for name, (fpath, Ah, xh, es) in handles.items():
+        Mdir = M if name == "PAGERANK" else amgx.gallery.poisson(
+            "7pt", *CAPI_EIG_BOX, dtype=torch.float32, device=dev)
+        d_es = create_eigensolver(amgx.Config.from_file(fpath), device=dev)
+        d_es.setup(Mdir)
+        d_res = d_es.solve()
+        eig[name] = {"rows": Mdir.num_rows,
+                     "eigenvalues": lams[name].tolist(),
+                     "iterations": capi._get(es).result.iterations,
+                     "direct_eigenvalues": np.asarray(
+                         d_res.eigenvalues).tolist(),
+                     "direct_iterations": d_res.iterations}
+        call("AMGX_eigensolver_destroy", es)
+        call("AMGX_vector_destroy", xh)
+        call("AMGX_matrix_destroy", Ah)
+    row = {"phase": "capi", "path": "CE", "seconds": ce_s, "eigen": eig,
+           "launches": per_path["CE"]}
+    emit(row)
+    check(all(e["eigenvalues"] == e["direct_eigenvalues"]
+              and e["iterations"] == e["direct_iterations"]
+              for e in eig.values()), f"capi CE: the direct eigensolvers: "
+                                      f"{row}")
+    del M, Mdir, d_es, d_res
+
+    # -- (CC) ----------------------------------------------------------------
+    colors = red_black((s, s, s))
+    cfg_c = call("AMGX_config_create", CAPI_DILU)
+    Ac, bc, xc = (call(f"AMGX_{k}_create", rs, "dFFI")
+                  for k in ("matrix", "vector", "vector"))
+    sc = call("AMGX_solver_create", rs, "dFFI", cfg_c)
+
+    def cc():
+        call("AMGX_generate_distributed_poisson_7pt", Ac, bc, xc, 1, 1,
+             s, s, s)
+        call("AMGX_matrix_attach_coloring", Ac, colors, s ** 3, 2)
+        call("AMGX_solver_setup", sc, Ac)
+        call("AMGX_solver_solve_with_0_initial_guess", sc, bc, xc)
+    _, cc_s = timed(torch, lambda: run_path(amgx, per_path, "CC", cc))
+    res_c = capi._get(sc).result
+    used = capi._get(sc).solver.preconditioner.row_colors
+    x_cc = call("AMGX_vector_download", xc)
+    Ad = dataclasses.replace(
+        amgx.gallery.poisson("7pt", s, s, s, dtype=torch.float32,
+                             device=dev).init(),
+        user_colors=torch.from_numpy(colors).to(dev), user_num_colors=2)
+    d_c = amgx.create_solver(amgx.Config.from_string(CAPI_DILU), device=dev)
+    d_c.setup(Ad)
+    r_dc = d_c.solve(torch.ones(s ** 3, dtype=torch.float32, device=dev))
+    row = {"phase": "capi", "path": "CC", "rows": s ** 3, "seconds": cc_s,
+           "status": res_c.status, "iterations": res_c.iterations,
+           "direct_iterations": r_dc.iterations,
+           "colors_used": bool(np.array_equal(used.cpu().numpy(), colors)),
+           "x_bit_identical": bool(np.array_equal(
+               x_cc, r_dc.x.cpu().numpy())),
+           "launches": per_path["CC"]}
+    emit(row)
+    check(res_c.status == "success" and row["colors_used"]
+          and row["x_bit_identical"]
+          and res_c.iterations == r_dc.iterations,
+          f"capi CC: the coloring set directly: {row}")
+    for h, k in ((sc, "solver"), (xc, "vector"), (bc, "vector"),
+                 (Ac, "matrix")):
+        call(f"AMGX_{k}_destroy", h)
+
+    # -- the refusal ---------------------------------------------------------
+    Abk = call("AMGX_matrix_create", rs, "dDDI")
+    sbk = call("AMGX_solver_create", rs, "dDDI", cfg)
+    amgx.reset_kernel_launches()
+    rc_blk = capi.AMGX_matrix_upload_all(
+        Abk, 2, 2, 2, 2, np.array([0, 1, 2]), np.array([0, 1]),
+        np.ones(8))
+    msg = capi.last_error().strip().splitlines()[-1]
+    rc_setup = capi.AMGX_solver_setup(sbk, Abk)
+    refused = {"upload_rc": int(rc_blk), "message": msg,
+               "setup_rc": int(rc_setup),
+               "launches": sum(amgx.kernel_launches().values())}
+    check(rc_blk == capi.RC.BAD_PARAMETERS and "item 8.4" in msg
+          and rc_setup != capi.RC.OK and refused["launches"] == 0,
+          f"capi: the block upload is refused and nothing runs: {refused}")
+    call("AMGX_finalize")
+    emit({"phase": "capi", "path": "refusal", **refused,
+          "calls": calls, "distinct_calls": len(calls)})
+
+
 def _status(res, s):
     from amgx_tpu_torch.resilience.status import status_string
     return status_string(int(res.status[s]))
@@ -6444,6 +7018,7 @@ def main():
     phase_fleet(torch, amgx, dev, per_path)
     phase_autotune(torch, amgx, dev, per_path)
     phase_eigen(torch, amgx, dev, per_path)
+    phase_capi(torch, amgx, dev, per_path, printed)
 
     kernels = []
     for name, row in summary.items():

@@ -205,3 +205,57 @@ def test_shadow_clock_waits_for_the_card(card):
         a = a @ a / 64.0
     _shadow_clock(card)
     assert torch.cuda.current_stream(card).query()
+
+
+def test_capi_flagship_on_card_matches_direct(card, tmp_path):
+    """The C API on its default resources (the card): FLAGSHIP at 32^3
+    through AMGX_generate_distributed_poisson_7pt gives the direct
+    solve's x bit for bit, and again after a binary write, an
+    AMGX_read_system and AMGX_matrix_attach_geometry; x downloads as
+    numpy and AMGX_matrix_vector_multiply equals spmv's bits."""
+    from amgx_tpu_torch import capi
+    from amgx_tpu_torch.ops.spmv import spmv
+    from amgx_tpu_torch.presets import FLAGSHIP
+    n = 32
+    ok = capi.RC.OK
+
+    def call(out):
+        rc = out if isinstance(out, capi.RC) else out[0]
+        assert rc == ok, capi.last_error()
+        return out
+
+    call(capi.AMGX_initialize())
+    cfg = call(capi.AMGX_config_create(FLAGSHIP))[1]
+    rs = call(capi.AMGX_resources_create_simple(cfg))[1]
+    A = call(capi.AMGX_matrix_create(rs, "dDDI"))[1]
+    b, x, y = (call(capi.AMGX_vector_create(rs, "dDDI"))[1]
+               for _ in range(3))
+    slv = call(capi.AMGX_solver_create(rs, "dDDI", cfg))[1]
+    call(capi.AMGX_generate_distributed_poisson_7pt(A, b, x, 1, 1, n, n, n))
+    assert capi._get(A).A.device.type == "cuda"
+    call(capi.AMGX_solver_setup(slv, A))
+    call(capi.AMGX_solver_solve_with_0_initial_guess(slv, b, x))
+    xs = call(capi.AMGX_vector_download(x))[1]
+    direct = pt.create_solver(pt.Config.from_string(FLAGSHIP), device=card)
+    Ad = pt.gallery.poisson("7pt", n, n, n, device=card)
+    direct.setup(Ad)
+    xd = direct.solve(torch.ones(n ** 3, dtype=torch.float64,
+                                 device=card)).x
+    assert isinstance(xs, np.ndarray)
+    assert np.array_equal(xs, xd.cpu().numpy())
+    call(capi.AMGX_matrix_vector_multiply(A, x, y))
+    assert torch.equal(capi._get(y).v, spmv(Ad.init(), xd))
+    path = str(tmp_path / "sys.bin")
+    pt.io.write_system(path, Ad, b=torch.ones(n ** 3, dtype=torch.float64),
+                       fmt="binary")
+    A2 = call(capi.AMGX_matrix_create(rs, "dDDI"))[1]
+    x2 = call(capi.AMGX_vector_create(rs, "dDDI"))[1]
+    call(capi.AMGX_read_system(A2, b, x2, path))
+    i = np.arange(n ** 3)
+    call(capi.AMGX_matrix_attach_geometry(A2, i % n, (i // n) % n,
+                                          i // (n * n)))
+    slv2 = call(capi.AMGX_solver_create(rs, "dDDI", cfg))[1]
+    call(capi.AMGX_solver_setup(slv2, A2))
+    call(capi.AMGX_solver_solve(slv2, b, x2))
+    assert np.array_equal(call(capi.AMGX_vector_download(x2))[1], xs)
+    call(capi.AMGX_finalize())

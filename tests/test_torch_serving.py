@@ -12,8 +12,9 @@ same system (`_jax_iterations`). The port's chunked stepping is held bit
 for bit to a one-shot `solve_many` of the same width (the JAX package
 holds its chunked entry to its one-shot solve: the port's one-shot
 single solve reduces its dots on (n,) vectors, a batch on (B, n) rows).
-Left out, as ROADMAP.md lists them: the C-API service calls (item 12),
-the bench smoke lines and the fleet (item 11's next part).
+The C-API service calls are held in tests/test_torch_capi.py and the
+fleet in tests/test_torch_fleet.py; the bench smoke lines are not
+ported (they belong to the port's benchmark).
 """
 import os
 import threading
@@ -292,9 +293,9 @@ def test_builder_thread_and_rebuild_land_on_the_service_device(poisson16):
             ChebyshevPolySolver(pt.Config.from_string(SERVING_CG))
 
 
-def test_autotune_is_refused():
-    """autotune=1 is no longer refused: it builds the service's
-    ConfigAutotuner; autotune=0 builds none."""
+def test_autotune_knob_builds_the_tuner():
+    """autotune=1 builds the service's ConfigAutotuner; autotune=0
+    builds none."""
     from amgx_tpu_torch.serving import ConfigAutotuner
     assert isinstance(_svc(extra="autotune=1")._tuner, ConfigAutotuner)
     assert _svc()._tuner is None
