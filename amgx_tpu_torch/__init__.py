@@ -66,7 +66,8 @@ def finalize():
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel since the last reset, by name (B1-B10:
     ops/cuda_spmv.py, ops/cuda_krylov.py, ops/cuda_tail.py,
-    ops/cuda_csr.py, ops/cuda_rap.py)."""
+    ops/cuda_csr.py, ops/cuda_rap.py; K1-K5 ops/cuda_batched.py and
+    ops/cuda_tail.py; K6 ops/gs.py; K7 ops/dense.py)."""
     return dict(_LAUNCHES)
 
 

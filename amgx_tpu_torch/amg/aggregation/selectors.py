@@ -1,6 +1,7 @@
 """Aggregation selectors (the port of amgx_tpu/amg/aggregation/selectors.py):
-GEO, the parallel-matching selectors SIZE_2 / SIZE_4 / SIZE_8 and
-MULTI_PAIRWISE, and DUMMY.
+GEO, the parallel-matching selectors SIZE_2 / SIZE_4 / SIZE_8,
+MULTI_PAIRWISE and PARALLEL_GREEDY, SERIAL_GREEDY(_BFS), ADAPTIVE and
+DUMMY.
 
 The matching is the JAX package's handshake fixed point, on the
 operator's device:
@@ -24,6 +25,17 @@ the weights are separately rounded elementwise operations in the JAX
 package's order, the maxima and minima are order-free scatter
 reductions, and the one float sum (`_coarse_graph`'s weight sum, which
 later handshakes compare) is ordered (ops/segment.py).
+
+PARALLEL_GREEDY is SIZE_2's matching (one pass), as in the JAX package.
+SERIAL_GREEDY / SERIAL_GREEDY_BFS is host-serial by design, as in the
+JAX package and the reference (serial_greedy.cu copies the matrix to the
+host): the edge weights are formed on A's device, then a Python loop
+seeds each aggregate at the unaggregated vertex of least degree and
+grows it by its strongest edge to `aggregate_size` members; the
+aggregates go back to A's device. ADAPTIVE relaxes a random vector
+(`default_rng(1234)` under `determinism_flag`, else unseeded) by 15
+damped-Jacobi sweeps of A x = 0 (SpMVs through ops/spmv.py) and bins
+its entries into n / 4 equal bins; each bin is an aggregate.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from ...config import Config
 from ...errors import BadParametersError
 from ...matrix import CsrMatrix, lexsort_rc
 from ...ops.segment import ordered_segment_sum, starts_from_ids
+from ...ops.spmv import spmv
 
 _MASK32 = 0xFFFFFFFF
 
@@ -274,6 +287,77 @@ class MultiPairwiseSelector(_SizeNSelector):
         self.passes = int(cfg.get("aggregation_passes", scope))
         if int(cfg.get("notay_weights", scope)):
             self.weight_formula = 1
+
+
+@registry.aggregation_selectors.register("PARALLEL_GREEDY")
+class ParallelGreedySelector(_SizeNSelector):
+    """parallel_greedy_selector.cu's role: SIZE_2's handshake matching."""
+
+    passes = 1
+
+
+@registry.aggregation_selectors.register("SERIAL_GREEDY")
+@registry.aggregation_selectors.register("SERIAL_GREEDY_BFS")
+class SerialGreedySelector(AggregationSelector):
+    """Serial greedy BFS aggregation (serial_greedy.cu), on the host."""
+
+    def set_aggregates(self, A: CsrMatrix):
+        size = max(int(self.cfg.get("aggregate_size", self.scope)), 2)
+        n = A.num_rows
+        rows, cols, w = _edge_weights(
+            A, int(self.cfg.get("weight_formula", self.scope)))
+        # (row, col) order: each vertex's edges are one run
+        starts = torch.searchsorted(
+            rows, torch.arange(n + 1, device=rows.device)).tolist()
+        cols, w = cols.tolist(), w.tolist()
+        agg = [-1] * n
+        deg = np.diff(np.asarray(starts))
+        for seed in np.argsort(deg, kind="stable").tolist():
+            if agg[seed] >= 0:
+                continue
+            agg[seed] = seed
+            members = [seed]
+            while len(members) < size:
+                best_w, best_v = 0.0, -1
+                for m in members:
+                    for e in range(starts[m], starts[m + 1]):
+                        v = cols[e]
+                        if agg[v] < 0 and w[e] > best_w:
+                            best_w, best_v = w[e], v
+                if best_v < 0:
+                    break
+                agg[best_v] = seed
+                members.append(best_v)
+        ids, nc = _renumber(torch.tensor(agg, dtype=torch.int64), n)
+        return ids.to(device=A.device, dtype=torch.int32), int(nc)
+
+
+@registry.aggregation_selectors.register("ADAPTIVE")
+class AdaptiveSelector(AggregationSelector):
+    """Smoothed-vector binning (adaptive.cu's documented algorithm)."""
+
+    def set_aggregates(self, A: CsrMatrix):
+        n = A.num_rows
+        seeded = bool(int(self.cfg.get("determinism_flag", self.scope)))
+        rng = np.random.default_rng(1234 if seeded else None)
+        x = torch.tensor(rng.uniform(-1.0, 1.0, n), dtype=A.dtype,
+                         device=A.device)
+        d = A.diagonal()
+        dinv = torch.where(d == 0, torch.zeros_like(d),
+                           1.0 / torch.where(d == 0, torch.ones_like(d), d))
+        for _ in range(15):
+            x = x - 0.66 * dinv * spmv(A, x)
+        lo = x.min()
+        width = torch.clamp(x.max() - lo, min=1e-30)
+        n_bins = max(n // 4, 1)
+        bins = ((x - lo) / width * n_bins).to(torch.int32).clamp(
+            0, n_bins - 1).long()
+        # each bin stamped with its first member, then compacted
+        first = torch.full((n_bins,), n, dtype=torch.int64,
+                           device=A.device).scatter_reduce_(
+            0, bins, torch.arange(n, device=A.device), "amin")
+        ids, nc = _renumber(first[bins], n)
+        return ids.to(torch.int32), int(nc)
 
 
 @registry.aggregation_selectors.register("DUMMY")

@@ -46,7 +46,16 @@ from . import strength as _strength  # noqa: F401
 
 @registry.amg_levels.register("CLASSICAL")
 class ClassicalAMGLevel(AMGLevel):
+    """The strength -> CF split -> P -> R = P^T -> R A P flow; a subclass
+    (ENERGYMIN) names its own selector and interpolator parameters,
+    registry and fallbacks through the class attributes."""
+
     algorithm = "CLASSICAL"
+    selector_param = "selector"
+    selector_fallback = "PMIS"
+    interpolator_registry = registry.interpolators
+    interpolator_param = "interpolator"
+    interpolator_fallback = "D1"
 
     strong = None
     cf_map = None
@@ -61,7 +70,7 @@ class ClassicalAMGLevel(AMGLevel):
         st = registry.strength.create(str(cfg.get("strength", scope)),
                                       cfg, scope)
         self.strong = st.strong_mask(self.A)
-        name = str(cfg.get("selector", scope))
+        name = str(cfg.get(self.selector_param, scope))
         self._aggressive = self.level_index < int(
             cfg.get("aggressive_levels", scope))
         if self._aggressive:
@@ -71,7 +80,7 @@ class ClassicalAMGLevel(AMGLevel):
                     else "AGGRESSIVE_" + name
             name = agg
         if not registry.classical_selectors.has(name):
-            name = "PMIS"             # the JAX package's fallback
+            name = self.selector_fallback     # the JAX package's fallback
         sel = registry.classical_selectors.create(name, cfg, scope)
         self.cf_map = sel.mark_coarse_fine_points(self.A, self.strong)
         self.coarse_size = int((self.cf_map == 1).sum())
@@ -81,10 +90,10 @@ class ClassicalAMGLevel(AMGLevel):
             return self._galerkin_rap()
         cfg, scope = self.cfg, self.scope
         name = str(cfg.get("aggressive_interpolator" if self._aggressive
-                           else "interpolator", scope))
-        if not registry.interpolators.has(name):
-            name = "D1"               # the JAX package's fallback
-        interp = registry.interpolators.create(name, cfg, scope)
+                           else self.interpolator_param, scope))
+        if not self.interpolator_registry.has(name):
+            name = self.interpolator_fallback  # the JAX package's fallback
+        interp = self.interpolator_registry.create(name, cfg, scope)
         self.P = interp.generate(self.A, self.cf_map, self.strong).init()
         self.R = transpose(self.P).init()
         self._transfer_tables()

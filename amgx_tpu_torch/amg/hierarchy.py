@@ -129,8 +129,7 @@ class AMGLevel:
         values)."""
         raise NotImplementedError(
             f"structure reuse of {self.algorithm} levels is not implemented "
-            f"(structure_reuse_levels=0 sets up anew; ROADMAP.md Queue A "
-            f"item 8 covers the ENERGYMIN level)")
+            f"(structure_reuse_levels=0 sets up anew)")
 
     def structure_snapshot(self):
         """(meta, arrays): what `reuse_structure` reads, as JSON-able
@@ -398,6 +397,10 @@ class AMG:
             level.smoother = make_solver(name, self.cfg, scope,
                                          level.A.device)
             level.smoother._owns_scaling = False
+            if getattr(level.smoother, "needs_cf_map", False) and \
+                    getattr(level, "cf_map", None) is not None:
+                # CF_JACOBI sweeps the level's CF split
+                level.smoother.set_cf_map(level.cf_map)
             level.smoother.setup(level.A)
             self._maybe_install_stencil(level)
 

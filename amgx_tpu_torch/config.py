@@ -327,18 +327,22 @@ def _register_default_parameters():
       "not ported)", "auto", ("auto", "0", "1"))
     R("setup_backend", str, "where the AMG setup runs; the port always "
       "builds the hierarchy on the operator's device (the JAX package's "
-      "`device`), so every value is accepted and means that",
+      "`device`), so every value is accepted and means that; `device` "
+      "also sends selector_device_sweep=auto to the device RS sweep, as "
+      "in the JAX package",
       "auto", ("auto", "device", "host"))
     R("amg_host_setup", str, "the JAX package's host-CPU hierarchy build "
       "for remote accelerators; accepted, inert in the port (its setup "
       "runs where the operator lives)", "auto",
       {"auto", "always", "never"})
     R("setup_device_min_rows", int, "setup_backend=device: levels below "
-      "this many rows may take host fast paths in the JAX package; "
-      "accepted, inert in the port", 0, None, 0)
+      "this many rows may take host fast paths in the JAX package; in "
+      "the port it bounds only selector_device_sweep=auto's sweep",
+      0, None, 0)
     R("selector_device_sweep", str, "RS/HMIS first-pass implementation: "
-      "auto and 0 run the host bucket queue; 1 (the JAX package's "
-      "device-parallel sweep) is not ported and raises",
+      "1 the device-parallel sweep, 0 the host bucket queue, auto the "
+      "sweep under setup_backend=device (on levels of at least "
+      "setup_device_min_rows rows), else the queue",
       "auto", ("auto", "0", "1"))
     # resilience (solve-loop status classification)
     R("health_guards", int, "NaN/breakdown guards in the solve loop "

@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import registry
 from .amg.aggregation import AggregationAMGLevel
 from .amg.classical import ClassicalAMGLevel
 from .amg.hierarchy import AMG
@@ -54,7 +55,11 @@ def _matrix(d: dict, device) -> CsrMatrix:
 
 
 def _classical_level(d: dict, cfg, scope, i, device):
-    level = ClassicalAMGLevel(_matrix(d, device), cfg, scope, i)
+    """A classical level, or the configured subclass of one (ENERGYMIN)."""
+    cls = registry.amg_levels.get(str(cfg.get("algorithm", scope)))
+    if not issubclass(cls, ClassicalAMGLevel):
+        cls = ClassicalAMGLevel
+    level = cls(_matrix(d, device), cfg, scope, i)
     level.cf_map = torch.tensor(np.asarray(d["cf_map"], np.int32),
                                 device=device)
     level.coarse_size = int(d["coarse_size"])
@@ -94,14 +99,19 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
     (`row_offsets`, `col_indices`, `values`, `num_rows`, `num_cols`,
     optional `grid_shape`), its `coarse_size`, and the smoother's
     payload: CHEBYSHEV_POLY's `taus`, the Jacobi family's `dinv`,
-    CHEBYSHEV's spectral bounds `lmax` and `lmin` (floats; its
-    preconditioner, if any, is set up on the level's operator), or a
+    CHEBYSHEV's and POLYNOMIAL's spectral bounds `lmax` and `lmin`
+    (floats; CHEBYSHEV's preconditioner, if any, is set up on the
+    level's operator), KPZ_POLYNOMIAL's `l_inf` (a float), or a
     multicolor smoother's coloring `row_colors` and `num_colors` with
-    MULTICOLOR_DILU's `Einv` (MULTICOLOR_GS's `dinv`). An
+    MULTICOLOR_DILU's `Einv` (MULTICOLOR_GS's `dinv`), MULTICOLOR_ILU's
+    factors `ilu_L`, `ilu_U` (CSR-array dicts) and `u_diag`, KACZMARZ's
+    `inv_rn2`; GS takes `gs_diag` and `dinv`, CF_JACOBI `dinv` and the
+    level's CF split. An
     aggregation level adds its `aggregates` and the GEO pairing
     (`geo_axes`, `geo_fine_shape`, `geo_coarse_shape`; None for
     non-geometric levels). A classical level (one with `cf_map`) adds
-    `P` and `R` as CSR-array dicts and, optionally, its weighted
+    `P` and `R` as CSR-array dicts (an ENERGYMIN configuration makes
+    it an energymin level) and, optionally, its weighted
     transfer tables `xfer` (`ctab`, `cwt`, `ptab`, `pwt` on the port's
     layout, R's rows `rro`, `rci`, `rwt` taken from `R` where absent;
     built from P and R when absent and cycle_fusion is on). A
@@ -134,7 +144,8 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
         sm = make_solver(name, cfg, sm_scope, device)
         sm._owns_scaling = False
         sm.A = level.A
-        for key in ("taus", "dinv", "Einv"):
+        for key in ("taus", "dinv", "Einv", "gs_diag", "u_diag",
+                    "inv_rn2"):
             if d.get(key) is not None:
                 setattr(sm, "_" + key, tensor_from_numpy(
                     d[key], device, level.A.dtype))
@@ -146,6 +157,14 @@ def hierarchy_from_numpy(levels: Sequence[dict], coarse: dict, cfg: Config,
             if sm.preconditioner is not None:
                 sm.preconditioner.setup(level.A)
             sm.set_bounds(float(d["lmax"]), float(d["lmin"]))
+        if d.get("l_inf") is not None:
+            sm.l_inf = float(d["l_inf"])
+        if d.get("ilu_L") is not None:
+            from .solvers.multicolor import csr_only
+            sm._Lp = csr_only(_matrix(d["ilu_L"], device))
+            sm._Up = csr_only(_matrix(d["ilu_U"], device))
+        if getattr(sm, "needs_cf_map", False):
+            sm.set_cf_map(getattr(level, "cf_map", None))
         level.smoother = sm
         amg._maybe_install_stencil(level, _stencil(d.get("stencil"),
                                                    level.A))

@@ -92,16 +92,21 @@ class CsrMatrix:
         """(row_ids, col_indices, values) triplets."""
         return self.row_ids(), self.col_indices, self.values
 
+    def diag_index(self) -> torch.Tensor:
+        """Each row's first stored diagonal entry's position, nnz where a
+        row stores none (int64)."""
+        rows, cols, _ = self.coo()
+        on = rows == cols.long()
+        pos = torch.arange(self.nnz, device=self.device)
+        return torch.full((self.num_rows,), self.nnz, dtype=torch.int64,
+                          device=self.device).scatter_reduce_(
+            0, rows[on], pos[on], "amin", include_self=True)
+
     def diagonal(self) -> torch.Tensor:
         """The main diagonal: each row's first stored diagonal entry, 0
         where a row stores none."""
-        rows, cols, vals = self.coo()
-        on = rows == cols.long()
-        pos = torch.arange(self.nnz, device=self.device)
-        first = torch.full((self.num_rows,), self.nnz, dtype=torch.int64,
-                           device=self.device).scatter_reduce_(
-            0, rows[on], pos[on], "amin", include_self=True)
-        return torch.cat([vals, vals.new_zeros(1)])[first]
+        return torch.cat([self.values, self.values.new_zeros(1)])[
+            self.diag_index()]
 
     def init(self) -> "CsrMatrix":
         """Build the DIA view when the sparsity is banded with few

@@ -27,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("dia.cu", "stencil_tb.cu", "stencil_tb_slab.cu", "krylov.cu",
-           "tail.cu", "csr.cu", "rap.cu")
+           "tail.cu", "csr.cu", "rap.cu", "dense.cu", "gs.cu",
+           "segment.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

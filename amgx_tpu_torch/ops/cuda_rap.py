@@ -60,14 +60,14 @@ def _lib():
     return lib
 
 
-def rap_values_plain(plan, a, r, p):
+def rap_values_plain(plan, a, r, p, segsum=ordered_segment_sum):
     """The value phase in PyTorch: two gathers, a product and an ordered
     segment sum per stage (the JAX package's `_rap_values_slab` with its
-    segments added left to right)."""
-    t = ordered_segment_sum(a[plan.sa.long()] * p[plan.sp.long()],
-                            plan.starts1)
-    return ordered_segment_sum(r[plan.sr.long()] * t[plan.st.long()],
-                               plan.starts2)
+    segments added left to right). The sums take K8 on the card (the
+    float64 Galerkin's route); `segsum=ordered_segment_sum_plain` keeps
+    the whole phase in plain PyTorch (B10's comparisons)."""
+    t = segsum(a[plan.sa.long()] * p[plan.sp.long()], plan.starts1)
+    return segsum(r[plan.sr.long()] * t[plan.st.long()], plan.starts2)
 
 
 def rap_values(plan, a, r, p):
@@ -98,11 +98,12 @@ def rap_values(plan, a, r, p):
     return out
 
 
-def rap_values_relabel_plain(plan, af):
+def rap_values_relabel_plain(plan, af, segsum=ordered_segment_sum):
     """The relabel value phase in PyTorch: one gather and an ordered
     segment sum (the JAX package's `_rap_values_slab` with has1=False,
-    has_r=False, its segments added left to right)."""
-    return ordered_segment_sum(af[plan.st.long()], plan.starts2)
+    has_r=False, its segments added left to right); `segsum` as in
+    `rap_values_plain`."""
+    return segsum(af[plan.st.long()], plan.starts2)
 
 
 def rap_values_relabel(plan, af):

@@ -202,7 +202,11 @@ LAUNCHES = {"dia_spmv": 0, "dia_smooth": 0, "dia_smooth_restrict": 0,
             "dia_step_mf_multi": 0, "csr_spmv_multi": 0,
             # K5, the batched tail (ops/cuda_tail.py)
             "dia_coarse_tail_multi": 0, "dia_coarse_tail_mf_multi": 0,
-            "csr_step_multi": 0}
+            "csr_step_multi": 0,
+            # port-added setup and smoother kernels: K6 the serial GS
+            # sweep (ops/gs.py), K7 the batched QR patch solve
+            # (ops/dense.py), K8 the ordered segment sum (ops/segment.py)
+            "gs_sweep": 0, "qr_solve": 0, "ordered_sum": 0}
 
 MAX_OFFSETS = 32      # offsets per operator (csrc/common.cuh kMaxOffsets)
 THREADS = 256         # rows per block (csrc/common.cuh kThreads)

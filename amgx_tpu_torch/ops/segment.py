@@ -10,8 +10,17 @@ same bits on the CPU and on the card -- `index_add_` / `scatter_add_`
 on CUDA sum in an order that changes from run to run, and one ulp is
 enough to flip a truncation tie. Maxima (`segment_max`) are exact in any
 order.
+
+On a CUDA tensor (float32 or float64) `ordered_sum` is one launch of K8
+(`csrc/segment.cu`: one thread a segment, adding its values in stored
+order in the value's type, so the plain form's bits); its plain form,
+the loop over positions below, serves CPU tensors. Launches count in
+`cuda_spmv.LAUNCHES["ordered_sum"]`.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -39,10 +48,10 @@ def coalesce(rows, cols, num_cols: int):
 
 
 def ordered_sum_plan(starts: torch.Tensor):
-    """(order, first, live) of sorted segment boundaries: the segments
-    longest first, their first positions, and how many are longer than
-    j for each position j. Made once (one host read), it serves every
-    `ordered_sum` over the same segments."""
+    """(order, first, live, lengths) of sorted segment boundaries: the
+    segments longest first, their first positions, how many are longer
+    than j for each position j, and their lengths. Made once (one host
+    read), it serves every `ordered_sum` over the same segments."""
     starts = starts.long()
     nseg = starts.numel() - 1
     if nseg <= 0:
@@ -54,23 +63,65 @@ def ordered_sum_plan(starts: torch.Tensor):
     # live[j] = number of segments longer than j
     hist = torch.bincount(lsorted, minlength=longest + 1)
     live = (nseg - torch.cumsum(hist, 0))[:longest].tolist()
-    return order, starts[:-1][order], live
+    return order, starts[:-1][order], live, lsorted
 
 
-def ordered_sum(values: torch.Tensor, plan, nseg: int) -> torch.Tensor:
-    """out[s] = 0 + values[starts[s]] + values[starts[s] + 1] + ...,
-    added left to right over `plan` (ordered_sum_plan). Segments run
-    longest first, so position j of every segment longer than j is one
-    contiguous gather-add: as many steps as the longest segment, nnz
-    work in all, no host read."""
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from .cuda_build import library
+    lib = library("segment.cu")
+    P = ctypes.c_void_p
+    for fn in (lib.amgx_ordered_sum_f32, lib.amgx_ordered_sum_f64):
+        fn.argtypes = [P, P, P, P, P, ctypes.c_int64, P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ordered_sum_plain(values: torch.Tensor, plan, nseg: int) -> torch.Tensor:
+    """`ordered_sum`'s plain form: segments run longest first, so
+    position j of every segment longer than j is one contiguous
+    gather-add: as many steps as the longest segment, nnz work in all,
+    no host read."""
     out = torch.zeros(nseg, dtype=values.dtype, device=values.device)
     if plan is None or values.numel() == 0:
         return out
-    order, first, live = plan
+    order, first, live = plan[:3]
     acc = torch.zeros(nseg, dtype=values.dtype, device=values.device)
     for j, k in enumerate(live):
         acc[:k] += values[first[:k] + j]
     out[order] = acc
+    return out
+
+
+def ordered_sum(values: torch.Tensor, plan, nseg: int) -> torch.Tensor:
+    """out[s] = 0 + values[starts[s]] + values[starts[s] + 1] + ...,
+    added left to right over `plan` (ordered_sum_plan): the plain form
+    for CPU tensors, one K8 launch on the card."""
+    if values.device.type == "cpu":
+        return ordered_sum_plain(values, plan, nseg)
+    from .cuda_spmv import _launch, _ptr, _stream
+    out = torch.zeros(nseg, dtype=values.dtype, device=values.device)
+    if plan is None or values.numel() == 0:
+        return out
+    if values.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ordered_sum: {values.dtype}; the kernel takes "
+                        f"float32 or float64")
+    order, first, lengths = plan[0], plan[1], plan[3]
+    for name, t in (("order", order), ("first", first),
+                    ("lengths", lengths)):
+        if t.device != values.device or t.dtype != torch.int64 \
+                or tuple(t.shape) != (nseg,):
+            raise ValueError(f"ordered_sum: plan's {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}; the kernel "
+                             f"takes int64 ({nseg},) on {values.device}")
+    values = values.contiguous()
+    lib = _lib()
+    fn = lib.amgx_ordered_sum_f64 if values.dtype == torch.float64 \
+        else lib.amgx_ordered_sum_f32
+    with torch.cuda.device(values.device):
+        _launch("ordered_sum", fn, _ptr(values), _ptr(order.contiguous()),
+                _ptr(first.contiguous()), _ptr(lengths.contiguous()),
+                _ptr(out), nseg, _stream())
     return out
 
 
@@ -83,6 +134,29 @@ def ordered_segment_sum(values: torch.Tensor,
         return torch.zeros(max(nseg, 0), dtype=values.dtype,
                            device=values.device)
     return ordered_sum(values, ordered_sum_plan(starts), nseg)
+
+
+def ordered_rows_sum(values: torch.Tensor) -> torch.Tensor:
+    """0 + values[0] + values[1] + ... over the leading axis, added left
+    to right: the ordered sum of every column's segment (the order
+    `ordered_segment_sum` adds a segment in), one elementwise add a
+    row."""
+    out = torch.zeros(values.shape[1:], dtype=values.dtype,
+                      device=values.device)
+    for row in values:
+        out = out + row
+    return out
+
+
+def ordered_segment_sum_plain(values: torch.Tensor,
+                              starts: torch.Tensor) -> torch.Tensor:
+    """`ordered_segment_sum` in plain PyTorch on any device (the
+    comparisons of the kernels whose plain forms sum segments)."""
+    nseg = starts.numel() - 1
+    if nseg <= 0 or values.numel() == 0:
+        return torch.zeros(max(nseg, 0), dtype=values.dtype,
+                           device=values.device)
+    return ordered_sum_plain(values, ordered_sum_plan(starts), nseg)
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,

@@ -356,3 +356,15 @@ def plan_coarse_matrix(plan: AggPlan, A: CsrMatrix, diag=None) -> CsrMatrix:
                      col_indices=plan.col_indices,
                      values=agg_values(plan, A.values, diag).to(A.dtype),
                      num_rows=plan.num_rows, num_cols=plan.num_cols)
+
+
+def csr_add(A: CsrMatrix, B: CsrMatrix) -> CsrMatrix:
+    """C = A + B: the two entry lists concatenated, then coalesced (a
+    stable (row, col) sort, equal coordinates added in order)."""
+    assert (A.num_rows, A.num_cols) == (B.num_rows, B.num_cols)
+    ar, ac, av = A.coo()
+    br, bc, bv = B.coo()
+    return CsrMatrix.from_coo(torch.cat([ar, br]),
+                              torch.cat([ac.long(), bc.long()]),
+                              torch.cat([av, bv.to(av.dtype)]),
+                              A.num_rows, A.num_cols)

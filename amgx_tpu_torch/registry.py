@@ -51,6 +51,7 @@ convergence = Factory("Convergence")
 strength = Factory("Strength")
 classical_selectors = Factory("ClassicalSelector")
 interpolators = Factory("Interpolator")
+energymin_interpolators = Factory("EnergyminInterpolator")
 matrix_coloring = Factory("MatrixColoring")
 scalers = Factory("Scaler")
 matrix_io_readers = Factory("MatrixReader")

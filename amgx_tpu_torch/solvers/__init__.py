@@ -1,3 +1,3 @@
 """Solvers of the port; importing this package registers them."""
-from . import (base, direct, gmres, idr, krylov, multicolor,  # noqa: F401
-               polynomial, refinement, relaxation)
+from . import (base, direct, gmres, idr, kaczmarz, krylov,  # noqa: F401
+               multicolor, polynomial, refinement, relaxation)

@@ -1,5 +1,17 @@
-"""CHEBYSHEV_POLY smoother (the port of the CHEBYSHEV_POLY part of
-amgx_tpu/solvers/polynomial.py): the "magic damping" tau sequence of
+"""Polynomial smoothers (the port of amgx_tpu/solvers/polynomial.py):
+POLYNOMIAL, KPZ_POLYNOMIAL and CHEBYSHEV_POLY.
+
+POLYNOMIAL: Chebyshev relaxation on [rho / 30, 1.1 rho], `kpz_order`
+steps an application (0 means 6), rho from an 8-step Lanczos run at
+setup (`_lanczos_rho`: `default_rng(17)`, the largest |Ritz value| times
+1.01; each step one SpMV through ops/spmv.py and two host reads).
+KPZ_POLYNOMIAL: the KPZ three-term recurrence of
+kpz_polynomial_solver.cu with smax = the largest absolute column sum
+(ordered: the entries sorted by column once, ops/segment.py) and smin =
+smax / kpz_mu. Both are compositions of SpMVs (B1 / B8 in float32) and
+elementwise updates.
+
+CHEBYSHEV_POLY: the "magic damping" tau sequence of
 chebyshev_poly.cu, tau_i = cos^2(beta) / (cos^2(beta(2i+1)) -
 sin^2(beta)) / lambda with beta = pi/(4m+2) and lambda the Gershgorin
 bound (max absolute row sum), applied as x += tau_i (b - A x).
@@ -9,16 +21,20 @@ The taus are solve data ("taus"), so a multi-matrix batch stacks them to
 (the batched kernels K2 / K2-mf and K5 take them per system)."""
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from .. import registry
 from ..ops import smooth as fused
 from ..ops.cuda_spmv import tau_at
+from ..ops.segment import ordered_segment_sum, starts_from_ids
 from ..ops.spmv import spmv
 from ..ops.stencil import mf_slim
 from ..precision import compute_dtype
 from .base import Solver
+from .multicolor import _scalar_only
 
 
 def chebyshev_poly_coeffs(m: int):
@@ -37,6 +53,128 @@ def _abs_row_sums(A):
     rows, _, vals = A.coo()
     s = torch.zeros(A.num_rows, dtype=A.dtype, device=A.device)
     return s.index_add_(0, rows, vals.abs())
+
+
+def _lanczos_rho(A, steps: int = 8) -> float:
+    """A spectral-radius estimate from a short Lanczos run (cusp's
+    ritz_spectral_radius_symmetric), 1.01 x the largest |Ritz value|."""
+    n = A.num_rows
+    rng = np.random.default_rng(17)
+    v = torch.tensor(rng.standard_normal(n), dtype=A.dtype, device=A.device)
+    v = v / torch.linalg.norm(v)
+    alphas, betas = [], []
+    v_prev = torch.zeros_like(v)
+    beta = 0.0
+    for _ in range(min(steps, n)):
+        w = spmv(A, v) - beta * v_prev
+        alpha = float(torch.dot(v, w))
+        w = w - alpha * v
+        beta = float(torch.linalg.norm(w))
+        alphas.append(alpha)
+        betas.append(beta)
+        if beta < 1e-12:
+            break
+        v_prev, v = v, w / beta
+    T = np.diag(alphas)
+    for i in range(len(alphas) - 1):
+        T[i, i + 1] = T[i + 1, i] = betas[i]
+    return float(np.max(np.abs(np.linalg.eigvalsh(T)))) * 1.01
+
+
+@registry.solvers.register("POLYNOMIAL")
+class PolynomialSolver(Solver):
+    """Chebyshev relaxation (polynomial_solver.cu's scalar path): one
+    application is `order` steps of the Chebyshev semi-iteration on
+    [lmin, lmax] = [rho / 30, 1.1 rho]."""
+
+    is_smoother = True
+
+    def __init__(self, cfg, scope="default", name="POLYNOMIAL", device=None):
+        super().__init__(cfg, scope, name, device)
+        order = int(cfg.get("kpz_order", scope))
+        self.order = order if order > 0 else 6
+        self.lmin = self.lmax = None
+
+    def solver_setup(self):
+        _scalar_only(self.A, self.name)
+        rho = _lanczos_rho(self.A)
+        self.set_bounds(1.1 * rho, rho / 30.0)
+
+    def set_bounds(self, lmax: float, lmin: float):
+        """The Chebyshev interval (interop.py carries another
+        implementation's)."""
+        self.lmax, self.lmin = float(lmax), float(lmin)
+
+    def computes_residual(self):
+        return False
+
+    def solve_iteration(self, data, b, st):
+        A = data["A"]
+        theta = 0.5 * (self.lmax + self.lmin)
+        delta = 0.5 * (self.lmax - self.lmin)
+        x = st["x"]
+        r = b - spmv(A, x)
+        sigma = theta / delta
+        rho_c = 1.0 / sigma
+        d = r / theta
+        for _ in range(self.order):
+            x = x + d
+            r = r - spmv(A, d)
+            rho_new = 1.0 / (2.0 * sigma - rho_c)
+            d = rho_new * rho_c * d + 2.0 * rho_new / delta * r
+            rho_c = rho_new
+        out = dict(st)
+        out["x"] = x
+        return out
+
+
+@registry.solvers.register("KPZ_POLYNOMIAL")
+class KPZPolynomialSolver(Solver):
+    """The KPZ polynomial smoother (kpz_polynomial_solver.cu:140-193)."""
+
+    is_smoother = True
+
+    def __init__(self, cfg, scope="default", name="KPZ_POLYNOMIAL",
+                 device=None):
+        super().__init__(cfg, scope, name, device)
+        self.mu = int(cfg.get("kpz_mu", scope))
+        self.order = max(int(cfg.get("kpz_order", scope)), 1)
+        self.l_inf = None
+
+    def solver_setup(self):
+        _scalar_only(self.A, self.name)
+        # ||A||_inf of A^T: the largest absolute column sum
+        _, cols, vals = self.A.coo()
+        order = torch.argsort(cols.long(), stable=True)
+        colsum = ordered_segment_sum(
+            vals.abs()[order], starts_from_ids(cols[order],
+                                               self.A.num_cols))
+        self.l_inf = float(colsum.max())
+
+    def computes_residual(self):
+        return False
+
+    def solve_iteration(self, data, b, st):
+        A = data["A"]
+        smax = self.l_inf
+        smin = smax / self.mu
+        smu0, smu1 = 1.0 / smax, 1.0 / smin
+        skappa = math.sqrt(smax / smin)
+        delta = (skappa - 1.0) / (skappa + 1.0)
+        beta = (math.sqrt(smu0) + math.sqrt(smu1)) ** 2
+        chi = 4.0 * smu0 * smu1 / beta
+        x = st["x"]
+        r = b - spmv(A, x)
+        v0 = (smu0 + smu1) / 2.0 * r
+        v = beta / 2.0 * r - smu0 * smu1 * spmv(A, r)
+        for _ in range(2, self.order + 1):
+            sn = r - spmv(A, v)
+            sn = chi * sn + delta * delta * v - delta * delta * v0
+            v0 = v
+            v = v + sn
+        out = dict(st)
+        out["x"] = x + v
+        return out
 
 
 @registry.solvers.register("CHEBYSHEV_POLY")

@@ -927,8 +927,6 @@ WAITING: Dict[str, str] = {
     "dist.*": "ROADMAP.md Queue A item 13 (distributed solves)",
     "solver.retrace.distributed":
         "ROADMAP.md Queue A item 13 (distributed solves)",
-    "amg.selector.device_sweep":
-        "ROADMAP.md Queue A item 8 (selector_device_sweep=1 raises)",
     "resilience.config_fallback":
         "none: the JAX package's MULTICOLOR_DILU reroute guards a TPU "
         "runtime fault; the card runs MULTICOLOR_DILU at every size",

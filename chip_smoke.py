@@ -231,7 +231,7 @@ Phases, one JSON line each on stdout:
                64^3 the JAX package's iterations +- 2 over the CPU
                route's level rows; FGMRES_CLASSICAL_AGGRESSIVE_HMIS at
                64^3 (the host RS queue's seconds a level);
-               AMG_CLASSICAL_CG at 128^3 and 64^3, AMG_CLASSICAL_CGF and
+               AMG_CLASSICAL_CG, AMG_CLASSICAL_CGF and
                AMG_AGGRREGATION_CG at 64^3 in float32 (max_iters, the
                final residual within KCYCLE_FINAL_TOL of the anchor's; B8
                in the coarse matvec, B5 never) and at 32^3 in float64
@@ -311,7 +311,7 @@ Phases, one JSON line each on stdout:
                journal settled; (FD) drain_replica / restore_replica;
                (FS) a load spill with its fleet.handoff note.
 20. autotune -- the online autotuner on the JAX tests' mistuned
-               BATCHED_CG at 128^3 (`phase_autotune`): the shadow search
+               BATCHED_CG at 96^3 (`phase_autotune`): the shadow search
                promotes within autotune_shadow_budget, the next request
                takes fewer iterations, a second process on the same
                hierarchy store serves the tuned config with 0 full
@@ -343,6 +343,24 @@ Phases, one JSON line each on stdout:
                nodes; (CC) PCG + MULTICOLOR_DILU at 64^3 with a
                red-black coloring attached by AMGX_matrix_attach_coloring;
                a block upload refused, with no launch.
+23. item8    -- ROADMAP Queue A item 8 without block matrices
+               (`phase_item8`, the paths of `ITEM8`): at 128^3 EM (the
+               ENERGYMIN level with CR, K7 once a setup level, success at
+               a true f64 residual <= 1e-8), AY (AFFINITY), RSW (the
+               device RS sweep), PG (PARALLEL_GREEDY, agg-pcg's
+               hierarchy and iterations) and AV (ADAPTIVE); at 64^3 EM64
+               (float64: the JAX package's iterations exactly), EMp, the
+               smoothers PY, KZ, KM, KMn, IL0, IL1 and CJ, each held to
+               its JAX anchor (`ITEM8_ANCHORS`: status, iterations +- 2,
+               level rows, the final residual within 5 % at max_iters);
+               at 32^3 GS32 (K6 once a GS sweep) and GR (SERIAL_GREEDY);
+               RSW's 32^3 split on two card setups and the CPU route's;
+               K6, K7 (on EM64's level 0) and K8 (CR's product on EM's
+               levels) against their plain versions at the driven
+               shapes (and in the other dtype, K7's global route on wide
+               patches); `random_matrix(250000, 9, seed=3)` through B8
+               against its plain version; the 128^3 operator's
+               permutation round trip P^T (P A P^T) P = A bit for bit.
 
 Each path's launch counts are zeroed just before its run and read just
 after; every kernel must have launched on some path. The kernels line
@@ -357,6 +375,7 @@ raises: the script exits non-zero without that line. It exits non-zero
 at once when PyTorch sees no CUDA device.
 """
 import dataclasses
+import faulthandler
 import inspect
 import itertools
 import json
@@ -380,6 +399,7 @@ PLAIN_BATCH = 2
 PAIRS = 10                  # alternating warm solves per compared pair
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3, data sheet
 PEAK_F32_S = 67e12          # H100 SXM float32 outside the tensor cores
+PEAK_F64_S = 34e12          # H100 SXM float64 outside the tensor cores
 # kernel vs plain PyTorch, max over outputs of max |diff| / max |plain|,
 # float32. B1 is one rounded sum per row. B2-B5 run the flagship's five
 # dependent damping steps (the last tau is 1.38 > 1, amplifying earlier
@@ -409,7 +429,12 @@ LIMITS = {"dia_spmv": 1e-6, "dia_smooth": 5e-5, "dia_smooth_restrict": 5e-5,
           "csr_smooth": 1e-5, "rap_values": 1e-6, "rap_values_relabel": 0.0,
           "dia_smooth_mf": 5e-5, "dia_smooth_restrict_mf": 5e-5,
           "dia_prolong_smooth_mf": 5e-5, "dia_prolong_smooth_mf_dot": 5e-5,
-          "dia_coarse_tail_mf": 5e-5, "dia_coarse_tail_mf_dot": 5e-5}
+          "dia_coarse_tail_mf": 5e-5, "dia_coarse_tail_mf_dot": 5e-5,
+          # K7 (float64 on EM's setup) and K6 (float32 on GS32): a QR and
+          # a row sweep summed in another order than the plain versions'
+          "qr_solve": 1e-12, "gs_sweep": 1e-6,
+          # K8 adds in the plain version's order: the same bits
+          "ordered_sum": 0.0}
 # The bfloat16 forms (the reduced-precision cycle) against their plain
 # versions: max error in bf16 ulps (`bf16_err`: each entry's ulp, its
 # scale floored at 2^-8 of the output's largest entry, where a sum that
@@ -489,6 +514,14 @@ REPLACES.update({"dia_coarse_tail_multi": "amgx_tpu/ops/batched.py:332",
                      "amgx_tpu/ops/batched.py:332"})
 SOURCES.update({"dia_coarse_tail_multi": "tail.cu",
                 "dia_coarse_tail_mf_multi": "tail.cu"})
+# K6, K7 and K8 replace no Pallas kernel: the JAX package's GS sweep is
+# a lax.fori_loop over rows, its EM patch solve a batched XLA QR, its
+# sorted segment sums XLA's segment_sum (the CSR product's, as in CR)
+REPLACES.update({"gs_sweep": "amgx_tpu/solvers/multicolor.py:223",
+                 "qr_solve": "amgx_tpu/ops/dense.py:22",
+                 "ordered_sum": "amgx_tpu/ops/spmv.py:49"})
+SOURCES.update({"gs_sweep": "gs.cu", "qr_solve": "dense.cu",
+                "ordered_sum": "segment.cu"})
 REPLACES.update({"dia_spmv_multi": "amgx_tpu/ops/batched.py:35",
                  "dia_step_multi": "amgx_tpu/ops/batched.py:79",
                  "dia_step_mf_multi": "amgx_tpu/ops/stencil.py:268",
@@ -576,6 +609,74 @@ CLASSICAL_BF16 = CLASSICAL.replace(", amg:amg_precision=float",
 # amg_precision: the hierarchy and the Krylov shell are float32, so the
 # cycle carries PCG's r.z through B4w's x'.b epilogue on level 0
 CLASSICAL_F32 = CLASSICAL.replace(", amg:amg_precision=float", "")
+
+
+# Queue A item 8's paths (phase_item8): label -> (configuration, grid
+# edge, dtype). A configuration is a string, or "file:NAME:k=v,..." for
+# configs/NAME.json with the keys set in its AMG scope. At 128^3 the
+# classical block of CLASSICAL with the ENERGYMIN level and CR (EM),
+# AFFINITY strength (AY) or the device RS sweep (RSW), and the stock
+# PCG_AGGREGATION_JACOBI with PARALLEL_GREEDY (PG: SIZE_2's matching, so
+# agg-pcg's hierarchy) or ADAPTIVE (AV); at 64^3, each with the JAX
+# package's anchor (`ITEM8_ANCHORS`), EM in float64 (EM64) and with PMIS
+# (EMp), PCG in float32 around the AMG block of
+# tests/test_smoothers_extra.py (AGGREGATION, SIZE_2, 2 + 2 sweeps) with
+# each new smoother (PY, KZ, KM / KMn colored / naive KACZMARZ, IL0 / IL1
+# MULTICOLOR_ILU at sparsity 0 / 1 on a distance-2 coloring; a smoother
+# named without a scope reads its options in the default scope), and
+# CF_JACOBI as CLASSICAL's smoother (CJ); at 32^3, serial by design, GS
+# as that smoother (GS32) and SERIAL_GREEDY (GR).
+ITEM8_EM = CLASSICAL.replace("amg:algorithm=CLASSICAL",
+                             "amg:algorithm=ENERGYMIN,"
+                             " amg:energymin_selector=CR")
+ITEM8_SMOOTHED = (
+    "config_version=2, solver(s)=PCG, s:max_iters=200,"
+    " s:tolerance=1e-6, s:convergence=RELATIVE_INI_CORE,"
+    " s:monitor_residual=1, s:preconditioner(amg)=AMG,"
+    " amg:algorithm=AGGREGATION, amg:selector=SIZE_2, amg:presweeps=2,"
+    " amg:postsweeps=2, amg:max_iters=1, amg:smoother=")
+ITEM8 = {
+    "EM": (ITEM8_EM, 128, "float64"),
+    "AY": (CLASSICAL + ", amg:strength=AFFINITY", 128, "float64"),
+    "RSW": (CLASSICAL.replace("amg:selector=PMIS", "amg:selector=RS,"
+                              " amg:selector_device_sweep=1"), 128,
+            "float64"),
+    "PG": ("file:PCG_AGGREGATION_JACOBI:selector=PARALLEL_GREEDY", 128,
+           "float32"),
+    "AV": ("file:PCG_AGGREGATION_JACOBI:selector=ADAPTIVE", 128, "float32"),
+    "EM64": (ITEM8_EM.replace(", amg:amg_precision=float", ""), 64,
+             "float64"),
+    "EMp": (ITEM8_EM.replace("energymin_selector=CR",
+                             "energymin_selector=PMIS"), 64, "float64"),
+    "PY": (ITEM8_SMOOTHED + "POLYNOMIAL", 64, "float32"),
+    "KZ": (ITEM8_SMOOTHED + "KPZ_POLYNOMIAL", 64, "float32"),
+    "KM": (ITEM8_SMOOTHED + "KACZMARZ", 64, "float32"),
+    "KMn": (ITEM8_SMOOTHED + "KACZMARZ, kaczmarz_coloring_needed=0", 64,
+            "float32"),
+    "IL0": (ITEM8_SMOOTHED + "MULTICOLOR_ILU, coloring_level=2", 64,
+            "float32"),
+    "IL1": (ITEM8_SMOOTHED + "MULTICOLOR_ILU, coloring_level=2,"
+            " ilu_sparsity_level=1", 64, "float32"),
+    "CJ": (CLASSICAL.replace("amg:smoother=JACOBI_L1",
+                             "amg:smoother=CF_JACOBI"), 64, "float64"),
+    "GS32": (ITEM8_SMOOTHED + "GS", 32, "float32"),
+    "GR": ("file:PCG_AGGREGATION_JACOBI:selector=SERIAL_GREEDY,"
+           "aggregate_size=4", 32, "float32"),
+}
+
+
+def item8_config(Config, label):
+    """ITEM8[label]'s configuration as a `Config` (the port's or the JAX
+    package's class)."""
+    text = ITEM8[label][0]
+    if not text.startswith("file:"):
+        return Config.from_string(text)
+    _, name, sets = text.split(":", 2)
+    cfg = Config.from_file(os.path.join(ROOT, "configs", name + ".json"))
+    for kv in sets.split(","):
+        key, value = kv.split("=")
+        cfg.set(key, value, scope="amg")
+    return cfg
 
 
 # AmgX's stock pairwise-aggregation configurations, read verbatim from
@@ -715,18 +816,14 @@ KRYLOV_ANCHORS = {
 # final monitored residual is held to the anchor's within
 # KCYCLE_FINAL_TOL, set before the first card run from the port's CPU
 # route against the JAX package at 32^3 and 64^3 (PERF.md section 2).
-# AMG_CLASSICAL_CG at 128^3 has no anchor (the JAX package's 128^3
-# classical setup outgrows the host): it is held to max_iters at a final
-# residual of at most KCYCLE_F32_FLOOR_MAX. The spreads, port against
-# JAX, AMG_CLASSICAL_CG / _CGF / AMG_AGGRREGATION_CG: -2.5 / +0.5 / +0.7 %
-# at 32^3, +0.5 / -0.2 / -0.7 % at 64^3, so 6 % is more than twice the
-# largest; the floor grew 3.7x from 32^3 (6.9e-6) to 64^3 (2.6e-5), so
-# 8x the 64^3 anchor is twice the growth's extrapolation to 128^3.
+# The spreads, port against JAX, AMG_CLASSICAL_CG / _CGF /
+# AMG_AGGRREGATION_CG: -2.5 / +0.5 / +0.7 % at 32^3, +0.5 / -0.2 / -0.7 %
+# at 64^3, so 6 % is more than twice the largest. (AMG_CLASSICAL_CG at
+# 128^3 left the script as a depth cut: PERF.md section 6.)
 # The JAX package's float32 aggressive hierarchies part from the port's
 # from level 3 at 64^3: its host D2 route sums the truncation in float64
 # (ROADMAP Queue C); its device route gives the port's rows.
 KCYCLE_FINAL_TOL = 0.06
-KCYCLE_F32_FLOOR_MAX = 8 * 2.5878904125420377e-05
 KRYLOV_ANCHORS.update({
     ("FGMRES_CLASSICAL_AGGRESSIVE_PMIS", 64): dict(
         iterations=15, status="success", final=8.269793738691078e-07,
@@ -850,6 +947,24 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# wall seconds of each phase function (`timed_phase`), and when the
+# script dumps its threads' stacks to stderr (its limit is 1200 s)
+FUNCTION_SECONDS = {}
+WATCHDOG_S = 1100
+
+
+def timed_phase(fn, *args):
+    """Run one phase function: its start goes to stderr (the progress of
+    a run whose stdout is not seen), its wall seconds to
+    FUNCTION_SECONDS."""
+    t0 = time.perf_counter()
+    print(f"chip_smoke: {fn.__name__} at {t0 - T_START:.1f} s",
+          file=sys.stderr, flush=True)
+    out = fn(*args)
+    FUNCTION_SECONDS[fn.__name__] = time.perf_counter() - t0
+    return out
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -908,9 +1023,10 @@ def device_ms(torch, fn, launches, batch=BATCH):
     return us * 1e-3 / batch, len(recs)
 
 
-def bound(nbytes, flops):
-    """(ms, what bounds it): the least time the card could take."""
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+def bound(nbytes, flops, peak=PEAK_F32_S):
+    """(ms, what bounds it): the least time the card could take, its
+    operations at `peak` per second."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -2008,6 +2124,7 @@ def rap_case(torch, amgx, R_, dev):
     hierarchy (built as its setup builds it, on the float32 operator):
     (case, plan sizes). The library call is cuSPARSE's SpGEMM, which
     also redoes the symbolic phase the plan holds."""
+    from amgx_tpu_torch.ops.segment import ordered_segment_sum_plain
     A = amgx.gallery.poisson("7pt", 64, 64, 64, dtype=torch.float32,
                              device=dev)
     amg = amg_of(amgx, classical_refinement(), A, dev).amg
@@ -2022,7 +2139,8 @@ def rap_case(torch, amgx, R_, dev):
               + r.numel() + plan.nT + plan.nU) * 4
     flops = 2 * (plan.sa.numel() + plan.sr.numel())
     case = (lambda: R_.rap_values(plan, a, r, p),
-            lambda: R_.rap_values_plain(plan, a, r, p),
+            lambda: R_.rap_values_plain(plan, a, r, p,
+                                        ordered_segment_sum_plain),
             nbytes, flops, 2,
             lambda: torch.sparse.mm(torch.sparse.mm(Rs, As), Ps))
     return case, {"rows": lv.A.num_rows, "nT": plan.nT, "nU": plan.nU,
@@ -2066,7 +2184,8 @@ def bf16_err(torch, got, want):
 
 def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
              lib, rows, summary, extra=None, slab=None, scales=None,
-             old=None, moved_expect=None, repeat=False):
+             old=None, moved_expect=None, repeat=False, peak=PEAK_F32_S,
+             plain_reps=(PLAIN_REPS, PLAIN_BATCH)):
     """Check one kernel against its plain version (and, for a
     coefficient-mode kernel, against the slab kernel on the same level:
     `slab`), time both, emit the row and fold it into `summary`.
@@ -2076,13 +2195,25 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
     (x' and bc; a dot sums in another order), and the two are timed in
     turns, old, new, new, old. `moved_expect`: the launches per counter
     one call must make (default: all under `name` for a bf16 form).
-    `repeat`: a second call must give the first's bits (a dot too)."""
+    `repeat`: a second call must give the first's bits (a dot too).
+    `peak`: the operations' rate in the bound (float32's by default).
+    `plain_reps`: (reps, batch) of the plain version's timing, or None:
+    the one comparison call is timed. `lib` given as the string "plain":
+    the plain version is the library call, its time reported as both."""
     before = dict(K.LAUNCHES)
     got = kern()
     moved = {k: v - before[k] for k, v in K.LAUNCHES.items()
              if v != before[k]}
     launched = sum(moved.values())
+    if plain_reps is None:
+        # a slow plain version runs once: the comparison call is timed
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        ev[0].record()
     want = plain()
+    if plain_reps is None:
+        ev[1].record()
     torch.cuda.synchronize()
     check(launched == per_call,
           f"{name} launched {launched} kernels, expected {per_call}")
@@ -2148,10 +2279,12 @@ def run_case(torch, K, label, name, kern, plain, nbytes, flops, per_call,
         dev_ms, dev_recs = device_ms(torch, kern, per_call)
         if dev_ms is not None:
             break
-    plain_ms = time_ms(torch, plain, reps=PLAIN_REPS, batch=PLAIN_BATCH)
+    plain_ms = ev[0].elapsed_time(ev[1]) if plain_reps is None \
+        else time_ms(torch, plain, reps=plain_reps[0], batch=plain_reps[1])
     # a library call is only timed, never used; one that fails fails the run
-    lib_ms = None if lib is None else time_ms(torch, lib)
-    b_ms, b_by = bound(nbytes, flops)
+    lib_ms = None if lib is None else plain_ms if lib == "plain" \
+        else time_ms(torch, lib)
+    b_ms, b_by = bound(nbytes, flops, peak)
     row = {"phase": "kernels", "shape": label, "name": name, "rows": rows,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "limit": LIMITS[name], "launches_per_call": per_call, "ms": ms,
@@ -3223,11 +3356,13 @@ def relabel_case(torch, R_, lv):
     """B10's relabel form on one aggregation level's float32 plan:
     (case, sizes). Bound: st and the gathered value once per candidate,
     starts2 and the coarse value once per coarse entry."""
+    from amgx_tpu_torch.ops.segment import ordered_segment_sum_plain
     plan = lv._rap_plan_memo[3]
     af = lv.A.values
     nnz, nU = plan.st.numel(), plan.nU
     case = (lambda: R_.rap_values_relabel(plan, af),
-            lambda: R_.rap_values_relabel_plain(plan, af),
+            lambda: R_.rap_values_relabel_plain(
+                plan, af, ordered_segment_sum_plain),
             (2 * nnz + 2 * nU + 1) * 4, nnz, 1,
             agg_library(torch, lv.A, lv.aggregates, int(lv.coarse_size)))
     return case, {"candidates": nnz, "nU": nU,
@@ -3493,8 +3628,9 @@ def phase_bicgstab(torch, amgx, dev, per_path):
 
 
 # the kernels that must not launch on a multicolor path: B2-B5 (every
-# smoother-kernel counter), B6 / B7 (PCG's shell: PCG_DILU only) and B9
-MC_ALLOWED = ("dia_spmv", "csr_spmv", "rap_values_relabel")
+# smoother-kernel counter), B6 / B7 (PCG's shell: PCG_DILU only) and B9;
+# the setup's B10-relabel and K8 (its ordered sums) may
+MC_ALLOWED = ("dia_spmv", "csr_spmv", "rap_values_relabel", "ordered_sum")
 MC_SHELL = ("dia_spmv_dot", "cg_update")
 
 
@@ -3706,7 +3842,7 @@ def phase_aggressive_kcycle(torch, amgx, dev, per_path):
     rows, setup seconds, peak memory, which transfers level 0 takes), at
     64^3 against its anchor and the CPU route's level rows;
     FGMRES_CLASSICAL_AGGRESSIVE_HMIS at 64^3 (the RS pass's host seconds
-    a level); AMG_CLASSICAL_CG at 128^3 and 64^3, AMG_CLASSICAL_CGF and
+    a level); AMG_CLASSICAL_CG, AMG_CLASSICAL_CGF and
     AMG_AGGRREGATION_CG at 64^3 in float32 (max_iters, the final
     residual within KCYCLE_FINAL_TOL of the anchor's; B8 in the coarse
     matvec, no B5) and at 32^3 in float64 (the JAX package's iterations
@@ -3755,20 +3891,14 @@ def phase_aggressive_kcycle(torch, amgx, dev, per_path):
           f"{rec['config']}: an RS pass on each level below level 0 "
           f"{times}")
 
-    for name, n in (("AMG_CLASSICAL_CG", 128), ("AMG_CLASSICAL_CG", 64),
-                    ("AMG_CLASSICAL_CGF", 64), ("AMG_AGGRREGATION_CG", 64)):
-        rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name, n,
-                                      hold=n < 128, warm=n == 128,
-                                      phase="aggressive_kcycle")
+    for name in ("AMG_CLASSICAL_CG", "AMG_CLASSICAL_CGF",
+                 "AMG_AGGRREGATION_CG"):
+        rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name, 64,
+                                      warm=False, phase="aggressive_kcycle")
         tail = {k: v for k, v in per_path[rec["config"]].items()
                 if k.startswith("dia_coarse_tail") and v}
         check(c["csr_spmv"] > 0 and not tail, f"{rec['config']}: B8 in "
               f"the coarse matvec, no B5 {tail}")
-        if n == 128:
-            check(res.status == "max_iters"
-                  and rec["final_rel_res"] <= KCYCLE_F32_FLOOR_MAX,
-                  f"{rec['config']}: {res.status} at a final residual "
-                  f"{rec['final_rel_res']}, at most {KCYCLE_F32_FLOOR_MAX}")
     for name in ("AMG_CLASSICAL_CG", "AMG_CLASSICAL_CGF",
                  "AMG_AGGRREGATION_CG"):
         rec, c, res = krylov_file_run(torch, amgx, dev, per_path, name, 32,
@@ -4079,9 +4209,11 @@ def batch_launches(amg, iters):
 
 def batch_only(c, allowed=()):
     """The launches of counters other than the batched forms (and
-    `allowed`): a batched path launches no single kernel."""
+    `allowed`, and K8, a setup sum): a batched path launches no single
+    kernel of the solve."""
     return {k: v for k, v in c.items()
-            if v and k not in BATCHED and k not in allowed}
+            if v and k not in BATCHED and k not in allowed
+            and k != "ordered_sum"}
 
 
 def batch_kernel_case(torch, K, label, name, kern, single, plain, nbytes,
@@ -4703,11 +4835,11 @@ def phase_aggregation(torch, amgx, dev, per_path, summary):
 # runs each at its size and at BF16_WITNESS, where the CPU route (the
 # kernels' plain forms) runs it too: the same status, iterations within
 # one, the same level rows. Warm solves in BF16_PAIRS alternating pairs.
-# 48^3: at 64^3 the CPU route's runs were ~60 s of the script, whose
-# later phases need the time; for the same reason the three paths that
-# ran at 128^3 run at BF16_N^3 (~0.42x the rows) with two pairs, not
-# four.
-BF16_WITNESS = 48
+# 32^3: at 64^3 the CPU route's runs were ~60 s of the script, at 48^3
+# ~20 s, and the later phases need the time; for the same reason the
+# three paths that ran at 128^3 run at BF16_N^3 (~0.42x the rows) with
+# two pairs, not four.
+BF16_WITNESS = 32
 BF16_N = 96
 BF16_PAIRS = 2
 BF16_AGG_KERNELS = ("csr_smooth_bf16", "csr_spmv_bf16",
@@ -6001,8 +6133,9 @@ def phase_fleet(torch, amgx, dev, per_path, n=SERVE_N, cold_n=SERVE_COLD_N):
 
 
 # the autotuner (phase_autotune): the JAX tests' mistuned BATCHED_CG
-# (tests/test_autotune.py: an overdamped BLOCK_JACOBI smoother) at 128^3
-AUTOTUNE_N = 128
+# (tests/test_autotune.py: an overdamped BLOCK_JACOBI smoother) at 96^3
+# (128^3 until a depth cut made room for phase_item8, PERF.md section 6)
+AUTOTUNE_N = 96
 AUTOTUNE_SEED = 29
 AUTOTUNE_MISTUNED = (", amg:smoother(sm2)=BLOCK_JACOBI, sm2:max_iters=1,"
                      " sm2:relaxation_factor=0.15,"
@@ -6947,6 +7080,408 @@ def phase_capi(torch, amgx, dev, per_path, printed):
           "calls": calls, "distinct_calls": len(calls)})
 
 
+# ---------------------------------------------------------------------------
+# Queue A item 8 (phase_item8): the ENERGYMIN level, CR, AFFINITY, the
+# device RS sweep, the new smoothers and aggregation selectors, K6 / K7,
+# random_matrix and ops/permute.py
+# ---------------------------------------------------------------------------
+# The JAX package's anchors of the 64^3 and 32^3 paths on the CPU
+# (`tools/jax_anchors.py item8:LABEL`): iterations, status, final
+# monitored residual relative to the initial one, level rows. KM and
+# KMn are its float64 runs (`--dtype float64`: its float32 KACZMARZ
+# and ILU(1) turn their state float64 and fail its loop; IL1 has none,
+# its float64 ILU(1) setup at 64^3 did not end in 46 min); the card's
+# float32 run is held to them within ITEM8_F64_TOL of the iterations,
+# and to the float32 SIZE_2 hierarchy's level rows (PY's: the smoother
+# does not enter the setup; the float64 matching pairs a few rows
+# otherwise).
+ITEM8_F32_LEVELS = [262144, 120263, 56799, 27033, 12901, 6171, 2947, 1418,
+                    678, 324, 157, 75]
+ITEM8_ANCHORS = {
+    "GS32": dict(iterations=23, status="success",
+                 final=9.191365825213817e-07,
+                 levels=[32768, 15044, 7074, 3358, 1588, 753, 365, 173, 80]),
+    "GR": dict(iterations=28, status="success",
+               final=5.170899282494936e-07,
+               levels=[32768, 8460, 2251, 592, 156, 42]),
+    "PY": dict(iterations=13, status="success",
+               final=3.315517460578121e-07,
+               levels=[262144, 120263, 56799, 27033, 12901, 6171, 2947,
+                       1418, 678, 324, 157, 75]),
+    "KZ": dict(iterations=15, status="success",
+               final=4.4319966718830983e-07,
+               levels=[262144, 120263, 56799, 27033, 12901, 6171, 2947,
+                       1418, 678, 324, 157, 75]),
+    "IL0": dict(iterations=14, status="success",
+                final=5.306313255459827e-07,
+                levels=[262144, 120263, 56799, 27033, 12901, 6171, 2947,
+                        1418, 678, 324, 157, 75]),
+    # EMp / EM64: the port's CPU route (`tools/jax_anchors.py --port`),
+    # held exactly; the JAX package's own run beside it (`jax`): its
+    # LAPACK QR rounds EM's patch solves otherwise in the last bits, and
+    # the CR / EM hierarchy moves from level 2 on (PERF.md section 6)
+    "EMp": dict(iterations=29, status="success",
+                final=6.145511298872582e-09, exact=True,
+                levels=[262144, 81948, 16723, 2478, 662, 258, 98],
+                jax=dict(iterations=27, levels=[262144, 81948, 16732, 2492,
+                                                670, 289, 117])),
+    # EM64: CR's splits part from level 2 between the JAX package and
+    # the port, and deep down between the port's CPU route and the card
+    # (float64 norms): held to success and level 1, the iterations of
+    # both recorded (`cpu`: the port's CPU route)
+    "EM64": dict(iterations=58, status="success",
+                 final=8.926456066199956e-09, record_iterations=True,
+                 levels=[262144, 82798, 19007, 2876, 777, 428, 322, 233,
+                         195, 159, 133, 110],
+                 cpu=dict(iterations=42, levels=[262144, 82798, 18986, 2919,
+                                                 822, 455, 335, 282, 245,
+                                                 213, 195, 157, 144, 122])),
+    "CJ": dict(iterations=12, status="success",
+               final=4.102420357354065e-09,
+               levels=[262144, 81948, 10458, 1239, 236, 132, 126]),
+    "KM": dict(iterations=34, status="success",
+               final=6.649293234023943e-07,
+               dtype="float64",
+               levels=ITEM8_F32_LEVELS),
+    "KMn": dict(iterations=97, status="success",
+                final=8.885982298365333e-07,
+                dtype="float64",
+                levels=ITEM8_F32_LEVELS),
+}
+ITEM8_ITER_TOL = 2
+ITEM8_F64_TOL = 0.1
+ITEM8_FINAL_TOL = 0.05
+ITEM8_TRUE_MAX = 1e-8          # EM at 128^3: the true f64 residual
+RSW_DET_N = 32
+# 10^6 rows took 16 s of host assembly (the JAX package's row loop):
+# cut to a quarter for the script's time (PERF.md section 6)
+RANDOM_N = 250_000
+# the kernels each path must launch (setup and solve); a classical
+# level 0 whose weighted tables the caps decline composes its transfers
+# with B8 instead of B3w / B4w (`item8_level0`)
+ITEM8_KERNELS = {
+    "EM": ("qr_solve", "ordered_sum", "csr_spmv", "csr_smooth"),
+    "AY": ("csr_spmv", "csr_smooth"),
+    "RSW": ("csr_spmv", "csr_smooth"),
+    "PG": ("dia_spmv", "csr_spmv", "csr_smooth", "rap_values_relabel",
+           "dia_spmv_dot", "cg_update"),
+    "AV": ("dia_spmv", "csr_spmv", "csr_smooth", "rap_values_relabel"),
+    "EM64": ("qr_solve", "ordered_sum"),
+    "EMp": ("qr_solve", "ordered_sum", "csr_spmv", "csr_smooth"),
+    "PY": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "KZ": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "KM": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "KMn": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "IL0": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "IL1": ("dia_spmv", "csr_spmv", "rap_values_relabel"),
+    "CJ": ("dia_spmv", "csr_spmv"),
+    "GS32": ("gs_sweep", "rap_values_relabel"),
+    "GR": ("csr_smooth", "rap_values_relabel"),
+}
+
+
+def item8_level0(torch, amg):
+    """'weighted' when a classical level 0 rides B3w / B4w (its tables,
+    a smoother with the fused hooks, a float32 cycle), 'composed' when it
+    composes R r / P xc, None for an aggregation level."""
+    lv = amg.levels[0]
+    if getattr(lv, "cf_map", None) is None:
+        return None
+    dt = amg.solve_data()["levels"][0]["A"].dtype
+    return "weighted" if lv._transfer_tables() is not None and hasattr(
+        lv.smoother, "smooth_restrict") and dt == torch.float32 \
+        else "composed"
+
+
+def item8_run(torch, amgx, dev, per_path, card, label, warm=True,
+              probe=None):
+    """Set up and solve ITEM8[label] on the 7-pt n^3 with b = 1, a warm
+    solve after; emit its row (the card, status, iterations, level rows,
+    true residual, setup / solve seconds, launches by kernel in the setup
+    and the solve) and hold it to its anchor and its kernels. `probe()`,
+    run right after the first solve, adds fields. Returns (row, solver,
+    result)."""
+    text, n, dtype = ITEM8[label]
+    dt = getattr(torch, dtype)
+    A = amgx.gallery.poisson("7pt", n, n, n, dtype=dt, device=dev).init()
+    b = torch.ones(n ** 3, dtype=dt, device=dev)
+    slv = amgx.create_solver(item8_config(amgx.Config, label), device=dev)
+    amgx.reset_kernel_launches()
+    t0 = time.perf_counter()
+    slv.setup(A)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    in_setup = amgx.kernel_launches()
+    t0 = time.perf_counter()
+    res = slv.solve(b)
+    solve_s = time.perf_counter() - t0
+    per_path[label] = c = amgx.kernel_launches()
+    extra = probe() if probe is not None else {}
+    warm_s = warm_solve(torch, slv, n, dt)[1] if warm else None
+    amg = precond_amg(slv)
+    anchor = ITEM8_ANCHORS.get(label)
+    row = {"phase": "item8", "path": label, "nvidia_smi": card,
+           "config": text, "rows": n ** 3, "dtype": dtype,
+           "status": res.status, "iterations": res.iterations,
+           "levels": amg.level_rows(), "level0_transfers": item8_level0(torch, amg),
+           "final_rel_res": float(res.res_norm / res.norm0),
+           "true_rel_res": true_rel_res(torch, A, res.x, b),
+           "setup_s": setup_s, "first_solve_s": solve_s,
+           "warm_solve_s": warm_s, "anchor": anchor,
+           "launches_in_setup": {k: v for k, v in in_setup.items() if v},
+           "launches_in_solve": {k: c[k] - in_setup[k] for k in c
+                                 if c[k] - in_setup[k]}, **extra}
+    emit(row)
+    check(tuple(res.x.shape) == (n ** 3,)
+          and bool(torch.isfinite(res.x).all()), f"{label}: x finite")
+    want = ITEM8_KERNELS[label]
+    if row["level0_transfers"] == "weighted":
+        want += ("dia_smooth_restrict_w", "dia_prolong_smooth_w")
+    missing = [k for k in want if not c[k]]
+    check(not missing, f"{label}: {missing} did not launch "
+          f"{ {k: v for k, v in c.items() if v} }")
+    if anchor is not None:
+        itol = 0 if anchor.get("exact") \
+            else ITEM8_ITER_TOL if anchor.get("dtype", dtype) == dtype \
+            else max(ITEM8_ITER_TOL, round(ITEM8_F64_TOL
+                                           * anchor["iterations"]))
+        # record_iterations: status and level 1 held, iterations recorded
+        held = 2 if anchor.get("record_iterations") else None
+        check(res.status == anchor["status"]
+              and (held is not None
+                   or abs(res.iterations - anchor["iterations"]) <= itol)
+              and row["levels"][:held] == anchor["levels"][:held],
+              f"{label}: {res.status} in {res.iterations} on {row['levels']}"
+              f", anchor {anchor}")
+        if res.status == "max_iters":
+            check(abs(row["final_rel_res"] - anchor["final"])
+                  <= ITEM8_FINAL_TOL * anchor["final"],
+                  f"{label}: final residual {row['final_rel_res']}, anchor "
+                  f"{anchor['final']} +- {ITEM8_FINAL_TOL:.0%}")
+    return row, slv, res
+
+
+def qr_ops(k):
+    """K7's operations on one k x k patch: the reflectors (norm, scale,
+    their application to the columns right of them and to b) and the
+    back substitution."""
+    ops = k * k
+    for j in range(k):
+        m = k - 1 - j
+        ops += 3 * m + (m + 1) * (4 * m + 2)
+    return ops
+
+
+def k7_cases(torch, K, amg, summary, label="EM64"):
+    """K7 on the `label` path's level 0 batch (float64, the driven route)
+    against its plain version and the library call (the same QR + solve);
+    the same batch in float32, and wide patches on the global route. The
+    library forms Q patch by patch: 38.6 s on EM 128^3's 656,194 patches
+    (PERF.md section 6), so the case runs on EM64's."""
+    from amgx_tpu_torch.amg.energymin import em_patches
+    from amgx_tpu_torch.ops import dense
+    lv = amg.levels[0]
+    A_FF, rhs = em_patches(lv.A, lv.cf_map)[:2]
+    nb, k = rhs.shape
+
+    def plain():
+        return dense.solve_qr_plain(A_FF, rhs)
+
+    # the plain version is the library route (torch.linalg.qr forms Q
+    # patch by patch on the card: seconds a call), timed once
+    run_case(torch, K, f"{label} level 0: {nb} patches of {k}", "qr_solve",
+             lambda: dense.solve_qr(A_FF, rhs), plain,
+             nb * (k * k + 2 * k) * 8, nb * qr_ops(k), 1, "plain", nb,
+             summary, extra={"patch_k": k, "threads": dense.qr_threads(
+                 k, 8), "bound_peak": "float64, 34 TFLOP/s",
+                 "library": "torch.linalg.qr + solve_triangular, 1 call"},
+             peak=PEAK_F64_S, plain_reps=None)
+    a32, b32 = A_FF[:65536].float(), rhs[:65536].float()
+    err32 = max_err(torch, dense.solve_qr(a32, b32),
+                    dense.solve_qr_plain(a32, b32))[1]
+    g = torch.Generator(device=A_FF.device).manual_seed(7)
+    wide = torch.randn(64, 20, 20, generator=g, device=A_FF.device,
+                       dtype=torch.float64) + 8 * torch.eye(
+        20, dtype=torch.float64, device=A_FF.device)
+    wb = torch.randn(64, 20, generator=g, device=A_FF.device,
+                     dtype=torch.float64)
+    errw = max_err(torch, dense.solve_qr(wide, wb),
+                   dense.solve_qr_plain(wide, wb))[1]
+    emit({"phase": "item8", "kernel": "qr_solve", "float32_patches":
+          a32.shape[0], "float32_rel_err": err32,
+          "float32_limit": 1e-6, "global_route_k": 20,
+          "global_route_threads": dense.qr_threads(20, 8),
+          "global_route_rel_err": errw})
+    check(err32 <= 1e-6 and errw <= 1e-12 and dense.qr_threads(20, 8) == 0,
+          f"qr_solve: float32 {err32}, global route {errw}")
+
+
+def k8_cases(torch, K, amg, summary):
+    """K8 on CR's relaxation product (float64) at EM 128^3's level 1 and
+    at its level with the longest rows, against its plain version (the
+    same additions: the bits must agree) and the library's index_add_."""
+    from amgx_tpu_torch.ops import segment
+    longest = max(range(1, len(amg.levels)), key=lambda i: int(
+        (amg.levels[i].A.row_offsets[1:]
+         - amg.levels[i].A.row_offsets[:-1]).max()))
+    for i in dict.fromkeys((1, longest)):
+        A = amg.levels[i].A
+        n, dev = A.num_rows, A.device
+        g = torch.Generator(device=dev).manual_seed(8)
+        x = torch.randn(n, generator=g, device=dev, dtype=A.dtype)
+        v = A.values * x[A.col_indices.long()]
+        plan = segment.ordered_sum_plan(A.row_offsets)
+        rid = A.coo()[0].long()
+        row_max = int(plan[3][0])
+        run_case(torch, K, f"EM 128^3 level {i}: {n} rows, {A.nnz} "
+                 f"entries, rows of up to {row_max}", "ordered_sum",
+                 lambda: segment.ordered_sum(v, plan, n),
+                 lambda: segment.ordered_sum_plain(v, plan, n),
+                 A.nnz * 8 + n * (3 * 8 + 8), A.nnz, 1,
+                 lambda: torch.zeros(n, dtype=A.dtype,
+                                     device=dev).index_add_(0, rid, v),
+                 n, summary, extra={"level": i, "row_max": row_max,
+                                    "library": "index_add_"},
+                 peak=PEAK_F64_S)
+
+
+def k6_cases(torch, K, amg, summary):
+    """K6 on GS32's level 0 (float32, the driven sweep) against the row
+    loop; the same operator in float64."""
+    from amgx_tpu_torch.ops.gs import gs_sweep, gs_sweep_plain
+    lv = amg.levels[0]
+    A, sd = lv.A, lv.smoother.solve_data()
+    n, dev = A.num_rows, A.device
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(n, generator=g, device=dev, dtype=A.dtype)
+    b = torch.randn(n, generator=g, device=dev, dtype=A.dtype)
+    w = lv.smoother.relaxation_factor
+    args = (A.row_offsets, A.col_indices, A.values, b, sd["gs_diag"],
+            sd["dinv"], x, w)
+    run_case(torch, K, f"GS32 level 0: {n} rows", "gs_sweep",
+             lambda: gs_sweep(*args),
+             lambda: gs_sweep_plain(*args).to(dev),
+             (n + 1) * 4 + A.nnz * 8 + 5 * n * 4, 2 * A.nnz + 6 * n, 1,
+             None, n, summary, extra={"chain_steps": n})
+    a64 = tuple(t.double() if t.is_floating_point() else t
+                for t in args[:-1]) + (w,)
+    err64 = max_err(torch, gs_sweep(*a64), gs_sweep_plain(*a64).to(dev))[1]
+    emit({"phase": "item8", "kernel": "gs_sweep", "float64_rel_err": err64,
+          "float64_limit": 1e-12})
+    check(err64 <= 1e-12, f"gs_sweep float64: {err64}")
+
+
+def rsw_determinism(torch, amgx, dev, per_path):
+    """RSW's split at 32^3 (float64): two card setups and the CPU
+    route's, every level's CF map bit for bit."""
+    n = RSW_DET_N
+    cfg = item8_config(amgx.Config, "RSW")
+    splits = []
+    for d in (dev, dev, torch.device("cpu")):
+        slv = amgx.create_solver(cfg, device=d)
+        slv.setup(amgx.gallery.poisson("7pt", n, n, n, device=d))
+        splits.append([lv.cf_map.cpu() for lv in precond_amg(slv).levels])
+    same = [len(splits[0]) == len(s) and all(torch.equal(a, b_) for a, b_
+                                             in zip(splits[0], s))
+            for s in splits[1:]]
+    emit({"phase": "item8", "path": f"RSW_{n}^3_determinism",
+          "levels": len(splits[0]), "card_setups_bit_identical": same[0],
+          "card_equals_cpu": same[1]})
+    check(same[0] and same[1], f"RSW {n}^3: splits {same}")
+
+
+def io_checks(torch, amgx, dev, card):
+    """random_matrix(RANDOM_N, 9, seed=3) on the card through B8 against its
+    plain version; the 128^3 operator's permutation round trip."""
+    from amgx_tpu_torch.ops import cuda_csr
+    from amgx_tpu_torch.ops.permute import permute_matrix
+    t0 = time.perf_counter()
+    R_ = amgx.gallery.random_matrix(RANDOM_N, 9, seed=3, dtype=torch.float32,
+                                    device=dev)
+    build_s = time.perf_counter() - t0
+    x = torch.ones(RANDOM_N, dtype=torch.float32, device=dev)
+    args = (R_.row_offsets, R_.col_indices, R_.values, x)
+    err = max_err(torch, cuda_csr.csr_spmv(*args),
+                  cuda_csr.csr_spmv_plain(*args))[1]
+    A = amgx.gallery.poisson("7pt", 128, 128, 128, dtype=torch.float32,
+                             device=dev)
+    p = np.random.default_rng(5).permutation(A.num_rows)
+    ip = np.argsort(p)
+    t0 = time.perf_counter()
+    B = permute_matrix(permute_matrix(A, p, p), ip, ip)
+    perm_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b_) for a, b_ in (
+        (A.row_offsets, B.row_offsets), (A.col_indices, B.col_indices),
+        (A.values, B.values)))
+    emit({"phase": "item8", "path": "IO", "nvidia_smi": card,
+          "random_matrix_rows": RANDOM_N, "random_matrix_nnz": R_.nnz,
+          "random_matrix_build_s": build_s, "csr_spmv_rel_err": err,
+          "csr_spmv_limit": LIMITS["csr_spmv"], "permute_rows": A.num_rows,
+          "permute_round_trip_bit_equal": same, "permute_round_trip_s":
+          perm_s})
+    check(err <= LIMITS["csr_spmv"] and same,
+          f"IO: random_matrix B8 {err}, permutation round trip {same}")
+
+
+def phase_item8(torch, amgx, dev, per_path, summary):
+    """Queue A item 8's paths (`ITEM8`), K6 / K7 held against their plain
+    versions at the driven shapes, RSW's 32^3 determinism and the IO
+    checks."""
+    from amgx_tpu_torch.ops import cuda_spmv as K
+    from amgx_tpu_torch.solvers import multicolor
+    card = nvidia_smi()
+    row, slv, res = item8_run(torch, amgx, dev, per_path, card, "EM")
+    amg = precond_amg(slv)
+    check(res.status == "success" and row["true_rel_res"] <= ITEM8_TRUE_MAX
+          and per_path["EM"]["qr_solve"] == len(amg.levels),
+          f"EM: {res.status}, true residual {row['true_rel_res']}, K7 "
+          f"{per_path['EM']['qr_solve']} launches on {len(amg.levels)} "
+          f"levels")
+    k8_cases(torch, K, amg, summary)
+    del slv, amg
+    for label in ("AY", "RSW"):
+        row, _, res = item8_run(torch, amgx, dev, per_path, card, label)
+        check(res.status == "success"
+              and row["true_rel_res"] <= ITEM8_TRUE_MAX,
+              f"{label}: {res.status}, {row['true_rel_res']}")
+    rsw_determinism(torch, amgx, dev, per_path)
+    row, _, res = item8_run(torch, amgx, dev, per_path, card, "PG")
+    check(res.status == "success"
+          and abs(res.iterations - AGG_ANCHORS["agg-pcg"]) <= 2
+          and row["levels"] == AGG_ROWS_128,
+          f"PG: {res.status} in {res.iterations} on {row['levels']}, "
+          f"agg-pcg's {AGG_ANCHORS['agg-pcg']} on {AGG_ROWS_128}")
+    item8_run(torch, amgx, dev, per_path, card, "AV")
+    for label in ("EM64", "EMp", "PY", "KZ", "KM", "KMn", "IL0", "IL1",
+                  "CJ"):
+        row, slv, res = item8_run(torch, amgx, dev, per_path, card, label,
+                                  warm=False)
+        if label == "EM64":
+            check(per_path["EM64"]["qr_solve"] == len(
+                precond_amg(slv).levels), f"EM64: K7 once a setup level")
+            k7_cases(torch, K, precond_amg(slv), summary)
+    sweeps = [0]
+    real = multicolor.GSSolver.solve_iteration
+
+    def counted(self, *a, **kw):
+        sweeps[0] += 1
+        return real(self, *a, **kw)
+
+    multicolor.GSSolver.solve_iteration = counted
+    try:
+        row, slv, res = item8_run(torch, amgx, dev, per_path, card, "GS32",
+                                  probe=lambda: {"gs_sweeps": sweeps[0]})
+    finally:
+        multicolor.GSSolver.solve_iteration = real
+    check(per_path["GS32"]["gs_sweep"] == row["gs_sweeps"] > 0,
+          f"GS32: K6 {per_path['GS32']['gs_sweep']} launches for "
+          f"{row['gs_sweeps']} sweeps")
+    k6_cases(torch, K, precond_amg(slv), summary)
+    del slv
+    item8_run(torch, amgx, dev, per_path, card, "GR")
+    io_checks(torch, amgx, dev, card)
+
+
 def _status(res, s):
     from amgx_tpu_torch.resilience.status import status_string
     return status_string(int(res.status[s]))
@@ -6958,6 +7493,9 @@ def main():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # past WATCHDOG_S every thread's stack goes to stderr: where a run
+    # that outgrows its limit spends its time
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     import amgx_tpu_torch as amgx
     from amgx_tpu_torch.ops import cuda_build
     # float32 stays float32: no TF32 in matrix products (FGMRES's CGS2)
@@ -6993,32 +7531,31 @@ def main():
               rep["ptxas"].get("stencil_tb.cu", "") + "\n"
               + rep["ptxas"].get("stencil_tb_slab.cu", "")))})
 
-    summary = phase_kernels(torch, amgx, dev)
+    summary = timed_phase(phase_kernels, torch, amgx, dev)
     per_path = {}
-    phase_small(torch, amgx, dev, per_path)
-    f32_runs, f32_slvs = phase_flagship(torch, amgx, dev, per_path)
-    phase_flagship_bf16(torch, amgx, dev, per_path, f32_runs, f32_slvs)
+    timed_phase(phase_small, torch, amgx, dev, per_path)
+    f32_runs, f32_slvs = timed_phase(phase_flagship, torch, amgx, dev,
+                                     per_path)
+    timed_phase(phase_flagship_bf16, torch, amgx, dev, per_path, f32_runs,
+                f32_slvs)
     del f32_slvs
-    phase_flagship_dad(torch, amgx, dev, per_path)
-    phase_unfused(torch, amgx, dev, per_path, f32_runs)
-    phase_unfused_bf16(torch, amgx, dev, per_path)
-    phase_krylov(torch, amgx, dev, per_path)
-    phase_classical(torch, amgx, dev, per_path)
-    phase_determinism(torch, amgx, dev, per_path)
-    phase_classical_refinement(torch, amgx, dev, per_path)
-    phase_aggregation(torch, amgx, dev, per_path, summary)
-    phase_bf16_hierarchies(torch, amgx, dev, per_path)
-    phase_bicgstab(torch, amgx, dev, per_path)
-    phase_multicolor(torch, amgx, dev, per_path)
-    phase_aggressive_kcycle(torch, amgx, dev, per_path)
-    phase_resetup(torch, amgx, dev, per_path)
-    phase_batch(torch, amgx, dev, per_path, summary)
-    phase_resilience(torch, amgx, dev, per_path)
-    phase_serving(torch, amgx, dev, per_path, summary)
-    phase_fleet(torch, amgx, dev, per_path)
-    phase_autotune(torch, amgx, dev, per_path)
-    phase_eigen(torch, amgx, dev, per_path)
-    phase_capi(torch, amgx, dev, per_path, printed)
+    timed_phase(phase_flagship_dad, torch, amgx, dev, per_path)
+    timed_phase(phase_unfused, torch, amgx, dev, per_path, f32_runs)
+    for phase in (phase_unfused_bf16, phase_krylov, phase_classical,
+                  phase_determinism, phase_classical_refinement):
+        timed_phase(phase, torch, amgx, dev, per_path)
+    timed_phase(phase_aggregation, torch, amgx, dev, per_path, summary)
+    for phase in (phase_bf16_hierarchies, phase_bicgstab, phase_multicolor,
+                  phase_aggressive_kcycle, phase_resetup):
+        timed_phase(phase, torch, amgx, dev, per_path)
+    timed_phase(phase_batch, torch, amgx, dev, per_path, summary)
+    timed_phase(phase_resilience, torch, amgx, dev, per_path)
+    timed_phase(phase_serving, torch, amgx, dev, per_path, summary)
+    for phase in (phase_fleet, phase_autotune, phase_eigen):
+        timed_phase(phase, torch, amgx, dev, per_path)
+    timed_phase(phase_capi, torch, amgx, dev, per_path, printed)
+    timed_phase(phase_item8, torch, amgx, dev, per_path, summary)
+    faulthandler.cancel_dump_traceback_later()
 
     kernels = []
     for name, row in summary.items():
@@ -7052,6 +7589,8 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": {k: round(v, 3)
                             for k, v in PHASE_SECONDS.items()},
+          "function_seconds": {k: round(v, 3)
+                               for k, v in FUNCTION_SECONDS.items()},
           "package_output_messages": len(printed),
           "package_output_chars": sum(printed)})
     print(card, flush=True)

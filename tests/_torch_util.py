@@ -85,9 +85,11 @@ def _np_or_none(v):
 def jax_hierarchy_arrays(amg_solver):
     """(levels, coarse) numpy dicts of a set-up JAX AMG solver, in the
     layout amgx_tpu_torch.interop.hierarchy_from_numpy takes: the
-    smoother's taus (CHEBYSHEV_POLY), dinv (Jacobi family, MULTICOLOR_GS),
-    spectral bounds lmax / lmin (CHEBYSHEV) or coloring (row_colors,
-    num_colors) and MULTICOLOR_DILU's Einv, the
+    smoother's taus (CHEBYSHEV_POLY), dinv (Jacobi family, MULTICOLOR_GS,
+    GS, CF_JACOBI), spectral bounds lmax / lmin (CHEBYSHEV, POLYNOMIAL),
+    KPZ_POLYNOMIAL's l_inf, GS's gs_diag, KACZMARZ's inv_rn2 or coloring
+    (row_colors, num_colors) and MULTICOLOR_DILU's Einv or
+    MULTICOLOR_ILU's factors ilu_L / ilu_U and u_diag, the
     stencil of a matrix-free level, a classical level's cf_map, P and R,
     and DENSE_LU's explicit inverse when the JAX package built one."""
     amg = amg_solver.amg
@@ -97,7 +99,16 @@ def jax_hierarchy_arrays(amg_solver):
         d = csr_arrays(lv.A)
         smd = data["levels"][i]["smoother"]
         st = smd.get("stencil")
-        cheb = hasattr(lv.smoother, "estimate_mode")
+        cheb = hasattr(lv.smoother, "estimate_mode") \
+            or lv.smoother.name == "POLYNOMIAL"
+        ilu = smd.get("ilu_L")
+        d.update(gs_diag=_np_or_none(smd.get("gs_diag")),
+                 u_diag=_np_or_none(smd.get("u_diag")),
+                 inv_rn2=_np_or_none(smd.get("inv_rn2")),
+                 l_inf=None if smd.get("l_inf") is None
+                 else float(smd["l_inf"]),
+                 ilu_L=None if ilu is None else csr_arrays(ilu),
+                 ilu_U=None if ilu is None else csr_arrays(smd["ilu_U"]))
         d.update(coarse_size=lv.coarse_size,
                  lmax=lv.smoother.lmax if cheb else None,
                  lmin=lv.smoother.lmin if cheb else None,

@@ -585,6 +585,14 @@ def test_batch_rows_equal_single_plain_forms(forms):
 
 
 def test_reuse_message_names_the_energymin_item():
+    """The base level's refusal of structure reuse no longer names the
+    ENERGYMIN level: ported, it reuses its structure as a classical
+    level does."""
+    from amgx_tpu_torch.amg.classical import ClassicalAMGLevel
+    from amgx_tpu_torch.amg.energymin import EnergyminAMGLevel
     from amgx_tpu_torch.amg.hierarchy import AMGLevel
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="structure reuse") as e:
         AMGLevel._ghost(4).reuse_structure(None)
+    assert "ENERGYMIN" not in str(e.value) and "item 8" not in str(e.value)
+    assert EnergyminAMGLevel.reuse_structure is \
+        ClassicalAMGLevel.reuse_structure

@@ -259,3 +259,29 @@ def test_capi_flagship_on_card_matches_direct(card, tmp_path):
     call(capi.AMGX_solver_solve(slv2, b, x2))
     assert np.array_equal(call(capi.AMGX_vector_download(x2))[1], xs)
     call(capi.AMGX_finalize())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ordered_sum_kernel_gives_the_plain_bits(card, dtype):
+    """K8 (csrc/segment.cu) adds each segment in stored order in its
+    dtype: the plain form's bits, one launch a call, every segment length
+    from empty to thousands; other dtypes raise on the card."""
+    from amgx_tpu_torch.ops import cuda_spmv, segment
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(0, 12, 5000)
+    lengths[:4] = (0, 3000, 1, 777)
+    starts = torch.zeros(lengths.size + 1, dtype=torch.int64)
+    torch.cumsum(torch.from_numpy(lengths), 0, out=starts[1:])
+    vals = torch.from_numpy(rng.standard_normal(int(starts[-1]))
+                            * 10.0 ** rng.integers(-4, 5, int(starts[-1])))
+    vals = vals.to(dtype).to(card)
+    plan = segment.ordered_sum_plan(starts.to(card))
+    before = cuda_spmv.LAUNCHES["ordered_sum"]
+    got = segment.ordered_sum(vals, plan, lengths.size)
+    assert cuda_spmv.LAUNCHES["ordered_sum"] == before + 1
+    want = segment.ordered_sum_plain(vals, plan, lengths.size)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), segment.ordered_sum(
+        vals.cpu(), segment.ordered_sum_plan(starts), lengths.size))
+    with pytest.raises(TypeError):
+        segment.ordered_sum(vals.to(torch.bfloat16), plan, lengths.size)

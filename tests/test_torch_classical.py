@@ -160,9 +160,21 @@ def test_strength_max_row_sum_weakening(max_row_sum):
 
 @pytest.mark.parametrize("option", ["strength=AFFINITY", "selector=CR"])
 def test_unported_classical_options_raise(option):
-    cfg = Config.from_string(LEVEL_CFG + ", " + option)
-    with pytest.raises(NotImplementedError):
-        AMG(cfg).setup(pt.gallery.poisson("7pt", 8, 8, 8, device="cpu"))
+    """The two options that raised before they were ported: level 0 of
+    the 7-pt 8^3 hierarchy takes the JAX package's strength and CF split
+    bit for bit."""
+    from amgx_tpu.amg.classical import ClassicalAMGLevel as JaxLevel
+    from amgx_tpu_torch.amg.classical import ClassicalAMGLevel
+    text = LEVEL_CFG + ", " + option
+    lp = ClassicalAMGLevel(pt.gallery.poisson("7pt", 8, 8, 8, device="cpu")
+                           .init(), Config.from_string(text), "default", 0)
+    lj = JaxLevel(jx.gallery.poisson("7pt", 8, 8, 8).init(),
+                  JaxConfig.from_string(text), "default", 0)
+    lp.create_coarse_vertices()
+    lj.create_coarse_vertices()
+    assert np.array_equal(lp.strong.numpy(), np.asarray(lj.strong))
+    assert np.array_equal(lp.cf_map.numpy(), np.asarray(lj.cf_map))
+    assert lp.coarse_size == lj.coarse_size
 
 
 # ---------------------------------------------------------------------------

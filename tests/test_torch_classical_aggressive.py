@@ -171,10 +171,21 @@ def test_aggressive_selector_resolution(grid, monkeypatch, selector,
 
 
 def test_selector_device_sweep_is_not_ported(grid):
+    """selector_device_sweep=1 (ported since the test's name was given):
+    HMIS's first pass is the device-parallel RS sweep, its split the JAX
+    package's bit for bit, counted under amg.selector.device_sweep."""
+    from amgx_tpu_torch.telemetry import metrics as pm
+    text = "selector_device_sweep=1"
+    before = pm.snapshot()["amg.selector.device_sweep"]
     sel = pt_registry.classical_selectors.create(
-        "HMIS", pt.Config.from_string("selector_device_sweep=1"), "default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sel.mark_coarse_fine_points(grid[1], grid[3])
+        "HMIS", pt.Config.from_string(text), "default")
+    cp = sel.mark_coarse_fine_points(grid[1], grid[3])
+    cj = jx_registry.classical_selectors.create(
+        "HMIS", jx.Config.from_string(text), "default"
+    ).mark_coarse_fine_points(grid[0], grid[2])
+    assert np.array_equal(cp.numpy(), np.asarray(cj))
+    assert pm.snapshot()["amg.selector.device_sweep"] == \
+        before + 1
 
 
 @pytest.fixture(scope="module", params=FILES)

@@ -12,7 +12,9 @@ stderr, so stdout holds only the JSON lines.
     python3 tools/jax_anchors.py --size 64 PBICGSTAB_AGGREGATION_W_JACOBI
 
 A name `preset:NAME` runs the package's `presets.NAME` string instead of
-a file (`preset:SERVING_CG`).
+a file (`preset:SERVING_CG`); `item8:LABEL` runs chip_smoke.py's
+`ITEM8[LABEL]` configuration (Queue A item 8's paths) at its own grid
+edge and dtype unless --size / --dtype are given.
 
 `chip_smoke.py` holds the PyTorch port's runs on the card to these
 numbers. `--port` runs the same files through the port on the CPU
@@ -37,9 +39,9 @@ sys.path.insert(0, ROOT)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--size", type=int, default=128)
+    ap.add_argument("--size", type=int, default=None)
     ap.add_argument("--krylov-fusion", type=int, default=None)
-    ap.add_argument("--dtype", default="float32",
+    ap.add_argument("--dtype", default=None,
                     choices=("float32", "float64"))
     ap.add_argument("--port", action="store_true",
                     help="run amgx_tpu_torch on the CPU instead")
@@ -49,6 +51,16 @@ def main():
     ap.add_argument("files", nargs="+", help="names under configs/, or "
                     "preset:NAME")
     args = ap.parse_args()
+    item8 = [f for f in args.files if f.startswith("item8:")]
+    if item8:
+        if len(args.files) != 1:
+            ap.error("an item8:LABEL runs alone (its own size and dtype)")
+        import chip_smoke
+        _, size, dtype = chip_smoke.ITEM8[item8[0][6:]]
+        args.size = args.size or size
+        args.dtype = args.dtype or dtype
+    args.size = args.size or 128
+    args.dtype = args.dtype or "float32"
     import numpy as np
     import scipy.sparse as sp
     n = args.size
@@ -75,7 +87,9 @@ def main():
                          np.asarray(A.row_offsets)))
     b = np.ones(n ** 3, dt)
     for name in args.files:
-        if name.startswith("preset:"):
+        if name.startswith("item8:"):
+            cfg = chip_smoke.item8_config(pkg.Config, name[6:])
+        elif name.startswith("preset:"):
             import importlib
             presets = importlib.import_module(pkg.__name__ + ".presets")
             cfg = pkg.Config.from_string(getattr(presets, name[7:]))
